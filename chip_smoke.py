@@ -38,6 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 64
+TRAIN_BATCH = 256
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
 # bf16 kernel vs its float32 plain version on the same bf16 inputs: the
@@ -83,7 +84,12 @@ PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
 PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "attention_bf16_kernel": "attention",
                 "attention_f32_kernel": "attention",
-                "layernorm_kernel": "layernorm"}
+                "attn_bwd_dq_kernel": "attention_bwd",
+                "attn_bwd_dkv_kernel": "attention_bwd",
+                "attn_bwd_dq_f32_kernel": "attention_bwd",
+                "attn_bwd_dkv_f32_kernel": "attention_bwd",
+                "layernorm_kernel": "layernorm",
+                "layernorm_bwd_kernel": "layernorm_bwd"}
 
 
 def log(*a):
@@ -119,11 +125,12 @@ def cuda_ms(fn, iters=20, warmup=3, repeats=3):
     return sorted(runs)[len(runs) // 2]
 
 
-def profile_forward(fn):
+def profile_forward(fn, top_n=0):
     """Device time of one call of `fn` by kernel group, from torch.profiler:
     {group: ms}, the device span from the first kernel's start to the last
-    one's end, and the share of that span with no kernel running. None if
-    the profiler saw no device kernels."""
+    one's end, the share of that span with no kernel running, and the
+    `top_n` kernels by device time. None if the profiler saw no device
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -136,21 +143,27 @@ def profile_forward(fn):
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
         return None
-    groups = {}
+    groups, by_name = {}, {}
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
         # "gemm_bf16_kernel(...)", "void attention_bf16_kernel<64>(...)"
         fname = name.split("(")[0].split("<")[0].split()[-1]
         group = PORT_KERNELS.get(fname, "torch")
         groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
+        key = f"{group}: {name[:90]}"
+        ms, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (ms + (end - start) / 1e3, n + 1)
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start = start
         cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     span = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     return {"kernel_ms_by_group": groups, "device_span_ms": span / 1e3,
-            "idle_share": 1 - busy / span, "kernels": len(spans)}
+            "idle_share": 1 - busy / span, "kernels": len(spans),
+            "top_kernels": [{"name": k, "ms": ms, "calls": n}
+                            for k, (ms, n) in top]}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -336,6 +349,238 @@ def phase_kernels():
         with runtime.plain_on_card():
             want = ref(*args, **kw)
         err = (got - want).abs().max().item()
+        log(f"[kernels] {op} float32 {shape} {kw}: max_abs {err:.3e}")
+        if not err <= F32_ATOL:
+            raise AssertionError(f"{op} float32: max_abs {err} > {F32_ATOL}")
+        results[op].append({"label": "float32 check", "shape": list(shape),
+                            "dtype": "f32", "max_abs_err": err, **kw})
+    torch.cuda.synchronize()
+    return results
+
+
+# backward ops: name -> (TPU kernel file:line, launcher -> kernel, wrapper,
+# sources). B6's forward is the attention kernel on the packed qkv.
+BWD_KERNELS = {
+    "attn_half_block_bwd": (
+        "mirage_tpu/ops/block_attention.py:549",
+        "_attn_half_bwd_defused :573 -> _attn_half_bwd_dx_kernel :549",
+        "mirage_tpu_torch/ops/block_attention.py",
+        ["layernorm.cu", "gemm.cu", "attention.cu", "attention_bwd.cu"]),
+    "mlp_block_bwd": (
+        "mirage_tpu/ops/fused_mlp.py:453",
+        "_mlp_block_bwd_defused :469 -> _mlp_bwd_dx_kernel :453",
+        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"]),
+    "block_attention": (
+        "mirage_tpu/ops/block_attention.py:58",
+        "_block_attn_fwd :88 -> _block_attn_kernel :58",
+        "mirage_tpu_torch/ops/block_attention.py", ["attention.cu"]),
+    "block_attention_bwd": (
+        "mirage_tpu/ops/block_attention.py:111",
+        "_block_attn_bwd :169 -> _block_attn_bwd_kernel :111",
+        "mirage_tpu_torch/ops/block_attention.py", ["attention_bwd.cu"]),
+}
+# launches of each op per pretraining step (ViT-B: 12 encoder layers at 99
+# tokens; three decoders of two 256-token blocks)
+PER_STEP = {"attn_half_block": 12, "attn_half_block_bwd": 12,
+            "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
+            "block_attention_bwd": 6, "xattn_half_block": 0}
+# a backward output against its float32 plain version: relative L2 error,
+# and the largest element error relative to the output's largest element
+# (outputs range from O(1) (dx) to O(1e3) (weight grads summed over 25k-65k
+# rows); bf16 intermediates carry 2^-8 relative steps)
+BWD_REL_L2, BWD_REL_MAX = 1e-2, 5e-2
+
+
+def _bwd_inputs(op, shape, dtype, gen):
+    """(args, cotangent) of a backward op at its shape."""
+    import torch
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(dtype).cuda()
+
+    if op.startswith("block_attention"):
+        b, n, d, h = shape
+        return (rn(b, n, 3 * d), h, (d // h) ** -0.5), rn(b, n, d)
+    base = "attn_half_block" if op.startswith("attn") else "mlp_block"
+    args = _op_inputs(base, shape, dtype, gen)
+    return args, rn(*shape[:3])
+
+
+def _bwd_work(op, shape, elem_bytes):
+    """(FLOPs, bytes) of a backward op: the forward it recomputes and the
+    backward products, each input read once and each output written once
+    (weight grads in float)."""
+    b, n, d = shape[:3]
+    m = b * n
+    if op == "block_attention":
+        return 4 * b * n * n * d, 4 * m * d * elem_bytes
+    if op == "block_attention_bwd":
+        return 10 * b * n * n * d, 7 * m * d * elem_bytes
+    if op == "attn_half_block_bwd":
+        flops = 22 * m * d * d + 12 * b * n * n * d
+        return flops, (3 * m * d + 4 * d * d) * elem_bytes + (4 * d * d + 8 * d) * 4
+    flops = 40 * m * d * d
+    return flops, (3 * m * d + 8 * d * d) * elem_bytes + (8 * d * d + 7 * d) * 4
+
+
+def _bwd_library(op):
+    """The same function from PyTorch library calls (F.layer_norm, F.linear,
+    F.gelu, F.scaled_dot_product_attention and torch.autograd.grad): the
+    forward it recomputes and its backward. A yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    def heads(t, h):
+        b, n, c = t.shape
+        return t.view(b, n, h, c // h).transpose(1, 2)
+
+    if op == "block_attention":
+        def fn(qkv, h, scale):
+            q, k, v = qkv.chunk(3, dim=-1)
+            o = F.scaled_dot_product_attention(heads(q, h), heads(k, h),
+                                               heads(v, h), scale=scale)
+            return o.transpose(1, 2).flatten(2)
+        return fn
+    if op == "block_attention_bwd":
+        fwd = _bwd_library("block_attention")
+
+        def fn(dy, qkv, h, scale):
+            qkv = qkv.detach().requires_grad_()
+            return torch.autograd.grad(fwd(qkv, h, scale), qkv, dy)
+        return fn
+    fwd = _library("attn_half_block" if op.startswith("attn")
+                   else "mlp_block")
+
+    def fn(dy, *args, **kw):
+        args = [a.detach().requires_grad_() if torch.is_tensor(a) else a
+                for a in args]
+        return torch.autograd.grad(fwd(*args, **kw),
+                                   [a for a in args if torch.is_tensor(a)],
+                                   dy)
+    return fn
+
+
+def phase_backward(results):
+    """Each backward op (and B6's forward) at the pretraining shapes against
+    its plain version computed in float32 from the same inputs; every output
+    compared. Adds rows to ``results``."""
+    import torch
+
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    def b4(args, dy):
+        return ba._attn_half_bwd(args[0], dy, *args[1:6], args[7])
+
+    def b4_ref(args, dy):
+        return ba.attn_half_block_bwd_ref(args[0], dy, *args[1:6], args[7])
+
+    def b5(args, dy, **kw):
+        return fm._mlp_bwd(args[0], dy, *args[1:6], **kw)
+
+    def b5_ref(args, dy, **kw):
+        return fm.mlp_block_bwd_ref(args[0], dy, *args[1:6], **kw)
+
+    def b6f(args, dy):
+        return (ba.block_attention(*args),)
+
+    def b6f_ref(args, dy):
+        return (ba.block_attention_ref(*args),)
+
+    def b6(args, dy):
+        return (ba._block_attn_bwd(args[0], dy, *args[1:]),)
+
+    def b6_ref(args, dy):
+        return (ba.block_attention_bwd_ref(args[0], dy, *args[1:]),)
+
+    ops = {"attn_half_block_bwd": (b4, b4_ref),
+           "mlp_block_bwd": (b5, b5_ref),
+           "block_attention": (b6f, b6f_ref),
+           "block_attention_bwd": (b6, b6_ref)}
+    names = {"attn_half_block_bwd": ["dx", "dgamma", "dbeta", "dwqkv",
+                                     "dbqkv", "dwproj", "dbproj"],
+             "mlp_block_bwd": ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                               "db2"],
+             "block_attention": ["out"], "block_attention_bwd": ["dqkv"]}
+    # (op, label, shape, kwargs, calls per pretraining step)
+    cases = [
+        ("attn_half_block_bwd", "encoder", (256, 99, 768, 12), {}, 12),
+        ("mlp_block_bwd", "encoder", (256, 99, 768), {}, 12),
+        ("mlp_block_bwd", "decoder", (256, 256, 256), {}, 6),
+        ("mlp_block_bwd", "encoder residual=False", (256, 99, 768),
+         {"residual": False}, 0),
+        ("mlp_block_bwd", "decoder residual=False", (256, 256, 256),
+         {"residual": False}, 0),
+        ("block_attention", "decoder", (256, 256, 256, 8), {}, 6),
+        ("block_attention_bwd", "decoder", (256, 256, 256, 8), {}, 6),
+    ]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for op, label, shape, kw, per_step in cases:
+        kernel, ref = ops[op]
+        args, dy = _bwd_inputs(op, shape, torch.bfloat16, gen)
+        got = kernel(args, dy, **kw)
+        torch.cuda.synchronize()
+        with runtime.plain_on_card():
+            want = ref([a.float() if torch.is_tensor(a) else a
+                        for a in args], dy.float(), **kw)
+        errs = {}
+        for name, g, w in zip(names[op], got, want):
+            if w is None:
+                continue
+            diff = g.float() - w
+            errs[name] = {
+                "max_abs": diff.abs().max().item(),
+                "rel_max": (diff.abs().max() / w.abs().max()).item(),
+                "rel_l2": (diff.norm() / w.norm()).item()}
+            if not (bool(torch.isfinite(g).all())
+                    and errs[name]["rel_l2"] <= BWD_REL_L2
+                    and errs[name]["rel_max"] <= BWD_REL_MAX):
+                raise AssertionError(
+                    f"{op} {label} {name}: kernel disagrees with its plain "
+                    f"version: {errs[name]} (bars rel_l2 {BWD_REL_L2}, "
+                    f"rel_max {BWD_REL_MAX})")
+        del got, want
+        kernel_ms = cuda_ms(lambda: kernel(args, dy, **kw), iters=10)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: ref(args, dy, **kw), iters=5)
+        lib = _bwd_library(op)
+        if op == "block_attention":
+            library_ms = cuda_ms(lambda: lib(*args), iters=10)
+        else:
+            library_ms = cuda_ms(lambda: lib(dy, *args, **kw), iters=10)
+        flops, nbytes = _bwd_work(op, shape, 2)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"label": label, "shape": list(shape), "dtype": "bf16",
+               "errors": errs,
+               "max_abs_err": max(e["max_abs"] for e in errs.values()),
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "calls_per_step": per_step, **kw}
+        log(f"[kernels] {op} {label} {shape}: worst rel_l2 "
+            f"{max(e['rel_l2'] for e in errs.values()):.3e} rel_max "
+            f"{max(e['rel_max'] for e in errs.values()):.3e} kernel "
+            f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        results.setdefault(op, []).append(row)
+        del args, dy
+
+    # one float32 case per op (batch 2 of the pretraining shapes)
+    f32_cases = [("attn_half_block_bwd", (2, 99, 768, 12), {}),
+                 ("mlp_block_bwd", (2, 99, 768), {}),
+                 ("mlp_block_bwd", (2, 256, 256), {"residual": False}),
+                 ("block_attention", (2, 256, 256, 8), {}),
+                 ("block_attention_bwd", (2, 256, 256, 8), {})]
+    for op, shape, kw in f32_cases:
+        kernel, ref = ops[op]
+        args, dy = _bwd_inputs(op, shape, torch.float32, gen)
+        got = kernel(args, dy, **kw)
+        with runtime.plain_on_card():
+            want = ref(args, dy, **kw)
+        err = max((g - w).abs().max().item()
+                  for g, w in zip(got, want) if w is not None)
         log(f"[kernels] {op} float32 {shape} {kw}: max_abs {err:.3e}")
         if not err <= F32_ATOL:
             raise AssertionError(f"{op} float32: max_abs {err} > {F32_ATOL}")
@@ -537,11 +782,225 @@ def phase_serve(workdir, card):
     return counts, n_rec, tput
 
 
-# --------------------------------------------------------------------- main
+# ------------------------------------------------------------------ phase 5
 
-def main():
+TRAIN_STEPS = 5  # timed steps, after one warm-up step
+# one step on the kernel path against the same step on the plain path, both
+# in bf16 from the same weights, batch and explicit masks: the kernels and
+# the plain versions round at the same places but sum in other orders, and
+# the differences pass through 12 encoder and 3 × 3 decoder layers
+TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL = 1e-2, 2e-2, 5e-2
+
+
+def _launch_counters():
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import fused_mlp as fm
+
+    return {"attn_half_block": (ba.attn_half_block, "launches"),
+            "attn_half_block_bwd": (ba.attn_half_block, "bwd_launches"),
+            "mlp_block": (fm.mlp_block, "launches"),
+            "mlp_block_bwd": (fm.mlp_block, "bwd_launches"),
+            "block_attention": (ba.block_attention, "launches"),
+            "block_attention_bwd": (ba.block_attention, "bwd_launches"),
+            "xattn_half_block": (ba.xattn_half_block, "launches")}
+
+
+def phase_train(card):
+    """The ViT-B pretraining step of scripts/bench_train.py:38-62 at full
+    width: miragepre_base (768 wide, 12 layers, 12 heads), bscan and slo
+    512² at patch 32 and the 128² layer map at patch 8 (256 tokens each), 98
+    visible tokens + 1 global, three 256/2/8 decoders, batch 256, bf16
+    compute with float32 parameters, AdamW (0.9, 0.95), wd 0.05, clip 1.0,
+    token-space losses with norm_pix on the images. Random weights (seed 0)
+    and a numpy-seeded batch."""
+    import numpy as np
     import torch
 
+    from mirage_tpu_torch.api.wrapper import build_model
+    from mirage_tpu_torch.masking.masking import generate_random_masks
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train.optim import (GroupedOptimizer,
+                                              OptimizerConfig, global_norm)
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_pretrain_loss,
+                                              make_train_step)
+
+    counters = _launch_counters()
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    domains = ["bscan", "slo", "bscanlayermap"]
+    args = dict(model="miragepre_base", num_global_tokens=1,
+                in_domains=domains, out_domains=domains, decoder_dim=256,
+                decoder_depth=2, decoder_num_heads=8)
+    t0 = time.perf_counter()
+    model = build_model("miragepre_base", args, domains, 512, 32,
+                        compute_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(SEED)).cuda()
+    opt = GroupedOptimizer(OptimizerConfig(
+        opt="adamw", betas=(0.9, 0.95), weight_decay=0.05, clip_grad=1.0))
+    dc = {"bscan": {"loss": "mse", "patch_size": 32, "norm_pix": True},
+          "slo": {"loss": "mse", "patch_size": 32, "norm_pix": True},
+          "bscanlayermap": {"loss": "ce", "patch_size": 8}}
+    loss_fn = make_pretrain_loss(model, dc, num_encoded_tokens=98,
+                                 alphas=1.0)
+    state = init_train_state(model, opt)
+    step = make_train_step(loss_fn, opt)
+    b = TRAIN_BATCH
+    rng = np.random.default_rng(SEED)
+    batch = {"bscan": rng.random((b, 1, 512, 512), dtype=np.float32),
+             "slo": rng.random((b, 1, 512, 512), dtype=np.float32),
+             "bscanlayermap": rng.integers(0, 13, (b, 128, 128))}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] ViT-B pretraining model from seed {SEED}: {n_params} "
+        f"params, built in {time.perf_counter() - t0:.1f}s")
+
+    # one step's loss and grads, kernels against the plain path
+    masks, _, _ = generate_random_masks(gen, [256, 256, 256], b, 98)
+    task_masks = dict(zip(domains, masks))
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+
+    def loss_and_grads():
+        loss, _ = loss_fn(batch, task_masks=task_masks, num_visible=98)
+        return loss.detach(), torch.autograd.grad(
+            loss, [state["params"][n] for n in names])
+
+    reset()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    one_pass = read()
+    with runtime.plain_on_card():
+        loss_p, grads_p = loss_and_grads()
+    gn_k, gn_p = global_norm(grads_k).item(), global_norm(grads_p).item()
+    leaf = {n: ((g - w).norm() / w.norm()).item()
+            for n, g, w in zip(names, grads_k, grads_p)}
+    worst = max(leaf, key=leaf.get)
+    agree = {"loss": loss_k.item(), "plain_loss": loss_p.item(),
+             "loss_rel": abs(loss_k.item() - loss_p.item()) / abs(
+                 loss_p.item()),
+             "grad_norm": gn_k, "plain_grad_norm": gn_p,
+             "grad_norm_rel": abs(gn_k - gn_p) / gn_p,
+             "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst],
+             "leaves": len(leaf)}
+    log(f"[train] one step, kernel path vs plain path (bf16, card): {agree}")
+    del grads_k, grads_p
+    if not (agree["loss_rel"] <= TRAIN_LOSS_REL
+            and agree["grad_norm_rel"] <= TRAIN_GNORM_REL
+            and agree["worst_leaf_rel_l2"] <= TRAIN_LEAF_REL):
+        raise AssertionError(
+            f"kernel step disagrees with the plain step: {agree} (bars loss "
+            f"{TRAIN_LOSS_REL}, grad norm {TRAIN_GNORM_REL}, leaf "
+            f"{TRAIN_LEAF_REL})")
+    if one_pass != PER_STEP:
+        raise AssertionError(f"launches in one forward+backward {one_pass} "
+                             f"!= {PER_STEP}")
+
+    # the pretraining step itself: random masks, warm-up, timed steps
+    watch = ["encoder.0.attn.qkv.weight", "encoder.11.mlp.fc2.weight",
+             "output_adapters.bscan.decoder_transformer.1.attn.qkv.weight",
+             "global_tokens"]
+    before = {n: state["params"][n].detach().clone() for n in watch}
+    lr = 1e-4
+    state, m = step(state, batch, gen, lr)
+    torch.cuda.synchronize()
+    reset()
+    metrics = []
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch, gen, lr)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / TRAIN_STEPS
+    counts = read()
+    expected = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
+    losses = [{k: v.item() for k, v in mm.items()} for mm in metrics]
+    log(f"[train] {TRAIN_STEPS} steps: launches {counts}, expected "
+        f"{expected}; metrics {losses}")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != {expected}")
+    if not all(np.isfinite(v) for mm in losses for v in mm.values()):
+        raise AssertionError(f"non-finite loss or grad norm: {losses}")
+    changed = {n: not torch.equal(before[n], state["params"][n])
+               for n in watch}
+    if not all(changed.values()) or int(state["opt"]["count"]) \
+            != TRAIN_STEPS + 1:
+        raise AssertionError(f"parameters unchanged: {changed}, count "
+                             f"{int(state['opt']['count'])}")
+    prof = profile_forward(lambda: step(state, batch, gen, lr), top_n=25)
+    log(f"[train] one step under torch.profiler: "
+        f"{prof if prof else 'no device kernels seen (not measured)'}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] batch {b}: {dt * 1e3:.2f} ms/step, {b / dt:.1f} img/s, "
+        f"peak memory {peak:.1f} GiB, on {card}")
+    return {"batch": b, "steps": TRAIN_STEPS + 2, "ms_per_step": dt * 1e3,
+            "img_per_s": b / dt, "counts": counts, "agreement": agree,
+            "losses": losses, "profile": prof, "peak_gib": peak,
+            "card": card}
+
+
+# --------------------------------------------------------------------- main
+
+def _kernel_entries(kernel_rows, counts, per_path, path):
+    """One entry of the `kernels` line per op: per-call rows at each shape,
+    and times summed over one pass of the main path (per-call time × calls
+    on the path)."""
+    entries = []
+    for name, rows in kernel_rows.items():
+        key = "calls_per_forward" if path == "forward" else "calls_per_step"
+        main_rows = [r for r in rows if r.get(key)]
+        per_path_sum = lambda k: sum(r[k] * r[key] for r in main_rows)  # noqa
+        top = max(main_rows, key=lambda r: r["bound_ms"] * r[key])
+        if name in TPU_KERNELS:
+            replaces, tpu_kernel = TPU_KERNELS[name]
+            source, csrc = SOURCES[name]
+        else:
+            replaces, tpu_kernel, source, csrc = BWD_KERNELS[name]
+            csrc = [CSRC + f for f in csrc]
+        ms = per_path_sum("ms")
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "csrc": csrc,
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": counts[name], f"launches_per_{path}": per_path[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["dtype"] == "bf16"),
+            "max_err": max(r["max_abs_err"] for r in rows),
+            "ms": ms, "kernel_ms": ms, "plain_ms": per_path_sum("plain_ms"),
+            "bound_ms": per_path_sum("bound_ms"), "bound_by": top["bound_by"],
+            "library_ms": per_path_sum("library_ms"),
+            "library": "composite of F.layer_norm, F.linear, F.gelu, "
+                       "F.scaled_dot_product_attention"
+                       + (" and torch.autograd.grad" if path == "step"
+                          else ""),
+            "times_are": (f"sum over one batch-{BATCH} reconstruct forward"
+                          if path == "forward" else
+                          f"sum over one batch-{TRAIN_BATCH} pretraining "
+                          f"step"),
+            "shapes": rows,
+        })
+    return entries
+
+
+PHASES = ("build", "kernels", "golden", "serve", "train")
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (a partial run prints no result line)")
+    opts = ap.parse_args(argv)
+    phases = opts.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -558,39 +1017,28 @@ def main():
     workdir = ROOT / "build" / "mirage_tpu_torch" / "smoke"
     workdir.mkdir(parents=True, exist_ok=True)
 
-    phase_build()
-    kernel_rows = phase_kernels()
-    golden = phase_golden(workdir)
-    counts, n_rec, tput = phase_serve(workdir, card)
+    if "build" in phases:
+        phase_build()
+    fwd_rows = bwd_rows = golden = train = None
+    if "kernels" in phases:
+        fwd_rows = phase_kernels()
+        bwd_rows = phase_backward({})
+    if "golden" in phases:
+        golden = phase_golden(workdir)
+    if "serve" in phases:
+        counts, n_rec, tput = phase_serve(workdir, card)
+    if "train" in phases:
+        train = phase_train(card)
+    if set(phases) != set(PHASES):
+        log(f"[partial] phases {phases} passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
 
-    entries = []
-    for name, rows in kernel_rows.items():
-        main_rows = [r for r in rows if r.get("calls_per_forward")]
-        per_fwd = lambda key: sum(r[key] * r["calls_per_forward"]  # noqa
-                                  for r in main_rows)
-        ms, bound = per_fwd("ms"), per_fwd("bound_ms")
-        top = max(main_rows, key=lambda r: r["bound_ms"]
-                  * r["calls_per_forward"])
-        entries.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "csrc": SOURCES[name][1], "replaces": TPU_KERNELS[name][0],
-            "tpu_kernel": TPU_KERNELS[name][1],
-            "launches": counts[name],
-            "launches_per_forward": PER_RECONSTRUCT[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["dtype"] == "bf16"),
-            "max_err": max(r["max_abs_err"] for r in rows),
-            "ms": ms, "kernel_ms": ms, "plain_ms": per_fwd("plain_ms"),
-            "bound_ms": bound,
-            "bound_by": top["bound_by"],
-            "library_ms": per_fwd("library_ms"),
-            "library": "composite of F.layer_norm, F.linear, F.gelu, "
-                       "F.scaled_dot_product_attention",
-            "times_are": f"sum over one batch-{BATCH} reconstruct forward",
-            "shapes": rows,
-        })
+    entries = (_kernel_entries(fwd_rows, counts, PER_RECONSTRUCT, "forward")
+               + _kernel_entries(bwd_rows, train["counts"], PER_STEP,
+                                 "step"))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
-                    "seconds": time.perf_counter() - t_start}))
+                    "train": train, "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,17 @@
 """SpatialOutputAdapter: the MultiMAE cross-attention reconstruction decoder.
 
-Counterpart of ``mirage_tpu/adapters/spatial_output.py`` on its static path
-(modality presence known, no token shuffle): project the encoder tokens to
-the decoder width, put mask tokens where a modality is absent, add task and
-positional embeddings, take the task's tokens as queries, then B3
-(``xattn_half_block``) + B2 (``mlp_block``), ``depth`` transformer blocks,
-and a linear to pixels.
+Counterpart of ``mirage_tpu/adapters/spatial_output.py``: project the
+encoder tokens to the decoder width, put mask tokens where tokens were not
+encoded (whole absent modalities on the wrapper's static path; the masked
+positions of ``ids_keep`` in pretraining), add task and positional
+embeddings, take the task's tokens as queries and the visible tokens as
+context, then the cross-attention and its MLP, ``depth`` transformer blocks,
+and a linear to pixels (or, ``pixel_output=False``, to the patch tokens the
+token-space losses take).
 
+Inference (``deterministic``) runs the cross-attention as B3
+(``xattn_half_block``) and its MLP as B2; training runs both on the plain
+path, as the JAX package does (its fused route requires deterministic).
 The cross-attention adds no skip from the queries: the reference decoder
 computes x = xattn(LN_q(q), LN_c(ctx)); x = x + mlp(LN(x)). (The JAX
 package's fused TPU route at spatial_output.py:209-225 calls its
@@ -17,14 +22,15 @@ import torch
 from torch import nn
 
 from mirage_tpu_torch.adapters.input_adapters import pair
+from mirage_tpu_torch.masking.masking import gather_rows, scatter_rows
 from mirage_tpu_torch.nn import init as vinit
-from mirage_tpu_torch.nn.attention import CrossAttention
+from mirage_tpu_torch.nn.attention import CrossAttention, cross_attention_apply
 from mirage_tpu_torch.nn.block import Block
-from mirage_tpu_torch.nn.layers import LayerNorm, Linear, Mlp
+from mirage_tpu_torch.nn.layers import LayerNorm, Linear, Mlp, layer_norm
 from mirage_tpu_torch.nn.posemb import build_2d_sincos_posemb
 from mirage_tpu_torch.nn.resize import resize2d
 from mirage_tpu_torch.ops.block_attention import xattn_half_block
-from mirage_tpu_torch.ops.fused_mlp import mlp_block
+from mirage_tpu_torch.ops.fused_mlp import mlp_block, mlp_block_ref
 from mirage_tpu_torch.ops.patch_embed import unpatchify
 
 
@@ -91,9 +97,31 @@ class SpatialOutputAdapter(nn.Module):
         pos = resize2d(self.pos_emb, (nh, nw), mode="bilinear")
         return pos.reshape(1, pos.shape[1], nh * nw).transpose(1, 2)
 
-    def _prepare(self, encoder_tokens, input_info, absent_tasks):
+    def _embeddings(self, input_info, nh, nw, dtype):
+        """Task embedding + posemb of every token of the full sequence,
+        (1, N, d) (the JAX package's _context_embeddings)."""
+        task_embs = getattr(self, "task_embeddings", {})
+        pos = self._pos_tokens(nh, nw).to(dtype)
+        chunks = []
+        for task, info in input_info["tasks"].items():
+            n = info["num_tokens"]
+            emb = (task_embs[task].to(dtype).expand(1, n, self.dim_tokens)
+                   if task in task_embs
+                   else pos.new_zeros(1, n, self.dim_tokens))
+            if info["has_posemb"]:
+                if n != pos.shape[1]:
+                    raise ValueError(f"# tokens ({n}) != # pos embeddings "
+                                     f"({pos.shape[1]})")
+                emb = emb + pos
+            chunks.append(emb)
+        return torch.cat(chunks, dim=1)
+
+    def _prepare(self, encoder_tokens, input_info, absent_tasks=(),
+                 ids_keep=None):
         """Queries and visible context for the decoder: (B, nq, d),
-        (B, nc, d), and the output grid (nh, nw)."""
+        (B, nc, d), and the output grid (nh, nw). ids_keep (B, M): the
+        original positions of the M encoded tokens (masked pretraining);
+        None on the static path, where absent_tasks are the masked ones."""
         b = encoder_tokens.shape[0]
         h, w = input_info["tasks"][self.task]["image_size"]
         ph, pw = self.patch_hw
@@ -103,58 +131,71 @@ class SpatialOutputAdapter(nn.Module):
         num_global = input_info.get("num_global_tokens", 0)
         body = context[:, :-num_global] if num_global else context
 
-        task_embs = getattr(self, "task_embeddings", {})
-        pos = self._pos_tokens(nh, nw).to(dtype)
-        chunks, off = [], 0
-        for task, info in input_info["tasks"].items():
-            n = info["num_tokens"]
-            if task in absent_tasks:
-                chunk = self.mask_token.to(dtype).expand(b, n, d)
-            else:
-                chunk = body[:, off:off + n]
-                off += n
-            # task embedding + posemb first, then onto the tokens (the JAX
-            # package's summation order)
-            emb = task_embs[task].to(dtype) if task in task_embs else None
-            if info["has_posemb"]:
-                if n != pos.shape[1]:
-                    raise ValueError(f"# tokens ({n}) != # pos embeddings "
-                                     f"({pos.shape[1]})")
-                emb = pos if emb is None else emb + pos
-            if emb is not None:
-                chunk = chunk + emb
-            chunks.append(chunk.expand(b, n, d))
-        full = torch.cat(chunks, dim=1)
+        if ids_keep is None:
+            chunks, off = [], 0
+            for task, info in input_info["tasks"].items():
+                n = info["num_tokens"]
+                if task in absent_tasks:
+                    chunks.append(self.mask_token.to(dtype).expand(b, n, d))
+                else:
+                    chunks.append(body[:, off:off + n])
+                    off += n
+            full = torch.cat(chunks, dim=1)
+        else:
+            # mask tokens everywhere, the encoded tokens back at their
+            # positions (the reference's concat + ids_restore unshuffle)
+            full = scatter_rows(body, ids_keep, input_info["num_task_tokens"],
+                                self.mask_token.reshape(d))
+        full = full + self._embeddings(input_info, nh, nw, dtype)
 
         if self.use_task_queries and self.task in input_info["tasks"]:
             info = input_info["tasks"][self.task]
             queries = full[:, info["start_idx"]:info["end_idx"]]
         else:
-            queries = (self.mask_token.to(dtype) + pos).expand(b, nh * nw, d)
+            queries = (self.mask_token.to(dtype)
+                       + self._pos_tokens(nh, nw).to(dtype)).expand(
+                           b, nh * nw, d)
+            task_embs = getattr(self, "task_embeddings", {})
             if self.task in task_embs:
                 queries = queries + task_embs[self.task].to(dtype)
-        visible = [full[:, i["start_idx"]:i["end_idx"]]
-                   for t, i in input_info["tasks"].items()
-                   if t not in absent_tasks]
+        if ids_keep is None:
+            visible = [full[:, i["start_idx"]:i["end_idx"]]
+                       for t, i in input_info["tasks"].items()
+                       if t not in absent_tasks]
+        else:
+            visible = [gather_rows(full, ids_keep)]
         if num_global:
             visible.append(context[:, -num_global:])
         return queries.contiguous(), torch.cat(visible, 1), (nh, nw)
 
-    def forward(self, encoder_tokens, input_info, absent_tasks=()):
-        """encoder_tokens: (B, N + G, D_enc) -> (B, C, H, W)."""
+    def forward(self, encoder_tokens, input_info, absent_tasks=(),
+                ids_keep=None, deterministic=True, pixel_output=True):
+        """encoder_tokens: (B, M + G, D_enc) -> (B, C, H, W), or the patch
+        tokens (B, N, C·ph·pw) in (c, ph, pw) order when pixel_output is
+        False."""
         x, ctx, (nh, nw) = self._prepare(encoder_tokens, input_info,
-                                         absent_tasks)
+                                         absent_tasks, ids_keep)
         if self.use_xattn:
-            dec, qn, cn, m = (self.decoder, self.query_norm,
-                              self.context_norm, self.mlp)
-            x = xattn_half_block(
-                x, ctx, qn.weight, qn.bias, cn.weight, cn.bias,
-                dec.q.weight, dec.q.bias, dec.kv.weight, dec.kv.bias,
-                dec.proj.weight, dec.proj.bias, self.num_heads,
-                residual=False)
-            x = mlp_block(x, self.out_norm.weight, self.out_norm.bias,
-                          m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+            dec, qn, cn, on, m = (self.decoder, self.query_norm,
+                                  self.context_norm, self.out_norm, self.mlp)
+            mlp_args = (on.weight, on.bias, m.fc1.weight, m.fc1.bias,
+                        m.fc2.weight, m.fc2.bias)
+            if deterministic:
+                x = xattn_half_block(
+                    x, ctx, qn.weight, qn.bias, cn.weight, cn.bias,
+                    dec.q.weight, dec.q.bias, dec.kv.weight, dec.kv.bias,
+                    dec.proj.weight, dec.proj.bias, self.num_heads,
+                    residual=False)
+                x = mlp_block(x, *mlp_args)
+            else:
+                x = cross_attention_apply(
+                    dec, layer_norm(x, qn.weight, qn.bias),
+                    layer_norm(ctx, cn.weight, cn.bias), self.num_heads)
+                x = mlp_block_ref(x, *mlp_args)
         for block in getattr(self, "decoder_transformer", ()):
-            x = block(x)
+            x = block(x, deterministic)
+        x = self.out_proj(x)
+        if not pixel_output:
+            return x
         ph, pw = self.patch_hw
-        return unpatchify(self.out_proj(x), nh, nw, ph, pw, self.num_channels)
+        return unpatchify(x, nh, nw, ph, pw, self.num_channels)

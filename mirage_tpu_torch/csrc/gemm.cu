@@ -1,7 +1,13 @@
 // C = A · Wᵀ (+ bias) [GELU_erf] (+ residual), the matrix products inside
 // three TPU kernels: the qkv and output projections of mirage_tpu/ops/
 // block_attention.py:_attn_half_kernel and :_xattn_half_kernel, and fc1/fc2
-// of mirage_tpu/ops/fused_mlp.py:_mlp_kernel.
+// of mirage_tpu/ops/fused_mlp.py:_mlp_kernel. The backward kernels
+// (block_attention.py:_attn_half_bwd_rows, fused_mlp.py:_mlp_bwd_rows) add
+// two epilogues: a float32 output (their dyln and fc1 recompute h are float)
+// and the GELU backward, which reads h (float) at the tile's coordinates and
+// writes dh = T(acc·GELU′(h)), act = T(GELU(h)) and float column sums of the
+// unrounded dh over each 16-row group (for db1). The products with a
+// non-transposed weight (dy·W) take W transposed by the caller.
 //
 // A is (M, K) row-major, W is (N, K) row-major (a torch Linear weight), C and
 // the optional residual are (M, N). The epilogue follows the TPU kernels'
@@ -34,6 +40,17 @@
 
 // C tile BM × BN; BK bf16 = one 128-byte swizzle row; STAGES K-slices in flight
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+
+enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2 };
+
+__device__ __forceinline__ float gelu_f(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+// d/dh GELU(h) = Φ(h) + h·φ(h)
+__device__ __forceinline__ float gelu_grad(float h) {
+  return 0.5f * (1.f + erff(h * 0.7071067811865476f)) +
+         h * 0.3989422804014327f * expf(-0.5f * h * h);
+}
 
 // wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile whose
 // 8-row groups lie 1024 bytes apart (the tile base is 1024-byte aligned).
@@ -125,8 +142,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
       for (int half = 0; half < 2; ++half) {
         float v0 = acc[4 * j + 2 * half] + bv.x, v1 = acc[4 * j + 2 * half + 1] + bv.y;
         if (gelu) {
-          v0 = 0.5f * v0 * (1.f + erff(v0 * 0.7071067811865476f));
-          v1 = 0.5f * v1 * (1.f + erff(v1 * 0.7071067811865476f));
+          v0 = gelu_f(v0);
+          v1 = gelu_f(v1);
         }
         *reinterpret_cast<__nv_bfloat162*>(stage + (gid + 8 * half) * EPI_STRIDE + c) =
             __floats2bfloat162_rn(v0, v1);
@@ -160,6 +177,65 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
       *reinterpret_cast<uint4*>(C + (row0 + r) * N + c0 + c) = out[i];
     }
     __syncwarp();  // the lanes have read the staging tile before it is refilled
+  }
+}
+
+// Writes one warp's 16 × BN accumulator straight from its fragments (a
+// column pair per lane, whole 32-byte row segments per lane quad): the float
+// output (+ bias, GELU), or the GELU backward, dh = acc·GELU′(h) with h read
+// in float at the same coordinates, act = GELU(h) into aux_out, and the
+// float column sums of dh over the warp's 16 rows into row row0/16 of
+// colsum.
+__device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
+                                                  const void* __restrict__ bias, int bias_dtype,
+                                                  int epi, int out_f32, void* __restrict__ C,
+                                                  const float* __restrict__ aux_in,
+                                                  bf16* __restrict__ aux_out,
+                                                  float* __restrict__ colsum, int M, int N,
+                                                  long row0, long n0) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll  // fully: acc must stay in registers (constant indices)
+  for (int j = 0; j < BN / 8; ++j) {
+    if (n0 + 8 * j >= N) break;  // N % 8 == 0: a column pair is wholly in or out
+    const long col = n0 + 8 * j + 2 * tig;
+    const float b0 = bias != nullptr ? load_param(bias, col, bias_dtype) : 0.f;
+    const float b1 = bias != nullptr ? load_param(bias, col + 1, bias_dtype) : 0.f;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long row = row0 + gid + 8 * half;
+      if (row >= M) continue;
+      const long i = row * N + col;
+      float v0 = acc[4 * j + 2 * half] + b0, v1 = acc[4 * j + 2 * half + 1] + b1;
+      if (epi == EPI_GELU_BWD) {
+        const float2 h = *reinterpret_cast<const float2*>(aux_in + i);
+        v0 *= gelu_grad(h.x);
+        v1 *= gelu_grad(h.y);
+        s0 += v0;
+        s1 += v1;
+        *reinterpret_cast<__nv_bfloat162*>(aux_out + i) =
+            __floats2bfloat162_rn(gelu_f(h.x), gelu_f(h.y));
+      } else if (epi == EPI_GELU) {
+        v0 = gelu_f(v0);
+        v1 = gelu_f(v1);
+      }
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(C) + i) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + i) =
+            __floats2bfloat162_rn(v0, v1);
+    }
+    if (epi == EPI_GELU_BWD) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (gid == 0 && row0 < M) {
+        colsum[(row0 / 16) * N + col] = s0;
+        colsum[(row0 / 16) * N + col + 1] = s1;
+      }
+    }
   }
 }
 
@@ -212,9 +288,11 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 // warpgroups store the last one.
 __global__ void __launch_bounds__(384, 1)
     gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_w, bf16* __restrict__ C,
-                     const void* __restrict__ bias, int bias_dtype, int gelu,
-                     const bf16* __restrict__ res, int M, int N, int K) {
+                     const __grid_constant__ CUtensorMap map_w, void* __restrict__ C,
+                     const void* __restrict__ bias, int bias_dtype, int epi,
+                     const bf16* __restrict__ res, int M, int N, int K, int out_f32,
+                     const float* __restrict__ aux_in, bf16* __restrict__ aux_out,
+                     float* __restrict__ colsum) {
   constexpr int A_BYTES = BM * BK * 2, STAGE_BYTES = (BM + BN) * BK * 2;
   extern __shared__ unsigned char gemm_smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the ring to it
@@ -280,8 +358,13 @@ __global__ void __launch_bounds__(384, 1)
       fence_regs(acc);
       if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
 
-      store_tile(acc, tile_bias, sbias, stage, C, res, gelu, M, N,
-                 t / tiles_n * BM + cw * 64 + warp * 16, t % tiles_n * BN);
+      const long row0 = t / tiles_n * BM + cw * 64 + warp * 16, n0 = t % tiles_n * BN;
+      if (out_f32 || epi == EPI_GELU_BWD)
+        store_tile_direct(acc, bias, bias_dtype, epi, out_f32, C, aux_in, aux_out, colsum, M, N,
+                          row0, n0);
+      else
+        store_tile(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res, epi == EPI_GELU, M,
+                   N, row0, n0);
     }
   }
 }
@@ -332,7 +415,8 @@ static int sm_count() {
 }
 
 static int launch_bf16(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
-                       const void* residual, int M, int N, int K, int gelu, cudaStream_t s) {
+                       const void* residual, int M, int N, int K, int epi, int out_f32,
+                       const void* aux_in, void* aux_out, void* colsum, cudaStream_t s) {
   constexpr int bytes = 1024 + STAGES * (BM + BN) * BK * 2 + 16 * STAGES + 8 * EPI_WARP_BYTES;
   static bool configured = false;
   if (!configured) {
@@ -348,8 +432,9 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
   // one block per SM (or per tile, if fewer), each walking its share of tiles
   const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   gemm_bf16_kernel<<<tiles < sms ? tiles : sms, 384, bytes, s>>>(
-      map_a, map_w, static_cast<bf16*>(c), bias, bias_dtype, gelu,
-      static_cast<const bf16*>(residual), M, N, K);
+      map_a, map_w, c, bias, bias_dtype, epi, static_cast<const bf16*>(residual), M, N, K,
+      out_f32, static_cast<const float*>(aux_in), static_cast<bf16*>(aux_out),
+      static_cast<float*>(colsum));
   return (int)cudaGetLastError();
 }
 
@@ -357,18 +442,12 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
 
 constexpr int FT = 64, FK = 16;
 
-__device__ __forceinline__ float epilogue(float acc, const void* __restrict__ bias,
-                                          int bias_dtype, int gelu, long col) {
-  float v = acc;
-  if (bias != nullptr) v += load_param(bias, col, bias_dtype);
-  if (gelu) v = 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-  return v;
-}
-
 __global__ void __launch_bounds__(256)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, float* __restrict__ C,
-                    const void* __restrict__ bias, int bias_dtype, int gelu,
-                    const float* __restrict__ res, int M, int N, int K) {
+                    const void* __restrict__ bias, int bias_dtype, int epi,
+                    const float* __restrict__ res, int M, int N, int K,
+                    const float* __restrict__ aux_in, float* __restrict__ aux_out,
+                    float* __restrict__ colsum) {
   __shared__ float as[FK][FT + 4];  // as[k][m]
   __shared__ float bs[FK][FT + 4];  // bs[k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -403,24 +482,45 @@ __global__ void __launch_bounds__(256)
     for (int j = 0; j < 4; ++j) {
       const long r = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
       if (r >= M || col >= N) continue;
-      float v = epilogue(acc[i][j], bias, bias_dtype, gelu, col);
+      float v = acc[i][j];
+      if (bias != nullptr) v += load_param(bias, col, bias_dtype);
+      if (epi == EPI_GELU) {
+        v = gelu_f(v);
+      } else if (epi == EPI_GELU_BWD) {
+        const float h = aux_in[r * N + col];
+        v *= gelu_grad(h);
+        aux_out[r * N + col] = gelu_f(h);
+        atomicAdd(colsum + (r / 16) * N + col, v);  // the caller zeroes colsum
+      }
       if (res != nullptr) v += res[r * N + col];
       C[r * N + col] = v;
     }
 }
 
+// epi: EPI_NONE, EPI_GELU or EPI_GELU_BWD (aux_in = h (M, N) float, aux_out
+// = act (M, N) in the working type, colsum = (ceil(M/16), N) float, zeroed).
+// out_f32 writes C in float from bf16 operands (no residual); a float32
+// product always writes float.
 extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
-                        const void* residual, int M, int N, int K, int gelu, int dtype,
+                        const void* residual, int M, int N, int K, int epi, int dtype,
+                        int out_f32, const void* aux_in, void* aux_out, void* colsum,
                         void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || epi < EPI_NONE || epi > EPI_GELU_BWD)
+    return (int)cudaErrorInvalidValue;
+  if (epi == EPI_GELU_BWD && (aux_in == nullptr || aux_out == nullptr || colsum == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {
-    if (K % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
-    return launch_bf16(a, w, c, bias, bias_dtype, residual, M, N, K, gelu, s);
+    if (K % 8 != 0 || N % 8 != 0 || (out_f32 && residual != nullptr))
+      return (int)cudaErrorInvalidValue;
+    return launch_bf16(a, w, c, bias, bias_dtype, residual, M, N, K, epi, out_f32, aux_in,
+                       aux_out, colsum, s);
   }
   const dim3 grid((N + FT - 1) / FT, (M + FT - 1) / FT);
   gemm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(a), static_cast<const float*>(w),
-                                       static_cast<float*>(c), bias, bias_dtype, gelu,
-                                       static_cast<const float*>(residual), M, N, K);
+                                       static_cast<float*>(c), bias, bias_dtype, epi,
+                                       static_cast<const float*>(residual), M, N, K,
+                                       static_cast<const float*>(aux_in),
+                                       static_cast<float*>(aux_out), static_cast<float*>(colsum));
   return (int)cudaGetLastError();
 }

@@ -100,3 +100,108 @@ extern "C" int mtt_layernorm(const void* x, const void* gamma, const void* beta,
     launch<float>(x, gamma, beta, y, rows, dim, wdtype, eps, s);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- backward
+//
+// The LayerNorm tail of two TPU backward kernels, mirage_tpu/ops/
+// block_attention.py:_attn_half_bwd_rows (B4) and mirage_tpu/ops/
+// fused_mlp.py:_mlp_bwd_rows (B5): from x, gamma and the float cotangent
+// dyln of the LN output,
+//   dx = dy + inv·(dyhat − mean(dyhat) − yhat·mean(dyhat·yhat)), dyhat = dyln·gamma,
+// and float partials of dgamma = Σ dyln·yhat and dbeta = Σ dyln over each
+// block's LNB_ROWS rows (the caller sums them). dy (the residual cotangent)
+// may be absent; sub_dy gives the no-residual form T(T(dy + ·) − dy) of
+// fused_mlp.py:_mlp_block_nores_bwd_vjp. Statistics are recomputed from x in
+// two passes, as the forward takes them.
+//
+// Bound: bytes. Each block first takes its rows' statistics (one warp per
+// row), then walks the columns, one thread per column, so the partials of
+// dgamma and dbeta stay in registers and every load is coalesced across the
+// threads of a row. What a later PR changes first: fusing this into the
+// epilogue of the dyln GEMM, so the float dyln stops going through device
+// memory.
+
+constexpr int LNB_ROWS = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    layernorm_bwd_kernel(const T* __restrict__ x, const void* __restrict__ gamma, int wdtype,
+                         const float* __restrict__ dyln, const T* __restrict__ dy, int sub_dy,
+                         T* __restrict__ dx, float* __restrict__ dgp, float* __restrict__ dbp,
+                         int rows, int dim, float eps) {
+  __shared__ float stats[LNB_ROWS][4];  // mean, inv, mean(dyhat), mean(dyhat·yhat)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long r0 = (long)blockIdx.x * LNB_ROWS;
+  for (int rr = warp; rr < LNB_ROWS; rr += 8) {
+    const long row = r0 + rr;
+    if (row >= rows) break;
+    const T* xr = x + row * dim;
+    const float* gr = dyln + row * dim;
+    float s = 0.f;
+    for (int i = lane; i < dim; i += 32) s += to_f(xr[i]);
+    const float mean = warp_sum(s) / dim;
+    float var = 0.f;
+    for (int i = lane; i < dim; i += 32) {
+      const float c = to_f(xr[i]) - mean;
+      var += c * c;
+    }
+    const float inv = rsqrtf(warp_sum(var) / dim + eps);
+    float a = 0.f, c2 = 0.f;
+    for (int i = lane; i < dim; i += 32) {
+      const float dyhat = gr[i] * load_param(gamma, i, wdtype);
+      a += dyhat;
+      c2 += dyhat * (to_f(xr[i]) - mean) * inv;
+    }
+    a = warp_sum(a);
+    c2 = warp_sum(c2);
+    if (lane == 0) {
+      stats[rr][0] = mean;
+      stats[rr][1] = inv;
+      stats[rr][2] = a / dim;
+      stats[rr][3] = c2 / dim;
+    }
+  }
+  __syncthreads();
+  const int nr = rows - r0 < LNB_ROWS ? (int)(rows - r0) : LNB_ROWS;
+  for (int c = tid; c < dim; c += 256) {
+    const float g = load_param(gamma, c, wdtype);
+    float dg = 0.f, db = 0.f;
+    for (int rr = 0; rr < nr; ++rr) {
+      const long i = (r0 + rr) * dim + c;
+      const float yhat = (to_f(x[i]) - stats[rr][0]) * stats[rr][1];
+      const float dl = dyln[i];
+      dg += dl * yhat;
+      db += dl;
+      float v = stats[rr][1] * (dl * g - stats[rr][2] - yhat * stats[rr][3]);
+      if (dy != nullptr) {
+        const float d = to_f(dy[i]);
+        v = sub_dy ? round_to<T>(d + v) - d : d + v;
+      }
+      dx[i] = from_f<T>(v);
+    }
+    dgp[(long)blockIdx.x * dim + c] = dg;
+    dbp[(long)blockIdx.x * dim + c] = db;
+  }
+}
+
+// dgp and dbp are (ceil(rows / 32), dim) float.
+extern "C" int mtt_layernorm_bwd(const void* x, const void* gamma, const void* dyln,
+                                 const void* dy, void* dx, void* dgp, void* dbp, int rows,
+                                 int dim, int dtype, int wdtype, int sub_dy, float eps,
+                                 void* stream) {
+  if (rows <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((rows + LNB_ROWS - 1) / LNB_ROWS);
+  const float* g = static_cast<const float*>(dyln);
+  float* pg = static_cast<float*>(dgp);
+  float* pb = static_cast<float*>(dbp);
+  if (dtype == MTT_BF16)
+    layernorm_bwd_kernel<bf16><<<grid, 256, 0, s>>>(
+        static_cast<const bf16*>(x), gamma, wdtype, g, static_cast<const bf16*>(dy), sub_dy,
+        static_cast<bf16*>(dx), pg, pb, rows, dim, eps);
+  else
+    layernorm_bwd_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), gamma, wdtype, g, static_cast<const float*>(dy), sub_dy,
+        static_cast<float*>(dx), pg, pb, rows, dim, eps);
+  return (int)cudaGetLastError();
+}

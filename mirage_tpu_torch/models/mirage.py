@@ -1,20 +1,31 @@
-"""MIRAGE core model: the wrapper-contract forward and the light forward.
+"""MIRAGE core model: the masked pretraining forward, the wrapper's static
+forward and the light forward.
 
-Counterpart of ``mirage_tpu/models/mirage.py``. This slice ports inference
-on the wrapper's contract: each modality is either present (all its tokens
-visible) or absent (all masked, listed in ``absent_tasks``, its embedding
-skipped and its decoder positions filled with mask tokens). With that
-contract the token shuffle of masked pretraining is the identity, so the
-forward is static concatenation and slicing. Random and partial masks come
-with the pretraining slice.
+Counterpart of ``mirage_tpu/models/mirage.py``. ``forward`` runs the masked
+MultiMAE forward (random Dirichlet masks from a ``torch.Generator``, or
+explicit task masks through ``masks_to_indices``) and returns
+``(preds, task_masks)``; called with ``absent_tasks`` it runs the wrapper's
+static contract instead: each modality either present (all its tokens
+visible) or absent (its embedding skipped, its decoder positions filled with
+mask tokens), where the token shuffle is the identity and the forward is
+concatenation and slicing; that call returns the predictions alone.
+
+Training keeps the parameters in float32 and runs the activations in
+``compute_dtype``; each op casts its weights to the activation dtype. The
+blocks' ops save only their inputs for the backward and recompute the rest
+(the effect of the JAX package's selective remat), so nothing here needs
+``torch.utils.checkpoint``.
 """
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from mirage_tpu_torch.adapters.input_adapters import SemSegInputAdapter
+from mirage_tpu_torch.masking.masking import (gather_rows,
+                                              generate_random_masks,
+                                              masks_to_indices)
 from mirage_tpu_torch.models.encoder import Encoder
 from mirage_tpu_torch.nn import init as vinit
 
@@ -91,12 +102,65 @@ class MIRAGEModel(nn.Module):
             b, self.num_global_tokens, self.dim_tokens)
         return torch.cat(tokens + [glob], dim=1)
 
-    def forward(self, x: Mapping[str, torch.Tensor], absent_tasks=()):
-        """x: task -> (B, C, H, W) image or (B, H, W) labels, every task of
-        the model's adapters in x (absent ones may hold zeros: only their
-        shapes are read). Returns task -> reconstruction (B, C, H, W) from
-        the output adapters, or the encoder tokens (B, N + G, D) if the model
-        has none."""
+    def forward(self, x: Mapping[str, torch.Tensor], absent_tasks=None, *,
+                mask_inputs: bool = True,
+                task_masks: Optional[Mapping[str, torch.Tensor]] = None,
+                num_encoded_tokens: int = 128,
+                num_visible: Optional[int] = None,
+                alphas: Union[float, Sequence[float]] = 1.0,
+                sample_tasks_uniformly: bool = False,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True, pixel_outputs: bool = True):
+        """x: task -> (B, C, H, W) image or (B, H, W) labels.
+
+        With ``absent_tasks`` (a sequence, possibly empty): the wrapper's
+        static path. Every task of the model's adapters must be in x (absent
+        ones may hold zeros: only their shapes are read); returns task ->
+        reconstruction (B, C, H, W), or the encoder tokens (B, N + G, D) if
+        the model has no output adapters.
+
+        Otherwise the masked pretraining forward (mirage_tpu/models/
+        mirage.py:186-327): ``task_masks`` (task -> (B, n) with 1 = masked)
+        with ``num_visible`` visible tokens per sample, or masks drawn from
+        ``generator`` with ``num_encoded_tokens`` visible (all tokens if not
+        ``mask_inputs``). Returns (preds, task_masks); preds are pixels, or
+        the decoders' patch tokens if not ``pixel_outputs``."""
+        if absent_tasks is not None:
+            return self._forward_static(x, tuple(absent_tasks))
+        input_info = self.generate_input_info(x)
+        task_order = [t for t in x if t in self.input_adapters]
+        tokens = [self.input_adapters[t](x[t], compute_dtype=self.compute_dtype)
+                  for t in task_order]
+        b = tokens[0].shape[0]
+        n_per_task = [t.shape[1] for t in tokens]
+        num_encoded = num_encoded_tokens if mask_inputs else sum(n_per_task)
+        if task_masks is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            masks, ids_keep, _ = generate_random_masks(
+                generator, n_per_task, b, num_encoded, alphas,
+                sample_tasks_uniformly)
+            task_masks = dict(zip(task_order, masks))
+        else:
+            ids_keep, _ = masks_to_indices(
+                task_masks, task_order,
+                num_visible if num_visible is not None else num_encoded)
+        dev = tokens[0].device
+        ids_keep = ids_keep.to(dev)
+        task_masks = {t: m.to(dev) for t, m in task_masks.items()}
+        enc = gather_rows(torch.cat(tokens, dim=1), ids_keep)
+        enc = torch.cat([enc, self.global_tokens.to(enc.dtype).expand(
+            b, self.num_global_tokens, self.dim_tokens)], dim=1)
+        enc = self.encoder(enc, deterministic)
+        if self.output_adapters is None:
+            return enc, task_masks
+        preds = {task: adapter(enc, input_info, ids_keep=ids_keep,
+                               deterministic=deterministic,
+                               pixel_output=pixel_outputs)
+                 for task, adapter in self.output_adapters.items()}
+        return preds, task_masks
+
+    def _forward_static(self, x, absent_tasks):
         input_info = self.generate_input_info(x)
         encoded = self.encoder(self._tokens(x, absent_tasks))
         if self.output_adapters is None:

@@ -10,7 +10,7 @@ Counterpart of ``mirage_tpu/nn/attention.py``.
 import torch
 from torch import nn
 
-from mirage_tpu_torch.nn.layers import Linear, linear
+from mirage_tpu_torch.nn.layers import Linear, acc_dtype, linear
 
 
 class Attention(nn.Module):
@@ -31,7 +31,8 @@ class CrossAttention(nn.Module):
 def sdpa(q, k, v, scale):
     """softmax(q kᵀ·scale) v over (B, H, N, dh); float scores, probabilities
     cast to v's dtype before the product."""
-    s = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+    acc = acc_dtype(q)
+    s = torch.einsum("bhnd,bhmd->bhnm", q.to(acc), k.to(acc)) * scale
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bhmd->bhnd", p.to(v.dtype), v)
 
@@ -46,13 +47,13 @@ def merge_heads(x):
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def packed_attention(qkv, num_heads):
+def packed_attention(qkv, num_heads, scale=None):
     """Multi-head self-attention over the packed (B, N, 3D) qkv projection
     (column order q|k|v × heads × dh) -> (B, N, D)."""
     b, n, three_d = qkv.shape
     dh = three_d // 3 // num_heads
     q, k, v = qkv.reshape(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-    return merge_heads(sdpa(q, k, v, dh ** -0.5))
+    return merge_heads(sdpa(q, k, v, dh ** -0.5 if scale is None else scale))
 
 
 def cross_attention(q_w, q_b, kv_w, kv_b, proj_w, proj_b, x, context,
@@ -65,3 +66,23 @@ def cross_attention(q_w, q_b, kv_w, kv_b, proj_w, proj_b, x, context,
     k, v = linear(context, kv_w, kv_b).reshape(
         b, m, 2, num_heads, dh).permute(2, 0, 3, 1, 4)
     return linear(merge_heads(sdpa(q, k, v, dh ** -0.5)), proj_w, proj_b)
+
+
+def attention_apply(attn: Attention, x, num_heads):
+    """Self-attention as training runs it at more than 128 tokens: the qkv
+    projection, the packed attention core (``block_attention``, B6), the
+    output projection (mirage_tpu/nn/attention.py:attention_apply)."""
+    from mirage_tpu_torch.ops.block_attention import block_attention
+
+    qkv = linear(x, attn.qkv.weight, attn.qkv.bias)
+    dh = x.shape[-1] // num_heads
+    out = block_attention(qkv, num_heads, dh ** -0.5)
+    return linear(out, attn.proj.weight, attn.proj.bias)
+
+
+def cross_attention_apply(cross: CrossAttention, x, context, num_heads):
+    """Cross-attention on the plain path, as the JAX package trains the
+    decoders (mirage_tpu/nn/attention.py:cross_attention_apply)."""
+    return cross_attention(cross.q.weight, cross.q.bias, cross.kv.weight,
+                           cross.kv.bias, cross.proj.weight, cross.proj.bias,
+                           x, context, num_heads)

@@ -1,4 +1,4 @@
-"""Linear, LayerNorm (eps 1e-6) and exact-erf GELU.
+"""Linear, LayerNorm (eps 1e-6), exact-erf GELU, dropout and drop-path.
 
 ``Linear`` and ``LayerNorm`` hold their parameters as ``weight``/``bias``
 like ``torch.nn.Linear``/``LayerNorm``, so reference checkpoints load with
@@ -18,6 +18,12 @@ from mirage_tpu_torch.nn import init as vinit
 LN_EPS = 1e-6
 
 
+def acc_dtype(t):
+    """The type sums are taken in: float64 stays float64 (the gradient
+    checks), everything else is float32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def gelu(x):
     """Exact (erf) GELU."""
     return F.gelu(x, approximate="none")
@@ -31,11 +37,35 @@ def linear(x, weight, bias=None):
 
 def layer_norm(x, weight, bias, eps=LN_EPS):
     """LayerNorm with float statistics, output in x's dtype."""
-    x32 = x.float()
+    acc = acc_dtype(x)
+    x32 = x.to(acc)
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    return (y * weight.to(acc) + bias.to(acc)).to(x.dtype)
+
+
+def dropout(x, rate: float, *, deterministic: bool = True, generator=None):
+    """Inverted dropout; the identity at rate 0 or when deterministic, and
+    otherwise drawn from ``generator``."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout at a non-zero rate needs a generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
+
+
+def drop_path(x, rate: float, *, deterministic: bool = True, generator=None):
+    """Per-sample stochastic depth; the identity at rate 0 or when
+    deterministic (or without a generator, as the JAX package's rng=None)."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                   device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
 
 
 class Linear(nn.Module):

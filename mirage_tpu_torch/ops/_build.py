@@ -20,13 +20,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points: (symbol, argtypes). Every entry returns cudaGetLastError().
+SOURCES = ("layernorm", "gemm", "attention", "attention_bwd")
+# C entry points: name -> (source, symbol, argtypes). Every entry returns
+# cudaGetLastError().
 ENTRIES = {
-    "layernorm": ("mtt_layernorm", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "gemm": ("mtt_gemm", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
-    "attention": ("mtt_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _LL, _I, _LL, _I, _LL, _I, _LL, _I, _F,
-                                    _I, _P]),
+    "layernorm": ("layernorm", "mtt_layernorm",
+                  [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "layernorm_bwd": ("layernorm", "mtt_layernorm_bwd",
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                       _P]),
+    "gemm": ("gemm", "mtt_gemm", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                                  _I, _P, _P, _P, _P]),
+    "attention": ("attention", "mtt_attention",
+                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _LL, _I, _LL,
+                   _I, _LL, _I, _F, _I, _P]),
+    "attention_bwd": ("attention_bwd", "mtt_attention_bwd",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -54,7 +63,7 @@ def _stale(name: str) -> bool:
 def build(force: bool = False) -> dict:
     """Compiles every stale source in parallel; returns ptxas_report."""
     with _lock:
-        todo = [n for n in ENTRIES if force or _stale(n)]
+        todo = [n for n in SOURCES if force or _stale(n)]
         if not todo:
             return ptxas_report
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,8 +95,8 @@ def entry(name: str):
     build()
     with _lock:
         if name not in _funcs:
-            symbol, argtypes = ENTRIES[name]
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+            source, symbol, argtypes = ENTRIES[name]
+            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{source}.so"))
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

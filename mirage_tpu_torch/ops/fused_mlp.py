@@ -1,18 +1,32 @@
 """MLP half-block: out = x + fc2(GELU_erf(fc1(LN(x)))).
 
 Replaces ``mirage_tpu/ops/fused_mlp.py:_mlp_block_fwd`` / ``_mlp_kernel``
-(the Pallas kernel that keeps the whole half-block in VMEM). On the card it
-runs as three CUDA kernels: LayerNorm (csrc/layernorm.cu), fc1 with bias and
-GELU in the epilogue, then fc2 with bias and the residual in the epilogue
-(csrc/gemm.cu, wgmma). Bound: operations (2·M·D·4D·2 FLOPs against M·D·2
-bytes of activations and 8·D² bytes of weights). This first version writes
-the LN output and the (M, 4D) hidden to device memory between the kernels —
-the first traffic a later PR fuses away. ``residual=False`` drops the
-skip-add.
+(B2, the Pallas kernel that keeps the whole half-block in VMEM) and, as its
+backward, ``_mlp_block_bwd_defused`` / ``_mlp_bwd_dx_kernel`` (B5). On the
+card the forward runs as three CUDA kernels: LayerNorm (csrc/layernorm.cu),
+fc1 with bias and GELU in the epilogue, then fc2 with bias and the residual
+in the epilogue (csrc/gemm.cu, wgmma). The backward recomputes LN and
+h = y·W1ᵀ + b1 (float output), runs dact = dy·W2 with the GELU backward in
+its epilogue (dh = T(dact·GELU′(h)), act = T(GELU(h)), float partials of db1
+from the unrounded dh), then dyln = dh·W1 (float output) and the LN
+backward; dW1, dW2 and db2 are contractions outside, as in the JAX package
+(:511-523). Bound: operations (2·M·D·4D·2 FLOPs forward, twice that and the
+recompute backward). This first version writes the LN output, the (M, 4D)
+hidden (and, backward, h in float, dh and act) to device memory between the
+kernels — the first traffic a later PR fuses away. The products with a
+non-transposed weight pass it transposed (a copy per call).
+``residual=False`` drops the skip-add; its backward is the residual one
+minus the pass-through cotangent (dx = T(dx_res) − dy, fused_mlp.py:976-981).
 """
 
-from mirage_tpu_torch.nn.layers import gelu, layer_norm, linear
+import torch
+
+from mirage_tpu_torch.nn.layers import acc_dtype, gelu, layer_norm, linear
 from mirage_tpu_torch.ops import runtime
+from mirage_tpu_torch.ops.block_attention import _needs_grad, ln_bwd_ref
+
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
@@ -21,18 +35,89 @@ def mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
     return x + h if residual else h
 
 
-def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
-    """x: (..., D); w1 (4D, D), w2 (D, 4D) torch Linear layout."""
+def mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
+    """Plain PyTorch backward, step by step as _mlp_bwd_rows: y = T(LN(x)),
+    h = y·W1ᵀ + b1 in float, act = T(GELU(h)); dact = dy·W2 in float,
+    dh = dact·GELU′(h) (db1 from it), dyln = T(dh)·W1 in float; the LN
+    backward. Returns (dx, dgamma, dbeta, dw1, db1, dw2, db2) as
+    _mlp_block_bwd_defused does, parameter grads in float and in torch
+    layout (dw1 (4D, D), dw2 (D, 4D))."""
+    dt, acc = x.dtype, acc_dtype(x)
+    w1c, w2c = w1.to(dt).to(acc), w2.to(dt).to(acc)
+    y = layer_norm(x, ln_w, ln_b)
+    h = y.to(acc) @ w1c.t() + b1.to(acc)
+    e = torch.erf(h * _INV_SQRT2)
+    act = (0.5 * h * (1.0 + e)).to(dt)
+    dy32 = dy.to(acc)
+    dh = (dy32 @ w2c) * (0.5 * (1.0 + e)
+                         + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI)
+    dims = tuple(range(x.ndim - 1))
+    dh_c = dh.to(dt).to(acc)
+    dx, dgamma, dbeta = ln_bwd_ref(x, dh_c @ w1c, ln_w, dy)
+    dx = dx.to(dt)
+    if not residual:
+        dx = dx - dy
+    rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    return (dx, dgamma, dbeta, rows(dh_c).t() @ rows(y.to(acc)), dh.sum(dims),
+            rows(dy32).t() @ rows(act.to(acc)), dy32.sum(dims))
+
+
+def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
     if not runtime.use_kernel(x):
         return mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual)
     runtime.check("x", x, x)
     x2 = x.view(-1, x.shape[-1])
     y = runtime.layernorm(x2, ln_w, ln_b)
-    h = runtime.gemm(y, w1, b1, gelu=True)
-    out = runtime.gemm(h, w2, b2, residual=x2 if residual else None)
+    h = runtime.gemm(y, w1.to(x.dtype), b1, gelu=True)
+    out = runtime.gemm(h, w2.to(x.dtype), b2,
+                       residual=x2 if residual else None)
     mlp_block.launches += 1
     return out.view(x.shape)
 
 
-mlp_block.launches = 0
+def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
+    """B5 on the card: the recompute, the GELU backward (in the dact GEMM's
+    epilogue) and the LN backward as CUDA kernels; dW1, dW2, db2 outside."""
+    if not runtime.use_kernel(x):
+        return mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
+    runtime.check("x", x, x)
+    d = x.shape[-1]
+    x2, dy2 = x.view(-1, d), dy.contiguous().view(-1, d)
+    w1c = w1.to(x.dtype).contiguous()
+    y = runtime.layernorm(x2, ln_w, ln_b)
+    h = runtime.gemm(y, w1c, b1, out_dtype=torch.float32)
+    dh, act, db1 = runtime.gemm_gelu_bwd(
+        dy2, w2.to(x.dtype).t().contiguous(), h)
+    del h
+    dyln = runtime.gemm(dh, w1c.t().contiguous(), out_dtype=torch.float32)
+    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2,
+                                              sub_dy=not residual)
+    mlp_block.bwd_launches += 1
+    return (dx.view(x.shape), dgamma, dbeta, runtime.wgrad(dh, y), db1,
+            runtime.wgrad(dy2, act), dy2.float().sum(0))
 
+
+class _MlpBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, residual):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2)
+        ctx.residual = residual
+        return _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *params = ctx.saved_tensors
+        return (*_mlp_bwd(x, dy, *params, ctx.residual), None)
+
+
+def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
+    """x: (..., D); w1 (4D, D), w2 (D, 4D) torch Linear layout.
+    Differentiable (B5 backward on the card); weights of another dtype than
+    x are cast to it."""
+    if _needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
+        return _MlpBlock.apply(x, ln_w, ln_b, w1, b1, w2, b2, residual)
+    return _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual)
+
+
+mlp_block.launches = 0
+mlp_block.bwd_launches = 0

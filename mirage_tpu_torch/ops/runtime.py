@@ -5,9 +5,13 @@ on a CPU tensor. Nothing else chooses: a CUDA tensor never takes the plain
 version (except inside :func:`plain_on_card`, which ``chip_smoke.py`` uses
 to build its reference on the card), and a failed build or launch raises.
 
-The launchers below (``layernorm``, ``gemm``, ``attention``) check their
-operands, allocate outputs with ``torch.empty`` and launch one kernel of
-``csrc/`` on PyTorch's current stream, raising if the launch is refused.
+The launchers below (``layernorm``, ``layernorm_bwd``, ``gemm``,
+``gemm_gelu_bwd``, ``attention``, ``attention_bwd``) check their operands,
+allocate outputs with ``torch.empty`` (partial sums with ``torch.zeros``)
+and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
+raising if the launch is refused. :func:`wgrad` is the weight-gradient
+contraction the backward ops leave outside their kernels, as the JAX
+package leaves it to XLA.
 """
 
 import contextlib
@@ -17,6 +21,7 @@ import torch
 from mirage_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2}
 _plain_on_card = False
 
 
@@ -95,9 +100,33 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
-         gelu: bool = False) -> torch.Tensor:
-    """a (M, K) · w (N, K)ᵀ (+ bias) [GELU] (+ residual) -> (M, N)."""
+def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
+                  dy=None, sub_dy: bool = False, eps: float = 1e-6):
+    """Backward of (M, D) LayerNorm from x, its scale and the float
+    cotangent dyln of its output: (dx, dgamma, dbeta). dx = dy + the LN
+    term, in x's dtype (sub_dy: T(T(dy + ·) − dy), the no-residual form);
+    dgamma and dbeta are float sums of the kernel's per-block partials."""
+    m, d = x.shape
+    check("x", x, x)
+    check("ln weight", weight, x, (d,), dtype=False)
+    if dyln.dtype != torch.float32:
+        raise ValueError(f"dyln: dtype {dyln.dtype}, expected torch.float32")
+    check("dyln", dyln, dyln, (m, d))
+    if dy is not None:
+        check("dy", dy, x, (m, d))
+    elif sub_dy:
+        raise ValueError("sub_dy needs dy")
+    dx = torch.empty_like(x)
+    blocks = -(-m // 32)
+    dgp = torch.empty((blocks, d), device=x.device, dtype=torch.float32)
+    dbp = torch.empty_like(dgp)
+    _launch("layernorm_bwd", x.data_ptr(), weight.data_ptr(), dyln.data_ptr(),
+            _ptr(dy), dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), m, d,
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), eps)
+    return dx, dgp.sum(0), dbp.sum(0)
+
+
+def _gemm_operands(a, w):
     m, k = a.shape
     n = w.shape[0]
     check("a", a, a)
@@ -105,15 +134,62 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     if a.dtype == torch.bfloat16 and (k % 8 or n % 8):
         raise ValueError(f"bf16 gemm needs K and N multiples of 8, got "
                          f"K={k}, N={n}")
+    return m, n, k
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
+         gelu: bool = False, out_dtype=None) -> torch.Tensor:
+    """a (M, K) · w (N, K)ᵀ (+ bias) [GELU] (+ residual) -> (M, N), in a's
+    dtype or, with out_dtype=torch.float32, in float (no residual then)."""
+    m, n, k = _gemm_operands(a, w)
+    out_f32 = out_dtype == torch.float32
+    if out_dtype not in (None, a.dtype, torch.float32):
+        raise ValueError(f"gemm out_dtype {out_dtype} unsupported")
+    if out_f32 and residual is not None:
+        raise ValueError("gemm: a float32 output takes no residual")
     if bias is not None:
         check("bias", bias, a, (n,), dtype=False)
     if residual is not None:
         check("residual", residual, a, (m, n))
-    c = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    c = torch.empty((m, n), device=a.device,
+                    dtype=torch.float32 if out_f32 else a.dtype)
     _launch("gemm", a.data_ptr(), w.data_ptr(), c.data_ptr(), _ptr(bias),
             _DTYPES[bias.dtype] if bias is not None else 0, _ptr(residual),
-            m, n, k, int(gelu), _DTYPES[a.dtype])
+            m, n, k, _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype],
+            int(out_f32), None, None, None)
     return c
+
+
+def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
+    """The MLP backward's dact GEMM with the GELU backward as its epilogue:
+    acc = a (M, K) · w (N, K)ᵀ, h (M, N) float the fc1 output. Returns
+    dh = T(acc·GELU′(h)), act = T(GELU(h)) and db1, the float column sums of
+    the unrounded dh (from the kernel's 16-row partials)."""
+    m, n, k = _gemm_operands(a, w)
+    if h.dtype != torch.float32:
+        raise ValueError(f"h: dtype {h.dtype}, expected torch.float32")
+    check("h", h, h, (m, n))
+    if h.device != a.device:
+        raise ValueError(f"h: on {h.device}, expected {a.device}")
+    dh = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    act = torch.empty_like(dh)
+    colsum = torch.zeros((-(-m // 16), n), device=a.device,
+                         dtype=torch.float32)
+    _launch("gemm", a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
+            m, n, k, _EPI["gelu_bwd"], _DTYPES[a.dtype], 0, h.data_ptr(),
+            act.data_ptr(), colsum.data_ptr())
+    return dh, act, colsum.sum(0)
+
+
+def wgrad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """gᵀ·a over the rows of two (M, ·) matrices, in float: a weight
+    gradient in torch Linear layout (out, in). 16-bit operands multiply
+    exactly and sum in float (cuBLAS with a float output), as JAX's
+    preferred_element_type=float32 contractions do; never rounded."""
+    if g.dtype == torch.bfloat16:
+        return torch.mm(g.t(), a, out_dtype=torch.float32)
+    acc = torch.float64 if g.dtype == torch.float64 else torch.float32
+    return g.to(acc).t() @ a.to(acc)
 
 
 MAX_KEYS = 512
@@ -151,3 +227,33 @@ def attention(q, k, v, out, *, heads: int, dh: int, scale: float):
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             scale, _DTYPES[q.dtype])
+
+
+def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
+                  dh: int, scale: float):
+    """Backward of :func:`attention` on a packed (B, N, 3D) qkv with
+    cotangent dout (B, N, D): dqkv (B, N, 3D) in qkv's dtype and the float
+    column sums of the unrounded dqkv over all rows (for the qkv bias)."""
+    b, n, three_d = qkv.shape
+    d = heads * dh
+    if three_d != 3 * d:
+        raise ValueError(f"attention_bwd: qkv width {three_d} != 3·{heads}·{dh}")
+    if n > MAX_KEYS:
+        raise NotImplementedError(
+            f"{n} tokens: the attention backward kernel holds at most "
+            f"{MAX_KEYS}; longer sequences need the flash-attention kernel "
+            f"(ROADMAP B8)")
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
+                         f"up to 128")
+    check("qkv", qkv, qkv)
+    check("dout", dout, qkv, (b, n, d))
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((2, b, heads, n), device=qkv.device,
+                        dtype=torch.float32)
+    part = torch.zeros((b * -(-n // 16), 3 * d), device=qkv.device,
+                       dtype=torch.float32)
+    _launch("attention_bwd", qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(), b, n,
+            heads, dh, scale, _DTYPES[qkv.dtype])
+    return dqkv, part.sum(0)

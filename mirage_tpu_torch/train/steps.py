@@ -1,0 +1,88 @@
+"""The single-device pretraining step: masked forward, token-space losses,
+backward, AdamW.
+
+Counterpart of ``mirage_tpu/train/steps.py`` (``make_pretrain_loss``,
+``make_train_step``, ``init_train_state``; reference run_pretraining.py
+train_one_epoch): per-task masked losses summed, the gradients of every
+trainable parameter, the grouped optimizer's clipped update, and metrics
+``{"loss", "grad_norm", "loss_<task>"}`` left on the device (no host sync in
+the step). The multi-device steps come with the multi-GPU slice.
+"""
+
+from typing import Any, Callable, Mapping, Optional
+
+import torch
+
+from mirage_tpu_torch.losses.masked import (masked_ce_loss_tokens,
+                                            masked_mse_loss_tokens)
+from mirage_tpu_torch.train.optim import GroupedOptimizer
+
+
+def make_pretrain_loss(model, domain_conf: Mapping[str, Mapping[str, Any]],
+                       num_encoded_tokens: int, alphas=1.0,
+                       sample_tasks_uniformly: bool = False,
+                       loss_on_unmasked: bool = False):
+    """domain_conf: task -> {'loss': 'mse'|'ce', 'patch_size': int,
+    'norm_pix': bool}. Returns loss_fn(batch, generator=None,
+    task_masks=None, num_visible=None) -> (loss, {task: loss}): random masks
+    from ``generator``, or explicit ``task_masks`` (1 = masked) with
+    ``num_visible`` visible tokens per sample."""
+
+    def loss_fn(batch, generator: Optional[torch.Generator] = None,
+                task_masks=None, num_visible=None):
+        preds, masks = model(
+            batch, mask_inputs=True, task_masks=task_masks,
+            num_encoded_tokens=num_encoded_tokens, num_visible=num_visible,
+            alphas=alphas, sample_tasks_uniformly=sample_tasks_uniformly,
+            generator=generator, deterministic=False, pixel_outputs=False)
+        task_losses = {}
+        for task, pred in preds.items():
+            conf = domain_conf[task]
+            mask = None if loss_on_unmasked else masks[task]
+            if conf["loss"] == "ce":
+                task_losses[task] = masked_ce_loss_tokens(
+                    pred, batch[task], mask, patch_size=conf["patch_size"])
+            else:
+                task_losses[task] = masked_mse_loss_tokens(
+                    pred.float(), batch[task].float(), mask,
+                    patch_size=conf["patch_size"],
+                    norm_pix=conf.get("norm_pix", False))
+        return sum(task_losses.values()), task_losses
+
+    return loss_fn
+
+
+def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
+    """{'params': name -> parameter (the model's own, updated in place),
+    'opt': the optimizer state, 'step': a device counter}. Frozen parameters
+    stop requiring grad."""
+    optimizer.stop_frozen(model)
+    params = dict(model.named_parameters())
+    first = next(iter(params.values()))
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+
+def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer):
+    """step_fn(state, batch, generator, lr, wd_scale=1.0, task_masks=None,
+    num_visible=None) -> (state, metrics): gradients of every parameter
+    that requires grad, the optimizer update in place, the step counter."""
+
+    def step_fn(state, batch, generator, lr, wd_scale=1.0, task_masks=None,
+                num_visible=None):
+        params = state["params"]
+        loss, task_losses = loss_fn(batch, generator=generator,
+                                    task_masks=task_masks,
+                                    num_visible=num_visible)
+        names = [n for n, p in params.items() if p.requires_grad]
+        grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                    allow_unused=True)
+        gnorm = optimizer.update(dict(zip(names, grads)), state["opt"],
+                                 params, lr, wd_scale)
+        state["step"] += 1
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm}
+        metrics.update({f"loss_{k}": v.detach()
+                        for k, v in task_losses.items()})
+        return state, metrics
+
+    return step_fn

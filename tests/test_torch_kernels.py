@@ -183,3 +183,170 @@ def test_layernorm_matches_plain(cuda, dtype, m, d, offset):
     # one bf16 step of the O(1) output, or float32 sums in another order
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     assert _max_err(runtime.layernorm(x, w, b), want) <= atol
+
+
+# ---------------------------------------------------------------- backward
+#
+# Each backward op against its plain version on the same inputs (the plain
+# version in float32 for bf16 inputs), every output compared: float32 at
+# atol 1e-4 relative to the output's largest element (weight grads sum over
+# every row), bf16 at a relative L2 error of 1e-2 (bf16 intermediates round
+# at 2^-8, where the TPU kernels round).
+
+from mirage_tpu_torch.nn.block import Block  # noqa: E402
+from mirage_tpu_torch.ops import block_attention as ba  # noqa: E402
+from mirage_tpu_torch.ops import fused_mlp as fm  # noqa: E402
+
+
+def _check_grads(got, want, dtype):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, i
+            continue
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            assert _max_err(g, w) <= 1e-4 * max(1.0, w.abs().max().item()), i
+        else:
+            assert ((g - w).norm() / w.norm()).item() <= 1e-2, i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,h,bias", [
+    (2, 33, 64, 4, True), (2, 99, 64, 2, False), (3, 99, 768, 12, True),
+    (2, 256, 256, 8, True), (1, 17, 96, 2, True)])
+def test_attn_half_backward_kernel_matches_plain(cuda, dtype, b, n, d, h,
+                                                 bias):
+    """Head dims 16, 32, 48 and 64, ragged N, no qkv bias."""
+    rng = np.random.default_rng(n + d)
+    p = _params(rng, d, 1, 3)
+    x, dy = (_on(rng.standard_normal((b, n, d)).astype(np.float32), cuda,
+                 dtype) for _ in range(2))
+    args = [_on(a, cuda, dtype) for a in (p["g"], p["be"], p["w1"])] + [
+        _on(p["b1"], cuda, dtype) if bias else None,
+        _on(p["w2"], cuda, dtype)]
+    before = ba.attn_half_block.bwd_launches
+    got = ba._attn_half_bwd(x, dy, *args, h)
+    assert ba.attn_half_block.bwd_launches == before + 1
+    with runtime.plain_on_card():
+        want = ba.attn_half_block_bwd_ref(
+            x.float(), dy.float(), *[a.float() if a is not None else None
+                                     for a in args], h)
+    _check_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(2, 33, 64), (2, 99, 768), (4, 256, 256)])
+def test_mlp_backward_kernel_matches_plain(cuda, dtype, residual, shape):
+    rng = np.random.default_rng(sum(shape))
+    d = shape[-1]
+    p = _params(rng, d, 4, 4)
+    x, dy = (_on(rng.standard_normal(shape).astype(np.float32), cuda, dtype)
+             for _ in range(2))
+    args = [_on(p[k], cuda, dtype) for k in ("g", "be", "w1", "b1", "w2")]
+    got = fm._mlp_bwd(x, dy, *args, residual=residual)
+    with runtime.plain_on_card():
+        want = fm.mlp_block_bwd_ref(x.float(), dy.float(),
+                                    *[a.float() for a in args],
+                                    residual=residual)
+    _check_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", [(2, 33, 4, 16), (2, 256, 8, 32),
+                                      (3, 99, 12, 64), (1, 130, 2, 128),
+                                      (1, 512, 2, 48)])
+def test_block_attention_kernels_match_plain(cuda, dtype, b, n, h, dh):
+    """B6 forward and backward: every head dim class, ragged N up to 512."""
+    g = torch.Generator(device="cuda").manual_seed(n + dh)
+    d = h * dh
+    qkv = torch.randn(b, n, 3 * d, device=cuda, generator=g).to(dtype)
+    dy = torch.randn(b, n, d, device=cuda, generator=g).to(dtype)
+    scale = dh ** -0.5
+    fwd0, bwd0 = ba.block_attention.launches, ba.block_attention.bwd_launches
+    out = ba.block_attention(qkv, h, scale)
+    dqkv = ba._block_attn_bwd(qkv, dy, h, scale)
+    assert (ba.block_attention.launches, ba.block_attention.bwd_launches) \
+        == (fwd0 + 1, bwd0 + 1)
+    with runtime.plain_on_card():
+        want = ba.block_attention_ref(qkv.float(), h, scale)
+        want_d = ba.block_attention_bwd_ref(qkv.float(), dy.float(), h, scale)
+    _check_grads([out, dqkv], [want, want_d], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,sub", [(33, 72, False), (65, 256, True),
+                                     (25344, 768, False)])
+def test_layernorm_backward_matches_plain(cuda, dtype, m, d, sub):
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    x = (torch.randn(m, d, device=cuda, generator=g) + 3.0).to(dtype)
+    w = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    dyln = torch.randn(m, d, device=cuda, generator=g)
+    dy = torch.randn(m, d, device=cuda, generator=g).to(dtype)
+    dx, dgamma, dbeta = runtime.layernorm_bwd(x, w, dyln, dy, sub_dy=sub)
+    want_dx, want_g, want_b = ba.ln_bwd_ref(x.float(), dyln, w, dy.float())
+    if sub:
+        want_dx = want_dx.to(dtype).float() - dy.float()
+    _check_grads([dx, dgamma, dbeta], [want_dx, want_g, want_b], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", [(33, 192, 64), (130, 264, 72),
+                                   (514, 3072, 768)])
+def test_gemm_float_output_and_gelu_backward(cuda, dtype, m, n, k):
+    """The float32 output and the GELU-backward epilogue (dh, act and the
+    16-row column partials of db1), ragged M against the tiles."""
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    a = torch.randn(m, k, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(n, k, device=cuda, generator=g) * k ** -0.5).to(dtype)
+    b = torch.randn(n, device=cuda, generator=g) * 0.1
+    c = runtime.gemm(a, w, b, out_dtype=torch.float32)
+    assert c.dtype == torch.float32
+    assert _max_err(c, F.linear(a.float(), w.float(), b)) <= 1e-4 * k ** 0.5
+    h = torch.randn(m, n, device=cuda, generator=g) * 2
+    dh, act, db1 = runtime.gemm_gelu_bwd(a, w, h)
+    acc = a.float() @ w.float().t()
+    grad = 0.5 * (1 + torch.erf(h / 2 ** 0.5)) \
+        + h * torch.exp(-0.5 * h * h) / (2 * np.pi) ** 0.5
+    _check_grads([dh, act, db1], [acc * grad, F.gelu(h), (acc * grad).sum(0)],
+                 dtype)
+
+
+@pytest.mark.parametrize("n", [99, 256])
+def test_block_training_gives_every_parameter_a_grad(cuda, n):
+    """A CUDA forward under autograd keeps its graph: every parameter of a
+    Block gets a gradient (B1/B4 at 99 tokens, block_attention at 256), and
+    they agree with the plain path's."""
+    torch.manual_seed(0)
+    block = Block(256, 8, qkv_bias=True).to(cuda)
+    for name, prm in block.named_parameters():
+        torch.nn.init.normal_(prm, mean=float("norm" in name
+                                            and name.endswith("weight")),
+                              std=0.05)
+    x = torch.randn(2, n, 256, device=cuda).to(torch.bfloat16)
+
+    def grads():
+        block.zero_grad()
+        block(x, deterministic=False).float().square().sum().backward()
+        return {k: p.grad.clone() for k, p in block.named_parameters()}
+
+    got = grads()
+    assert set(got) == {k for k, _ in block.named_parameters()}
+    with runtime.plain_on_card():
+        want = grads()
+    for k, g in got.items():
+        assert torch.isfinite(g).all(), k
+        assert ((g - want[k]).norm() / want[k].norm()).item() <= 3e-2, k
+
+
+def test_xattn_half_block_raises_under_autograd(cuda):
+    rng = np.random.default_rng(1)
+    pq, pc = _params(rng, 64, 1, 1), _params(rng, 64, 1, 2)
+    args = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((2, 16, 64)).astype(np.float32),
+        rng.standard_normal((2, 33, 64)).astype(np.float32), pq["g"],
+        pq["be"], pc["g"], pc["be"], pq["w1"], pq["b1"], pc["w1"], pc["b1"],
+        pq["w2"], pq["b2"])]
+    args[6].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        xattn_half_block(*args, 4)
