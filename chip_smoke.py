@@ -11,19 +11,32 @@ Phases, each of which must pass (any failure exits non-zero):
 2. kernels: each op (B1 attn_half_block, B2 mlp_block, B3 xattn_half_block)
    at the MIRAGE-Large main-path shapes in bf16 against its plain PyTorch
    version computed in float32 from the same bf16 inputs, plus one float32
-   case per op; times the kernel, the plain version and a composite of
-   PyTorch library calls with CUDA events.
+   case per op; the backward ops B4-B6 at the pretraining shapes; B8
+   flash_attention (forward and backward) at the segmentation encoder's
+   (4, 12, 1025, 64) and the decoders' (64, 8, 256 × 769, 32), and B9 (the
+   stash MLP pair) at (65536, 384) -> 1536; times the kernel, the plain
+   version and a composite of PyTorch library calls with CUDA events.
 3. golden: tests/golden/example_triplet_tiny.npz (reference weights and
    outputs) through the port's wrapper on the card in float32.
 4. serve: MIRAGE-Large (1024 wide, 24 layers, 16 heads; three 256/2/8
    decoders) from a seeded random init, saved as a .pth, loaded through
    MIRAGEWrapper in bf16, served by MIRAGEServer on an ephemeral port;
    concurrent HTTP requests, launch counts per forward, agreement with the
-   plain path on the card, batch-64 throughput, and one forward's device
-   time by kernel group under torch.profiler.
+   plain path on the card, one three-modality request (769 tokens, through
+   B8), batch-64 throughput, and one forward's device time by kernel group
+   under torch.profiler.
+5. train: the ViT-B pretraining step at batch 256 (kernel step vs plain
+   step, launch counts, ms/step, a profile).
+6. seg: segmentation tuning (configs/seg_200e_convnext.yaml, MIRAGE-Base
+   at 1025 tokens with the ConvNeXt head) through run_seg_tuning.main on a
+   seeded synthetic dataset, then the bare train step at batch 4: kernel
+   step vs plain step, exact launch counts per step and per eval forward,
+   ms/step, peak memory and a profile.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.
+``--phases`` runs a subset (a partial run prints no result line). The line
+before the last is a JSON object with one entry per kernel; the card's name
+and power limit come before it; the last line is {"ok": true, "device":
+{...}}.
 """
 
 import io
@@ -89,7 +102,15 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "attn_bwd_dq_f32_kernel": "attention_bwd",
                 "attn_bwd_dkv_f32_kernel": "attention_bwd",
                 "layernorm_kernel": "layernorm",
-                "layernorm_bwd_kernel": "layernorm_bwd"}
+                "layernorm_bwd_kernel": "layernorm_bwd",
+                "flash_fwd_bf16_kernel": "flash_attention",
+                "flash_fwd_f32_kernel": "flash_attention",
+                "flash_bwd_dq_kernel": "flash_attention_bwd",
+                "flash_bwd_dkv_kernel": "flash_attention_bwd",
+                "flash_bwd_dq_f32_kernel": "flash_attention_bwd",
+                "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
+                "wgrad_bf16_kernel": "wgrad", "wgrad_f32_kernel": "wgrad",
+                "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad"}
 
 
 def log(*a):
@@ -590,6 +611,275 @@ def phase_backward(results):
     return results
 
 
+# segmentation's kernels: name -> (TPU kernel file:line, launcher -> kernel,
+# wrapper, sources)
+SEG_KERNELS = {
+    "flash_attention": (
+        "mirage_tpu/ops/flash_attention.py:42",
+        "_flash_fwd :82 -> _attn_kernel :42",
+        "mirage_tpu_torch/ops/flash_attention.py", ["flash_attention.cu"]),
+    "flash_attention_bwd": (
+        "mirage_tpu/ops/flash_attention.py:115",
+        "_flash_bwd :175 -> _attn_bwd_kernel :115",
+        "mirage_tpu_torch/ops/flash_attention.py", ["flash_attention.cu"]),
+    "mlp_block_stash": (
+        "mirage_tpu/ops/fused_mlp.py:555",
+        "_mlp_block_fwd_stash :591 -> _mlp_fwd_stash_kernel :555",
+        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"]),
+    "mlp_block_stash_bwd": (
+        "mirage_tpu/ops/fused_mlp.py:687",
+        "_mlp_block_bwd_stash :736 -> _mlp_bwd_stash_kernel :687",
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "gemm.cu", "wgrad.cu"]),
+}
+
+
+def _flash_inputs(shape, dtype, gen):
+    """(q_src, kv_src or None, heads, scale), cotangent: the packed qkv of a
+    self-attention (b, h, n, dh) or the queries and packed kv of a
+    cross-attention (b, h, nq, nk, dh)."""
+    import torch
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen).to(dtype).cuda()
+
+    if len(shape) == 4:
+        b, h, n, dh = shape
+        return (rn(b, n, 3 * h * dh), None, h, dh ** -0.5), rn(b, n, h * dh)
+    b, h, nq, nk, dh = shape
+    return ((rn(b, nq, h * dh), rn(b, nk, 2 * h * dh), h, dh ** -0.5),
+            rn(b, nq, h * dh))
+
+
+def _flash_work(shape, elem_bytes, backward):
+    """(FLOPs, bytes) at (b, h, nq, nk, dh): 4·B·H·Nq·Nk·dh forward, 10·
+    backward; q, k, v (and dO) read once, out (dq, dk, dv) written once,
+    the float lse."""
+    b, h, nq, nk, dh = shape
+    if not backward:
+        return 4 * b * h * nq * nk * dh, \
+            (2 * nq + 2 * nk) * b * h * dh * elem_bytes + 4 * b * h * nq
+    return 10 * b * h * nq * nk * dh, \
+        (3 * nq + 4 * nk) * b * h * dh * elem_bytes + 4 * b * h * nq
+
+
+def _flash_library(backward):
+    """F.scaled_dot_product_attention on the same packed inputs (and its
+    autograd backward): a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    def heads(t, h):
+        b, n, c = t.shape
+        return t.view(b, n, h, c // h).transpose(1, 2)
+
+    def fwd(q_src, kv_src, h, scale):
+        if kv_src is None:
+            q, k, v = q_src.chunk(3, dim=-1)
+        else:
+            q, (k, v) = q_src, kv_src.chunk(2, dim=-1)
+        o = F.scaled_dot_product_attention(heads(q, h), heads(k, h),
+                                           heads(v, h), scale=scale)
+        return o.transpose(1, 2).flatten(2)
+
+    if not backward:
+        return fwd
+
+    def bwd(dy, q_src, kv_src, h, scale):
+        srcs = [t.detach().requires_grad_() for t in (q_src, kv_src)
+                if t is not None]
+        out = fwd(srcs[0], srcs[1] if len(srcs) > 1 else None, h, scale)
+        return torch.autograd.grad(out, srcs, dy)
+    return bwd
+
+
+def _stash_work(m, d, elem_bytes, backward):
+    """(FLOPs, bytes) of the stash pair at (m, d) -> 4d: two products
+    forward, four backward; x (dy, act, dg) read and out, act, dg (dx and
+    the float parameter grads) written once."""
+    hd = 4 * d
+    if not backward:
+        return 4 * m * d * hd, (2 * m * d + 2 * m * hd + 2 * d * hd) \
+            * elem_bytes + 7 * d * 4
+    return 8 * m * d * hd, (3 * m * d + 2 * m * hd + 2 * d * hd) \
+        * elem_bytes + (2 * d * hd + hd + 3 * d) * 4
+
+
+def phase_seg_kernels(results):
+    """B8 (flash attention) and B9 (the stash MLP pair) at the
+    segmentation shapes and B8 at the three-modality cross-attention shape,
+    forward and backward, against their plain versions in float32 from the
+    same bf16 inputs; float32 checks at smaller shapes. Adds rows to
+    ``results``."""
+    import torch
+
+    from mirage_tpu_torch.ops import flash_attention as fa
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def check(name, label, got, want, fwd, f32=False):
+        errs = {}
+        for key, g, w in zip(name, got, want):
+            diff = g.float() - w.float()
+            errs[key] = {"max_abs": diff.abs().max().item(),
+                         "rel_max": (diff.abs().max()
+                                     / w.abs().max()).item(),
+                         "rel_l2": (diff.norm() / w.norm()).item()}
+            e = errs[key]
+            if f32:
+                ok = e["max_abs"] <= F32_ATOL * max(1.0, w.abs().max().item())
+            elif fwd:
+                ok = e["max_abs"] <= BF16_MAX_ABS and \
+                    e["rel_l2"] <= BF16_REL_L2
+            else:
+                ok = e["rel_l2"] <= BWD_REL_L2 and e["rel_max"] <= BWD_REL_MAX
+            if not (ok and bool(torch.isfinite(g).all())):
+                raise AssertionError(f"{label} {key}: kernel disagrees with "
+                                     f"its plain version: {e}")
+        return errs
+
+    def row(label, shape, errs, kernel_ms, plain_ms, library_ms, work,
+            per_step, **extra):
+        flops, nbytes = work
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        r = {"label": label, "shape": list(shape), "dtype": "bf16",
+             "errors": errs,
+             "max_abs_err": max(e["max_abs"] for e in errs.values()),
+             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "calls_per_step": per_step, **extra}
+        log(f"[kernels] {label} {shape}: worst rel_l2 "
+            f"{max(e['rel_l2'] for e in errs.values()):.3e} max_abs "
+            f"{r['max_abs_err']:.3e} kernel {kernel_ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        return r
+
+    # B8: (label, shape, calls per seg train step)
+    for label, shape, per_step in [
+            ("encoder self-attention", (4, 12, 1025, 64), 12),
+            ("decoder cross-attention", (64, 8, 256, 769, 32), 0)]:
+        (q_src, kv_src, h, scale), dy = _flash_inputs(shape, torch.bfloat16,
+                                                      gen)
+        out, lse = fa._flash_fwd(q_src, kv_src, h, scale)
+        grads = fa._flash_bwd(q_src, kv_src, lse, dy, h, scale)
+        torch.cuda.synchronize()
+        f32 = [t.float() if t is not None else None for t in (q_src, kv_src)]
+        with runtime.plain_on_card():
+            want = fa._flash_fwd(f32[0], f32[1], h, scale)[0]
+            want_g = fa._flash_bwd(f32[0], f32[1], None, dy.float(), h, scale)
+        names = ["dqkv"] if kv_src is None else ["dq", "dkv"]
+        errs_f = check(["out"], f"flash_attention {label}", [out], [want],
+                       True)
+        errs_b = check(names, f"flash_attention_bwd {label}",
+                       [g for g in grads if g is not None],
+                       [w for w in want_g if w is not None], False)
+        del out, grads, want, want_g, f32
+        k_f = cuda_ms(lambda: fa._flash_fwd(q_src, kv_src, h, scale), iters=10)
+        k_b = cuda_ms(lambda: fa._flash_bwd(q_src, kv_src, lse, dy, h, scale),
+                      iters=10)
+        with runtime.plain_on_card():
+            p_f = cuda_ms(lambda: fa._flash_fwd(q_src, kv_src, h, scale),
+                          iters=3)
+            p_b = cuda_ms(lambda: fa._flash_bwd(q_src, kv_src, None, dy, h,
+                                                scale), iters=3)
+        lib_f, lib_b = _flash_library(False), _flash_library(True)
+        l_f = cuda_ms(lambda: lib_f(q_src, kv_src, h, scale), iters=10)
+        l_b = cuda_ms(lambda: lib_b(dy, q_src, kv_src, h, scale), iters=10)
+        shape5 = shape if len(shape) == 5 else shape[:3] + shape[2:]
+        results.setdefault("flash_attention", []).append(
+            row(f"flash_attention {label}", shape, errs_f, k_f, p_f, l_f,
+                _flash_work(shape5, 2, False), per_step))
+        results.setdefault("flash_attention_bwd", []).append(
+            row(f"flash_attention_bwd {label}", shape, errs_b, k_b, p_b, l_b,
+                _flash_work(shape5, 2, True), per_step))
+        del q_src, kv_src, dy, lse
+
+    # B9 at the ConvNeXt head's rows: 4 per seg train step
+    m, d = 65536, 384
+    args = _op_inputs("mlp_block", (1, m, d), torch.bfloat16, gen)
+    x2 = args[0].view(m, d)
+    prm = args[1:]
+    dy = (torch.randn(m, d, generator=gen)).to(torch.bfloat16).cuda()
+    if fm.stash_route(x2, 4 * d) != "2d":
+        raise AssertionError("the stash route refuses the seg head's shape")
+    out, act, dg = fm._mlp_fwd_stash(x2, *prm)
+    grads = fm._mlp_bwd_stash(x2, dy, act, dg, prm[0], prm[1], prm[2], prm[4])
+    torch.cuda.synchronize()
+    with runtime.plain_on_card():
+        pf = [a.float() for a in prm]
+        want = fm.mlp_block_fwd_stash_ref(x2.float(), *pf)
+        want_g = fm.mlp_block_bwd_stash_ref(
+            x2.float(), dy.float(), act.float(), dg.float(), pf[0], pf[1],
+            pf[2], pf[4])
+    errs_f = check(["out", "act", "dgelu"], "mlp_block_stash",
+                   [out, act, dg], want, True)
+    errs_b = check(["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"],
+                   "mlp_block_stash_bwd", grads, want_g, False)
+    del grads, want, want_g, pf
+    k_f = cuda_ms(lambda: fm._mlp_fwd_stash(x2, *prm), iters=10)
+    k_b = cuda_ms(lambda: fm._mlp_bwd_stash(x2, dy, act, dg, prm[0], prm[1],
+                                            prm[2], prm[4]), iters=10)
+    with runtime.plain_on_card():
+        p_f = cuda_ms(lambda: fm._mlp_fwd_stash(x2, *prm), iters=3)
+        p_b = cuda_ms(lambda: fm._mlp_bwd_stash(x2, dy, act, dg, prm[0],
+                                                prm[1], prm[2], prm[4]),
+                      iters=3)
+    lib_f, lib_b = _library("mlp_block"), _bwd_library("mlp_block_bwd")
+    l_f = cuda_ms(lambda: lib_f(x2, *prm), iters=10)
+    l_b = cuda_ms(lambda: lib_b(dy, x2, *prm), iters=10)
+    results.setdefault("mlp_block_stash", []).append(
+        row("mlp_block_stash ConvNeXt head", (m, d, 4 * d), errs_f, k_f, p_f,
+            l_f, _stash_work(m, d, 2, False), 4))
+    results.setdefault("mlp_block_stash_bwd", []).append(
+        row("mlp_block_stash_bwd ConvNeXt head", (m, d, 4 * d), errs_b, k_b,
+            p_b, l_b, _stash_work(m, d, 2, True), 4))
+    del args, x2, prm, dy, out, act, dg
+
+    # float32: B8 self and cross, B9 at 2048 rows
+    for shape in [(1, 2, 1025, 64), (2, 2, 256, 600, 32)]:
+        (q_src, kv_src, h, scale), dy = _flash_inputs(shape, torch.float32,
+                                                      gen)
+        out, lse = fa._flash_fwd(q_src, kv_src, h, scale)
+        grads = [g for g in fa._flash_bwd(q_src, kv_src, lse, dy, h, scale)
+                 if g is not None]
+        with runtime.plain_on_card():
+            want = fa._flash_fwd(q_src, kv_src, h, scale)[0]
+            want_g = [g for g in fa._flash_bwd(q_src, kv_src, None, dy, h,
+                                               scale) if g is not None]
+        errs = check(["out"] + [f"grad{i}" for i in range(len(grads))],
+                     f"flash_attention float32 {shape}", [out] + grads,
+                     [want] + want_g, True, f32=True)
+        err = max(e["max_abs"] for e in errs.values())
+        log(f"[kernels] flash_attention float32 {shape}: max_abs {err:.3e}")
+        results["flash_attention"].append(
+            {"label": "float32 check", "shape": list(shape), "dtype": "f32",
+             "max_abs_err": err})
+    args = _op_inputs("mlp_block", (1, 2048, 384), torch.float32, gen)
+    x2, prm = args[0].view(2048, 384), args[1:]
+    dy = torch.randn(2048, 384, generator=gen).cuda()
+    got = fm._mlp_fwd_stash(x2, *prm)
+    got_g = fm._mlp_bwd_stash(x2, dy, got[1], got[2], prm[0], prm[1], prm[2],
+                              prm[4])
+    with runtime.plain_on_card():
+        want = fm.mlp_block_fwd_stash_ref(x2, *prm)
+        want_g = fm.mlp_block_bwd_stash_ref(x2, dy, got[1], got[2], prm[0],
+                                            prm[1], prm[2], prm[4])
+    errs = check([f"out{i}" for i in range(10)], "mlp_block_stash float32",
+                 list(got) + list(got_g), list(want) + list(want_g), True,
+                 f32=True)
+    err = max(e["max_abs"] for e in errs.values())
+    log(f"[kernels] mlp_block_stash float32 (2048, 384): max_abs {err:.3e}")
+    results["mlp_block_stash"].append(
+        {"label": "float32 check", "shape": [2048, 384, 1536],
+         "dtype": "f32", "max_abs_err": err})
+    torch.cuda.synchronize()
+    return results
+
+
 # ------------------------------------------------------------------ phase 3
 
 def phase_golden(workdir):
@@ -702,6 +992,7 @@ def phase_serve(workdir, card):
         stats = server.stats()
         n_rec = server.queues["/v1/reconstruct"].n_batches
         n_feat = server.queues["/v1/features"].n_batches
+        three = _three_modality_request(url, wrapper, rng)
     finally:
         server.close()
     if errors or any(r is None for r in results):
@@ -779,7 +1070,58 @@ def phase_serve(workdir, card):
     log(f"[serve] batch {BATCH}: {dt * 1e3:.2f} ms/batch, "
         f"{BATCH / dt:.1f} img/s (plain path {BATCH / dt_plain:.1f} img/s) "
         f"on {card}")
+    tput["three_modality"] = three
     return counts, n_rec, tput
+
+
+def _three_modality_request(url, wrapper, rng):
+    """One request with all three modalities (769 encoder tokens, above
+    what the packed attention kernels hold): the encoder's attention and the
+    decoders' cross-attention run flash attention (B8). Its answer against
+    the plain path on the card."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import attn_half_block
+    from mirage_tpu_torch.ops.flash_attention import flash_attention
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block
+
+    req = {"bscan": rng.random((512, 512), dtype=np.float32),
+           "slo": rng.random((512, 512), dtype=np.float32),
+           "bscanlayermap": rng.integers(0, 13, (128, 128)).astype(np.int32)}
+    ops = {"flash_attention": flash_attention,
+           "attn_half_block": attn_half_block, "mlp_block": mlp_block}
+    for fn in ops.values():
+        fn.launches = 0
+    got = _post(url + "/v1/reconstruct", req)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in ops.items()}
+    # encoder: 24 × (B8 + B2); decoders: 3 × B8 cross-attention over 769
+    # context tokens, 3 × 2 blocks × (B1 + B2)
+    want_counts = {"flash_attention": 27, "attn_half_block": 6,
+                   "mlp_block": 30}
+    log(f"[serve] three-modality request: launches {counts}, expected "
+        f"{want_counts}")
+    if counts != want_counts:
+        raise AssertionError(f"three-modality launches {counts} != "
+                             f"{want_counts}")
+    batch = {k: v[None] for k, v in req.items()}
+    batch["bscan"], batch["slo"] = batch["bscan"][:, None], \
+        batch["slo"][:, None]
+    with runtime.plain_on_card():
+        want = {k: v.float().cpu().numpy() for k, v in wrapper(batch).items()}
+    agree = {}
+    for task, w in want.items():
+        d = got[task] - w[0]
+        agree[task] = {"max_abs": float(np.abs(d).max()),
+                       "rel_l2": float(np.linalg.norm(d) / np.linalg.norm(w))}
+    log(f"[serve] three-modality request vs plain path (bf16, card): {agree}")
+    bad = {t: a for t, a in agree.items() if not a["rel_l2"] <= MODEL_REL_L2}
+    if bad or not all(np.isfinite(v).all() for v in got.values()):
+        raise AssertionError(f"three-modality answer disagrees with the "
+                             f"plain path above rel_l2 {MODEL_REL_L2}: {bad}")
+    return {"launches": counts, "agreement": agree}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -794,6 +1136,7 @@ TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL = 1e-2, 2e-2, 5e-2
 
 def _launch_counters():
     from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import flash_attention as fa
     from mirage_tpu_torch.ops import fused_mlp as fm
 
     return {"attn_half_block": (ba.attn_half_block, "launches"),
@@ -802,7 +1145,11 @@ def _launch_counters():
             "mlp_block_bwd": (fm.mlp_block, "bwd_launches"),
             "block_attention": (ba.block_attention, "launches"),
             "block_attention_bwd": (ba.block_attention, "bwd_launches"),
-            "xattn_half_block": (ba.xattn_half_block, "launches")}
+            "xattn_half_block": (ba.xattn_half_block, "launches"),
+            "flash_attention": (fa.flash_attention, "launches"),
+            "flash_attention_bwd": (fa.flash_attention, "bwd_launches"),
+            "mlp_block_stash": (fm.mlp_block, "stash_launches"),
+            "mlp_block_stash_bwd": (fm.mlp_block, "stash_bwd_launches")}
 
 
 def phase_train(card):
@@ -875,7 +1222,7 @@ def phase_train(card):
     reset()
     loss_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
-    one_pass = read()
+    one_pass = {k: v for k, v in read().items() if k in PER_STEP}
     with runtime.plain_on_card():
         loss_p, grads_p = loss_and_grads()
     gn_k, gn_p = global_norm(grads_k).item(), global_norm(grads_p).item()
@@ -918,7 +1265,7 @@ def phase_train(card):
         metrics.append(m)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t1) / TRAIN_STEPS
-    counts = read()
+    counts = {k: v for k, v in read().items() if k in PER_STEP}
     expected = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
     losses = [{k: v.item() for k, v in mm.items()} for mm in metrics]
     log(f"[train] {TRAIN_STEPS} steps: launches {counts}, expected "
@@ -945,12 +1292,213 @@ def phase_train(card):
             "card": card}
 
 
+# ------------------------------------------------------------------ phase 6
+
+SEG_CONFIG = "configs/seg_200e_convnext.yaml"
+SEG_STEPS = 5  # timed steps, after two warm-up steps
+SEG_TRAIN, SEG_VAL, SEG_BATCH = 8, 4, 4  # synthetic images; the yaml's batch
+# launches per segmentation train step and per eval forward (ViT-B at 1025
+# tokens, 12 layers; four ConvNeXt blocks over 4·128² rows)
+SEG_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
+                "mlp_block_stash": 4, "mlp_block_stash_bwd": 4,
+                "attn_half_block": 0, "attn_half_block_bwd": 0,
+                "mlp_block": 0, "mlp_block_bwd": 0, "block_attention": 0,
+                "block_attention_bwd": 0, "xattn_half_block": 0}
+SEG_PER_EVAL = {**{k: 0 for k in SEG_PER_STEP}, "flash_attention": 12,
+                "mlp_block": 16}
+
+
+def _seg_dataset(root, rng, n_train=SEG_TRAIN, n_val=SEG_VAL, size=1024,
+                 classes=8):
+    """Seeded B-scans in [0, 1] and banded label maps (each image split
+    into `classes` horizontal bands at random heights), as .npy in the
+    folder layout of data/folder.py, and INFO.json (label 0 background)."""
+    import numpy as np
+
+    for split, n in (("train", n_train), ("val", n_val)):
+        for task in ("bscan", "semseg"):
+            (root / split / task).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            cuts = np.sort(rng.choice(np.arange(1, size), classes - 1,
+                                      replace=False))
+            lab = np.searchsorted(cuts, np.arange(size), side="right")
+            lab = np.repeat(lab[:, None], size, axis=1).astype(np.uint8)
+            img = 0.5 * rng.random((size, size), dtype=np.float32) \
+                + lab.astype(np.float32) / (2 * classes)
+            np.save(root / split / "bscan" / f"s{i:03d}.npy", img)
+            np.save(root / split / "semseg" / f"s{i:03d}.npy", lab)
+    info = {str(k): {"label": "background" if k == 0 else f"layer{k}",
+                     "value": k} for k in range(classes)}
+    (root / "INFO.json").write_text(json.dumps(info))
+
+
+def phase_seg(workdir, card):
+    """Segmentation tuning (configs/seg_200e_convnext.yaml: MIRAGE-Base at
+    1024² and patch 32 -> 1025 tokens, stochastic depth 0.1, the reference
+    freeze, the ConvNeXt head (6144 / 16 -> 384 channels at 128², depth 4),
+    CE + GDice, batch 4, AdamW with layer decay 0.75) through its entry
+    point run_seg_tuning.main on a seeded synthetic dataset and seeded
+    random MIRAGE-Base weights; then the bare train step: kernel step vs
+    plain step, exact launch counts, ms/step and a profile."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import build_model as build_pretrain
+    from mirage_tpu_torch.cli import run_seg_tuning as rst
+    from mirage_tpu_torch.cli.config import parse_with_yaml
+    from mirage_tpu_torch.data.augment import SemSegTransform
+    from mirage_tpu_torch.data.folder import MultiTaskImageFolder
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
+
+    counters = _launch_counters()
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    t0 = time.perf_counter()
+    root = workdir / "seg"
+    data = root / "AROI"
+    _seg_dataset(data, np.random.default_rng(SEED))
+    domains = ["bscan", "slo", "bscanlayermap"]
+    pre_args = dict(model="miragepre_base", num_global_tokens=1,
+                    in_domains=domains, out_domains=domains, decoder_dim=256,
+                    decoder_depth=2, decoder_num_heads=8)
+    weights = root / "mirage-base_seed0.pth"
+    torch.save({"model": build_pretrain(
+        "miragepre_base", pre_args, domains, 512, 32,
+        generator=torch.Generator().manual_seed(SEED)).state_dict(),
+        "args": pre_args}, weights)
+    log(f"[seg] dataset and MIRAGE-Base weights from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 1. the entry point: min(8 // 4, 3) = 2 train steps and the validation
+    # pass (one batch of 4)
+    argv = ["-c", str(ROOT / SEG_CONFIG), "--data_path", str(data),
+            "--weights", str(weights), "--device", "cuda", "--epochs", "1",
+            "--max_steps_per_epoch", "3", "--log_freq", "1",
+            "--output_dir", str(root / "out"), "--num_workers", "4"]
+    reset()
+    t1 = time.perf_counter()
+    out = rst.main(argv)
+    torch.cuda.synchronize()
+    cli_counts = read()
+    cli_s = time.perf_counter() - t1
+    steps = min(SEG_TRAIN // SEG_BATCH, 3)
+    evals = -(-SEG_VAL // SEG_BATCH)
+    want_cli = {k: steps * SEG_PER_STEP[k] + evals * SEG_PER_EVAL[k]
+                for k in SEG_PER_STEP}
+    log(f"[seg] run_seg_tuning: {out} in {cli_s:.1f}s; launches "
+        f"{cli_counts}, expected {want_cli}")
+    best = Path(out["output_dir"]) / "checkpoint-best"
+    loss = out["last_epoch"].get("train/loss", float("nan"))
+    if not (np.isfinite(loss) and np.isfinite(out["max_miou"])
+            and best.is_dir()):
+        raise AssertionError(f"seg tuning: loss {loss}, mIoU "
+                             f"{out['max_miou']}, checkpoint-best "
+                             f"{best.is_dir()}")
+    if cli_counts != want_cli:
+        raise AssertionError(f"seg tuning launches {cli_counts} != "
+                             f"{want_cli}")
+
+    # 2. the bare step, built as the entry point builds it
+    args = rst.process_args(parse_with_yaml(rst.get_parser(), argv))
+    _, model, opt, _, loss_fn = rst.setup(args, torch.device("cuda"))
+    state = init_train_state(model, opt)
+    step = make_train_step(loss_fn, opt)
+    ds = MultiTaskImageFolder(str(args.train_data_path), args.all_domains,
+                              mapping=args.mapping,
+                              transform=SemSegTransform(True, 1024))
+    items = [ds[(i, np.random.default_rng(i))][0] for i in range(SEG_BATCH)]
+    batch = rst.to_device({k: np.stack([it[k] for it in items])
+                           for k in items[0]}, "cuda")
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+
+    def loss_and_grads():
+        gen = rst.step_generator(SEED, 0, "cuda")
+        loss, _ = loss_fn(batch, generator=gen)
+        return loss.detach(), torch.autograd.grad(
+            loss, [state["params"][n] for n in names])
+
+    loss_k, grads_k = loss_and_grads()
+    with runtime.plain_on_card():
+        loss_p, grads_p = loss_and_grads()
+    leaf = {n: ((g - w).norm() / w.norm()).item()
+            for n, g, w in zip(names, grads_k, grads_p)}
+    worst = max(leaf, key=leaf.get)
+    agree = {"loss": loss_k.item(), "plain_loss": loss_p.item(),
+             "loss_rel": abs(loss_k.item() - loss_p.item())
+             / abs(loss_p.item()),
+             "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst],
+             "leaves": len(leaf)}
+    log(f"[seg] one step, kernel path vs plain path (bf16, card, same "
+        f"drop-path draws): {agree}")
+    del grads_k, grads_p
+    if not (agree["loss_rel"] <= TRAIN_LOSS_REL
+            and agree["worst_leaf_rel_l2"] <= TRAIN_LEAF_REL):
+        raise AssertionError(f"seg kernel step disagrees with the plain step:"
+                             f" {agree} (bars loss {TRAIN_LOSS_REL}, leaf "
+                             f"{TRAIN_LEAF_REL})")
+
+    # 3. launches per eval forward and per train step, exactly
+    reset()
+    with torch.no_grad():
+        model.forward_light({"bscan": batch["bscan"]})
+    torch.cuda.synchronize()
+    eval_counts = read()
+    lr = 1e-4
+    for it in range(2):
+        state, _ = step(state, batch, rst.step_generator(SEED, it, "cuda"), lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    metrics = []
+    t2 = time.perf_counter()
+    for it in range(SEG_STEPS):
+        state, m = step(state, batch, rst.step_generator(SEED, it, "cuda"),
+                        lr)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t2) / SEG_STEPS
+    step_counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_steps = {k: v * SEG_STEPS for k, v in SEG_PER_STEP.items()}
+    losses = [{k: v.item() for k, v in mm.items()} for mm in metrics]
+    log(f"[seg] eval forward launches {eval_counts}, expected {SEG_PER_EVAL}"
+        f"; {SEG_STEPS} steps: launches {step_counts}, expected "
+        f"{want_steps}; metrics {losses}")
+    if eval_counts != SEG_PER_EVAL or step_counts != want_steps:
+        raise AssertionError(f"seg launch counts: eval {eval_counts}, steps "
+                             f"{step_counts}")
+    if not all(np.isfinite(v) for mm in losses for v in mm.values()):
+        raise AssertionError(f"non-finite seg loss or grad norm: {losses}")
+    prof = profile_forward(
+        lambda: step(state, batch, rst.step_generator(SEED, 9, "cuda"), lr),
+        top_n=25)
+    log(f"[seg] one step under torch.profiler: "
+        f"{prof if prof else 'no device kernels seen (not measured)'}")
+    b = batch["bscan"].shape[0]
+    log(f"[seg] batch {b}: {dt * 1e3:.2f} ms/step, {b / dt:.2f} img/s, peak "
+        f"memory {peak:.1f} GiB, on {card}")
+    return {"batch": b, "ms_per_step": dt * 1e3, "img_per_s": b / dt,
+            "peak_gib": peak, "agreement": agree, "cli": out,
+            "cli_seconds": cli_s, "cli_counts": cli_counts,
+            "eval_counts": eval_counts, "step_counts": step_counts,
+            "losses": losses, "profile": prof, "card": card}
+
+
 # --------------------------------------------------------------------- main
 
-def _kernel_entries(kernel_rows, counts, per_path, path):
+def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
+                    **per_other_path):
     """One entry of the `kernels` line per op: per-call rows at each shape,
     and times summed over one pass of the main path (per-call time × calls
-    on the path)."""
+    on the path); ``per_other_path``: name -> {op: launches} of other
+    passes of the same path (e.g. an eval forward)."""
     entries = []
     for name, rows in kernel_rows.items():
         key = "calls_per_forward" if path == "forward" else "calls_per_step"
@@ -961,13 +1509,15 @@ def _kernel_entries(kernel_rows, counts, per_path, path):
             replaces, tpu_kernel = TPU_KERNELS[name]
             source, csrc = SOURCES[name]
         else:
-            replaces, tpu_kernel, source, csrc = BWD_KERNELS[name]
+            replaces, tpu_kernel, source, csrc = {**BWD_KERNELS,
+                                                  **SEG_KERNELS}[name]
             csrc = [CSRC + f for f in csrc]
         ms = per_path_sum("ms")
         entries.append({
             "name": name, "route": "cuda", "source": source, "csrc": csrc,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
             "launches": counts[name], f"launches_per_{path}": per_path[name],
+            **{f"launches_per_{k}": v[name] for k, v in per_other_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["dtype"] == "bf16"),
             "max_err": max(r["max_abs_err"] for r in rows),
@@ -978,16 +1528,16 @@ def _kernel_entries(kernel_rows, counts, per_path, path):
                        "F.scaled_dot_product_attention"
                        + (" and torch.autograd.grad" if path == "step"
                           else ""),
-            "times_are": (f"sum over one batch-{BATCH} reconstruct forward"
-                          if path == "forward" else
-                          f"sum over one batch-{TRAIN_BATCH} pretraining "
-                          f"step"),
+            "times_are": times_are or (
+                f"sum over one batch-{BATCH} reconstruct forward"
+                if path == "forward" else
+                f"sum over one batch-{TRAIN_BATCH} pretraining step"),
             "shapes": rows,
         })
     return entries
 
 
-PHASES = ("build", "kernels", "golden", "serve", "train")
+PHASES = ("build", "kernels", "golden", "serve", "train", "seg")
 
 
 def main(argv=None):
@@ -1019,16 +1569,19 @@ def main(argv=None):
 
     if "build" in phases:
         phase_build()
-    fwd_rows = bwd_rows = golden = train = None
+    fwd_rows = bwd_rows = seg_rows = golden = train = seg = None
     if "kernels" in phases:
         fwd_rows = phase_kernels()
         bwd_rows = phase_backward({})
+        seg_rows = phase_seg_kernels({})
     if "golden" in phases:
         golden = phase_golden(workdir)
     if "serve" in phases:
         counts, n_rec, tput = phase_serve(workdir, card)
     if "train" in phases:
         train = phase_train(card)
+    if "seg" in phases:
+        seg = phase_seg(workdir, card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -1036,9 +1589,15 @@ def main(argv=None):
 
     entries = (_kernel_entries(fwd_rows, counts, PER_RECONSTRUCT, "forward")
                + _kernel_entries(bwd_rows, train["counts"], PER_STEP,
-                                 "step"))
+                                 "step")
+               + _kernel_entries(
+                   seg_rows, seg["cli_counts"], SEG_PER_STEP, "step",
+                   "sum over one batch-4 segmentation tuning step; launches "
+                   "from run_seg_tuning (2 steps + 1 eval batch)",
+                   eval_forward=SEG_PER_EVAL))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
-                    "train": train, "seconds": time.perf_counter() - t_start}))
+                    "train": train, "seg": seg,
+                    "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -9,9 +9,13 @@ context, then the cross-attention and its MLP, ``depth`` transformer blocks,
 and a linear to pixels (or, ``pixel_output=False``, to the patch tokens the
 token-space losses take).
 
-Inference (``deterministic``) runs the cross-attention as B3
-(``xattn_half_block``) and its MLP as B2; training runs both on the plain
-path, as the JAX package does (its fused route requires deterministic).
+Inference (``deterministic``) with at most 512 queries and 512 context
+tokens runs the cross-attention as B3 (``xattn_half_block``) and its MLP as
+B2; training, and longer inputs (a request with two or more 512²
+modalities has 769 context tokens), run the cross-attention through
+``cross_attention_apply`` (``flash_attention``, B8, at 512 context tokens or
+more) and the MLP on the plain path, as the JAX package does
+(spatial_output.py:209-232).
 The cross-attention adds no skip from the queries: the reference decoder
 computes x = xattn(LN_q(q), LN_c(ctx)); x = x + mlp(LN(x)). (The JAX
 package's fused TPU route at spatial_output.py:209-225 calls its
@@ -25,7 +29,7 @@ from mirage_tpu_torch.adapters.input_adapters import pair
 from mirage_tpu_torch.masking.masking import gather_rows, scatter_rows
 from mirage_tpu_torch.nn import init as vinit
 from mirage_tpu_torch.nn.attention import CrossAttention, cross_attention_apply
-from mirage_tpu_torch.nn.block import Block
+from mirage_tpu_torch.nn.block import FUSED_TOKENS, Block
 from mirage_tpu_torch.nn.layers import LayerNorm, Linear, Mlp, layer_norm
 from mirage_tpu_torch.nn.posemb import build_2d_sincos_posemb
 from mirage_tpu_torch.nn.resize import resize2d
@@ -180,7 +184,8 @@ class SpatialOutputAdapter(nn.Module):
                                   self.context_norm, self.out_norm, self.mlp)
             mlp_args = (on.weight, on.bias, m.fc1.weight, m.fc1.bias,
                         m.fc2.weight, m.fc2.bias)
-            if deterministic:
+            if (deterministic and x.shape[1] <= FUSED_TOKENS
+                    and ctx.shape[1] <= FUSED_TOKENS):
                 x = xattn_half_block(
                     x, ctx, qn.weight, qn.bias, cn.weight, cn.bias,
                     dec.q.weight, dec.q.bias, dec.kv.weight, dec.kv.bias,

@@ -161,4 +161,4 @@ class MIRAGEWrapper:
     @torch.inference_mode()
     def features(self, x: Dict):
         """Encoder features (B, N + G, D) of the given modalities."""
-        return self.model.forward_light(self._inputs(x))
+        return self.model.features(self._inputs(x))

@@ -48,9 +48,9 @@ def warmup(wrapper, model_fns, max_batch: int, *, pow2: bool = True):
     """Run every batch size the dispatcher can emit once before traffic
     (largest first): builds the kernels and settles the allocator. With
     power-of-two padding that is log2(max_batch)+1 sizes; without, all of
-    1..max_batch. The request holds the first modality only (the B-scan):
-    two or more 512² modalities give more than the 512 tokens the attention
-    kernel takes until the flash kernel is ported (ROADMAP B8)."""
+    1..max_batch. The request holds the first modality only (the B-scan);
+    requests with more modalities run flash attention (B8) above 512
+    tokens."""
     if pow2:
         sizes = [1]
         while sizes[-1] < max_batch:

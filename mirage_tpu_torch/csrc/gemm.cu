@@ -6,8 +6,14 @@
 // two epilogues: a float32 output (their dyln and fc1 recompute h are float)
 // and the GELU backward, which reads h (float) at the tile's coordinates and
 // writes dh = T(acc·GELU′(h)), act = T(GELU(h)) and float column sums of the
-// unrounded dh over each 16-row group (for db1). The products with a
-// non-transposed weight (dy·W) take W transposed by the caller.
+// unrounded dh over each 16-row group (for db1). The stash pair of
+// fused_mlp.py (_mlp_fwd_stash_kernel, _mlp_bwd_stash_kernel) adds two
+// more: the stash epilogue of fc1 writes act = T(GELU(h)) and dg =
+// T(GELU′(h)) from the float h = acc + b1, and the dgelu-multiply epilogue of
+// the dact product writes dh = T(acc·dg) with dg read in the working type at
+// the tile's coordinates, and the float 16-row column sums of the unrounded
+// dh. The products with a non-transposed weight (dy·W) take W transposed by
+// the caller.
 //
 // A is (M, K) row-major, W is (N, K) row-major (a torch Linear weight), C and
 // the optional residual are (M, N). The epilogue follows the TPU kernels'
@@ -41,7 +47,7 @@
 // C tile BM × BN; BK bf16 = one 128-byte swizzle row; STAGES K-slices in flight
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
 
-enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2 };
+enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2, EPI_GELU_STASH = 3, EPI_DGELU_MUL = 4 };
 
 __device__ __forceinline__ float gelu_f(float v) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
@@ -118,13 +124,14 @@ __device__ __forceinline__ void load_tile_bias(float (&b)[BN / 32], const void* 
 
 // Stores one warp's 16 × BN slice of the tile (its accumulator fragments:
 // rows l/4 and l/4 + 8, columns 8j + 2(l%4) and +1) to C at (row0, n0), 64
-// columns at a time: bias and GELU on the fragments, rounded to bf16 into
-// the staging tile, then 16-byte coalesced rows out of it, adding the
-// residual in float.
+// columns at a time: bias and the activation (none, GELU, or GELU′ for the
+// stash) on the fragments, rounded to bf16 into the staging tile, then
+// 16-byte coalesced rows out of it, adding the residual in float.
+enum { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_GRAD = 2 };
 __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
                                            const float (&bias)[BN / 32], float* __restrict__ sbias,
                                            bf16* __restrict__ stage, bf16* __restrict__ C,
-                                           const bf16* __restrict__ res, int gelu, int M, int N,
+                                           const bf16* __restrict__ res, int act, int M, int N,
                                            long row0, long n0) {
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -141,9 +148,12 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float v0 = acc[4 * j + 2 * half] + bv.x, v1 = acc[4 * j + 2 * half + 1] + bv.y;
-        if (gelu) {
+        if (act == ACT_GELU) {
           v0 = gelu_f(v0);
           v1 = gelu_f(v1);
+        } else if (act == ACT_GELU_GRAD) {
+          v0 = gelu_grad(v0);
+          v1 = gelu_grad(v1);
         }
         *reinterpret_cast<__nv_bfloat162*>(stage + (gid + 8 * half) * EPI_STRIDE + c) =
             __floats2bfloat162_rn(v0, v1);
@@ -182,14 +192,15 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
 
 // Writes one warp's 16 × BN accumulator straight from its fragments (a
 // column pair per lane, whole 32-byte row segments per lane quad): the float
-// output (+ bias, GELU), or the GELU backward, dh = acc·GELU′(h) with h read
-// in float at the same coordinates, act = GELU(h) into aux_out, and the
-// float column sums of dh over the warp's 16 rows into row row0/16 of
-// colsum.
+// output (+ bias, GELU); the GELU backward, dh = acc·GELU′(h) with h read in
+// float at the same coordinates, act = GELU(h) into aux_out, and the float
+// column sums of dh over the warp's 16 rows into row row0/16 of colsum; or
+// the dgelu multiply, dh = acc·dg with dg read in bf16 from aux_in, and the
+// column sums of dh.
 __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
                                                   const void* __restrict__ bias, int bias_dtype,
                                                   int epi, int out_f32, void* __restrict__ C,
-                                                  const float* __restrict__ aux_in,
+                                                  const void* __restrict__ aux_in,
                                                   bf16* __restrict__ aux_out,
                                                   float* __restrict__ colsum, int M, int N,
                                                   long row0, long n0) {
@@ -208,13 +219,20 @@ __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
       const long i = row * N + col;
       float v0 = acc[4 * j + 2 * half] + b0, v1 = acc[4 * j + 2 * half + 1] + b1;
       if (epi == EPI_GELU_BWD) {
-        const float2 h = *reinterpret_cast<const float2*>(aux_in + i);
+        const float2 h = *reinterpret_cast<const float2*>(static_cast<const float*>(aux_in) + i);
         v0 *= gelu_grad(h.x);
         v1 *= gelu_grad(h.y);
         s0 += v0;
         s1 += v1;
         *reinterpret_cast<__nv_bfloat162*>(aux_out + i) =
             __floats2bfloat162_rn(gelu_f(h.x), gelu_f(h.y));
+      } else if (epi == EPI_DGELU_MUL) {
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(aux_in) + i));
+        v0 *= g.x;
+        v1 *= g.y;
+        s0 += v0;
+        s1 += v1;
       } else if (epi == EPI_GELU) {
         v0 = gelu_f(v0);
         v1 = gelu_f(v1);
@@ -225,7 +243,7 @@ __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + i) =
             __floats2bfloat162_rn(v0, v1);
     }
-    if (epi == EPI_GELU_BWD) {
+    if (epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL) {
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) {
         s0 += __shfl_xor_sync(0xffffffffu, s0, o);
@@ -291,7 +309,7 @@ __global__ void __launch_bounds__(384, 1)
                      const __grid_constant__ CUtensorMap map_w, void* __restrict__ C,
                      const void* __restrict__ bias, int bias_dtype, int epi,
                      const bf16* __restrict__ res, int M, int N, int K, int out_f32,
-                     const float* __restrict__ aux_in, bf16* __restrict__ aux_out,
+                     const void* __restrict__ aux_in, bf16* __restrict__ aux_out,
                      float* __restrict__ colsum) {
   constexpr int A_BYTES = BM * BK * 2, STAGE_BYTES = (BM + BN) * BK * 2;
   extern __shared__ unsigned char gemm_smem_raw[];
@@ -359,12 +377,18 @@ __global__ void __launch_bounds__(384, 1)
       if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
 
       const long row0 = t / tiles_n * BM + cw * 64 + warp * 16, n0 = t % tiles_n * BN;
-      if (out_f32 || epi == EPI_GELU_BWD)
+      if (out_f32 || epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL) {
         store_tile_direct(acc, bias, bias_dtype, epi, out_f32, C, aux_in, aux_out, colsum, M, N,
                           row0, n0);
-      else
-        store_tile(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res, epi == EPI_GELU, M,
-                   N, row0, n0);
+      } else if (epi == EPI_GELU_STASH) {  // act, then GELU′ from the same fragments
+        store_tile(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), nullptr, ACT_GELU, M, N,
+                   row0, n0);
+        store_tile(acc, tile_bias, sbias, stage, aux_out, nullptr, ACT_GELU_GRAD, M, N, row0,
+                   n0);
+      } else {
+        store_tile(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res,
+                   epi == EPI_GELU ? ACT_GELU : ACT_NONE, M, N, row0, n0);
+      }
     }
   }
 }
@@ -433,8 +457,7 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
   const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   gemm_bf16_kernel<<<tiles < sms ? tiles : sms, 384, bytes, s>>>(
       map_a, map_w, c, bias, bias_dtype, epi, static_cast<const bf16*>(residual), M, N, K,
-      out_f32, static_cast<const float*>(aux_in), static_cast<bf16*>(aux_out),
-      static_cast<float*>(colsum));
+      out_f32, aux_in, static_cast<bf16*>(aux_out), static_cast<float*>(colsum));
   return (int)cudaGetLastError();
 }
 
@@ -491,23 +514,36 @@ __global__ void __launch_bounds__(256)
         v *= gelu_grad(h);
         aux_out[r * N + col] = gelu_f(h);
         atomicAdd(colsum + (r / 16) * N + col, v);  // the caller zeroes colsum
+      } else if (epi == EPI_GELU_STASH) {
+        aux_out[r * N + col] = gelu_grad(v);
+        v = gelu_f(v);
+      } else if (epi == EPI_DGELU_MUL) {
+        v *= aux_in[r * N + col];
+        atomicAdd(colsum + (r / 16) * N + col, v);
       }
       if (res != nullptr) v += res[r * N + col];
       C[r * N + col] = v;
     }
 }
 
-// epi: EPI_NONE, EPI_GELU or EPI_GELU_BWD (aux_in = h (M, N) float, aux_out
-// = act (M, N) in the working type, colsum = (ceil(M/16), N) float, zeroed).
+// epi: EPI_NONE, EPI_GELU, EPI_GELU_BWD (aux_in = h (M, N) float, aux_out
+// = act (M, N) in the working type, colsum = (ceil(M/16), N) float, zeroed),
+// EPI_GELU_STASH (C = act, aux_out = dg (M, N) in the working type) or
+// EPI_DGELU_MUL (aux_in = dg (M, N) in the working type, colsum as above).
 // out_f32 writes C in float from bf16 operands (no residual); a float32
 // product always writes float.
 extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
                         const void* residual, int M, int N, int K, int epi, int dtype,
                         int out_f32, const void* aux_in, void* aux_out, void* colsum,
                         void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || epi < EPI_NONE || epi > EPI_GELU_BWD)
+  if (M <= 0 || N <= 0 || K <= 0 || epi < EPI_NONE || epi > EPI_DGELU_MUL)
     return (int)cudaErrorInvalidValue;
   if (epi == EPI_GELU_BWD && (aux_in == nullptr || aux_out == nullptr || colsum == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((epi == EPI_GELU_STASH && aux_out == nullptr) ||
+      (epi == EPI_DGELU_MUL && (aux_in == nullptr || colsum == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (epi >= EPI_GELU_STASH && (out_f32 || residual != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {

@@ -9,6 +9,9 @@ static contract instead: each modality either present (all its tokens
 visible) or absent (its embedding skipped, its decoder positions filled with
 mask tokens), where the token shuffle is the identity and the forward is
 concatenation and slicing; that call returns the predictions alone.
+``forward_light`` is the unmasked forward of downstream tuning (every given
+modality fully visible, stochastic depth from a generator, then the output
+heads); ``features`` returns the encoder tokens alone.
 
 Training keeps the parameters in float32 and runs the activations in
 ``compute_dtype``; each op casts its weights to the activation dtype. The
@@ -41,10 +44,11 @@ class MIRAGEModel(nn.Module):
                  num_global_tokens: int = 1, dim_tokens: int = 768,
                  depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 compute_dtype=torch.float32,
+                 drop_path_rate: float = 0.0, compute_dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_global_tokens = num_global_tokens
+        self.drop_path_rate = drop_path_rate
         self.dim_tokens = dim_tokens
         self.depth = depth
         self.num_heads = num_heads
@@ -168,9 +172,36 @@ class MIRAGEModel(nn.Module):
         return {task: adapter(encoded, input_info, absent_tasks)
                 for task, adapter in self.output_adapters.items()}
 
-    def forward_light(self, x: Mapping[str, torch.Tensor]):
+    def process_input(self, x: Mapping[str, torch.Tensor]):
+        """Unmasked tokens of every given modality plus the global tokens,
+        and their bookkeeping (mirage_tpu/models/mirage.py:331)."""
+        return self._tokens(x), self.generate_input_info(x)
+
+    def features(self, x: Mapping[str, torch.Tensor]):
         """Encoder features of every given modality: (B, N + G, D)."""
         return self.encoder(self._tokens(x))
+
+    def forward_light(self, x: Mapping[str, torch.Tensor], *,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None,
+                      frozen_encoder: bool = False):
+        """The plain multimodal ViT forward of downstream tuning
+        (mirage_tpu/models/mirage.py:344-398): every given modality fully
+        visible, the encoder with stochastic depth drawn from ``generator``
+        when not ``deterministic``, then task -> prediction of each output
+        head (or the encoder tokens without heads). ``frozen_encoder`` (the
+        encoder and input adapters carry no trainable parameter) runs the
+        blocks grad-free and detaches their output."""
+        tokens, input_info = self.process_input(x)
+        enc = self.encoder(tokens, deterministic, self.drop_path_rate,
+                           generator, grad_free=frozen_encoder)
+        if frozen_encoder:
+            enc = enc.detach()
+        if self.output_adapters is None:
+            return enc
+        return {task: adapter(enc, input_info, deterministic=deterministic,
+                              generator=generator)
+                for task, adapter in self.output_adapters.items()}
 
 
 # ---------------------------------------------------------------- registry

@@ -1,10 +1,13 @@
 """Self- and cross-attention parameter holders and their plain versions.
 
 ``Attention`` (fused ``qkv`` + ``proj``) and ``CrossAttention`` (``q``,
-fused ``kv``, ``proj``) carry the reference's state-dict keys. The functions
-here are the plain PyTorch path the ops' reference versions are built
-from; on the card the ops in ``ops/block_attention.py`` run instead.
-Counterpart of ``mirage_tpu/nn/attention.py``.
+fused ``kv``, ``proj``) carry the reference's state-dict keys. ``sdpa``,
+``packed_attention`` and ``cross_attention`` are the plain PyTorch path the
+ops' reference versions are built from. ``attention_apply`` and
+``cross_attention_apply`` pick the attention core as the JAX package does
+(mirage_tpu/nn/attention.py:56-69, :99-162): the packed ``block_attention``
+(B6) up to 512 tokens, ``flash_attention`` (B8) at 512 keys or more, and
+the plain path otherwise. Counterpart of ``mirage_tpu/nn/attention.py``.
 """
 
 import torch
@@ -68,21 +71,42 @@ def cross_attention(q_w, q_b, kv_w, kv_b, proj_w, proj_b, x, context,
     return linear(merge_heads(sdpa(q, k, v, dh ** -0.5)), proj_w, proj_b)
 
 
+# the packed block_attention kernel (B6) holds up to this many tokens
+# (mirage_tpu/nn/attention.py:_use_block_kernel)
+BLOCK_ATTN_TOKENS = 512
+
+
 def attention_apply(attn: Attention, x, num_heads):
-    """Self-attention as training runs it at more than 128 tokens: the qkv
-    projection, the packed attention core (``block_attention``, B6), the
-    output projection (mirage_tpu/nn/attention.py:attention_apply)."""
-    from mirage_tpu_torch.ops.block_attention import block_attention
+    """Self-attention when the block does not fuse its attention half: the
+    qkv projection, the attention core on the packed qkv (``block_attention``,
+    B6, up to 512 tokens; ``flash_attention``, B8, above, where there are
+    512 keys or more), the output projection (mirage_tpu/nn/attention.py:
+    attention_apply)."""
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops.flash_attention import flash_attention
 
     qkv = linear(x, attn.qkv.weight, attn.qkv.bias)
-    dh = x.shape[-1] // num_heads
-    out = block_attention(qkv, num_heads, dh ** -0.5)
+    scale = (x.shape[-1] // num_heads) ** -0.5
+    if x.shape[1] <= BLOCK_ATTN_TOKENS:
+        out = ba.block_attention(qkv, num_heads, scale)
+    else:
+        out = flash_attention(qkv, num_heads=num_heads, scale=scale)
     return linear(out, attn.proj.weight, attn.proj.bias)
 
 
 def cross_attention_apply(cross: CrossAttention, x, context, num_heads):
-    """Cross-attention on the plain path, as the JAX package trains the
-    decoders (mirage_tpu/nn/attention.py:cross_attention_apply)."""
-    return cross_attention(cross.q.weight, cross.q.bias, cross.kv.weight,
-                           cross.kv.bias, cross.proj.weight, cross.proj.bias,
-                           x, context, num_heads)
+    """Cross-attention through sdpa (mirage_tpu/nn/attention.py:
+    cross_attention_apply): ``flash_attention`` (B8) at 512 context tokens
+    or more, the plain path below."""
+    from mirage_tpu_torch.ops.flash_attention import (FLASH_MIN_KEYS,
+                                                      flash_attention)
+
+    if context.shape[1] < FLASH_MIN_KEYS:
+        return cross_attention(cross.q.weight, cross.q.bias, cross.kv.weight,
+                               cross.kv.bias, cross.proj.weight,
+                               cross.proj.bias, x, context, num_heads)
+    scale = (x.shape[-1] // num_heads) ** -0.5
+    out = flash_attention(linear(x, cross.q.weight, cross.q.bias),
+                          linear(context, cross.kv.weight, cross.kv.bias),
+                          num_heads=num_heads, scale=scale)
+    return linear(out, cross.proj.weight, cross.proj.bias)

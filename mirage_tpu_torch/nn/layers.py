@@ -57,9 +57,11 @@ def dropout(x, rate: float, *, deterministic: bool = True, generator=None):
     return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
 
 
-def drop_path(x, rate: float, *, deterministic: bool = True, generator=None):
+def drop_path(x, rate, *, deterministic: bool = True, generator=None):
     """Per-sample stochastic depth; the identity at rate 0 or when
-    deterministic (or without a generator, as the JAX package's rng=None)."""
+    deterministic (or without a generator, as the JAX package's rng=None).
+    ``rate`` is a float or a 0-d tensor (the encoder's per-layer rates)."""
+    rate = float(rate)
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
@@ -70,18 +72,25 @@ def drop_path(x, rate: float, *, deterministic: bool = True, generator=None):
 
 class Linear(nn.Module):
     """(in, out) linear; ``n_fused`` > 1 marks a fused qkv (3) or kv (2)
-    projection, whose xavier fan counts one of the fused outputs."""
+    projection, whose xavier fan counts one of the fused outputs.
+    ``trunc_normal`` initialises the weight as the heads' linears are
+    (trunc-normal(0.02), mirage_tpu/adapters/seg_heads.py:65-70)."""
 
-    def __init__(self, dim_in, dim_out, bias=True, n_fused=1):
+    def __init__(self, dim_in, dim_out, bias=True, n_fused=1,
+                 trunc_normal=False):
         super().__init__()
         self.n_fused = n_fused
+        self.trunc_normal = trunc_normal
         self.weight = nn.Parameter(torch.empty(dim_out, dim_in))
         self.bias = nn.Parameter(torch.empty(dim_out)) if bias else None
 
     def init_params(self, generator):
         fan_out, fan_in = self.weight.shape
-        vinit.xavier_uniform_(self.weight, fan_in, fan_out // self.n_fused,
-                              generator)
+        if self.trunc_normal:
+            vinit.trunc_normal_(self.weight, generator)
+        else:
+            vinit.xavier_uniform_(self.weight, fan_in,
+                                  fan_out // self.n_fused, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 

@@ -20,7 +20,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-SOURCES = ("layernorm", "gemm", "attention", "attention_bwd")
+SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
+           "wgrad")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # cudaGetLastError().
 ENTRIES = {
@@ -36,6 +37,13 @@ ENTRIES = {
                    _I, _LL, _I, _F, _I, _P]),
     "attention_bwd": ("attention_bwd", "mtt_attention_bwd",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    "flash_fwd": ("flash_attention", "mtt_flash_fwd",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "flash_bwd": ("flash_attention", "mtt_flash_bwd",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                   _I, _P]),
+    "wgrad": ("wgrad", "mtt_wgrad", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "colsum": ("wgrad", "mtt_colsum", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -5,23 +5,26 @@ on a CPU tensor. Nothing else chooses: a CUDA tensor never takes the plain
 version (except inside :func:`plain_on_card`, which ``chip_smoke.py`` uses
 to build its reference on the card), and a failed build or launch raises.
 
-The launchers below (``layernorm``, ``layernorm_bwd``, ``gemm``,
-``gemm_gelu_bwd``, ``attention``, ``attention_bwd``) check their operands,
+The launchers below (``layernorm``, ``layernorm_bwd``, ``gemm`` and its
+epilogue forms, ``attention``, ``attention_bwd``, ``flash_attention``,
+``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
 allocate outputs with ``torch.empty`` (partial sums with ``torch.zeros``)
 and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
 raising if the launch is refused. :func:`wgrad` is the weight-gradient
-contraction the backward ops leave outside their kernels, as the JAX
-package leaves it to XLA.
+contraction the B4/B5 backward ops leave outside their kernels, as the JAX
+package leaves it to XLA; :func:`weight_grad` is the kernel that computes
+the weight gradients the stash backward (B9) sums inside its TPU kernel.
 """
 
 import contextlib
+import ctypes
 
 import torch
 
 from mirage_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2}
+_EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2, "gelu_stash": 3, "dgelu_mul": 4}
 _plain_on_card = False
 
 
@@ -101,11 +104,13 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
-                  dy=None, sub_dy: bool = False, eps: float = 1e-6):
+                  dy=None, sub_dy: bool = False, eps: float = 1e-6,
+                  partials: bool = False):
     """Backward of (M, D) LayerNorm from x, its scale and the float
     cotangent dyln of its output: (dx, dgamma, dbeta). dx = dy + the LN
     term, in x's dtype (sub_dy: T(T(dy + ·) − dy), the no-residual form);
-    dgamma and dbeta are float sums of the kernel's per-block partials."""
+    dgamma and dbeta are float sums of the kernel's per-block partials (or,
+    with ``partials``, those (ceil(M/32), D) partials unsummed)."""
     m, d = x.shape
     check("x", x, x)
     check("ln weight", weight, x, (d,), dtype=False)
@@ -123,6 +128,8 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
     _launch("layernorm_bwd", x.data_ptr(), weight.data_ptr(), dyln.data_ptr(),
             _ptr(dy), dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), eps)
+    if partials:
+        return dx, dgp, dbp
     return dx, dgp.sum(0), dbp.sum(0)
 
 
@@ -181,6 +188,80 @@ def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
     return dh, act, colsum.sum(0)
 
 
+def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
+    """fc1 of the stash forward: acc = a (M, K) · w (N, K)ᵀ + bias in float;
+    returns act = T(GELU(acc)) and dg = T(GELU′(acc)), both (M, N)."""
+    m, n, k = _gemm_operands(a, w)
+    if bias is not None:
+        check("bias", bias, a, (n,), dtype=False)
+    act = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    dg = torch.empty_like(act)
+    _launch("gemm", a.data_ptr(), w.data_ptr(), act.data_ptr(), _ptr(bias),
+            _DTYPES[bias.dtype] if bias is not None else 0, None, m, n, k,
+            _EPI["gelu_stash"], _DTYPES[a.dtype], 0, None, dg.data_ptr(), None)
+    return act, dg
+
+
+def gemm_dgelu_mul(a: torch.Tensor, w: torch.Tensor, dg: torch.Tensor):
+    """The stash backward's dact product with GELU′ from the stash: acc = a
+    (M, K) · w (N, K)ᵀ, dg (M, N) in a's dtype. Returns dh = T(acc·dg) and
+    the float 16-row column partials (ceil(M/16), N) of the unrounded dh."""
+    m, n, k = _gemm_operands(a, w)
+    check("dg", dg, a, (m, n))
+    dh = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    colsum = torch.zeros((-(-m // 16), n), device=a.device, dtype=torch.float32)
+    _launch("gemm", a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
+            m, n, k, _EPI["dgelu_mul"], _DTYPES[a.dtype], 0, dg.data_ptr(),
+            None, colsum.data_ptr())
+    return dh, colsum
+
+
+def _row_chunks(m: int, tiles: int, device, min_rows: int):
+    """(chunks, rows per chunk) for a reduction over m rows: about two
+    blocks per SM over ``tiles`` output tiles, at least ``min_rows`` rows a
+    chunk, rows a multiple of 32. A function of the shapes and the card
+    only, so a rerun sums in the same order."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = max(1, min(-(-2 * sms // tiles), -(-m // min_rows)))
+    per_chunk = -(-m // chunks)
+    rows = -(-per_chunk // 32) * 32
+    return -(-m // rows), rows
+
+
+def weight_grad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """gᵀ·a over the rows of g (M, N1) and a (M, N2): a float (N1, N2)
+    weight gradient in torch Linear layout, summed by the wgrad kernel in
+    fixed row chunks and a fixed chunk order (no atomics)."""
+    m, n1 = g.shape
+    n2 = a.shape[1]
+    check("g", g, g)
+    check("a", a, g, (m, n2))
+    if g.dtype == torch.bfloat16 and (n1 % 8 or n2 % 8):
+        raise ValueError(f"bf16 weight_grad needs widths multiples of 8, got "
+                         f"{n1}, {n2}")
+    out = torch.empty((n1, n2), device=g.device, dtype=torch.float32)
+    chunks, rows = _row_chunks(m, -(-n1 // 128) * -(-n2 // 128), g.device,
+                               512)
+    part = (torch.empty((chunks, n1, n2), device=g.device,
+                        dtype=torch.float32) if chunks > 1 else None)
+    _launch("wgrad", g.data_ptr(), a.data_ptr(), out.data_ptr(), _ptr(part),
+            m, n1, n2, chunks, rows, _DTYPES[g.dtype])
+    return out
+
+
+def colsum(x: torch.Tensor) -> torch.Tensor:
+    """Float column sums of x (M, N), in fixed row chunks summed in order."""
+    m, n = x.shape
+    check("x", x, x)
+    out = torch.empty((n,), device=x.device, dtype=torch.float32)
+    chunks, rows = _row_chunks(m, -(-n // 256), x.device, 256)
+    part = (torch.empty((chunks, n), device=x.device, dtype=torch.float32)
+            if chunks > 1 else None)
+    _launch("colsum", x.data_ptr(), out.data_ptr(), _ptr(part), m, n, chunks,
+            rows, _DTYPES[x.dtype])
+    return out
+
+
 def wgrad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """gᵀ·a over the rows of two (M, ·) matrices, in float: a weight
     gradient in torch Linear layout (out, in). 16-bit operands multiply
@@ -207,26 +288,14 @@ def attention(q, k, v, out, *, heads: int, dh: int, scale: float):
     if nk > MAX_KEYS:
         raise NotImplementedError(
             f"{nk} keys: the attention kernel holds at most {MAX_KEYS}; "
-            f"longer sequences need the flash-attention kernel (ROADMAP B8)")
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
-                         f"up to 128")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"attention {name}: {t.device}/{t.dtype}, "
-                             f"expected {q.device}/{q.dtype}")
-        if t.stride(-1) != 1 or t.shape[-1] < heads * dh:
-            raise ValueError(f"attention {name}: rows must hold {heads}x{dh} "
-                             f"contiguous columns")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"attention: dtype {q.dtype} unsupported")
+            f"longer sequences take flash_attention (B8)")
+    strides = _attn_views(heads, dh, [("q", q), ("k", k), ("v", v),
+                                      ("out", out)])
     if out.shape[:2] != (b, nq) or v.shape[:2] != (b, nk) or k.shape[0] != b:
         raise ValueError("attention: batch/row shapes disagree")
     _launch("attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, nq, nk, heads, dh,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            scale, _DTYPES[q.dtype])
+            out.data_ptr(), b, nq, nk, heads, dh, *strides, scale,
+            _DTYPES[q.dtype])
 
 
 def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
@@ -241,8 +310,7 @@ def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
     if n > MAX_KEYS:
         raise NotImplementedError(
             f"{n} tokens: the attention backward kernel holds at most "
-            f"{MAX_KEYS}; longer sequences need the flash-attention kernel "
-            f"(ROADMAP B8)")
+            f"{MAX_KEYS}; longer sequences take flash_attention (B8)")
     if dh % 16 or not 16 <= dh <= 128:
         raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
                          f"up to 128")
@@ -257,3 +325,73 @@ def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
             stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(), b, n,
             heads, dh, scale, _DTYPES[qkv.dtype])
     return dqkv, part.sum(0)
+
+
+def _attn_views(heads, dh, named):
+    """Checks the (B, rows, ≥ heads·dh) views of an attention kernel (unit
+    column stride, one device and dtype, a head dim it takes); returns
+    their batch and row strides, in order."""
+    first = named[0][1]
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
+                         f"up to 128")
+    if first.dtype not in _DTYPES:
+        raise ValueError(f"attention: dtype {first.dtype} unsupported")
+    strides = []
+    for name, t in named:
+        if t.device != first.device or t.dtype != first.dtype:
+            raise ValueError(f"attention {name}: {t.device}/{t.dtype}, "
+                             f"expected {first.device}/{first.dtype}")
+        if t.ndim != 3 or t.stride(-1) != 1 or t.shape[-1] < heads * dh:
+            raise ValueError(f"attention {name}: rows must hold "
+                             f"{heads}x{dh} contiguous columns")
+        strides += [t.stride(0), t.stride(1)]
+    return strides
+
+
+def _strides(vals):
+    arr = (ctypes.c_longlong * len(vals))(*vals)
+    return arr, ctypes.addressof(arr)
+
+
+def flash_attention(q, k, v, out, *, heads: int, dh: int, scale: float):
+    """softmax(q kᵀ·scale) v for every (batch, head), any number of queries
+    and keys, in place in ``out``; returns the float per-row log-sum-exp
+    (B, heads, Nq) in log2 units, which :func:`flash_attention_bwd` takes.
+    q, k, v and out are (B, rows, width) views whose rows hold the heads'
+    columns contiguously (column windows of a packed qkv or kv allowed)."""
+    b, nq = q.shape[:2]
+    nk = k.shape[1]
+    strides = _attn_views(heads, dh, [("q", q), ("k", k), ("v", v),
+                                      ("out", out)])
+    if out.shape[:2] != (b, nq) or v.shape[:2] != (b, nk) or k.shape[0] != b:
+        raise ValueError("flash attention: batch/row shapes disagree")
+    lse = torch.empty((b, heads, nq), device=q.device, dtype=torch.float32)
+    arr, ptr = _strides(strides)
+    _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
+            _DTYPES[q.dtype])
+    return lse
+
+
+def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
+                        dh: int, scale: float):
+    """Backward of :func:`flash_attention`: writes dq, dk and dv (views laid
+    out like q, k and v) in the working type from the cotangent dout and the
+    forward's lse. dk and dv are summed in float over every query and
+    rounded once."""
+    b, nq = q.shape[:2]
+    nk = k.shape[1]
+    strides = _attn_views(heads, dh, [
+        ("q", q), ("k", k), ("v", v), ("dout", dout), ("dq", dq), ("dk", dk),
+        ("dv", dv)])
+    if (dout.shape[:2] != (b, nq) or dq.shape[:2] != (b, nq)
+            or dk.shape[:2] != (b, nk) or dv.shape[:2] != (b, nk)):
+        raise ValueError("flash attention backward: batch/row shapes disagree")
+    check("lse", lse, lse, (b, heads, nq))
+    delta = torch.empty_like(lse)
+    arr, ptr = _strides(strides)
+    _launch("flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
+            _DTYPES[q.dtype])

@@ -1,12 +1,17 @@
-"""The single-device pretraining step: masked forward, token-space losses,
-backward, AdamW.
+"""The single-device training steps: pretraining (masked forward,
+token-space losses) and segmentation tuning (the light forward through the
+seg head, a segmentation loss), each with its backward and the grouped
+optimizer's update.
 
 Counterpart of ``mirage_tpu/train/steps.py`` (``make_pretrain_loss``,
 ``make_train_step``, ``init_train_state``; reference run_pretraining.py
-train_one_epoch): per-task masked losses summed, the gradients of every
-trainable parameter, the grouped optimizer's clipped update, and metrics
-``{"loss", "grad_norm", "loss_<task>"}`` left on the device (no host sync in
-the step). The multi-device steps come with the multi-GPU slice.
+train_one_epoch) and of the seg tuning loss of
+``mirage_tpu/cli/run_seg_tuning.py:296-308``: the loss, the gradients of
+every trainable parameter (frozen encoder blocks stop requiring grad, so
+the backward runs through them to the input adapters without their weight
+gradients, as the reference freeze does), the clipped update, and metrics
+``{"loss", "grad_norm", "loss_<task>"}`` left on the device (no host sync
+in the step). The multi-device steps come with the multi-GPU slice.
 """
 
 from typing import Any, Callable, Mapping, Optional
@@ -52,6 +57,29 @@ def make_pretrain_loss(model, domain_conf: Mapping[str, Mapping[str, Any]],
     return loss_fn
 
 
+def make_seg_loss(model, criterion: Callable, in_domains,
+                  frozen_encoder: bool = False):
+    """Segmentation tuning's loss: loss_fn(batch, generator=None) -> (loss,
+    {}). The light forward (stochastic depth from ``generator``), the seg
+    head's logits in float, resized bilinearly to the labels' size when they
+    differ, and ``criterion(logits, batch["semseg"])``."""
+
+    def loss_fn(batch, generator: Optional[torch.Generator] = None):
+        preds = model.forward_light(
+            {k: v for k, v in batch.items() if k in in_domains},
+            deterministic=False, generator=generator,
+            frozen_encoder=frozen_encoder)
+        logits = preds["semseg"].float()
+        target = batch["semseg"]
+        if logits.shape[-2:] != target.shape[-2:]:
+            from mirage_tpu_torch.nn.resize import resize2d
+
+            logits = resize2d(logits, target.shape[-2:], mode="bilinear")
+        return criterion(logits, target), {}
+
+    return loss_fn
+
+
 def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
     """{'params': name -> parameter (the model's own, updated in place),
     'opt': the optimizer state, 'step': a device counter}. Frozen parameters
@@ -64,16 +92,16 @@ def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
 
 
 def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer):
-    """step_fn(state, batch, generator, lr, wd_scale=1.0, task_masks=None,
-    num_visible=None) -> (state, metrics): gradients of every parameter
-    that requires grad, the optimizer update in place, the step counter."""
+    """step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs) ->
+    (state, metrics): loss_fn(batch, generator=generator, **loss_kwargs)
+    (e.g. the pretraining loss's task_masks and num_visible), gradients of
+    every parameter that requires grad, the optimizer update in place, the
+    step counter."""
 
-    def step_fn(state, batch, generator, lr, wd_scale=1.0, task_masks=None,
-                num_visible=None):
+    def step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
         params = state["params"]
         loss, task_losses = loss_fn(batch, generator=generator,
-                                    task_masks=task_masks,
-                                    num_visible=num_visible)
+                                    **loss_kwargs)
         names = [n for n, p in params.items() if p.requires_grad]
         grads = torch.autograd.grad(loss, [params[n] for n in names],
                                     allow_unused=True)

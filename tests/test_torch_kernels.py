@@ -350,3 +350,136 @@ def test_xattn_half_block_raises_under_autograd(cuda):
     args[6].requires_grad_()
     with pytest.raises(RuntimeError, match="no backward kernel"):
         xattn_half_block(*args, 4)
+
+
+# ------------------------------------------------- segmentation: B8, B9
+#
+# Flash attention (B8) on packed self-attention and cross-attention views,
+# every head-dim class, ragged and long sequences; the stash MLP pair (B9)
+# and the kernels it chains (the stash and dgelu-multiply GEMM epilogues,
+# the weight-gradient and column-sum kernels), each against its plain
+# version, bf16 against float32 math from the same bf16 inputs.
+
+from mirage_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,nq,nk,dh,cross", [
+    (1, 2, 1025, 1025, 64, False), (2, 3, 600, 600, 16, False),
+    (1, 2, 513, 513, 128, False), (2, 8, 256, 769, 32, True),
+    (1, 2, 70, 1100, 48, True), (1, 1, 17, 530, 96, True),
+    (1, 2, 530, 64, 80, True), (1, 1, 600, 600, 112, False)])
+def test_flash_attention_kernels_match_plain(cuda, dtype, b, h, nq, nk, dh,
+                                             cross):
+    g = torch.Generator(device="cuda").manual_seed(nq + nk + dh)
+    d = h * dh
+    if cross:
+        q_src = torch.randn(b, nq, d, device=cuda, generator=g).to(dtype)
+        kv_src = torch.randn(b, nk, 2 * d, device=cuda, generator=g).to(dtype)
+    else:
+        q_src = torch.randn(b, nq, 3 * d, device=cuda, generator=g).to(dtype)
+        kv_src = None
+    dy = torch.randn(b, nq, d, device=cuda, generator=g).to(dtype)
+    scale = dh ** -0.5
+    fwd0, bwd0 = fa.flash_attention.launches, fa.flash_attention.bwd_launches
+    out, lse = fa._flash_fwd(q_src, kv_src, h, scale)
+    grads = [t for t in fa._flash_bwd(q_src, kv_src, lse, dy, h, scale)
+             if t is not None]
+    assert (fa.flash_attention.launches, fa.flash_attention.bwd_launches) \
+        == (fwd0 + 1, bwd0 + 1)
+    f32 = [t.float() if t is not None else None for t in (q_src, kv_src)]
+    with runtime.plain_on_card():
+        want = fa._flash_fwd(f32[0], f32[1], h, scale)[0]
+        want_g = [t for t in fa._flash_bwd(f32[0], f32[1], None, dy.float(),
+                                           h, scale) if t is not None]
+    _check_grads([out, *grads], [want, *want_g], dtype)
+
+
+def test_flash_attention_op_trains_on_the_card(cuda):
+    """Under autograd the op's Function keeps its graph: the gradient of a
+    packed qkv through B8 equals the plain path's."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(2, 700, 3 * 128, device=cuda, generator=g)
+    qkv = qkv.to(torch.bfloat16).requires_grad_()
+    out = fa.flash_attention(qkv, num_heads=2, scale=64 ** -0.5)
+    (got,) = torch.autograd.grad(out.float().square().sum(), qkv)
+    with runtime.plain_on_card():
+        out_p = fa.flash_attention(qkv, num_heads=2, scale=64 ** -0.5)
+        (want,) = torch.autograd.grad(out_p.float().square().sum(), qkv)
+    assert ((got.float() - want.float()).norm() / want.float().norm()) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(2048, 384), (65536, 384), (4096, 512)])
+def test_stash_pair_kernels_match_plain(cuda, dtype, m, d):
+    """B9 forward (out, act, GELU′) and backward (dx and every parameter
+    grad, the weight grads from the wgrad kernel)."""
+    rng = np.random.default_rng(m + d)
+    p = _params(rng, d, 4, 4)
+    x, dy = (_on(rng.standard_normal((m, d)).astype(np.float32), cuda, dtype)
+             for _ in range(2))
+    args = [_on(p[k], cuda, dtype) for k in ("g", "be", "w1", "b1", "w2",
+                                             "b2")]
+    fwd0, bwd0 = fm.mlp_block.stash_launches, fm.mlp_block.stash_bwd_launches
+    out, act, dg = fm._mlp_fwd_stash(x, *args)
+    grads = fm._mlp_bwd_stash(x, dy, act, dg, *args[:3], args[4])
+    assert (fm.mlp_block.stash_launches, fm.mlp_block.stash_bwd_launches) \
+        == (fwd0 + 1, bwd0 + 1)
+    assert torch.equal(out, fm.mlp_block(x, *args))  # B2's forward exactly
+    with runtime.plain_on_card():
+        pf = [a.float() for a in args]
+        want = fm.mlp_block_fwd_stash_ref(x.float(), *pf)
+        want_g = fm.mlp_block_bwd_stash_ref(x.float(), dy.float(),
+                                            act.float(), dg.float(),
+                                            *pf[:3], pf[4])
+    _check_grads([out, act, dg, *grads], [*want, *want_g], dtype)
+
+
+def test_stash_pair_reruns_bit_identical(cuda):
+    """No atomics in B9's backward: two runs give the same bits."""
+    rng = np.random.default_rng(3)
+    p = _params(rng, 384, 4, 4)
+    x, dy = (_on(rng.standard_normal((8192, 384)).astype(np.float32), cuda,
+                 torch.bfloat16) for _ in range(2))
+    args = [_on(p[k], cuda, torch.bfloat16)
+            for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    _, act, dg = fm._mlp_fwd_stash(x, *args)
+    one = fm._mlp_bwd_stash(x, dy, act, dg, *args[:3], args[4])
+    two = fm._mlp_bwd_stash(x, dy, act, dg, *args[:3], args[4])
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n1,n2", [(33, 64, 72), (65536, 1536, 384),
+                                     (5000, 200, 136), (128, 8, 8)])
+def test_weight_grad_and_colsum_kernels(cuda, dtype, m, n1, n2):
+    """gᵀ·a over ragged row counts and widths against float math, and the
+    column sums; both bit-identical on a rerun."""
+    gen = torch.Generator(device="cuda").manual_seed(m + n1)
+    g = torch.randn(m, n1, device=cuda, generator=gen).to(dtype)
+    a = torch.randn(m, n2, device=cuda, generator=gen).to(dtype)
+    got = runtime.weight_grad(g, a)
+    want = g.double().t() @ a.double()
+    assert got.dtype == torch.float32
+    assert ((got.double() - want).norm() / want.norm()).item() < 1e-5
+    assert torch.equal(got, runtime.weight_grad(g, a))
+    cs = runtime.colsum(g)
+    torch.testing.assert_close(cs.double(), g.double().sum(0), atol=1e-3,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", [(33, 192, 64), (65536, 1536, 384)])
+def test_gemm_stash_and_dgelu_epilogues(cuda, dtype, m, n, k):
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+    a = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
+    w = (torch.randn(n, k, device=cuda, generator=gen) * k ** -0.5).to(dtype)
+    b = torch.randn(n, device=cuda, generator=gen) * 0.1
+    act, dg = runtime.gemm_gelu_stash(a, w, b)
+    h = F.linear(a.float(), w.float(), b)
+    grad = 0.5 * (1 + torch.erf(h / 2 ** 0.5)) \
+        + h * torch.exp(-0.5 * h * h) / (2 * np.pi) ** 0.5
+    _check_grads([act, dg], [F.gelu(h), grad], dtype)
+    dh, part = runtime.gemm_dgelu_mul(a, w, dg)
+    want = (a.float() @ w.float().t()) * dg.float()
+    _check_grads([dh, part.sum(0)], [want, want.sum(0)], dtype)

@@ -100,6 +100,35 @@ def test_wrapper_matches_jax_wrapper(pair_of_wrappers, tasks):
                                    atol=ATOL, rtol=ATOL)
 
 
+def test_three_modality_request_routes_through_flash_attention(
+        pair_of_wrappers, monkeypatch):
+    """A request with all three modalities (256 + 256 + 256 + 1 = 769
+    tokens) matches the JAX wrapper at 1e-5 and takes the JAX package's
+    routes above 512 tokens: the encoder's attention and the decoders'
+    cross-attention over the 769 context tokens run flash attention (B8),
+    not the packed kernels, which hold at most 512 tokens and raised on the
+    card (ROADMAP queue C, fault 3)."""
+    from mirage_tpu_torch.adapters import spatial_output
+    from mirage_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    for mod, name in ((fa, "_flash_fwd"), (spatial_output,
+                                           "xattn_half_block")):
+        def spy(*a, _orig=getattr(mod, name), _name=name, **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    jw, tw, _ = pair_of_wrappers
+    x = _inputs(5, DOMAINS)
+    want = jw(x)
+    got = tw(x)
+    for task in DOMAINS:
+        np.testing.assert_allclose(got[task].numpy(), np.asarray(want[task]),
+                                   atol=ATOL, rtol=ATOL)
+    # 2 encoder layers + 3 decoders' cross-attention
+    assert calls == ["_flash_fwd"] * (ARGS["depth"] + len(DOMAINS))
+
+
 def test_features_match_jax(pair_of_wrappers):
     jw, tw, _ = pair_of_wrappers
     x = _inputs(2, ("bscan", "slo"))

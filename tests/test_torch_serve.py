@@ -189,8 +189,17 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
 
 
+# the segmentation slice's modules, which the walk below must reach
+SEG_MODULES = ("ops.flash_attention", "nn.conv", "adapters.seg_heads",
+               "losses.gdice", "api.fm_configs", "metrics.semseg",
+               "data.folder", "data.augment", "data.loader",
+               "train.checkpoint", "train.logger", "cli.config",
+               "cli.run_seg_tuning")
+
+
 def test_package_imports_neither_jax_nor_mirage_tpu():
-    """Subprocess: this test process has already imported jax."""
+    """Subprocess: this test process has already imported jax. Every module
+    of the package, the segmentation slice's included."""
     code = """
 import importlib, pkgutil, sys
 import mirage_tpu_torch
@@ -200,8 +209,12 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "mirage_tpu" or n.startswith("mirage_tpu."))
 print("BAD", bad)
+print("MODS", sorted(n for n in sys.modules if n.startswith("mirage_tpu_torch.")))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    mods = out.stdout.split("MODS", 1)[1]
+    for name in SEG_MODULES:
+        assert f"'mirage_tpu_torch.{name}'" in mods, name
