@@ -32,6 +32,18 @@ Phases, each of which must pass (any failure exits non-zero):
    seeded synthetic dataset, then the bare train step at batch 4: kernel
    step vs plain step, exact launch counts per step and per eval forward,
    ms/step, peak memory and a profile.
+7. cls: classification tuning (MIRAGE-Base at 257 tokens, the global
+   pool, batch 64) through run_cls_tuning.main on a seeded synthetic class
+   folder with seeded MIRAGE-Base weights, then the bare step three ways
+   (the default switches: B6, B2, B5; MIRAGE_OPT_KERNEL=on with
+   MIRAGE_MLP_BWD=accumulate: B7 and B11; linear probing: B1 + B2), each
+   against the plain step, with exact launch counts, ms/step, peak memory
+   and a profile.
+
+Phase 2 also holds the accumulating backwards (B7, both halves) and the
+fused AdamW update (B11) against their plain versions, and phase 5 runs the
+pretraining step once more with the three switches on (B7 for both halves,
+B11).
 
 ``--phases`` runs a subset (a partial run prints no result line). The line
 before the last is a JSON object with one entry per kernel; the card's name
@@ -110,7 +122,8 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "flash_bwd_dq_f32_kernel": "flash_attention_bwd",
                 "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
                 "wgrad_bf16_kernel": "wgrad", "wgrad_f32_kernel": "wgrad",
-                "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad"}
+                "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad",
+                "adamw_kernel": "adamw"}
 
 
 def log(*a):
@@ -404,7 +417,17 @@ BWD_KERNELS = {
 # tokens; three decoders of two 256-token blocks)
 PER_STEP = {"attn_half_block": 12, "attn_half_block_bwd": 12,
             "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
-            "block_attention_bwd": 6, "xattn_half_block": 0}
+            "block_attention_bwd": 6, "xattn_half_block": 0,
+            "attn_half_block_acc_bwd": 0, "mlp_block_acc_bwd": 0,
+            "fused_adamw": 0}
+# the same step with the JAX package's three switches on
+# (MIRAGE_OPT_KERNEL=on, MIRAGE_MLP_BWD=accumulate,
+# MIRAGE_ATTN_BWD=accumulate): both halves' backwards take B7, the update B11
+SWITCHES_ON = {"MIRAGE_OPT_KERNEL": "on", "MIRAGE_MLP_BWD": "accumulate",
+               "MIRAGE_ATTN_BWD": "accumulate"}
+PER_STEP_ON = {**PER_STEP, "attn_half_block_bwd": 0, "mlp_block_bwd": 0,
+               "attn_half_block_acc_bwd": 12, "mlp_block_acc_bwd": 18,
+               "fused_adamw": 1}
 # a backward output against its float32 plain version: relative L2 error,
 # and the largest element error relative to the output's largest element
 # (outputs range from O(1) (dx) to O(1e3) (weight grads summed over 25k-65k
@@ -880,6 +903,234 @@ def phase_seg_kernels(results):
     return results
 
 
+# the accumulating backwards (B7) and the fused AdamW update (B11): name ->
+# (TPU kernel file:line, launcher -> kernel, wrapper, sources)
+ACC_KERNELS = {
+    "attn_half_block_acc_bwd": (
+        "mirage_tpu/ops/block_attention.py:457",
+        "_attn_half_bwd_pallas :502 -> _attn_half_bwd_kernel :457",
+        "mirage_tpu_torch/ops/block_attention.py",
+        ["layernorm.cu", "gemm.cu", "attention.cu", "attention_bwd.cu",
+         "wgrad.cu"]),
+    "mlp_block_acc_bwd": (
+        "mirage_tpu/ops/fused_mlp.py:240",
+        "_mlp_block_bwd_pallas :311 -> _mlp_bwd_kernel :240",
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "gemm.cu", "wgrad.cu"]),
+    "fused_adamw": (
+        "mirage_tpu/ops/fused_adamw.py:111",
+        "fused_adamw_leaf :133 -> _adamw_kernel :111",
+        "mirage_tpu_torch/ops/fused_adamw.py", ["adamw.cu"]),
+}
+B11_RTOL, B11_ATOL = 1e-6, 1e-7
+
+
+def _cls_leaves(gen):
+    """The float32 leaves B11 takes in the classification full fine-tune
+    (MIRAGE-Base, one 512² B-scan at patch 32, seeded): every trainable
+    weight of at least 1 << 17 elements, by the port's own rule."""
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import build_model
+    from mirage_tpu_torch.ops import fused_adamw as fa
+    from mirage_tpu_torch.ops import runtime
+
+    model = build_model("miragepre_base", {}, ["bscan"], 512, 32,
+                        with_outputs=False, generator=gen)
+    with runtime.switched({"MIRAGE_OPT_KERNEL": "on"}):
+        return [p.detach().cuda() for n, p in model.named_parameters()
+                if "pos_emb" not in n and fa.leaf_update_viable(p, 1.0)]
+
+
+def phase_acc_kernels():
+    """B7's two halves at the classification and pretraining shapes and
+    B11 over the classification leaves, each against its plain version
+    (float32 from the same bf16 inputs for B7, the same float32 state for
+    B11), with reruns compared bit for bit. Returns (rows of the
+    pretraining path, rows of the classification path)."""
+    import torch
+
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import fused_adamw as fa
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    def b7a(args, dy):
+        return ba._attn_half_bwd_acc(args[0], dy, *args[1:6], args[7])
+
+    def b7a_ref(args, dy):
+        return ba.attn_half_block_bwd_acc_ref(args[0], dy, *args[1:6],
+                                              args[7])
+
+    def b7m(args, dy):
+        return fm._mlp_bwd_acc(args[0], dy, *args[1:6])
+
+    def b7m_ref(args, dy):
+        return fm.mlp_block_bwd_acc_ref(args[0], dy, *args[1:6])
+
+    ops = {"attn_half_block_acc_bwd": (b7a, b7a_ref, "attn_half_block_bwd",
+                                       ["dx", "dgamma", "dbeta", "dwqkv",
+                                        "dbqkv", "dwproj", "dbproj"]),
+           "mlp_block_acc_bwd": (b7m, b7m_ref, "mlp_block_bwd",
+                                 ["dx", "dgamma", "dbeta", "dw1", "db1",
+                                  "dw2", "db2"])}
+    # (op, label, shape, calls per step of its path, path, launches per
+    # pretraining step)
+    cases = [
+        ("attn_half_block_acc_bwd", "pretraining encoder", (256, 99, 768, 12),
+         12, "pretrain"),
+        ("mlp_block_acc_bwd", "classification encoder", (BATCH, 257, 768),
+         12, "cls"),
+        ("mlp_block_acc_bwd", "pretraining encoder", (256, 99, 768), 0,
+         "cls"),
+        ("mlp_block_acc_bwd", "pretraining decoder", (256, 256, 256), 0,
+         "cls"),
+    ]
+    rows = {"pretrain": {}, "cls": {}}
+    for op, label, shape, per_step, path in cases:
+        kernel, ref, base, names = ops[op]
+        args, dy = _bwd_inputs(base, shape, torch.bfloat16, gen)
+        got = kernel(args, dy)
+        again = kernel(args, dy)
+        torch.cuda.synchronize()
+        rerun_equal = all(torch.equal(a, b) for a, b in zip(got, again)
+                          if a is not None)
+        if not rerun_equal:
+            raise AssertionError(f"{op} {label}: a rerun is not bit-identical")
+        del again
+        with runtime.plain_on_card():
+            want = ref([a.float() if torch.is_tensor(a) else a
+                        for a in args], dy.float())
+        errs = {}
+        for name, g, w in zip(names, got, want):
+            diff = g.float() - w
+            errs[name] = {"max_abs": diff.abs().max().item(),
+                          "rel_max": (diff.abs().max() / w.abs().max()).item(),
+                          "rel_l2": (diff.norm() / w.norm()).item()}
+            if not (bool(torch.isfinite(g).all())
+                    and errs[name]["rel_l2"] <= BWD_REL_L2
+                    and errs[name]["rel_max"] <= BWD_REL_MAX):
+                raise AssertionError(
+                    f"{op} {label} {name}: kernel disagrees with its plain "
+                    f"version: {errs[name]} (bars rel_l2 {BWD_REL_L2}, "
+                    f"rel_max {BWD_REL_MAX})")
+        del got, want
+        kernel_ms = cuda_ms(lambda: kernel(args, dy), iters=10)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: ref(args, dy), iters=5)
+        lib = _bwd_library(base)
+        library_ms = cuda_ms(lambda: lib(dy, *args), iters=10)
+        flops, nbytes = _bwd_work(base, shape, 2)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"label": label, "shape": list(shape), "dtype": "bf16",
+               "errors": errs, "rerun_bit_identical": rerun_equal,
+               "max_abs_err": max(e["max_abs"] for e in errs.values()),
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "calls_per_step": per_step}
+        log(f"[kernels] {op} {label} {shape}: worst rel_l2 "
+            f"{max(e['rel_l2'] for e in errs.values()):.3e} rel_max "
+            f"{max(e['rel_max'] for e in errs.values()):.3e} kernel "
+            f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        rows[path].setdefault(op, []).append(row)
+        del args, dy
+
+    # float32 checks (batch 2 of the main shapes)
+    for op, shape, path in [("attn_half_block_acc_bwd", (2, 99, 768, 12),
+                             "pretrain"),
+                            ("mlp_block_acc_bwd", (2, 257, 768), "cls")]:
+        kernel, ref, base, _ = ops[op]
+        args, dy = _bwd_inputs(base, shape, torch.float32, gen)
+        got = kernel(args, dy)
+        with runtime.plain_on_card():
+            want = ref(args, dy)
+        err = max(((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+                  for g, w in zip(got, want) if w is not None)
+        log(f"[kernels] {op} float32 {shape}: max_abs (relative to the "
+            f"output's largest element above 1) {err:.3e}")
+        if not err <= F32_ATOL:
+            raise AssertionError(f"{op} float32: {err} > {F32_ATOL}")
+        rows[path][op].append({"label": "float32 check", "shape": list(shape),
+                               "dtype": "f32", "max_abs_err": err})
+
+    # B11 over the classification leaves: gscale < 1, the count of step 3
+    leaves = _cls_leaves(torch.Generator().manual_seed(SEED))
+    numel = sum(p.numel() for p in leaves)
+
+    def state(scale):
+        g = [torch.randn(p.shape, generator=gen).cuda() * scale
+             for p in leaves]
+        m = [torch.randn(p.shape, generator=gen).cuda() * 1e-3
+             for p in leaves]
+        n = [torch.rand(p.shape, generator=gen).cuda() * 1e-6
+             for p in leaves]
+        return g, m, n, [p.clone() for p in leaves]
+
+    g, m, n, ps = state(1e-3)
+    count = torch.tensor(3.0, device="cuda")
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    kw = dict(gscale=torch.tensor(0.5, device="cuda"),
+              c1=1 - torch.pow(b1, count), c2=1 - torch.pow(b2, count),
+              keep=torch.tensor(1.0, device="cuda"), b1=b1, b2=b2, eps=eps)
+    lrs, wds = [1e-5] * len(ps), [1e-2] * len(ps)
+
+    def run(keep=None, plain=False):
+        mm, nn_, pp = ([t.clone() for t in ts] for ts in (m, n, ps))
+        args = dict(kw, keep=keep) if keep is not None else kw
+        if plain:
+            with runtime.plain_on_card():
+                fa.fused_adamw(g, mm, nn_, pp, lrs, wds, **args)
+        else:
+            fa.fused_adamw(g, mm, nn_, pp, lrs, wds, **args)
+        return mm + nn_ + pp
+
+    got, again, want = run(), run(), run(plain=True)
+    torch.cuda.synchronize()
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    max_abs = max((a - b).abs().max().item() for a, b in zip(got, want))
+    bad = sum(int((~torch.isclose(a, b, rtol=B11_RTOL, atol=B11_ATOL)).sum())
+              for a, b in zip(got, want))
+    skipped = run(keep=torch.tensor(0.0, device="cuda"))
+    passthrough = all(torch.equal(a, b) for a, b in zip(skipped, m + n + ps))
+    log(f"[kernels] fused_adamw {len(leaves)} leaves, {numel} params: max_abs "
+        f"{max_abs:.3e}, {bad} elements outside rtol {B11_RTOL} atol "
+        f"{B11_ATOL}; rerun bit-identical {rerun_equal}; keep=0 pass-through "
+        f"{passthrough}")
+    if bad or not rerun_equal or not passthrough:
+        raise AssertionError("fused_adamw disagrees with its plain version")
+    del got, again, want, skipped
+    kernel_ms = cuda_ms(lambda: fa.fused_adamw(g, m, n, ps, lrs, wds, **kw),
+                        iters=10)
+    with runtime.plain_on_card():
+        plain_ms = cuda_ms(lambda: fa.fused_adamw(g, m, n, ps, lrs, wds, **kw),
+                           iters=5)
+    steps = [torch.tensor(3.0, device="cuda") for _ in ps]
+    library_ms = cuda_ms(lambda: torch._fused_adamw_(
+        ps, g, m, n, [], steps, lr=1e-5, beta1=b1, beta2=b2,
+        weight_decay=1e-2, eps=eps, amsgrad=False, maximize=False), iters=10)
+    nbytes = 28 * numel
+    row = {"label": "classification leaves", "shape": [len(leaves), numel],
+           "dtype": "f32", "max_abs_err": max_abs,
+           "rerun_bit_identical": rerun_equal,
+           "keep0_bit_identical": passthrough, "ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch._fused_adamw_ over the same leaves",
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "calls_per_step": 1}
+    log(f"[kernels] fused_adamw: kernel {kernel_ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+        f"{row['bound_ms']:.4f} ms (bytes)")
+    rows["cls"]["fused_adamw"] = [row]
+    del g, m, n, ps, leaves
+    torch.cuda.synchronize()
+    return rows["pretrain"], rows["cls"]
+
+
 # ------------------------------------------------------------------ phase 3
 
 def phase_golden(workdir):
@@ -1127,6 +1378,7 @@ def _three_modality_request(url, wrapper, rng):
 # ------------------------------------------------------------------ phase 5
 
 TRAIN_STEPS = 5  # timed steps, after one warm-up step
+TRAIN_STEPS_ON = 3  # timed steps with the switches on, after one warm-up
 # one step on the kernel path against the same step on the plain path, both
 # in bf16 from the same weights, batch and explicit masks: the kernels and
 # the plain versions round at the same places but sum in other orders, and
@@ -1137,10 +1389,15 @@ TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL = 1e-2, 2e-2, 5e-2
 def _launch_counters():
     from mirage_tpu_torch.ops import block_attention as ba
     from mirage_tpu_torch.ops import flash_attention as fa
+    from mirage_tpu_torch.ops import fused_adamw as fadam
     from mirage_tpu_torch.ops import fused_mlp as fm
 
     return {"attn_half_block": (ba.attn_half_block, "launches"),
             "attn_half_block_bwd": (ba.attn_half_block, "bwd_launches"),
+            "attn_half_block_acc_bwd": (ba.attn_half_block,
+                                        "acc_bwd_launches"),
+            "mlp_block_acc_bwd": (fm.mlp_block, "acc_bwd_launches"),
+            "fused_adamw": (fadam.fused_adamw, "launches"),
             "mlp_block": (fm.mlp_block, "launches"),
             "mlp_block_bwd": (fm.mlp_block, "bwd_launches"),
             "block_attention": (ba.block_attention, "launches"),
@@ -1150,6 +1407,34 @@ def _launch_counters():
             "flash_attention_bwd": (fa.flash_attention, "bwd_launches"),
             "mlp_block_stash": (fm.mlp_block, "stash_launches"),
             "mlp_block_stash_bwd": (fm.mlp_block, "stash_bwd_launches")}
+
+
+def _agreement(loss_k, grads_k, loss_p, grads_p, names):
+    """Loss, global grad norm and the worst leaf's relative L2 error of a
+    kernel-path forward and backward against the plain path's."""
+    from mirage_tpu_torch.train.optim import global_norm
+
+    gn_k, gn_p = global_norm(grads_k).item(), global_norm(grads_p).item()
+    leaf = {n: ((g - w).norm() / w.norm()).item()
+            for n, g, w in zip(names, grads_k, grads_p)}
+    worst = max(leaf, key=leaf.get)
+    return {"loss": loss_k.item(), "plain_loss": loss_p.item(),
+            "loss_rel": abs(loss_k.item() - loss_p.item()) / abs(
+                loss_p.item()),
+            "grad_norm": gn_k, "plain_grad_norm": gn_p,
+            "grad_norm_rel": abs(gn_k - gn_p) / gn_p,
+            "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst],
+            "leaves": len(leaf)}
+
+
+def _check_agreement(what, agree):
+    if not (agree["loss_rel"] <= TRAIN_LOSS_REL
+            and agree["grad_norm_rel"] <= TRAIN_GNORM_REL
+            and agree["worst_leaf_rel_l2"] <= TRAIN_LEAF_REL):
+        raise AssertionError(
+            f"{what}: kernel step disagrees with the plain step: {agree} "
+            f"(bars loss {TRAIN_LOSS_REL}, grad norm {TRAIN_GNORM_REL}, leaf "
+            f"{TRAIN_LEAF_REL})")
 
 
 def phase_train(card):
@@ -1166,8 +1451,7 @@ def phase_train(card):
     from mirage_tpu_torch.api.wrapper import build_model
     from mirage_tpu_torch.masking.masking import generate_random_masks
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.train.optim import (GroupedOptimizer,
-                                              OptimizerConfig, global_norm)
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
     from mirage_tpu_torch.train.steps import (init_train_state,
                                               make_pretrain_loss,
                                               make_train_step)
@@ -1225,29 +1509,27 @@ def phase_train(card):
     one_pass = {k: v for k, v in read().items() if k in PER_STEP}
     with runtime.plain_on_card():
         loss_p, grads_p = loss_and_grads()
-    gn_k, gn_p = global_norm(grads_k).item(), global_norm(grads_p).item()
-    leaf = {n: ((g - w).norm() / w.norm()).item()
-            for n, g, w in zip(names, grads_k, grads_p)}
-    worst = max(leaf, key=leaf.get)
-    agree = {"loss": loss_k.item(), "plain_loss": loss_p.item(),
-             "loss_rel": abs(loss_k.item() - loss_p.item()) / abs(
-                 loss_p.item()),
-             "grad_norm": gn_k, "plain_grad_norm": gn_p,
-             "grad_norm_rel": abs(gn_k - gn_p) / gn_p,
-             "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst],
-             "leaves": len(leaf)}
+    agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
     log(f"[train] one step, kernel path vs plain path (bf16, card): {agree}")
-    del grads_k, grads_p
-    if not (agree["loss_rel"] <= TRAIN_LOSS_REL
-            and agree["grad_norm_rel"] <= TRAIN_GNORM_REL
-            and agree["worst_leaf_rel_l2"] <= TRAIN_LEAF_REL):
-        raise AssertionError(
-            f"kernel step disagrees with the plain step: {agree} (bars loss "
-            f"{TRAIN_LOSS_REL}, grad norm {TRAIN_GNORM_REL}, leaf "
-            f"{TRAIN_LEAF_REL})")
+    del grads_k
+    _check_agreement("pretraining step", agree)
     if one_pass != PER_STEP:
         raise AssertionError(f"launches in one forward+backward {one_pass} "
                              f"!= {PER_STEP}")
+    with runtime.switched(SWITCHES_ON):
+        reset()
+        loss_a, grads_a = loss_and_grads()
+        torch.cuda.synchronize()
+        one_pass_on = {k: v for k, v in read().items() if k in PER_STEP}
+    agree_on = _agreement(loss_a, grads_a, loss_p, grads_p, names)
+    log(f"[train] one step with {SWITCHES_ON}, kernel path vs plain path "
+        f"(bf16, card): {agree_on}")
+    del grads_a, grads_p
+    _check_agreement("pretraining step, switches on", agree_on)
+    want_on = {**PER_STEP_ON, "fused_adamw": 0}
+    if one_pass_on != want_on:
+        raise AssertionError(f"launches in one forward+backward with the "
+                             f"switches on {one_pass_on} != {want_on}")
 
     # the pretraining step itself: random masks, warm-up, timed steps
     watch = ["encoder.0.attn.qkv.weight", "encoder.11.mlp.fc2.weight",
@@ -1286,9 +1568,41 @@ def phase_train(card):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] batch {b}: {dt * 1e3:.2f} ms/step, {b / dt:.1f} img/s, "
         f"peak memory {peak:.1f} GiB, on {card}")
+
+    # the step with the switches on: B7 for both backwards, B11
+    routed = sum(1 for p in state["params"].values()
+                 if p.requires_grad and p.numel() >= 1 << 17)
+    with runtime.switched(SWITCHES_ON):
+        state, _ = step(state, batch, gen, lr)
+        torch.cuda.synchronize()
+        reset()
+        t2 = time.perf_counter()
+        for _ in range(TRAIN_STEPS_ON):
+            state, m = step(state, batch, gen, lr)
+        torch.cuda.synchronize()
+        dt_on = (time.perf_counter() - t2) / TRAIN_STEPS_ON
+        counts_on = {k: v for k, v in read().items() if k in PER_STEP_ON}
+        prof_on = profile_forward(lambda: step(state, batch, gen, lr),
+                                  top_n=25)
+    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
+
+    expected_on = {k: v * TRAIN_STEPS_ON for k, v in PER_STEP_ON.items()}
+    log(f"[train] {TRAIN_STEPS_ON} steps with the switches on: launches "
+        f"{counts_on}, expected {expected_on}; B11 leaves "
+        f"{fused_adamw.last_routed_count}, expected {routed}; "
+        f"{dt_on * 1e3:.2f} ms/step; loss {m['loss'].item()}; profile "
+        f"{prof_on if prof_on else 'no device kernels seen (not measured)'}")
+    if counts_on != expected_on or fused_adamw.last_routed_count != routed \
+            or not np.isfinite(m["loss"].item()):
+        raise AssertionError(f"switches on: launches {counts_on}, leaves "
+                             f"{fused_adamw.last_routed_count}")
     return {"batch": b, "steps": TRAIN_STEPS + 2, "ms_per_step": dt * 1e3,
             "img_per_s": b / dt, "counts": counts, "agreement": agree,
             "losses": losses, "profile": prof, "peak_gib": peak,
+            "switches_on": {"switches": SWITCHES_ON, "counts": counts_on,
+                            "agreement": agree_on, "ms_per_step": dt_on * 1e3,
+                            "img_per_s": b / dt_on, "b11_leaves": routed,
+                            "profile": prof_on},
             "card": card}
 
 
@@ -1303,7 +1617,9 @@ SEG_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
                 "mlp_block_stash": 4, "mlp_block_stash_bwd": 4,
                 "attn_half_block": 0, "attn_half_block_bwd": 0,
                 "mlp_block": 0, "mlp_block_bwd": 0, "block_attention": 0,
-                "block_attention_bwd": 0, "xattn_half_block": 0}
+                "block_attention_bwd": 0, "xattn_half_block": 0,
+                "attn_half_block_acc_bwd": 0, "mlp_block_acc_bwd": 0,
+                "fused_adamw": 0}
 SEG_PER_EVAL = {**{k: 0 for k in SEG_PER_STEP}, "flash_attention": 12,
                 "mlp_block": 16}
 
@@ -1491,6 +1807,214 @@ def phase_seg(workdir, card):
             "losses": losses, "profile": prof, "card": card}
 
 
+# ------------------------------------------------------------------ phase 7
+
+CLS_BATCH = 64  # the CLI's cap on the auto batch size
+CLS_STEPS = 3  # timed steps, after one warm-up step
+# images per class of the synthetic set: 2 steps at batch 64 (129 train
+# images make 3 batches, 2 run), one validation batch and one test batch
+CLS_SPLITS = {"train": 43, "val": 10, "test": 2}
+CLS_CLASSES = ("AMD", "DME", "NORMAL")
+# launches per full fine-tune step (ViT-B at 257 tokens, 12 layers: LN ->
+# B6 -> residual, then B2 / B5), per linear-probe step and per eval forward
+# (the fused halves B1 + B2)
+CLS_ZERO = {k: 0 for k in PER_STEP}
+CLS_PER_STEP = {**CLS_ZERO, "block_attention": 12, "block_attention_bwd": 12,
+                "mlp_block": 12, "mlp_block_bwd": 12}
+CLS_PER_STEP_ON = {**CLS_PER_STEP, "mlp_block_bwd": 0,
+                   "mlp_block_acc_bwd": 12, "fused_adamw": 1}
+CLS_PER_EVAL = {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}
+
+
+def _cls_dataset(root, rng):
+    """Seeded non-square uint8 B-scans (496 × 768, the shape of a common
+    OCT export) in the class-folder layout, a per-class brightness offset
+    so that the classes differ."""
+    import numpy as np
+
+    for split, n in CLS_SPLITS.items():
+        for k, c in enumerate(CLS_CLASSES):
+            d = root / split / c
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                img = rng.random((496, 768), dtype=np.float32) * 160 + 40 * k
+                np.save(d / f"{c}_{i:03d}.npy", img.astype(np.uint8))
+
+
+def phase_cls(workdir, card):
+    """Classification tuning: run_cls_tuning.main at full width (MIRAGE-Base
+    picked from a weights name holding mirage-base, one 512² B-scan at
+    patch 32 -> 257 tokens, the global pool, batch 64, bf16 compute with
+    float32 parameters, AdamW (0.9, 0.999), wd 1e-2, lr 1e-5, label
+    smoothing 0.1) on a seeded synthetic class folder with seeded random
+    MIRAGE-Base weights; then the bare step at batch 64 three ways (default
+    switches, the switches on, linear probing), each against its plain step,
+    with exact launch counts, ms/step, peak memory and one profile."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import build_model as build_pretrain
+    from mirage_tpu_torch.cli import run_cls_tuning as rct
+    from mirage_tpu_torch.cli.config import parse_with_yaml
+    from mirage_tpu_torch.data.folder import ImageFolder
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
+    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
+
+    counters = _launch_counters()
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
+                if k in CLS_ZERO}
+
+    t0 = time.perf_counter()
+    root = workdir / "cls"
+    _cls_dataset(root / "data" / "OCTID", np.random.default_rng(SEED))
+    domains = ["bscan", "slo", "bscanlayermap"]
+    pre_args = dict(model="miragepre_base", num_global_tokens=1,
+                    in_domains=domains, out_domains=domains, decoder_dim=256,
+                    decoder_depth=2, decoder_num_heads=8)
+    weights = root / "mirage-base_seed0.pth"
+    torch.save({"model": build_pretrain(
+        "miragepre_base", pre_args, domains, 512, 32,
+        generator=torch.Generator().manual_seed(SEED)).state_dict(),
+        "args": pre_args}, weights)
+    log(f"[cls] dataset and MIRAGE-Base weights from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 1. the entry point: 2 steps, a validation batch, the test batch
+    argv = ["--data_root", str(root / "data"), "--data_set", "OCTID",
+            "--weights", str(weights), "--device", "cuda", "--epochs", "1",
+            "--batch_size", str(CLS_BATCH), "--max_steps_per_epoch", "2",
+            "--output_dir", str(root / "out"), "--num_workers", "8",
+            "--seed", str(SEED)]
+    reset()
+    t1 = time.perf_counter()
+    stats = rct.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    cli_counts = read()
+    run = next((root / "out" / "v1" / str(SEED) / "OCTID").iterdir())
+    rows = (run / "train_eval.csv").read_text().splitlines()
+    want_cli = {k: 2 * CLS_PER_STEP[k] + 2 * CLS_PER_EVAL[k]
+                for k in CLS_ZERO}
+    missing = [m for m in ("sklearn", "pandas", "jax") if m in sys.modules]
+    log(f"[cls] run_cls_tuning in {cli_s:.1f}s: {run.name}; test stats "
+        f"{dict(stats)}; train_eval.csv {rows}; launches {cli_counts}, "
+        f"expected {want_cli}; imported of sklearn/pandas/jax: {missing}")
+    loss = float(rows[-1].split(",")[1])
+    if not (np.isfinite(loss) and (run / "checkpoint-best").is_dir()
+            and (run / "valid_eval.csv").is_file()
+            and (run / "test_eval.csv").is_file()) or missing:
+        raise AssertionError(f"cls tuning: loss {loss}, outputs of {run}")
+    if cli_counts != want_cli:
+        raise AssertionError(f"cls tuning launches {cli_counts} != "
+                             f"{want_cli}")
+
+    # 2. the bare step, built as the entry point builds it
+    ds = None
+    results = {}
+    for way, extra, switches, per_step in (
+            ("full fine-tune", [], {}, CLS_PER_STEP),
+            ("full fine-tune, switches on", [], SWITCHES_ON,
+             CLS_PER_STEP_ON),
+            ("linear probe", ["--linear_probing"], {},
+             {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12})):
+        if not switches:  # the switches-on way reuses the fine-tune model
+            args = rct.process_args(parse_with_yaml(rct.get_parser(),
+                                                    argv + extra))
+            fm, model, opt, loss_fn = rct.setup(args, torch.device("cuda"))
+            state = init_train_state(model, opt)
+            step = make_train_step(loss_fn, opt)
+        if ds is None:
+            ds = ImageFolder(str(Path(args.data_path) / "train"),
+                             transform=fm.build_transform(
+                                 train=True, input_size=args.input_size,
+                                 fill=args.fill))
+            items = [ds[(i, np.random.default_rng(i))]
+                     for i in range(CLS_BATCH)]
+            batch = {"images": torch.from_numpy(np.stack(
+                         [it[0] for it in items])).cuda(),
+                     "targets": torch.tensor([it[1] for it in items]).cuda(),
+                     "weights": torch.ones(CLS_BATCH, device="cuda")}
+        names = [n for n, p in state["params"].items() if p.requires_grad]
+
+        def loss_and_grads():
+            loss, _ = loss_fn(batch)
+            return loss.detach(), torch.autograd.grad(
+                loss, [state["params"][n] for n in names])
+
+        with runtime.switched(switches):
+            reset()
+            loss_k, grads_k = loss_and_grads()
+            torch.cuda.synchronize()
+            one_pass = read()
+            with runtime.plain_on_card():
+                loss_p, grads_p = loss_and_grads()
+            agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
+            del grads_k, grads_p
+            log(f"[cls] {way}: one step, kernel path vs plain path (bf16, "
+                f"card): {agree}")
+            _check_agreement(f"cls {way}", agree)
+            want_pass = {**per_step, "fused_adamw": 0}
+            if one_pass != want_pass:
+                raise AssertionError(f"cls {way}: launches in one forward+"
+                                     f"backward {one_pass} != {want_pass}")
+            before = {n: p.detach().clone() for n, p in
+                      state["params"].items()}
+            lr = 1e-3 if "--linear_probing" in extra else 1e-5
+            state, _ = step(state, batch, None, lr)
+            torch.cuda.synchronize()
+            changed = sorted(n for n, p in state["params"].items()
+                             if not torch.equal(p, before[n]))
+            del before
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t2 = time.perf_counter()
+            metrics = []
+            for _ in range(CLS_STEPS):
+                state, m = step(state, batch, None, lr)
+                metrics.append(m["loss"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t2) / CLS_STEPS
+            counts = read()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = profile_forward(lambda: step(state, batch, None, lr),
+                                   top_n=20)
+        losses = [v.item() for v in metrics]
+        expected = {k: v * CLS_STEPS for k, v in per_step.items()}
+        leaves = fused_adamw.last_routed_count if switches else 0
+        want_leaves = 49 if switches else 0
+        log(f"[cls] {way}: {CLS_STEPS} steps, launches {counts}, expected "
+            f"{expected}; B11 leaves {leaves}, expected {want_leaves}; "
+            f"losses {losses}; {dt * 1e3:.2f} ms/step, "
+            f"{CLS_BATCH / dt:.1f} img/s, peak memory {peak:.2f} GiB, on "
+            f"{card}; one step under torch.profiler: "
+            f"{prof if prof else 'no device kernels seen (not measured)'}")
+        if counts != expected or leaves != want_leaves \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"cls {way}: launches {counts}, leaves "
+                                 f"{leaves}, losses {losses}")
+        if "--linear_probing" in extra and changed != ["head.bias",
+                                                        "head.weight"]:
+            raise AssertionError(f"linear probe changed {changed}")
+        if "--linear_probing" not in extra and len(changed) != len(names):
+            raise AssertionError(f"full fine-tune changed {len(changed)} of "
+                                 f"{len(names)} trainable tensors")
+        results[way] = {"agreement": agree, "counts": counts,
+                        "one_pass": one_pass, "b11_leaves": leaves,
+                        "ms_per_step": dt * 1e3,
+                        "img_per_s": CLS_BATCH / dt, "peak_gib": peak,
+                        "losses": losses, "changed_tensors": len(changed),
+                        "profile": prof}
+    return {"batch": CLS_BATCH, "cli": dict(stats), "cli_seconds": cli_s,
+            "cli_counts": cli_counts, "steps": results, "card": card}
+
+
 # --------------------------------------------------------------------- main
 
 def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
@@ -1509,8 +2033,8 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
             replaces, tpu_kernel = TPU_KERNELS[name]
             source, csrc = SOURCES[name]
         else:
-            replaces, tpu_kernel, source, csrc = {**BWD_KERNELS,
-                                                  **SEG_KERNELS}[name]
+            replaces, tpu_kernel, source, csrc = {
+                **BWD_KERNELS, **SEG_KERNELS, **ACC_KERNELS}[name]
             csrc = [CSRC + f for f in csrc]
         ms = per_path_sum("ms")
         entries.append({
@@ -1518,16 +2042,17 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
             "launches": counts[name], f"launches_per_{path}": per_path[name],
             **{f"launches_per_{k}": v[name] for k, v in per_other_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["dtype"] == "bf16"),
+            "max_abs_err": max([r["max_abs_err"] for r in rows
+                                if r["dtype"] == "bf16"]
+                               or [r["max_abs_err"] for r in rows]),
             "max_err": max(r["max_abs_err"] for r in rows),
             "ms": ms, "kernel_ms": ms, "plain_ms": per_path_sum("plain_ms"),
             "bound_ms": per_path_sum("bound_ms"), "bound_by": top["bound_by"],
             "library_ms": per_path_sum("library_ms"),
-            "library": "composite of F.layer_norm, F.linear, F.gelu, "
-                       "F.scaled_dot_product_attention"
-                       + (" and torch.autograd.grad" if path == "step"
-                          else ""),
+            "library": top.get("library", (
+                "composite of F.layer_norm, F.linear, F.gelu, "
+                "F.scaled_dot_product_attention"
+                + (" and torch.autograd.grad" if path == "step" else ""))),
             "times_are": times_are or (
                 f"sum over one batch-{BATCH} reconstruct forward"
                 if path == "forward" else
@@ -1537,7 +2062,7 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
     return entries
 
 
-PHASES = ("build", "kernels", "golden", "serve", "train", "seg")
+PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls")
 
 
 def main(argv=None):
@@ -1569,11 +2094,12 @@ def main(argv=None):
 
     if "build" in phases:
         phase_build()
-    fwd_rows = bwd_rows = seg_rows = golden = train = seg = None
+    fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
     if "kernels" in phases:
         fwd_rows = phase_kernels()
         bwd_rows = phase_backward({})
         seg_rows = phase_seg_kernels({})
+        acc_pre_rows, acc_cls_rows = phase_acc_kernels()
     if "golden" in phases:
         golden = phase_golden(workdir)
     if "serve" in phases:
@@ -1582,6 +2108,8 @@ def main(argv=None):
         train = phase_train(card)
     if "seg" in phases:
         seg = phase_seg(workdir, card)
+    if "cls" in phases:
+        cls = phase_cls(workdir, card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -1594,9 +2122,21 @@ def main(argv=None):
                    seg_rows, seg["cli_counts"], SEG_PER_STEP, "step",
                    "sum over one batch-4 segmentation tuning step; launches "
                    "from run_seg_tuning (2 steps + 1 eval batch)",
-                   eval_forward=SEG_PER_EVAL))
+                   eval_forward=SEG_PER_EVAL)
+               + _kernel_entries(
+                   acc_pre_rows, train["switches_on"]["counts"], PER_STEP_ON,
+                   "step", f"sum over one batch-{TRAIN_BATCH} pretraining "
+                   f"step with {SWITCHES_ON}; launches from "
+                   f"{TRAIN_STEPS_ON} such steps")
+               + _kernel_entries(
+                   acc_cls_rows,
+                   cls["steps"]["full fine-tune, switches on"]["counts"],
+                   CLS_PER_STEP_ON, "step",
+                   f"sum over one batch-{CLS_BATCH} classification full "
+                   f"fine-tune step with {SWITCHES_ON}; launches from "
+                   f"{CLS_STEPS} such steps"))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
-                    "train": train, "seg": seg,
+                    "train": train, "seg": seg, "cls": cls,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -53,7 +53,19 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
                              ) -> Dict[str, torch.Tensor]:
     """mirage_tpu parameter pytree (numpy leaves: stacked encoder layers,
     (in, out) linears, (C·ph·pw, D) patch projections) -> state dict of the
-    port's ``model``."""
+    port's ``model``. A classification tree {"model", "norm", "head"}
+    (mirage_tpu/api/cls.py) maps onto a ``MIRAGECls``: ``model.*`` from the
+    backbone, ``norm.*``, and ``head.*`` with the (fan_in, C) weight
+    transposed to torch's (C, fan_in)."""
+    if set(params) == {"model", "norm", "head"}:
+        sd = {f"model.{k}": v for k, v in
+              jax_params_to_state_dict(params["model"], model.model).items()}
+        for key, value in (("norm.weight", params["norm"]["scale"]),
+                           ("norm.bias", params["norm"]["bias"]),
+                           ("head.weight", np.asarray(params["head"]["w"]).T),
+                           ("head.bias", params["head"]["b"])):
+            sd[key] = torch.tensor(np.asarray(value), dtype=torch.float32)
+        return sd
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, value):

@@ -99,9 +99,13 @@ class MIRAGEWrapper:
                  modalities: str = "bscan-slo-bscanlayermap",
                  weights: Optional[str] = None, compute_dtype=torch.float32,
                  output_adapters: bool = True,
-                 model_override: Optional[str] = None, device="cuda"):
-        """compute_dtype: torch.float32 or torch.bfloat16; the weights are
-        held in it on ``device``."""
+                 model_override: Optional[str] = None, device="cuda",
+                 param_dtype=None):
+        """compute_dtype: torch.float32 or torch.bfloat16, the activations'
+        type; the weights are held in ``param_dtype`` (default:
+        compute_dtype) on ``device``. A checkpoint's input adapters for
+        modalities not asked for are left out, as the JAX package's
+        conversion leaves them."""
         if weights is None:
             raise ValueError("weights= is required")
         self.device = resolve_device(device)
@@ -122,12 +126,15 @@ class MIRAGEWrapper:
         model = build_model(model_name, self.args, self.in_domains,
                             input_size, patch_size, compute_dtype,
                             with_outputs=output_adapters)
-        sd = ckpt["model"]
+        sd = {k: v for k, v in ckpt["model"].items()
+              if not (k.startswith("input_adapters.")
+                      and k.split(".")[1] not in self.in_domains)}
         if not output_adapters:
             sd = {k: v for k, v in sd.items()
                   if not k.startswith("output_adapters.")}
         model.load_state_dict(sd, strict=True)
-        self.model = model.to(device=self.device, dtype=compute_dtype).eval()
+        self.model = model.to(device=self.device,
+                              dtype=param_dtype or compute_dtype).eval()
         self.compute_dtype = compute_dtype
         self.n_params = sum(p.numel() for p in self.model.parameters())
 

@@ -7,6 +7,7 @@ defaults, explicit flags override them, and int sizes become per-domain
 """
 
 import argparse
+import hashlib
 import json
 import os
 
@@ -59,6 +60,15 @@ def normalize_domain_sizes(args, domains,
                       for d in domains
                       if d in args.input_size and d in args.patch_size}
     return args
+
+
+def args_hash(args, exclude=("config", "output_dir", "device",
+                             "resume")) -> str:
+    """The first 12 hex digits of the md5 of the arguments not in
+    ``exclude``, as JSON with sorted keys (run_cls_tuning.py:324-327)."""
+    d = {k: v for k, v in sorted(vars(args).items()) if k not in exclude}
+    return hashlib.md5(json.dumps(d, sort_keys=True, default=str)
+                       .encode()).hexdigest()[:12]
 
 
 def save_args(output_dir: str, args, name: str = "config.json"):

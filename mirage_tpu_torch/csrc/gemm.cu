@@ -473,6 +473,7 @@ __global__ void __launch_bounds__(256)
                     float* __restrict__ colsum) {
   __shared__ float as[FK][FT + 4];  // as[k][m]
   __shared__ float bs[FK][FT + 4];  // bs[k][n]
+  __shared__ float red[4][16][FT];  // the colsum epilogues' terms, by row
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long m0 = (long)blockIdx.y * FT, n0 = (long)blockIdx.x * FT;
   float acc[4][4] = {};
@@ -499,31 +500,45 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
   }
+  const bool sums = epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const long r = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
-      if (r >= M || col >= N) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += load_param(bias, col, bias_dtype);
-      if (epi == EPI_GELU) {
-        v = gelu_f(v);
-      } else if (epi == EPI_GELU_BWD) {
-        const float h = aux_in[r * N + col];
-        v *= gelu_grad(h);
-        aux_out[r * N + col] = gelu_f(h);
-        atomicAdd(colsum + (r / 16) * N + col, v);  // the caller zeroes colsum
-      } else if (epi == EPI_GELU_STASH) {
-        aux_out[r * N + col] = gelu_grad(v);
-        v = gelu_f(v);
-      } else if (epi == EPI_DGELU_MUL) {
-        v *= aux_in[r * N + col];
-        atomicAdd(colsum + (r / 16) * N + col, v);
+      float v = 0.f;
+      if (r < M && col < N) {
+        v = acc[i][j];
+        if (bias != nullptr) v += load_param(bias, col, bias_dtype);
+        if (epi == EPI_GELU) {
+          v = gelu_f(v);
+        } else if (epi == EPI_GELU_BWD) {
+          const float h = aux_in[r * N + col];
+          v *= gelu_grad(h);
+          aux_out[r * N + col] = gelu_f(h);
+        } else if (epi == EPI_GELU_STASH) {
+          aux_out[r * N + col] = gelu_grad(v);
+          v = gelu_f(v);
+        } else if (epi == EPI_DGELU_MUL) {
+          v *= aux_in[r * N + col];
+        }
+        if (res != nullptr) v += res[r * N + col];
+        C[r * N + col] = v;
       }
-      if (res != nullptr) v += res[r * N + col];
-      C[r * N + col] = v;
+      if (sums) red[i][ty][tx + 16 * j] = v;
     }
+  if (!sums) return;
+  // the 16-row column sums, row by row in order (no atomics: a rerun gives
+  // the same bits): row group m0/16 + i, column n0 + c
+  __syncthreads();
+  const int i = tid >> 6, c = tid & (FT - 1);
+  const long grp = m0 / 16 + i, col = n0 + c;
+  if (grp * 16 < M && col < N) {
+    float s = 0.f;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) s += red[i][t][c];
+    colsum[grp * N + col] = s;
+  }
 }
 
 // epi: EPI_NONE, EPI_GELU, EPI_GELU_BWD (aux_in = h (M, N) float, aux_out

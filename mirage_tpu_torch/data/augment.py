@@ -1,21 +1,25 @@
-"""Host-side preprocessing for segmentation tuning.
+"""Host-side preprocessing for segmentation and classification tuning.
 
-A fork of the segmentation part of ``mirage_tpu/data/augment.py``
-(reference mutils/datasets_semseg.py): ``resize_np`` resizes the trailing
-two dims with torch ``F.interpolate`` semantics through the interpolation
-matrices (``nn.resize.resize_matrix``), and ``SemSegTransform`` is the
-shared-geometry transform over an image and its label map. Randomness comes
-from an explicit ``np.random.Generator``.
+A fork of the segmentation and classification parts of
+``mirage_tpu/data/augment.py`` (reference mutils/datasets_semseg.py and
+mutils/transforms.py): ``resize_np`` resizes the trailing two dims with
+torch ``F.interpolate`` semantics through the interpolation matrices
+(``nn.resize.resize_matrix``); ``SemSegTransform`` is the shared-geometry
+transform over an image and its label map; ``affine_warp`` is torchvision's
+RandomAffine on scipy's ``affine_transform``, and ``ClsTransform`` the
+classification stack. Randomness comes from an explicit
+``np.random.Generator``, drawn in the JAX package's order, so one seed gives
+the same image in both packages.
 """
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from mirage_tpu_torch.data.constants import (IMAGENET_DEFAULT_MEAN,
+                                             IMAGENET_DEFAULT_STD)
 from mirage_tpu_torch.nn.resize import resize_matrix
-
-IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
 
 
 def resize_np(img: np.ndarray, out_size: Tuple[int, int],
@@ -99,3 +103,190 @@ class SemSegTransform:
             img = img[None] if img.ndim == 2 else img.transpose(2, 0, 1)
             final[task] = np.ascontiguousarray(img, np.float32)
         return final
+
+
+# ------------------------------------------------------------ affine warps
+
+def random_affine_params(rng: np.random.Generator, *, degrees: float = 10.0,
+                         translate: Tuple[float, float] = (0.1, 0.1),
+                         scale: Tuple[float, float] = (0.9, 1.1),
+                         shear: float = 5.0,
+                         img_size: Tuple[int, int] = (512, 512)):
+    """(angle, (tx, ty), scale, (shear_x, shear_y)), drawn as torchvision's
+    RandomAffine.get_params draws them."""
+    h, w = img_size
+    angle = float(rng.uniform(-degrees, degrees))
+    tx = float(np.round(rng.uniform(-translate[0] * w, translate[0] * w)))
+    ty = float(np.round(rng.uniform(-translate[1] * h, translate[1] * h)))
+    s = float(rng.uniform(scale[0], scale[1]))
+    sh = float(rng.uniform(-shear, shear))
+    return angle, (tx, ty), s, (sh, 0.0)
+
+
+def _inverse_affine_matrix(center, angle, translate, scale, shear):
+    """Inverse of T(center)·T(translate)·R(angle)·Shear·Scale·T(−center):
+    output pixel (x, y) -> input pixel, as six row-major coefficients."""
+    rot = math.radians(angle)
+    sx, sy = math.radians(shear[0]), math.radians(shear[1])
+    cx, cy = center
+    tx, ty = translate
+    a = math.cos(rot - sy) / math.cos(sy)
+    b = -math.cos(rot - sy) * math.tan(sx) / math.cos(sy) - math.sin(rot)
+    c = math.sin(rot - sy) / math.cos(sy)
+    d = -math.sin(rot - sy) * math.tan(sx) / math.cos(sy) + math.cos(rot)
+    m = [d / scale, -b / scale, 0.0, -c / scale, a / scale, 0.0]
+    m[2] += m[0] * (-cx - tx) + m[1] * (-cy - ty)
+    m[5] += m[3] * (-cx - tx) + m[4] * (-cy - ty)
+    m[2] += cx
+    m[5] += cy
+    # float noise (cos(pi/2) ~ 6e-17) would put an exact edge outside the
+    # constant-mode resampler's range
+    return [0.0 if abs(v) < 1e-9 else v for v in m]
+
+
+def affine_warp(img: np.ndarray, angle: float, translate, scale: float,
+                shear, *, order: int = 1, fill: float = 0.0) -> np.ndarray:
+    """The trailing (H, W) warped as torchvision's TF.affine warps it
+    (rotation about the centre, then translation; bilinear order=1 or
+    nearest order=0; constant fill), through scipy's affine_transform."""
+    from scipy.ndimage import affine_transform
+
+    if not isinstance(shear, (tuple, list)):
+        shear = (float(shear), 0.0)
+    h, w = img.shape[-2], img.shape[-1]
+    m = _inverse_affine_matrix(((w - 1) * 0.5, (h - 1) * 0.5), angle,
+                               translate, scale, shear)
+    matrix = np.array([[m[4], m[3]], [m[1], m[0]]], np.float64)  # (y, x)
+    offset = np.array([m[5], m[2]], np.float64)
+
+    def warp2d(plane):
+        return affine_transform(plane.astype(np.float32), matrix,
+                                offset=offset, order=order, mode="constant",
+                                cval=fill)
+
+    if img.ndim == 2:
+        out = warp2d(img)
+    else:
+        out = np.stack([warp2d(p) for p in img.reshape(-1, h, w)]).reshape(
+            img.shape)
+    if np.issubdtype(img.dtype, np.integer):
+        return np.round(out).astype(img.dtype)
+    return out.astype(img.dtype)
+
+
+# -------------------------------------------------- classification stack
+
+def minmax_norm(img: np.ndarray, per_channel: bool = True) -> np.ndarray:
+    """(x − min) / (max − min), per channel of a (C, H, W) image."""
+    img = img.astype(np.float32)
+    axes = (-2, -1) if per_channel else None
+    lo = img.min(axis=axes, keepdims=True) if axes else img.min()
+    hi = img.max(axis=axes, keepdims=True) if axes else img.max()
+    return (img - lo) / np.maximum(hi - lo, 1e-12)
+
+
+def naive_norm(img: np.ndarray) -> np.ndarray:
+    """/255 for uint8-range data, /65535 for uint16-range, else as is."""
+    img = img.astype(np.float32)
+    return img / (65535.0 if img.max() > 255.0 else 255.0) \
+        if img.max() > 1.0 else img
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """(1, H, W) or (H, W) -> (3, H, W)."""
+    if img.ndim == 2:
+        img = img[None]
+    if img.shape[0] == 1:
+        img = np.repeat(img, 3, axis=0)
+    return img
+
+
+class RandomIntensityChannel:
+    """With probability p, each channel times U(0.8, 1.2), clamped to
+    [0, 1] (mutils/transforms.py:69-104)."""
+
+    def __init__(self, scale=(0.8, 1.2), p: float = 0.5):
+        self.scale = scale
+        self.p = p
+
+    def __call__(self, img: np.ndarray, rng: np.random.Generator
+                 ) -> np.ndarray:
+        if rng.random() >= self.p:
+            return img
+        factors = rng.uniform(self.scale[0], self.scale[1],
+                              size=(img.shape[0], 1, 1))
+        return np.clip(img * factors.astype(np.float32), 0.0, 1.0)
+
+
+class RandomAffineChannel:
+    """With probability p a random affine per channel, each channel warped
+    only 90 % of the time, and fill 0.5 drawing a fill from [min, max] of
+    the image per call (mutils/transforms.py:107-148)."""
+
+    def __init__(self, degrees: float = 10.0, translate=(0.1, 0.1),
+                 scale=(0.9, 1.1), shear: float = 5.0, p: float = 1.0,
+                 fill: Optional[float] = 0.0, channel_p: float = 0.9):
+        self.cfg = dict(degrees=degrees, translate=translate, scale=scale,
+                        shear=shear)
+        self.p = p
+        self.fill = 0.0 if fill is None else fill
+        self.channel_p = channel_p
+
+    def __call__(self, img: np.ndarray, rng: np.random.Generator
+                 ) -> np.ndarray:
+        if rng.random() >= self.p:
+            return img
+        if self.fill == 0.5:
+            fill = float(rng.uniform(float(img.min()), float(img.max())))
+        else:
+            fill = self.fill
+        out = img.copy()
+        for c in range(img.shape[0]):
+            if rng.random() >= self.channel_p:
+                continue
+            angle, t, s, sh = random_affine_params(
+                rng, img_size=img.shape[-2:], **self.cfg)
+            out[c] = affine_warp(img[c], angle, t, s, sh, order=1, fill=fill)
+        return out
+
+
+class ClsTransform:
+    """The classification stack (fm_cls_config.build_transform): bilinear
+    resize -> grayscale -> per-channel min-max -> in training a flip, the
+    intensity jitter and the affine -> the model's norm ('minmax' per
+    channel, or ImageNet RGB). Returns (C, H, W) float32."""
+
+    def __init__(self, input_size: int = 512, train: bool = False,
+                 norm: str = "minmax", hflip: float = 0.5,
+                 intensity: bool = True, affine: bool = True,
+                 fill: Optional[float] = 0.0):
+        self.input_size = int(input_size)
+        self.train = train
+        self.norm = norm
+        self.hflip = hflip
+        self.intensity = RandomIntensityChannel() if intensity else None
+        self.affine = RandomAffineChannel(fill=fill) if affine else None
+
+    def __call__(self, img: np.ndarray, rng: np.random.Generator
+                 ) -> np.ndarray:
+        img = np.asarray(img, np.float32)
+        if img.ndim == 3:
+            img = img.mean(axis=-1)
+        img = resize_np(img, (self.input_size, self.input_size),
+                        mode="bilinear")
+        img = minmax_norm(img[None])
+        if self.train:
+            if rng.random() < self.hflip:
+                img = img[..., ::-1].copy()
+            if self.intensity is not None:
+                img = self.intensity(img, rng)
+            if self.affine is not None:
+                img = self.affine(img, rng)
+        if self.norm == "imagenet":
+            img = to_rgb(img)
+            mean = np.asarray(IMAGENET_DEFAULT_MEAN, np.float32).reshape(3, 1, 1)
+            std = np.asarray(IMAGENET_DEFAULT_STD, np.float32).reshape(3, 1, 1)
+            img = (img - mean) / std
+        else:
+            img = minmax_norm(img)
+        return np.ascontiguousarray(img, np.float32)

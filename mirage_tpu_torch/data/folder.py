@@ -1,8 +1,9 @@
-"""Filesystem datasets: parallel per-task folders.
+"""Filesystem datasets: parallel per-task folders and class folders.
 
 A fork of ``mirage_tpu/data/folder.py`` (reference mutils/dataset_folder.py:
 the sorted recursive walk, the semseg value -> index mapping, min-max
-normalisation of the images, MultiTaskImageFolder). Samples are numpy;
+normalisation of the images, MultiTaskImageFolder; the torchvision-style
+ImageFolder of classification tuning). Samples are numpy;
 transforms take an explicit ``np.random.Generator``. ``.npy``/``.npz`` are
 read with numpy; other image files need PIL and raise without it.
 """
@@ -13,8 +14,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif",
-                  ".tiff", ".webp", ".npy", ".npz")
+from mirage_tpu_torch.data.constants import IMG_EXTENSIONS
 
 
 def read_image(path: str) -> np.ndarray:
@@ -55,6 +55,21 @@ def make_nonclass_dataset(directory: str,
             if fname.lower().endswith(extensions):
                 out.append(os.path.join(root, fname))
     return out
+
+
+def make_class_dataset(directory: str,
+                       extensions: Optional[Tuple[str, ...]] = None):
+    """(paths, targets, classes) of the layout directory/class_x/xxx.png:
+    classes sorted by name, each class's files by the sorted walk."""
+    extensions = extensions or IMG_EXTENSIONS
+    classes = sorted(d.name for d in os.scandir(directory) if d.is_dir())
+    paths, targets = [], []
+    for i, c in enumerate(classes):
+        for p in make_nonclass_dataset(os.path.join(directory, c),
+                                       extensions):
+            paths.append(p)
+            targets.append(i)
+    return paths, np.asarray(targets, np.int64), classes
 
 
 class MultiTaskImageFolder:
@@ -119,3 +134,31 @@ class MultiTaskImageFolder:
 
     def __len__(self):
         return len(self.samples[self.tasks[0]])
+
+
+class ImageFolder:
+    """Classification dataset: root/class_x/xxx.npy -> (image, target, id),
+    with transform(img, rng) -> (C, H, W) float32."""
+
+    def __init__(self, root: str, transform: Optional[Callable] = None,
+                 extensions: Optional[Tuple[str, ...]] = None):
+        self.paths, self.targets, self.classes = make_class_dataset(
+            root, extensions)
+        if not self.paths:
+            raise RuntimeError(f"Found 0 files under {root}")
+        self.transform = transform
+
+    @property
+    def num_classes(self):
+        return len(self.classes)
+
+    def __getitem__(self, item):
+        index, rng = item if isinstance(item, tuple) \
+            else (item, np.random.default_rng(0))
+        img = read_image(self.paths[index])
+        if self.transform is not None:
+            img = self.transform(img, rng)
+        return img, int(self.targets[index]), Path(self.paths[index]).stem
+
+    def __len__(self):
+        return len(self.paths)

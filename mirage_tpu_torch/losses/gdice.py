@@ -1,5 +1,6 @@
-"""Segmentation losses: cross-entropy (optionally ignoring a label) and
-cross-entropy + Generalized Dice.
+"""Segmentation and classification losses: cross-entropy (optionally
+ignoring a label, label-smoothed, weighted) and cross-entropy + Generalized
+Dice.
 
 Counterpart of ``mirage_tpu/losses/gdice.py`` (reference mutils/gdice.py:
 GeneralizedDiceLoss with w = 1/vol², infinite weights replaced by the
@@ -12,20 +13,41 @@ from typing import Optional
 import torch
 
 
-def cross_entropy_loss(logits, target, *, ignore_index: Optional[int] = None):
+def cross_entropy_loss(logits, target, *, ignore_index: Optional[int] = None,
+                       label_smoothing: float = 0.0, weights=None,
+                       normalize: bool = True):
     """logits (B, C, *spatial), target (B, *spatial) integer labels: the
     mean negative log-likelihood over the pixels whose label is not
     ``ignore_index`` (0 when there are none). A label outside [0, C) adds
-    nothing, as the JAX package's one-hot reduction."""
+    nothing to the likelihood term, as the JAX package's one-hot reduction.
+    ``label_smoothing`` mixes in the mean −log p over the classes;
+    ``weights`` (per sample, or broadcastable to target) weigh each pixel:
+    loss = Σ w·nll / Σ w. ``normalize=False`` returns (Σ w·nll, Σ w), for a
+    caller that sums both over shards before dividing."""
     c = logits.shape[1]
     logp = torch.log_softmax(logits.float(), dim=1)
     target = target.long()
     inside = (target >= 0) & (target < c)
     picked = logp.gather(1, target.clamp(0, c - 1).unsqueeze(1)).squeeze(1)
     nll = -torch.where(inside, picked, 0.0)
-    if ignore_index is None:
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll \
+            + label_smoothing * -logp.mean(dim=1)
+    if ignore_index is None and weights is None:
+        if not normalize:
+            return nll.sum(), torch.tensor(float(nll.numel()),
+                                           device=nll.device)
         return nll.mean()
-    valid = (target != ignore_index).float()
+    valid = torch.ones_like(nll)
+    if ignore_index is not None:
+        valid = valid * (target != ignore_index).float()
+    if weights is not None:
+        w = torch.as_tensor(weights, device=nll.device).float()
+        if w.ndim == 1:  # per sample
+            w = w.reshape(w.shape[0], *(1,) * (nll.ndim - 1))
+        valid = valid * w.expand(nll.shape)
+    if not normalize:
+        return (nll * valid).sum(), valid.sum()
     return (nll * valid).sum() / valid.sum().clamp_min(1.0)
 
 

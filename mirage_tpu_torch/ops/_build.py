@@ -21,7 +21,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
-           "wgrad")
+           "wgrad", "adamw")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # cudaGetLastError().
 ENTRIES = {
@@ -44,6 +44,7 @@ ENTRIES = {
                    _I, _P]),
     "wgrad": ("wgrad", "mtt_wgrad", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "colsum": ("wgrad", "mtt_colsum", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "adamw": ("adamw", "mtt_adamw", [_P, _I, _I, _P, _F, _F, _F, _F, _F, _P]),
 }
 
 _lock = threading.Lock()

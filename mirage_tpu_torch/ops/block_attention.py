@@ -33,6 +33,17 @@ work of a later PR. The products with a non-transposed weight (dy·Wproj,
 dqkv·Wqkv) pass the weight transposed (``w.t().contiguous()``, a copy per
 call).
 
+- B7 (attention half, ``MIRAGE_ATTN_BWD=accumulate`` or ``reg_batch``):
+  replaces ``_attn_half_bwd_pallas`` / ``_attn_half_bwd_kernel``
+  (:457-546), which sums every parameter gradient in float32 in its own
+  body over a sequential grid. B4's chain, with dWqkv = T(dqkv)ᵀ·y and
+  dWproj = dyᵀ·attn from csrc/wgrad.cu (fixed row chunks, then the chunks
+  in a fixed order: Hopper's blocks run in no order) and dbqkv (from the
+  float 16-row partials of the unrounded dqkv), dbproj = Σ dy and dγ, dβ
+  from its column-sum kernel. ``reg_batch`` changes only when the TPU
+  kernel writes its VMEM accumulators (:471-497), not what it sums, so both
+  values take this one port. No atomics: a rerun is bit-identical.
+
 Every op saves only its inputs for the backward and recomputes the rest,
 as the TPU kernels do. Parameter gradients come back in float32, as the
 JAX custom VJPs return them; on a CPU tensor the backward runs the plain
@@ -220,12 +231,11 @@ def _attn_half_fwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
     return out.view(b, n, d)
 
 
-def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
-    """B4 on the card: the recompute, the attention backward and the LN
-    backward as CUDA kernels; dWqkv, dWproj and dbproj outside."""
-    if not runtime.use_kernel(x):
-        return attn_half_block_bwd_ref(x, dy, ln_w, ln_b, wqkv, bqkv, wproj,
-                                       num_heads)
+def _attn_half_bwd_chain(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
+    """The kernels B4 and B7 share: the recompute (LN, qkv, attention),
+    dattn, the attention backward and the LN backward. Returns dx, the rows
+    y, dqkv, attn and dy, and the float partials of dgamma, dbeta (32-row)
+    and dbqkv (16-row, of the unrounded dqkv)."""
     b, n, d = x.shape
     dh = d // num_heads
     scale = dh ** -0.5
@@ -239,14 +249,50 @@ def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
                       heads=num_heads, dh=dh, scale=scale)
     dattn = runtime.gemm(dy2, wproj.to(x.dtype).t().contiguous())
     dqkv, dbqkv = runtime.attention_bwd(qkv, dattn.view(b, n, d),
-                                        heads=num_heads, dh=dh, scale=scale)
+                                        heads=num_heads, dh=dh, scale=scale,
+                                        partials=True)
     dqkv = dqkv.view(b * n, 3 * d)
     dyln = runtime.gemm(dqkv, wq.t().contiguous(), out_dtype=torch.float32)
-    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2)
+    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2,
+                                              partials=True)
+    return (dx.view(b, n, d), y, dqkv, attn.view(b * n, d), dy2, dgamma,
+            dbeta, dbqkv)
+
+
+def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
+    """B4 on the card: the shared chain; dWqkv, dWproj, dbproj and the
+    partial sums outside, as the JAX package leaves them to XLA."""
+    if not runtime.use_kernel(x):
+        return attn_half_block_bwd_ref(x, dy, ln_w, ln_b, wqkv, bqkv, wproj,
+                                       num_heads)
+    dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
+        x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
     attn_half_block.bwd_launches += 1
-    return (dx.view(b, n, d), dgamma, dbeta, runtime.wgrad(dqkv, y),
-            dbqkv if bqkv is not None else None,
-            runtime.wgrad(dy2, attn.view(b * n, d)), dy2.float().sum(0))
+    return (dx, dgamma.sum(0), dbeta.sum(0), runtime.wgrad(dqkv, y),
+            dbqkv.sum(0) if bqkv is not None else None,
+            runtime.wgrad(dy2, attn), dy2.float().sum(0))
+
+
+# The accumulating backward (B7) computes what _attn_half_bwd_rows computes
+# over every batch element, with the parameter grads summed: B4's function
+# and rounding (dbqkv from the float dqkv, dWqkv = T(dqkv)ᵀ·y, dWproj =
+# dyᵀ·T(attn)), so its plain version is B4's.
+attn_half_block_bwd_acc_ref = attn_half_block_bwd_ref
+
+
+def _attn_half_bwd_acc(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
+    """B7 (attention half) on the card: the shared chain with every
+    reduction in the wgrad and column-sum kernels."""
+    if not runtime.use_kernel(x):
+        return attn_half_block_bwd_acc_ref(x, dy, ln_w, ln_b, wqkv, bqkv,
+                                           wproj, num_heads)
+    dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
+        x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
+    attn_half_block.acc_bwd_launches += 1
+    return (dx, runtime.colsum(dgamma), runtime.colsum(dbeta),
+            runtime.weight_grad(dqkv, y),
+            runtime.colsum(dbqkv) if bqkv is not None else None,
+            runtime.weight_grad(dy2, attn), runtime.colsum(dy2))
 
 
 class _AttnHalf(torch.autograd.Function):
@@ -259,14 +305,17 @@ class _AttnHalf(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return (*_attn_half_bwd(*ctx.saved_tensors[:1], dy,
-                                *ctx.saved_tensors[1:], ctx.num_heads), None)
+        bwd = (_attn_half_bwd if runtime.switches["MIRAGE_ATTN_BWD"]
+               == "defused" else _attn_half_bwd_acc)
+        return (*bwd(*ctx.saved_tensors[:1], dy, *ctx.saved_tensors[1:],
+                     ctx.num_heads), None)
 
 
 def attn_half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
     """x: (B, N, D); wqkv (3D, D), wproj (D, D) torch Linear layout; bqkv
     may be None (a qkv_bias=False model). Differentiable (B4 backward on
-    the card); weights of another dtype than x are cast to it."""
+    the card, B7 under MIRAGE_ATTN_BWD=accumulate|reg_batch); weights of
+    another dtype than x are cast to it."""
     if _needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj):
         return _AttnHalf.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                num_heads)
@@ -275,6 +324,7 @@ def attn_half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
 
 attn_half_block.launches = 0
 attn_half_block.bwd_launches = 0
+attn_half_block.acc_bwd_launches = 0
 
 
 # ------------------------------------------------------------------ B3

@@ -33,6 +33,25 @@ kernels (csrc/wgrad.cu: fixed row chunks, fixed order), since the TPU
 kernel sums them in its own body (:713-727). Bound: operations (2·M·D·4D·2
 FLOPs forward, twice that backward). Without a gradient it is B2's forward,
 as the JAX custom VJP's primal is (:814-817).
+
+The accumulating backward (B7, MLP half) replaces ``_mlp_block_bwd_pallas``
+/ ``_mlp_bwd_kernel`` (:240-273, :311-429), which emits dx and every
+parameter gradient in float32, summed in its own body over a sequential
+grid. The backward takes it where the JAX package does: under
+``MIRAGE_MLP_BWD=accumulate`` always, and under the default ``defused`` for
+the per-element 3-D route alone (an unaligned (B, N, D) whose flat and
+padded row counts both admit no block, ``_route_unaligned_bwd``). On the
+card it is B5's chain (recompute, the GELU backward in the dact GEMM's
+epilogue, the LN backward) whose reductions all run in hand-written
+kernels, as the TPU kernel computes them in its own body: dW1 = T(dh)ᵀ·y
+and dW2 = dyᵀ·act in csrc/wgrad.cu (fixed row chunks summed in a fixed
+order: Hopper's blocks run in no order, so the TPU's sequential
+accumulator becomes chunk partials and a second pass), db1 from the float
+16-row partials of the unrounded dh, db2 = Σ dy and dγ, dβ from the LN
+backward's partials in its column-sum kernel. No atomics, so a rerun is
+bit-identical. The rows need no padding: the TPU pads only for its tiling,
+and a zero-cotangent row adds nothing. Bound: operations (the recompute
+2·M·D·4D and the backward 8·M·D·4D FLOPs).
 """
 
 import torch
@@ -78,6 +97,13 @@ def mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
             rows(dy32).t() @ rows(act.to(acc)), dy32.sum(dims))
 
 
+# The accumulating backward (B7) computes what _mlp_bwd_rows computes over
+# every row, with the parameter grads summed: B5's function and rounding
+# (db1 from the float dh, dW1 = T(dh)ᵀ·y, dW2 = dyᵀ·T(act)), so its plain
+# version is B5's.
+mlp_block_bwd_acc_ref = mlp_block_bwd_ref
+
+
 def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
     if not runtime.use_kernel(x):
         return mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual)
@@ -91,11 +117,11 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
     return out.view(x.shape)
 
 
-def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
-    """B5 on the card: the recompute, the GELU backward (in the dact GEMM's
-    epilogue) and the LN backward as CUDA kernels; dW1, dW2, db2 outside."""
-    if not runtime.use_kernel(x):
-        return mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
+def _mlp_bwd_chain(x, dy, ln_w, ln_b, w1, b1, w2, residual):
+    """The kernels B5 and B7 share: the recompute, the GELU backward in the
+    dact GEMM's epilogue and the LN backward. Returns dx, the (M, ·) rows
+    y, dh, act and dy, and the float partials of dgamma, dbeta (32-row)
+    and db1 (16-row, of the unrounded dh)."""
     runtime.check("x", x, x)
     d = x.shape[-1]
     x2, dy2 = x.view(-1, d), dy.contiguous().view(-1, d)
@@ -103,14 +129,37 @@ def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     y = runtime.layernorm(x2, ln_w, ln_b)
     h = runtime.gemm(y, w1c, b1, out_dtype=torch.float32)
     dh, act, db1 = runtime.gemm_gelu_bwd(
-        dy2, w2.to(x.dtype).t().contiguous(), h)
+        dy2, w2.to(x.dtype).t().contiguous(), h, partials=True)
     del h
     dyln = runtime.gemm(dh, w1c.t().contiguous(), out_dtype=torch.float32)
-    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2,
-                                              sub_dy=not residual)
+    dx, dgamma, dbeta = runtime.layernorm_bwd(
+        x2, ln_w, dyln, dy2, sub_dy=not residual, partials=True)
+    return dx.view(x.shape), y, dh, act, dy2, dgamma, dbeta, db1
+
+
+def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
+    """B5 on the card: the shared chain; dW1, dW2, db2 and the partial sums
+    outside, as the JAX package leaves them to XLA."""
+    if not runtime.use_kernel(x):
+        return mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
+    dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
+        x, dy, ln_w, ln_b, w1, b1, w2, residual)
     mlp_block.bwd_launches += 1
-    return (dx.view(x.shape), dgamma, dbeta, runtime.wgrad(dh, y), db1,
+    return (dx, dgamma.sum(0), dbeta.sum(0), runtime.wgrad(dh, y), db1.sum(0),
             runtime.wgrad(dy2, act), dy2.float().sum(0))
+
+
+def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
+    """B7 (MLP half) on the card: the shared chain with every reduction in
+    the wgrad and column-sum kernels."""
+    if not runtime.use_kernel(x):
+        return mlp_block_bwd_acc_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
+    dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
+        x, dy, ln_w, ln_b, w1, b1, w2, residual)
+    mlp_block.acc_bwd_launches += 1
+    return (dx, runtime.colsum(dgamma), runtime.colsum(dbeta),
+            runtime.weight_grad(dh, y), runtime.colsum(db1),
+            runtime.weight_grad(dy2, act), runtime.colsum(dy2))
 
 
 class _MlpBlock(torch.autograd.Function):
@@ -123,17 +172,20 @@ class _MlpBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        return (*_mlp_bwd(x, dy, *params, ctx.residual), None)
+        bwd = (_mlp_bwd_acc if takes_accumulating_bwd(x, params[2].shape[0])
+               else _mlp_bwd)
+        return (*bwd(x, dy, *params, ctx.residual), None)
 
 
-# ------------------------------------------------------------------ B9
+# ------------------------------------- the backward routes; B9
 
 def _pick_bwd_block(m, d, hdim, live_bytes_per_row_unit, fixed_bytes,
                     budget=48 * 2 ** 20, ceiling=58 * 2 ** 20):
     """The JAX package's row block for its sequential backward grid
-    (mirage_tpu/ops/fused_mlp.py:287-307), kept so the port stashes exactly
-    where it does: the largest divisor of m within the VMEM budget, then
-    within the ceiling, else None (no divisor: ragged m)."""
+    (mirage_tpu/ops/fused_mlp.py:287-307), kept so the port stashes and
+    accumulates exactly where it does: the largest divisor of m within the
+    VMEM budget, then within the ceiling, else None (no divisor: ragged
+    m)."""
     for cand in (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8):
         if m % cand == 0 and cand * hdim * live_bytes_per_row_unit \
                 + fixed_bytes < budget:
@@ -143,6 +195,42 @@ def _pick_bwd_block(m, d, hdim, live_bytes_per_row_unit, fixed_bytes,
                 + fixed_bytes < ceiling:
             return cand
     return None
+
+
+# the de-fused backward's VMEM row coefficient (mirage_tpu/ops/fused_mlp.py:
+# 284); with fixed term 4·d·hdim it decides the unaligned routes under the
+# default switch (:362-368)
+_DEFUSED_ROW_UNIT = 40
+
+
+def _route_unaligned_bwd(b, n, d, hdim, row_unit=18, fixed_mult=12):
+    """'flat' | 'pad' | None for an unaligned (B, N, D) backward, as
+    mirage_tpu/ops/fused_mlp.py:888-904 decides: fewest grid programs,
+    ties to flat; None where neither admits a block (the per-element 3-D
+    route, which runs the accumulating kernel whatever the switch)."""
+    n_pad = -(-n // 16) * 16
+    blk_flat = _pick_bwd_block(b * n, d, hdim, row_unit, fixed_mult * d * hdim)
+    blk_pad = (_pick_bwd_block(b * n_pad, d, hdim, row_unit,
+                               fixed_mult * d * hdim)
+               if (b * n_pad) % 1024 == 0 else None)
+    progs_flat = (b * n) // blk_flat if blk_flat else None
+    progs_pad = (b * n_pad) // blk_pad if blk_pad else None
+    if progs_flat is not None and (progs_pad is None
+                                   or progs_flat <= progs_pad):
+        return "flat"
+    return "pad" if progs_pad is not None else None
+
+
+def takes_accumulating_bwd(x, hdim) -> bool:
+    """Does mlp_block's backward at x's shape run the accumulating kernel
+    (B7) in the JAX package? Under MIRAGE_MLP_BWD=accumulate always; under
+    defused only on the per-element 3-D route (fused_mlp.py:385-406)."""
+    if runtime.switches["MIRAGE_MLP_BWD"] == "accumulate":
+        return True
+    if x.ndim != 3 or x.shape[1] % 16 == 0:
+        return False
+    b, n, d = x.shape
+    return _route_unaligned_bwd(b, n, d, hdim, _DEFUSED_ROW_UNIT, 4) is None
 
 
 def _stash_viable(m, d, hdim):
@@ -237,8 +325,9 @@ class _MlpBlockStash(torch.autograd.Function):
 
 def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True, stash=False):
     """x: (..., D); w1 (4D, D), w2 (D, 4D) torch Linear layout.
-    Differentiable (B5 backward on the card, or with ``stash`` the B9 pair
-    where stash_route admits x); weights of another dtype than x are cast
+    Differentiable (B5 backward on the card, B7 where
+    takes_accumulating_bwd says so, or with ``stash`` the B9 pair where
+    stash_route admits x); weights of another dtype than x are cast
     to it."""
     if _needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
         if stash and residual and stash_route(x, w1.shape[0]) == "2d":
@@ -251,3 +340,4 @@ mlp_block.launches = 0
 mlp_block.bwd_launches = 0
 mlp_block.stash_launches = 0
 mlp_block.stash_bwd_launches = 0
+mlp_block.acc_bwd_launches = 0

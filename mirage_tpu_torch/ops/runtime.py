@@ -13,11 +13,23 @@ and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
 raising if the launch is refused. :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
-the weight gradients the stash backward (B9) sums inside its TPU kernel.
+the weight gradients the stash backward (B9) and the accumulating
+backwards (B7) sum inside their TPU kernels; ``adamw`` launches the
+multi-tensor AdamW update (B11).
+
+The three switches of the JAX package's non-default kernels keep its names,
+values and defaults and are read once at import, as
+``mirage_tpu/utils/envflags.py`` reads them: ``MIRAGE_OPT_KERNEL``
+(``off|on``: the fused AdamW update, B11), ``MIRAGE_MLP_BWD``
+(``defused|accumulate``: the MLP half's backward, B5 or B7) and
+``MIRAGE_ATTN_BWD`` (``defused|accumulate|reg_batch``: the attention
+half's backward, B4 or B7). An unknown value raises. :func:`set_switch` and
+:func:`switched` change them at run time (the tests and ``chip_smoke.py``).
 """
 
 import contextlib
 import ctypes
+import os
 
 import torch
 
@@ -26,6 +38,45 @@ from mirage_tpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2, "gelu_stash": 3, "dgelu_mul": 4}
 _plain_on_card = False
+
+
+def env_choice(name: str, default: str, allowed: tuple) -> str:
+    """The environment variable ``name`` (``default`` when unset); a value
+    outside ``allowed`` raises rather than falling back silently."""
+    val = os.environ.get(name, default)
+    if val not in allowed:
+        raise ValueError(
+            f"{name}={val!r} is not one of {sorted(allowed)} — refusing to "
+            f"fall back silently (it would corrupt an A/B measurement)")
+    return val
+
+
+SWITCHES = {"MIRAGE_OPT_KERNEL": ("off", ("on", "off")),
+            "MIRAGE_MLP_BWD": ("defused", ("accumulate", "defused")),
+            "MIRAGE_ATTN_BWD": ("defused",
+                                ("accumulate", "reg_batch", "defused"))}
+switches = {name: env_choice(name, default, allowed)
+            for name, (default, allowed) in SWITCHES.items()}
+
+
+def set_switch(name: str, value: str) -> str:
+    """Sets one switch (validated as at import); returns its old value."""
+    allowed = SWITCHES[name][1]
+    if value not in allowed:
+        raise ValueError(f"{name}={value!r} is not one of {sorted(allowed)}")
+    prev, switches[name] = switches[name], value
+    return prev
+
+
+@contextlib.contextmanager
+def switched(values):
+    """Sets the switches of ``values`` (name -> value) for the block."""
+    prev = {name: set_switch(name, v) for name, v in values.items()}
+    try:
+        yield
+    finally:
+        for name, v in prev.items():
+            switches[name] = v
 
 
 def resolve_device(device) -> torch.device:
@@ -167,11 +218,13 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     return c
 
 
-def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
+def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                  partials: bool = False):
     """The MLP backward's dact GEMM with the GELU backward as its epilogue:
     acc = a (M, K) · w (N, K)ᵀ, h (M, N) float the fc1 output. Returns
     dh = T(acc·GELU′(h)), act = T(GELU(h)) and db1, the float column sums of
-    the unrounded dh (from the kernel's 16-row partials)."""
+    the unrounded dh (from the kernel's 16-row partials; with ``partials``,
+    those (ceil(M/16), N) partials unsummed)."""
     m, n, k = _gemm_operands(a, w)
     if h.dtype != torch.float32:
         raise ValueError(f"h: dtype {h.dtype}, expected torch.float32")
@@ -185,7 +238,7 @@ def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor):
     _launch("gemm", a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
             m, n, k, _EPI["gelu_bwd"], _DTYPES[a.dtype], 0, h.data_ptr(),
             act.data_ptr(), colsum.data_ptr())
-    return dh, act, colsum.sum(0)
+    return dh, act, colsum if partials else colsum.sum(0)
 
 
 def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
@@ -262,6 +315,26 @@ def colsum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def adamw(table: torch.Tensor, n_leaves: int, max_numel: int,
+          scalars: torch.Tensor, b1: float, b2: float, eps: float):
+    """One AdamW step in place over ``n_leaves`` float32 leaves: ``table``
+    (n_leaves, 6) int64 on the device holds each leaf's g, m, n, p pointers,
+    its length and its (lr, wd) packed as two float32; ``scalars`` (4,)
+    float32 on the device holds gscale, c1, c2 and keep. 1 − b1 and 1 − b2
+    are taken in double and rounded, as the TPU kernel's static constants."""
+    if table.dtype != torch.int64 or tuple(table.shape) != (n_leaves, 6):
+        raise ValueError(f"adamw table: {table.dtype} {tuple(table.shape)}, "
+                         f"expected int64 ({n_leaves}, 6)")
+    check("scalars", scalars, scalars, (4,))
+    if scalars.dtype != torch.float32 or table.device != scalars.device:
+        raise ValueError("adamw scalars: float32 on the table's device")
+    if not 0 < n_leaves <= 65535:
+        raise ValueError(f"adamw: {n_leaves} leaves (1..65535)")
+    blocks = max(1, min(-(-max_numel // (4 * 256 * 4)), 65535))
+    _launch("adamw", table.data_ptr(), n_leaves, blocks, scalars.data_ptr(),
+            b1, 1.0 - b1, b2, 1.0 - b2, eps)
+
+
 def wgrad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """gᵀ·a over the rows of two (M, ·) matrices, in float: a weight
     gradient in torch Linear layout (out, in). 16-bit operands multiply
@@ -299,10 +372,11 @@ def attention(q, k, v, out, *, heads: int, dh: int, scale: float):
 
 
 def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
-                  dh: int, scale: float):
+                  dh: int, scale: float, partials: bool = False):
     """Backward of :func:`attention` on a packed (B, N, 3D) qkv with
     cotangent dout (B, N, D): dqkv (B, N, 3D) in qkv's dtype and the float
-    column sums of the unrounded dqkv over all rows (for the qkv bias)."""
+    column sums of the unrounded dqkv over all rows (for the qkv bias; with
+    ``partials``, the kernel's (B·ceil(N/16), 3D) 16-row partials)."""
     b, n, three_d = qkv.shape
     d = heads * dh
     if three_d != 3 * d:
@@ -324,7 +398,7 @@ def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
     _launch("attention_bwd", qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(), b, n,
             heads, dh, scale, _DTYPES[qkv.dtype])
-    return dqkv, part.sum(0)
+    return dqkv, part if partials else part.sum(0)
 
 
 def _attn_views(heads, dh, named):

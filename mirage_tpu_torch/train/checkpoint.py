@@ -6,7 +6,8 @@ mutils/checkpoint.py): ``{output_dir}/checkpoint-{epoch|tag}/`` holds
 ``checkpoint.pth`` (``torch.save`` of the parameters in the model's
 state-dict namespace, the optimizer's moments and step counts, the epoch
 and the run's arguments; host tensors) and ``meta.json``. Loading copies
-into the live train state in place. A moment that a checkpoint saved with
+into the live train state in place (``load_best_checkpoint`` from
+``checkpoint-best``). A moment that a checkpoint saved with
 other frozen parameters lacks starts at zero, as the reference does for a
 newly trainable parameter; one it has beyond the state's is dropped.
 """
@@ -30,6 +31,14 @@ def _host(tree):
     if torch.is_tensor(tree):
         return tree.detach().cpu()
     return {k: _host(v) for k, v in tree.items()}
+
+
+def snapshot(state):
+    """A host copy of a train state, kept apart from the live one (which
+    the steps update in place): the best model held in memory."""
+    if torch.is_tensor(state):
+        return state.detach().to("cpu", copy=True)
+    return {k: snapshot(v) for k, v in state.items()}
 
 
 def save_checkpoint(output_dir: str, state, epoch, *,
@@ -77,6 +86,15 @@ def load_checkpoint(path: str, state):
                 m.copy_(saved)
     state["step"].copy_(ckpt["step"])
     return state, {k: ckpt[k] for k in ("epoch", "args") if k in ckpt}
+
+
+def load_best_checkpoint(output_dir: str, state):
+    """Copies ``checkpoint-best`` into ``state`` in place; raises
+    FileNotFoundError without one."""
+    path = _ckpt_dir(output_dir, "best")
+    if not os.path.isdir(path):
+        raise FileNotFoundError(path)
+    return load_checkpoint(path, state)[0]
 
 
 def auto_load_checkpoint(output_dir: str, state):

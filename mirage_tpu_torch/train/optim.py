@@ -17,15 +17,20 @@ mutils/optim_factory.py and mutils/native_scaler.py), written on a model's
   reaches ``skip_grad`` — all on the device, with no host sync.
 
 The update works in place on the parameters and the moments (the JAX
-package returns new arrays); ``count`` advances only on kept steps. This is
-the plain route of the TPU's fused AdamW kernel (B11), which the
-pretraining step does not run (``MIRAGE_OPT_KERNEL`` defaults to off).
+package returns new arrays); ``count`` advances only on kept steps. With
+``MIRAGE_OPT_KERNEL=on`` (default off, as in the JAX package) the AdamW
+leaves that ``ops.fused_adamw.leaf_update_viable`` admits take the fused
+AdamW update (B11: one launch over all of them on the card); the rest take
+the ``torch._foreach_*`` route, unchanged. gnorm, gscale, keep, c1 and c2
+stay device scalars on both routes.
 """
 
 import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+
+from mirage_tpu_torch.ops.fused_adamw import fused_adamw, leaf_update_viable
 
 NO_DECAY_PATH_NAMES = {"pos_emb", "class_emb", "global_tokens", "mask_token",
                        "task_embeddings", "cls_emb"}
@@ -123,9 +128,25 @@ class GroupedOptimizer:
                   if cfg.clip_grad is not None else None)
         state["count"] += keep.to(torch.int32)
         names = [n for n in state["mu"] if grads.get(n) is not None]
+        meta = self.meta({n: params[n] for n in names})
+        if cfg.opt in ("adamw", "adam"):
+            b1, b2 = cfg.betas
+            count = torch.clamp(state["count"].float(), min=1.0)
+            c1 = 1 - torch.pow(b1, count)
+            c2 = 1 - torch.pow(b2, count)
+            routed = [n for n in names if leaf_update_viable(
+                params[n], meta[n][1], cfg.opt, meta[n][2])]
+            fused_adamw(
+                [grads[n] for n in routed], [state["mu"][n] for n in routed],
+                [state["nu"][n] for n in routed], [params[n] for n in routed],
+                [lr * meta[n][1] for n in routed],
+                [meta[n][0] * wd_scale for n in routed],
+                gscale=gscale if gscale is not None else torch.ones(
+                    (), device=gnorm.device), c1=c1, c2=c2, keep=keep_f,
+                b1=b1, b2=b2, eps=cfg.eps)
+            names = [n for n in names if n not in routed]
         if not names:
             return gnorm
-        meta = self.meta({n: params[n] for n in names})
         ps = [params[n] for n in names]
         # a skipped step's grads may be inf/NaN: select, never multiply
         gs = [torch.where(keep, grads[n].float(), 0.0) for n in names]
@@ -135,7 +156,6 @@ class GroupedOptimizer:
         steps = [-lr * meta[n][1] for n in names]
         mus = [state["mu"][n] for n in names]
         if cfg.opt in ("adamw", "adam"):
-            b1, b2 = cfg.betas
             if cfg.opt == "adam":  # torch Adam: L2 on the gradient
                 gs = torch._foreach_add(gs, torch._foreach_mul(ps, wds))
             # kept: m = b1·m + (1 − b1)·g; skipped: m unchanged (exactly)
@@ -148,9 +168,6 @@ class GroupedOptimizer:
             torch._foreach_mul_(nus, torch.where(keep, b2, one))
             torch._foreach_add_(nus, torch._foreach_mul(
                 torch._foreach_mul(gs, gs), torch.where(keep, 1 - b2, zero)))
-            count = torch.clamp(state["count"].float(), min=1.0)
-            c1 = 1 - torch.pow(b1, count)
-            c2 = 1 - torch.pow(b2, count)
             upd = torch._foreach_div(
                 torch._foreach_div(mus, c1),
                 torch._foreach_add(torch._foreach_sqrt(

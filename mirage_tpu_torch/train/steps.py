@@ -1,7 +1,8 @@
 """The single-device training steps: pretraining (masked forward,
-token-space losses) and segmentation tuning (the light forward through the
-seg head, a segmentation loss), each with its backward and the grouped
-optimizer's update.
+token-space losses), segmentation tuning (the light forward through the
+seg head, a segmentation loss) and classification tuning (the pooled head,
+label-smoothed cross-entropy over zero-weight-padded batches), each with its
+backward and the grouped optimizer's update.
 
 Counterpart of ``mirage_tpu/train/steps.py`` (``make_pretrain_loss``,
 ``make_train_step``, ``init_train_state``; reference run_pretraining.py
@@ -11,7 +12,8 @@ every trainable parameter (frozen encoder blocks stop requiring grad, so
 the backward runs through them to the input adapters without their weight
 gradients, as the reference freeze does), the clipped update, and metrics
 ``{"loss", "grad_norm", "loss_<task>"}`` left on the device (no host sync
-in the step). The multi-device steps come with the multi-GPU slice.
+in the step); the classification loss hands its logits back as the
+metric ``logits``. The multi-device steps come with the multi-GPU slice.
 """
 
 from typing import Any, Callable, Mapping, Optional
@@ -80,6 +82,28 @@ def make_seg_loss(model, criterion: Callable, in_domains,
     return loss_fn
 
 
+def make_cls_loss(model, smoothing: float = 0.1,
+                  frozen_encoder: bool = False):
+    """Classification tuning's loss (mirage_tpu/cli/run_cls_tuning.py:
+    178-190): loss_fn(batch, generator=None) -> (loss, {"logits": logits})
+    over batch {"images", "targets", "weights"}: the sum form of the
+    label-smoothed cross-entropy divided by the total weight (at least 1),
+    so zero-weight padding rows add nothing. ``frozen_encoder``: linear
+    probing."""
+    from mirage_tpu_torch.losses.gdice import cross_entropy_loss
+
+    def loss_fn(batch, generator: Optional[torch.Generator] = None):
+        logits = model(batch["images"], deterministic=False,
+                       generator=generator, frozen_encoder=frozen_encoder)
+        s, w = cross_entropy_loss(
+            logits[..., None, None], batch["targets"][..., None, None],
+            label_smoothing=smoothing, weights=batch["weights"],
+            normalize=False)
+        return s / w.clamp_min(1.0), {"logits": logits}
+
+    return loss_fn
+
+
 def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
     """{'params': name -> parameter (the model's own, updated in place),
     'opt': the optimizer state, 'step': a device counter}. Frozen parameters
@@ -96,7 +120,8 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer):
     (state, metrics): loss_fn(batch, generator=generator, **loss_kwargs)
     (e.g. the pretraining loss's task_masks and num_visible), gradients of
     every parameter that requires grad, the optimizer update in place, the
-    step counter."""
+    step counter. The loss function's 0-d extras become metrics
+    ``loss_<name>``, any other extra the metric ``<name>`` (detached)."""
 
     def step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
         params = state["params"]
@@ -109,7 +134,7 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer):
                                  params, lr, wd_scale)
         state["step"] += 1
         metrics = {"loss": loss.detach(), "grad_norm": gnorm}
-        metrics.update({f"loss_{k}": v.detach()
+        metrics.update({(f"loss_{k}" if v.ndim == 0 else k): v.detach()
                         for k, v in task_losses.items()})
         return state, metrics
 

@@ -483,3 +483,132 @@ def test_gemm_stash_and_dgelu_epilogues(cuda, dtype, m, n, k):
     dh, part = runtime.gemm_dgelu_mul(a, w, dg)
     want = (a.float() @ w.float().t()) * dg.float()
     _check_grads([dh, part.sum(0)], [want, want.sum(0)], dtype)
+
+
+# ----------------------------------------- B7 (accumulating) and B11
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(3, 33, 48), (4, 257, 768), (2, 99, 768),
+                                   (2, 256, 256)])
+def test_mlp_accumulating_backward_matches_plain(cuda, dtype, residual,
+                                                 shape):
+    """B7's MLP half: dx and every parameter grad reduced by the wgrad and
+    column-sum kernels; a rerun gives the same bits."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    d = shape[-1]
+    p = _params(rng, d, 4, 4)
+    x, dy = (_on(rng.standard_normal(shape).astype(np.float32), cuda, dtype)
+             for _ in range(2))
+    args = [_on(p[k], cuda, dtype) for k in ("g", "be", "w1", "b1", "w2")]
+    before = fm.mlp_block.acc_bwd_launches
+    got = fm._mlp_bwd_acc(x, dy, *args, residual=residual)
+    assert fm.mlp_block.acc_bwd_launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, fm._mlp_bwd_acc(x, dy, *args, residual=residual)))
+    with runtime.plain_on_card():
+        want = fm.mlp_block_bwd_acc_ref(x.float(), dy.float(),
+                                        *[a.float() for a in args],
+                                        residual=residual)
+    _check_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,h,bias", [
+    (2, 33, 64, 4, True), (2, 99, 64, 2, False), (3, 99, 768, 12, True)])
+def test_attn_accumulating_backward_matches_plain(cuda, dtype, b, n, d, h,
+                                                  bias):
+    """B7's attention half, with and without a qkv bias; a rerun gives the
+    same bits."""
+    rng = np.random.default_rng(n + d + 1)
+    p = _params(rng, d, 1, 3)
+    x, dy = (_on(rng.standard_normal((b, n, d)).astype(np.float32), cuda,
+                 dtype) for _ in range(2))
+    args = [_on(a, cuda, dtype) for a in (p["g"], p["be"], p["w1"])] + [
+        _on(p["b1"], cuda, dtype) if bias else None,
+        _on(p["w2"], cuda, dtype)]
+    before = ba.attn_half_block.acc_bwd_launches
+    got = ba._attn_half_bwd_acc(x, dy, *args, h)
+    assert ba.attn_half_block.acc_bwd_launches == before + 1
+    again = ba._attn_half_bwd_acc(x, dy, *args, h)
+    assert all(torch.equal(a, c) for a, c in zip(got, again)
+               if a is not None)
+    with runtime.plain_on_card():
+        want = ba.attn_half_block_bwd_acc_ref(
+            x.float(), dy.float(), *[a.float() if a is not None else None
+                                     for a in args], h)
+    _check_grads(got, want, dtype)
+
+
+def _adamw_state(cuda, shapes, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = [torch.randn(s, device=cuda, generator=gen) * 1e-2 for s in shapes]
+    m = [torch.randn(s, device=cuda, generator=gen) * 1e-3 for s in shapes]
+    n = [torch.rand(s, device=cuda, generator=gen) * 1e-5 for s in shapes]
+    p = [torch.randn(s, device=cuda, generator=gen) for s in shapes]
+    return g, m, n, p
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.0])
+def test_fused_adamw_kernel_matches_plain(cuda, keep):
+    """B11 over leaves of every alignment (lengths not a multiple of 4
+    included) in one launch against its plain version (rtol 1e-6); keep = 0
+    leaves m, n and p bit for bit; a rerun gives the same bits."""
+    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
+
+    shapes = [(768, 768), (3, 5, 7), (131075,), (2304, 768)]
+    g, m, n, p = _adamw_state(cuda, shapes, 5)
+    kw = dict(gscale=torch.tensor(0.5, device=cuda),
+              c1=torch.tensor(1 - 0.9 ** 4, device=cuda),
+              c2=torch.tensor(1 - 0.999 ** 4, device=cuda),
+              keep=torch.tensor(keep, device=cuda), b1=0.9, b2=0.999,
+              eps=1e-8)
+    lrs, wds = [1e-3, 2e-3, 1e-4, 5e-4], [1e-2, 0.0, 1e-2, 5e-2]
+
+    def run(plain=False):
+        mm, nn_, pp = ([t.clone() for t in ts] for ts in (m, n, p))
+        if plain:
+            with runtime.plain_on_card():
+                fused_adamw(g, mm, nn_, pp, lrs, wds, **kw)
+        else:
+            fused_adamw(g, mm, nn_, pp, lrs, wds, **kw)
+        return mm + nn_ + pp
+
+    before = fused_adamw.launches
+    got = run()
+    assert fused_adamw.launches == before + 1
+    assert fused_adamw.last_routed_count == 4
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    want = run(plain=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    if keep == 0.0:
+        assert all(torch.equal(a, b) for a, b in zip(got, m + n + p))
+
+
+def test_optimizer_with_the_fused_update_matches_foreach(cuda):
+    """The optimizer's two routes on the card, from the same grads: the
+    fused update (MIRAGE_OPT_KERNEL=on) and the foreach route."""
+    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+
+    shapes = {"a.weight": (512, 512), "b.weight": (300, 450), "c.bias": (7,)}
+    g, _, _, p = _adamw_state(cuda, list(shapes.values()), 6)
+    grads = dict(zip(shapes, g))
+    out = []
+    for switch in ("off", "on"):
+        params = {k: t.clone() for k, t in zip(shapes, p)}
+        opt = GroupedOptimizer(OptimizerConfig(clip_grad=1.0, skip_grad=1e3))
+        state = opt.init(params)
+        with runtime.switched({"MIRAGE_OPT_KERNEL": switch}):
+            for lr in (1e-2, 5e-3):
+                opt.update(grads, state, params, lr)
+        out.append((params, state))
+    assert fused_adamw.last_routed_count == 2
+    for key in ("a.weight", "b.weight", "c.bias"):
+        torch.testing.assert_close(out[0][0][key], out[1][0][key], rtol=1e-6,
+                                   atol=1e-7)
+        for mom in ("mu", "nu"):
+            torch.testing.assert_close(out[0][1][mom][key],
+                                       out[1][1][mom][key], rtol=1e-6,
+                                       atol=1e-7)

@@ -333,3 +333,118 @@ def test_autograd_functions_gradcheck(op):
     args = [a.detach().requires_grad_() if a is not None else None
             for a in args]
     assert torch.autograd.gradcheck(fn, args)
+
+
+# ---------------------------------------------- the accumulating backwards
+#
+# B7's plain versions against the JAX package's accumulating Pallas
+# backwards run in interpret mode, at the same atol 5e-4 / rtol 1e-3. The
+# JAX MLP backward reads its switch (_MLP_BWD_IMPL) while tracing, so the
+# test sets it with monkeypatch and clears JAX's caches around the call.
+
+from mirage_tpu.ops.block_attention import _attn_half_bwd_pallas  # noqa: E402
+from mirage_tpu_torch.ops.block_attention import (  # noqa: E402
+    attn_half_block_bwd_acc_ref)
+from mirage_tpu_torch.ops.fused_mlp import mlp_block_bwd_acc_ref  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(3, 33, 48), (2, 16, 64), (96, 48)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_mlp_block_bwd_acc_matches_jax_kernel(monkeypatch, shape, residual):
+    """(3, 33, 48) takes the per-element 3-D route (99 rows admit no block,
+    144 padded rows are not a multiple of 1024), (2, 16, 64) the aligned
+    flatten, (96, 48) the 2-D rows."""
+    import jax
+
+    from mirage_tpu.ops import fused_mlp as jfm
+
+    d = shape[-1]
+    rng = np.random.default_rng(d + len(shape) + residual)
+    p = _params(rng, d, 4, 4)
+    x, dy = _input(rng, shape), _input(rng, shape)
+    monkeypatch.setattr(jfm, "_MLP_BWD_IMPL", "accumulate")
+    jax.clear_caches()
+    try:
+        want = list(jfm._mlp_block_bwd_pallas(
+            jnp.asarray(x), jnp.asarray(dy), p["g"], p["be"], p["w1"],
+            p["b1"], p["w2"], interpret=True))
+    finally:
+        jax.clear_caches()
+    if not residual:  # fused_mlp.py:_mlp_block_nores_bwd_vjp
+        want[0] = want[0] - dy
+    got = mlp_block_bwd_acc_ref(_t(x), _t(dy), _t(p["g"]), _t(p["be"]),
+                                _t(p["w1"].T), _t(p["b1"]), _t(p["w2"].T),
+                                residual=residual)
+    _close(got, want, MLP_NAMES, {"dw1", "dw2"}, BWD_TOL, shape=shape,
+           residual=residual)
+
+
+@pytest.mark.parametrize("b,n,d,h", [(4, 24, 64, 4), (2, 33, 64, 2)])
+@pytest.mark.parametrize("reg_batch", [False, True])
+def test_attn_half_block_bwd_acc_matches_jax_kernel(b, n, d, h, reg_batch):
+    """Both accumulation orders of the TPU kernel (reg_batch) against the
+    one plain version: they sum the same terms."""
+    rng = np.random.default_rng(n * d + h + reg_batch)
+    p = _params(rng, d, 1, 3)
+    x, dy = _input(rng, (b, n, d)), _input(rng, (b, n, d))
+    want = _attn_half_bwd_pallas(
+        jnp.asarray(x), jnp.asarray(dy), p["g"], p["be"], p["w1"], p["b1"],
+        p["w2"], h, (d // h) ** -0.5, interpret=True, reg_batch=reg_batch)
+    got = attn_half_block_bwd_acc_ref(
+        _t(x), _t(dy), _t(p["g"]), _t(p["be"]), _t(p["w1"].T), _t(p["b1"]),
+        _t(p["w2"].T), h)
+    _close(got, want, ATTN_NAMES, {"dwqkv", "dwproj"}, BWD_TOL, b=b, n=n,
+           reg_batch=reg_batch)
+
+
+@pytest.mark.parametrize("switch", ["accumulate", "reg_batch", "defused"])
+def test_attn_half_backward_follows_the_switch(monkeypatch, switch):
+    """MIRAGE_ATTN_BWD picks the attention half's backward: B4 under
+    defused, B7 under accumulate and reg_batch; the gradients agree."""
+    from mirage_tpu_torch.ops import block_attention as ba
+
+    calls = []
+    for name in ("_attn_half_bwd", "_attn_half_bwd_acc"):
+        orig = getattr(ba, name)
+
+        def spy(*a, _orig=orig, _name=name):
+            calls.append(_name)
+            return _orig(*a)
+        monkeypatch.setattr(ba, name, spy)
+    rng = np.random.default_rng(21)
+    p = _params(rng, 32, 1, 3)
+    args = [_t(_input(rng, (2, 9, 32))).requires_grad_()] + [
+        _t(p[k] if k in ("g", "be", "b1", "b2") else p[k].T).requires_grad_()
+        for k in ("g", "be", "w1", "b1", "w2", "b2")]
+    with runtime.switched({"MIRAGE_ATTN_BWD": switch}):
+        out = attn_half_block(*args, 2)
+        grads = torch.autograd.grad(out.square().sum(), args)
+    assert calls == ["_attn_half_bwd" if switch == "defused"
+                     else "_attn_half_bwd_acc"]
+    want = _grads_of(lambda *a: attn_half_block_ref(*a, 2), args,
+                     2 * attn_half_block_ref(*args, 2).detach())
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-4)
+
+
+def test_switches_validate_and_restore():
+    """The three switches keep the JAX package's names, values and
+    defaults; an unknown value raises, as mirage_tpu/utils/envflags.py
+    does; switched() restores the old values."""
+    from mirage_tpu.utils.envflags import env_choice as jax_env_choice
+
+    for name, (default, allowed) in runtime.SWITCHES.items():
+        assert runtime.switches[name] == jax_env_choice(name, default,
+                                                        allowed)
+    assert runtime.SWITCHES == {
+        "MIRAGE_OPT_KERNEL": ("off", ("on", "off")),
+        "MIRAGE_MLP_BWD": ("defused", ("accumulate", "defused")),
+        "MIRAGE_ATTN_BWD": ("defused", ("accumulate", "reg_batch",
+                                        "defused"))}
+    with pytest.raises(ValueError, match="MIRAGE_MLP_BWD"):
+        runtime.set_switch("MIRAGE_MLP_BWD", "acumulate")
+    before = dict(runtime.switches)
+    with runtime.switched({"MIRAGE_OPT_KERNEL": "on",
+                           "MIRAGE_ATTN_BWD": "reg_batch"}):
+        assert runtime.switches["MIRAGE_OPT_KERNEL"] == "on"
+    assert runtime.switches == before
