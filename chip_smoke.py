@@ -40,10 +40,22 @@ Phases, each of which must pass (any failure exits non-zero):
    against the plain step, with exact launch counts, ms/step, peak memory
    and a profile.
 
+8. infer: cli/infer.main on a seeded synthetic folder of two subjects at raw
+   sizes that are not 512², with the MIRAGE-Large weights of phase 4
+   (reconstructions and --features, the features held to MIRAGEWrapper's);
+   the same weights written as model.safetensors and read by
+   hf.MIRAGEWrapper.from_pretrained and by MIRAGEWrapper (the repaired
+   reader): hf's batch-64 features against the wrapper's in float32.
+
 Phase 2 also holds the accumulating backwards (B7, both halves) and the
 fused AdamW update (B11) against their plain versions, and phase 5 runs the
 pretraining step once more with the three switches on (B7 for both halves,
-B11).
+B11). Phase 2 checks the whole-block kernel (B10) at the decoder and
+MIRAGE-Large encoder shapes, the int8 MLP (B12; reruns bit for bit) and the
+3-D stash forward (B9′; bit-equal to B2); phase 3 replays the MIRAGE-Base
+golden (tests/golden/example_triplet_base.npz, seeded full-size weights)
+under MIRAGE_BLOCK_FUSE=off and all; phase 4 serves MIRAGE-Large at batch
+64 under MIRAGE_BLOCK_FUSE=off, decoder and all.
 
 ``--phases`` runs a subset (a partial run prints no result line). The line
 before the last is a JSON object with one entry per kernel; the card's name
@@ -51,6 +63,7 @@ and power limit come before it; the last line is {"ok": true, "device":
 {...}}.
 """
 
+import hashlib
 import io
 import json
 import subprocess
@@ -58,6 +71,7 @@ import sys
 import threading
 import time
 import urllib.request
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -123,7 +137,9 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
                 "wgrad_bf16_kernel": "wgrad", "wgrad_f32_kernel": "wgrad",
                 "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad",
-                "adamw_kernel": "adamw"}
+                "adamw_kernel": "adamw", "fused_block_kernel": "fused_block",
+                "ln_quant_kernel": "quant", "quant_rows_kernel": "quant",
+                "gemm_s8_kernel": "quant"}
 
 
 def log(*a):
@@ -1131,6 +1147,296 @@ def phase_acc_kernels():
     return rows["pretrain"], rows["cls"]
 
 
+# the serving slice's kernels: name -> (TPU kernel file:line, launcher ->
+# kernel, wrapper, sources)
+SERVE_KERNELS = {
+    "fused_block": (
+        "mirage_tpu/ops/fused_block.py:47",
+        "_block_fwd :95 -> _block_kernel :47",
+        "mirage_tpu_torch/ops/fused_block.py", ["fused_block.cu"]),
+    "mlp_block_q": (
+        "mirage_tpu/ops/quant.py:95",
+        "_mlp_block_q_fwd :106 -> _mlp_q_kernel :95",
+        "mirage_tpu_torch/ops/quant.py", ["quant.cu"]),
+    "mlp_block_fwd_stash3d": (
+        "mirage_tpu/ops/fused_mlp.py:555",
+        "_mlp_block_fwd_stash3d :636 -> _mlp_fwd_stash_kernel :555",
+        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"]),
+}
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+# B12 kernel vs its plain version on the same bf16 inputs: the kernels and
+# the plain version run the same float operations in the same order, but the
+# LN sums in another order, so a code flips where y / scale lies within a
+# few float steps (~1e-5 of a code step) of a half-integer: about 1e-5 of
+# the codes (the first call measured 3.6e-7 and 9.5e-6); each flip moves one
+# term of a row's product by one int8 step. Bars 1e-4 of the codes and
+# rel-L2 1e-3 of the output (out = x + branch, branch ~ x).
+B12_CODE_SHARE, B12_REL_L2 = 1e-4, 1e-3
+
+
+def _block_work(shape, elem_bytes):
+    """(FLOPs, bytes) of one whole block: 2·M·D·12D + 4·B·N²·D; x read and
+    out written once, the 12D² weights and the vectors read once."""
+    b, n, d = shape[:3]
+    m = b * n
+    return (2 * m * d * 12 * d + 4 * b * n * n * d,
+            (2 * m * d + 12 * d * d + 13 * d) * elem_bytes)
+
+
+def _quant_library(x, lw, lb, w1q, s1, b1, w2q, s2, b2):
+    """The int8 MLP from PyTorch library calls: F.layer_norm, torch's
+    rounding and clamping, torch._int_mm (cuBLASLt s8·s8 -> s32), F.gelu
+    and the dequantisation. A yardstick only, never called by the port; not
+    the same codes (two-pass LN, exact erf)."""
+    import torch
+    import torch.nn.functional as F
+
+    def quant(v):
+        r = v.abs().amax(-1, keepdim=True) / 127.0
+        r = torch.where(r == 0, torch.ones_like(r), r)
+        return torch.round(v / r).clamp_(-127, 127).to(torch.int8), r
+
+    x2 = x.reshape(-1, x.shape[-1])
+    yq, rs = quant(F.layer_norm(x2.float(), (x2.shape[-1],), lw, lb, 1e-6))
+    h = F.gelu(torch._int_mm(yq, w1q.t()).float() * rs * s1 + b1)
+    aq, as_ = quant(h)
+    o = torch._int_mm(aq, w2q.t()).float() * as_ * s2 + b2
+    return (x2 + o.to(x.dtype)).view(x.shape)
+
+
+def phase_serve_kernels(results):
+    """B10 (the one-launch whole block) at the decoder and MIRAGE-Large
+    encoder shapes in bf16 and one float32 case, B12 (the int8 MLP) at the
+    encoder's (64, 257, 1024) and (16384, 1024) rows with bit-identical
+    reruns, and B9′ (the 3-D stash forward) at the pretraining (256, 99,
+    768), out bit-equal to B2's; each against its plain version, with
+    kernel, plain and library ms and the bound. Adds rows to ``results``.
+    B12 and B9′ have no caller in either package: their launches are those
+    of their own timed calls."""
+    import torch
+
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import quant as q
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_block import fused_block, fused_block_ref
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    def block_inputs(shape, dtype):
+        attn = _op_inputs("attn_half_block", shape, dtype, gen)
+        mlp = _op_inputs("mlp_block", shape[:3], dtype, gen)
+        return attn[:7] + mlp[1:] + (shape[3],)
+
+    lib_attn, lib_mlp = _library("attn_half_block"), _library("mlp_block")
+
+    def library(*a):
+        return lib_mlp(lib_attn(*a[:7], a[-1]), *a[7:13])
+
+    def cluster_sweep(args):
+        """ms of the kernel at every cluster size it takes (the op picks the
+        largest that keeps batch · cluster CTAs within one wave), outputs
+        bit-equal across sizes."""
+        x, *prm, heads = args
+        d, hidden = x.shape[-1], prm[8].shape[0]
+        sizes = [c for c in range(1, 9) if heads % c == 0
+                 and hidden % c == 0 and (hidden // c) % 16 == 0]
+
+        def run(c):
+            return runtime.fused_block(x, *prm, heads=heads, cluster=c,
+                                       scale=(d // heads) ** -0.5)
+
+        ref, out = run(sizes[0]), {}
+        for c in sizes:
+            if not torch.equal(run(c), ref):
+                raise AssertionError(f"fused_block: cluster {c} changes the "
+                                     f"output")
+            out[c] = cuda_ms(lambda: run(c), iters=5)
+        return out
+
+    # B10: (label, shape, calls per reconstruct forward under
+    # MIRAGE_BLOCK_FUSE=all)
+    for label, shape, per_fwd in [("decoder", (BATCH, 256, 256, 8), 6),
+                                  ("encoder", (BATCH, 257, 1024, 16), 24)]:
+        args = block_inputs(shape, torch.bfloat16)
+        got = fused_block(*args)
+        torch.cuda.synchronize()
+        with runtime.plain_on_card():
+            want = fused_block_ref(*[a.float() if torch.is_tensor(a) else a
+                                     for a in args])
+        diff = got.float() - want
+        max_abs, rel_l2 = diff.abs().max().item(), (diff.norm()
+                                                   / want.norm()).item()
+        if not (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"fused_block {label}: max_abs {max_abs}, "
+                                 f"rel_l2 {rel_l2}")
+        del got, want, diff
+        kernel_ms = cuda_ms(lambda: fused_block(*args), iters=10)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: fused_block_ref(*args), iters=5)
+        library_ms = cuda_ms(lambda: library(*args), iters=10)
+        sweep = cluster_sweep(args)
+        flops, nbytes = _block_work(shape, 2)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"label": label, "shape": list(shape), "dtype": "bf16",
+               "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "calls_per_forward": per_fwd, "ms_by_cluster": sweep}
+        log(f"[kernels] fused_block {label} {shape}: max_abs {max_abs:.3e} "
+            f"rel_l2 {rel_l2:.3e} kernel {kernel_ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); ms by cluster "
+            f"size {sweep}")
+        results.setdefault("fused_block", []).append(row)
+        del args
+    # one MIRAGE-Base block at batch 1 (the golden's shape) in bf16: the
+    # cluster sizes where the batch alone leaves most SMs idle
+    args = block_inputs((1, 257, 768, 12), torch.bfloat16)
+    got = fused_block(*args)
+    with runtime.plain_on_card():
+        want = fused_block_ref(*[a.float() if torch.is_tensor(a) else a
+                                 for a in args])
+    diff = got.float() - want
+    max_abs, rel_l2 = diff.abs().max().item(), (diff.norm()
+                                               / want.norm()).item()
+    if not (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"fused_block batch 1: max_abs {max_abs}, "
+                             f"rel_l2 {rel_l2}")
+    sweep = cluster_sweep(args)
+    log(f"[kernels] fused_block (1, 257, 768, 12) bf16: max_abs "
+        f"{max_abs:.3e} rel_l2 {rel_l2:.3e}; ms by cluster size {sweep}")
+    results["fused_block"].append({"label": "batch-1 cluster sweep",
+                                   "shape": [1, 257, 768, 12],
+                                   "dtype": "bf16", "max_abs_err": max_abs,
+                                   "rel_l2_err": rel_l2,
+                                   "ms_by_cluster": sweep})
+    args = block_inputs((2, 257, 1024, 16), torch.float32)
+    got = fused_block(*args)
+    with runtime.plain_on_card():
+        want = fused_block_ref(*args)
+    err = (got - want).abs().max().item()
+    log(f"[kernels] fused_block float32 (2, 257, 1024, 16): max_abs {err:.3e}")
+    if not err <= F32_ATOL:
+        raise AssertionError(f"fused_block float32: max_abs {err}")
+    results["fused_block"].append({"label": "float32 check",
+                                   "shape": [2, 257, 1024, 16],
+                                   "dtype": "f32", "max_abs_err": err})
+
+    # B12 at the MIRAGE-Large encoder's MLP (3-D, per batch element in the
+    # TPU kernel) and 16384 rows (2-D)
+    q.mlp_block_q.launches = 0
+    for label, shape in [("encoder 3-D", (BATCH, 257, 1024)),
+                         ("rows 2-D", (16384, 1024))]:
+        d = shape[-1]
+        x = (torch.randn(*shape, generator=gen)).to(torch.bfloat16).cuda()
+        lw = (1 + 0.1 * torch.randn(d, generator=gen)).cuda()
+        lb = (0.02 * torch.randn(d, generator=gen)).cuda()
+        prm = q.quantize_mlp_params(*[(torch.randn(*sh, generator=gen)
+                                       * sc).cuda() for sh, sc in (
+            ((4 * d, d), d ** -0.5), ((4 * d,), 0.02),
+            ((d, 4 * d), (4 * d) ** -0.5), ((d,), 0.02))])
+        before = q.mlp_block_q.launches
+        got = q.mlp_block_q_kernel_parts(x, lw, lb, *prm)
+        again = q.mlp_block_q_kernel_parts(x, lw, lb, *prm)
+        q.mlp_block_q.launches = before
+        torch.cuda.synchronize()
+        rerun_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        with runtime.plain_on_card():
+            want = q.mlp_block_q_parts(x, lw, lb, *prm)
+        share = {k: (got[i] != want[i]).float().mean().item()
+                 for k, i in (("ln_codes", 1), ("hidden_codes", 3))}
+        diff = got[0].float() - want[0].float()
+        rel_l2 = (diff.norm() / want[0].float().norm()).item()
+        max_abs = diff.abs().max().item()
+        log(f"[kernels] mlp_block_q {label} {shape}: codes differing "
+            f"{share} (bar {B12_CODE_SHARE}), out rel_l2 {rel_l2:.3e} (bar "
+            f"{B12_REL_L2}), max_abs {max_abs:.3e}, rerun bit-identical "
+            f"{rerun_equal}")
+        if not (rerun_equal and max(share.values()) <= B12_CODE_SHARE
+                and rel_l2 <= B12_REL_L2
+                and bool(torch.isfinite(got[0]).all())):
+            raise AssertionError(f"mlp_block_q {label} disagrees with its "
+                                 f"plain version")
+        del got, again, want, diff
+        kernel_ms = cuda_ms(lambda: q.mlp_block_q(x, lw, lb, *prm), iters=10)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: q.mlp_block_q(x, lw, lb, *prm),
+                               iters=5)
+        library_ms = cuda_ms(lambda: _quant_library(x, lw, lb, *prm),
+                             iters=10)
+        m = x.numel() // d
+        t_ops = 2 * 2 * m * d * 4 * d / PEAK_INT8_OPS * 1e3
+        t_bytes = (2 * 2 * m * d + 2 * 4 * d * d + 4 * (10 * d)) \
+            / PEAK_BYTES * 1e3
+        results.setdefault("mlp_block_q", []).append({
+            "label": label, "shape": list(shape) + [4 * d], "dtype": "bf16",
+            "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+            "codes_differing": share, "rerun_bit_identical": rerun_equal,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.layer_norm, torch quantise ops, torch._int_mm, "
+                       "F.gelu, dequantise",
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "calls": 1})
+        log(f"[kernels] mlp_block_q {label}: kernel {kernel_ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{max(t_ops, t_bytes):.4f} ms")
+        del x, prm
+
+    # B9′ at the pretraining encoder's unaligned (256, 99, 768)
+    fm.mlp_block_fwd_stash3d.launches = 0
+    args = _op_inputs("mlp_block", (TRAIN_BATCH, 99, 768), torch.bfloat16, gen)
+    for flat in (False, True):
+        before = fm.mlp_block_fwd_stash3d.launches
+        out, act, dg = fm.mlp_block_fwd_stash3d(*args, stash_flat=flat)
+        fm.mlp_block_fwd_stash3d.launches = before
+        base = fm.mlp_block(*args)
+        torch.cuda.synchronize()
+        bit_equal = torch.equal(out, base)
+        with runtime.plain_on_card():
+            want = fm.mlp_block_fwd_stash3d_ref(*[a.float() for a in args],
+                                                stash_flat=flat)
+        errs = {}
+        for key, g, w in zip(("out", "act", "dgelu"), (out, act, dg), want):
+            d_ = g.float() - w
+            errs[key] = {"max_abs": d_.abs().max().item(),
+                         "rel_l2": (d_.norm() / w.norm()).item()}
+        shapes = [list(t.shape) for t in (out, act, dg)]
+        log(f"[kernels] mlp_block_fwd_stash3d stash_flat={flat}: shapes "
+            f"{shapes}, out bit-equal to mlp_block {bit_equal}, errors {errs}")
+        if not bit_equal or not all(
+                e["max_abs"] <= BF16_MAX_ABS and e["rel_l2"] <= BF16_REL_L2
+                for e in errs.values()):
+            raise AssertionError(f"mlp_block_fwd_stash3d stash_flat={flat}")
+        del out, act, dg, base, want
+        kernel_ms = cuda_ms(lambda: fm.mlp_block_fwd_stash3d(
+            *args, stash_flat=flat), iters=10)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: fm.mlp_block_fwd_stash3d(
+                *args, stash_flat=flat), iters=5)
+        library_ms = cuda_ms(lambda: lib_mlp(*args), iters=10)
+        flops, nbytes = _stash_work(TRAIN_BATCH * 99, 768, 2, False)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        results.setdefault("mlp_block_fwd_stash3d", []).append({
+            "label": f"pretraining encoder stash_flat={flat}",
+            "shape": [TRAIN_BATCH, 99, 768, 3072], "dtype": "bf16",
+            "errors": errs, "out_bit_equal_to_mlp_block": bit_equal,
+            "max_abs_err": max(e["max_abs"] for e in errs.values()),
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "calls": 1})
+        log(f"[kernels] mlp_block_fwd_stash3d stash_flat={flat}: kernel "
+            f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {max(t_ops, t_bytes):.4f} ms")
+    del args
+    torch.cuda.synchronize()
+    return results
+
+
 # ------------------------------------------------------------------ phase 3
 
 def phase_golden(workdir):
@@ -1159,7 +1465,101 @@ def phase_golden(workdir):
     bad = {t: e for t, e in errs.items() if not e <= GOLDEN_ATOL}
     if bad:
         raise AssertionError(f"golden mismatch above {GOLDEN_ATOL}: {bad}")
-    return errs
+    return {"tiny": errs, "base": _base_golden(workdir)}
+
+
+def _base_golden(workdir):
+    """tests/golden/example_triplet_base.npz: the reference MIRAGE-Base
+    model's outputs from seeded full-size weights (rebuilt by
+    golden_state_dict and checked against the recorded sha256), through the
+    port's wrapper in float32 under MIRAGE_BLOCK_FUSE=off (B1-B3) and all
+    (B10's float32 path through 12 encoder and 6 decoder blocks)."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_block import fused_block
+
+    golden = np.load(ROOT / "tests" / "golden" / "example_triplet_base.npz")
+    sd = golden_state_dict(golden)
+    path = workdir / "base_golden.pth"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "args": BASE_GOLDEN_ARGS}, path)
+    wrapper = MIRAGEWrapper(weights=str(path), device="cuda")
+    out = {}
+    for switch, launches in (("off", 0), ("all", 18)):
+        with runtime.switched({"MIRAGE_BLOCK_FUSE": switch}):
+            fused_block.launches = 0
+            preds = wrapper({"bscan": golden["in_bscan"]})
+            torch.cuda.synchronize()
+            got = fused_block.launches
+        errs = {task: float(np.abs(preds[task].cpu().numpy()
+                                   - golden[f"pred_{task}"]).max())
+                for task in ("bscan", "slo", "bscanlayermap")}
+        log(f"[golden] MIRAGE-Base, MIRAGE_BLOCK_FUSE={switch}: max |port - "
+            f"reference| {errs}; fused_block launches {got} (expected "
+            f"{launches})")
+        bad = {t: e for t, e in errs.items() if not e <= GOLDEN_ATOL}
+        if bad or got != launches:
+            raise AssertionError(f"MIRAGE-Base golden under {switch}: {bad}, "
+                                 f"launches {got}")
+        out[switch] = errs
+    return out
+
+
+# The recorded MIRAGE-Base golden (tests/golden/example_triplet_base.npz)
+# holds the reference Base model's outputs on one B-scan, computed from
+# weights that numpy alone regenerates: seeded_state_dict is a copy of
+# tests/test_fullsize_parity.py:seeded_state_dict (each key its own PCG64
+# stream seeded by (seed, crc32(key)); 1-D weights and norm parameters
+# centred at 1, everything else 0.02·N(0, 1); float16-quantised so that every
+# framework loads the same bits). tests/test_torch_infer.py shares this copy.
+GOLD_SEED = 20260819
+# the Base golden's checkpoint arguments (tests/test_fullsize_parity.py:170)
+BASE_GOLDEN_ARGS = dict(
+    model="miragepre_base", num_global_tokens=1,
+    in_domains=["bscan", "slo", "bscanlayermap"],
+    out_domains=["bscan", "slo", "bscanlayermap"], decoder_dim=256,
+    decoder_depth=2, decoder_num_heads=8, decoder_use_task_queries=True,
+    decoder_use_xattn=True)
+
+
+def seeded_state_dict(keys_shapes, seed=GOLD_SEED):
+    """{key: float32 array} for [(key, shape), ...]."""
+    import numpy as np
+
+    sd = {}
+    for key, shape in keys_shapes:
+        rng = np.random.default_rng([seed, zlib.crc32(key.encode())])
+        vals = rng.standard_normal(shape).astype(np.float32) * 0.02
+        is_scale = (len(shape) == 1 and key.endswith(".weight")) \
+            or "norm" in key.rsplit(".", 1)[0].rsplit(".", 1)[-1]
+        if is_scale:
+            vals = vals + 1.0
+        sd[key] = vals.astype(np.float16).astype(np.float32)
+    return sd
+
+
+def state_dict_sha256(sd) -> str:
+    """sha256 over the arrays' bytes in key order."""
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(sd[k].tobytes())
+    return h.hexdigest()
+
+
+def golden_state_dict(golden):
+    """The loaded golden npz -> its seeded state dict, checked against the
+    recorded seed and digest."""
+    keys = [str(k) for k in golden["sd_keys"]]
+    shapes = [tuple(int(d) for d in s if d >= 0) for s in golden["sd_shapes"]]
+    if int(golden["seed"]) != GOLD_SEED:
+        raise ValueError(f"golden seed {int(golden['seed'])} != {GOLD_SEED}")
+    sd = seeded_state_dict(list(zip(keys, shapes)))
+    if state_dict_sha256(sd) != str(golden["sd_sha256"]):
+        raise ValueError("seeded_state_dict drifted from the recorded weights")
+    return sd
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1176,11 +1576,35 @@ def _post(url, arrays):
         return {k: z[k] for k in z.files}
 
 
-def phase_serve(workdir, card):
+def _large_weights(workdir):
+    """MIRAGE-Large (1024 wide, 24 layers, 16 heads; three 256/2/8 decoders)
+    from a seeded random init, saved as a bf16 .pth with its args. Built
+    once per run (phases 4 and 8 share it); any older file is overwritten."""
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import build_model
+
+    t0 = time.perf_counter()
+    path = workdir / "mirage_large_seed.pth"
+    domains = ["bscan", "slo", "bscanlayermap"]
+    args = dict(model="miragepre_large", num_global_tokens=1,
+                in_domains=domains, out_domains=domains, decoder_dim=256,
+                decoder_depth=2, decoder_num_heads=8)
+    model = build_model("miragepre_large", args, domains, 512, 32,
+                        generator=torch.Generator().manual_seed(SEED))
+    torch.save({"model": {k: v.to(torch.bfloat16)
+                          for k, v in model.state_dict().items()},
+                "args": args}, path)
+    log(f"[weights] MIRAGE-Large from seed {SEED} built and saved in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return path
+
+
+def phase_serve(workdir, card, path):
     import numpy as np
     import torch
 
-    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper, build_model
+    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
     from mirage_tpu_torch.cli.serve import make_model_fns
     from mirage_tpu_torch.ops import runtime
     from mirage_tpu_torch.ops.block_attention import (attn_half_block,
@@ -1190,22 +1614,11 @@ def phase_serve(workdir, card):
 
     ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
            "xattn_half_block": xattn_half_block}
-    domains = ["bscan", "slo", "bscanlayermap"]
-    args = dict(model="miragepre_large", num_global_tokens=1,
-                in_domains=domains, out_domains=domains, decoder_dim=256,
-                decoder_depth=2, decoder_num_heads=8)
     t0 = time.perf_counter()
-    model = build_model("miragepre_large", args, domains, 512, 32,
-                        generator=torch.Generator().manual_seed(SEED))
-    path = workdir / "mirage_large_seed.pth"
-    torch.save({"model": {k: v.to(torch.bfloat16)
-                          for k, v in model.state_dict().items()},
-                "args": args}, path)
-    del model
     wrapper = MIRAGEWrapper(weights=str(path), compute_dtype=torch.bfloat16,
                             device="cuda")
     log(f"[serve] MIRAGE-Large from seed {SEED}: {wrapper.n_params} params, "
-        f"built+saved+loaded in {time.perf_counter() - t0:.1f}s")
+        f"loaded in {time.perf_counter() - t0:.1f}s")
 
     reconstruct, features = make_model_fns(wrapper, wrapper.in_domains)
     server = MIRAGEServer(
@@ -1322,7 +1735,76 @@ def phase_serve(workdir, card):
         f"{BATCH / dt:.1f} img/s (plain path {BATCH / dt_plain:.1f} img/s) "
         f"on {card}")
     tput["three_modality"] = three
+    tput["block_fuse"] = _serve_under_switch(wrapper, x, card)
     return counts, n_rec, tput
+
+
+# launches per batch-64 MIRAGE-Large reconstruct forward under each
+# MIRAGE_BLOCK_FUSE value: 24 encoder blocks (width 1024), three decoders
+# of a cross-attention half (B3 + B2) and two 256-wide blocks
+PER_RECONSTRUCT_FUSE = {
+    "off": {"attn_half_block": 30, "mlp_block": 33, "xattn_half_block": 3,
+            "fused_block": 0},
+    "decoder": {"attn_half_block": 24, "mlp_block": 27,
+                "xattn_half_block": 3, "fused_block": 6},
+    "all": {"attn_half_block": 0, "mlp_block": 3, "xattn_half_block": 3,
+            "fused_block": 30}}
+
+
+def _serve_under_switch(wrapper, x, card):
+    """The batch-64 reconstruct forward under MIRAGE_BLOCK_FUSE=off, decoder
+    and all: exact launch counts, agreement with the plain path on the card,
+    img/s over five forwards after one warm-up, one profiled forward by
+    kernel group (fused_block its own group)."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
+                                                      xattn_half_block)
+    from mirage_tpu_torch.ops.fused_block import fused_block
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block
+
+    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
+           "xattn_half_block": xattn_half_block, "fused_block": fused_block}
+    with runtime.plain_on_card():
+        want = {k: v.float() for k, v in wrapper(x).items()}
+    out, first = {}, None
+    for switch, expected in PER_RECONSTRUCT_FUSE.items():
+        with runtime.switched({"MIRAGE_BLOCK_FUSE": switch}):
+            for fn in ops.values():
+                fn.launches = 0
+            got = wrapper(x)
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in ops.items()}
+            agree = {task: (got[task].float() - want[task]).norm().item()
+                     / want[task].norm().item() for task in want}
+            finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+            first = first or got  # the outputs under off
+            vs_off = max((got[t].float() - first[t].float()).abs().max().item()
+                         for t in got)
+            del got
+            wrapper(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                wrapper(x)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / 5
+            prof = profile_forward(lambda: wrapper(x))
+        log(f"[serve] MIRAGE_BLOCK_FUSE={switch}: launches {counts} "
+            f"(expected {expected}); rel_l2 vs plain {agree}; max_abs vs "
+            f"the outputs under off {vs_off:.3e}; "
+            f"{dt * 1e3:.2f} ms/batch, {BATCH / dt:.1f} img/s on {card}; "
+            f"profile {prof if prof else 'no device kernels seen'}")
+        if counts != expected or not finite or not all(
+                a <= MODEL_REL_L2 for a in agree.values()):
+            raise AssertionError(f"MIRAGE_BLOCK_FUSE={switch}: launches "
+                                 f"{counts} != {expected} or rel_l2 {agree}")
+        out[switch] = {"counts": counts, "rel_l2": agree,
+                       "max_abs_vs_off": vs_off,
+                       "ms_per_batch": dt * 1e3, "img_per_s": BATCH / dt,
+                       "profile": prof}
+    return out
 
 
 def _three_modality_request(url, wrapper, rng):
@@ -2015,6 +2497,109 @@ def phase_cls(workdir, card):
             "cli_counts": cli_counts, "steps": results, "card": card}
 
 
+# ------------------------------------------------------------------ phase 8
+
+HF_ATOL = 1e-4  # hf (plain PyTorch, cuBLAS) vs the wrapper's kernels, float32
+
+
+def phase_infer(workdir, card, path):
+    """cli/infer.main (reconstructions, then --features) over two seeded
+    subjects at raw sizes that are not 512², with the MIRAGE-Large weights
+    of phase 4; the features against MIRAGEWrapper.features on the same
+    input. The same weights written as model.safetensors (numpy) and read by
+    hf.MIRAGEWrapper.from_pretrained(dir) and by MIRAGEWrapper through the
+    repaired reader: their batch-64 float32 features agree."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch import hf
+    from mirage_tpu_torch.api.convert import (load_torch_checkpoint,
+                                              save_safetensors)
+    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.cli import infer
+
+    root = workdir / "infer"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED)
+    subjects = []
+    for i, (h, w) in enumerate([(496, 768), (650, 512)]):
+        d = root / "images" / f"subject{i}"
+        d.mkdir(parents=True)
+        np.save(d / "bscan.npy", (rng.random((h, w)) * 255).astype(np.float32))
+        np.save(d / "slo.npy", (rng.random((w, w)) * 255).astype(np.uint8))
+        np.save(d / "bscanlayermap.npy",
+                rng.integers(0, 13, (h // 2, w // 2)).astype(np.uint8))
+        subjects.append(d)
+    t0 = time.perf_counter()
+    argv = ["--weights", str(path), "--image_path", str(root / "images"),
+            "--device", "cuda"]
+    infer.main(argv)
+    infer.main(argv + ["--features"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    pngs = {}
+    from PIL import Image
+
+    for d in subjects:
+        for task, shape in (("bscan", (512, 512)), ("slo", (512, 512)),
+                            ("bscanlayermap", (128, 128))):
+            img = np.asarray(Image.open(d / f"__out_{task}.png"))
+            pngs[f"{d.name}/{task}"] = list(img.shape)
+            if img.shape != shape:
+                raise AssertionError(f"{d.name} {task}: PNG {img.shape}")
+    wrapper = MIRAGEWrapper(weights=str(path), output_adapters=False,
+                            device="cuda")
+    feat_err = 0.0
+    for d in subjects:
+        saved = np.load(d / "__out_features.npy")
+        want = wrapper.features({"bscan": infer.to_array(d / "bscan.npy")})
+        if saved.shape != (1, 257, 1024) or not np.isfinite(saved).all():
+            raise AssertionError(f"{d.name}: features {saved.shape}")
+        feat_err = max(feat_err, float(np.abs(saved - want.cpu().numpy()
+                                              ).max()))
+    log(f"[infer] cli/infer.main, 2 subjects, reconstruct + --features in "
+        f"{cli_s:.1f}s; PNGs {pngs}; features vs MIRAGEWrapper.features "
+        f"max_abs {feat_err:.3e}")
+    if feat_err > 1e-5:
+        raise AssertionError(f"infer features differ by {feat_err}")
+
+    # the same weights as model.safetensors: hf.py and the wrapper
+    hf_dir = root / "hf"
+    hf_dir.mkdir()
+    save_safetensors(load_torch_checkpoint(str(path))["model"],
+                     str(hf_dir / "model.safetensors"))
+    t1 = time.perf_counter()
+    model = hf.MIRAGEWrapper.from_pretrained(str(hf_dir), size="large",
+                                             modalities="bscan")
+    st_wrapper = MIRAGEWrapper(weights=str(hf_dir / "model.safetensors"),
+                               modalities="bscan",
+                               model_override="miragepre_large",
+                               output_adapters=False, device="cuda")
+    load_s = time.perf_counter() - t1
+    x = {"bscan": rng.random((BATCH, 1, 512, 512), dtype=np.float32)}
+    f_hf = model(x)
+    f_st = st_wrapper.features(x)
+    f_pth = wrapper.features(x)
+    torch.cuda.synchronize()
+    same = torch.equal(f_st, f_pth)
+    hf_err = (f_hf - f_st).abs().max().item()
+    scale = f_st.abs().max().item()
+    log(f"[infer] model.safetensors read by hf.py and MIRAGEWrapper in "
+        f"{load_s:.1f}s; batch-{BATCH} features {tuple(f_hf.shape)}: hf vs "
+        f"wrapper max_abs {hf_err:.3e} (features up to {scale:.2f}; bar "
+        f"{HF_ATOL}); wrapper from .safetensors bit-equal to the .pth's "
+        f"{same}; on {card}")
+    if not same or hf_err > HF_ATOL or tuple(f_hf.shape) != (BATCH, 257,
+                                                              1024):
+        raise AssertionError(f"hf / safetensors features: max_abs {hf_err}, "
+                             f"bit-equal {same}")
+    return {"cli_seconds": cli_s, "pngs": pngs, "features_max_abs": feat_err,
+            "hf_vs_wrapper_max_abs": hf_err, "features_max": scale,
+            "safetensors_bit_equal_to_pth": same, "load_seconds": load_s}
+
+
 # --------------------------------------------------------------------- main
 
 def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
@@ -2034,7 +2619,8 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
             source, csrc = SOURCES[name]
         else:
             replaces, tpu_kernel, source, csrc = {
-                **BWD_KERNELS, **SEG_KERNELS, **ACC_KERNELS}[name]
+                **BWD_KERNELS, **SEG_KERNELS, **ACC_KERNELS,
+                **SERVE_KERNELS}[name]
             csrc = [CSRC + f for f in csrc]
         ms = per_path_sum("ms")
         entries.append({
@@ -2062,7 +2648,34 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
     return entries
 
 
-PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls")
+def _op_entries(rows_by_op, launches):
+    """Entries of the `kernels` line for the ops no path calls (B12, B9′):
+    times per call at their first (main) shape, launches from their own
+    timed calls."""
+    entries = []
+    for name in ("mlp_block_q", "mlp_block_fwd_stash3d"):
+        rows = rows_by_op[name]
+        main = rows[0]
+        replaces, tpu_kernel, source, csrc = SERVE_KERNELS[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [CSRC + f for f in csrc], "replaces": replaces,
+            "tpu_kernel": tpu_kernel, "launches": launches[name],
+            "launches_are": "the op's own timed calls in phase 2: no caller "
+                            "in either package",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "kernel_ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": main.get("library", "composite of F.layer_norm, "
+                                           "F.linear, F.gelu"),
+            "times_are": f"per call at {main['shape']}", "shapes": rows})
+    return entries
+
+
+PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
+          "infer")
 
 
 def main(argv=None):
@@ -2095,21 +2708,32 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
+    infer = None
     if "kernels" in phases:
+        from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
+        from mirage_tpu_torch.ops.quant import mlp_block_q
+
         fwd_rows = phase_kernels()
         bwd_rows = phase_backward({})
         seg_rows = phase_seg_kernels({})
         acc_pre_rows, acc_cls_rows = phase_acc_kernels()
+        serve_rows = phase_serve_kernels({})
+        op_launches = {"mlp_block_q": mlp_block_q.launches,
+                       "mlp_block_fwd_stash3d": mlp_block_fwd_stash3d.launches}
     if "golden" in phases:
         golden = phase_golden(workdir)
+    if {"serve", "infer"} & set(phases):
+        large = _large_weights(workdir)
     if "serve" in phases:
-        counts, n_rec, tput = phase_serve(workdir, card)
+        counts, n_rec, tput = phase_serve(workdir, card, large)
     if "train" in phases:
         train = phase_train(card)
     if "seg" in phases:
         seg = phase_seg(workdir, card)
     if "cls" in phases:
         cls = phase_cls(workdir, card)
+    if "infer" in phases:
+        infer = phase_infer(workdir, card, large)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -2134,9 +2758,18 @@ def main(argv=None):
                    CLS_PER_STEP_ON, "step",
                    f"sum over one batch-{CLS_BATCH} classification full "
                    f"fine-tune step with {SWITCHES_ON}; launches from "
-                   f"{CLS_STEPS} such steps"))
+                   f"{CLS_STEPS} such steps")
+               + _kernel_entries(
+                   {"fused_block": serve_rows["fused_block"]},
+                   tput["block_fuse"]["all"]["counts"],
+                   PER_RECONSTRUCT_FUSE["all"], "forward",
+                   f"sum over one batch-{BATCH} reconstruct forward under "
+                   f"MIRAGE_BLOCK_FUSE=all; launches from that forward "
+                   f"(6 under decoder: "
+                   f"{tput['block_fuse']['decoder']['counts']['fused_block']})")
+               + _op_entries(serve_rows, op_launches))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
-                    "train": train, "seg": seg, "cls": cls,
+                    "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

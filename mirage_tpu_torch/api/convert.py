@@ -19,7 +19,9 @@ warm start (:func:`seg_checkpoint_surgery`, :func:`interpolate_pos_embed_sd`,
 :func:`overlay_state_dict`) follows ``mirage_tpu/api/convert.py:288-354``.
 """
 
+import json
 import re
+import sys
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -43,10 +45,66 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
             "args": dict(args) if isinstance(args, dict) else vars(args)}
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    from safetensors.torch import load_file
+# safetensors dtype names -> torch dtypes
+SAFETENSORS_DTYPES = {"F64": torch.float64, "F32": torch.float32,
+                      "F16": torch.float16, "BF16": torch.bfloat16,
+                      "I64": torch.int64, "I32": torch.int32,
+                      "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+                      "BOOL": torch.bool}
 
-    return load_file(path)
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> {name: tensor}, read with the standard
+    library and torch alone (the ``safetensors`` package is not needed): a
+    little-endian u64 header length, the JSON header (name -> dtype, shape,
+    data offsets), then the raw little-endian data. A dtype outside
+    :data:`SAFETENSORS_DTYPES` raises."""
+    if sys.byteorder != "little":
+        raise NotImplementedError("safetensors data is little-endian")
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype "
+                             f"{info['dtype']!r}, not one of "
+                             f"{sorted(SAFETENSORS_DTYPES)}")
+        dtype = SAFETENSORS_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        if end > start:
+            t = torch.frombuffer(data, dtype=dtype, count=(end - start)
+                                 // dtype.itemsize, offset=start)
+        else:
+            t = torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"]).clone()
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str):
+    """{name: tensor} -> a ``.safetensors`` file that :func:`load_safetensors`
+    (and the ``safetensors`` package) reads: the header padded with spaces
+    to 8 bytes, the tensors' bytes in name order."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        blob = t.view(-1).view(torch.uint8).numpy().tobytes() \
+            if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for blob in blobs:
+            f.write(blob)
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any], model

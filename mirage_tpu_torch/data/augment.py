@@ -7,7 +7,8 @@ torch ``F.interpolate`` semantics through the interpolation matrices
 (``nn.resize.resize_matrix``); ``SemSegTransform`` is the shared-geometry
 transform over an image and its label map; ``affine_warp`` is torchvision's
 RandomAffine on scipy's ``affine_transform``, and ``ClsTransform`` the
-classification stack. Randomness comes from an explicit
+classification stack; ``skimage_resize`` is the inference CLI's resize.
+Randomness comes from an explicit
 ``np.random.Generator``, drawn in the JAX package's order, so one seed gives
 the same image in both packages.
 """
@@ -106,6 +107,33 @@ class SemSegTransform:
 
 
 # ------------------------------------------------------------ affine warps
+
+def skimage_resize(img: np.ndarray, out_shape, order: int = 1,
+                   anti_aliasing: Optional[bool] = None) -> np.ndarray:
+    """``skimage.transform.resize(..., preserve_range=True)``, the
+    reference inference CLI's preprocessing, on scipy (a fork of
+    ``mirage_tpu/data/augment.py:skimage_resize``): an optional gaussian
+    pre-filter with sigma = max(0, (downscale factor - 1) / 2) per axis
+    (scipy's 'mirror' is skimage's 'reflect'), then ``ndimage.zoom(...,
+    grid_mode=True, mode='mirror')``. Anti-aliased downscales and round-based
+    nearest sampling, unlike :func:`resize_np`'s torch semantics."""
+    from scipy import ndimage as ndi
+
+    img = np.asarray(img, np.float64)
+    out_shape = tuple(int(s) for s in out_shape)
+    factors = np.asarray(img.shape, np.float64) / np.asarray(out_shape,
+                                                             np.float64)
+    if anti_aliasing is None:
+        anti_aliasing = order != 0 and bool(np.any(factors > 1))
+    if anti_aliasing:
+        sigma = np.maximum(0.0, (factors - 1) / 2)
+        img = ndi.gaussian_filter(img, sigma, mode="mirror")
+    out = ndi.zoom(img, 1.0 / factors, order=order, mode="mirror",
+                   grid_mode=True)
+    if out.shape != out_shape:
+        raise ValueError(f"resize to {out_shape} gave {out.shape}")
+    return out
+
 
 def random_affine_params(rng: np.random.Generator, *, degrees: float = 10.0,
                          translate: Tuple[float, float] = (0.1, 0.1),

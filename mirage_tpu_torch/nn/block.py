@@ -8,7 +8,10 @@ path launches):
 - (a) up to 512 tokens, inference (``deterministic``) or, with the
   regularisers statically zero, training at up to 128 tokens or grad-free:
   each half one op, ``attn_half_block`` (B1, backward B4) and ``mlp_block``
-  (B2, backward B5);
+  (B2, backward B5); a deterministic call under ``MIRAGE_BLOCK_FUSE=all``,
+  or ``decoder`` at width ≤ 256, is instead one ``fused_block`` (B10,
+  mirage_tpu/nn/block.py:93-101): its backward is autograd through the plain
+  version, so training and grad-free probes keep the halves;
 - (b) otherwise LN → ``attention_apply`` (qkv projection, the packed
   ``block_attention`` B6 up to 512 tokens, ``flash_attention`` B8 above,
   output projection) → ``x + drop_path(h)``; then the MLP half as
@@ -28,13 +31,17 @@ from torch import nn
 
 from mirage_tpu_torch.nn.attention import Attention, attention_apply
 from mirage_tpu_torch.nn.layers import LayerNorm, Mlp, drop_path, layer_norm
+from mirage_tpu_torch.ops import runtime
 from mirage_tpu_torch.ops.block_attention import attn_half_block
+from mirage_tpu_torch.ops.fused_block import fused_block
 from mirage_tpu_torch.ops.fused_mlp import mlp_block, mlp_block_ref
 
 # the fused routes hold up to this many tokens; training fuses the
 # attention half only up to FUSED_TRAIN_TOKENS (mirage_tpu/nn/block.py:77-82)
 FUSED_TOKENS = 512
 FUSED_TRAIN_TOKENS = 128
+# MIRAGE_BLOCK_FUSE=decoder routes blocks up to this width (the decoders')
+BLOCK_FUSE_DECODER_DIM = 256
 
 
 class Block(nn.Module):
@@ -55,6 +62,13 @@ class Block(nn.Module):
                        and drop_path_rate == 0.0)
         if n <= FUSED_TOKENS and (deterministic or (
                 static_zero and (n <= FUSED_TRAIN_TOKENS or grad_free))):
+            fuse = runtime.switches["MIRAGE_BLOCK_FUSE"]
+            if deterministic and (fuse == "all" or (
+                    fuse == "decoder"
+                    and x.shape[-1] <= BLOCK_FUSE_DECODER_DIM)):
+                return fused_block(x, self.norm1.weight, self.norm1.bias,
+                                   a.qkv.weight, a.qkv.bias, a.proj.weight,
+                                   a.proj.bias, *mlp, self.num_heads)
             x = attn_half_block(x, self.norm1.weight, self.norm1.bias,
                                 a.qkv.weight, a.qkv.bias, a.proj.weight,
                                 a.proj.bias, self.num_heads)

@@ -21,7 +21,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
-           "wgrad", "adamw")
+           "wgrad", "adamw", "fused_block", "quant")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # cudaGetLastError().
 ENTRIES = {
@@ -45,6 +45,12 @@ ENTRIES = {
     "wgrad": ("wgrad", "mtt_wgrad", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "colsum": ("wgrad", "mtt_colsum", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "adamw": ("adamw", "mtt_adamw", [_P, _I, _I, _P, _F, _F, _F, _F, _F, _P]),
+    "fused_block": ("fused_block", "mtt_fused_block",
+                    [_P] * 18 + [_I] * 7 + [_F, _F, _I, _P]),
+    "ln_quant": ("quant", "mtt_ln_quant", [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
+    "quant_rows": ("quant", "mtt_quant_rows", [_P, _P, _P, _P, _I, _I, _P]),
+    "gemm_s8": ("quant", "mtt_gemm_s8",
+                [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

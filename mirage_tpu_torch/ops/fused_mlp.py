@@ -32,7 +32,9 @@ dW2 = dyᵀ·act, db2 = Σ dy and the reductions of the partials in the wgrad
 kernels (csrc/wgrad.cu: fixed row chunks, fixed order), since the TPU
 kernel sums them in its own body (:713-727). Bound: operations (2·M·D·4D·2
 FLOPs forward, twice that backward). Without a gradient it is B2's forward,
-as the JAX custom VJP's primal is (:814-817).
+as the JAX custom VJP's primal is (:814-817). ``mlp_block_fwd_stash3d``
+(B9′, ``_mlp_block_fwd_stash3d``: the stash forward on unaligned 3-D input,
+which no JAX route reaches) is B9's forward chain on the flattened rows.
 
 The accumulating backward (B7, MLP half) replaces ``_mlp_block_bwd_pallas``
 / ``_mlp_bwd_kernel`` (:240-273, :311-429), which emits dx and every
@@ -248,18 +250,19 @@ def stash_route(x, hdim):
     return "2d" if _stash_viable(x.shape[0], d, hdim) else None
 
 
-def mlp_block_fwd_stash_ref(x, ln_w, ln_b, w1, b1, w2, b2):
+def mlp_block_fwd_stash_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
     """Plain stash forward, as _mlp_fwd_stash_kernel: (out, act, dg) with
     h = T(LN(x))·W1ᵀ + b1 in float, act = T(GELU(h)), dg = T(GELU′(h)), out =
-    x + T(act·W2ᵀ + b2); out equals mlp_block's."""
+    x + T(act·W2ᵀ + b2) (without x when not ``residual``); out equals
+    mlp_block's."""
     dt, acc = x.dtype, acc_dtype(x)
     y = layer_norm(x, ln_w, ln_b)
     h = y.to(acc) @ w1.to(dt).to(acc).t() + b1.to(acc)
     e = torch.erf(h * _INV_SQRT2)
     act = (0.5 * h * (1.0 + e)).to(dt)
     dg = (0.5 * (1.0 + e) + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI).to(dt)
-    o = act.to(acc) @ w2.to(dt).to(acc).t() + b2.to(acc)
-    return x + o.to(dt), act, dg
+    o = (act.to(acc) @ w2.to(dt).to(acc).t() + b2.to(acc)).to(dt)
+    return x + o if residual else o, act, dg
 
 
 def mlp_block_bwd_stash_ref(x, dy, act, dg, ln_w, ln_b, w1, w2):
@@ -278,17 +281,24 @@ def mlp_block_bwd_stash_ref(x, dy, act, dg, ln_w, ln_b, w1, w2):
             dy32.t() @ act.to(acc), dy32.sum(0))
 
 
-def _mlp_fwd_stash(x, ln_w, ln_b, w1, b1, w2, b2):
-    """B9 forward on the card: LN, fc1 with the stash epilogue, fc2 with
-    bias and residual."""
-    if not runtime.use_kernel(x):
-        return mlp_block_fwd_stash_ref(x, ln_w, ln_b, w1, b1, w2, b2)
+def _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
+    """LN, fc1 with the stash epilogue, fc2 with bias (and residual) over
+    the rows of x (M, D): (out, act, dg)."""
     runtime.check("x", x, x)
     y = runtime.layernorm(x, ln_w, ln_b)
     act, dg = runtime.gemm_gelu_stash(y, w1.to(x.dtype), b1)
-    out = runtime.gemm(act, w2.to(x.dtype), b2, residual=x)
-    mlp_block.stash_launches += 1
+    out = runtime.gemm(act, w2.to(x.dtype), b2,
+                       residual=x if residual else None)
     return out, act, dg
+
+
+def _mlp_fwd_stash(x, ln_w, ln_b, w1, b1, w2, b2):
+    """B9 forward on the card: the stash chain with the residual."""
+    if not runtime.use_kernel(x):
+        return mlp_block_fwd_stash_ref(x, ln_w, ln_b, w1, b1, w2, b2)
+    out = _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2)
+    mlp_block.stash_launches += 1
+    return out
 
 
 def _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2):
@@ -321,6 +331,44 @@ class _MlpBlockStash(torch.autograd.Function):
     def backward(ctx, dy):
         x, ln_w, ln_b, w1, w2, act, dg = ctx.saved_tensors
         return _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2)
+
+
+# ----------------------------------------------------------------- B9′
+
+def mlp_block_fwd_stash3d_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual=True,
+                              stash_flat=False):
+    """Plain version of :func:`mlp_block_fwd_stash3d`."""
+    b, n, d = x.shape
+    out, act, dg = mlp_block_fwd_stash_ref(x.reshape(b * n, d), ln_w, ln_b,
+                                           w1, b1, w2, b2, residual)
+    shape = (b * n, -1) if stash_flat else (b, n, -1)
+    return out.view(b, n, d), act.view(shape), dg.view(shape)
+
+
+def mlp_block_fwd_stash3d(x, ln_w, ln_b, w1, b1, w2, b2, residual=True,
+                          stash_flat=False):
+    """The stash forward on unaligned 3-D input, x (B, N, D): (out (B, N,
+    D), act, dg), the stashes (B, N, H), or (B·N, H) with ``stash_flat``.
+    Replaces ``mirage_tpu/ops/fused_mlp.py:_mlp_block_fwd_stash3d`` (B9′;
+    ``_mlp_fwd_stash_kernel`` over a per-batch-element grid), which no JAX
+    route reaches (``_stash_route`` refuses 3-D shapes). On the card it is
+    B9's stash chain on the flattened rows: the port tiles rows with no
+    8-row alignment, so the flat stashes are views, not copies.
+    ``residual=False`` drops the skip-add from fc2's epilogue. ``out`` is
+    bit-equal to mlp_block's. Forward only (the stash backward takes the
+    flat rows)."""
+    if not runtime.use_kernel(x):
+        return mlp_block_fwd_stash3d_ref(x, ln_w, ln_b, w1, b1, w2, b2,
+                                         residual, stash_flat)
+    b, n, d = x.shape
+    out, act, dg = _stash_chain(x.view(b * n, d), ln_w, ln_b, w1, b1, w2, b2,
+                                residual)
+    mlp_block_fwd_stash3d.launches += 1
+    shape = (b * n, -1) if stash_flat else (b, n, -1)
+    return out.view(b, n, d), act.view(shape), dg.view(shape)
+
+
+mlp_block_fwd_stash3d.launches = 0
 
 
 def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True, stash=False):

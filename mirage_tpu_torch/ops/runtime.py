@@ -17,13 +17,19 @@ the weight gradients the stash backward (B9) and the accumulating
 backwards (B7) sum inside their TPU kernels; ``adamw`` launches the
 multi-tensor AdamW update (B11).
 
-The three switches of the JAX package's non-default kernels keep its names,
+``fused_block`` launches the one-launch whole block (B10, a thread-block
+cluster per batch element); ``ln_quant``, ``gemm_s8_fc1``, ``quant_rows``
+and ``gemm_s8_fc2`` the four kernels of the int8 MLP half (B12).
+
+The four switches of the JAX package's non-default kernels keep its names,
 values and defaults and are read once at import, as
-``mirage_tpu/utils/envflags.py`` reads them: ``MIRAGE_OPT_KERNEL``
-(``off|on``: the fused AdamW update, B11), ``MIRAGE_MLP_BWD``
-(``defused|accumulate``: the MLP half's backward, B5 or B7) and
-``MIRAGE_ATTN_BWD`` (``defused|accumulate|reg_batch``: the attention
-half's backward, B4 or B7). An unknown value raises. :func:`set_switch` and
+``mirage_tpu/utils/envflags.py`` and ``mirage_tpu/nn/block.py:31`` read
+them: ``MIRAGE_OPT_KERNEL`` (``off|on``: the fused AdamW update, B11),
+``MIRAGE_MLP_BWD`` (``defused|accumulate``: the MLP half's backward, B5 or
+B7), ``MIRAGE_ATTN_BWD`` (``defused|accumulate|reg_batch``: the attention
+half's backward, B4 or B7) and ``MIRAGE_BLOCK_FUSE`` (``off|decoder|all``:
+deterministic blocks of width ≤ 256, or all of them, as one whole-block
+launch, B10). An unknown value raises. :func:`set_switch` and
 :func:`switched` change them at run time (the tests and ``chip_smoke.py``).
 """
 
@@ -54,7 +60,8 @@ def env_choice(name: str, default: str, allowed: tuple) -> str:
 SWITCHES = {"MIRAGE_OPT_KERNEL": ("off", ("on", "off")),
             "MIRAGE_MLP_BWD": ("defused", ("accumulate", "defused")),
             "MIRAGE_ATTN_BWD": ("defused",
-                                ("accumulate", "reg_batch", "defused"))}
+                                ("accumulate", "reg_batch", "defused")),
+            "MIRAGE_BLOCK_FUSE": ("off", ("off", "decoder", "all"))}
 switches = {name: env_choice(name, default, allowed)
             for name, (default, allowed) in SWITCHES.items()}
 
@@ -469,3 +476,118 @@ def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
+
+
+def fused_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
+                b1, w2, b2, *, heads: int, cluster: int, scale: float,
+                eps: float = 1e-6) -> torch.Tensor:
+    """The whole pre-LN block over x (B, N, D) in one launch of ``cluster``
+    CTAs per batch element: weights in x's dtype and (out, in) layout, the
+    eight vectors in one parameter type (bqkv may be None). The scratch
+    (LN outputs, qkv, attention output, MLP hidden) is one allocation."""
+    b, n, d = x.shape
+    hidden = w1.shape[0]
+    check("x", x, x)
+    for name, w, shape in (("wqkv", wqkv, (3 * d, d)), ("wproj", wproj, (d, d)),
+                           ("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
+        check(name, w, x, shape)
+    check("ln1 weight", ln1_w, x, (d,), dtype=False)
+    for name, v, size in (("ln1 bias", ln1_b, d), ("qkv bias", bqkv, 3 * d),
+                          ("proj bias", bproj, d), ("ln2 weight", ln2_w, d),
+                          ("ln2 bias", ln2_b, d), ("fc1 bias", b1, hidden),
+                          ("fc2 bias", b2, d)):
+        if v is not None:
+            check(name, v, ln1_w, (size,))
+    out = torch.empty_like(x)
+    nd = b * n * d
+    scratch = x.new_empty(nd * 5 + b * n * hidden)
+    y, attn = scratch[:nd].view(b, n, d), scratch[nd:2 * nd].view(b, n, d)
+    qkv = scratch[2 * nd:5 * nd].view(b, n, 3 * d)
+    act = scratch[5 * nd:].view(b, n, hidden)
+    _launch("fused_block", x.data_ptr(), out.data_ptr(), ln1_w.data_ptr(),
+            ln1_b.data_ptr(), wqkv.data_ptr(), _ptr(bqkv), wproj.data_ptr(),
+            bproj.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), qkv.data_ptr(), attn.data_ptr(), act.data_ptr(), b,
+            n, d, hidden, heads, cluster, _DTYPES[ln1_w.dtype], scale, eps,
+            _DTYPES[x.dtype])
+    return out
+
+
+def _check_plain(name, t, like, shape, dtype):
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
+    of ``shape`` on ``like``'s device (the int8 and scale operands)."""
+    if t.device != like.device or t.dtype != dtype:
+        raise ValueError(f"{name}: {t.device}/{t.dtype}, expected "
+                         f"{like.device}/{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: not contiguous and 16-byte aligned")
+
+
+def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
+    """LN of x (M, D) with the one-pass variance clamped at 0, quantised per
+    row: (yq (M, D) int8, rs (M,) float32)."""
+    m, d = x.shape
+    check("x", x, x)
+    check("ln weight", weight, x, (d,), dtype=False)
+    check("ln bias", bias, weight, (d,))
+    yq = torch.empty((m, d), device=x.device, dtype=torch.int8)
+    rs = torch.empty((m,), device=x.device, dtype=torch.float32)
+    _launch("ln_quant", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            _DTYPES[weight.dtype], yq.data_ptr(), rs.data_ptr(), m, d,
+            _DTYPES[x.dtype])
+    return yq, rs
+
+
+def _s8_operands(a, wq, rs, s, b):
+    m, k = a.shape
+    n = wq.shape[0]
+    _check_plain("a", a, a, (m, k), torch.int8)
+    _check_plain("weight", wq, a, (n, k), torch.int8)
+    for name, t, size in (("row scales", rs, m), ("weight scales", s, n),
+                          ("bias", b, n)):
+        _check_plain(name, t, a, (size,), torch.float32)
+    if k % 16 or n % 8:
+        raise ValueError(f"int8 gemm needs K % 16 == 0 and N % 8 == 0, got "
+                         f"K={k}, N={n}")
+    return m, n, k
+
+
+def gemm_s8_fc1(a, wq, rs, s, b):
+    """h = GELU(a·wqᵀ·rs·s + b) in float32 (M, N) from the int8 a (M, K)
+    and wq (N, K), and each row's abs-max of h (M,)."""
+    m, n, k = _s8_operands(a, wq, rs, s, b)
+    h = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    amax = torch.zeros((m,), device=a.device, dtype=torch.float32)
+    _launch("gemm_s8", a.data_ptr(), wq.data_ptr(), rs.data_ptr(),
+            s.data_ptr(), b.data_ptr(), 0, h.data_ptr(), amax.data_ptr(),
+            None, None, m, n, k, 0)
+    return h, amax
+
+
+def quant_rows(h: torch.Tensor, amax: torch.Tensor):
+    """(aq (M, N) int8, rs (M,)) from the float h and its rows' abs-max."""
+    m, n = h.shape
+    _check_plain("h", h, h, (m, n), torch.float32)
+    _check_plain("amax", amax, h, (m,), torch.float32)
+    if n % 4:
+        raise ValueError(f"quant_rows needs a width multiple of 4, got {n}")
+    aq = torch.empty((m, n), device=h.device, dtype=torch.int8)
+    rs = torch.empty((m,), device=h.device, dtype=torch.float32)
+    _launch("quant_rows", h.data_ptr(), amax.data_ptr(), aq.data_ptr(),
+            rs.data_ptr(), m, n)
+    return aq, rs
+
+
+def gemm_s8_fc2(a, wq, rs, s, b, x):
+    """out = x + T(a·wqᵀ·rs·s + b) in x's dtype (M, N)."""
+    m, n, k = _s8_operands(a, wq, rs, s, b)
+    check("x", x, x, (m, n))
+    out = torch.empty_like(x)
+    _launch("gemm_s8", a.data_ptr(), wq.data_ptr(), rs.data_ptr(),
+            s.data_ptr(), b.data_ptr(), 1, None, None, x.data_ptr(),
+            out.data_ptr(), m, n, k, _DTYPES[x.dtype])
+    return out

@@ -612,3 +612,90 @@ def test_optimizer_with_the_fused_update_matches_foreach(cuda):
             torch.testing.assert_close(out[0][1][mom][key],
                                        out[1][1][mom][key], rtol=1e-6,
                                        atol=1e-7)
+
+
+# B10: (batch, tokens, width, heads): head dims 16, 48, 32 and 64, ragged N
+FUSED_CASES = [(2, 33, 64, 4), (2, 17, 192, 4), (3, 256, 256, 8),
+               (2, 257, 1024, 16)]
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("b,n,d,h", FUSED_CASES)
+@pytest.mark.parametrize("qkv_bias", [True, False])
+def test_fused_block_kernel_matches_plain(cuda, dtype, atol, b, n, d, h,
+                                          qkv_bias):
+    """The one-launch whole block against its plain version (the two
+    halves' plain versions) on the same inputs; one launch counted."""
+    from mirage_tpu_torch.ops.fused_block import fused_block, fused_block_ref
+
+    rng = np.random.default_rng(12)
+    pa, pm = _params(rng, d, 1, 3), _params(rng, d, 4, 4)
+    pl = _params(rng, d, 1, 1)
+    args = [_on(a, cuda, dtype) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), pa["g"], pa["be"],
+        pa["w1"], pa["b1"] if qkv_bias else None, pa["w2"], pa["b2"],
+        pl["g"], pl["be"], pm["w1"], pm["b1"], pm["w2"], pm["b2"])]
+    before = fused_block.launches
+    got = fused_block(*args, h)
+    assert fused_block.launches == before + 1
+    want = fused_block_ref(*[a.float() if a is not None else None
+                             for a in args], h)
+    assert _max_err(got, want) <= atol
+
+
+@pytest.mark.parametrize("shape", [(4, 257, 1024), (2048, 1024), (33, 64)])
+def test_int8_mlp_kernels_match_plain(cuda, shape):
+    """B12's four kernels against the plain int8 math on the same bf16
+    inputs: at most 1e-3 of the int8 codes differ (a flip needs a value
+    within a few float steps of a rounding boundary: the LN sums run in
+    another order), the output within 1e-3 rel-L2, and a rerun gives the
+    same bits."""
+    from mirage_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(13)
+    d = shape[-1]
+    p = _params(rng, d, 4, 4)
+    x = _on(rng.standard_normal(shape).astype(np.float32), cuda,
+            torch.bfloat16)
+    ln = [_on(p[k], cuda, torch.float32) for k in ("g", "be")]
+    qp = quant.quantize_mlp_params(*[_on(p[k], cuda, torch.float32)
+                                     for k in ("w1", "b1", "w2", "b2")])
+    before = quant.mlp_block_q.launches
+    got = quant.mlp_block_q_kernel_parts(x, *ln, *qp)
+    again = quant.mlp_block_q_kernel_parts(x, *ln, *qp)
+    assert quant.mlp_block_q.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with runtime.plain_on_card():
+        want = quant.mlp_block_q_parts(x, *ln, *qp)
+    for i in (1, 3):
+        assert (got[i] != want[i]).float().mean().item() <= 1e-3
+    diff = (got[0].float() - want[0].float()).norm() / want[0].float().norm()
+    assert diff.item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stash_flat", [False, True])
+@pytest.mark.parametrize("residual", [True, False])
+def test_stash3d_forward_equals_mlp_block(cuda, dtype, stash_flat, residual):
+    """B9′ on B9's chain: out bit-equal to mlp_block's on the card, the
+    stashes against the plain version, flat stashes as views."""
+    from mirage_tpu_torch.ops.fused_mlp import (mlp_block_fwd_stash3d,
+                                                mlp_block_fwd_stash3d_ref)
+
+    rng = np.random.default_rng(14)
+    b, n, d = 4, 99, 384
+    p = _params(rng, d, 4, 4)
+    args = [_on(a, cuda, dtype) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"])]
+    before = mlp_block_fwd_stash3d.launches
+    out, act, dg = mlp_block_fwd_stash3d(*args, residual=residual,
+                                         stash_flat=stash_flat)
+    assert mlp_block_fwd_stash3d.launches == before + 1
+    assert torch.equal(out, mlp_block(*args, residual=residual))
+    want = mlp_block_fwd_stash3d_ref(*[a.float() for a in args],
+                                     residual=residual,
+                                     stash_flat=stash_flat)
+    atol = 1e-4 if dtype == torch.float32 else 5e-2
+    for g, w in zip((out, act, dg), want):
+        assert g.shape == w.shape and _max_err(g, w) <= atol

@@ -195,11 +195,14 @@ SEG_MODULES = ("ops.flash_attention", "nn.conv", "adapters.seg_heads",
                "data.folder", "data.augment", "data.loader",
                "train.checkpoint", "train.logger", "cli.config",
                "cli.run_seg_tuning")
+# the serving slice's modules under MIRAGE_BLOCK_FUSE and its entry points
+SERVE_MODULES = ("ops.fused_block", "ops.quant", "cli.infer", "hf")
 
 
 def test_package_imports_neither_jax_nor_mirage_tpu():
     """Subprocess: this test process has already imported jax. Every module
-    of the package, the segmentation slice's included."""
+    of the package, the segmentation and serving slices' included (hf.py
+    and cli/infer.py among them)."""
     code = """
 import importlib, pkgutil, sys
 import mirage_tpu_torch
@@ -216,5 +219,5 @@ print("MODS", sorted(n for n in sys.modules if n.startswith("mirage_tpu_torch.")
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     mods = out.stdout.split("MODS", 1)[1]
-    for name in SEG_MODULES:
+    for name in SEG_MODULES + SERVE_MODULES:
         assert f"'mirage_tpu_torch.{name}'" in mods, name
