@@ -46,6 +46,14 @@ Phases, each of which must pass (any failure exits non-zero):
    the same weights written as model.safetensors and read by
    hf.MIRAGEWrapper.from_pretrained and by MIRAGEWrapper (the repaired
    reader): hf's batch-64 features against the wrapper's in float32.
+9. bench: the port's bench (mirage_tpu_torch.bench) through its entry
+   points: bench.py's headline (MIRAGE-Large reconstruction at batch 512,
+   its JSON line printed), the A/B cases S1 (B6 in a 24-layer chain), S3
+   (the int8 GEMM, exact, against bf16), S4 (the next LN folded into B2's
+   tail: csrc/gemm_lnfold.cu, and B1 from the pre-normed input) and S7 (B1
+   and B2 at 257 tokens against 264 and 320, B1 masked), each checked
+   against the op it varies and then timed, and the five
+   scripts/bench_train.py rows (pretraining, seg twice, cls twice).
 
 Phase 2 also holds the accumulating backwards (B7, both halves) and the
 fused AdamW update (B11) against their plain versions, and phase 5 runs the
@@ -139,7 +147,7 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad",
                 "adamw_kernel": "adamw", "fused_block_kernel": "fused_block",
                 "ln_quant_kernel": "quant", "quant_rows_kernel": "quant",
-                "gemm_s8_kernel": "quant"}
+                "gemm_s8_kernel": "quant", "gemm_lnfold_kernel": "gemm_lnfold"}
 
 
 def log(*a):
@@ -2600,6 +2608,154 @@ def phase_infer(workdir, card, path):
             "safetensors_bit_equal_to_pth": same, "load_seconds": load_s}
 
 
+# ------------------------------------------------------------------ phase 9
+
+BENCH_STEPS = 2  # timed steps of each train row, after one warm-up step
+# the bench's A/B ops: name -> (TPU kernel file:line, launcher -> kernel,
+# wrapper, sources, the bench module that drives it)
+BENCH_KERNELS = {
+    "block_attention_chain": (
+        "scripts/bench_attn2.py:21",
+        "make_block :15 -> pallas_call :21 over _block_attn_kernel",
+        "mirage_tpu_torch/ops/block_attention.py", ["attention.cu"],
+        "mirage_tpu_torch/bench/attn2.py"),
+    "gemm_s8": (
+        "scripts/bench_int8.py:64", "probe_pallas_int8 :48 -> kern :56",
+        "mirage_tpu_torch/ops/quant.py", ["quant.cu"],
+        "mirage_tpu_torch/bench/int8.py"),
+    "mlp_block_lnfold": (
+        "scripts/bench_lnfold.py:63",
+        "mlp_lnfold :85 -> _mlp_lnfold_kernel :63",
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "gemm.cu", "gemm_lnfold.cu"],
+        "mirage_tpu_torch/bench/lnfold.py"),
+    "attn_half_block_prenormed": (
+        "scripts/bench_lnfold.py:105",
+        "attn_prenormed :140 -> _attn_prenormed_kernel :105",
+        "mirage_tpu_torch/ops/block_attention.py",
+        ["gemm.cu", "attention.cu"], "mirage_tpu_torch/bench/lnfold.py"),
+    "attn_half_block_masked": (
+        "scripts/bench_pad264.py:24",
+        "make_attn :67 -> _attn_half_masked_kernel :24",
+        "mirage_tpu_torch/ops/block_attention.py",
+        ["layernorm.cu", "gemm.cu", "attention.cu"],
+        "mirage_tpu_torch/bench/pad264.py"),
+    "mlp_block_padded": (
+        "scripts/bench_pad264.py:100",
+        "make_mlp_flat :100, make_mlp_3d :125 -> _mlp_kernel",
+        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"],
+        "mirage_tpu_torch/bench/pad264.py"),
+}
+
+
+def _bench_counters():
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import quant as q
+
+    return {"attn_half_block": ba.attn_half_block,
+            "mlp_block": fm.mlp_block,
+            "xattn_half_block": ba.xattn_half_block,
+            "block_attention": ba.block_attention,
+            "gemm_s8": q.gemm_s8, "mlp_block_lnfold": fm.mlp_block_lnfold,
+            "attn_half_block_prenormed": ba.attn_half_block_prenormed,
+            "attn_half_block_masked": ba.attn_half_block_masked}
+
+
+def phase_bench(card):
+    """The port's bench (python -m mirage_tpu_torch.bench) through its entry
+    points: the headline (bench.py's MIRAGE-Large reconstruction at batch
+    512, seeded weights) with exact launch counts; the A/B
+    cases S1, S3, S4 and S7, each checked against the op it varies and then
+    timed; the five scripts/bench_train.py rows (one warm-up step and
+    BENCH_STEPS timed steps each). Every launch counter is 0 before the
+    bench runs and read after it; each op of the path must have launched."""
+    import torch
+
+    from mirage_tpu_torch.bench import __main__ as head
+    from mirage_tpu_torch.bench import attn2, int8, lnfold, pad264, train
+
+    counters = _bench_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    headline = head.headline()
+    torch.cuda.empty_cache()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: v * (head.ITERS + 1) for k, v in PER_RECONSTRUCT.items()}
+    log(json.dumps(headline))
+    log(f"[bench] headline launches {counts} (expected {want} over "
+        f"{head.ITERS + 1} forwards)")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"headline launches {counts} != {want}")
+    cases = {}
+    for name, mod in (("attn2", attn2), ("int8", int8), ("lnfold", lnfold),
+                      ("pad264", pad264)):
+        t1 = time.perf_counter()
+        cases[name] = mod.run()
+        for row in cases[name]:
+            log(f"[bench] {json.dumps(row)}")
+        log(f"[bench] {name} in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    rows = train.run(steps=BENCH_STEPS)
+    for row in rows:
+        log(f"[bench] {json.dumps(row)}")
+    log(f"[bench] train rows in {time.perf_counter() - t1:.1f}s")
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log(f"[bench] launches over the whole bench {counts}")
+    idle = [k for k, v in counts.items() if not v]
+    if idle:
+        raise AssertionError(f"bench: {idle} never launched")
+    return {"headline": headline, "cases": cases, "train": rows,
+            "counts": counts, "seconds": time.perf_counter() - t0,
+            "card": card}
+
+
+def _bench_entries(res):
+    """Entries of the `kernels` line for the bench's A/B ops: per call (S1:
+    per chain layer) at the JAX script's own shape, launches from the
+    bench's run."""
+    cases = res["cases"]
+    pick = {
+        "block_attention_chain": cases["attn2"][0],
+        "gemm_s8": next(r for r in cases["int8"] if r["probe"]),
+        "mlp_block_lnfold": cases["lnfold"][0],
+        "attn_half_block_prenormed": cases["lnfold"][1],
+        "attn_half_block_masked": next(
+            r for r in cases["pad264"] if r["op"] == "attn_half_block_masked"),
+        "mlp_block_padded": next(
+            r for r in cases["pad264"] if r["op"] == "mlp_block"
+            and r["shape"][1] != r["n_valid"]),
+    }
+    # B6 also runs in the train rows: the chain's launches are its own
+    launches = {"block_attention_chain": pick["block_attention_chain"][
+                    "launches"],
+                "mlp_block_padded": sum(
+                    r["launches"] for r in cases["pad264"]
+                    if r["op"] == "mlp_block"
+                    and r["shape"][1] != r["n_valid"])}
+    entries = []
+    for name, row in pick.items():
+        replaces, tpu_kernel, source, csrc, module = BENCH_KERNELS[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "csrc": [CSRC + f for f in csrc], "bench": module,
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": launches.get(name, res["counts"].get(name)),
+            "launches_are": "the bench's timed calls (phase 9); the checks "
+                            "against the plain versions excluded",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": row.get("library", "composite of F.layer_norm, "
+                                          "F.linear, F.gelu, "
+                                          "F.scaled_dot_product_attention"),
+            "times_are": row.get("times_are", f"per call at {row['shape']}"),
+            "row": row})
+    return entries
+
+
 # --------------------------------------------------------------------- main
 
 def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
@@ -2675,7 +2831,7 @@ def _op_entries(rows_by_op, launches):
 
 
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
-          "infer")
+          "infer", "bench")
 
 
 def main(argv=None):
@@ -2708,7 +2864,7 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
-    infer = None
+    infer = bench = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -2734,6 +2890,8 @@ def main(argv=None):
         cls = phase_cls(workdir, card)
     if "infer" in phases:
         infer = phase_infer(workdir, card, large)
+    if "bench" in phases:
+        bench = phase_bench(card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -2767,9 +2925,11 @@ def main(argv=None):
                    f"MIRAGE_BLOCK_FUSE=all; launches from that forward "
                    f"(6 under decoder: "
                    f"{tput['block_fuse']['decoder']['counts']['fused_block']})")
-               + _op_entries(serve_rows, op_launches))
+               + _op_entries(serve_rows, op_launches)
+               + _bench_entries(bench))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
+                    "bench": bench,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

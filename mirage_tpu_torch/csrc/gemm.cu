@@ -38,9 +38,8 @@
 // qkv and the (M, 4D) MLP hidden stop going through device memory, and
 // overlapping the epilogue's bias/GELU/residual math with the next tile's
 // products (two computing warpgroups taking turns on the tensor cores).
-#include <cuda.h>  // CUtensorMap; the encoder itself is fetched at run time
-
 #include "common.cuh"
+#include "wgmma.cuh"
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -58,52 +57,6 @@ __device__ __forceinline__ float gelu_grad(float h) {
          h * 0.3989422804014327f * expf(-0.5f * h * h);
 }
 
-// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile whose
-// 8-row groups lie 1024 bytes apart (the tile base is 1024-byte aligned).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across a wgmma
-// wait or fence.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define MTT_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 × 256, this thread's 128 floats) += A (64 × 16) · B (256 × 16)ᵀ
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
-      "%123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : MTT_F8(0), MTT_F8(8), MTT_F8(16), MTT_F8(24), MTT_F8(32), MTT_F8(40), MTT_F8(48),
-        MTT_F8(56), MTT_F8(64), MTT_F8(72), MTT_F8(80), MTT_F8(88), MTT_F8(96), MTT_F8(104),
-        MTT_F8(112), MTT_F8(120)
-      : "l"(da), "l"(db), "r"(1));
-}
-#undef MTT_F8
 
 // Per-warp epilogue scratch: the tile's BN bias values as float, then a
 // staging tile of 16 rows × EPI_COLS bf16, padded so the fragment writes
@@ -257,45 +210,6 @@ __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-// Waits until the barrier's phase of this parity has completed. A phase
-// that never completes (a lost arrival) traps after ~10 s instead of
-// hanging the card, so the launch fails and the caller raises.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-// Box (c0 = column, c1 = row) of a 2-D tensor map into shared memory; the
-// bytes land on mbarrier `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // Persistent: block b computes tiles b, b + gridDim.x, ... of the 128 × BN
 // tiling of C (row-major tile order). Warpgroup 0 loads (one thread), 1 and
@@ -393,50 +307,6 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so the
-// library needs no link against libcuda.
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) ==
-            cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// Tensor map of a row-major (rows, cols) bf16 matrix read in boxes of
-// box_rows × BK, 128-byte swizzled; out-of-range elements read as zero.
-static bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t pitch[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem_stride[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, pitch, box,
-            elem_stride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-static int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 0;
-  }
-  return n;
-}
 
 static int launch_bf16(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
                        const void* residual, int M, int N, int K, int epi, int out_f32,
@@ -451,7 +321,7 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
   }
   CUtensorMap map_a, map_w;
   const int sms = sm_count();
-  if (sms == 0 || !make_map(&map_a, a, M, K, BM) || !make_map(&map_w, w, N, K, BN))
+  if (sms == 0 || !make_map(&map_a, a, M, K, BM, BK) || !make_map(&map_w, w, N, K, BN, BK))
     return (int)cudaErrorInvalidValue;
   // one block per SM (or per tile, if fewer), each walking its share of tiles
   const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);

@@ -14,6 +14,11 @@
 //   3. quant_rows: aq = q(h / rs2), rs2 = abs-max / 127
 //   4. gemm_s8 (fc2): out = T(x + T(acc·rs2·s2 + b2))
 //
+// gemm_s8 has a third epilogue for the port's bench (scripts/bench_int8.py:
+// probe_pallas_int8, an s8·s8 -> s32 dot): the raw s32 accumulator stored
+// as it is, exact. Bound: bytes at the bench's shapes (an (M, N) int32
+// output against 2·M·N·K int8 operations).
+//
 // A rounding difference moves a code by a whole int8 step, so the float
 // arithmetic is the TPU kernel's op for op, with explicitly rounded
 // intrinsics (no FMA contraction), true division by every scale, a
@@ -135,12 +140,13 @@ __device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-enum { QEPI_FC1 = 0, QEPI_FC2 = 1 };
+enum { QEPI_FC1 = 0, QEPI_FC2 = 1, QEPI_S32 = 2 };
 
 // acc = A (M, K) int8 · W (N, K) int8ᵀ in s32; v = acc·rs[row]·s[col] +
 // b[col] in float. FC1: h = GELU(v) as float into hout, and atomicMax of
 // |h| per row into amax (float bits, zeroed by the caller). FC2: out =
-// T(x + T(v)).
+// T(x + T(v)). S32: acc itself into out, read as int32 (M, N); rs, s and b
+// are not read.
 template <typename T>
 __global__ void __launch_bounds__(256)
     gemm_s8_kernel(const signed char* __restrict__ A, const signed char* __restrict__ W,
@@ -211,6 +217,23 @@ __global__ void __launch_bounds__(256)
   }
   // epilogue from the fragments: rows gid, gid + 8 of each 16-row group,
   // columns 8j + 2·tig and + 1 (N is a multiple of 8)
+  if (epi == QEPI_S32) {
+    int* o = reinterpret_cast<int*>(out);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long row = m0 + wr * 32 + i * 16 + gid + 8 * half;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const long col = n0 + wc * 64 + 8 * j + 2 * tig;
+          if (row < M && col < N)
+            *reinterpret_cast<int2*>(o + row * N + col) =
+                make_int2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+        }
+      }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -297,13 +320,15 @@ static int launch_gemm(const void* a, const void* w, const void* rs, const void*
 }
 
 // epi QEPI_FC1: hout (M, N) float, amax (M) float zeroed; QEPI_FC2: x, out
-// (M, N) in the working type dtype. K a multiple of 16, N of 8.
+// (M, N) in the working type dtype; QEPI_S32: out (M, N) int32 (rs, s, b,
+// x may be null). K a multiple of 16, N of 8.
 extern "C" int mtt_gemm_s8(const void* a, const void* w, const void* rs, const void* s,
                            const void* b, int epi, void* hout, void* amax, const void* x,
                            void* out, int M, int N, int K, int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 8 || (epi != QEPI_FC1 && epi != QEPI_FC2))
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 8 || epi < QEPI_FC1 || epi > QEPI_S32)
     return (int)cudaErrorInvalidValue;
-  if (epi == QEPI_FC1 ? (hout == nullptr || amax == nullptr) : (x == nullptr || out == nullptr))
+  if (epi == QEPI_FC1 ? (hout == nullptr || amax == nullptr)
+                      : (out == nullptr || (epi == QEPI_FC2 && x == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16)

@@ -21,7 +21,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
-           "wgrad", "adamw", "fused_block", "quant")
+           "wgrad", "adamw", "fused_block", "quant", "gemm_lnfold")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # cudaGetLastError().
 ENTRIES = {
@@ -51,6 +51,9 @@ ENTRIES = {
     "quant_rows": ("quant", "mtt_quant_rows", [_P, _P, _P, _P, _I, _I, _P]),
     "gemm_s8": ("quant", "mtt_gemm_s8",
                 [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "gemm_lnfold": ("gemm_lnfold", "mtt_gemm_lnfold",
+                    [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
+                     _P]),
 }
 
 _lock = threading.Lock()

@@ -44,6 +44,12 @@ call).
   kernel writes its VMEM accumulators (:471-497), not what it sums, so both
   values take this one port. No atomics: a rerun is bit-identical.
 
+Two forward-only halves are A/B cases of the port's bench
+(``mirage_tpu_torch.bench``): ``attn_half_block_masked`` (keys past
+n_valid masked, scripts/bench_pad264.py) and ``attn_half_block_prenormed``
+(B1 from a pre-normed input, scripts/bench_lnfold.py). Both are B1's chain
+with another key count or without its LN, and add no CUDA code.
+
 Every op saves only its inputs for the backward and recomputes the rest,
 as the TPU kernels do. Parameter gradients come back in float32, as the
 JAX custom VJPs return them; on a CPU tensor the backward runs the plain
@@ -54,7 +60,7 @@ rounding T(·) to the compute dtype where they round.
 import torch
 
 from mirage_tpu_torch.nn.attention import (cross_attention, merge_heads,
-                                           packed_attention)
+                                           packed_attention, sdpa)
 from mirage_tpu_torch.nn.layers import LN_EPS, acc_dtype, layer_norm, linear
 from mirage_tpu_torch.ops import runtime
 
@@ -377,3 +383,97 @@ def xattn_half_block(x, context, lnq_w, lnq_b, lnc_w, lnc_b, wq, bq, wkv,
 
 
 xattn_half_block.launches = 0
+
+
+# ------------------------------------------------- the bench's A/B halves
+
+def _forward_only(name, *tensors):
+    if _needs_grad(*tensors):
+        raise RuntimeError(f"{name} is forward only on the card (an A/B case "
+                           f"of the bench); call it without gradients")
+
+
+def attn_half_block_masked_ref(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                               num_heads, n_valid):
+    """Plain version of :func:`attn_half_block_masked`: every query row,
+    the keys and values of the first ``n_valid`` rows (a key masked to
+    −1e30 before the softmax gets an exact zero)."""
+    b, n, d = x.shape
+    dh = d // num_heads
+    qkv = linear(layer_norm(x, ln_w, ln_b), wqkv, bqkv)
+    q, k, v = _heads(qkv, num_heads, 3)
+    attn = merge_heads(sdpa(q, k[:, :, :n_valid], v[:, :, :n_valid],
+                            dh ** -0.5))
+    return x + linear(attn, wproj, bproj)
+
+
+def attn_half_block_masked(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                           num_heads, n_valid):
+    """B1 over N rows with the keys at index ≥ n_valid masked: x (B, N, D)
+    -> (B, N, D). Replaces scripts/bench_pad264.py:_attn_half_masked_kernel
+    (B1 at 264 tokens, keys past 257 masked to −1e30), the TPU's padding of
+    257 tokens to its 8-row tiles. On the card it is B1's chain with every
+    query row computed and the attention kernel given the first n_valid
+    rows as its keys (csrc/attention.cu takes the key count apart from the
+    query count and masks its ragged last key chunk): masked keys are never
+    read, and the op adds no CUDA code. Forward only."""
+    if not 0 < n_valid <= x.shape[1]:
+        raise ValueError(f"n_valid {n_valid} not in 1..{x.shape[1]}")
+    if not runtime.use_kernel(x):
+        return attn_half_block_masked_ref(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                                          bproj, num_heads, n_valid)
+    _forward_only("attn_half_block_masked", x, ln_w, ln_b, wqkv, bqkv, wproj,
+                  bproj)
+    b, n, d = x.shape
+    runtime.check("x", x, x)
+    x2 = x.view(b * n, d)
+    qkv = runtime.gemm(runtime.layernorm(x2, ln_w, ln_b), wqkv.to(x.dtype),
+                       bqkv).view(b, n, 3 * d)
+    attn = x.new_empty(b, n, d)
+    dh = d // num_heads
+    runtime.attention(qkv, qkv[:, :n_valid, d:], qkv[:, :n_valid, 2 * d:],
+                      attn, heads=num_heads, dh=dh, scale=dh ** -0.5)
+    out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
+                       residual=x2)
+    attn_half_block_masked.launches += 1
+    return out.view(b, n, d)
+
+
+attn_half_block_masked.launches = 0
+
+
+def attn_half_block_prenormed_ref(x, y, wqkv, bqkv, wproj, bproj, num_heads):
+    """Plain version of :func:`attn_half_block_prenormed`."""
+    qkv = linear(y, wqkv, bqkv)
+    return x + linear(packed_attention(qkv, num_heads), wproj, bproj)
+
+
+def attn_half_block_prenormed(x, y, wqkv, bqkv, wproj, bproj, num_heads):
+    """B1 from a pre-normed y = LN1(x) (the folded MLP half's second output,
+    :func:`mirage_tpu_torch.ops.fused_mlp.mlp_block_lnfold`), x kept for the
+    residual: x + proj(attn(y·Wqkvᵀ + b)). Replaces scripts/bench_lnfold.py:
+    _attn_prenormed_kernel. On the card it is B1's chain from the qkv GEMM
+    on, so it needs no kernel of its own; the exp2 softmax of the TPU kernel
+    is a TPU workaround, and the attention kernel keeps its exact softmax.
+    Forward only."""
+    if not runtime.use_kernel(x):
+        return attn_half_block_prenormed_ref(x, y, wqkv, bqkv, wproj, bproj,
+                                             num_heads)
+    _forward_only("attn_half_block_prenormed", x, y, wqkv, bqkv, wproj, bproj)
+    b, n, d = x.shape
+    runtime.check("x", x, x)
+    runtime.check("y", y, x, (b, n, d))
+    x2 = x.view(b * n, d)
+    qkv = runtime.gemm(y.view(b * n, d), wqkv.to(x.dtype),
+                       bqkv).view(b, n, 3 * d)
+    attn = x.new_empty(b, n, d)
+    dh = d // num_heads
+    runtime.attention(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], attn,
+                      heads=num_heads, dh=dh, scale=dh ** -0.5)
+    out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
+                       residual=x2)
+    attn_half_block_prenormed.launches += 1
+    return out.view(b, n, d)
+
+
+attn_half_block_prenormed.launches = 0

@@ -54,13 +54,18 @@ backward's partials in its column-sum kernel. No atomics, so a rerun is
 bit-identical. The rows need no padding: the TPU pads only for its tiling,
 and a zero-cotangent row adds nothing. Bound: operations (the recompute
 2·M·D·4D and the backward 8·M·D·4D FLOPs).
+
+``mlp_block_lnfold`` (an A/B case of the port's bench, scripts/
+bench_lnfold.py) is B2 with the next block's LN1 folded into fc2's
+epilogue: the one kernel the bench adds (csrc/gemm_lnfold.cu).
 """
 
 import torch
 
 from mirage_tpu_torch.nn.layers import acc_dtype, gelu, layer_norm, linear
 from mirage_tpu_torch.ops import runtime
-from mirage_tpu_torch.ops.block_attention import _needs_grad, ln_bwd_ref
+from mirage_tpu_torch.ops.block_attention import (_forward_only, _needs_grad,
+                                                  ln_bwd_ref)
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -389,3 +394,45 @@ mlp_block.bwd_launches = 0
 mlp_block.stash_launches = 0
 mlp_block.stash_bwd_launches = 0
 mlp_block.acc_bwd_launches = 0
+
+
+# ------------------------------------------ the bench's LN fold (S4)
+
+def mlp_block_lnfold_ref(x, ln_w, ln_b, w1, b1, w2, b2, ln_next_w,
+                         ln_next_b):
+    """Plain version of :func:`mlp_block_lnfold`: (out, LN_next(out)), the
+    LN taken in float from out rounded to x's dtype."""
+    out = mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2)
+    return out, layer_norm(out, ln_next_w, ln_next_b)
+
+
+def mlp_block_lnfold(x, ln_w, ln_b, w1, b1, w2, b2, ln_next_w, ln_next_b):
+    """B2 that also writes y = LN_next(out), the next block's LN1 of its
+    output: (out, y), both x's shape and dtype. Replaces
+    scripts/bench_lnfold.py:_mlp_lnfold_kernel (the next layer's LN folded
+    into the MLP kernel's tail, so the attention half that follows starts at
+    its qkv product: ``attn_half_block_prenormed``).
+
+    On the card: B2's chain up to fc2 (LN, fc1 with bias and GELU), then fc2
+    with bias, the residual and LN_next in one epilogue (csrc/gemm_lnfold.cu:
+    a thread-block cluster of D/256 CTAs along the columns, each CTA's row
+    partial sums exchanged through distributed shared memory, the mean first
+    and then the squared deviations, as the port's two-pass LN). bf16 only,
+    D a multiple of 256 up to 2048; another shape or type raises. Forward
+    only."""
+    if not runtime.use_kernel(x):
+        return mlp_block_lnfold_ref(x, ln_w, ln_b, w1, b1, w2, b2, ln_next_w,
+                                    ln_next_b)
+    _forward_only("mlp_block_lnfold", x, ln_w, ln_b, w1, b1, w2, b2,
+                  ln_next_w, ln_next_b)
+    runtime.check("x", x, x)
+    x2 = x.view(-1, x.shape[-1])
+    h = runtime.gemm(runtime.layernorm(x2, ln_w, ln_b), w1.to(x.dtype), b1,
+                     gelu=True)
+    out, y = runtime.gemm_lnfold(h, w2.to(x.dtype), b2, x2, ln_next_w,
+                                 ln_next_b)
+    mlp_block_lnfold.launches += 1
+    return out.view(x.shape), y.view(x.shape)
+
+
+mlp_block_lnfold.launches = 0

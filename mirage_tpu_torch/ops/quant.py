@@ -19,6 +19,10 @@ hidden's quantisation, and the fc2 int8 GEMM with the dequantisation, b2
 and the residual. Bound: operations (2·M·D·H·2 int8 operations). Forward
 only, as the JAX op (:155-161). The JAX package dispatches nothing to it;
 the port keeps it as an op with its own checks.
+
+``gemm_s8`` (an A/B case of the port's bench, scripts/bench_int8.py) is the
+bare s8·s8 -> s32 product on the same GEMM kernel, its s32 accumulator
+stored as it is.
 """
 
 import torch
@@ -124,3 +128,31 @@ def mlp_block_q(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2):
 
 
 mlp_block_q.launches = 0
+
+
+# ----------------------------------------------- the bench's int8 GEMM (S3)
+
+def gemm_s8_ref(a, w):
+    """Plain version of :func:`gemm_s8`: ``a.to(int32) @ w.to(int32).t()``.
+    PyTorch has no integer product on CUDA, so on a CUDA tensor (the card's
+    reference) the sum is taken in float64, exact for |sum| ≤ K·127² < 2⁵³,
+    and cast to int32."""
+    if a.is_cuda:
+        return (a.double() @ w.double().t()).to(torch.int32)
+    return a.to(torch.int32) @ w.to(torch.int32).t()
+
+
+def gemm_s8(a, w):
+    """a (M, K) int8 · w (N, K) int8ᵀ -> (M, N) int32, exact. Replaces
+    scripts/bench_int8.py:probe_pallas_int8's kernel (an s8·s8 -> s32 dot
+    with resident weights). On the card it is B12's mma.sync int8 GEMM
+    (csrc/quant.cu) with a third epilogue that stores the raw s32
+    accumulator. K a multiple of 16 and N of 8."""
+    if not runtime.use_kernel(a):
+        return gemm_s8_ref(a, w)
+    out = runtime.gemm_s8_s32(a, w)
+    gemm_s8.launches += 1
+    return out
+
+
+gemm_s8.launches = 0

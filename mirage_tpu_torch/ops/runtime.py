@@ -19,7 +19,10 @@ multi-tensor AdamW update (B11).
 
 ``fused_block`` launches the one-launch whole block (B10, a thread-block
 cluster per batch element); ``ln_quant``, ``gemm_s8_fc1``, ``quant_rows``
-and ``gemm_s8_fc2`` the four kernels of the int8 MLP half (B12).
+and ``gemm_s8_fc2`` the four kernels of the int8 MLP half (B12);
+``gemm_s8_s32`` the same int8 GEMM with its s32 accumulator as the output,
+and ``gemm_lnfold`` fc2 with bias, residual and the next LayerNorm in one
+cluster epilogue (the bench's S3 and S4).
 
 The four switches of the JAX package's non-default kernels keep its names,
 values and defaults and are read once at import, as
@@ -591,3 +594,52 @@ def gemm_s8_fc2(a, wq, rs, s, b, x):
             s.data_ptr(), b.data_ptr(), 1, None, None, x.data_ptr(),
             out.data_ptr(), m, n, k, _DTYPES[x.dtype])
     return out
+
+
+def gemm_s8_s32(a, wq):
+    """a (M, K) int8 · wq (N, K) int8ᵀ -> the exact int32 (M, N) product
+    (the int8 GEMM's third epilogue: the s32 accumulator as it is)."""
+    m, k = a.shape
+    n = wq.shape[0]
+    _check_plain("a", a, a, (m, k), torch.int8)
+    _check_plain("weight", wq, a, (n, k), torch.int8)
+    if k % 16 or n % 8:
+        raise ValueError(f"int8 gemm needs K % 16 == 0 and N % 8 == 0, got "
+                         f"K={k}, N={n}")
+    out = torch.empty((m, n), device=a.device, dtype=torch.int32)
+    _launch("gemm_s8", a.data_ptr(), wq.data_ptr(), None, None, None, 2, None,
+            None, None, out.data_ptr(), m, n, k, 0)
+    return out
+
+
+# the LN-fold epilogue's cluster spans D / 256 CTAs (each a 256-column tile)
+LNFOLD_TILE_N, LNFOLD_MAX_CLUSTER = 256, 8
+
+
+def gemm_lnfold(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                residual: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                eps: float = 1e-6):
+    """out = T(residual + T(a·wᵀ + bias)) and y = T(LN(out)·ln_w + ln_b),
+    both (M, N), from a (M, K) and w (N, K) in bf16: one launch of
+    thread-block clusters of N / 256 CTAs, each CTA one 128 × 256 tile, the
+    LN statistics of a row summed across the cluster in distributed shared
+    memory. N must be a multiple of 256 up to 2048."""
+    m, n, k = _gemm_operands(a, w)
+    if a.dtype != torch.bfloat16:
+        raise ValueError(f"gemm_lnfold takes bf16 operands, got {a.dtype}")
+    if n % LNFOLD_TILE_N or n // LNFOLD_TILE_N > LNFOLD_MAX_CLUSTER:
+        raise ValueError(f"gemm_lnfold needs N a multiple of {LNFOLD_TILE_N} "
+                         f"up to {LNFOLD_TILE_N * LNFOLD_MAX_CLUSTER} (one "
+                         f"cluster of at most {LNFOLD_MAX_CLUSTER} CTAs per "
+                         f"row tile), got N={n}")
+    check("bias", bias, a, (n,), dtype=False)
+    check("residual", residual, a, (m, n))
+    check("ln weight", ln_w, a, (n,), dtype=False)
+    check("ln bias", ln_b, ln_w, (n,))
+    out = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    y = torch.empty_like(out)
+    _launch("gemm_lnfold", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            _DTYPES[bias.dtype], residual.data_ptr(), ln_w.data_ptr(),
+            ln_b.data_ptr(), _DTYPES[ln_w.dtype], out.data_ptr(), y.data_ptr(),
+            m, n, k, eps)
+    return out, y

@@ -46,7 +46,9 @@ def tiny_ckpt(tmp_path_factory):
 # ----------------------------------------------------- safetensors (fault 6)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
-                                   torch.bfloat16, torch.int64, torch.int32])
+                                   torch.bfloat16, torch.int64, torch.int32,
+                                   torch.int16, torch.int8, torch.uint8,
+                                   torch.bool])
 def test_safetensors_reader_is_bit_equal_to_the_package(tmp_path, dtype):
     """A file written by the ``safetensors`` package, read by the port's
     reader and by hf.py's own: the same tensors, bit for bit."""

@@ -699,3 +699,107 @@ def test_stash3d_forward_equals_mlp_block(cuda, dtype, stash_flat, residual):
     atol = 1e-4 if dtype == torch.float32 else 5e-2
     for g, w in zip((out, act, dg), want):
         assert g.shape == w.shape and _max_err(g, w) <= atol
+
+
+# ------------------------------------------- the bench's A/B ops (S3, S4, S7)
+
+@pytest.mark.parametrize("m,d", [(2 * 257, 1024), (33, 256), (130, 2048),
+                                 (128, 512)])
+def test_lnfold_kernel_matches_plain(cuda, m, d):
+    """The fold (csrc/gemm_lnfold.cu: a cluster of d/256 CTAs) against its
+    plain version in float32 from the same bf16 inputs; out bit-equal to
+    B2's, whose fc2 runs the same main loop and epilogue rounding."""
+    from mirage_tpu_torch.ops.fused_mlp import (mlp_block_lnfold,
+                                                mlp_block_lnfold_ref)
+
+    rng = np.random.default_rng(15)
+    p = _params(rng, d, 4, 4)
+    nxt = _params(rng, d, 1, 1)
+    args = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((m, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"], nxt["g"], nxt["be"])]
+    before = mlp_block_lnfold.launches
+    out, y = mlp_block_lnfold(*args)
+    assert mlp_block_lnfold.launches == before + 1
+    want_out, want_y = mlp_block_lnfold_ref(*[a.float() for a in args])
+    assert _max_err(out, want_out) <= 5e-2
+    assert _max_err(y, want_y) <= 5e-2
+    assert torch.equal(out, mlp_block(*args[:7]))
+    # y against the LN of the kernel's own out: one bf16 step at most
+    y_of_out = F.layer_norm(out.float(), (d,), args[7].float(),
+                            args[8].float(), 1e-6)
+    assert _max_err(y, y_of_out) <= 2 ** -7 * y_of_out.abs().max().item()
+
+
+@pytest.mark.parametrize("d,dtype", [(320, torch.bfloat16),
+                                     (2304, torch.bfloat16),
+                                     (256, torch.float32)])
+def test_lnfold_kernel_refuses_what_it_does_not_take(cuda, d, dtype):
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block_lnfold
+
+    rng = np.random.default_rng(16)
+    p = _params(rng, d, 4, 4)
+    args = [_on(a, cuda, dtype) for a in (
+        rng.standard_normal((8, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"], p["g"], p["be"])]
+    with pytest.raises(ValueError, match="gemm_lnfold"):
+        mlp_block_lnfold(*args)
+
+
+@pytest.mark.parametrize("m,k,n", [(33, 64, 40), (16384, 1024, 4096),
+                                   (257, 4096, 1024)])
+def test_gemm_s8_s32_is_exact(cuda, m, k, n):
+    from mirage_tpu_torch.ops.quant import gemm_s8, gemm_s8_ref
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    before = gemm_s8.launches
+    got = gemm_s8(a, w)
+    assert gemm_s8.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, gemm_s8_ref(a, w))
+
+
+@pytest.mark.parametrize("b,n,d,h,n_valid", [(2, 264, 1024, 16, 257),
+                                             (3, 40, 64, 4, 33),
+                                             (2, 320, 256, 4, 257)])
+def test_masked_attn_half_matches_plain(cuda, b, n, d, h, n_valid):
+    """B1 with the keys past n_valid masked against its plain version; its
+    first n_valid rows bit-equal to B1 at n_valid on those rows."""
+    from mirage_tpu_torch.ops.block_attention import (
+        attn_half_block_masked, attn_half_block_masked_ref)
+
+    rng = np.random.default_rng(18)
+    p = _params(rng, d, 1, 3)
+    args = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"])]
+    before = attn_half_block_masked.launches
+    got = attn_half_block_masked(*args, h, n_valid)
+    assert attn_half_block_masked.launches == before + 1
+    want = attn_half_block_masked_ref(*[a.float() for a in args], h, n_valid)
+    assert _max_err(got, want) <= 5e-2
+    base = attn_half_block(args[0][:, :n_valid].contiguous(), *args[1:], h)
+    assert torch.equal(got[:, :n_valid], base)
+
+
+def test_prenormed_attn_half_matches_plain(cuda):
+    from mirage_tpu_torch.nn.layers import layer_norm
+    from mirage_tpu_torch.ops.block_attention import (
+        attn_half_block_prenormed, attn_half_block_prenormed_ref)
+
+    rng = np.random.default_rng(19)
+    b, n, d, h = 2, 257, 1024, 16
+    p = _params(rng, d, 1, 3)
+    x, g, be, wqkv, bqkv, wp, bp = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"])]
+    y = layer_norm(x, g, be)
+    got = attn_half_block_prenormed(x, y, wqkv, bqkv, wp, bp, h)
+    want = attn_half_block_prenormed_ref(
+        *[t.float() for t in (x, y, wqkv, bqkv, wp, bp)], h)
+    assert _max_err(got, want) <= 5e-2
+    # from B1's own LN output, the same bits as B1
+    assert torch.equal(got, attn_half_block(x, g, be, wqkv, bqkv, wp, bp, h))
