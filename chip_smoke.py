@@ -51,9 +51,14 @@ Phases, each of which must pass (any failure exits non-zero):
    its JSON line printed), the A/B cases S1 (B6 in a 24-layer chain), S3
    (the int8 GEMM, exact, against bf16), S4 (the next LN folded into B2's
    tail: csrc/gemm_lnfold.cu, and B1 from the pre-normed input) and S7 (B1
-   and B2 at 257 tokens against 264 and 320, B1 masked), each checked
-   against the op it varies and then timed, and the five
-   scripts/bench_train.py rows (pretraining, seg twice, cls twice).
+   and B2 at 257 tokens against 264 and 320, B1 masked), S2 (B1's
+   attention in three phases: csrc/attention_phased.cu), S5 (B1's and B2's
+   LN, softmax and GELU modes: the phased kernel's softmax modes, the LN
+   kernel's one-pass mode, the GEMM epilogue's GELU formulas) and S6 (B2
+   with the hidden on chip, csrc/mlp_chunked.cu; B1 with 2, 4 or 8 heads
+   per block), each checked against its plain version and then timed, and
+   the five scripts/bench_train.py rows (pretraining, seg twice, cls
+   twice).
 
 Phase 2 also holds the accumulating backwards (B7, both halves) and the
 fused AdamW update (B11) against their plain versions, and phase 5 runs the
@@ -147,7 +152,9 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad",
                 "adamw_kernel": "adamw", "fused_block_kernel": "fused_block",
                 "ln_quant_kernel": "quant", "quant_rows_kernel": "quant",
-                "gemm_s8_kernel": "quant", "gemm_lnfold_kernel": "gemm_lnfold"}
+                "gemm_s8_kernel": "quant", "gemm_lnfold_kernel": "gemm_lnfold",
+                "attention_phased_kernel": "attention_phased",
+                "mlp_chunked_kernel": "mlp_chunked"}
 
 
 def log(*a):
@@ -2611,8 +2618,8 @@ def phase_infer(workdir, card, path):
 # ------------------------------------------------------------------ phase 9
 
 BENCH_STEPS = 2  # timed steps of each train row, after one warm-up step
-# the bench's A/B ops: name -> (TPU kernel file:line, launcher -> kernel,
-# wrapper, sources, the bench module that drives it)
+# the bench's A/B ops of S1, S3, S4, S7: name -> (TPU kernel file:line,
+# launcher -> kernel, wrapper, sources, the bench module that drives it)
 BENCH_KERNELS = {
     "block_attention_chain": (
         "scripts/bench_attn2.py:21",
@@ -2646,6 +2653,29 @@ BENCH_KERNELS = {
         "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"],
         "mirage_tpu_torch/bench/pad264.py"),
 }
+# S2, S5, S6: one entry of the `kernels` line per bench row (the rows of B1
+# and B2 themselves excepted); op -> (wrapper, sources), bench module ->
+# (its file, the TPU launcher -> kernel of each row's `replaces`)
+BENCH_OPS = {
+    "attn_half_block_phased": ("mirage_tpu_torch/ops/block_attention.py",
+                               ["layernorm.cu", "gemm.cu",
+                                "attention_phased.cu"]),
+    "mlp_block_modes": ("mirage_tpu_torch/ops/fused_mlp.py",
+                        ["layernorm.cu", "gemm.cu"]),
+    "mlp_block_chunked": ("mirage_tpu_torch/ops/fused_mlp.py",
+                          ["layernorm.cu", "mlp_chunked.cu"]),
+}
+BENCH_LAUNCHERS = {
+    "scripts/bench_attn_half.py:16": "v2_call :54 -> _v2_kernel :16",
+    "scripts/bench_vpu.py:44": "make_attn :215 -> _attn_kernel_v :44",
+    "scripts/bench_vpu.py:88": "make_attn_pipe2 :140 -> _attn_kernel_pipe2 :88",
+    "scripts/bench_vpu.py:167": "make_mlp_pipe2 :194 -> _mlp_kernel_pipe2 :167",
+    "scripts/bench_vpu.py:240": "make_mlp :272 -> _mlp_kernel_v :240",
+    "scripts/bench_overlap.py:32": "make_mlp :61 -> _mlp_kernel_chunked :32",
+    "scripts/bench_overlap.py:90": "make_attn :133 -> _attn_half_grouped :90",
+}
+# the headline as PERF.md §5 records it before these kernels were added
+HEADLINE_BEFORE = "2303.7-2322.1 img/s (NVIDIA H100 80GB HBM3, 700.00 W)"
 
 
 def _bench_counters():
@@ -2659,21 +2689,25 @@ def _bench_counters():
             "block_attention": ba.block_attention,
             "gemm_s8": q.gemm_s8, "mlp_block_lnfold": fm.mlp_block_lnfold,
             "attn_half_block_prenormed": ba.attn_half_block_prenormed,
-            "attn_half_block_masked": ba.attn_half_block_masked}
+            "attn_half_block_masked": ba.attn_half_block_masked,
+            "attn_half_block_phased": ba.attn_half_block_phased,
+            "mlp_block_modes": fm.mlp_block_modes,
+            "mlp_block_chunked": fm.mlp_block_chunked}
 
 
 def phase_bench(card):
     """The port's bench (python -m mirage_tpu_torch.bench) through its entry
     points: the headline (bench.py's MIRAGE-Large reconstruction at batch
     512, seeded weights) with exact launch counts; the A/B
-    cases S1, S3, S4 and S7, each checked against the op it varies and then
-    timed; the five scripts/bench_train.py rows (one warm-up step and
+    cases S1, S3, S4, S7, S2, S5 and S6, each checked against its plain
+    version and then timed; the five scripts/bench_train.py rows (one warm-up step and
     BENCH_STEPS timed steps each). Every launch counter is 0 before the
     bench runs and read after it; each op of the path must have launched."""
     import torch
 
     from mirage_tpu_torch.bench import __main__ as head
-    from mirage_tpu_torch.bench import attn2, int8, lnfold, pad264, train
+    from mirage_tpu_torch.bench import (attn2, attn_half, int8, lnfold,
+                                        overlap, pad264, train, vpu)
 
     counters = _bench_counters()
     for fn in counters.values():
@@ -2684,13 +2718,16 @@ def phase_bench(card):
     counts = {k: fn.launches for k, fn in counters.items()}
     want = {k: v * (head.ITERS + 1) for k, v in PER_RECONSTRUCT.items()}
     log(json.dumps(headline))
+    log(f"[bench] headline {headline['value']:.1f} img/s on {card}; before "
+        f"the S2/S5/S6 kernels {HEADLINE_BEFORE}")
     log(f"[bench] headline launches {counts} (expected {want} over "
         f"{head.ITERS + 1} forwards)")
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"headline launches {counts} != {want}")
     cases = {}
     for name, mod in (("attn2", attn2), ("int8", int8), ("lnfold", lnfold),
-                      ("pad264", pad264)):
+                      ("pad264", pad264), ("attn_half", attn_half),
+                      ("vpu", vpu), ("overlap", overlap)):
         t1 = time.perf_counter()
         cases[name] = mod.run()
         for row in cases[name]:
@@ -2753,6 +2790,27 @@ def _bench_entries(res):
                                           "F.scaled_dot_product_attention"),
             "times_are": row.get("times_are", f"per call at {row['shape']}"),
             "row": row})
+    for module in ("attn_half", "vpu", "overlap"):
+        for row in cases[module]:
+            if row["op"] not in BENCH_OPS:
+                continue  # B1's and B2's own rows (S6's v0)
+            source, csrc = BENCH_OPS[row["op"]]
+            entries.append({
+                "name": f"{row['op']} [{row['case']}]", "route": "cuda",
+                "source": source, "csrc": [CSRC + f for f in csrc],
+                "bench": f"mirage_tpu_torch/bench/{module}.py",
+                "replaces": row["replaces"],
+                "tpu_kernel": BENCH_LAUNCHERS[row["replaces"]],
+                "launches": row["launches"],
+                "launches_are": "the row's timed calls (phase 9); the check "
+                                "against the plain version excluded",
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library": "composite of F.layer_norm, F.linear, F.gelu, "
+                           "F.scaled_dot_product_attention",
+                "times_are": f"per call at {row['shape']}", "row": row})
     return entries
 
 

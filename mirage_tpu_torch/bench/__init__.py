@@ -2,14 +2,16 @@
 
     python -m mirage_tpu_torch.bench            # the headline (bench.py)
     python -m mirage_tpu_torch.bench --all      # and the five train rows
-    python -m mirage_tpu_torch.bench --ab       # the A/B cases S1, S3, S4, S7
+    python -m mirage_tpu_torch.bench --ab       # the A/B cases S1-S7
 
 Each module is named after the JAX file it ports: ``__main__`` (bench.py:
 MIRAGE-Large reconstruction at batch 512), ``train`` (scripts/
 bench_train.py's pretraining, seg and cls rows), ``attn2`` (S1, scripts/
-bench_attn2.py), ``pad264`` (S7, scripts/bench_pad264.py), ``int8`` (S3,
-scripts/bench_int8.py) and ``lnfold`` (S4, scripts/bench_lnfold.py). Every
-A/B case is checked against the op it varies before it is timed. A
+bench_attn2.py), ``attn_half`` (S2, scripts/bench_attn_half.py), ``int8``
+(S3, scripts/bench_int8.py), ``lnfold`` (S4, scripts/bench_lnfold.py),
+``vpu`` (S5, scripts/bench_vpu.py), ``overlap`` (S6, scripts/
+bench_overlap.py) and ``pad264`` (S7, scripts/bench_pad264.py). Every A/B
+case is checked against its plain version before it is timed. A
 measurement runs on the card only: without one the bench exits non-zero,
 and ``--dry-run --device cpu`` runs the same code at a tiny size and prints
 rows marked ``"measured": false`` with no time in them.
@@ -73,6 +75,55 @@ def chain_ms(fn, x, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_op(op, fn, library, iters):
+    """The timed fields of an A/B row: ``fn``'s ms per call, its plain
+    version's (the same call under ``runtime.plain_on_card``), the library
+    yardstick's, the launches of ``op`` (a wrapper with a ``launches``
+    counter) in the timed calls, and the card."""
+    from mirage_tpu_torch.ops import runtime
+
+    start = op.launches
+    ms = cuda_ms(fn, iters=iters)
+    launches = op.launches - start
+    with runtime.plain_on_card():
+        plain_ms = cuda_ms(fn, iters=2, warmup=1)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "library_ms": cuda_ms(library, iters=iters),
+            "launches": launches, "ms_per_24_layers": ms * 24, **card()}
+
+
+def half_inputs(shape, device, x_scale, dtype=torch.bfloat16):
+    """The JAX scripts' inputs of one half-block (bench_vpu.py:313-324 and
+    its siblings): x = x_scale·randn (B, N, D) from seed 1, and unit LN,
+    zero biases and 0.02-scaled weights in torch Linear layout from seed 0:
+    (x, attention (γ, β, Wqkv, bqkv, Wproj, bproj), MLP (γ, β, W1, b1, W2,
+    b2))."""
+    b, n, d = shape[:3]
+    x = (torch.randn(b, n, d, generator=torch.Generator().manual_seed(1))
+         * x_scale).to(device, dtype)
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*s):
+        return (torch.randn(*s, generator=g) * 0.02).to(device, dtype)
+
+    ones = torch.ones(d, device=device, dtype=dtype)
+    zeros = torch.zeros(d, device=device, dtype=dtype)
+    attn = (ones, zeros, rn(3 * d, d), zeros.repeat(3), rn(d, d), zeros)
+    mlp = (ones, zeros, rn(4 * d, d), zeros.repeat(4), rn(d, 4 * d), zeros)
+    return x, attn, mlp
+
+
+def half_work(b, n, d, which):
+    """(FLOPs, bytes) of one attention or MLP half over (b, n, d): the
+    products (and 4·b·n²·d of attention), x and out once, the weights and
+    vectors once, in bf16."""
+    m = b * n
+    if which == "attn":
+        return (2 * m * d * 4 * d + 4 * b * n * n * d,
+                2 * (2 * m * d + 4 * d * d + 6 * d))
+    return 2 * m * d * 8 * d, 2 * (2 * m * d + 8 * d * d + 7 * d)
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):

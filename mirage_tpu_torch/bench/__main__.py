@@ -14,7 +14,8 @@ one JSON line with the metric, img/s, the batch, the card's name and its
 power limit. bench.py's ``vs_baseline`` (an A100 estimate) is left out.
 
 ``--all`` adds the five rows of scripts/bench_train.py (``bench.train``),
-``--ab`` the A/B cases S1, S3, S4 and S7, one JSON line each; ``--json``
+``--ab`` the A/B cases S1, S3, S4 and S7, then S2, S5 and S6, one JSON line
+each; ``--json``
 writes every line's object, as a list, to PATH. Without a card the bench
 exits non-zero; ``--dry-run --device cpu --size tiny`` runs the same path
 at ``miragepre_tiny`` and batch 2 and prints ``"measured": false`` with no
@@ -138,7 +139,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true",
                     help="also the five scripts/bench_train.py rows")
     ap.add_argument("--ab", action="store_true",
-                    help="also the A/B cases S1, S3, S4 and S7")
+                    help="also the A/B cases S1-S7")
     ap.add_argument("--json", default=None, help="write every row here")
     ap.add_argument("--dry-run", action="store_true",
                     help="run the path without timing it (the CPU test)")
@@ -169,9 +170,10 @@ def main(argv=None):
             rows.append(row)
             print(json.dumps(row), flush=True)
     if a.ab:
-        from mirage_tpu_torch.bench import attn2, int8, lnfold, pad264
+        from mirage_tpu_torch.bench import (attn2, attn_half, int8, lnfold,
+                                            overlap, pad264, vpu)
 
-        for mod in (attn2, int8, lnfold, pad264):
+        for mod in (attn2, int8, lnfold, pad264, attn_half, vpu, overlap):
             for row in mod.run(size=a.size, device=dev, measure=measure):
                 rows.append(row)
                 print(json.dumps(row), flush=True)

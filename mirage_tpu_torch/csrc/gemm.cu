@@ -38,6 +38,13 @@
 // qkv and the (M, 4D) MLP hidden stop going through device memory, and
 // overlapping the epilogue's bias/GELU/residual math with the next tile's
 // products (two computing warpgroups taking turns on the tensor cores).
+//
+// The bf16 GELU epilogue takes its formula as a template parameter, for the
+// bench's S5 ablation (scripts/bench_vpu.py:_mlp_kernel_v's ``act``): erff
+// (GELU_ERF, the main path's and the only one mtt_gemm instantiates), the
+// Abramowitz & Stegun 7.1.26 polynomial the TPU kernels use for erf (in float,
+// or with every operation rounded to bf16) and A&S 7.1.28 (no exp). Only
+// mtt_gemm_gelu_mode instantiates the others.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -51,6 +58,62 @@ enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2, EPI_GELU_STASH = 3, EPI_DGE
 __device__ __forceinline__ float gelu_f(float v) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
 }
+enum { GELU_ERF = 0, GELU_AS26 = 1, GELU_AS26_BF16 = 2, GELU_HASTINGS = 3 };
+
+// mirage_tpu/ops/fused_mlp.py:_erf (A&S 7.1.26), op for op, as csrc/quant.cu
+__device__ __forceinline__ float erf_as26(float x) {
+  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f, a4 = -1.453152027f,
+              a5 = 1.061405429f, p = 0.3275911f;
+  const float s = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
+  const float ax = fabsf(x);
+  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(p, ax)));
+  float poly = __fadd_rn(a4, __fmul_rn(t, a5));
+  poly = __fadd_rn(a3, __fmul_rn(t, poly));
+  poly = __fadd_rn(a2, __fmul_rn(t, poly));
+  poly = __fadd_rn(a1, __fmul_rn(t, poly));
+  poly = __fmul_rn(t, poly);
+  const float e = exp2f(__fmul_rn(-__fmul_rn(ax, ax), 1.4426950408889634f));
+  return __fmul_rn(s, __fsub_rn(1.f, __fmul_rn(poly, e)));
+}
+
+// The same polynomial with every operation in bf16 (the constants rounded
+// to bf16 first), as jnp evaluates it on a bf16 array (bench_vpu.py:250-251)
+__device__ __forceinline__ float gelu_as26_bf16(float v) {
+  const bf16 one = __float2bfloat16(1.f), zero = __float2bfloat16(0.f);
+  const bf16 hb = __float2bfloat16(v);
+  const bf16 x = __hdiv(hb, __float2bfloat16(1.4142135623730951f));
+  const bf16 s = __hgt(x, zero) ? one : (__hlt(x, zero) ? __hneg(one) : zero);
+  const bf16 ax = __habs(x);
+  const bf16 t = __hdiv(one, __hadd(one, __hmul(__float2bfloat16(0.3275911f), ax)));
+  bf16 poly = __hadd(__float2bfloat16(-1.453152027f), __hmul(t, __float2bfloat16(1.061405429f)));
+  poly = __hadd(__float2bfloat16(1.421413741f), __hmul(t, poly));
+  poly = __hadd(__float2bfloat16(-0.284496736f), __hmul(t, poly));
+  poly = __hadd(__float2bfloat16(0.254829592f), __hmul(t, poly));
+  poly = __hmul(t, poly);
+  const bf16 e = hexp2(__hmul(__hneg(__hmul(ax, ax)), __float2bfloat16(1.4426950408889634f)));
+  const bf16 erf = __hmul(s, __hsub(one, __hmul(poly, e)));
+  return __bfloat162float(__hmul(__hmul(__float2bfloat16(0.5f), hb), __hadd(one, erf)));
+}
+
+// A&S 7.1.28: erf(z) = 1 − 1/(1 + a1·z + ... + a6·z⁶)¹⁶, a division and no exp
+__device__ __forceinline__ float gelu_hastings(float v) {
+  const float z = v * 0.7071067811865476f, az = fabsf(z);
+  const float q = 1.f + az * (0.0705230784f + az * (0.0422820123f + az * (0.0092705272f +
+                  az * (0.0001520143f + az * (0.0002765672f + az * 0.0000430638f)))));
+  const float q2 = q * q, q4 = q2 * q2, q8 = q4 * q4;
+  const float e = 1.f - 1.f / (q8 * q8);
+  const float sg = (z > 0.f) ? 1.f : ((z < 0.f) ? -1.f : 0.f);
+  return 0.5f * v * (1.f + sg * e);
+}
+
+template <int GM>
+__device__ __forceinline__ float gelu_mode(float v) {
+  if constexpr (GM == GELU_AS26) return 0.5f * v * (1.f + erf_as26(v / 1.4142135623730951f));
+  else if constexpr (GM == GELU_AS26_BF16) return gelu_as26_bf16(v);
+  else if constexpr (GM == GELU_HASTINGS) return gelu_hastings(v);
+  else return gelu_f(v);
+}
+
 // d/dh GELU(h) = Φ(h) + h·φ(h)
 __device__ __forceinline__ float gelu_grad(float h) {
   return 0.5f * (1.f + erff(h * 0.7071067811865476f)) +
@@ -81,6 +144,7 @@ __device__ __forceinline__ void load_tile_bias(float (&b)[BN / 32], const void* 
 // stash) on the fragments, rounded to bf16 into the staging tile, then
 // 16-byte coalesced rows out of it, adding the residual in float.
 enum { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_GRAD = 2 };
+template <int GM>
 __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
                                            const float (&bias)[BN / 32], float* __restrict__ sbias,
                                            bf16* __restrict__ stage, bf16* __restrict__ C,
@@ -102,8 +166,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
       for (int half = 0; half < 2; ++half) {
         float v0 = acc[4 * j + 2 * half] + bv.x, v1 = acc[4 * j + 2 * half + 1] + bv.y;
         if (act == ACT_GELU) {
-          v0 = gelu_f(v0);
-          v1 = gelu_f(v1);
+          v0 = gelu_mode<GM>(v0);
+          v1 = gelu_mode<GM>(v1);
         } else if (act == ACT_GELU_GRAD) {
           v0 = gelu_grad(v0);
           v1 = gelu_grad(v1);
@@ -217,7 +281,8 @@ __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
 // the block's tiles; slice i sits in stage i % STAGES (A rows, then W rows),
 // full[s] counts its bytes in and empty[s] the eight computing warps done
 // with it. The loader runs ahead into the next tile while the computing
-// warpgroups store the last one.
+// warpgroups store the last one. GM: the GELU formula of the bf16 epilogue.
+template <int GM>
 __global__ void __launch_bounds__(384, 1)
     gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_w, void* __restrict__ C,
@@ -295,19 +360,20 @@ __global__ void __launch_bounds__(384, 1)
         store_tile_direct(acc, bias, bias_dtype, epi, out_f32, C, aux_in, aux_out, colsum, M, N,
                           row0, n0);
       } else if (epi == EPI_GELU_STASH) {  // act, then GELU′ from the same fragments
-        store_tile(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), nullptr, ACT_GELU, M, N,
-                   row0, n0);
-        store_tile(acc, tile_bias, sbias, stage, aux_out, nullptr, ACT_GELU_GRAD, M, N, row0,
-                   n0);
+        store_tile<GM>(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), nullptr, ACT_GELU, M,
+                       N, row0, n0);
+        store_tile<GM>(acc, tile_bias, sbias, stage, aux_out, nullptr, ACT_GELU_GRAD, M, N, row0,
+                       n0);
       } else {
-        store_tile(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res,
-                   epi == EPI_GELU ? ACT_GELU : ACT_NONE, M, N, row0, n0);
+        store_tile<GM>(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res,
+                       epi == EPI_GELU ? ACT_GELU : ACT_NONE, M, N, row0, n0);
       }
     }
   }
 }
 
 
+template <int GM = GELU_ERF>
 static int launch_bf16(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
                        const void* residual, int M, int N, int K, int epi, int out_f32,
                        const void* aux_in, void* aux_out, void* colsum, cudaStream_t s) {
@@ -315,7 +381,7 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        gemm_bf16_kernel<GM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
@@ -325,7 +391,7 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
     return (int)cudaErrorInvalidValue;
   // one block per SM (or per tile, if fewer), each walking its share of tiles
   const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
-  gemm_bf16_kernel<<<tiles < sms ? tiles : sms, 384, bytes, s>>>(
+  gemm_bf16_kernel<GM><<<tiles < sms ? tiles : sms, 384, bytes, s>>>(
       map_a, map_w, c, bias, bias_dtype, epi, static_cast<const bf16*>(residual), M, N, K,
       out_f32, aux_in, static_cast<bf16*>(aux_out), static_cast<float*>(colsum));
   return (int)cudaGetLastError();
@@ -444,4 +510,26 @@ extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias,
                                        static_cast<const float*>(aux_in),
                                        static_cast<float*>(aux_out), static_cast<float*>(colsum));
   return (int)cudaGetLastError();
+}
+
+// The bf16 product with bias, GELU of formula `mode` (GELU_AS26,
+// GELU_AS26_BF16 or GELU_HASTINGS; GELU_ERF is mtt_gemm's EPI_GELU) and an
+// optional residual, for the bench's S5 ablation.
+extern "C" int mtt_gemm_gelu_mode(const void* a, const void* w, void* c, const void* bias,
+                                  int bias_dtype, const void* residual, int M, int N, int K,
+                                  int mode, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case GELU_AS26:
+      return launch_bf16<GELU_AS26>(a, w, c, bias, bias_dtype, residual, M, N, K, EPI_GELU, 0,
+                                    nullptr, nullptr, nullptr, s);
+    case GELU_AS26_BF16:
+      return launch_bf16<GELU_AS26_BF16>(a, w, c, bias, bias_dtype, residual, M, N, K, EPI_GELU,
+                                         0, nullptr, nullptr, nullptr, s);
+    case GELU_HASTINGS:
+      return launch_bf16<GELU_HASTINGS>(a, w, c, bias, bias_dtype, residual, M, N, K, EPI_GELU, 0,
+                                        nullptr, nullptr, nullptr, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,10 @@
 // once; statistics are float. First thing a later PR removes: the
 // normalised rows are written to device memory and read back by the GEMM
 // that follows; fusing LN into that GEMM's A-tile load takes them out.
+//
+// ONEPASS (the bench's S5 ablation, scripts/bench_vpu.py:_ln "onepass"):
+// the mean and E[x^2] from one read of the row, the variance E[x^2] −
+// mean² clamped at 0; the main path instantiates the two-pass form only.
 #include "common.cuh"
 
 // VEC consecutive elements of T at p (16-byte aligned when VEC > 1), as floats
@@ -40,7 +44,7 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VE
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool ONEPASS = false>
 __global__ void __launch_bounds__(256)
     layernorm_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
                      const void* __restrict__ beta, int wdtype, T* __restrict__ y,
@@ -50,20 +54,28 @@ __global__ void __launch_bounds__(256)
   if (row >= rows) return;
   const T* xr = x + row * dim;
   float v[VEC];
-  float s = 0.f;
+  float s = 0.f, s2 = 0.f;
   for (int i = lane * VEC; i < dim; i += 32 * VEC) {
     load_vec<T, VEC>(xr + i, v);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) s += v[e];
+    for (int e = 0; e < VEC; ++e) {
+      s += v[e];
+      if constexpr (ONEPASS) s2 += v[e] * v[e];
+    }
   }
   const float mean = warp_sum(s) / dim;
-  float var = 0.f;
-  for (int i = lane * VEC; i < dim; i += 32 * VEC) {
-    load_vec<T, VEC>(xr + i, v);
+  float rstd;
+  if constexpr (ONEPASS) {
+    rstd = rsqrtf(fmaxf(warp_sum(s2) / dim - mean * mean, 0.f) + eps);
+  } else {
+    float var = 0.f;
+    for (int i = lane * VEC; i < dim; i += 32 * VEC) {
+      load_vec<T, VEC>(xr + i, v);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) var += (v[e] - mean) * (v[e] - mean);
+      for (int e = 0; e < VEC; ++e) var += (v[e] - mean) * (v[e] - mean);
+    }
+    rstd = rsqrtf(warp_sum(var) / dim + eps);
   }
-  const float rstd = rsqrtf(warp_sum(var) / dim + eps);
   T* yr = y + row * dim;
   for (int i = lane * VEC; i < dim; i += 32 * VEC) {
     load_vec<T, VEC>(xr + i, v);
@@ -75,18 +87,18 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T>
+template <typename T, bool ONEPASS = false>
 static void launch(const void* x, const void* gamma, const void* beta, void* y, int rows, int dim,
                    int wdtype, float eps, cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
   const dim3 grid((rows + 7) / 8);
   // rows start 16-byte aligned (x and y are) when dim is a multiple of VEC
   if (dim % VEC == 0)
-    layernorm_kernel<T, VEC><<<grid, 256, 0, s>>>(static_cast<const T*>(x), gamma, beta, wdtype,
-                                                  static_cast<T*>(y), rows, dim, eps);
+    layernorm_kernel<T, VEC, ONEPASS><<<grid, 256, 0, s>>>(
+        static_cast<const T*>(x), gamma, beta, wdtype, static_cast<T*>(y), rows, dim, eps);
   else
-    layernorm_kernel<T, 1><<<grid, 256, 0, s>>>(static_cast<const T*>(x), gamma, beta, wdtype,
-                                                static_cast<T*>(y), rows, dim, eps);
+    layernorm_kernel<T, 1, ONEPASS><<<grid, 256, 0, s>>>(
+        static_cast<const T*>(x), gamma, beta, wdtype, static_cast<T*>(y), rows, dim, eps);
 }
 
 extern "C" int mtt_layernorm(const void* x, const void* gamma, const void* beta, void* y,
@@ -98,6 +110,19 @@ extern "C" int mtt_layernorm(const void* x, const void* gamma, const void* beta,
     launch<bf16>(x, gamma, beta, y, rows, dim, wdtype, eps, s);
   else
     launch<float>(x, gamma, beta, y, rows, dim, wdtype, eps, s);
+  return (int)cudaGetLastError();
+}
+
+// The one-pass form (S5's ln=onepass), same arguments.
+extern "C" int mtt_layernorm_onepass(const void* x, const void* gamma, const void* beta, void* y,
+                                     int rows, int dim, int dtype, int wdtype, float eps,
+                                     void* stream) {
+  if (rows <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == MTT_BF16)
+    launch<bf16, true>(x, gamma, beta, y, rows, dim, wdtype, eps, s);
+  else
+    launch<float, true>(x, gamma, beta, y, rows, dim, wdtype, eps, s);
   return (int)cudaGetLastError();
 }
 

@@ -21,17 +21,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
-           "wgrad", "adamw", "fused_block", "quant", "gemm_lnfold")
+           "wgrad", "adamw", "fused_block", "quant", "gemm_lnfold",
+           "attention_phased", "mlp_chunked")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # cudaGetLastError().
 ENTRIES = {
     "layernorm": ("layernorm", "mtt_layernorm",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "layernorm_onepass": ("layernorm", "mtt_layernorm_onepass",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "layernorm_bwd": ("layernorm", "mtt_layernorm_bwd",
                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                        _P]),
     "gemm": ("gemm", "mtt_gemm", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                                   _I, _P, _P, _P, _P]),
+    "gemm_gelu_mode": ("gemm", "mtt_gemm_gelu_mode",
+                       [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]),
     "attention": ("attention", "mtt_attention",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _LL, _I, _LL,
                    _I, _LL, _I, _F, _I, _P]),
@@ -54,6 +59,11 @@ ENTRIES = {
     "gemm_lnfold": ("gemm_lnfold", "mtt_gemm_lnfold",
                     [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
                      _P]),
+    "attention_phased": ("attention_phased", "mtt_attention_phased",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _LL,
+                          _I, _LL, _I, _LL, _I, _F, _I, _I, _P]),
+    "mlp_chunked": ("mlp_chunked", "mtt_mlp_chunked",
+                    [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -44,11 +44,15 @@ call).
   kernel writes its VMEM accumulators (:471-497), not what it sums, so both
   values take this one port. No atomics: a rerun is bit-identical.
 
-Two forward-only halves are A/B cases of the port's bench
+Three forward-only halves are A/B cases of the port's bench
 (``mirage_tpu_torch.bench``): ``attn_half_block_masked`` (keys past
 n_valid masked, scripts/bench_pad264.py) and ``attn_half_block_prenormed``
-(B1 from a pre-normed input, scripts/bench_lnfold.py). Both are B1's chain
-with another key count or without its LN, and add no CUDA code.
+(B1 from a pre-normed input, scripts/bench_lnfold.py) are B1's chain with
+another key count or without its LN, and add no CUDA code;
+``attn_half_block_phased`` (scripts/bench_attn_half.py, bench_vpu.py and
+bench_overlap.py: S2, S5, S6) is B1 with its attention in three phases over
+a group of heads (csrc/attention_phased.cu), its LN in two passes, one pass
+or skipped, and its softmax in one of four modes.
 
 Every op saves only its inputs for the backward and recomputes the rest,
 as the TPU kernels do. Parameter gradients come back in float32, as the
@@ -453,9 +457,11 @@ def attn_half_block_prenormed(x, y, wqkv, bqkv, wproj, bproj, num_heads):
     :func:`mirage_tpu_torch.ops.fused_mlp.mlp_block_lnfold`), x kept for the
     residual: x + proj(attn(y·Wqkvᵀ + b)). Replaces scripts/bench_lnfold.py:
     _attn_prenormed_kernel. On the card it is B1's chain from the qkv GEMM
-    on, so it needs no kernel of its own; the exp2 softmax of the TPU kernel
-    is a TPU workaround, and the attention kernel keeps its exact softmax.
-    Forward only."""
+    on, so it needs no kernel of its own. Its attention kernel
+    (csrc/attention.cu) takes the softmax in exp2 with the scale in log2
+    units, as the TPU kernel and the production Pallas kernels do; the
+    natural-units ``expf`` softmax is S5's "exp" mode
+    (:func:`attn_half_block_phased`). Forward only."""
     if not runtime.use_kernel(x):
         return attn_half_block_prenormed_ref(x, y, wqkv, bqkv, wproj, bproj,
                                              num_heads)
@@ -477,3 +483,121 @@ def attn_half_block_prenormed(x, y, wqkv, bqkv, wproj, bproj, num_heads):
 
 
 attn_half_block_prenormed.launches = 0
+
+
+# ------------------------------------- S2, S5, S6: the phased attention half
+
+LN_MODES = ("two_pass", "onepass", "skip")
+SMAX_MODES = ("exp", "exp2", "nomax", "skip")
+_LOG2E = 1.4426950408889634
+
+
+def ln_mode_ref(x, ln_w, ln_b, ln):
+    """scripts/bench_vpu.py:_ln in x's dtype: "two_pass" (the port's
+    LayerNorm), "onepass" (E[x²] − mean², clamped at 0 as the kernel does)
+    or "skip" (x itself, no scale or shift)."""
+    if ln == "two_pass":
+        return layer_norm(x, ln_w, ln_b)
+    if ln == "skip":
+        return x
+    if ln != "onepass":
+        raise ValueError(f"LN mode {ln!r} not in {LN_MODES}")
+    acc = acc_dtype(x)
+    x32 = x.to(acc)
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp(x32.square().mean(-1, keepdim=True) - mean.square(), min=0)
+    y = (x32 - mean) * torch.rsqrt(var + LN_EPS)
+    return (y * ln_w.to(acc) + ln_b.to(acc)).to(x.dtype)
+
+
+def ln_mode(x2, ln_w, ln_b, ln):
+    """The LN stage of a bench half on the card over the rows x2 (M, D): the
+    LN kernel in two passes or one, or x2 itself ("skip": no launch)."""
+    if ln == "skip":
+        return x2
+    return runtime.layernorm(x2, ln_w, ln_b, onepass=ln == "onepass")
+
+
+def phased_attention_ref(qkv, num_heads, smax="exp", divide=True):
+    """Plain version of the phased attention core on the packed (B, N, 3D)
+    qkv, as _v2_kernel and _attn_kernel_v compute it: float scores ·
+    dh^-½; "exp" e = exp(s − max), "exp2" e = exp2((s − max)·log2 e),
+    "nomax" e = exp(s), "skip" e = s (wrong math, kept for timing); l = Σ e;
+    out = T(T(e)·v / l) (without the division when not ``divide``). The
+    head grouping does not change the function."""
+    if smax not in SMAX_MODES:
+        raise ValueError(f"softmax mode {smax!r} not in {SMAX_MODES}")
+    dt, acc = qkv.dtype, acc_dtype(qkv)
+    dh = qkv.shape[-1] // 3 // num_heads
+    q, k, v = _heads(qkv, num_heads, 3).to(acc)
+    s = q @ k.transpose(-1, -2) * dh ** -0.5
+    if smax == "skip":
+        e = s
+    elif smax == "nomax":
+        e = torch.exp(s)
+    elif smax == "exp2":
+        e = torch.exp2((s - s.amax(-1, keepdim=True)) * _LOG2E)
+    else:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = e.to(dt).to(acc) @ v
+    if divide:
+        o = o / e.sum(-1, keepdim=True)
+    return merge_heads(o).to(dt)
+
+
+def _phased_args(num_heads, group, ln, smax):
+    if group <= 0 or num_heads % group:
+        raise ValueError(f"group {group} does not divide {num_heads} heads")
+    if ln not in LN_MODES:
+        raise ValueError(f"LN mode {ln!r} not in {LN_MODES}")
+    if smax not in SMAX_MODES:
+        raise ValueError(f"softmax mode {smax!r} not in {SMAX_MODES}")
+
+
+def attn_half_block_phased_ref(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                               num_heads, group, ln="two_pass", smax="exp"):
+    """Plain version of :func:`attn_half_block_phased`: x + proj(core(qkv)),
+    qkv = T(LN_mode(x)·Wqkvᵀ + b), rounded where the scripts round."""
+    _phased_args(num_heads, group, ln, smax)
+    qkv = linear(ln_mode_ref(x, ln_w, ln_b, ln), wqkv, bqkv)
+    return x + linear(phased_attention_ref(qkv, num_heads, smax), wproj,
+                      bproj)
+
+
+def attn_half_block_phased(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                           num_heads, group, ln="two_pass", smax="exp"):
+    """B1 with its attention in three phases over groups of ``group`` heads:
+    x (B, N, D) -> (B, N, D). Replaces scripts/bench_attn_half.py:_v2_kernel
+    (S2, all heads in one phase each), scripts/bench_vpu.py:_attn_kernel_v
+    and _attn_kernel_pipe2 (S5: ``ln`` "two_pass" | "onepass" | "skip",
+    ``smax`` "exp" | "exp2" | "nomax" | "skip") and scripts/bench_overlap.py:
+    _attn_half_grouped (S6, groups of 2, 4 or 8). On the card: the LN kernel
+    in its mode (none for "skip", where the qkv GEMM takes x), the qkv GEMM
+    with bias, csrc/attention_phased.cu on the packed qkv (one block per 8
+    queries × group × batch element, the group's float scores in shared
+    memory), the proj GEMM with bias and residual. bf16 only on the card;
+    the group's scores must fit a block (all 16 heads of MIRAGE-Large at 257
+    tokens do). Forward only."""
+    _phased_args(num_heads, group, ln, smax)
+    if not runtime.use_kernel(x):
+        return attn_half_block_phased_ref(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                                          bproj, num_heads, group, ln, smax)
+    _forward_only("attn_half_block_phased", x, ln_w, ln_b, wqkv, bqkv, wproj,
+                  bproj)
+    b, n, d = x.shape
+    runtime.check("x", x, x)
+    x2 = x.view(b * n, d)
+    qkv = runtime.gemm(ln_mode(x2, ln_w, ln_b, ln), wqkv.to(x.dtype),
+                       bqkv).view(b, n, 3 * d)
+    attn = x.new_empty(b, n, d)
+    dh = d // num_heads
+    runtime.attention_phased(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], attn,
+                             heads=num_heads, dh=dh, group=group,
+                             scale=dh ** -0.5, smax=smax)
+    out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
+                       residual=x2)
+    attn_half_block_phased.launches += 1
+    return out.view(b, n, d)
+
+
+attn_half_block_phased.launches = 0

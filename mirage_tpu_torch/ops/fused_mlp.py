@@ -57,15 +57,22 @@ and a zero-cotangent row adds nothing. Bound: operations (the recompute
 
 ``mlp_block_lnfold`` (an A/B case of the port's bench, scripts/
 bench_lnfold.py) is B2 with the next block's LN1 folded into fc2's
-epilogue: the one kernel the bench adds (csrc/gemm_lnfold.cu).
+epilogue (csrc/gemm_lnfold.cu). ``mlp_block_modes`` (S5, scripts/
+bench_vpu.py) is B2's chain with the LN in two passes, one pass or skipped
+and the GELU's erf from the A&S polynomials or skipped (csrc/layernorm.cu's
+and csrc/gemm.cu's modes); ``mlp_block_chunked`` (S6, scripts/
+bench_overlap.py) is LN, then fc1 → GELU → fc2 in one launch with the
+hidden kept on chip (csrc/mlp_chunked.cu).
 """
 
 import torch
 
 from mirage_tpu_torch.nn.layers import acc_dtype, gelu, layer_norm, linear
 from mirage_tpu_torch.ops import runtime
-from mirage_tpu_torch.ops.block_attention import (_forward_only, _needs_grad,
-                                                  ln_bwd_ref)
+from mirage_tpu_torch.ops.block_attention import (LN_MODES, _forward_only,
+                                                  _needs_grad, ln_bwd_ref,
+                                                  ln_mode, ln_mode_ref)
+from mirage_tpu_torch.ops.quant import _erf_as
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -436,3 +443,157 @@ def mlp_block_lnfold(x, ln_w, ln_b, w1, b1, w2, b2, ln_next_w, ln_next_b):
 
 
 mlp_block_lnfold.launches = 0
+
+
+# ---------------------------------------------- S5: the MLP half's modes
+
+ACT_MODES = ("as26", "bf16", "hastings", "skip")
+_SQRT2 = 1.4142135623730951
+# A&S 7.1.28 (scripts/bench_vpu.py:255-256)
+_HASTINGS = (0.0705230784, 0.0422820123, 0.0092705272, 0.0001520143,
+             0.0002765672, 0.0000430638)
+
+
+def gelu_mode_ref(h, act):
+    """scripts/bench_vpu.py:_mlp_kernel_v's activation of the float h:
+    "as26" 0.5·h·(1 + erf(h/√2)) with erf from A&S 7.1.26 (the script's
+    default, ``_erf``), "bf16" the same in bf16 (every operation and
+    constant rounded to bf16, as jnp evaluates a bf16 array), "hastings"
+    A&S 7.1.28 (a division and a 16th power, no exp) or "skip" (h itself,
+    wrong math kept for timing)."""
+    if act == "skip":
+        return h
+    if act == "as26":
+        return 0.5 * h * (1.0 + _erf_as(h / _SQRT2))
+    if act == "hastings":
+        z = h * (1.0 / _SQRT2)
+        az = z.abs()
+        a = _HASTINGS
+        q = 1.0 + az * (a[0] + az * (a[1] + az * (a[2] + az * (
+            a[3] + az * (a[4] + az * a[5])))))
+        q8 = q.square().square().square()
+        return 0.5 * h * (1.0 + torch.sign(z) * (1.0 - 1.0 / (q8 * q8)))
+    if act != "bf16":
+        raise ValueError(f"activation mode {act!r} not in {ACT_MODES}")
+
+    def c(v):
+        return torch.tensor(v, dtype=torch.bfloat16)
+
+    hb = h.to(torch.bfloat16)
+    x = hb / c(_SQRT2)
+    ax = x.abs()
+    t = c(1.0) / (c(1.0) + c(0.3275911) * ax)
+    poly = t * (c(0.254829592) + t * (c(-0.284496736) + t * (
+        c(1.421413741) + t * (c(-1.453152027) + t * c(1.061405429)))))
+    e = torch.exp2(-(ax * ax) * c(1.4426950408889634))
+    erf = torch.sign(x) * (c(1.0) - poly * e)
+    return (c(0.5) * hb * (c(1.0) + erf)).to(h.dtype)
+
+
+def _modes_args(ln, act):
+    if ln not in LN_MODES:
+        raise ValueError(f"LN mode {ln!r} not in {LN_MODES}")
+    if act not in ACT_MODES:
+        raise ValueError(f"activation mode {act!r} not in {ACT_MODES}")
+
+
+def mlp_block_modes_ref(x, ln_w, ln_b, w1, b1, w2, b2, ln="two_pass",
+                        act="as26"):
+    """Plain version of :func:`mlp_block_modes`: y = LN_mode(x) in x's
+    dtype, h = y·W1ᵀ + b1 in float, T(act(h)), out = x + T(·W2ᵀ + b2)."""
+    _modes_args(ln, act)
+    dt, acc = x.dtype, acc_dtype(x)
+    y = ln_mode_ref(x, ln_w, ln_b, ln)
+    h = y.to(acc) @ w1.to(dt).to(acc).t() + b1.to(acc)
+    h = gelu_mode_ref(h, act).to(dt)
+    o = (h.to(acc) @ w2.to(dt).to(acc).t() + b2.to(acc)).to(dt)
+    return x + o
+
+
+def mlp_block_modes(x, ln_w, ln_b, w1, b1, w2, b2, ln="two_pass",
+                    act="as26"):
+    """B2 with its stages that are not a product varied: x (..., D) ->
+    x's shape. Replaces scripts/bench_vpu.py:_mlp_kernel_v (S5, ``ln``
+    "two_pass" | "onepass" | "skip", ``act`` "as26" | "bf16" | "hastings" |
+    "skip") and, at the defaults, _mlp_kernel_pipe2 (two elements per TPU
+    program; the card overlaps elements across CTAs, so it is this chain).
+    On the card: the LN kernel in its mode (none for "skip", where fc1 takes
+    x), fc1 with bias and the GELU epilogue of the mode's formula
+    (csrc/gemm.cu, instantiated per formula; no activation for "skip"), fc2
+    with bias and residual. bf16 only on the card. Forward only."""
+    _modes_args(ln, act)
+    if not runtime.use_kernel(x):
+        return mlp_block_modes_ref(x, ln_w, ln_b, w1, b1, w2, b2, ln, act)
+    _forward_only("mlp_block_modes", x, ln_w, ln_b, w1, b1, w2, b2)
+    runtime.check("x", x, x)
+    x2 = x.view(-1, x.shape[-1])
+    y = ln_mode(x2, ln_w, ln_b, ln)
+    if act == "skip":
+        h = runtime.gemm(y, w1.to(x.dtype), b1)
+    else:
+        h = runtime.gemm_gelu_mode(y, w1.to(x.dtype), b1, mode=act)
+    out = runtime.gemm(h, w2.to(x.dtype), b2, residual=x2)
+    mlp_block_modes.launches += 1
+    return out.view(x.shape)
+
+
+mlp_block_modes.launches = 0
+
+
+# --------------------------------------- S6: the MLP with the hidden on chip
+
+def mlp_chunk_width(d):
+    """The hidden columns csrc/mlp_chunked.cu holds on chip at a time at
+    width d: 64 per CTA of its d/256-CTA cluster."""
+    return runtime.MLP_CHUNK_COLS * (d // runtime.MLP_CHUNK_TILE_N)
+
+
+def mlp_block_chunked_ref(x, ln_w, ln_b, w1, b1, w2, b2, chunks):
+    """Plain version of :func:`mlp_block_chunked`, as _mlp_kernel_chunked
+    computes it: y = T(LN(x)); per chunk of hidden columns h = y·W1ᵀ + b1,
+    T(GELU(h)), its float product with W2's columns; the float partials
+    summed in order, + b2, out = x + T(·). The GELU takes torch's erf (the
+    kernel's erff; the script's A&S erf is within 1.5e-7 of it)."""
+    dt, acc = x.dtype, acc_dtype(x)
+    hidden = w1.shape[0]
+    if chunks <= 0 or hidden % chunks:
+        raise ValueError(f"{chunks} chunks do not divide the hidden {hidden}")
+    ck = hidden // chunks
+    y = layer_norm(x, ln_w, ln_b).to(acc)
+    w1c, w2c, b1c = w1.to(dt).to(acc), w2.to(dt).to(acc), b1.to(acc)
+    o = None
+    for c in range(chunks):
+        cols = slice(c * ck, (c + 1) * ck)
+        h = gelu(y @ w1c[cols].t() + b1c[cols]).to(dt).to(acc)
+        part = h @ w2c[:, cols].t()
+        o = part if o is None else o + part
+    return x + (o + b2.to(acc)).to(dt)
+
+
+def mlp_block_chunked(x, ln_w, ln_b, w1, b1, w2, b2, chunks):
+    """B2 with the (M, 4D) hidden never written to device memory: x (...,
+    D) -> x's shape. Replaces scripts/bench_overlap.py:_mlp_kernel_chunked
+    (S6: the hidden in ``chunks`` chunks of fc1 → GELU → fc2, the float
+    partials summed). On the card: the LN kernel, then one launch of
+    csrc/mlp_chunked.cu (a cluster of D/256 CTAs per 128-row tile; fc1 + GELU
+    of each sub-chunk of :func:`mlp_chunk_width` columns into every CTA's
+    shared memory, fc2 accumulated over the sub-chunks in registers). The
+    kernel walks the script's chunks in those sub-chunks, so ``chunks``
+    (which must divide the hidden) changes only where the plain version
+    sums its partials. bf16 only on the card, D a multiple of 256 up to
+    1024. Forward only."""
+    if chunks <= 0 or w1.shape[0] % chunks:
+        raise ValueError(f"{chunks} chunks do not divide the hidden "
+                         f"{w1.shape[0]}")
+    if not runtime.use_kernel(x):
+        return mlp_block_chunked_ref(x, ln_w, ln_b, w1, b1, w2, b2, chunks)
+    _forward_only("mlp_block_chunked", x, ln_w, ln_b, w1, b1, w2, b2)
+    runtime.check("x", x, x)
+    x2 = x.view(-1, x.shape[-1])
+    out = runtime.mlp_chunked(runtime.layernorm(x2, ln_w, ln_b),
+                              w1.to(x.dtype), b1, w2.to(x.dtype), b2, x2)
+    mlp_block_chunked.launches += 1
+    return out.view(x.shape)
+
+
+mlp_block_chunked.launches = 0

@@ -22,7 +22,10 @@ cluster per batch element); ``ln_quant``, ``gemm_s8_fc1``, ``quant_rows``
 and ``gemm_s8_fc2`` the four kernels of the int8 MLP half (B12);
 ``gemm_s8_s32`` the same int8 GEMM with its s32 accumulator as the output,
 and ``gemm_lnfold`` fc2 with bias, residual and the next LayerNorm in one
-cluster epilogue (the bench's S3 and S4).
+cluster epilogue (the bench's S3 and S4). The bench's S2, S5 and S6 add
+``layernorm(..., onepass=True)``, ``gemm_gelu_mode`` (the GELU epilogue with
+another erf formula), ``attention_phased`` (three phases over a group of
+heads) and ``mlp_chunked`` (fc1 → GELU → fc2 with the hidden on chip).
 
 The four switches of the JAX package's non-default kernels keep its names,
 values and defaults and are read once at import, as
@@ -152,15 +155,17 @@ def _launch(name: str, *args):
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """(M, D) -> (M, D) LayerNorm, float statistics."""
+              eps: float = 1e-6, onepass: bool = False) -> torch.Tensor:
+    """(M, D) -> (M, D) LayerNorm, float statistics: the variance in two
+    passes, or with ``onepass`` as E[x²] − mean² clamped at 0."""
     m, d = x.shape
     check("x", x, x)
     check("ln weight", weight, x, (d,), dtype=False)
     check("ln bias", bias, weight, (d,))
     y = torch.empty_like(x)
-    _launch("layernorm", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), m, d, _DTYPES[x.dtype], _DTYPES[weight.dtype], eps)
+    _launch("layernorm_onepass" if onepass else "layernorm", x.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), y.data_ptr(), m, d,
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], eps)
     return y
 
 
@@ -225,6 +230,31 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
             _DTYPES[bias.dtype] if bias is not None else 0, _ptr(residual),
             m, n, k, _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype],
             int(out_f32), None, None, None)
+    return c
+
+
+# the GELU formulas of the epilogue besides erff (csrc/gemm.cu GELU_*)
+GELU_MODES = {"as26": 1, "bf16": 2, "hastings": 3}
+
+
+def gemm_gelu_mode(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
+                   mode: str = "as26") -> torch.Tensor:
+    """bf16 a (M, K) · w (N, K)ᵀ + bias, then GELU with erf from ``mode``:
+    "as26" (A&S 7.1.26 in float), "bf16" (the same polynomial, every
+    operation rounded to bf16) or "hastings" (A&S 7.1.28), (+ residual)."""
+    m, n, k = _gemm_operands(a, w)
+    if a.dtype != torch.bfloat16:
+        raise ValueError(f"gemm_gelu_mode takes bf16 operands, got {a.dtype}")
+    if mode not in GELU_MODES:
+        raise ValueError(f"GELU mode {mode!r} not in {sorted(GELU_MODES)}")
+    if bias is not None:
+        check("bias", bias, a, (n,), dtype=False)
+    if residual is not None:
+        check("residual", residual, a, (m, n))
+    c = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    _launch("gemm_gelu_mode", a.data_ptr(), w.data_ptr(), c.data_ptr(),
+            _ptr(bias), _DTYPES[bias.dtype] if bias is not None else 0,
+            _ptr(residual), m, n, k, GELU_MODES[mode])
     return c
 
 
@@ -643,3 +673,85 @@ def gemm_lnfold(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             ln_b.data_ptr(), _DTYPES[ln_w.dtype], out.data_ptr(), y.data_ptr(),
             m, n, k, eps)
     return out, y
+
+
+# the phased attention kernel's softmax modes (csrc/attention_phased.cu)
+SMAX_MODES = {"exp": 0, "exp2": 1, "nomax": 2, "skip": 3}
+PHASED_QUERIES, SMEM_PER_BLOCK = 8, 232448
+
+
+def phased_smem_bytes(nk: int, dh: int, group: int) -> int:
+    """Shared memory of one block of the phased attention kernel: float
+    score rows for 8 queries × ``group`` heads × nk keys (padded to 16, + 4),
+    their sums, the queries and one head's K or V."""
+    nkp = -(-nk // 16) * 16
+    return (4 * (group * PHASED_QUERIES * (nkp + 4) + group * PHASED_QUERIES)
+            + 2 * PHASED_QUERIES * (group * dh + 8) + 2 * nkp * (dh + 8))
+
+
+def attention_phased(q, k, v, out, *, heads: int, dh: int, group: int,
+                     scale: float, smax: str = "exp", divide: bool = True):
+    """softmax(q kᵀ·scale) v in three phases (every score of a group of
+    ``group`` heads, one softmax pass, every P·V), in place in ``out``; bf16
+    views as :func:`attention` takes them. ``smax``: "exp", "exp2", "nomax"
+    or "skip" (the raw scores as P); ``divide=False`` leaves the output
+    unnormalised."""
+    b, nq = q.shape[:2]
+    nk = k.shape[1]
+    if smax not in SMAX_MODES:
+        raise ValueError(f"softmax mode {smax!r} not in {sorted(SMAX_MODES)}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"attention_phased takes bf16, got {q.dtype}")
+    if nk > MAX_KEYS:
+        raise NotImplementedError(f"{nk} keys: the phased kernel holds at "
+                                  f"most {MAX_KEYS}")
+    if group <= 0 or heads % group:
+        raise ValueError(f"group {group} does not divide {heads} heads")
+    if phased_smem_bytes(nk, dh, group) > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{group} heads of {nk} keys at head dim {dh} need "
+            f"{phased_smem_bytes(nk, dh, group)} bytes of shared memory, above "
+            f"a block's {SMEM_PER_BLOCK}: take a smaller group")
+    strides = _attn_views(heads, dh, [("q", q), ("k", k), ("v", v),
+                                      ("out", out)])
+    if out.shape[:2] != (b, nq) or v.shape[:2] != (b, nk) or k.shape[0] != b:
+        raise ValueError("attention_phased: batch/row shapes disagree")
+    _launch("attention_phased", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, nq, nk, heads, dh, group, *strides, scale,
+            SMAX_MODES[smax], int(divide))
+
+
+MLP_CHUNK_TILE_N, MLP_CHUNK_MAX_CLUSTER, MLP_CHUNK_COLS = 256, 4, 64
+
+
+def mlp_chunked(y: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """out = T(x + T(GELU(y·w1ᵀ + b1)·w2ᵀ + b2)) over the rows of y and x
+    (M, D), w1 (H, D), w2 (D, H), bf16, with the (M, H) hidden kept in the
+    shared memory of a cluster of D / 256 CTAs, in sub-chunks of 64·D/256
+    columns. D must be a multiple of 256 up to 1024, H a multiple of the
+    sub-chunk."""
+    m, d = y.shape
+    hidden = w1.shape[0]
+    if y.dtype != torch.bfloat16:
+        raise ValueError(f"mlp_chunked takes bf16 operands, got {y.dtype}")
+    cluster = d // MLP_CHUNK_TILE_N
+    if d % MLP_CHUNK_TILE_N or not 0 < cluster <= MLP_CHUNK_MAX_CLUSTER:
+        raise ValueError(f"mlp_chunked needs D a multiple of {MLP_CHUNK_TILE_N}"
+                         f" up to {MLP_CHUNK_TILE_N * MLP_CHUNK_MAX_CLUSTER}, "
+                         f"got D={d}")
+    if hidden % (MLP_CHUNK_COLS * cluster):
+        raise ValueError(f"mlp_chunked needs the hidden width a multiple of "
+                         f"{MLP_CHUNK_COLS * cluster}, got {hidden}")
+    check("y", y, y)
+    check("w1", w1, y, (hidden, d))
+    check("w2", w2, y, (d, hidden))
+    check("x", x, y, (m, d))
+    check("b1", b1, y, (hidden,), dtype=False)
+    check("b2", b2, b1, (d,))
+    out = torch.empty_like(x)
+    _launch("mlp_chunked", y.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), _DTYPES[b1.dtype], x.data_ptr(),
+            out.data_ptr(), m, d, hidden)
+    return out

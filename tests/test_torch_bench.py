@@ -286,7 +286,7 @@ def test_bench_dry_run_runs_every_row(tmp_path):
                        "cls_vitb_probe_img_per_sec",
                        "cls_vitb_fullft_img_per_sec"]
     cases = {r["case"].split()[0] for r in rows[6:]}
-    assert cases == {"S1", "S3", "S4", "S7"}
+    assert cases == {"S1", "S2", "S3", "S4", "S5", "S6", "S7"}
     for r in rows:
         assert r["measured"] is False
         assert not {"value", "ms", "ms_per_step"} & set(r), r
@@ -312,6 +312,7 @@ def test_bench_imports_neither_jax_nor_the_jax_package():
 import sys
 import mirage_tpu_torch.bench.__main__
 from mirage_tpu_torch.bench import attn2, int8, lnfold, pad264, train
+from mirage_tpu_torch.bench import attn_half, overlap, vpu
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib")
              or n == "mirage_tpu" or n.startswith("mirage_tpu."))
 print("BAD", bad)

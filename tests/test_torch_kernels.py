@@ -803,3 +803,159 @@ def test_prenormed_attn_half_matches_plain(cuda):
     assert _max_err(got, want) <= 5e-2
     # from B1's own LN output, the same bits as B1
     assert torch.equal(got, attn_half_block(x, g, be, wqkv, bqkv, wp, bp, h))
+
+
+# --------------------------------- the bench's S2, S5 and S6 kernels
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.parametrize("m,d,offset", [(33, 72, 0.0), (2 * 257, 1024, 0.0),
+                                        (130, 256, 3.0)])
+def test_layernorm_onepass_matches_plain(cuda, m, d, offset):
+    """The LN kernel's one-pass mode (E[x²] − mean², clamped at 0) against
+    its plain version in float32 on the same bf16 inputs."""
+    from mirage_tpu_torch.ops.block_attention import ln_mode_ref
+
+    rng = np.random.default_rng(30)
+    x = _on((rng.standard_normal((m, d)) + offset).astype(np.float32), cuda,
+            torch.bfloat16)
+    g = _on((1 + 0.1 * rng.standard_normal(d)).astype(np.float32), cuda,
+            torch.float32)
+    be = _on((0.05 * rng.standard_normal(d)).astype(np.float32), cuda,
+             torch.float32)
+    got = runtime.layernorm(x, g, be, onepass=True)
+    want = ln_mode_ref(x.float(), g, be, "onepass")
+    assert _max_err(got, want) <= 5e-2
+
+
+# (batch, tokens, width, heads, heads per block): head dims 16, 64, 128, 48
+PHASED_CASES = [(2, 33, 64, 4, 2), (2, 257, 1024, 16, 16),
+                (2, 257, 1024, 16, 4), (1, 100, 256, 2, 1),
+                (2, 17, 192, 4, 4)]
+
+
+@pytest.mark.parametrize("smax", ["exp", "exp2", "nomax", "skip"])
+@pytest.mark.parametrize("b,n,d,h,group", PHASED_CASES)
+def test_phased_attention_kernel_matches_plain(cuda, smax, b, n, d, h,
+                                               group):
+    """csrc/attention_phased.cu on a packed bf16 qkv against its plain
+    version in float32: normalised at the bf16 bars ("exp" also against
+    B1's attention kernel); "skip" (the raw scores as P) before the division,
+    where the unnormalised outputs reach O(10): rel-L2 1e-2 and max-abs 2 %
+    of the largest element (a bf16 step at 16 is 0.06)."""
+    from mirage_tpu_torch.ops.block_attention import phased_attention_ref
+
+    rng = np.random.default_rng(31)
+    dh = d // h
+    qkv = _on(rng.standard_normal((b, n, 3 * d)).astype(np.float32), cuda,
+              torch.bfloat16)
+    divide = smax != "skip"
+    out = qkv.new_empty(b, n, d)
+    runtime.attention_phased(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], out,
+                             heads=h, dh=dh, group=group, scale=dh ** -0.5,
+                             smax=smax, divide=divide)
+    want = phased_attention_ref(qkv.float(), h, smax, divide)
+    assert bool(torch.isfinite(out.float()).all())
+    if divide:
+        assert _max_err(out, want) <= 5e-2 and _rel_l2(out, want) <= 1e-2
+    else:
+        assert _rel_l2(out, want) <= 1e-2
+        assert _max_err(out, want) <= 2e-2 * want.abs().max().item()
+    if smax == "exp":
+        base = qkv.new_empty(b, n, d)
+        runtime.attention(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], base,
+                          heads=h, dh=dh, scale=dh ** -0.5)
+        assert _max_err(out, base) <= 5e-2
+
+
+@pytest.mark.parametrize("ln", ["two_pass", "onepass", "skip"])
+def test_phased_attn_half_matches_plain(cuda, ln):
+    from mirage_tpu_torch.ops.block_attention import (
+        attn_half_block_phased, attn_half_block_phased_ref)
+
+    rng = np.random.default_rng(32)
+    b, n, d, h = 2, 257, 1024, 16
+    p = _params(rng, d, 1, 3)
+    args = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"])]
+    before = attn_half_block_phased.launches
+    got = attn_half_block_phased(*args, h, 16, ln=ln)
+    assert attn_half_block_phased.launches == before + 1
+    want = attn_half_block_phased_ref(*[a.float() for a in args], h, 16, ln)
+    assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("act", ["as26", "bf16", "hastings"])
+@pytest.mark.parametrize("m,n,k", [(130, 264, 72), (2 * 257, 4096, 1024)])
+def test_gemm_gelu_modes_match_plain(cuda, act, m, n, k):
+    """The GELU epilogue's other erf formulas against their plain versions
+    on the float product of the same bf16 operands, at the bf16 bars."""
+    from mirage_tpu_torch.ops.fused_mlp import gelu_mode_ref
+
+    rng = np.random.default_rng(33)
+    a = _on(rng.standard_normal((m, k)).astype(np.float32), cuda,
+            torch.bfloat16)
+    w = _on((rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32),
+            cuda, torch.bfloat16)
+    bias = _on((0.02 * rng.standard_normal(n)).astype(np.float32), cuda,
+               torch.float32)
+    got = runtime.gemm_gelu_mode(a, w, bias, mode=act)
+    want = gelu_mode_ref(a.float() @ w.float().t() + bias, act)
+    assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("ln,act", [("two_pass", "as26"), ("onepass", "bf16"),
+                                    ("skip", "hastings"), ("two_pass", "skip")])
+def test_mlp_block_modes_match_plain(cuda, ln, act):
+    from mirage_tpu_torch.ops.fused_mlp import (mlp_block_modes,
+                                                mlp_block_modes_ref)
+
+    rng = np.random.default_rng(34)
+    b, n, d = 2, 257, 1024
+    p = _params(rng, d, 4, 4)
+    args = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"])]
+    before = mlp_block_modes.launches
+    got = mlp_block_modes(*args, ln=ln, act=act)
+    assert mlp_block_modes.launches == before + 1
+    want = mlp_block_modes_ref(*[a.float() for a in args], ln, act)
+    assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("b,n,d", [(2, 257, 1024), (3, 33, 256), (1, 130, 512),
+                                   (2, 100, 768)])
+def test_mlp_chunked_kernel_matches_plain(cuda, b, n, d):
+    """csrc/mlp_chunked.cu (the hidden on chip) against its plain version in
+    float32 and against B2 at the bf16 bars; a rerun is bit-identical."""
+    from mirage_tpu_torch.ops.fused_mlp import (mlp_block_chunked,
+                                                mlp_block_chunked_ref)
+
+    rng = np.random.default_rng(35)
+    p = _params(rng, d, 4, 4)
+    args = [_on(a, cuda, torch.bfloat16) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
+        p["w1"], p["b1"], p["w2"], p["b2"])]
+    before = mlp_block_chunked.launches
+    got = mlp_block_chunked(*args, 4)
+    assert mlp_block_chunked.launches == before + 1
+    want = mlp_block_chunked_ref(*[a.float() for a in args], 4)
+    assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
+    assert _max_err(got, mlp_block(*args)) <= 5e-2
+    assert torch.equal(got, mlp_block_chunked(*args, 2))
+
+
+def test_mlp_chunked_refuses_what_it_does_not_take(cuda):
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block_chunked
+
+    x = torch.zeros(2, 8, 320, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(1280, 320, device=cuda, dtype=torch.bfloat16)
+    w2 = torch.zeros(320, 1280, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(320, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        mlp_block_chunked(x, v, v, w1, torch.zeros(1280, device=cuda), w2, v,
+                          2)
