@@ -60,12 +60,16 @@ Phases, each of which must pass (any failure exits non-zero):
    the five scripts/bench_train.py rows (pretraining, seg twice, cls
    twice).
 
-Phase 2 also holds the accumulating backwards (B7, both halves) and the
-fused AdamW update (B11) against their plain versions, and phase 5 runs the
-pretraining step once more with the three switches on (B7 for both halves,
-B11). Phase 2 checks the whole-block kernel (B10) at the decoder and
-MIRAGE-Large encoder shapes, the int8 MLP (B12; reruns bit for bit) and the
-3-D stash forward (B9′; bit-equal to B2); phase 3 replays the MIRAGE-Base
+Phase 1 also prints the ptxas spill lines of the two redesigned kernels
+(fused_block, attention_phased) and fails unless fused_block's SASS holds
+HGMMA (wgmma) instructions. Phase 2 also holds the accumulating backwards
+(B7, both halves) and the fused AdamW update (B11) against their plain
+versions, and phase 5 runs the pretraining step once more with the three
+switches on (B7 for both halves, B11). Phase 2 checks the whole-block
+kernel (B10, a persistent cooperative grid) at the decoder and MIRAGE-Large
+encoder shapes beside B1 + B2, with its GEMM tile widths swept and its time
+by stage, the int8 MLP (B12; reruns bit for bit) and the 3-D stash forward
+(B9′; bit-equal to B2); phase 3 replays the MIRAGE-Base
 golden (tests/golden/example_triplet_base.npz, seeded full-size weights)
 under MIRAGE_BLOCK_FUSE=off and all; phase 4 serves MIRAGE-Large at batch
 64 under MIRAGE_BLOCK_FUSE=off, decoder and all.
@@ -79,6 +83,7 @@ and power limit come before it; the last line is {"ok": true, "device":
 import hashlib
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -153,7 +158,8 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "adamw_kernel": "adamw", "fused_block_kernel": "fused_block",
                 "ln_quant_kernel": "quant", "quant_rows_kernel": "quant",
                 "gemm_s8_kernel": "quant", "gemm_lnfold_kernel": "gemm_lnfold",
-                "attention_phased_kernel": "attention_phased",
+                "attention_phased_resident": "attention_phased",
+                "attention_phased_staged": "attention_phased",
                 "mlp_chunked_kernel": "mlp_chunked"}
 
 
@@ -244,6 +250,21 @@ def phase_build():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    for name in ("fused_block", "attention_phased"):
+        spills = [ln.strip() for ln in report[name].splitlines()
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        log(f"[build] {name}: {len(spills)} ptxas lines with a spill"
+            + "".join(f"\n[build]   {ln}" for ln in spills))
+    # B10's bf16 products must be wgmma: HGMMA in the library's SASS
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.BUILD_DIR / "libfused_block.so")],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma = sass.count("HGMMA")
+    log(f"[build] fused_block: {hgmma} HGMMA instructions in its SASS")
+    if hgmma == 0:
+        raise AssertionError("fused_block's bf16 products are not wgmma")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -1221,7 +1242,9 @@ def _quant_library(x, lw, lb, w1q, s1, b1, w2q, s2, b2):
 
 def phase_serve_kernels(results):
     """B10 (the one-launch whole block) at the decoder and MIRAGE-Large
-    encoder shapes in bf16 and one float32 case, B12 (the int8 MLP) at the
+    encoder shapes in bf16 (beside B1 + B2 on the same inputs, with a rerun
+    bit for bit and a sweep of the plan's GEMM tile width) and one float32
+    case, B12 (the int8 MLP) at the
     encoder's (64, 257, 1024) and (16384, 1024) rows with bit-identical
     reruns, and B9′ (the 3-D stash forward) at the pretraining (256, 99,
     768), out bit-equal to B2's; each against its plain version, with
@@ -1233,7 +1256,12 @@ def phase_serve_kernels(results):
     from mirage_tpu_torch.ops import fused_mlp as fm
     from mirage_tpu_torch.ops import quant as q
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.fused_block import fused_block, fused_block_ref
+    from mirage_tpu_torch.ops.block_attention import attn_half_block
+    from mirage_tpu_torch.ops.fused_block import (fused_block,
+                                                  fused_block_launch,
+                                                  fused_block_plan,
+                                                  fused_block_ref, stage_us)
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block
 
     gen = torch.Generator().manual_seed(SEED + 4)
 
@@ -1247,26 +1275,26 @@ def phase_serve_kernels(results):
     def library(*a):
         return lib_mlp(lib_attn(*a[:7], a[-1]), *a[7:13])
 
-    def cluster_sweep(args):
-        """ms of the kernel at every cluster size it takes (the op picks the
-        largest that keeps batch · cluster CTAs within one wave), outputs
-        bit-equal across sizes."""
+    def tile_sweep(args):
+        """ms of the kernel at each GEMM tile width of its plan (128, 256;
+        the op takes ``fused_block.TILE_N``), each output within the bf16
+        bars of the op's."""
         x, *prm, heads = args
-        d, hidden = x.shape[-1], prm[8].shape[0]
-        sizes = [c for c in range(1, 9) if heads % c == 0
-                 and hidden % c == 0 and (hidden // c) % 16 == 0]
-
-        def run(c):
-            return runtime.fused_block(x, *prm, heads=heads, cluster=c,
-                                       scale=(d // heads) ** -0.5)
-
-        ref, out = run(sizes[0]), {}
-        for c in sizes:
-            if not torch.equal(run(c), ref):
-                raise AssertionError(f"fused_block: cluster {c} changes the "
-                                     f"output")
-            out[c] = cuda_ms(lambda: run(c), iters=5)
+        ref, out = fused_block(*args), {}
+        for tn in (128, 256):
+            got = fused_block_launch(x, *prm, heads, tile_n=tn)
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= BF16_MAX_ABS:
+                raise AssertionError(f"fused_block: tile_n {tn} moves the "
+                                     f"output by {err}")
+            out[tn] = cuda_ms(lambda: fused_block_launch(x, *prm, heads,
+                                                         tile_n=tn), iters=5)
         return out
+
+    def halves(*a):
+        """B1 then B2 (the unfused route, seven launches) on the same
+        inputs: what the one launch competes with."""
+        return mlp_block(attn_half_block(*a[:7], a[-1]), *a[7:13])
 
     # B10: (label, shape, calls per reconstruct forward under
     # MIRAGE_BLOCK_FUSE=all)
@@ -1285,29 +1313,52 @@ def phase_serve_kernels(results):
                 and bool(torch.isfinite(got).all())):
             raise AssertionError(f"fused_block {label}: max_abs {max_abs}, "
                                  f"rel_l2 {rel_l2}")
+        if not torch.equal(fused_block(*args), got):
+            raise AssertionError(f"fused_block {label}: a rerun differs")
         del got, want, diff
         kernel_ms = cuda_ms(lambda: fused_block(*args), iters=10)
         with runtime.plain_on_card():
             plain_ms = cuda_ms(lambda: fused_block_ref(*args), iters=5)
         library_ms = cuda_ms(lambda: library(*args), iters=10)
-        sweep = cluster_sweep(args)
+        launches = attn_half_block.launches, mlp_block.launches
+        halves_ms = cuda_ms(lambda: halves(*args), iters=10)
+        attn_half_block.launches, mlp_block.launches = launches
+        sweep = tile_sweep(args)
         flops, nbytes = _block_work(shape, 2)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        x = args[0]
+        plan = fused_block_plan(
+            shape[0], shape[1], shape[2], args[9].shape[0], shape[3],
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
+            runtime.fused_block_blocks_per_sm(shape[1],
+                                              shape[2] // shape[3], x.dtype))
+        # where one launch's time goes: each stage to its grid barrier
+        stamps = torch.zeros(7 + plan["grid"], dtype=torch.int64,
+                             device=x.device)
+        fused_block_launch(*args[:-1], shape[3], stamps=stamps)
+        torch.cuda.synchronize()
+        stages = stage_us(stamps)
         row = {"label": label, "shape": list(shape), "dtype": "bf16",
                "max_abs_err": max_abs, "rel_l2_err": rel_l2,
                "ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "library_ms": library_ms, "halves_ms": halves_ms,
+               "stage_us": stages,
+               "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "calls_per_forward": per_fwd, "ms_by_cluster": sweep}
+               "calls_per_forward": per_fwd, "ms_by_tile_n": sweep,
+               "grid": plan["grid"], "items": plan["items"]}
         log(f"[kernels] fused_block {label} {shape}: max_abs {max_abs:.3e} "
-            f"rel_l2 {rel_l2:.3e} kernel {kernel_ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); ms by cluster "
-            f"size {sweep}")
+            f"rel_l2 {rel_l2:.3e} kernel {kernel_ms:.4f} ms (B1 + B2 "
+            f"{halves_ms:.4f}) plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); grid {plan['grid']} CTAs, items "
+            f"{plan['items']}; ms by GEMM tile width {sweep}; µs by stage "
+            f"(one launch) " + json.dumps({k: round(v, 2)
+                                           for k, v in stages.items()}))
         results.setdefault("fused_block", []).append(row)
         del args
     # one MIRAGE-Base block at batch 1 (the golden's shape) in bf16: the
-    # cluster sizes where the batch alone leaves most SMs idle
+    # whole grid on one batch element's 257 rows
     args = block_inputs((1, 257, 768, 12), torch.bfloat16)
     got = fused_block(*args)
     with runtime.plain_on_card():
@@ -1320,14 +1371,14 @@ def phase_serve_kernels(results):
             and bool(torch.isfinite(got).all())):
         raise AssertionError(f"fused_block batch 1: max_abs {max_abs}, "
                              f"rel_l2 {rel_l2}")
-    sweep = cluster_sweep(args)
+    sweep = tile_sweep(args)
     log(f"[kernels] fused_block (1, 257, 768, 12) bf16: max_abs "
-        f"{max_abs:.3e} rel_l2 {rel_l2:.3e}; ms by cluster size {sweep}")
-    results["fused_block"].append({"label": "batch-1 cluster sweep",
+        f"{max_abs:.3e} rel_l2 {rel_l2:.3e}; ms by GEMM tile width {sweep}")
+    results["fused_block"].append({"label": "batch-1 tile sweep",
                                    "shape": [1, 257, 768, 12],
                                    "dtype": "bf16", "max_abs_err": max_abs,
                                    "rel_l2_err": rel_l2,
-                                   "ms_by_cluster": sweep})
+                                   "ms_by_tile_n": sweep})
     args = block_inputs((2, 257, 1024, 16), torch.float32)
     got = fused_block(*args)
     with runtime.plain_on_card():

@@ -5,10 +5,11 @@ head's float scores in one (H, N, N) scratch, one max-subtracted ``exp``
 softmax over all of them, then every P·V, the projection and the residual;
 it is timed against B1 (``_attn_half_fwd``, "v1 per-head") in 24-layer
 chains at (64, 257, 1024, 16). On the card the three-phase half is
-``attn_half_block_phased`` (csrc/attention_phased.cu): one block holds the
-float scores of 8 queries for a group of heads. All 16 heads of
-MIRAGE-Large fit one block at 257 tokens (``heads_per_block``: the largest
-group that divides the heads and fits a block's shared memory); the
+``attn_half_block_phased`` (csrc/attention_phased.cu): a cluster of CTAs
+per group of heads and batch element, each CTA holding two heads' K and V
+and the float scores of a 16-query tile. All 16 heads of MIRAGE-Large form
+one group at 257 tokens (``heads_per_block``: the largest group that
+divides the heads and that ``phased_plan`` can tile, a cluster of 8); the
 softmax is per (row, head), so a smaller group computes the same function.
 
 The case is held to its plain version in float32 on the same bf16 inputs,
@@ -22,7 +23,8 @@ from mirage_tpu_torch import bench
 from mirage_tpu_torch.ops import runtime
 from mirage_tpu_torch.ops.block_attention import (attn_half_block,
                                                   attn_half_block_phased,
-                                                  attn_half_block_phased_ref)
+                                                  attn_half_block_phased_ref,
+                                                  phased_plan)
 
 REPS = 24  # bench_attn_half.py:13
 # (batch, tokens, width, heads): bench_attn_half.py:94, and the dry run's
@@ -31,10 +33,17 @@ REPLACES = "scripts/bench_attn_half.py:16"
 
 
 def heads_per_block(n, dh, heads):
-    """The largest group of heads that divides ``heads`` and whose scores
-    fit one block of the phased kernel."""
-    return max(g for g in range(1, heads + 1) if heads % g == 0 and
-               runtime.phased_smem_bytes(n, dh, g) <= runtime.SMEM_PER_BLOCK)
+    """The largest group of heads that divides ``heads`` and that the
+    phased kernel can tile (``phased_plan``)."""
+
+    def fits(g):
+        try:
+            phased_plan(n, dh, heads, g)
+        except ValueError:
+            return False
+        return True
+
+    return max(g for g in range(1, heads + 1) if heads % g == 0 and fits(g))
 
 
 @torch.no_grad()

@@ -18,7 +18,8 @@ fc1 + GELU into every CTA's shared memory and accumulated by fc2 in
 registers. The script's chunks (2048, 1024 or 512 columns) are walked in
 those sub-chunks, so every chunk count runs the same kernel; each row
 prints both widths. The grouped attention is ``attn_half_block_phased``
-with ``group`` heads per block (csrc/attention_phased.cu). B1 and B2 are
+with ``group`` heads per cluster (csrc/attention_phased.cu: 2 heads a
+CTA, so a cluster of group / 2 CTAs). B1 and B2 are
 the port's own chains ("v0").
 
 Each case is held to its plain version in float32 on the same bf16 inputs

@@ -19,8 +19,9 @@ math to expose its cost:
   elements at a time.
 
 On the card the attention cases are ``attn_half_block_phased`` with all 16
-heads in one block (csrc/attention_phased.cu; the softmax mode a template
-parameter, the LN kernel's one-pass mode, no LN launch for "skip"), the MLP
+heads in one group (csrc/attention_phased.cu: a cluster of 8 CTAs; the
+softmax mode a run-time switch over code specialised per mode, the LN
+kernel's one-pass mode, no LN launch for "skip"), the MLP
 cases ``mlp_block_modes`` (csrc/gemm.cu's GELU epilogue instantiated per
 formula; the plain epilogue for "skip"). The two "pipe2" cases compute the
 "v0" function: a CUDA launch already overlaps the batch elements across

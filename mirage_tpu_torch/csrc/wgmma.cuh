@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma GEMM kernels (csrc/gemm.cu,
-// csrc/gemm_lnfold.cu): warpgroup MMA on 128-byte-swizzled K-major tiles,
-// mbarriers, 2-D TMA loads and the tensor-map encoder fetched from the
-// driver at run time (so the libraries need no link against libcuda).
+// csrc/gemm_lnfold.cu, csrc/mlp_chunked.cu, csrc/fused_block.cu): warpgroup
+// MMA on 128-byte-swizzled K-major tiles, mbarriers, 2-D TMA loads and the
+// tensor-map encoder fetched from the driver at run time (so the libraries
+// need no link against libcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -51,6 +52,20 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       : MTT_F8(0), MTT_F8(8), MTT_F8(16), MTT_F8(24), MTT_F8(32), MTT_F8(40), MTT_F8(48),
         MTT_F8(56), MTT_F8(64), MTT_F8(72), MTT_F8(80), MTT_F8(88), MTT_F8(96), MTT_F8(104),
         MTT_F8(112), MTT_F8(120)
+      : "l"(da), "l"(db), "r"(1));
+}
+// d (64 × 128: this thread's first 64 floats of d) += A (64 × 16) · B (128 × 16)ᵀ
+__device__ __forceinline__ void wgmma_n128(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : MTT_F8(0), MTT_F8(8), MTT_F8(16), MTT_F8(24), MTT_F8(32), MTT_F8(40), MTT_F8(48),
+        MTT_F8(56)
       : "l"(da), "l"(db), "r"(1));
 }
 #undef MTT_F8

@@ -24,7 +24,7 @@ SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
            "wgrad", "adamw", "fused_block", "quant", "gemm_lnfold",
            "attention_phased", "mlp_chunked")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
-# cudaGetLastError().
+# a CUDA error code (0: launched).
 ENTRIES = {
     "layernorm": ("layernorm", "mtt_layernorm",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
@@ -51,7 +51,9 @@ ENTRIES = {
     "colsum": ("wgrad", "mtt_colsum", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "adamw": ("adamw", "mtt_adamw", [_P, _I, _I, _P, _F, _F, _F, _F, _F, _P]),
     "fused_block": ("fused_block", "mtt_fused_block",
-                    [_P] * 18 + [_I] * 7 + [_F, _F, _I, _P]),
+                    [_P] * 19 + [_I] * 9 + [_F, _F, _I, _P, _P]),
+    "fused_block_occupancy": ("fused_block", "mtt_fused_block_occupancy",
+                              [_I, _I, _I, _P]),
     "ln_quant": ("quant", "mtt_ln_quant", [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
     "quant_rows": ("quant", "mtt_quant_rows", [_P, _P, _P, _P, _I, _I, _P]),
     "gemm_s8": ("quant", "mtt_gemm_s8",
@@ -60,8 +62,8 @@ ENTRIES = {
                     [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
                      _P]),
     "attention_phased": ("attention_phased", "mtt_attention_phased",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _LL,
-                          _I, _LL, _I, _LL, _I, _F, _I, _I, _P]),
+                         [_P] * 4 + [_I] * 10 + [_LL, _I] * 4
+                         + [_F, _I, _I, _P]),
     "mlp_chunked": ("mlp_chunked", "mtt_mlp_chunked",
                     [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
 }

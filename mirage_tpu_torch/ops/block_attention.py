@@ -51,8 +51,9 @@ n_valid masked, scripts/bench_pad264.py) and ``attn_half_block_prenormed``
 another key count or without its LN, and add no CUDA code;
 ``attn_half_block_phased`` (scripts/bench_attn_half.py, bench_vpu.py and
 bench_overlap.py: S2, S5, S6) is B1 with its attention in three phases over
-a group of heads (csrc/attention_phased.cu), its LN in two passes, one pass
-or skipped, and its softmax in one of four modes.
+a group of heads (csrc/attention_phased.cu, tiled by :func:`phased_plan`),
+its LN in two passes, one pass or skipped, and its softmax in one of four
+modes.
 
 Every op saves only its inputs for the backward and recomputes the rest,
 as the TPU kernels do. Parameter gradients come back in float32, as the
@@ -60,6 +61,8 @@ JAX custom VJPs return them; on a CPU tensor the backward runs the plain
 ``*_bwd_ref`` functions, which mirror the TPU kernels step by step with the
 rounding T(·) to the compute dtype where they round.
 """
+
+from collections import namedtuple
 
 import torch
 
@@ -545,6 +548,72 @@ def phased_attention_ref(qkv, num_heads, smax="exp", divide=True):
     return merge_heads(o).to(dt)
 
 
+PHASED_MAX_KEYS, PHASED_MAX_CLUSTER, SMEM_PER_BLOCK = 512, 8, 232448
+PhasedPlan = namedtuple("PhasedPlan",
+                        "heads_per_cta cluster qtile smem branch qsplit")
+
+
+def _phased_resident_bytes(nk, dh, hpc, qt):
+    """csrc/attention_phased.cu:resident_smem_bytes: K and V of hpc heads,
+    hpc·qt float score rows of nk keys (padded to 16, + 4) and their sums,
+    hpc·qt bf16 P rows (+ 8) and the double-buffered (qt, hpc·dh + 8) query
+    tile."""
+    nkp = -(-nk // 16) * 16
+    return (4 * hpc * nkp * (dh + 8) + 4 * (hpc * qt * (nkp + 4) + hpc * qt)
+            + 2 * hpc * qt * (nkp + 8) + 4 * qt * (hpc * dh + 8))
+
+
+def _phased_staged_bytes(nk, dh, group):
+    """csrc/attention_phased.cu:staged_smem_bytes: the float scores of 8
+    queries × ``group`` heads, their sums, their bf16 P rows (+ 8), the
+    queries and one head's K or V."""
+    nkp = -(-nk // 16) * 16
+    return (4 * (group * 8 * (nkp + 4) + group * 8) + 2 * group * 8 * (nkp + 8)
+            + 2 * 8 * (group * dh + 8) + 2 * nkp * (dh + 8))
+
+
+def phased_plan(nk, dh, heads, group, batch=1, sms=0, nq=None):
+    """How csrc/attention_phased.cu tiles one call: a :class:`PhasedPlan`.
+
+    The resident branch splits a group of ``group`` heads over a cluster of
+    ``group / heads_per_cta`` CTAs (at most 8), each keeping its heads' K
+    and V in shared memory and walking query tiles of ``qtile`` (16, or 8
+    where 16 does not fit); heads_per_cta is the smallest divisor of the
+    group from 2 up that fits (1 only where 2 does not divide or fit). When
+    ``batch`` · heads / heads_per_cta CTAs leave some of the card's ``sms``
+    SMs idle, the query tiles are split over ``qsplit`` = 2 clusters. Where
+    no resident layout fits a block's shared memory, the staging branch
+    holds the group's scores for 8 queries and stages each head's K and V
+    (heads_per_cta = group, one CTA). A shape that fits neither raises
+    ValueError."""
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
+                         f"up to 128")
+    if group <= 0 or heads % group:
+        raise ValueError(f"group {group} does not divide {heads} heads")
+    if not 0 < nk <= PHASED_MAX_KEYS:
+        raise ValueError(f"{nk} keys: the phased kernel holds 1 to "
+                         f"{PHASED_MAX_KEYS}")
+    divs = [h for h in range(1, group + 1)
+            if group % h == 0 and group // h <= PHASED_MAX_CLUSTER]
+    for hpc in [h for h in divs if h >= 2] + [h for h in divs if h < 2]:
+        for qt in (16, 8):
+            smem = _phased_resident_bytes(nk, dh, hpc, qt)
+            if smem <= SMEM_PER_BLOCK:
+                tiles = -(-(nk if nq is None else nq) // qt)
+                split = 2 if batch * heads // hpc < sms and tiles > 1 else 1
+                return PhasedPlan(hpc, group // hpc, qt, smem, "resident",
+                                  split)
+    smem = _phased_staged_bytes(nk, dh, group)
+    if smem <= SMEM_PER_BLOCK:
+        return PhasedPlan(group, 1, 8, smem, "staging", 1)
+    raise ValueError(
+        f"{group} heads of {nk} keys at head dim {dh} fit neither branch of "
+        f"the phased kernel: one head's K and V exceed a CTA's "
+        f"{SMEM_PER_BLOCK} bytes of shared memory and the group's scores "
+        f"need {smem}: take a smaller group")
+
+
 def _phased_args(num_heads, group, ln, smax):
     if group <= 0 or num_heads % group:
         raise ValueError(f"group {group} does not divide {num_heads} heads")
@@ -573,12 +642,13 @@ def attn_half_block_phased(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     ``smax`` "exp" | "exp2" | "nomax" | "skip") and scripts/bench_overlap.py:
     _attn_half_grouped (S6, groups of 2, 4 or 8). On the card: the LN kernel
     in its mode (none for "skip", where the qkv GEMM takes x), the qkv GEMM
-    with bias, csrc/attention_phased.cu on the packed qkv (one block per 8
-    queries × group × batch element, the group's float scores in shared
-    memory), the proj GEMM with bias and residual. bf16 only on the card;
-    the group's scores must fit a block (all 16 heads of MIRAGE-Large at 257
-    tokens do). Forward only."""
+    with bias, csrc/attention_phased.cu on the packed qkv (a cluster of CTAs
+    per group and batch element, each holding its heads' K and V and walking
+    the query tiles; :func:`phased_plan`), the proj GEMM with bias and
+    residual. bf16 only on the card; a shape the plan cannot tile raises
+    ValueError on the CPU too. Forward only."""
     _phased_args(num_heads, group, ln, smax)
+    phased_plan(x.shape[1], x.shape[2] // num_heads, num_heads, group)
     if not runtime.use_kernel(x):
         return attn_half_block_phased_ref(x, ln_w, ln_b, wqkv, bqkv, wproj,
                                           bproj, num_heads, group, ln, smax)

@@ -17,9 +17,10 @@ the weight gradients the stash backward (B9) and the accumulating
 backwards (B7) sum inside their TPU kernels; ``adamw`` launches the
 multi-tensor AdamW update (B11).
 
-``fused_block`` launches the one-launch whole block (B10, a thread-block
-cluster per batch element); ``ln_quant``, ``gemm_s8_fc1``, ``quant_rows``
-and ``gemm_s8_fc2`` the four kernels of the int8 MLP half (B12);
+``fused_block`` launches the one-launch whole block (B10, a persistent
+cooperative grid over the whole batch); ``ln_quant``, ``gemm_s8_fc1``,
+``quant_rows`` and ``gemm_s8_fc2`` the four kernels of the int8 MLP half
+(B12);
 ``gemm_s8_s32`` the same int8 GEMM with its s32 accumulator as the output,
 and ``gemm_lnfold`` fc2 with bias, residual and the next LayerNorm in one
 cluster epilogue (the bench's S3 and S4). The bench's S2, S5 and S6 add
@@ -511,13 +512,38 @@ def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
             _DTYPES[q.dtype])
 
 
+_occupancy = {}
+
+
+def fused_block_blocks_per_sm(n: int, dh: int, dtype: torch.dtype) -> int:
+    """CTAs of csrc/fused_block.cu that one SM holds at once (its shared
+    memory and registers at n tokens and head dim dh), from the CUDA
+    occupancy calculator; cached."""
+    key = (n, dh, dtype)
+    if key not in _occupancy:
+        blocks = ctypes.c_int(0)
+        rc = _build.entry("fused_block_occupancy")(n, dh, _DTYPES[dtype],
+                                                   ctypes.byref(blocks))
+        if rc != 0 or blocks.value <= 0:
+            raise RuntimeError(f"fused_block occupancy query failed: CUDA "
+                               f"error {rc}, {blocks.value} blocks per SM")
+        _occupancy[key] = blocks.value
+    return _occupancy[key]
+
+
 def fused_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
-                b1, w2, b2, *, heads: int, cluster: int, scale: float,
-                eps: float = 1e-6) -> torch.Tensor:
-    """The whole pre-LN block over x (B, N, D) in one launch of ``cluster``
-    CTAs per batch element: weights in x's dtype and (out, in) layout, the
-    eight vectors in one parameter type (bqkv may be None). The scratch
-    (LN outputs, qkv, attention output, MLP hidden) is one allocation."""
+                b1, w2, b2, *, heads: int, grid: int, tile_n: int,
+                attn_buffers: int, scale: float, eps: float = 1e-6,
+                stamps=None) -> torch.Tensor:
+    """The whole pre-LN block over x (B, N, D) in one cooperative launch of
+    ``grid`` CTAs (at most what the card holds at once), bf16 GEMM tiles
+    ``tile_n`` wide and ``attn_buffers`` heads' K and V resident in the
+    attention stage (0: streamed): weights in x's dtype and (out, in)
+    layout, the eight vectors in one parameter type (bqkv may be None). The
+    scratch (LN outputs, qkv, attention output, MLP hidden and the grid
+    barrier's counter) is one allocation. ``stamps`` (int64, 7 + grid)
+    receives the kernel's stage timestamps in ns
+    (``ops/fused_block.py:stage_us``)."""
     b, n, d = x.shape
     hidden = w1.shape[0]
     check("x", x, x)
@@ -532,18 +558,21 @@ def fused_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
         if v is not None:
             check(name, v, ln1_w, (size,))
     out = torch.empty_like(x)
-    nd = b * n * d
-    scratch = x.new_empty(nd * 5 + b * n * hidden)
+    nd, nh = b * n * d, b * n * hidden
+    scratch = x.new_empty(nd * 5 + nh + 16 // x.element_size())
     y, attn = scratch[:nd].view(b, n, d), scratch[nd:2 * nd].view(b, n, d)
     qkv = scratch[2 * nd:5 * nd].view(b, n, 3 * d)
-    act = scratch[5 * nd:].view(b, n, hidden)
+    act = scratch[5 * nd:5 * nd + nh].view(b, n, hidden)
+    bar = scratch[5 * nd + nh:]
+    if stamps is not None:
+        _check_plain("stamps", stamps, x, (7 + grid,), torch.int64)
     _launch("fused_block", x.data_ptr(), out.data_ptr(), ln1_w.data_ptr(),
             ln1_b.data_ptr(), wqkv.data_ptr(), _ptr(bqkv), wproj.data_ptr(),
             bproj.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), qkv.data_ptr(), attn.data_ptr(), act.data_ptr(), b,
-            n, d, hidden, heads, cluster, _DTYPES[ln1_w.dtype], scale, eps,
-            _DTYPES[x.dtype])
+            y.data_ptr(), qkv.data_ptr(), attn.data_ptr(), act.data_ptr(),
+            bar.data_ptr(), b, n, d, hidden, heads, grid, tile_n, attn_buffers,
+            _DTYPES[ln1_w.dtype], scale, eps, _DTYPES[x.dtype], _ptr(stamps))
     return out
 
 
@@ -677,25 +706,18 @@ def gemm_lnfold(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 # the phased attention kernel's softmax modes (csrc/attention_phased.cu)
 SMAX_MODES = {"exp": 0, "exp2": 1, "nomax": 2, "skip": 3}
-PHASED_QUERIES, SMEM_PER_BLOCK = 8, 232448
-
-
-def phased_smem_bytes(nk: int, dh: int, group: int) -> int:
-    """Shared memory of one block of the phased attention kernel: float
-    score rows for 8 queries × ``group`` heads × nk keys (padded to 16, + 4),
-    their sums, the queries and one head's K or V."""
-    nkp = -(-nk // 16) * 16
-    return (4 * (group * PHASED_QUERIES * (nkp + 4) + group * PHASED_QUERIES)
-            + 2 * PHASED_QUERIES * (group * dh + 8) + 2 * nkp * (dh + 8))
 
 
 def attention_phased(q, k, v, out, *, heads: int, dh: int, group: int,
                      scale: float, smax: str = "exp", divide: bool = True):
     """softmax(q kᵀ·scale) v in three phases (every score of a group of
     ``group`` heads, one softmax pass, every P·V), in place in ``out``; bf16
-    views as :func:`attention` takes them. ``smax``: "exp", "exp2", "nomax"
-    or "skip" (the raw scores as P); ``divide=False`` leaves the output
-    unnormalised."""
+    views as :func:`attention` takes them, tiled as
+    ``ops/block_attention.py:phased_plan`` says. ``smax``: "exp", "exp2",
+    "nomax" or "skip" (the raw scores as P); ``divide=False`` leaves the
+    output unnormalised."""
+    from mirage_tpu_torch.ops.block_attention import phased_plan
+
     b, nq = q.shape[:2]
     nk = k.shape[1]
     if smax not in SMAX_MODES:
@@ -705,20 +727,16 @@ def attention_phased(q, k, v, out, *, heads: int, dh: int, group: int,
     if nk > MAX_KEYS:
         raise NotImplementedError(f"{nk} keys: the phased kernel holds at "
                                   f"most {MAX_KEYS}")
-    if group <= 0 or heads % group:
-        raise ValueError(f"group {group} does not divide {heads} heads")
-    if phased_smem_bytes(nk, dh, group) > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"{group} heads of {nk} keys at head dim {dh} need "
-            f"{phased_smem_bytes(nk, dh, group)} bytes of shared memory, above "
-            f"a block's {SMEM_PER_BLOCK}: take a smaller group")
     strides = _attn_views(heads, dh, [("q", q), ("k", k), ("v", v),
                                       ("out", out)])
     if out.shape[:2] != (b, nq) or v.shape[:2] != (b, nk) or k.shape[0] != b:
         raise ValueError("attention_phased: batch/row shapes disagree")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = phased_plan(nk, dh, heads, group, batch=b, sms=sms, nq=nq)
     _launch("attention_phased", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, nq, nk, heads, dh, group, *strides, scale,
-            SMAX_MODES[smax], int(divide))
+            out.data_ptr(), b, nq, nk, heads, dh, group,
+            int(plan.branch == "resident"), plan.heads_per_cta, plan.qtile,
+            plan.qsplit, *strides, scale, SMAX_MODES[smax], int(divide))
 
 
 MLP_CHUNK_TILE_N, MLP_CHUNK_MAX_CLUSTER, MLP_CHUNK_COLS = 256, 4, 64

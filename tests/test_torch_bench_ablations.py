@@ -22,8 +22,10 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from mirage_tpu_torch.ops.block_attention import (attn_half_block,
-                                                  attn_half_block_phased)
+from mirage_tpu_torch.ops.block_attention import (SMEM_PER_BLOCK,
+                                                  attn_half_block,
+                                                  attn_half_block_phased,
+                                                  phased_plan)
 from mirage_tpu_torch.ops.fused_mlp import (mlp_block_chunked,
                                             mlp_block_modes)
 
@@ -180,3 +182,61 @@ def test_the_ops_refuse_unknown_modes_and_groups():
         mlp_block_modes(*mport, act="erf")
     with pytest.raises(ValueError, match="do not divide"):
         mlp_block_chunked(*mport, 3)
+
+
+# csrc/attention_phased.cu's plan: (keys, head dim, heads, group) of the
+# bench's S2/S5/S6b cases at (64, 257, 1024, 16) and of the card tests'
+# PHASED_CASES (tests/test_torch_kernels.py)
+RESIDENT = [(257, 64, 16, 16), (257, 64, 16, 8), (257, 64, 16, 4),
+            (257, 64, 16, 2), (33, 16, 4, 2), (100, 128, 2, 1),
+            (17, 48, 4, 4), (257, 64, 8, 8)]
+
+
+@pytest.mark.parametrize("nk,dh,heads,group", RESIDENT)
+def test_phased_plan_keeps_k_and_v_resident(nk, dh, heads, group):
+    """Every shape the bench and the card tests send takes the resident
+    branch: a cluster of at most 8 CTAs within a CTA's shared memory."""
+    plan = phased_plan(nk, dh, heads, group)
+    assert plan.branch == "resident"
+    assert plan.cluster <= 8 and plan.smem <= SMEM_PER_BLOCK
+    assert plan.cluster * plan.heads_per_cta == group
+
+
+@pytest.mark.parametrize("group,cluster", [(2, 1), (4, 2), (8, 4), (16, 8)])
+def test_phased_plan_splits_the_bench_groups_two_heads_a_cta(group, cluster):
+    """At dh 64 and 257 keys two heads' K and V (157 KB) and a 16-query
+    tile fit a CTA, so S6b's groups differ only in the cluster's size."""
+    plan = phased_plan(257, 64, 16, group, batch=64, sms=132)
+    assert (plan.heads_per_cta, plan.cluster, plan.qtile, plan.qsplit) == (
+        2, cluster, 16, 1)
+
+
+@pytest.mark.parametrize("nk", [400, 512])
+def test_phased_plan_stages_where_one_head_does_not_fit(nk):
+    """dh 128 above 384 keys: one head's K and V and a query tile exceed
+    a CTA's shared memory, so the kernel stages them (8 queries a block)."""
+    plan = phased_plan(nk, 128, 2, 2)
+    assert plan.branch == "staging" and plan.qtile == 8
+    assert plan.smem <= SMEM_PER_BLOCK
+
+
+def test_phased_plan_splits_queries_when_the_ctas_leave_sms_idle():
+    """Batch 1 × 16 heads is 8 CTAs on 132 SMs: two clusters per group
+    split the query tiles; batch 64 fills the card with one."""
+    assert phased_plan(257, 64, 16, 16, batch=1, sms=132).qsplit == 2
+    assert phased_plan(257, 64, 16, 16, batch=64, sms=132).qsplit == 1
+
+
+@pytest.mark.parametrize("nk,dh,heads,group", [(512, 128, 8, 8),
+                                               (300, 128, 16, 16)])
+def test_phased_plan_raises_where_neither_branch_fits(nk, dh, heads, group):
+    """No resident layout and the group's scores too large to stage: a
+    ValueError from the plan, and from the op on the CPU too."""
+    with pytest.raises(ValueError, match="fit neither branch"):
+        phased_plan(nk, dh, heads, group)
+    x = torch.zeros(1, nk, heads * dh)
+    p = [torch.zeros(heads * dh), torch.zeros(heads * dh),
+         torch.zeros(3 * heads * dh, heads * dh), None,
+         torch.zeros(heads * dh, heads * dh), torch.zeros(heads * dh)]
+    with pytest.raises(ValueError, match="fit neither branch"):
+        attn_half_block_phased(x, *p, heads, group)

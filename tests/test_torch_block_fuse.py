@@ -215,13 +215,96 @@ def test_fused_block_refuses_shapes_the_kernel_does_not_take(shape, heads):
         fb.fused_block(torch.zeros(shape), *_block_args(blk), heads)
 
 
-@pytest.mark.parametrize("heads,hidden,batch,want", [
-    (16, 4096, 64, 2), (16, 4096, 1, 8), (8, 1024, 64, 2), (12, 3072, 1, 6),
-    (12, 3072, 32, 4), (4, 768, 2, 4), (16, 4096, 256, 1)])
-def test_cluster_size_fills_one_wave(heads, hidden, batch, want):
-    """The largest cluster that divides the heads and keeps batch · cluster
-    CTAs within one wave of an H100's 132 SMs."""
-    assert fb.cluster_size(heads, hidden, batch, 132) == want
+# B10's plan on an H100's 132 SMs: (width, hidden, heads) of MIRAGE-Large's
+# encoder and its 256-wide decoder
+LARGE, DECODER = (1024, 4096, 16), (256, 1024, 8)
+
+
+@pytest.mark.parametrize("sms,blocks", [(132, 1), (132, 2), (114, 1)])
+@pytest.mark.parametrize("batch", [1, 64, 256])
+def test_fused_block_plan_grid_never_exceeds_the_resident_ctas(sms, blocks,
+                                                               batch):
+    """The grid is the CTAs the card holds at once, whatever the batch."""
+    plan = fb.fused_block_plan(batch, 257, *LARGE, sms, blocks)
+    assert plan["grid"] == sms * blocks
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 256])
+@pytest.mark.parametrize("n", [17, 257, 512])
+def test_fused_block_plan_covers_every_item_once(batch, n):
+    """Walked by every CTA of the grid, each stage covers every row (LN),
+    every (row, column tile) of B·N rows (GEMMs) and every (batch element,
+    head, query pass) (attention) exactly once."""
+    d, hidden, heads = LARGE
+    plan = fb.fused_block_plan(batch, n, d, hidden, heads, 132, 1)
+    m = batch * n
+    for stage in fb.STAGES:
+        cells = [c for cta in range(plan["grid"])
+                 for c in fb.fused_block_items(plan, stage, cta)]
+        if stage in ("ln1", "ln2"):
+            assert sorted(cells) == [(r,) for r in range(m)]
+        elif stage == "attention":
+            qp = plan["query_pass"]
+            passes = [(b, h, q0, min(q0 + qp, n)) for b in range(batch)
+                      for h in range(heads) for q0 in range(0, n, qp)]
+            assert sorted(cells) == passes
+        else:  # the tiles partition the (B·N, cols) matrix
+            cols, tn = plan["cols"][stage], plan["tile_n"]
+            tiles = [(r0, min(r0 + 128, m), c0, min(c0 + tn, cols))
+                     for r0 in range(0, m, 128) for c0 in range(0, cols, tn)]
+            assert sorted(cells) == tiles
+            # the whole batch pads less than one tile: < 1 % at 64 × 257
+            pad = -(-m // 128) * 128 - m
+            assert pad < 128 and (m < 64 * 257 or pad / m < 0.01)
+
+
+@pytest.mark.parametrize("shape", [LARGE, DECODER])
+@pytest.mark.parametrize("tile_n,dtype", [(256, "bf16"), (128, "bf16"),
+                                          (256, "float32")])
+def test_fused_block_plan_takes_the_decoder_and_large(shape, tile_n, dtype):
+    """Both widths the route sends plan at both tile widths and in float32
+    (FMA tiles of 64 × 64); the batch-64 encoder's qkv stage is 129 row
+    tiles (the batch's 16448 rows) by 3D / tile_n columns."""
+    d, hidden, heads = shape
+    plan = fb.fused_block_plan(64, 257, d, hidden, heads, 132, 1, tile_n,
+                               dtype)
+    tm, tn = (128, tile_n) if dtype == "bf16" else (64, 64)
+    assert (plan["tile_m"], plan["tile_n"]) == (tm, tn)
+    rows = -(-64 * 257 // tm)
+    assert plan["items"]["qkv"] == rows * -(-3 * d // tn)
+    assert plan["items"]["fc1"] == rows * -(-hidden // tn)
+    assert plan["items"]["attention"] == 64 * heads
+
+
+@pytest.mark.parametrize("n,dh,want", [(257, 64, 2), (256, 32, 2),
+                                       (512, 64, 1), (257, 128, 1),
+                                       (400, 128, 0)])
+def test_fused_block_plan_keeps_k_and_v_resident_where_they_fit(n, dh, want):
+    """The attention stage keeps two heads' K and V in shared memory at
+    MIRAGE's encoder and decoder shapes (the next item's load overlaps this
+    one's products), one where only one fits, and streams them in key
+    chunks at head dim 128 above ≈ 380 tokens."""
+    plan = fb.fused_block_plan(2, n, 2 * dh, 8 * dh, 2, 132, 1)
+    assert plan["attention_buffers"] == want
+    assert plan["query_pass"] == (16 if want else 128)
+
+
+@pytest.mark.parametrize("batch,want", [(1, 128), (64, 256)])
+def test_fused_block_plan_widens_the_tile_once_the_grid_is_full(batch, want):
+    """The op's tile width: 256 once the qkv stage's 256-wide tiles fill
+    the grid (batch 64: 1548 tiles on 132 CTAs), else 128 (batch 1: 36), the
+    faster one in chip_smoke.py's sweep at each of those batches."""
+    plan = fb.fused_block_plan(batch, 257, *LARGE, 132, 1)
+    assert plan["tile_n"] == want
+
+
+@pytest.mark.parametrize("kw,match", [({"tile_n": 64}, "tile_n"),
+                                      ({"blocks_per_sm": 0}, "blocks per SM")])
+def test_fused_block_plan_refuses_what_the_kernel_does_not_take(kw, match):
+    args = dict(batch=2, n=17, d=64, hidden=256, heads=4, sms=132,
+                blocks_per_sm=1)
+    with pytest.raises(ValueError, match=match):
+        fb.fused_block_plan(**{**args, **kw})
 
 
 # ------------------------------------------------------------------ B12

@@ -614,9 +614,22 @@ def test_optimizer_with_the_fused_update_matches_foreach(cuda):
                                        atol=1e-7)
 
 
-# B10: (batch, tokens, width, heads): head dims 16, 48, 32 and 64, ragged N
+# B10: (batch, tokens, width, heads): head dims 16, 48, 32 and 64, ragged N;
+# batch 5 at the encoder's shape (128-row tiles straddle batch elements)
+# and batch 64 at the decoder's; head dim 128 with one head's K and V
+# resident (257 tokens) and streamed (400)
 FUSED_CASES = [(2, 33, 64, 4), (2, 17, 192, 4), (3, 256, 256, 8),
-               (2, 257, 1024, 16)]
+               (2, 257, 1024, 16), (5, 257, 1024, 16), (64, 256, 256, 8),
+               (2, 257, 256, 2), (1, 400, 256, 2)]
+
+
+def _fused_args(rng, b, n, d, dtype, dev, qkv_bias=True):
+    pa, pm = _params(rng, d, 1, 3), _params(rng, d, 4, 4)
+    pl = _params(rng, d, 1, 1)
+    return [_on(a, dev, dtype) for a in (
+        rng.standard_normal((b, n, d)).astype(np.float32), pa["g"], pa["be"],
+        pa["w1"], pa["b1"] if qkv_bias else None, pa["w2"], pa["b2"],
+        pl["g"], pl["be"], pm["w1"], pm["b1"], pm["w2"], pm["b2"])]
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
@@ -629,18 +642,34 @@ def test_fused_block_kernel_matches_plain(cuda, dtype, atol, b, n, d, h,
     from mirage_tpu_torch.ops.fused_block import fused_block, fused_block_ref
 
     rng = np.random.default_rng(12)
-    pa, pm = _params(rng, d, 1, 3), _params(rng, d, 4, 4)
-    pl = _params(rng, d, 1, 1)
-    args = [_on(a, cuda, dtype) for a in (
-        rng.standard_normal((b, n, d)).astype(np.float32), pa["g"], pa["be"],
-        pa["w1"], pa["b1"] if qkv_bias else None, pa["w2"], pa["b2"],
-        pl["g"], pl["be"], pm["w1"], pm["b1"], pm["w2"], pm["b2"])]
+    args = _fused_args(rng, b, n, d, dtype, cuda, qkv_bias)
     before = fused_block.launches
     got = fused_block(*args, h)
     assert fused_block.launches == before + 1
     want = fused_block_ref(*[a.float() if a is not None else None
                              for a in args], h)
     assert _max_err(got, want) <= atol
+    if dtype == torch.bfloat16:
+        assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("b,n,d,h", [(5, 257, 1024, 16), (3, 256, 256, 8)])
+def test_fused_block_reruns_bit_identical_at_both_tile_widths(cuda, b, n, d,
+                                                              h):
+    """A rerun of the persistent grid gives the same bits (no atomics in
+    the sums; the barrier counter is zeroed per launch), and the 128-wide
+    GEMM tile, the plan's other setting, holds to the plain version too."""
+    from mirage_tpu_torch.ops.fused_block import (fused_block_launch,
+                                                  fused_block_ref)
+
+    rng = np.random.default_rng(13)
+    args = _fused_args(rng, b, n, d, torch.bfloat16, cuda)
+    first = fused_block_launch(*args, h)
+    assert torch.equal(fused_block_launch(*args, h), first)
+    want = fused_block_ref(*[a.float() for a in args], h)
+    narrow = fused_block_launch(*args, h, tile_n=128)
+    for got in (first, narrow):
+        assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
 
 
 @pytest.mark.parametrize("shape", [(4, 257, 1024), (2048, 1024), (33, 64)])
@@ -831,10 +860,13 @@ def test_layernorm_onepass_matches_plain(cuda, m, d, offset):
     assert _max_err(got, want) <= 5e-2
 
 
-# (batch, tokens, width, heads, heads per block): head dims 16, 64, 128, 48
+# (batch, tokens, width, heads, heads per group): head dims 16, 64, 128, 48;
+# a group of 8 at dh 64 (a cluster of 4); dh 128 at 400 keys, where one
+# head's K and V do not fit a CTA (the staging branch)
 PHASED_CASES = [(2, 33, 64, 4, 2), (2, 257, 1024, 16, 16),
                 (2, 257, 1024, 16, 4), (1, 100, 256, 2, 1),
-                (2, 17, 192, 4, 4)]
+                (2, 17, 192, 4, 4), (2, 257, 512, 8, 8),
+                (2, 400, 256, 2, 2)]
 
 
 @pytest.mark.parametrize("smax", ["exp", "exp2", "nomax", "skip"])
