@@ -60,9 +60,13 @@ Phases, each of which must pass (any failure exits non-zero):
    the five scripts/bench_train.py rows (pretraining, seg twice, cls
    twice).
 
-Phase 1 also prints the ptxas spill lines of the two redesigned kernels
-(fused_block, attention_phased) and fails unless fused_block's SASS holds
-HGMMA (wgmma) instructions. Phase 2 also holds the accumulating backwards
+Phase 1 also prints the ptxas spill lines of the four redesigned kernels
+(fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
+in the last two and fails unless fused_block's SASS holds HGMMA (wgmma)
+instructions. Phases 2 and 6 split the stash forward (B9′, B9) into its
+launches (LN, fc1 with the stash epilogue, the same product with B2's GELU
+epilogue and with none, fc2) and hold its act bit-equal to B2's fc1;
+phase 9 times S6a at R = 1 and 2 row tiles a cluster. Phase 2 also holds the accumulating backwards
 (B7, both halves) and the fused AdamW update (B11) against their plain
 versions, and phase 5 runs the pretraining step once more with the three
 switches on (B7 for both halves, B11). Phase 2 checks the whole-block
@@ -139,6 +143,8 @@ PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
 
 # the port's CUDA kernels by function name -> their group in a profile
 PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
+                "gemm_stash_kernel": "gemm_stash",
+                "gemm_stash_f32_kernel": "gemm_stash",
                 "attention_bf16_kernel": "attention",
                 "attention_f32_kernel": "attention",
                 "attn_bwd_dq_kernel": "attention_bwd",
@@ -239,6 +245,10 @@ def profile_forward(fn, top_n=0):
 
 # ------------------------------------------------------------------ phase 1
 
+# the kernels redesigned for Hopper whose ptxas report must show no spill
+NO_SPILL = ("mlp_chunked", "gemm_stash")
+
+
 def phase_build():
     from mirage_tpu_torch.ops import _build
 
@@ -250,11 +260,14 @@ def phase_build():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in ("fused_block", "attention_phased"):
+    for name in ("fused_block", "attention_phased", "mlp_chunked",
+                 "gemm_stash"):
         spills = [ln.strip() for ln in report[name].splitlines()
                   if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         log(f"[build] {name}: {len(spills)} ptxas lines with a spill"
             + "".join(f"\n[build]   {ln}" for ln in spills))
+        if spills and name in NO_SPILL:
+            raise AssertionError(f"{name}.cu spills registers")
     # B10's bf16 products must be wgmma: HGMMA in the library's SASS
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
@@ -700,7 +713,8 @@ SEG_KERNELS = {
     "mlp_block_stash": (
         "mirage_tpu/ops/fused_mlp.py:555",
         "_mlp_block_fwd_stash :591 -> _mlp_fwd_stash_kernel :555",
-        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"]),
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "gemm_stash.cu", "gemm.cu"]),
     "mlp_block_stash_bwd": (
         "mirage_tpu/ops/fused_mlp.py:687",
         "_mlp_block_bwd_stash :736 -> _mlp_bwd_stash_kernel :687",
@@ -778,6 +792,40 @@ def _stash_work(m, d, elem_bytes, backward):
             * elem_bytes + 7 * d * 4
     return 8 * m * d * hd, (3 * m * d + 2 * m * hd + 2 * d * hd) \
         * elem_bytes + (2 * d * hd + hd + 3 * d) * 4
+
+
+def stash_split(x2, prm, label):
+    """ms of each launch of the stash chain at the rows x2 (M, D), CUDA
+    events: the LN, fc1 with the stash epilogue (act and dg), the same
+    product with B2's GELU epilogue and with none, fc2 with bias and the
+    residual, and the chain itself; the differences price the stash
+    epilogue, the GELU and fc2's padding. Fails unless the stash's act is
+    bit-equal to B2's fc1 output."""
+    import torch
+
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    ln_w, ln_b, w1, b1, w2, b2 = prm
+    y = runtime.layernorm(x2, ln_w, ln_b)
+    act, _ = runtime.gemm_gelu_stash(y, w1, b1)
+    if not torch.equal(act, runtime.gemm(y, w1, b1, gelu=True)):
+        raise AssertionError(f"{label}: the stash's act is not B2's fc1 "
+                             f"output bit for bit")
+    split = {
+        "ln": cuda_ms(lambda: runtime.layernorm(x2, ln_w, ln_b), iters=10),
+        "fc1_stash": cuda_ms(lambda: runtime.gemm_gelu_stash(y, w1, b1),
+                             iters=10),
+        "fc1_gelu": cuda_ms(lambda: runtime.gemm(y, w1, b1, gelu=True),
+                            iters=10),
+        "fc1_none": cuda_ms(lambda: runtime.gemm(y, w1, b1), iters=10),
+        "fc2": cuda_ms(lambda: runtime.gemm(act, w2, b2, residual=x2),
+                       iters=10),
+        "chain": cuda_ms(lambda: fm._stash_chain(x2, *prm), iters=10)}
+    log(f"[kernels] {label} stash chain split {tuple(x2.shape)} -> "
+        f"{w1.shape[0]} (ms): " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in split.items()))
+    return split
 
 
 def phase_seg_kernels(results):
@@ -906,9 +954,10 @@ def phase_seg_kernels(results):
     lib_f, lib_b = _library("mlp_block"), _bwd_library("mlp_block_bwd")
     l_f = cuda_ms(lambda: lib_f(x2, *prm), iters=10)
     l_b = cuda_ms(lambda: lib_b(dy, x2, *prm), iters=10)
+    split = stash_split(x2, prm, "mlp_block_stash ConvNeXt head")
     results.setdefault("mlp_block_stash", []).append(
         row("mlp_block_stash ConvNeXt head", (m, d, 4 * d), errs_f, k_f, p_f,
-            l_f, _stash_work(m, d, 2, False), 4))
+            l_f, _stash_work(m, d, 2, False), 4, split_ms=split))
     results.setdefault("mlp_block_stash_bwd", []).append(
         row("mlp_block_stash_bwd ConvNeXt head", (m, d, 4 * d), errs_b, k_b,
             p_b, l_b, _stash_work(m, d, 2, True), 4))
@@ -1197,7 +1246,8 @@ SERVE_KERNELS = {
     "mlp_block_fwd_stash3d": (
         "mirage_tpu/ops/fused_mlp.py:555",
         "_mlp_block_fwd_stash3d :636 -> _mlp_fwd_stash_kernel :555",
-        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"]),
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "gemm_stash.cu", "gemm.cu"]),
 }
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
 # B12 kernel vs its plain version on the same bf16 inputs: the kernels and
@@ -1455,6 +1505,7 @@ def phase_serve_kernels(results):
     # B9′ at the pretraining encoder's unaligned (256, 99, 768)
     fm.mlp_block_fwd_stash3d.launches = 0
     args = _op_inputs("mlp_block", (TRAIN_BATCH, 99, 768), torch.bfloat16, gen)
+    split = stash_split(args[0].view(-1, 768), args[1:], "mlp_block_fwd_stash3d")
     for flat in (False, True):
         before = fm.mlp_block_fwd_stash3d.launches
         out, act, dg = fm.mlp_block_fwd_stash3d(*args, stash_flat=flat)
@@ -1489,6 +1540,7 @@ def phase_serve_kernels(results):
         results.setdefault("mlp_block_fwd_stash3d", []).append({
             "label": f"pretraining encoder stash_flat={flat}",
             "shape": [TRAIN_BATCH, 99, 768, 3072], "dtype": "bf16",
+            "split_ms": split,
             "errors": errs, "out_bit_equal_to_mlp_block": bit_equal,
             "max_abs_err": max(e["max_abs"] for e in errs.values()),
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2784,6 +2836,17 @@ def phase_bench(card):
         for row in cases[name]:
             log(f"[bench] {json.dumps(row)}")
         log(f"[bench] {name} in {time.perf_counter() - t1:.1f}s")
+    sweep = overlap.rows_sweep()
+    for row in sweep:
+        log(f"[bench] {json.dumps(row)}")
+    chunk_rows = [r for r in cases["overlap"] if r["op"] == "mlp_block_chunked"]
+    b2_row = next(r for r in cases["overlap"] if r["case"].endswith("mlp/v0"))
+    log("[bench] S6a R sweep (ms): " + ", ".join(
+        f"R={r['rows_per_cluster']} {r['ms']:.4f} ({r['l2_bytes'] / 1e9:.2f} "
+        f"GB from L2)" for r in sweep) + "; the op (R="
+        f"{chunk_rows[0]['cluster'][1]}) at 2/4/8 chunks " + " / ".join(
+            f"{r['ms']:.4f}" for r in chunk_rows) + f"; B2 {b2_row['ms']:.4f}, "
+        f"library {chunk_rows[0]['library_ms']:.4f}")
     t1 = time.perf_counter()
     rows = train.run(steps=BENCH_STEPS)
     for row in rows:
@@ -2795,8 +2858,8 @@ def phase_bench(card):
     if idle:
         raise AssertionError(f"bench: {idle} never launched")
     return {"headline": headline, "cases": cases, "train": rows,
-            "counts": counts, "seconds": time.perf_counter() - t0,
-            "card": card}
+            "s6a_rows_sweep": sweep, "counts": counts,
+            "seconds": time.perf_counter() - t0, "card": card}
 
 
 def _bench_entries(res):

@@ -11,16 +11,18 @@ next stage's products when the work is split (24-layer chains at (64, 257,
   phases per group of 2, 4 or 8 heads; ``make_attn(0)`` is B1 ("v0").
 
 On the card the chunked MLP is ``mlp_block_chunked`` (csrc/mlp_chunked.cu):
-the fused MLP that never writes its (M, 4D) hidden to device memory. A
-thread-block cluster of D/256 CTAs owns a 128-row tile; each sub-chunk of
-the hidden (``mlp_chunk_width``: 256 columns at D = 1024) is computed by
-fc1 + GELU into every CTA's shared memory and accumulated by fc2 in
-registers. The script's chunks (2048, 1024 or 512 columns) are walked in
-those sub-chunks, so every chunk count runs the same kernel; each row
-prints both widths. The grouped attention is ``attn_half_block_phased``
-with ``group`` heads per cluster (csrc/attention_phased.cu: 2 heads a
-CTA, so a cluster of group / 2 CTAs). B1 and B2 are
-the port's own chains ("v0").
+the fused MLP that never writes its (M, 4D) hidden to device memory. D/256
+CTAs own a 128-row tile, R of those row tiles a thread-block cluster
+(``mlp_chunked_plan``), the operand slices multicast across it; each
+sub-chunk of the hidden (``mlp_chunk_width``: 256 columns at D = 1024) is
+computed by fc1 + GELU into the row tile's CTAs' shared memory and
+accumulated by fc2 in registers. The script's chunks (2048, 1024 or 512
+columns) are walked in those sub-chunks, so every chunk count runs the
+same kernel; each row prints both widths and the plan's cluster and L2
+bytes, and :func:`rows_sweep` times the kernel at R = 1 and 2. The
+grouped attention is ``attn_half_block_phased`` with ``group`` heads per
+cluster (csrc/attention_phased.cu: 2 heads a CTA, so a cluster of group /
+2 CTAs). B1 and B2 are the port's own chains ("v0").
 
 Each case is held to its plain version in float32 on the same bf16 inputs
 and to "v0" at the bench's bars, then timed with CUDA events.
@@ -34,9 +36,11 @@ from mirage_tpu_torch.ops.block_attention import (attn_half_block,
                                                   attn_half_block_phased,
                                                   attn_half_block_phased_ref,
                                                   attn_half_block_ref)
-from mirage_tpu_torch.ops.fused_mlp import (mlp_block, mlp_block_chunked,
+from mirage_tpu_torch.ops.fused_mlp import (MLP_CHUNK_ROWS, mlp_block,
+                                            mlp_block_chunked,
                                             mlp_block_chunked_ref,
-                                            mlp_block_ref, mlp_chunk_width)
+                                            mlp_block_ref, mlp_chunk_width,
+                                            mlp_chunked_plan)
 
 REPS = 24  # bench_overlap.py:27
 # (batch, tokens, width, heads): bench_overlap.py:187, and the dry run's
@@ -46,11 +50,19 @@ REPLACES = {"mlp": "scripts/bench_overlap.py:32",
             "attn": "scripts/bench_overlap.py:90"}
 
 
-def cases(x, attn_p, mlp_p, h):
-    """(tag, which, op, fn, plain version in float32, extra row fields)."""
+def _plan_fields(m, d, rows_per_cluster=MLP_CHUNK_ROWS):
+    plan = mlp_chunked_plan(m, d, 4 * d, rows_per_cluster)
+    return {"cluster": list(plan.cluster), "l2_bytes": plan.l2_bytes,
+            "l2_bytes_unicast": plan.l2_bytes_unicast}
+
+
+def cases(x, attn_p, mlp_p, h, plan=False):
+    """(tag, which, op, fn, plain version in float32, extra row fields);
+    ``plan``: the chunked rows carry the kernel's plan."""
     f32 = [t.float() for t in (x, *mlp_p)]
     fa = [t.float() for t in (x, *attn_p)]
     d = x.shape[-1]
+    planned = _plan_fields(x.numel() // d, d) if plan else {}
     out = [("mlp/v0", "mlp", mlp_block, lambda: mlp_block(x, *mlp_p),
             lambda: mlp_block_ref(*f32), {})]
     for c in CHUNKS:
@@ -58,7 +70,8 @@ def cases(x, attn_p, mlp_p, h):
                     lambda c=c: mlp_block_chunked(x, *mlp_p, c),
                     lambda c=c: mlp_block_chunked_ref(*f32, c),
                     {"chunks": c, "script_chunk_width": 4 * d // c,
-                     "hidden_width_on_chip": mlp_chunk_width(d)}))
+                     "hidden_width_on_chip": mlp_chunk_width(d),
+                     **planned}))
     out.append(("attn/v0", "attn", attn_half_block,
                 lambda: attn_half_block(x, *attn_p, h),
                 lambda: attn_half_block_ref(*fa, h), {}))
@@ -80,7 +93,8 @@ def run(size="large", device="cuda", measure=True):
     b, n, d, h = shape
     x, attn_p, mlp_p = bench.half_inputs(shape, device, 0.02)  # :189
     rows, v0 = [], {}
-    for tag, which, op, fn, want_fn, extra in cases(x, attn_p, mlp_p, h):
+    for tag, which, op, fn, want_fn, extra in cases(x, attn_p, mlp_p, h,
+                                                    plan=measure):
         before = op.launches  # the checks' launches do not count
         got = fn()
         with runtime.plain_on_card():
@@ -104,4 +118,27 @@ def run(size="large", device="cuda", measure=True):
         library = ((lambda: bench.library_mlp(x, *mlp_p)) if which == "mlp"
                    else (lambda: bench.library_attn_half(x, *attn_p, h)))
         rows.append({**row, **bench.time_op(op, fn, library, REPS)})
+    return rows
+
+
+@torch.no_grad()
+def rows_sweep(chunks=CHUNKS[0], device="cuda"):
+    """S6a at the bench's shape with R = 1 and 2 row tiles a cluster: ms per
+    call and the plan's L2 bytes, each output bit-equal to the op's (the
+    op takes ``MLP_CHUNK_ROWS``); the sweep's launches do not count."""
+    b, n, d, h = SHAPE
+    x, _, mlp_p = bench.half_inputs(SHAPE, device, 0.02)
+    before = mlp_block_chunked.launches
+    want = mlp_block_chunked(x, *mlp_p, chunks)
+    rows = []
+    for r in (1, 2):
+        fn = lambda r=r: mlp_block_chunked(x, *mlp_p, chunks,  # noqa: E731
+                                           rows_per_cluster=r)
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"S6a: R = {r} moves the output")
+        rows.append({"case": f"S6 overlap mlp/chunk{chunks} R={r}",
+                     "rows_per_cluster": r, "shape": list(SHAPE),
+                     **_plan_fields(b * n, d, r),
+                     "ms": bench.cuda_ms(fn, iters=REPS), **bench.card()})
+    mlp_block_chunked.launches = before
     return rows

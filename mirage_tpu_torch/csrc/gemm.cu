@@ -6,14 +6,13 @@
 // two epilogues: a float32 output (their dyln and fc1 recompute h are float)
 // and the GELU backward, which reads h (float) at the tile's coordinates and
 // writes dh = T(acc·GELU′(h)), act = T(GELU(h)) and float column sums of the
-// unrounded dh over each 16-row group (for db1). The stash pair of
-// fused_mlp.py (_mlp_fwd_stash_kernel, _mlp_bwd_stash_kernel) adds two
-// more: the stash epilogue of fc1 writes act = T(GELU(h)) and dg =
-// T(GELU′(h)) from the float h = acc + b1, and the dgelu-multiply epilogue of
-// the dact product writes dh = T(acc·dg) with dg read in the working type at
-// the tile's coordinates, and the float 16-row column sums of the unrounded
-// dh. The products with a non-transposed weight (dy·W) take W transposed by
-// the caller.
+// unrounded dh over each 16-row group (for db1). The stash backward of
+// fused_mlp.py (_mlp_bwd_stash_kernel) adds one more: the dgelu-multiply
+// epilogue of the dact product writes dh = T(acc·dg) with dg read in the
+// working type at the tile's coordinates, and the float 16-row column sums
+// of the unrounded dh (the stash forward's fc1, which writes act and dg, is
+// csrc/gemm_stash.cu). The products with a non-transposed weight (dy·W)
+// take W transposed by the caller.
 //
 // A is (M, K) row-major, W is (N, K) row-major (a torch Linear weight), C and
 // the optional residual are (M, N). The epilogue follows the TPU kernels'
@@ -37,7 +36,8 @@
 // the LayerNorm in front and the attention behind, so the LN output, the
 // qkv and the (M, 4D) MLP hidden stop going through device memory, and
 // overlapping the epilogue's bias/GELU/residual math with the next tile's
-// products (two computing warpgroups taking turns on the tensor cores).
+// products (two computing warpgroups taking turns on the tensor cores, as
+// csrc/gemm_stash.cu does for the stash forward's fc1).
 //
 // The bf16 GELU epilogue takes its formula as a template parameter, for the
 // bench's S5 ablation (scripts/bench_vpu.py:_mlp_kernel_v's ``act``): erff
@@ -53,7 +53,7 @@
 // C tile BM × BN; BK bf16 = one 128-byte swizzle row; STAGES K-slices in flight
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
 
-enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2, EPI_GELU_STASH = 3, EPI_DGELU_MUL = 4 };
+enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2, EPI_DGELU_MUL = 3 };
 
 __device__ __forceinline__ float gelu_f(float v) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
@@ -140,10 +140,10 @@ __device__ __forceinline__ void load_tile_bias(float (&b)[BN / 32], const void* 
 
 // Stores one warp's 16 × BN slice of the tile (its accumulator fragments:
 // rows l/4 and l/4 + 8, columns 8j + 2(l%4) and +1) to C at (row0, n0), 64
-// columns at a time: bias and the activation (none, GELU, or GELU′ for the
-// stash) on the fragments, rounded to bf16 into the staging tile, then
-// 16-byte coalesced rows out of it, adding the residual in float.
-enum { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_GRAD = 2 };
+// columns at a time: bias and the activation (none or GELU) on the
+// fragments, rounded to bf16 into the staging tile, then 16-byte coalesced
+// rows out of it, adding the residual in float.
+enum { ACT_NONE = 0, ACT_GELU = 1 };
 template <int GM>
 __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
                                            const float (&bias)[BN / 32], float* __restrict__ sbias,
@@ -168,9 +168,6 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
         if (act == ACT_GELU) {
           v0 = gelu_mode<GM>(v0);
           v1 = gelu_mode<GM>(v1);
-        } else if (act == ACT_GELU_GRAD) {
-          v0 = gelu_grad(v0);
-          v1 = gelu_grad(v1);
         }
         *reinterpret_cast<__nv_bfloat162*>(stage + (gid + 8 * half) * EPI_STRIDE + c) =
             __floats2bfloat162_rn(v0, v1);
@@ -359,11 +356,6 @@ __global__ void __launch_bounds__(384, 1)
       if (out_f32 || epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL) {
         store_tile_direct(acc, bias, bias_dtype, epi, out_f32, C, aux_in, aux_out, colsum, M, N,
                           row0, n0);
-      } else if (epi == EPI_GELU_STASH) {  // act, then GELU′ from the same fragments
-        store_tile<GM>(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), nullptr, ACT_GELU, M,
-                       N, row0, n0);
-        store_tile<GM>(acc, tile_bias, sbias, stage, aux_out, nullptr, ACT_GELU_GRAD, M, N, row0,
-                       n0);
       } else {
         store_tile<GM>(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res,
                        epi == EPI_GELU ? ACT_GELU : ACT_NONE, M, N, row0, n0);
@@ -452,9 +444,6 @@ __global__ void __launch_bounds__(256)
           const float h = aux_in[r * N + col];
           v *= gelu_grad(h);
           aux_out[r * N + col] = gelu_f(h);
-        } else if (epi == EPI_GELU_STASH) {
-          aux_out[r * N + col] = gelu_grad(v);
-          v = gelu_f(v);
         } else if (epi == EPI_DGELU_MUL) {
           v *= aux_in[r * N + col];
         }
@@ -478,9 +467,8 @@ __global__ void __launch_bounds__(256)
 }
 
 // epi: EPI_NONE, EPI_GELU, EPI_GELU_BWD (aux_in = h (M, N) float, aux_out
-// = act (M, N) in the working type, colsum = (ceil(M/16), N) float, zeroed),
-// EPI_GELU_STASH (C = act, aux_out = dg (M, N) in the working type) or
-// EPI_DGELU_MUL (aux_in = dg (M, N) in the working type, colsum as above).
+// = act (M, N) in the working type, colsum = (ceil(M/16), N) float, zeroed)
+// or EPI_DGELU_MUL (aux_in = dg (M, N) in the working type, colsum as above).
 // out_f32 writes C in float from bf16 operands (no residual); a float32
 // product always writes float.
 extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
@@ -491,10 +479,8 @@ extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias,
     return (int)cudaErrorInvalidValue;
   if (epi == EPI_GELU_BWD && (aux_in == nullptr || aux_out == nullptr || colsum == nullptr))
     return (int)cudaErrorInvalidValue;
-  if ((epi == EPI_GELU_STASH && aux_out == nullptr) ||
-      (epi == EPI_DGELU_MUL && (aux_in == nullptr || colsum == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (epi >= EPI_GELU_STASH && (out_f32 || residual != nullptr))
+  if (epi == EPI_DGELU_MUL &&
+      (aux_in == nullptr || colsum == nullptr || out_f32 || residual != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {

@@ -37,17 +37,12 @@ constexpr int RING_BYTES = STAGES * (BM + BN) * BK * 2;
 // fragment writes fall on distinct banks and stay 16-byte aligned
 constexpr int EPI_COLS = 64, EPI_STRIDE = EPI_COLS + 8, EPI_WARP_BYTES = 16 * EPI_STRIDE * 2;
 
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
-  return remote;
-}
 __device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 __device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // Sums a per-row value over the 4 lanes of a quad (the 8 columns of each

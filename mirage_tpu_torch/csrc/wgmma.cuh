@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the wgmma GEMM kernels (csrc/gemm.cu,
-// csrc/gemm_lnfold.cu, csrc/mlp_chunked.cu, csrc/fused_block.cu): warpgroup
-// MMA on 128-byte-swizzled K-major tiles, mbarriers, 2-D TMA loads and the
-// tensor-map encoder fetched from the driver at run time (so the libraries
-// need no link against libcuda).
+// csrc/gemm_stash.cu, csrc/gemm_lnfold.cu, csrc/mlp_chunked.cu,
+// csrc/fused_block.cu): warpgroup MMA on 128-byte-swizzled K-major tiles,
+// mbarriers (arrived at from another CTA of the cluster too), 2-D TMA loads
+// (multicast to several CTAs of a cluster too), the cluster's shared-memory
+// addresses and barriers, and the tensor-map encoder fetched from the
+// driver at run time (so the libraries need no link against libcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -108,6 +110,41 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// The same box into the same shared-memory offset of every CTA of the
+// cluster whose bit is set in `mask` (bit i: %cluster_ctarank i); the bytes
+// land on the mbarrier at offset `bar` of each of those CTAs.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Address of the shared-memory word at local address `local` in the CTA of
+// cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+// One arrival on the mbarrier at local offset `bar` of the CTA of cluster
+// rank `rank` (this CTA's own too): this warp is done with the stage it
+// guards there. Default semantics (.release at CTA scope), as the TMA
+// write that follows needs: .release.cluster made S6a markedly slower.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_addr(bar, rank))
+               : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

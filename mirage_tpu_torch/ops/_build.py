@@ -20,9 +20,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-SOURCES = ("layernorm", "gemm", "attention", "attention_bwd", "flash_attention",
-           "wgrad", "adamw", "fused_block", "quant", "gemm_lnfold",
-           "attention_phased", "mlp_chunked")
+SOURCES = ("layernorm", "gemm", "gemm_stash", "attention", "attention_bwd",
+           "flash_attention", "wgrad", "adamw", "fused_block", "quant",
+           "gemm_lnfold", "attention_phased", "mlp_chunked")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # a CUDA error code (0: launched).
 ENTRIES = {
@@ -37,6 +37,8 @@ ENTRIES = {
                                   _I, _P, _P, _P, _P]),
     "gemm_gelu_mode": ("gemm", "mtt_gemm_gelu_mode",
                        [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "gemm_stash": ("gemm_stash", "mtt_gemm_stash",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "attention": ("attention", "mtt_attention",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _LL, _I, _LL,
                    _I, _LL, _I, _F, _I, _P]),
@@ -65,7 +67,7 @@ ENTRIES = {
                          [_P] * 4 + [_I] * 10 + [_LL, _I] * 4
                          + [_F, _I, _I, _P]),
     "mlp_chunked": ("mlp_chunked", "mtt_mlp_chunked",
-                    [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]),
+                    [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -65,6 +65,8 @@ bench_overlap.py) is LN, then fc1 → GELU → fc2 in one launch with the
 hidden kept on chip (csrc/mlp_chunked.cu).
 """
 
+from collections import namedtuple
+
 import torch
 
 from mirage_tpu_torch.nn.layers import acc_dtype, gelu, layer_norm, linear
@@ -291,6 +293,35 @@ def mlp_block_bwd_stash_ref(x, dy, act, dg, ln_w, ln_b, w1, w2):
     dx, dgamma, dbeta = ln_bwd_ref(x, dh_c @ w1.to(dt).to(acc), ln_w, dy)
     return (dx.to(dt), dgamma, dbeta, dh_c.t() @ y, dh.sum(0),
             dy32.t() @ act.to(acc), dy32.sum(0))
+
+
+# csrc/gemm_stash.cu's tiling: each consumer warpgroup's tile is 64 × 256,
+# K-slices of 64 in a ring of four stages (A's 64 and W's 256 rows), and a
+# per-warp epilogue scratch (the bias, then act's and dg's staging tiles)
+STASH_TILE_M, STASH_TILE_N, STASH_BK, STASH_STAGES = 64, 256, 64, 4
+STASH_SMEM = (1024 + STASH_STAGES * (STASH_TILE_M + STASH_TILE_N) * STASH_BK * 2
+              + 16 * STASH_STAGES + 8 * (STASH_TILE_N * 4 + 2 * 16 * 72 * 2))
+
+GemmStashPlan = namedtuple("GemmStashPlan", [
+    "tile", "tiles", "grid", "tiles_per_cta", "ktiles", "stages",
+    "smem_bytes"])
+
+
+def gemm_stash_plan(m, n, k, sms):
+    """How csrc/gemm_stash.cu's bf16 kernel runs a (m, k) · (n, k)ᵀ
+    product on ``sms`` SMs: 64 × 256 tiles in row-major order, a persistent
+    grid of one CTA per SM (or per tile), CTA b taking tiles b, b + grid, ...
+    and handing them to its two consumer warpgroups in turn (the most a CTA
+    takes is ``tiles_per_cta``), K in ``ktiles`` slices of 64."""
+    if m <= 0 or n <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"gemm_stash_plan: empty product ({m}, {n}, {k}) "
+                         f"on {sms} SMs")
+    tiles = -(-m // STASH_TILE_M) * -(-n // STASH_TILE_N)
+    grid = min(tiles, sms)
+    return GemmStashPlan(tile=(STASH_TILE_M, STASH_TILE_N), tiles=tiles,
+                         grid=grid, tiles_per_cta=-(-tiles // grid),
+                         ktiles=-(-k // STASH_BK), stages=STASH_STAGES,
+                         smem_bytes=STASH_SMEM)
 
 
 def _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
@@ -542,10 +573,63 @@ mlp_block_modes.launches = 0
 
 # --------------------------------------- S6: the MLP with the hidden on chip
 
+# csrc/mlp_chunked.cu's tiling: a 128-row tile's D = 256·C output columns
+# are C CTAs (C ≤ 4), 64·C hidden columns a sub-chunk, a ring of four
+# stages of 256 × 64 bf16, and the hidden sub-chunk in rows padded by 8
+MLP_CHUNK_TILE_M, MLP_CHUNK_TILE_N, MLP_CHUNK_COLS = 128, 256, 64
+MLP_CHUNK_MAX_C, MLP_CHUNK_STAGES = 4, 4
+MLP_CHUNK_SMEM = (1024 + MLP_CHUNK_STAGES * MLP_CHUNK_TILE_N * 64 * 2
+                  + 16 * MLP_CHUNK_STAGES
+                  + MLP_CHUNK_TILE_M * (MLP_CHUNK_COLS * MLP_CHUNK_MAX_C + 8) * 2)
+# row tiles a cluster the op takes: the faster of R = 1 and 2 at the bench's
+# shape (chip_smoke.py phase 9's sweep, PERF.md)
+MLP_CHUNK_ROWS = 2
+
+MlpChunkedPlan = namedtuple("MlpChunkedPlan", [
+    "cluster", "grid", "sub_chunk", "stages", "smem_bytes", "l2_bytes",
+    "l2_bytes_unicast"])
+
+
 def mlp_chunk_width(d):
     """The hidden columns csrc/mlp_chunked.cu holds on chip at a time at
-    width d: 64 per CTA of its d/256-CTA cluster."""
-    return runtime.MLP_CHUNK_COLS * (d // runtime.MLP_CHUNK_TILE_N)
+    width d: 64 per CTA of a row tile's d/256 CTAs."""
+    return MLP_CHUNK_COLS * (d // MLP_CHUNK_TILE_N)
+
+
+def mlp_chunked_plan(m, d, hidden, rows_per_cluster=MLP_CHUNK_ROWS):
+    """How csrc/mlp_chunked.cu runs (m, d) rows with a hidden of ``hidden``:
+    a cluster of (C, R) CTAs (C = d/256 columns of a 128-row tile, R =
+    ``rows_per_cluster`` row tiles, at most 8 CTAs), the grid (C, R·⌈tiles/R⌉)
+    (a last cluster's second tile may lie past m), the sub-chunk width, the
+    ring's stages, the shared memory a CTA takes, and the bytes its operand
+    loads read from L2: each y slice once per row tile (multicast to its C
+    CTAs), each W1 and W2 slice once per cluster (multicast to its R rows),
+    and, for the same tiling without multicast, every CTA reading its own
+    (``l2_bytes_unicast``). Raises ValueError for a shape the kernel does not
+    take."""
+    c = d // MLP_CHUNK_TILE_N
+    if d % MLP_CHUNK_TILE_N or not 0 < c <= MLP_CHUNK_MAX_C:
+        raise ValueError(f"mlp_chunked needs D a multiple of {MLP_CHUNK_TILE_N}"
+                         f" up to {MLP_CHUNK_TILE_N * MLP_CHUNK_MAX_C}, "
+                         f"got D={d}")
+    if rows_per_cluster not in (1, 2) or c * rows_per_cluster > 8:
+        raise ValueError(f"mlp_chunked takes 1 or 2 row tiles a cluster of "
+                         f"at most 8 CTAs, got {rows_per_cluster} at D={d}")
+    sub = mlp_chunk_width(d)
+    if hidden <= 0 or hidden % sub:
+        raise ValueError(f"mlp_chunked needs the hidden width a multiple of "
+                         f"{sub}, got {hidden}")
+    if m <= 0:
+        raise ValueError(f"mlp_chunked needs rows, got M={m}")
+    tiles = -(-m // MLP_CHUNK_TILE_M)
+    groups = -(-tiles // rows_per_cluster)
+    subs, y_bytes = hidden // sub, m * d * 2
+    w_bytes = (MLP_CHUNK_COLS * d + MLP_CHUNK_TILE_N * sub) * 2  # a CTA's W1, W2
+    return MlpChunkedPlan(
+        cluster=(c, rows_per_cluster), grid=(c, rows_per_cluster * groups),
+        sub_chunk=sub, stages=MLP_CHUNK_STAGES, smem_bytes=MLP_CHUNK_SMEM,
+        l2_bytes=subs * (y_bytes + groups * c * w_bytes),
+        l2_bytes_unicast=subs * c * (y_bytes + tiles * w_bytes))
 
 
 def mlp_block_chunked_ref(x, ln_w, ln_b, w1, b1, w2, b2, chunks):
@@ -570,18 +654,21 @@ def mlp_block_chunked_ref(x, ln_w, ln_b, w1, b1, w2, b2, chunks):
     return x + (o + b2.to(acc)).to(dt)
 
 
-def mlp_block_chunked(x, ln_w, ln_b, w1, b1, w2, b2, chunks):
+def mlp_block_chunked(x, ln_w, ln_b, w1, b1, w2, b2, chunks,
+                      rows_per_cluster=MLP_CHUNK_ROWS):
     """B2 with the (M, 4D) hidden never written to device memory: x (...,
     D) -> x's shape. Replaces scripts/bench_overlap.py:_mlp_kernel_chunked
     (S6: the hidden in ``chunks`` chunks of fc1 → GELU → fc2, the float
     partials summed). On the card: the LN kernel, then one launch of
-    csrc/mlp_chunked.cu (a cluster of D/256 CTAs per 128-row tile; fc1 + GELU
-    of each sub-chunk of :func:`mlp_chunk_width` columns into every CTA's
-    shared memory, fc2 accumulated over the sub-chunks in registers). The
-    kernel walks the script's chunks in those sub-chunks, so ``chunks``
-    (which must divide the hidden) changes only where the plain version
-    sums its partials. bf16 only on the card, D a multiple of 256 up to
-    1024. Forward only."""
+    csrc/mlp_chunked.cu (D/256 CTAs per 128-row tile, ``rows_per_cluster``
+    row tiles a cluster, as :func:`mlp_chunked_plan` says; fc1 + GELU of
+    each sub-chunk of :func:`mlp_chunk_width` columns into the shared memory
+    of the row tile's CTAs, fc2 accumulated over the sub-chunks in
+    registers, the operand slices multicast across the cluster). The kernel
+    walks the script's chunks in those sub-chunks, so ``chunks`` (which
+    must divide the hidden) changes only where the plain version sums its
+    partials, and ``rows_per_cluster`` changes no bit of the output. bf16
+    only on the card, D a multiple of 256 up to 1024. Forward only."""
     if chunks <= 0 or w1.shape[0] % chunks:
         raise ValueError(f"{chunks} chunks do not divide the hidden "
                          f"{w1.shape[0]}")
@@ -591,7 +678,8 @@ def mlp_block_chunked(x, ln_w, ln_b, w1, b1, w2, b2, chunks):
     runtime.check("x", x, x)
     x2 = x.view(-1, x.shape[-1])
     out = runtime.mlp_chunked(runtime.layernorm(x2, ln_w, ln_b),
-                              w1.to(x.dtype), b1, w2.to(x.dtype), b2, x2)
+                              w1.to(x.dtype), b1, w2.to(x.dtype), b2, x2,
+                              rows_per_cluster)
     mlp_block_chunked.launches += 1
     return out.view(x.shape)
 

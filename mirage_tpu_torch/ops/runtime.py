@@ -49,7 +49,7 @@ import torch
 from mirage_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2, "gelu_stash": 3, "dgelu_mul": 4}
+_EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2, "dgelu_mul": 3}
 _plain_on_card = False
 
 
@@ -284,15 +284,21 @@ def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
 
 def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
     """fc1 of the stash forward: acc = a (M, K) · w (N, K)ᵀ + bias in float;
-    returns act = T(GELU(acc)) and dg = T(GELU′(acc)), both (M, N)."""
+    returns act = T(GELU(acc)) and dg = T(GELU′(acc)), both (M, N), from
+    csrc/gemm_stash.cu (bf16: a persistent grid of
+    ``ops/fused_mlp.py:gemm_stash_plan``)."""
+    from mirage_tpu_torch.ops.fused_mlp import gemm_stash_plan
+
     m, n, k = _gemm_operands(a, w)
     if bias is not None:
         check("bias", bias, a, (n,), dtype=False)
     act = torch.empty((m, n), device=a.device, dtype=a.dtype)
     dg = torch.empty_like(act)
-    _launch("gemm", a.data_ptr(), w.data_ptr(), act.data_ptr(), _ptr(bias),
-            _DTYPES[bias.dtype] if bias is not None else 0, None, m, n, k,
-            _EPI["gelu_stash"], _DTYPES[a.dtype], 0, None, dg.data_ptr(), None)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    _launch("gemm_stash", a.data_ptr(), w.data_ptr(), act.data_ptr(),
+            dg.data_ptr(), _ptr(bias),
+            _DTYPES[bias.dtype] if bias is not None else 0, m, n, k,
+            _DTYPES[a.dtype], gemm_stash_plan(m, n, k, sms).grid)
     return act, dg
 
 
@@ -739,29 +745,21 @@ def attention_phased(q, k, v, out, *, heads: int, dh: int, group: int,
             plan.qsplit, *strides, scale, SMAX_MODES[smax], int(divide))
 
 
-MLP_CHUNK_TILE_N, MLP_CHUNK_MAX_CLUSTER, MLP_CHUNK_COLS = 256, 4, 64
-
-
 def mlp_chunked(y: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                w2: torch.Tensor, b2: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
+                w2: torch.Tensor, b2: torch.Tensor, x: torch.Tensor,
+                rows_per_cluster: int) -> torch.Tensor:
     """out = T(x + T(GELU(y·w1ᵀ + b1)·w2ᵀ + b2)) over the rows of y and x
     (M, D), w1 (H, D), w2 (D, H), bf16, with the (M, H) hidden kept in the
-    shared memory of a cluster of D / 256 CTAs, in sub-chunks of 64·D/256
-    columns. D must be a multiple of 256 up to 1024, H a multiple of the
-    sub-chunk."""
+    shared memory of a row tile's D / 256 CTAs, ``rows_per_cluster`` row
+    tiles a cluster, as ``ops/fused_mlp.py:mlp_chunked_plan`` plans it (and
+    raises for a shape the kernel does not take)."""
+    from mirage_tpu_torch.ops.fused_mlp import mlp_chunked_plan
+
     m, d = y.shape
     hidden = w1.shape[0]
     if y.dtype != torch.bfloat16:
         raise ValueError(f"mlp_chunked takes bf16 operands, got {y.dtype}")
-    cluster = d // MLP_CHUNK_TILE_N
-    if d % MLP_CHUNK_TILE_N or not 0 < cluster <= MLP_CHUNK_MAX_CLUSTER:
-        raise ValueError(f"mlp_chunked needs D a multiple of {MLP_CHUNK_TILE_N}"
-                         f" up to {MLP_CHUNK_TILE_N * MLP_CHUNK_MAX_CLUSTER}, "
-                         f"got D={d}")
-    if hidden % (MLP_CHUNK_COLS * cluster):
-        raise ValueError(f"mlp_chunked needs the hidden width a multiple of "
-                         f"{MLP_CHUNK_COLS * cluster}, got {hidden}")
+    mlp_chunked_plan(m, d, hidden, rows_per_cluster)
     check("y", y, y)
     check("w1", w1, y, (hidden, d))
     check("w2", w2, y, (d, hidden))
@@ -771,5 +769,5 @@ def mlp_chunked(y: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty_like(x)
     _launch("mlp_chunked", y.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), _DTYPES[b1.dtype], x.data_ptr(),
-            out.data_ptr(), m, d, hidden)
+            out.data_ptr(), m, d, hidden, rows_per_cluster)
     return out

@@ -27,7 +27,8 @@ from mirage_tpu_torch.ops.block_attention import (SMEM_PER_BLOCK,
                                                   attn_half_block_phased,
                                                   phased_plan)
 from mirage_tpu_torch.ops.fused_mlp import (mlp_block_chunked,
-                                            mlp_block_modes)
+                                            mlp_block_modes,
+                                            mlp_chunked_plan)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, N, D, H = 2, 17, 64, 4
@@ -240,3 +241,45 @@ def test_phased_plan_raises_where_neither_branch_fits(nk, dh, heads, group):
          torch.zeros(heads * dh, heads * dh), torch.zeros(heads * dh)]
     with pytest.raises(ValueError, match="fit neither branch"):
         attn_half_block_phased(x, *p, heads, group)
+
+
+# csrc/mlp_chunked.cu's plan: the rows of the bench's S6a (64·257 = 16448),
+# of the card tests' test_mlp_chunked_kernel_matches_plain and of small
+# batches, at every width the kernel takes
+@pytest.mark.parametrize("rows_per_cluster", [1, 2])
+@pytest.mark.parametrize("d", [256, 512, 768, 1024])
+@pytest.mark.parametrize("m", [17, 100, 16448])
+def test_mlp_chunked_plan_fits_and_covers_the_rows(m, d, rows_per_cluster):
+    """A cluster of at most 8 CTAs within a CTA's shared memory, one column
+    of CTAs per 256 output columns, and row tiles that cover the m rows
+    exactly once (a last cluster's second tile lies wholly past m)."""
+    plan = mlp_chunked_plan(m, d, 4 * d, rows_per_cluster)
+    c, r = plan.cluster
+    assert (c, r) == (d // 256, rows_per_cluster) and c * r <= 8
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.grid[0] == c and plan.grid[1] % r == 0
+    starts = [128 * y for y in range(plan.grid[1])]
+    covered = [row for s in starts for row in range(s, min(s + 128, m))]
+    assert covered == list(range(m))
+    assert sum(s >= m for s in starts) < r
+    assert plan.sub_chunk == 64 * c and (4 * d) % plan.sub_chunk == 0
+
+
+def test_mlp_chunked_plan_multicast_halves_the_l2_reads():
+    """At the bench's (16448, 1024, 4096) the first version's tiling read
+    ≈ 4.3 GB from L2; multicasting y across a row tile's 4 CTAs and W1, W2
+    across 2 row tiles reads ≈ 1.6 GB, at least 2× less (R = 1: ≈ 2.7)."""
+    one, two = (mlp_chunked_plan(16448, 1024, 4096, r) for r in (1, 2))
+    assert one.l2_bytes_unicast == two.l2_bytes_unicast
+    assert 4.2e9 < one.l2_bytes_unicast < 4.4e9
+    assert 2 * two.l2_bytes <= one.l2_bytes_unicast
+    assert two.l2_bytes < one.l2_bytes < one.l2_bytes_unicast
+
+
+@pytest.mark.parametrize("d,hidden,rows_per_cluster,match", [
+    (320, 1280, 2, "multiple of 256"), (1280, 5120, 2, "multiple of 256"),
+    (1024, 4000, 2, "hidden width"), (1024, 4096, 3, "row tiles")])
+def test_mlp_chunked_plan_raises_for_what_the_kernel_does_not_take(
+        d, hidden, rows_per_cluster, match):
+    with pytest.raises(ValueError, match=match):
+        mlp_chunked_plan(100, d, hidden, rows_per_cluster)

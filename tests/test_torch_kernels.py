@@ -410,7 +410,8 @@ def test_flash_attention_op_trains_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d", [(2048, 384), (65536, 384), (4096, 512)])
+@pytest.mark.parametrize("m,d", [(2048, 384), (65536, 384), (4096, 512),
+                                 (8000, 384), (8100, 768)])
 def test_stash_pair_kernels_match_plain(cuda, dtype, m, d):
     """B9 forward (out, act, GELU′) and backward (dx and every parameter
     grad, the weight grads from the wgrad kernel)."""
@@ -469,13 +470,20 @@ def test_weight_grad_and_colsum_kernels(cuda, dtype, m, n1, n2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n,k", [(33, 192, 64), (65536, 1536, 384)])
+@pytest.mark.parametrize("m,n,k", [(33, 192, 64), (65536, 1536, 384),
+                                   (8000, 1536, 384), (8100, 3072, 768),
+                                   (4100, 1000, 384)])
 def test_gemm_stash_and_dgelu_epilogues(cuda, dtype, m, n, k):
+    """csrc/gemm_stash.cu (act, dg) and the dgelu-multiply epilogue against
+    float math; act bit-equal to B2's fc1 output, a rerun bit-identical."""
     gen = torch.Generator(device="cuda").manual_seed(m + n)
     a = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
     w = (torch.randn(n, k, device=cuda, generator=gen) * k ** -0.5).to(dtype)
     b = torch.randn(n, device=cuda, generator=gen) * 0.1
     act, dg = runtime.gemm_gelu_stash(a, w, b)
+    assert torch.equal(act, runtime.gemm(a, w, b, gelu=True))
+    again = runtime.gemm_gelu_stash(a, w, b)
+    assert torch.equal(act, again[0]) and torch.equal(dg, again[1])
     h = F.linear(a.float(), w.float(), b)
     grad = 0.5 * (1 + torch.erf(h / 2 ** 0.5)) \
         + h * torch.exp(-0.5 * h * h) / (2 * np.pi) ** 0.5
@@ -959,11 +967,15 @@ def test_mlp_block_modes_match_plain(cuda, ln, act):
     assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
 
 
+@pytest.mark.parametrize("rows_per_cluster", [1, 2])
 @pytest.mark.parametrize("b,n,d", [(2, 257, 1024), (3, 33, 256), (1, 130, 512),
-                                   (2, 100, 768)])
-def test_mlp_chunked_kernel_matches_plain(cuda, b, n, d):
-    """csrc/mlp_chunked.cu (the hidden on chip) against its plain version in
-    float32 and against B2 at the bf16 bars; a rerun is bit-identical."""
+                                   (2, 100, 768), (1, 257 * 3, 1024)])
+def test_mlp_chunked_kernel_matches_plain(cuda, b, n, d, rows_per_cluster):
+    """csrc/mlp_chunked.cu (the hidden on chip, operand slices multicast
+    across clusters of 1 or 2 row tiles; 257·3 rows are 7 tiles, so at R = 2
+    the last cluster's second tile is empty) against its plain version in
+    float32 and against B2 at the bf16 bars; another chunk count gives the
+    same bits, and so does the other R."""
     from mirage_tpu_torch.ops.fused_mlp import (mlp_block_chunked,
                                                 mlp_block_chunked_ref)
 
@@ -973,12 +985,15 @@ def test_mlp_chunked_kernel_matches_plain(cuda, b, n, d):
         rng.standard_normal((b, n, d)).astype(np.float32), p["g"], p["be"],
         p["w1"], p["b1"], p["w2"], p["b2"])]
     before = mlp_block_chunked.launches
-    got = mlp_block_chunked(*args, 4)
+    got = mlp_block_chunked(*args, 4, rows_per_cluster=rows_per_cluster)
     assert mlp_block_chunked.launches == before + 1
     want = mlp_block_chunked_ref(*[a.float() for a in args], 4)
     assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
     assert _max_err(got, mlp_block(*args)) <= 5e-2
-    assert torch.equal(got, mlp_block_chunked(*args, 2))
+    assert torch.equal(got, mlp_block_chunked(
+        *args, 2, rows_per_cluster=rows_per_cluster))
+    assert torch.equal(got, mlp_block_chunked(
+        *args, 4, rows_per_cluster=3 - rows_per_cluster))
 
 
 def test_mlp_chunked_refuses_what_it_does_not_take(cuda):

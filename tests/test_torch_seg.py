@@ -601,3 +601,32 @@ def test_run_seg_tuning_defaults_to_cuda(tmp_path, monkeypatch):
         run_seg_tuning.main(["--data_path", str(tmp_path / "AROI"),
                              "--weights", "mirage-base.pth",
                              "--output_dir", str(tmp_path / "out")])
+
+
+# csrc/gemm_stash.cu's plan at the stash forward's fc1 shapes: B9's
+# ConvNeXt head (65536, 384) -> 1536, B9′'s pretraining rows (25344, 768)
+# -> 3072, the card tests' ragged cuts of both, and a product of fewer
+# tiles than SMs
+@pytest.mark.parametrize("m,n,k", [(65536, 1536, 384), (25344, 3072, 768),
+                                   (8000, 1536, 384), (4100, 1000, 384),
+                                   (33, 192, 64)])
+def test_gemm_stash_plan_covers_every_tile_once(m, n, k):
+    """A persistent grid of at most one CTA per SM whose tiles (b, b + grid,
+    ...) cover the 64 × 256 tiling once, within a CTA's shared memory; the
+    two consumers take each CTA's tiles in turn."""
+    from mirage_tpu_torch.ops.block_attention import SMEM_PER_BLOCK
+
+    plan = fm.gemm_stash_plan(m, n, k, sms=132)
+    assert plan.tiles == -(-m // 64) * -(-n // 256)
+    assert plan.grid == min(132, plan.tiles)
+    owned = sorted(t for b in range(plan.grid)
+                   for t in range(b, plan.tiles, plan.grid))
+    assert owned == list(range(plan.tiles))
+    assert max(len(range(b, plan.tiles, plan.grid))
+               for b in range(plan.grid)) == plan.tiles_per_cta
+    assert plan.ktiles == -(-k // 64) and plan.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_gemm_stash_plan_raises_for_an_empty_product():
+    with pytest.raises(ValueError, match="empty product"):
+        fm.gemm_stash_plan(0, 1536, 384, sms=132)
