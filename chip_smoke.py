@@ -66,10 +66,16 @@ in the last two and fails unless fused_block's SASS holds HGMMA (wgmma)
 instructions. Phases 2 and 6 split the stash forward (B9′, B9) into its
 launches (LN, fc1 with the stash epilogue, the same product with B2's GELU
 epilogue and with none, fc2) and hold its act bit-equal to B2's fc1;
-phase 9 times S6a at R = 1 and 2 row tiles a cluster. Phase 2 also holds the accumulating backwards
-(B7, both halves) and the fused AdamW update (B11) against their plain
-versions, and phase 5 runs the pretraining step once more with the three
-switches on (B7 for both halves, B11). Phase 2 checks the whole-block
+phase 9 times S6a at R = 1 and 2 row tiles a cluster. Phase 2 splits B5
+and B7-MLP (the MLP backward: LN, the hidden stage of csrc/mlp_bwd.cu,
+dyln, the LN backward, the weight gradients, the column sums) into their
+launches at the pretraining encoder and decoder and the classification
+shapes (torch.profiler, ``mlp_bwd_split``), holds the hidden stage's act
+bit-equal to B2's fc1 and reruns B5, B7 and B9's backward bit for bit.
+Phase 2 also holds the accumulating backwards (B7, both halves, the MLP
+half with residual=False too) and the fused AdamW update (B11) against
+their plain versions, and phase 5 runs the pretraining step once more with
+the three switches on (B7 for both halves, B11). Phase 2 checks the whole-block
 kernel (B10, a persistent cooperative grid) at the decoder and MIRAGE-Large
 encoder shapes beside B1 + B2, with its GEMM tile widths swept and its time
 by stage, the int8 MLP (B12; reruns bit for bit) and the 3-D stash forward
@@ -78,7 +84,12 @@ golden (tests/golden/example_triplet_base.npz, seeded full-size weights)
 under MIRAGE_BLOCK_FUSE=off and all; phase 4 serves MIRAGE-Large at batch
 64 under MIRAGE_BLOCK_FUSE=off, decoder and all.
 
-``--phases`` runs a subset (a partial run prints no result line). The line
+``--phases`` runs a subset (a partial run prints no result line).
+``--mlp-bwd-split`` only times B5 and B7-MLP at their three shapes beside
+the library call and the bound, each split into its launches; it calls
+only the two backward ops, so a copy of this script in an older
+checkout's root times that tree the same way (an A/B of parent and
+change). The line
 before the last is a JSON object with one entry per kernel; the card's name
 and power limit come before it; the last line is {"ok": true, "device":
 {...}}.
@@ -166,7 +177,11 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "gemm_s8_kernel": "quant", "gemm_lnfold_kernel": "gemm_lnfold",
                 "attention_phased_resident": "attention_phased",
                 "attention_phased_staged": "attention_phased",
-                "mlp_chunked_kernel": "mlp_chunked"}
+                "mlp_chunked_kernel": "mlp_chunked",
+                "mlp_bwd_hidden_kernel": "mlp_bwd",
+                "mlp_bwd_hidden_f32_kernel": "mlp_bwd",
+                "mlp_bwd_dyln_kernel": "mlp_bwd",
+                "mlp_bwd_dyln_f32_kernel": "mlp_bwd"}
 
 
 def log(*a):
@@ -246,7 +261,7 @@ def profile_forward(fn, top_n=0):
 # ------------------------------------------------------------------ phase 1
 
 # the kernels redesigned for Hopper whose ptxas report must show no spill
-NO_SPILL = ("mlp_chunked", "gemm_stash")
+NO_SPILL = ("mlp_chunked", "gemm_stash", "mlp_bwd", "wgrad")
 
 
 def phase_build():
@@ -260,8 +275,7 @@ def phase_build():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in ("fused_block", "attention_phased", "mlp_chunked",
-                 "gemm_stash"):
+    for name in ("fused_block", "attention_phased") + NO_SPILL:
         spills = [ln.strip() for ln in report[name].splitlines()
                   if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         log(f"[build] {name}: {len(spills)} ptxas lines with a spill"
@@ -468,7 +482,7 @@ BWD_KERNELS = {
     "mlp_block_bwd": (
         "mirage_tpu/ops/fused_mlp.py:453",
         "_mlp_block_bwd_defused :469 -> _mlp_bwd_dx_kernel :453",
-        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "gemm.cu"]),
+        "mirage_tpu_torch/ops/fused_mlp.py", ["layernorm.cu", "mlp_bwd.cu"]),
     "block_attention": (
         "mirage_tpu/ops/block_attention.py:58",
         "_block_attn_fwd :88 -> _block_attn_kernel :58",
@@ -569,6 +583,118 @@ def _bwd_library(op):
     return fn
 
 
+def launch_split(fn, calls=5):
+    """Device ms of each launch of one call of ``fn``, in launch order:
+    [[kernel, ms], ...], each the mean over ``calls`` calls after a warm-up,
+    from one torch.profiler window in which the host pauses 5 ms between
+    calls: a gap of over 2 ms on the device starts the next call, and a call
+    whose count of launches is not the most common one (an event the
+    profiler lost) is left out. The host's gaps between launches are not in
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device launch")
+    runs = [[spans[0]]]
+    for span in spans[1:]:  # time_range in µs
+        if span[0] - runs[-1][-1][1] > 2000:
+            runs.append([])
+        runs[-1].append(span)
+    lengths = [len(r) for r in runs]
+    runs = [r for r in runs if len(r) == max(set(lengths), key=lengths.count)]
+    out = []
+    for i, (_, _, name) in enumerate(runs[0]):
+        name = name.split("(")[0].split("<")[0].split()[-1][:48]
+        out.append([name, sum(r[i][1] - r[i][0] for r in runs)
+                    / len(runs) / 1e3])
+    return out
+
+
+def mlp_bwd_split(args, dy, label, acc=False, **kw):
+    """The MLP backward's chain (B7 with ``acc``, else B5) split into its
+    launches (:func:`launch_split`: LN, the hidden stage, dyln, the LN
+    backward, the weight gradients, the column sums), and the hidden
+    stage's act held against B2's fc1 on the same y: bit-equal, or within
+    the bf16 bars (the difference recorded)."""
+    import torch
+
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    x, ln_w, ln_b, w1, b1, w2 = args[:6]
+    d = x.shape[-1]
+    y = runtime.layernorm(x.view(-1, d), ln_w, ln_b)
+    act = runtime.mlp_bwd_hidden(y, dy.view(-1, d), w1, b1, w2)[1]
+    fc1 = runtime.gemm(y, w1, b1, gelu=True)
+    equal = torch.equal(act, fc1)
+    diff = (act.float() - fc1.float()).abs().max().item()
+    if not equal and diff > BF16_MAX_ABS:
+        raise AssertionError(f"{label}: the hidden stage's act is {diff} "
+                             f"from B2's fc1 output")
+    del y, act, fc1
+    fn = fm._mlp_bwd_acc if acc else fm._mlp_bwd
+    launches = launch_split(lambda: fn(x, dy, *args[1:6], **kw))
+    total = sum(ms for _, ms in launches)
+    log(f"[kernels] {label} split {tuple(x.shape)} (device ms a launch): "
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in launches)
+        + f"; sum {total:.4f}; act bit-equal to B2's fc1 {equal} (max_abs "
+        f"{diff:.3e})")
+    return {"launches": launches, "sum_ms": total,
+            "act_bit_equal_b2_fc1": equal, "act_max_abs_vs_b2_fc1": diff}
+
+
+# the MLP backward's timed shapes: the pretraining encoder and decoder (B5
+# 12 and 6 a step) and the classification encoder (B5 12 a full fine-tune
+# step, B7-MLP 12 under MIRAGE_MLP_BWD=accumulate)
+MLP_BWD_SHAPES = [("pretraining encoder", (256, 99, 768)),
+                  ("pretraining decoder", (256, 256, 256)),
+                  ("classification encoder", (BATCH, 257, 768))]
+
+
+def mlp_bwd_timing():
+    """B5 and B7-MLP at MLP_BWD_SHAPES in bf16: CUDA-event ms a call beside
+    the library call's and the bound, and each call split into its launches
+    (:func:`launch_split`). It calls only what the port has had since its
+    accumulating backward (``fused_mlp._mlp_bwd``, ``_mlp_bwd_acc``), so a
+    copy of this script in an older checkout's root times that tree the
+    same way (``--mlp-bwd-split``)."""
+    import torch
+
+    from mirage_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = []
+    for label, shape in MLP_BWD_SHAPES:
+        args, dy = _bwd_inputs("mlp_block_bwd", shape, torch.bfloat16, gen)
+        lib = _bwd_library("mlp_block_bwd")
+        library_ms = cuda_ms(lambda: lib(dy, *args), iters=10)
+        flops, nbytes = _bwd_work("mlp_block_bwd", shape, 2)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        for op, fn in (("mlp_block_bwd", fm._mlp_bwd),
+                       ("mlp_block_acc_bwd", fm._mlp_bwd_acc)):
+            ms = cuda_ms(lambda: fn(args[0], dy, *args[1:6]), iters=10)
+            split = launch_split(lambda: fn(args[0], dy, *args[1:6]))
+            rows.append({"op": op, "label": label, "shape": list(shape),
+                         "ms": ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "split_ms": split})
+            log(f"[mlp_bwd] {op} {label} {shape}: kernel {ms:.4f} ms library "
+                f"{library_ms:.4f} ms bound {bound_ms:.4f} ms; launches "
+                + ", ".join(f"{n} {t:.4f}" for n, t in split))
+        del args, dy
+    return rows
+
+
 def phase_backward(results):
     """Each backward op (and B6's forward) at the pretraining shapes against
     its plain version computed in float32 from the same inputs; every output
@@ -621,6 +747,7 @@ def phase_backward(results):
          {"residual": False}, 0),
         ("mlp_block_bwd", "decoder residual=False", (256, 256, 256),
          {"residual": False}, 0),
+        ("mlp_block_bwd", "classification encoder", (BATCH, 257, 768), {}, 0),
         ("block_attention", "decoder", (256, 256, 256, 8), {}, 6),
         ("block_attention_bwd", "decoder", (256, 256, 256, 8), {}, 6),
     ]
@@ -629,6 +756,12 @@ def phase_backward(results):
         kernel, ref = ops[op]
         args, dy = _bwd_inputs(op, shape, torch.bfloat16, gen)
         got = kernel(args, dy, **kw)
+        if op == "mlp_block_bwd":
+            again = kernel(args, dy, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{op} {label}: a rerun is not "
+                                     f"bit-identical")
+            del again
         torch.cuda.synchronize()
         with runtime.plain_on_card():
             want = ref([a.float() if torch.is_tensor(a) else a
@@ -667,6 +800,9 @@ def phase_backward(results):
                "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "calls_per_step": per_step, **kw}
+        if op == "mlp_block_bwd":
+            row["rerun_bit_identical"] = True
+            row["split_ms"] = mlp_bwd_split(args, dy, f"{op} {label}", **kw)
         log(f"[kernels] {op} {label} {shape}: worst rel_l2 "
             f"{max(e['rel_l2'] for e in errs.values()):.3e} rel_max "
             f"{max(e['rel_max'] for e in errs.values()):.3e} kernel "
@@ -931,6 +1067,10 @@ def phase_seg_kernels(results):
         raise AssertionError("the stash route refuses the seg head's shape")
     out, act, dg = fm._mlp_fwd_stash(x2, *prm)
     grads = fm._mlp_bwd_stash(x2, dy, act, dg, prm[0], prm[1], prm[2], prm[4])
+    if not all(torch.equal(a, b) for a, b in zip(grads, fm._mlp_bwd_stash(
+            x2, dy, act, dg, prm[0], prm[1], prm[2], prm[4]))):
+        raise AssertionError("mlp_block_stash_bwd: a rerun is not "
+                             "bit-identical")
     torch.cuda.synchronize()
     with runtime.plain_on_card():
         pf = [a.float() for a in prm]
@@ -1017,7 +1157,7 @@ ACC_KERNELS = {
         "mirage_tpu/ops/fused_mlp.py:240",
         "_mlp_block_bwd_pallas :311 -> _mlp_bwd_kernel :240",
         "mirage_tpu_torch/ops/fused_mlp.py",
-        ["layernorm.cu", "gemm.cu", "wgrad.cu"]),
+        ["layernorm.cu", "mlp_bwd.cu", "wgrad.cu"]),
     "fused_adamw": (
         "mirage_tpu/ops/fused_adamw.py:111",
         "fused_adamw_leaf :133 -> _adamw_kernel :111",
@@ -1065,11 +1205,11 @@ def phase_acc_kernels():
         return ba.attn_half_block_bwd_acc_ref(args[0], dy, *args[1:6],
                                               args[7])
 
-    def b7m(args, dy):
-        return fm._mlp_bwd_acc(args[0], dy, *args[1:6])
+    def b7m(args, dy, **kw):
+        return fm._mlp_bwd_acc(args[0], dy, *args[1:6], **kw)
 
-    def b7m_ref(args, dy):
-        return fm.mlp_block_bwd_acc_ref(args[0], dy, *args[1:6])
+    def b7m_ref(args, dy, **kw):
+        return fm.mlp_block_bwd_acc_ref(args[0], dy, *args[1:6], **kw)
 
     ops = {"attn_half_block_acc_bwd": (b7a, b7a_ref, "attn_half_block_bwd",
                                        ["dx", "dgamma", "dbeta", "dwqkv",
@@ -1077,24 +1217,27 @@ def phase_acc_kernels():
            "mlp_block_acc_bwd": (b7m, b7m_ref, "mlp_block_bwd",
                                  ["dx", "dgamma", "dbeta", "dw1", "db1",
                                   "dw2", "db2"])}
-    # (op, label, shape, calls per step of its path, path, launches per
-    # pretraining step)
+    # (op, label, shape, calls per step of its path, path, kwargs)
     cases = [
         ("attn_half_block_acc_bwd", "pretraining encoder", (256, 99, 768, 12),
-         12, "pretrain"),
+         12, "pretrain", {}),
         ("mlp_block_acc_bwd", "classification encoder", (BATCH, 257, 768),
-         12, "cls"),
+         12, "cls", {}),
         ("mlp_block_acc_bwd", "pretraining encoder", (256, 99, 768), 0,
-         "cls"),
+         "cls", {}),
         ("mlp_block_acc_bwd", "pretraining decoder", (256, 256, 256), 0,
-         "cls"),
+         "cls", {}),
+        ("mlp_block_acc_bwd", "classification encoder residual=False",
+         (BATCH, 257, 768), 0, "cls", {"residual": False}),
+        ("mlp_block_acc_bwd", "pretraining decoder residual=False",
+         (256, 256, 256), 0, "cls", {"residual": False}),
     ]
     rows = {"pretrain": {}, "cls": {}}
-    for op, label, shape, per_step, path in cases:
+    for op, label, shape, per_step, path, kw in cases:
         kernel, ref, base, names = ops[op]
         args, dy = _bwd_inputs(base, shape, torch.bfloat16, gen)
-        got = kernel(args, dy)
-        again = kernel(args, dy)
+        got = kernel(args, dy, **kw)
+        again = kernel(args, dy, **kw)
         torch.cuda.synchronize()
         rerun_equal = all(torch.equal(a, b) for a, b in zip(got, again)
                           if a is not None)
@@ -1103,7 +1246,7 @@ def phase_acc_kernels():
         del again
         with runtime.plain_on_card():
             want = ref([a.float() if torch.is_tensor(a) else a
-                        for a in args], dy.float())
+                        for a in args], dy.float(), **kw)
         errs = {}
         for name, g, w in zip(names, got, want):
             diff = g.float() - w
@@ -1118,11 +1261,11 @@ def phase_acc_kernels():
                     f"version: {errs[name]} (bars rel_l2 {BWD_REL_L2}, "
                     f"rel_max {BWD_REL_MAX})")
         del got, want
-        kernel_ms = cuda_ms(lambda: kernel(args, dy), iters=10)
+        kernel_ms = cuda_ms(lambda: kernel(args, dy, **kw), iters=10)
         with runtime.plain_on_card():
-            plain_ms = cuda_ms(lambda: ref(args, dy), iters=5)
+            plain_ms = cuda_ms(lambda: ref(args, dy, **kw), iters=5)
         lib = _bwd_library(base)
-        library_ms = cuda_ms(lambda: lib(dy, *args), iters=10)
+        library_ms = cuda_ms(lambda: lib(dy, *args, **kw), iters=10)
         flops, nbytes = _bwd_work(base, shape, 2)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         row = {"label": label, "shape": list(shape), "dtype": "bf16",
@@ -1131,7 +1274,10 @@ def phase_acc_kernels():
                "ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "calls_per_step": per_step}
+               "calls_per_step": per_step, **kw}
+        if op == "mlp_block_acc_bwd":
+            row["split_ms"] = mlp_bwd_split(args, dy, f"{op} {label}",
+                                            acc=True, **kw)
         log(f"[kernels] {op} {label} {shape}: worst rel_l2 "
             f"{max(e['rel_l2'] for e in errs.values()):.3e} rel_max "
             f"{max(e['rel_max'] for e in errs.values()):.3e} kernel "
@@ -3015,6 +3161,10 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (a partial run prints no result line)")
+    ap.add_argument("--mlp-bwd-split", action="store_true",
+                    help="only time B5 and B7-MLP at their three shapes and "
+                    "split them into launches (mlp_bwd_timing; it runs in an "
+                    "older checkout too); prints no result line")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
     if not torch.cuda.is_available():
@@ -3032,6 +3182,9 @@ def main(argv=None):
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     workdir = ROOT / "build" / "mirage_tpu_torch" / "smoke"
     workdir.mkdir(parents=True, exist_ok=True)
+    if opts.mlp_bwd_split:
+        log(json.dumps({"mlp_bwd": mlp_bwd_timing(), "card": card}))
+        return 0
 
     if "build" in phases:
         phase_build()

@@ -1,18 +1,15 @@
 // C = A · Wᵀ (+ bias) [GELU_erf] (+ residual), the matrix products inside
 // three TPU kernels: the qkv and output projections of mirage_tpu/ops/
 // block_attention.py:_attn_half_kernel and :_xattn_half_kernel, and fc1/fc2
-// of mirage_tpu/ops/fused_mlp.py:_mlp_kernel. The backward kernels
-// (block_attention.py:_attn_half_bwd_rows, fused_mlp.py:_mlp_bwd_rows) add
-// two epilogues: a float32 output (their dyln and fc1 recompute h are float)
-// and the GELU backward, which reads h (float) at the tile's coordinates and
-// writes dh = T(acc·GELU′(h)), act = T(GELU(h)) and float column sums of the
-// unrounded dh over each 16-row group (for db1). The stash backward of
-// fused_mlp.py (_mlp_bwd_stash_kernel) adds one more: the dgelu-multiply
-// epilogue of the dact product writes dh = T(acc·dg) with dg read in the
-// working type at the tile's coordinates, and the float 16-row column sums
-// of the unrounded dh (the stash forward's fc1, which writes act and dg, is
-// csrc/gemm_stash.cu). The products with a non-transposed weight (dy·W)
-// take W transposed by the caller.
+// of mirage_tpu/ops/fused_mlp.py:_mlp_kernel. The attention backward
+// (block_attention.py:_attn_half_bwd_rows) adds a float32 output (its
+// dyln). The stash backward of fused_mlp.py (_mlp_bwd_stash_kernel) adds
+// the dgelu-multiply epilogue of the dact product: dh = T(acc·dg) with dg
+// read in the working type at the tile's coordinates, and the float 16-row
+// column sums of the unrounded dh (the stash forward's fc1, which writes act
+// and dg, is csrc/gemm_stash.cu). The products with a non-transposed weight
+// (dy·W) take W transposed by the caller. The MLP backward's recompute,
+// GELU backward and dyln products are csrc/mlp_bwd.cu.
 //
 // A is (M, K) row-major, W is (N, K) row-major (a torch Linear weight), C and
 // the optional residual are (M, N). The epilogue follows the TPU kernels'
@@ -37,7 +34,9 @@
 // qkv and the (M, 4D) MLP hidden stop going through device memory, and
 // overlapping the epilogue's bias/GELU/residual math with the next tile's
 // products (two computing warpgroups taking turns on the tensor cores, as
-// csrc/gemm_stash.cu does for the stash forward's fc1).
+// csrc/gemm_stash.cu and csrc/mlp_bwd.cu do); the float output's 8-byte
+// stores from the fragments (the attention backward's dyln and the stash
+// backward's dgelu multiply) staged into 16-byte rows.
 //
 // The bf16 GELU epilogue takes its formula as a template parameter, for the
 // bench's S5 ablation (scripts/bench_vpu.py:_mlp_kernel_v's ``act``): erff
@@ -53,7 +52,7 @@
 // C tile BM × BN; BK bf16 = one 128-byte swizzle row; STAGES K-slices in flight
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
 
-enum { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_BWD = 2, EPI_DGELU_MUL = 3 };
+enum { EPI_NONE = 0, EPI_GELU = 1, EPI_DGELU_MUL = 2 };
 
 __device__ __forceinline__ float gelu_f(float v) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
@@ -112,12 +111,6 @@ __device__ __forceinline__ float gelu_mode(float v) {
   else if constexpr (GM == GELU_AS26_BF16) return gelu_as26_bf16(v);
   else if constexpr (GM == GELU_HASTINGS) return gelu_hastings(v);
   else return gelu_f(v);
-}
-
-// d/dh GELU(h) = Φ(h) + h·φ(h)
-__device__ __forceinline__ float gelu_grad(float h) {
-  return 0.5f * (1.f + erff(h * 0.7071067811865476f)) +
-         h * 0.3989422804014327f * expf(-0.5f * h * h);
 }
 
 
@@ -206,16 +199,13 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
 
 // Writes one warp's 16 × BN accumulator straight from its fragments (a
 // column pair per lane, whole 32-byte row segments per lane quad): the float
-// output (+ bias, GELU); the GELU backward, dh = acc·GELU′(h) with h read in
-// float at the same coordinates, act = GELU(h) into aux_out, and the float
-// column sums of dh over the warp's 16 rows into row row0/16 of colsum; or
-// the dgelu multiply, dh = acc·dg with dg read in bf16 from aux_in, and the
-// column sums of dh.
+// output (+ bias, GELU); or the dgelu multiply, dh = acc·dg with dg read in
+// bf16 from aux_in, and the float column sums of dh over the warp's 16 rows
+// into row row0/16 of colsum.
 __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
                                                   const void* __restrict__ bias, int bias_dtype,
                                                   int epi, int out_f32, void* __restrict__ C,
                                                   const void* __restrict__ aux_in,
-                                                  bf16* __restrict__ aux_out,
                                                   float* __restrict__ colsum, int M, int N,
                                                   long row0, long n0) {
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
@@ -232,15 +222,7 @@ __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
       if (row >= M) continue;
       const long i = row * N + col;
       float v0 = acc[4 * j + 2 * half] + b0, v1 = acc[4 * j + 2 * half + 1] + b1;
-      if (epi == EPI_GELU_BWD) {
-        const float2 h = *reinterpret_cast<const float2*>(static_cast<const float*>(aux_in) + i);
-        v0 *= gelu_grad(h.x);
-        v1 *= gelu_grad(h.y);
-        s0 += v0;
-        s1 += v1;
-        *reinterpret_cast<__nv_bfloat162*>(aux_out + i) =
-            __floats2bfloat162_rn(gelu_f(h.x), gelu_f(h.y));
-      } else if (epi == EPI_DGELU_MUL) {
+      if (epi == EPI_DGELU_MUL) {
         const float2 g = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(aux_in) + i));
         v0 *= g.x;
@@ -257,7 +239,7 @@ __device__ __forceinline__ void store_tile_direct(const float (&acc)[BN / 2],
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + i) =
             __floats2bfloat162_rn(v0, v1);
     }
-    if (epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL) {
+    if (epi == EPI_DGELU_MUL) {
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) {
         s0 += __shfl_xor_sync(0xffffffffu, s0, o);
@@ -285,8 +267,7 @@ __global__ void __launch_bounds__(384, 1)
                      const __grid_constant__ CUtensorMap map_w, void* __restrict__ C,
                      const void* __restrict__ bias, int bias_dtype, int epi,
                      const bf16* __restrict__ res, int M, int N, int K, int out_f32,
-                     const void* __restrict__ aux_in, bf16* __restrict__ aux_out,
-                     float* __restrict__ colsum) {
+                     const void* __restrict__ aux_in, float* __restrict__ colsum) {
   constexpr int A_BYTES = BM * BK * 2, STAGE_BYTES = (BM + BN) * BK * 2;
   extern __shared__ unsigned char gemm_smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the ring to it
@@ -353,9 +334,8 @@ __global__ void __launch_bounds__(384, 1)
       if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
 
       const long row0 = t / tiles_n * BM + cw * 64 + warp * 16, n0 = t % tiles_n * BN;
-      if (out_f32 || epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL) {
-        store_tile_direct(acc, bias, bias_dtype, epi, out_f32, C, aux_in, aux_out, colsum, M, N,
-                          row0, n0);
+      if (out_f32 || epi == EPI_DGELU_MUL) {
+        store_tile_direct(acc, bias, bias_dtype, epi, out_f32, C, aux_in, colsum, M, N, row0, n0);
       } else {
         store_tile<GM>(acc, tile_bias, sbias, stage, static_cast<bf16*>(C), res,
                        epi == EPI_GELU ? ACT_GELU : ACT_NONE, M, N, row0, n0);
@@ -368,7 +348,7 @@ __global__ void __launch_bounds__(384, 1)
 template <int GM = GELU_ERF>
 static int launch_bf16(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
                        const void* residual, int M, int N, int K, int epi, int out_f32,
-                       const void* aux_in, void* aux_out, void* colsum, cudaStream_t s) {
+                       const void* aux_in, void* colsum, cudaStream_t s) {
   constexpr int bytes = 1024 + STAGES * (BM + BN) * BK * 2 + 16 * STAGES + 8 * EPI_WARP_BYTES;
   static bool configured = false;
   if (!configured) {
@@ -385,7 +365,7 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
   const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   gemm_bf16_kernel<GM><<<tiles < sms ? tiles : sms, 384, bytes, s>>>(
       map_a, map_w, c, bias, bias_dtype, epi, static_cast<const bf16*>(residual), M, N, K,
-      out_f32, aux_in, static_cast<bf16*>(aux_out), static_cast<float*>(colsum));
+      out_f32, aux_in, static_cast<float*>(colsum));
   return (int)cudaGetLastError();
 }
 
@@ -397,11 +377,10 @@ __global__ void __launch_bounds__(256)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, float* __restrict__ C,
                     const void* __restrict__ bias, int bias_dtype, int epi,
                     const float* __restrict__ res, int M, int N, int K,
-                    const float* __restrict__ aux_in, float* __restrict__ aux_out,
-                    float* __restrict__ colsum) {
+                    const float* __restrict__ aux_in, float* __restrict__ colsum) {
   __shared__ float as[FK][FT + 4];  // as[k][m]
   __shared__ float bs[FK][FT + 4];  // bs[k][n]
-  __shared__ float red[4][16][FT];  // the colsum epilogues' terms, by row
+  __shared__ float red[4][16][FT];  // the colsum epilogue's terms, by row
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long m0 = (long)blockIdx.y * FT, n0 = (long)blockIdx.x * FT;
   float acc[4][4] = {};
@@ -428,7 +407,7 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
   }
-  const bool sums = epi == EPI_GELU_BWD || epi == EPI_DGELU_MUL;
+  const bool sums = epi == EPI_DGELU_MUL;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -440,10 +419,6 @@ __global__ void __launch_bounds__(256)
         if (bias != nullptr) v += load_param(bias, col, bias_dtype);
         if (epi == EPI_GELU) {
           v = gelu_f(v);
-        } else if (epi == EPI_GELU_BWD) {
-          const float h = aux_in[r * N + col];
-          v *= gelu_grad(h);
-          aux_out[r * N + col] = gelu_f(h);
         } else if (epi == EPI_DGELU_MUL) {
           v *= aux_in[r * N + col];
         }
@@ -466,18 +441,14 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// epi: EPI_NONE, EPI_GELU, EPI_GELU_BWD (aux_in = h (M, N) float, aux_out
-// = act (M, N) in the working type, colsum = (ceil(M/16), N) float, zeroed)
-// or EPI_DGELU_MUL (aux_in = dg (M, N) in the working type, colsum as above).
-// out_f32 writes C in float from bf16 operands (no residual); a float32
-// product always writes float.
+// epi: EPI_NONE, EPI_GELU or EPI_DGELU_MUL (aux_in = dg (M, N) in the
+// working type, colsum = (ceil(M/16), N) float: the 16-row column sums of
+// dh). out_f32 writes C in float from bf16 operands (no residual); a
+// float32 product always writes float.
 extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
                         const void* residual, int M, int N, int K, int epi, int dtype,
-                        int out_f32, const void* aux_in, void* aux_out, void* colsum,
-                        void* stream) {
+                        int out_f32, const void* aux_in, void* colsum, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || epi < EPI_NONE || epi > EPI_DGELU_MUL)
-    return (int)cudaErrorInvalidValue;
-  if (epi == EPI_GELU_BWD && (aux_in == nullptr || aux_out == nullptr || colsum == nullptr))
     return (int)cudaErrorInvalidValue;
   if (epi == EPI_DGELU_MUL &&
       (aux_in == nullptr || colsum == nullptr || out_f32 || residual != nullptr))
@@ -487,14 +458,14 @@ extern "C" int mtt_gemm(const void* a, const void* w, void* c, const void* bias,
     if (K % 8 != 0 || N % 8 != 0 || (out_f32 && residual != nullptr))
       return (int)cudaErrorInvalidValue;
     return launch_bf16(a, w, c, bias, bias_dtype, residual, M, N, K, epi, out_f32, aux_in,
-                       aux_out, colsum, s);
+                       colsum, s);
   }
   const dim3 grid((N + FT - 1) / FT, (M + FT - 1) / FT);
   gemm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(a), static_cast<const float*>(w),
                                        static_cast<float*>(c), bias, bias_dtype, epi,
                                        static_cast<const float*>(residual), M, N, K,
                                        static_cast<const float*>(aux_in),
-                                       static_cast<float*>(aux_out), static_cast<float*>(colsum));
+                                       static_cast<float*>(colsum));
   return (int)cudaGetLastError();
 }
 
@@ -509,13 +480,13 @@ extern "C" int mtt_gemm_gelu_mode(const void* a, const void* w, void* c, const v
   switch (mode) {
     case GELU_AS26:
       return launch_bf16<GELU_AS26>(a, w, c, bias, bias_dtype, residual, M, N, K, EPI_GELU, 0,
-                                    nullptr, nullptr, nullptr, s);
+                                    nullptr, nullptr, s);
     case GELU_AS26_BF16:
       return launch_bf16<GELU_AS26_BF16>(a, w, c, bias, bias_dtype, residual, M, N, K, EPI_GELU,
-                                         0, nullptr, nullptr, nullptr, s);
+                                         0, nullptr, nullptr, s);
     case GELU_HASTINGS:
       return launch_bf16<GELU_HASTINGS>(a, w, c, bias, bias_dtype, residual, M, N, K, EPI_GELU, 0,
-                                        nullptr, nullptr, nullptr, s);
+                                        nullptr, nullptr, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma GEMM kernels (csrc/gemm.cu,
 // csrc/gemm_stash.cu, csrc/gemm_lnfold.cu, csrc/mlp_chunked.cu,
-// csrc/fused_block.cu): warpgroup MMA on 128-byte-swizzled K-major tiles,
+// csrc/fused_block.cu, csrc/mlp_bwd.cu, csrc/wgrad.cu): warpgroup MMA on
+// 128-byte-swizzled K-major or MN-major (transposed) tiles,
 // mbarriers (arrived at from another CTA of the cluster too), 2-D TMA loads
 // (multicast to several CTAs of a cluster too), the cluster's shared-memory
 // addresses and barriers, and the tensor-map encoder fetched from the
@@ -15,6 +16,19 @@
 // 8-row groups lie 1024 bytes apart (the tile base is 1024-byte aligned).
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// wgmma shared-memory descriptor of an MN-major (transposed), 128-byte-
+// swizzled operand: rows of 64 MN-contiguous elements (one 128-byte
+// swizzle row) for consecutive k, as a TMA box of 64 × 64 lands them; its
+// 8-row k groups lie 1024 bytes apart (the stride dimension) and its
+// 64-wide MN blocks `mn_stride` bytes apart (the leading dimension: the
+// next box). One k16 step is 16 rows: + 2048 bytes (+128 in the
+// descriptor's units). The operand is read with the instruction's
+// transpose bit set.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t saddr, uint32_t mn_stride) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((mn_stride >> 4) & 0x3FFF) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -36,7 +50,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define MTT_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
     "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 × 256, this thread's 128 floats) += A (64 × 16) · B (256 × 16)ᵀ
+// d (64 × 256, this thread's 128 floats) += A (64 × 16) · B (256 × 16)ᵀ;
+// TA / TB = 1: A / B is MN-major (wgmma_desc_mn)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -50,14 +66,17 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
       "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
       "%123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : MTT_F8(0), MTT_F8(8), MTT_F8(16), MTT_F8(24), MTT_F8(32), MTT_F8(40), MTT_F8(48),
         MTT_F8(56), MTT_F8(64), MTT_F8(72), MTT_F8(80), MTT_F8(88), MTT_F8(96), MTT_F8(104),
         MTT_F8(112), MTT_F8(120)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
-// d (64 × 128: this thread's first 64 floats of d) += A (64 × 16) · B (128 × 16)ᵀ
-__device__ __forceinline__ void wgmma_n128(float (&d)[128], uint64_t da, uint64_t db) {
+// d (64 × 128: this thread's first 64 floats of d) += A (64 × 16) · B (128 × 16)ᵀ;
+// TA / TB as wgmma_n256's
+template <int TA = 0, int TB = 0, int N>
+__device__ __forceinline__ void wgmma_n128(float (&d)[N], uint64_t da, uint64_t db) {
+  static_assert(N >= 64, "wgmma_n128 writes 64 accumulators a thread");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -65,10 +84,10 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[128], uint64_t da, uint64_
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : MTT_F8(0), MTT_F8(8), MTT_F8(16), MTT_F8(24), MTT_F8(32), MTT_F8(40), MTT_F8(48),
         MTT_F8(56)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 #undef MTT_F8
 

@@ -3,121 +3,115 @@
 // and the float column sums of a (M, N) matrix.
 //
 // Replaces the in-kernel weight-gradient accumulation of mirage_tpu/ops/
-// fused_mlp.py:_mlp_bwd_stash_kernel (B9's backward, :713-727): dW2 = actᵀ·dy
-// and dW1 = yᵀ·dh summed in float over the rows, db2 = Σ dy. The TPU kernel
-// adds each row block's products into one float accumulator across its
-// sequential grid; blocks on Hopper run in parallel, so the rows are split
-// into fixed chunks, each block writes its chunk's float partial of one
-// 128 × 128 tile of C, and a second kernel sums the chunks in chunk order.
-// No atomics: a rerun is bit-identical.
+// fused_mlp.py:_mlp_bwd_stash_kernel (B9's backward, :713-727) and of the
+// accumulating backwards (B7: fused_mlp.py:_mlp_bwd_kernel, block_attention.py:
+// _attn_half_bwd_kernel): dW2 = actᵀ·dy and dW1 = yᵀ·dh summed in float over
+// the rows, db2 = Σ dy. The TPU kernel adds each row block's products into
+// one float accumulator across its sequential grid; blocks on Hopper run in
+// parallel, so the rows are split into fixed chunks, each block writes its
+// chunk's float partial of one tile of C, and a second kernel sums the
+// chunks in chunk order. No atomics: a rerun is bit-identical.
 //
-// wgrad_bf16_kernel: four warps, each a 64 × 64 quarter of the tile; the
-// rows stream through shared memory 32 at a time in a three-stage cp.async
-// ring, and the products are mma.sync m16n8k16 (bf16 in, float accumulate)
-// with both operands read transposed by ldmatrix.trans (A and B are row-major
-// with the reduction over their rows). Bound: operations at the seg head's
-// shapes (2·M·N1·N2 FLOPs against reading A and B once). The float path is
-// a 64 × 64 FMA tile, for the float32 checks. What a later PR changes first:
-// wgmma with transposed shared-memory operands fed by TMA.
+// wgrad_bf16_kernel: one CTA a 128 × 256 tile of C and a row chunk, three
+// warpgroups: one thread of the first keeps a ring of four 48 KB stages
+// filled by TMA (64 rows of the chunk a stage: A's 128 tile columns in two
+// 64 × 64 boxes, B's 256 in four, 128-byte swizzled), the other two each
+// multiply 64 rows of C on the tensor cores (wgmma m64n256k16, float
+// accumulate). Both operands are MN-major, the reduction running over
+// their rows: wgmma reads them as they lie, with its transpose bits set,
+// so nothing is transposed in registers or in memory. Rows past the chunk
+// never enter a stage (chunks are whole 64-row slices) and rows past M
+// read as zeros. Bound: operations at the MLP's shapes (2·M·N1·N2 FLOPs
+// against reading A and B once). The float path is a 64 × 64 FMA tile,
+// for the float32 checks. The first version ran mma.sync on four warps
+// with cp.async and ldmatrix.trans (≈ 170 TFLOP/s). What a later PR
+// changes first: a persistent grid (the last wave of tiles × chunks runs
+// part-empty) and the epilogue's 8-byte float stores straight from the
+// fragments.
 #include "common.cuh"
+#include "wgmma.cuh"
 
-constexpr int WT = 128;       // C tile: WT × WT
-constexpr int WK = 32;        // rows per step
-constexpr int WSTAGES = 3;    // steps in flight
-constexpr int WS = WT + 8;    // padded shared row (elements): ldmatrix rows on distinct banks
+constexpr int WM = 128, WN = 256, WK = 64, WSTAGES = 4;  // C tile, rows a stage
+constexpr int WBOX = WK * 64 * 2;                        // a 64-row × 64-column box
+constexpr int W_B = (WM / 64) * WBOX, W_STAGE_BYTES = W_B + (WN / 64) * WBOX;
+constexpr int W_SMEM = 1024 + WSTAGES * W_STAGE_BYTES + 16 * WSTAGES;
 
-__global__ void __launch_bounds__(128)
-    wgrad_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                      float* __restrict__ part, int M, int N1, int N2, int rows_per_chunk) {
-  extern __shared__ __align__(16) unsigned char wgrad_smem[];
-  bf16* as = reinterpret_cast<bf16*>(wgrad_smem);  // WSTAGES × WK × WS
-  bf16* bs = as + WSTAGES * WK * WS;               // WSTAGES × WK × WS
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int i0 = blockIdx.y * WT, j0 = blockIdx.x * WT, z = blockIdx.z;
-  const int r_begin = z * rows_per_chunk, r_end = min(M, r_begin + rows_per_chunk);
-  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
-
-  // rows [k0, k0 + WK) of the tile's A and B columns into stage st; rows
-  // past the chunk and columns past N1 / N2 (multiples of 8) are zero-filled
-  auto stage = [&](int st, int k0) {
-    bf16* ad = as + st * WK * WS;
-    bf16* bd = bs + st * WK * WS;
-    for (int e = tid; e < WK * (WT / 8); e += 128) {
-      const int r = e / (WT / 8), c = (e % (WT / 8)) * 8, row = k0 + r;
-      const bool in = row < r_end;
-      const bool oka = in && i0 + c < N1, okb = in && j0 + c < N2;
-      cp_async16(smem_u32(ad + r * WS + c), oka ? A + (long long)row * N1 + i0 + c : A,
-                 oka ? 16 : 0);
-      cp_async16(smem_u32(bd + r * WS + c), okb ? B + (long long)row * N2 + j0 + c : B,
-                 okb ? 16 : 0);
+// Block (x, y, z) computes C[y·WM.., x·WN..] over rows [z·rows_per_chunk,
+// ...) into part (chunks, N1, N2) (C itself when there is one chunk).
+// full[s] counts a stage's bytes in, empty[s] the eight computing warps
+// done with it.
+__global__ void __launch_bounds__(384, 1)
+    wgrad_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b, float* __restrict__ part, int M,
+                      int N1, int N2, int rows_per_chunk) {
+  extern __shared__ unsigned char wgrad_smem_raw[];
+  const uint32_t sbase = (smem_u32(wgrad_smem_raw) + 1023) & ~1023u;  // the swizzle's period
+  const uint32_t full = sbase + WSTAGES * W_STAGE_BYTES, empty = full + 8 * WSTAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int i0 = blockIdx.y * WM, j0 = blockIdx.x * WN, z = blockIdx.z;
+  const int r0 = z * rows_per_chunk, rows = min(M, r0 + rows_per_chunk) - r0;
+  const int slices = (rows + WK - 1) / WK;
+  if (tid == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-  };
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  const int steps = (r_end - r_begin + WK - 1) / WK;
-#pragma unroll
-  for (int t = 0; t < WSTAGES - 1; ++t) {
-    if (t < steps) stage(t, r_begin + t * WK);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int q = lane >> 3, r8 = lane & 7;
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait<WSTAGES - 2>();  // step t has landed
-    __syncthreads();               // and every warp is done with step t - 1
-    if (t + WSTAGES - 1 < steps)
-      stage((t + WSTAGES - 1) % WSTAGES, r_begin + (t + WSTAGES - 1) * WK);
-    cp_async_commit();
-    const bf16* at = as + (t % WSTAGES) * WK * WS;
-    const bf16* bt = bs + (t % WSTAGES) * WK * WS;
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int kt = 0; kt < slices; ++kt) {
+        const int s = kt % WSTAGES, r = r0 + kt * WK;
+        mbar_wait(empty + 8 * s, ((kt / WSTAGES) & 1) ^ 1);  // first round: free
+        const uint32_t st = sbase + s * W_STAGE_BYTES, bar = full + 8 * s;
+        mbar_expect_tx(bar, W_STAGE_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-      // A fragments of Aᵀ (rows i, reduction k): 8 × 8 blocks (i, k), (i+8, k),
-      // (i, k+8), (i+8, k+8), each read transposed from the (k, i) tile
-      uint32_t af[4][4];
+        for (int b = 0; b < WM / 64; ++b) tma_load_2d(st + b * WBOX, &map_a, bar, i0 + 64 * b, r);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4_trans(af[mt], smem_u32(at + (kk * 16 + r8 + (q >> 1) * 8) * WS + wm +
-                                           mt * 16 + (q & 1) * 8));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        // B fragments of two 8-column tiles: blocks (k, j), (k+8, j), (k, j+8),
-        // (k+8, j+8) of the (k, j) tile, read transposed
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, smem_u32(bt + (kk * 16 + r8 + (q & 1) * 8) * WS + wn + np * 16 +
-                                      (q >> 1) * 8));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16_16816(acc[mt][2 * np], af[mt], r[0], r[1]);
-          mma_bf16_16816(acc[mt][2 * np + 1], af[mt], r[2], r[3]);
-        }
+        for (int b = 0; b < WN / 64; ++b)
+          tma_load_2d(st + W_B + b * WBOX, &map_b, bar, j0 + 64 * b, r);
       }
     }
-  }
-  cp_async_wait<0>();
-
-  float* out = part + (long long)z * N1 * N2;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+    float acc[WN / 2];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int j = 0; j < WN / 2; ++j) acc[j] = 0.f;
+    fence_regs(acc);
+    for (int kt = 0; kt < slices; ++kt) {
+      const int s = kt % WSTAGES;
+      mbar_wait(full + 8 * s, (kt / WSTAGES) & 1);
+      const uint32_t st = sbase + s * W_STAGE_BYTES;
+      const uint64_t da = wgmma_desc_mn(st + cw * WBOX, WBOX), db = wgmma_desc_mn(st + W_B, WBOX);
+      wgmma_fence();
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int i = i0 + wm + mt * 16 + gid + 8 * hf;
+      for (int k = 0; k < WK / 16; ++k) wgmma_n256<1, 1>(acc, da + 128 * k, db + 128 * k);
+      wgmma_commit();
+      wgmma_wait<1>();  // the products on slice kt-1 are done: hand its stage back
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % WSTAGES));
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // fragments: rows l/4 and l/4 + 8 of the warp's 16, columns 8j + 2(l%4)
+    float* out = part + (long long)z * N1 * N2;
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = i0 + cw * 64 + warp * 16 + gid + 8 * half;
       if (i >= N1) continue;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int j = j0 + wn + nt * 8 + 2 * tig;
-        if (j < N2)
-          *reinterpret_cast<float2*>(out + (long long)i * N2 + j) =
-              make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+      for (int j = 0; j < WN / 8; ++j) {
+        const int col = j0 + 8 * j + 2 * tig;
+        if (col < N2)  // N2 % 8 == 0: a column pair is wholly in or out
+          *reinterpret_cast<float2*>(out + (long long)i * N2 + col) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
       }
     }
+  }
 }
 
 constexpr int FT = 64, FK = 16;
@@ -196,7 +190,8 @@ static int chunk_sum(const float* part, float* out, long long n, int chunks, cud
 // a (M, N1), b (M, N2) -> c (N1, N2) float = aᵀ·b. The rows are split into
 // `chunks` chunks of rows_per_chunk; with more than one, part (chunks, N1,
 // N2) float holds the partials, summed into c in chunk order. bf16 needs N1
-// and N2 multiples of 8 and 16-byte aligned a and b.
+// and N2 multiples of 8, rows_per_chunk a multiple of 64 and 16-byte
+// aligned a and b (ops/runtime.py:wgrad_chunks plans the chunks).
 extern "C" int mtt_wgrad(const void* a, const void* b, void* c, void* part, int M, int N1,
                          int N2, int chunks, int rows_per_chunk, int dtype, void* stream) {
   if (M <= 0 || N1 <= 0 || N2 <= 0 || chunks <= 0 || rows_per_chunk <= 0 ||
@@ -205,20 +200,21 @@ extern "C" int mtt_wgrad(const void* a, const void* b, void* c, void* part, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = static_cast<float*>(chunks > 1 ? part : c);
   if (dtype == MTT_BF16) {
-    if (N1 % 8 || N2 % 8 || reinterpret_cast<uintptr_t>(a) % 16 ||
+    if (N1 % 8 || N2 % 8 || rows_per_chunk % WK || reinterpret_cast<uintptr_t>(a) % 16 ||
         reinterpret_cast<uintptr_t>(b) % 16)
       return (int)cudaErrorInvalidValue;
     static bool configured = false;
-    constexpr int bytes = 2 * WSTAGES * WK * WS * sizeof(bf16);
     if (!configured) {
       const cudaError_t err = cudaFuncSetAttribute(
-          wgrad_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+          wgrad_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
       if (err != cudaSuccess) return (int)err;
       configured = true;
     }
-    wgrad_bf16_kernel<<<dim3((N2 + WT - 1) / WT, (N1 + WT - 1) / WT, chunks), 128, bytes, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), dst, M, N1, N2,
-        rows_per_chunk);
+    CUtensorMap map_a, map_b;
+    if (!make_map(&map_a, a, M, N1, WK, 64) || !make_map(&map_b, b, M, N2, WK, 64))
+      return (int)cudaErrorInvalidValue;
+    wgrad_bf16_kernel<<<dim3((N2 + WN - 1) / WN, (N1 + WM - 1) / WM, chunks), 384, W_SMEM, s>>>(
+        map_a, map_b, dst, M, N1, N2, rows_per_chunk);
   } else {
     wgrad_f32_kernel<<<dim3((N2 + FT - 1) / FT, (N1 + FT - 1) / FT, chunks), 256, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), dst, M, N1, N2,

@@ -22,7 +22,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("layernorm", "gemm", "gemm_stash", "attention", "attention_bwd",
            "flash_attention", "wgrad", "adamw", "fused_block", "quant",
-           "gemm_lnfold", "attention_phased", "mlp_chunked")
+           "gemm_lnfold", "attention_phased", "mlp_chunked", "mlp_bwd")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # a CUDA error code (0: launched).
 ENTRIES = {
@@ -34,7 +34,7 @@ ENTRIES = {
                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                        _P]),
     "gemm": ("gemm", "mtt_gemm", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                                  _I, _P, _P, _P, _P]),
+                                  _I, _P, _P, _P]),
     "gemm_gelu_mode": ("gemm", "mtt_gemm_gelu_mode",
                        [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]),
     "gemm_stash": ("gemm_stash", "mtt_gemm_stash",
@@ -68,6 +68,10 @@ ENTRIES = {
                          + [_F, _I, _I, _P]),
     "mlp_chunked": ("mlp_chunked", "mtt_mlp_chunked",
                     [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "mlp_bwd_hidden": ("mlp_bwd", "mtt_mlp_bwd_hidden",
+                       [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
+    "mlp_bwd_dyln": ("mlp_bwd", "mtt_mlp_bwd_dyln",
+                     [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

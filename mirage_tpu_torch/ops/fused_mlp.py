@@ -5,18 +5,21 @@ Replaces ``mirage_tpu/ops/fused_mlp.py:_mlp_block_fwd`` / ``_mlp_kernel``
 backward, ``_mlp_block_bwd_defused`` / ``_mlp_bwd_dx_kernel`` (B5). On the
 card the forward runs as three CUDA kernels: LayerNorm (csrc/layernorm.cu),
 fc1 with bias and GELU in the epilogue, then fc2 with bias and the residual
-in the epilogue (csrc/gemm.cu, wgmma). The backward recomputes LN and
-h = y·W1ᵀ + b1 (float output), runs dact = dy·W2 with the GELU backward in
-its epilogue (dh = T(dact·GELU′(h)), act = T(GELU(h)), float partials of db1
-from the unrounded dh), then dyln = dh·W1 (float output) and the LN
-backward; dW1, dW2 and db2 are contractions outside, as in the JAX package
-(:511-523). Bound: operations (2·M·D·4D·2 FLOPs forward, twice that and the
-recompute backward). This first version writes the LN output, the (M, 4D)
-hidden (and, backward, h in float, dh and act) to device memory between the
-kernels — the first traffic a later PR fuses away. The products with a
-non-transposed weight pass it transposed (a copy per call).
-``residual=False`` drops the skip-add; its backward is the residual one
-minus the pass-through cotangent (dx = T(dx_res) − dy, fused_mlp.py:976-981).
+in the epilogue (csrc/gemm.cu, wgmma). The backward recomputes LN, then
+runs the hidden stage in one launch (csrc/mlp_bwd.cu: h = y·W1ᵀ + b1 and
+dact = dy·W2 as two accumulators of one tile, never stored; its epilogue
+writes dh = T(dact·GELU′(h)), act = T(GELU(h)) and the float 16-row
+partials of db1 from the unrounded dh), then dyln = dh·W1 (float output,
+csrc/mlp_bwd.cu) and the LN backward; dW1, dW2 and db2 are contractions
+outside, as in the JAX package (:511-523). Both kernels read W2 and W1 as
+they lie (wgmma's transposed operands), so no weight is copied. Bound:
+operations (2·M·D·4D·2 FLOPs forward, twice that and the recompute
+backward). The forward writes the LN output and the (M, 4D) hidden to
+device memory between its kernels, and the backward dh and act, as the
+JAX package's defused backward does. ``mlp_bwd_plan`` gives the backward
+kernels' tiles and grids. ``residual=False`` drops the skip-add; its
+backward is the residual one minus the pass-through cotangent (dx =
+T(dx_res) − dy, fused_mlp.py:976-981).
 
 ``stash=True`` (the ConvNeXt head of segmentation tuning) takes the stash
 pair where the JAX package's ``_stash_route`` admits the shape (2-D rows,
@@ -43,10 +46,10 @@ grid. The backward takes it where the JAX package does: under
 ``MIRAGE_MLP_BWD=accumulate`` always, and under the default ``defused`` for
 the per-element 3-D route alone (an unaligned (B, N, D) whose flat and
 padded row counts both admit no block, ``_route_unaligned_bwd``). On the
-card it is B5's chain (recompute, the GELU backward in the dact GEMM's
-epilogue, the LN backward) whose reductions all run in hand-written
-kernels, as the TPU kernel computes them in its own body: dW1 = T(dh)ᵀ·y
-and dW2 = dyᵀ·act in csrc/wgrad.cu (fixed row chunks summed in a fixed
+card it is B5's chain (LN, the hidden stage, dyln, the LN backward) whose
+reductions all run in hand-written kernels, as the TPU kernel computes
+them in its own body: dW1 = T(dh)ᵀ·y and dW2 = dyᵀ·act in csrc/wgrad.cu
+(wgmma on both operands as they lie; fixed row chunks summed in a fixed
 order: Hopper's blocks run in no order, so the TPU's sequential
 accumulator becomes chunk partials and a second pass), db1 from the float
 16-row partials of the unrounded dh, db2 = Σ dy and dγ, dβ from the LN
@@ -86,31 +89,40 @@ def mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
     return x + h if residual else h
 
 
-def mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
-    """Plain PyTorch backward, step by step as _mlp_bwd_rows: y = T(LN(x)),
-    h = y·W1ᵀ + b1 in float, act = T(GELU(h)); dact = dy·W2 in float,
-    dh = dact·GELU′(h) (db1 from it), dyln = T(dh)·W1 in float; the LN
-    backward. Returns (dx, dgamma, dbeta, dw1, db1, dw2, db2) as
-    _mlp_block_bwd_defused does, parameter grads in float and in torch
-    layout (dw1 (4D, D), dw2 (D, 4D))."""
-    dt, acc = x.dtype, acc_dtype(x)
-    w1c, w2c = w1.to(dt).to(acc), w2.to(dt).to(acc)
-    y = layer_norm(x, ln_w, ln_b)
-    h = y.to(acc) @ w1c.t() + b1.to(acc)
+def mlp_bwd_hidden_ref(y, dy, w1, b1, w2):
+    """Plain version of the hidden stage (csrc/mlp_bwd.cu's first launch),
+    as _mlp_bwd_rows computes it: h = y·W1ᵀ + b1 and dact = dy·W2 in float,
+    e = erf(h/√2), act = T(½·h·(1 + e)), dh = dact·(½·(1 + e) + h·φ(h)).
+    Returns (T(dh), act, db1): db1 the float column sums of the unrounded
+    dh over every row."""
+    dt, acc = y.dtype, acc_dtype(y)
+    h = y.to(acc) @ w1.to(dt).to(acc).t() + b1.to(acc)
     e = torch.erf(h * _INV_SQRT2)
     act = (0.5 * h * (1.0 + e)).to(dt)
-    dy32 = dy.to(acc)
-    dh = (dy32 @ w2c) * (0.5 * (1.0 + e)
-                         + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI)
-    dims = tuple(range(x.ndim - 1))
-    dh_c = dh.to(dt).to(acc)
-    dx, dgamma, dbeta = ln_bwd_ref(x, dh_c @ w1c, ln_w, dy)
+    dh = (dy.to(acc) @ w2.to(dt).to(acc)) * (
+        0.5 * (1.0 + e) + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI)
+    return dh.to(dt), act, dh.sum(tuple(range(dh.ndim - 1)))
+
+
+def mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
+    """Plain PyTorch backward, step by step as _mlp_bwd_rows: y = T(LN(x)),
+    the hidden stage (:func:`mlp_bwd_hidden_ref`: dh, act and db1 from the
+    unrounded dh), dyln = T(dh)·W1 in float; the LN backward. Returns (dx,
+    dgamma, dbeta, dw1, db1, dw2, db2) as _mlp_block_bwd_defused does,
+    parameter grads in float and in torch layout (dw1 (4D, D), dw2 (D,
+    4D))."""
+    dt, acc = x.dtype, acc_dtype(x)
+    y = layer_norm(x, ln_w, ln_b)
+    dh, act, db1 = mlp_bwd_hidden_ref(y, dy, w1, b1, w2)
+    dy32, dh_c = dy.to(acc), dh.to(acc)
+    dx, dgamma, dbeta = ln_bwd_ref(x, dh_c @ w1.to(dt).to(acc), ln_w, dy)
     dx = dx.to(dt)
     if not residual:
         dx = dx - dy
     rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
-    return (dx, dgamma, dbeta, rows(dh_c).t() @ rows(y.to(acc)), dh.sum(dims),
-            rows(dy32).t() @ rows(act.to(acc)), dy32.sum(dims))
+    return (dx, dgamma, dbeta, rows(dh_c).t() @ rows(y.to(acc)), db1,
+            rows(dy32).t() @ rows(act.to(acc)),
+            dy32.sum(tuple(range(x.ndim - 1))))
 
 
 # The accumulating backward (B7) computes what _mlp_bwd_rows computes over
@@ -134,20 +146,18 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
 
 
 def _mlp_bwd_chain(x, dy, ln_w, ln_b, w1, b1, w2, residual):
-    """The kernels B5 and B7 share: the recompute, the GELU backward in the
-    dact GEMM's epilogue and the LN backward. Returns dx, the (M, ·) rows
-    y, dh, act and dy, and the float partials of dgamma, dbeta (32-row)
-    and db1 (16-row, of the unrounded dh)."""
+    """The kernels B5 and B7 share: LN, the hidden stage (recompute and
+    dact in one launch), dyln and the LN backward. Returns dx, the (M, ·)
+    rows y, dh, act and dy, and the float partials of dgamma, dbeta
+    (32-row) and db1 (16-row, of the unrounded dh)."""
     runtime.check("x", x, x)
     d = x.shape[-1]
     x2, dy2 = x.view(-1, d), dy.contiguous().view(-1, d)
     w1c = w1.to(x.dtype).contiguous()
     y = runtime.layernorm(x2, ln_w, ln_b)
-    h = runtime.gemm(y, w1c, b1, out_dtype=torch.float32)
-    dh, act, db1 = runtime.gemm_gelu_bwd(
-        dy2, w2.to(x.dtype).t().contiguous(), h, partials=True)
-    del h
-    dyln = runtime.gemm(dh, w1c.t().contiguous(), out_dtype=torch.float32)
+    dh, act, db1 = runtime.mlp_bwd_hidden(y, dy2, w1c, b1,
+                                          w2.to(x.dtype).contiguous())
+    dyln = runtime.mlp_bwd_dyln(dh, w1c)
     dx, dgamma, dbeta = runtime.layernorm_bwd(
         x2, ln_w, dyln, dy2, sub_dy=not residual, partials=True)
     return dx.view(x.shape), y, dh, act, dy2, dgamma, dbeta, db1
@@ -162,7 +172,7 @@ def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
     mlp_block.bwd_launches += 1
     return (dx, dgamma.sum(0), dbeta.sum(0), runtime.wgrad(dh, y), db1.sum(0),
-            runtime.wgrad(dy2, act), dy2.float().sum(0))
+            runtime.wgrad(dy2, act), dy2.sum(0, dtype=torch.float32))
 
 
 def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
@@ -295,6 +305,29 @@ def mlp_block_bwd_stash_ref(x, dy, act, dg, ln_w, ln_b, w1, w2):
             dy32.t() @ act.to(acc), dy32.sum(0))
 
 
+PingPongPlan = namedtuple("PingPongPlan", [
+    "tile", "tiles", "grid", "tiles_per_cta", "ktiles", "stages",
+    "smem_bytes", "cluster"], defaults=(1,))
+
+
+def _pingpong_plan(name, m, n, k, sms, tile, stages, smem_bytes, cluster=1):
+    """A persistent kernel of two consumer warpgroups in ping-pong over a
+    (m, n) output, K = k in slices of 64: ``tile`` tiles in row-major
+    order, each taken by a cluster of ``cluster`` CTAs (one CTA per SM),
+    cluster c taking tiles c, c + clusters, ... (the most a cluster takes is
+    ``tiles_per_cta``) and each CTA handing its rows of them to its two
+    consumers in turn; ``grid`` counts CTAs."""
+    if m <= 0 or n <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"{name}: empty product ({m}, {n}, {k}) on {sms} "
+                         f"SMs")
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    clusters = min(tiles, sms // cluster)
+    return PingPongPlan(tile=tile, tiles=tiles, grid=clusters * cluster,
+                        tiles_per_cta=-(-tiles // clusters),
+                        ktiles=-(-k // 64), stages=stages,
+                        smem_bytes=smem_bytes, cluster=cluster)
+
+
 # csrc/gemm_stash.cu's tiling: each consumer warpgroup's tile is 64 × 256,
 # K-slices of 64 in a ring of four stages (A's 64 and W's 256 rows), and a
 # per-warp epilogue scratch (the bias, then act's and dg's staging tiles)
@@ -302,26 +335,48 @@ STASH_TILE_M, STASH_TILE_N, STASH_BK, STASH_STAGES = 64, 256, 64, 4
 STASH_SMEM = (1024 + STASH_STAGES * (STASH_TILE_M + STASH_TILE_N) * STASH_BK * 2
               + 16 * STASH_STAGES + 8 * (STASH_TILE_N * 4 + 2 * 16 * 72 * 2))
 
-GemmStashPlan = namedtuple("GemmStashPlan", [
-    "tile", "tiles", "grid", "tiles_per_cta", "ktiles", "stages",
-    "smem_bytes"])
-
 
 def gemm_stash_plan(m, n, k, sms):
     """How csrc/gemm_stash.cu's bf16 kernel runs a (m, k) · (n, k)ᵀ
-    product on ``sms`` SMs: 64 × 256 tiles in row-major order, a persistent
-    grid of one CTA per SM (or per tile), CTA b taking tiles b, b + grid, ...
-    and handing them to its two consumer warpgroups in turn (the most a CTA
-    takes is ``tiles_per_cta``), K in ``ktiles`` slices of 64."""
-    if m <= 0 or n <= 0 or k <= 0 or sms <= 0:
-        raise ValueError(f"gemm_stash_plan: empty product ({m}, {n}, {k}) "
-                         f"on {sms} SMs")
-    tiles = -(-m // STASH_TILE_M) * -(-n // STASH_TILE_N)
-    grid = min(tiles, sms)
-    return GemmStashPlan(tile=(STASH_TILE_M, STASH_TILE_N), tiles=tiles,
-                         grid=grid, tiles_per_cta=-(-tiles // grid),
-                         ktiles=-(-k // STASH_BK), stages=STASH_STAGES,
-                         smem_bytes=STASH_SMEM)
+    product on ``sms`` SMs (:func:`_pingpong_plan`: 64 × 256 tiles, four
+    stages)."""
+    return _pingpong_plan("gemm_stash_plan", m, n, k, sms,
+                          (STASH_TILE_M, STASH_TILE_N), STASH_STAGES,
+                          STASH_SMEM)
+
+
+# csrc/mlp_bwd.cu's tilings. The hidden stage: a cluster of two CTAs takes a
+# 128 × 128 tile of the hidden, each CTA 64 rows of it, a consumer's with
+# two accumulators; a stage holds a K-slice of 64 of y's and dy's 64 rows,
+# W1's 128 rows and W2's 64 × 128 block (48 KB: half of the weights'
+# multicast by the partner), four stages; per warp, the bias and act's and
+# dh's staging tiles of 16 × 32 (rows padded to 40). dyln: a consumer's
+# tile is 64 × 256 of (M, D); a stage holds dh's 64 rows and W1's 64 × 256
+# block (40 KB), four stages; per warp, a float staging tile of 16 × 32
+# (rows padded to 40).
+MLP_BWD_HIDDEN_TILE, MLP_BWD_DYLN_TILE = (128, 128), (64, 256)
+MLP_BWD_STAGES = 4
+MLP_BWD_HIDDEN_SMEM = (1024 + MLP_BWD_STAGES * (2 * 64 + 128 + 128) * 64 * 2
+                       + 16 * MLP_BWD_STAGES + 8 * (128 * 4 + 2 * 16 * 40 * 2))
+MLP_BWD_DYLN_SMEM = (1024 + MLP_BWD_STAGES * (64 + 256) * 64 * 2
+                     + 16 * MLP_BWD_STAGES + 8 * 16 * 40 * 4)
+
+MlpBwdPlan = namedtuple("MlpBwdPlan", ["hidden", "dyln"])
+
+
+def mlp_bwd_plan(m, d, hdim, sms):
+    """How csrc/mlp_bwd.cu's bf16 kernels run the MLP backward over m rows
+    of width d with a hidden of ``hdim`` on ``sms`` SMs: ``hidden``, the
+    recompute and dact products (M, hdim) at K = d in clusters of two CTAs,
+    and ``dyln``, the (M, d) product at K = hdim, each a
+    :class:`PingPongPlan`. Raises ValueError for an empty product."""
+    return MlpBwdPlan(
+        hidden=_pingpong_plan("mlp_bwd_plan", m, hdim, d, sms,
+                              MLP_BWD_HIDDEN_TILE, MLP_BWD_STAGES,
+                              MLP_BWD_HIDDEN_SMEM, cluster=2),
+        dyln=_pingpong_plan("mlp_bwd_plan", m, d, hdim, sms,
+                            MLP_BWD_DYLN_TILE, MLP_BWD_STAGES,
+                            MLP_BWD_DYLN_SMEM))
 
 
 def _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):

@@ -6,7 +6,8 @@ version (except inside :func:`plain_on_card`, which ``chip_smoke.py`` uses
 to build its reference on the card), and a failed build or launch raises.
 
 The launchers below (``layernorm``, ``layernorm_bwd``, ``gemm`` and its
-epilogue forms, ``attention``, ``attention_bwd``, ``flash_attention``,
+epilogue forms, ``mlp_bwd_hidden`` and ``mlp_bwd_dyln`` (the MLP backward's
+products), ``attention``, ``attention_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
 allocate outputs with ``torch.empty`` (partial sums with ``torch.zeros``)
 and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
@@ -49,7 +50,7 @@ import torch
 from mirage_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_EPI = {"none": 0, "gelu": 1, "gelu_bwd": 2, "dgelu_mul": 3}
+_EPI = {"none": 0, "gelu": 1, "dgelu_mul": 2}
 _plain_on_card = False
 
 
@@ -230,7 +231,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     _launch("gemm", a.data_ptr(), w.data_ptr(), c.data_ptr(), _ptr(bias),
             _DTYPES[bias.dtype] if bias is not None else 0, _ptr(residual),
             m, n, k, _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype],
-            int(out_f32), None, None, None)
+            int(out_f32), None, None)
     return c
 
 
@@ -259,27 +260,58 @@ def gemm_gelu_mode(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     return c
 
 
-def gemm_gelu_bwd(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
-                  partials: bool = False):
-    """The MLP backward's dact GEMM with the GELU backward as its epilogue:
-    acc = a (M, K) · w (N, K)ᵀ, h (M, N) float the fc1 output. Returns
-    dh = T(acc·GELU′(h)), act = T(GELU(h)) and db1, the float column sums of
-    the unrounded dh (from the kernel's 16-row partials; with ``partials``,
-    those (ceil(M/16), N) partials unsummed)."""
-    m, n, k = _gemm_operands(a, w)
-    if h.dtype != torch.float32:
-        raise ValueError(f"h: dtype {h.dtype}, expected torch.float32")
-    check("h", h, h, (m, n))
-    if h.device != a.device:
-        raise ValueError(f"h: on {h.device}, expected {a.device}")
-    dh = torch.empty((m, n), device=a.device, dtype=a.dtype)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mlp_bwd_hidden(y: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
+                   b1: torch.Tensor, w2: torch.Tensor):
+    """The MLP backward's hidden stage in one launch of csrc/mlp_bwd.cu:
+    from y, dy (M, D), w1 (H, D), b1 (H,) and w2 (D, H) in torch layout, h
+    = y·w1ᵀ + b1 and dact = dy·w2 in float (never stored), returns dh =
+    T(dact·GELU′(h)), act = T(GELU(h)) (both (M, H) in y's dtype) and the
+    float 16-row column partials (ceil(M/16), H) of the unrounded dh (db1's).
+    bf16 tiles as ``ops/fused_mlp.py:mlp_bwd_plan`` says."""
+    from mirage_tpu_torch.ops.fused_mlp import mlp_bwd_plan
+
+    m, d = y.shape
+    h = w1.shape[0]
+    check("y", y, y)
+    check("dy", dy, y, (m, d))
+    check("w1", w1, y, (h, d))
+    check("w2", w2, y, (d, h))
+    check("b1", b1, y, (h,), dtype=False)
+    if y.dtype == torch.bfloat16 and (d % 8 or h % 8):
+        raise ValueError(f"bf16 mlp_bwd_hidden needs D and H multiples of 8, "
+                         f"got D={d}, H={h}")
+    plan = mlp_bwd_plan(m, d, h, _sms(y.device))
+    dh = torch.empty((m, h), device=y.device, dtype=y.dtype)
     act = torch.empty_like(dh)
-    colsum = torch.zeros((-(-m // 16), n), device=a.device,
-                         dtype=torch.float32)
-    _launch("gemm", a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
-            m, n, k, _EPI["gelu_bwd"], _DTYPES[a.dtype], 0, h.data_ptr(),
-            act.data_ptr(), colsum.data_ptr())
-    return dh, act, colsum if partials else colsum.sum(0)
+    part = torch.empty((-(-m // 16), h), device=y.device, dtype=torch.float32)
+    _launch("mlp_bwd_hidden", y.data_ptr(), dy.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), _DTYPES[b1.dtype], w2.data_ptr(), dh.data_ptr(),
+            act.data_ptr(), part.data_ptr(), m, d, h, _DTYPES[y.dtype],
+            plan.hidden.grid)
+    return dh, act, part
+
+
+def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """dyln = dh (M, H) · w1 (H, D) in float (M, D), w1 read as it lies
+    (csrc/mlp_bwd.cu; bf16 tiles as ``mlp_bwd_plan`` says)."""
+    from mirage_tpu_torch.ops.fused_mlp import mlp_bwd_plan
+
+    m, h = dh.shape
+    d = w1.shape[1]
+    check("dh", dh, dh)
+    check("w1", w1, dh, (h, d))
+    if dh.dtype == torch.bfloat16 and (d % 8 or h % 8):
+        raise ValueError(f"bf16 mlp_bwd_dyln needs D and H multiples of 8, "
+                         f"got D={d}, H={h}")
+    plan = mlp_bwd_plan(m, d, h, _sms(dh.device))
+    dyln = torch.empty((m, d), device=dh.device, dtype=torch.float32)
+    _launch("mlp_bwd_dyln", dh.data_ptr(), w1.data_ptr(), dyln.data_ptr(), m,
+            d, h, _DTYPES[dh.dtype], plan.dyln.grid)
+    return dyln
 
 
 def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
@@ -312,26 +344,57 @@ def gemm_dgelu_mul(a: torch.Tensor, w: torch.Tensor, dg: torch.Tensor):
     colsum = torch.zeros((-(-m // 16), n), device=a.device, dtype=torch.float32)
     _launch("gemm", a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
             m, n, k, _EPI["dgelu_mul"], _DTYPES[a.dtype], 0, dg.data_ptr(),
-            None, colsum.data_ptr())
+            colsum.data_ptr())
     return dh, colsum
 
 
-def _row_chunks(m: int, tiles: int, device, min_rows: int):
+def _row_chunks(m: int, tiles: int, sms: int, min_rows: int):
     """(chunks, rows per chunk) for a reduction over m rows: about two
     blocks per SM over ``tiles`` output tiles, at least ``min_rows`` rows a
     chunk, rows a multiple of 32. A function of the shapes and the card
     only, so a rerun sums in the same order."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     chunks = max(1, min(-(-2 * sms // tiles), -(-m // min_rows)))
     per_chunk = -(-m // chunks)
     rows = -(-per_chunk // 32) * 32
     return -(-m // rows), rows
 
 
+# csrc/wgrad.cu: a CTA computes one 128 × 256 tile of C over one row chunk,
+# 64 rows a ring stage; a chunk is whole stages, at most 4096 rows (the
+# tensor cores' float sums over longer chunks drift past a relative 1e-5)
+WGRAD_TILE, WGRAD_ROWS, WGRAD_MAX_ROWS = (128, 256), 64, 4096
+
+
+def wgrad_chunks(m: int, n1: int, n2: int, sms: int):
+    """(chunks, rows per chunk) of csrc/wgrad.cu's gᵀ·a over m rows into an
+    (n1, n2) product on ``sms`` SMs: rows a multiple of 64 and at most 4096,
+    and, of the 32 smallest chunk counts that allow it, the one that
+    minimises the CTAs' waves × 64-row slices a CTA plus the partials'
+    round trip (each chunk's tiles written and read back, ≈ an eighth of a
+    slice a tile). A function of the shapes and the SM count alone, so a
+    rerun sums in the same order."""
+    if m <= 0 or n1 <= 0 or n2 <= 0 or sms <= 0:
+        raise ValueError(f"wgrad_chunks: empty product ({m}, {n1}, {n2}) on "
+                         f"{sms} SMs")
+    tiles = -(-n1 // WGRAD_TILE[0]) * -(-n2 // WGRAD_TILE[1])
+    least = -(-m // WGRAD_MAX_ROWS)
+    best = None
+    for want in range(least, least + 32):
+        per_chunk = -(-m // want)
+        rows = -(-per_chunk // WGRAD_ROWS) * WGRAD_ROWS
+        chunks = -(-m // rows)
+        waves = -(-tiles * chunks // sms)
+        cost = waves * rows // WGRAD_ROWS + (chunks > 1) * chunks * tiles / 8
+        if best is None or cost < best[0]:
+            best = (cost, chunks, rows)
+    return best[1], best[2]
+
+
 def weight_grad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """gᵀ·a over the rows of g (M, N1) and a (M, N2): a float (N1, N2)
     weight gradient in torch Linear layout, summed by the wgrad kernel in
-    fixed row chunks and a fixed chunk order (no atomics)."""
+    fixed row chunks (:func:`wgrad_chunks`) and a fixed chunk order (no
+    atomics)."""
     m, n1 = g.shape
     n2 = a.shape[1]
     check("g", g, g)
@@ -340,8 +403,7 @@ def weight_grad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bf16 weight_grad needs widths multiples of 8, got "
                          f"{n1}, {n2}")
     out = torch.empty((n1, n2), device=g.device, dtype=torch.float32)
-    chunks, rows = _row_chunks(m, -(-n1 // 128) * -(-n2 // 128), g.device,
-                               512)
+    chunks, rows = wgrad_chunks(m, n1, n2, _sms(g.device))
     part = (torch.empty((chunks, n1, n2), device=g.device,
                         dtype=torch.float32) if chunks > 1 else None)
     _launch("wgrad", g.data_ptr(), a.data_ptr(), out.data_ptr(), _ptr(part),
@@ -350,11 +412,12 @@ def weight_grad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 
 def colsum(x: torch.Tensor) -> torch.Tensor:
-    """Float column sums of x (M, N), in fixed row chunks summed in order."""
+    """Float column sums of x (M, N), in fixed row chunks (at least 64 rows,
+    about two blocks an SM) summed in order."""
     m, n = x.shape
     check("x", x, x)
     out = torch.empty((n,), device=x.device, dtype=torch.float32)
-    chunks, rows = _row_chunks(m, -(-n // 256), x.device, 256)
+    chunks, rows = _row_chunks(m, -(-n // 256), _sms(x.device), 64)
     part = (torch.empty((chunks, n), device=x.device, dtype=torch.float32)
             if chunks > 1 else None)
     _launch("colsum", x.data_ptr(), out.data_ptr(), _ptr(part), m, n, chunks,

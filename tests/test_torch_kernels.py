@@ -294,8 +294,10 @@ def test_layernorm_backward_matches_plain(cuda, dtype, m, d, sub):
 @pytest.mark.parametrize("m,n,k", [(33, 192, 64), (130, 264, 72),
                                    (514, 3072, 768)])
 def test_gemm_float_output_and_gelu_backward(cuda, dtype, m, n, k):
-    """The float32 output and the GELU-backward epilogue (dh, act and the
-    16-row column partials of db1), ragged M against the tiles."""
+    """csrc/gemm.cu's float32 output; the MLP backward's hidden stage
+    (csrc/mlp_bwd.cu: dh, act and the 16-row column partials of db1 from y,
+    dy and both weights as they lie; act bit-equal to B2's fc1 in bf16, a
+    rerun bit-identical) and its dyln product, ragged M against the tiles."""
     g = torch.Generator(device="cuda").manual_seed(m + n)
     a = torch.randn(m, k, device=cuda, generator=g).to(dtype)
     w = (torch.randn(n, k, device=cuda, generator=g) * k ** -0.5).to(dtype)
@@ -303,13 +305,23 @@ def test_gemm_float_output_and_gelu_backward(cuda, dtype, m, n, k):
     c = runtime.gemm(a, w, b, out_dtype=torch.float32)
     assert c.dtype == torch.float32
     assert _max_err(c, F.linear(a.float(), w.float(), b)) <= 1e-4 * k ** 0.5
-    h = torch.randn(m, n, device=cuda, generator=g) * 2
-    dh, act, db1 = runtime.gemm_gelu_bwd(a, w, h)
-    acc = a.float() @ w.float().t()
+    dy = torch.randn(m, k, device=cuda, generator=g).to(dtype)
+    w2 = (torch.randn(k, n, device=cuda, generator=g) * n ** -0.5).to(dtype)
+    dh, act, part = runtime.mlp_bwd_hidden(a, dy, w, b, w2)
+    assert part.shape == (-(-m // 16), n) and part.dtype == torch.float32
+    h = F.linear(a.float(), w.float(), b)
     grad = 0.5 * (1 + torch.erf(h / 2 ** 0.5)) \
         + h * torch.exp(-0.5 * h * h) / (2 * np.pi) ** 0.5
-    _check_grads([dh, act, db1], [acc * grad, F.gelu(h), (acc * grad).sum(0)],
+    want = (dy.float() @ w2.float()) * grad
+    _check_grads([dh, act, part.sum(0)], [want, F.gelu(h), want.sum(0)],
                  dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(act, runtime.gemm(a, w, b, gelu=True))
+    assert all(torch.equal(x, y) for x, y in zip(
+        (dh, act, part), runtime.mlp_bwd_hidden(a, dy, w, b, w2)))
+    dyln = runtime.mlp_bwd_dyln(dh, w)
+    assert dyln.dtype == torch.float32 and dyln.shape == (m, k)
+    _check_grads([dyln], [dh.float() @ w.float()], dtype)
 
 
 @pytest.mark.parametrize("n", [99, 256])
@@ -452,13 +464,20 @@ def test_stash_pair_reruns_bit_identical(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,n1,n2", [(33, 64, 72), (65536, 1536, 384),
-                                     (5000, 200, 136), (128, 8, 8)])
+                                     (5000, 200, 136), (128, 8, 8),
+                                     (64, 3072, 768), (25344, 3072, 768),
+                                     (16448, 768, 3072), (4161, 264, 1000)])
 def test_weight_grad_and_colsum_kernels(cuda, dtype, m, n1, n2):
-    """gᵀ·a over ragged row counts and widths against float math, and the
-    column sums; both bit-identical on a rerun."""
+    """gᵀ·a over ragged row counts and widths against float math (bf16 on
+    wgmma with both operands as they lie), at one row chunk and at several
+    (runtime.wgrad_chunks), and the column sums; both bit-identical on a
+    rerun."""
     gen = torch.Generator(device="cuda").manual_seed(m + n1)
     g = torch.randn(m, n1, device=cuda, generator=gen).to(dtype)
     a = torch.randn(m, n2, device=cuda, generator=gen).to(dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks, rows = runtime.wgrad_chunks(m, n1, n2, sms)
+    assert (chunks == 1) == (m <= 64) and rows % 64 == 0
     got = runtime.weight_grad(g, a)
     want = g.double().t() @ a.double()
     assert got.dtype == torch.float32
