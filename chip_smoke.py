@@ -7,7 +7,10 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. build: compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
    source, in parallel) and prints each kernel's registers and shared memory;
-   prints the card's name and power limit.
+   prints the card's name and power limit. The attention forward
+   (csrc/attention_fwd.cuh, in attention.cu and flash_attention.cu) must not
+   spill nor have its wgmma serialized, and its libraries' SASS must hold
+   HGMMA and no mma.sync forward.
 2. kernels: each op (B1 attn_half_block, B2 mlp_block, B3 xattn_half_block)
    at the MIRAGE-Large main-path shapes in bf16 against its plain PyTorch
    version computed in float32 from the same bf16 inputs, plus one float32
@@ -15,7 +18,10 @@ Phases, each of which must pass (any failure exits non-zero):
    flash_attention (forward and backward) at the segmentation encoder's
    (4, 12, 1025, 64) and the decoders' (64, 8, 256 × 769, 32), and B9 (the
    stash MLP pair) at (65536, 384) -> 1536; times the kernel, the plain
-   version and a composite of PyTorch library calls with CUDA events.
+   version and a composite of PyTorch library calls with CUDA events. The
+   attention forward alone (``attention_fwd``) at the serving encoder's,
+   the decoders' (self and cross) and the pretraining B1's and B6's shapes
+   beside SDPA; B8's rows hold its log-sum-exp to float32 math too.
 3. golden: tests/golden/example_triplet_tiny.npz (reference weights and
    outputs) through the port's wrapper on the card in float32.
 4. serve: MIRAGE-Large (1024 wide, 24 layers, 16 heads; three 256/2/8
@@ -85,6 +91,12 @@ under MIRAGE_BLOCK_FUSE=off and all; phase 4 serves MIRAGE-Large at batch
 64 under MIRAGE_BLOCK_FUSE=off, decoder and all.
 
 ``--phases`` runs a subset (a partial run prints no result line).
+``--attn-split [CSRC]`` only times the attention forward at its main-path
+shapes (ATTN_SHAPES), built from CSRC (default this checkout's csrc/) whole
+and without P·V, without the softmax, and without any product (the loads
+alone), beside SDPA and the bound; the C entries it calls are the parent's
+too, so a copy of an older csrc/ with the same macros is timed the same
+way.
 ``--mlp-bwd-split`` only times B5 and B7-MLP at their three shapes beside
 the library call and the bound, each split into its launches; it calls
 only the two backward ops, so a copy of this script in an older
@@ -98,6 +110,7 @@ and power limit come before it; the last line is {"ok": true, "device":
 import hashlib
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -121,6 +134,9 @@ PEAK_BYTES = 3.35e12
 BF16_MAX_ABS, BF16_REL_L2 = 5e-2, 1e-2
 F32_ATOL = 1e-4
 GOLDEN_ATOL = 1e-4  # 1e-5 on the CPU; the card sums in another order
+# the flash forward's log-sum-exp (log2 units) against float32 math from the
+# same bf16 inputs: both sum float products of the same bf16 values
+LSE_ATOL = 1e-3
 # whole-model bf16 kernel path vs bf16 plain path, 24 layers deep
 MODEL_REL_L2 = 3e-2
 
@@ -132,6 +148,11 @@ TPU_KERNELS = {
                   "_mlp_block_fwd :92 -> _mlp_kernel :58"),
     "xattn_half_block": ("mirage_tpu/ops/block_attention.py:745",
                          "_xattn_half_fwd :795 -> _xattn_half_kernel :745"),
+    # the attention core inside B1's and B3's kernels (and B6's, B8's)
+    "attention_fwd": ("mirage_tpu/ops/block_attention.py:251",
+                      "the attention of _attn_half_kernel :251, "
+                      "_xattn_half_kernel :745, _block_attn_kernel :58 and "
+                      "flash_attention.py:_attn_kernel :42"),
 }
 # op -> (its wrapper, the CUDA sources it launches)
 CSRC = "mirage_tpu_torch/csrc/"
@@ -144,19 +165,26 @@ SOURCES = {
     "xattn_half_block": ("mirage_tpu_torch/ops/block_attention.py",
                          [CSRC + f for f in ("layernorm.cu", "gemm.cu",
                                              "attention.cu")]),
+    "attention_fwd": ("mirage_tpu_torch/csrc/attention_fwd.cuh",
+                      [CSRC + f for f in ("attention_fwd.cuh", "attention.cu",
+                                          "flash_attention.cu")]),
 }
 # launches of each op per reconstruct / features forward on the main path
+# (attention_fwd: runtime.attention's launches of the forward kernel, one
+# in each B1 and B3)
 PER_RECONSTRUCT = {"attn_half_block": 30, "mlp_block": 33,
-                   "xattn_half_block": 3}
+                   "xattn_half_block": 3, "attention_fwd": 33}
 PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
-                "xattn_half_block": 0}
+                "xattn_half_block": 0, "attention_fwd": 24}
 
 
-# the port's CUDA kernels by function name -> their group in a profile
+# the port's CUDA kernels by function name -> their group in a profile (the
+# bf16 forward of csrc/attention_fwd.cuh serves both attention.cu and
+# flash_attention.cu: B8's forward is in "attention" too)
 PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "gemm_stash_kernel": "gemm_stash",
                 "gemm_stash_f32_kernel": "gemm_stash",
-                "attention_bf16_kernel": "attention",
+                "attn_fwd::attention_fwd_kernel": "attention",
                 "attention_f32_kernel": "attention",
                 "attn_bwd_dq_kernel": "attention_bwd",
                 "attn_bwd_dkv_kernel": "attention_bwd",
@@ -164,7 +192,6 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "attn_bwd_dkv_f32_kernel": "attention_bwd",
                 "layernorm_kernel": "layernorm",
                 "layernorm_bwd_kernel": "layernorm_bwd",
-                "flash_fwd_bf16_kernel": "flash_attention",
                 "flash_fwd_f32_kernel": "flash_attention",
                 "flash_bwd_dq_kernel": "flash_attention_bwd",
                 "flash_bwd_dkv_kernel": "flash_attention_bwd",
@@ -282,16 +309,37 @@ def phase_build():
             + "".join(f"\n[build]   {ln}" for ln in spills))
         if spills and name in NO_SPILL:
             raise AssertionError(f"{name}.cu spills registers")
-    # B10's bf16 products must be wgmma: HGMMA in the library's SASS
+    # the attention forward (csrc/attention_fwd.cuh, in both libraries):
+    # registers and spills of each head dim's kernel, none allowed
+    for name in ("attention", "flash_attention"):
+        lines = report[name].splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry" in ln and "attention_fwd_kernel" in ln:
+                dh = re.search(r"kernelILi(\d+)E", ln).group(1)
+                props = " ".join(x.strip() for x in lines[i + 1:i + 4]
+                                 if "spill" in x or "Used" in x)
+                log(f"[build] {name}: attention_fwd_kernel<{dh}>: {props}")
+                if re.search(r"[1-9]\d* bytes spill", props):
+                    raise AssertionError(f"attention_fwd_kernel<{dh}> spills "
+                                         f"registers in {name}.cu")
+        if "C7520" in report[name]:
+            raise AssertionError(f"{name}.cu: ptxas serialized wgmma (C7520)")
+    # the bf16 products of B10 and of the attention forward must be wgmma:
+    # HGMMA in the libraries' SASS; the mma.sync forwards are gone
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build.BUILD_DIR / "libfused_block.so")],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    hgmma = sass.count("HGMMA")
-    log(f"[build] fused_block: {hgmma} HGMMA instructions in its SASS")
-    if hgmma == 0:
-        raise AssertionError("fused_block's bf16 products are not wgmma")
+    for lib in ("fused_block", "attention", "flash_attention"):
+        sass = subprocess.run([str(tool), "-sass",
+                               str(_build.BUILD_DIR / f"lib{lib}.so")],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hgmma = sass.count("HGMMA")
+        old = [k for k in ("attention_bf16_kernel", "flash_fwd_bf16_kernel")
+               if k in sass]
+        log(f"[build] {lib}: {hgmma} HGMMA instructions in its SASS"
+            + (f"; mma.sync forwards found: {old}" if old else ""))
+        if hgmma == 0 or old:
+            raise AssertionError(f"{lib}'s bf16 products are not wgmma, or "
+                                 f"an mma.sync forward is left: {old}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -382,6 +430,82 @@ def _library(op):
     return fn
 
 
+def attention_core_rows(entry, per_call):
+    """The attention forward alone (csrc/attention_fwd.cuh through
+    ``runtime.attention`` or ``runtime.flash_attention``) at the ATTN_SHAPES
+    of ``entry`` that a path calls (``per_call``: label -> launches a
+    forward or step), bf16, against float32 math from the same inputs
+    (max-abs BF16_MAX_ABS, rel-L2 BF16_REL_L2; the flash entry's
+    log-sum-exp within LSE_ATOL in log2 units); then the kernel, its plain
+    version (``sdpa``, or ``flash_attention_ref``) and SDPA timed."""
+    import torch
+
+    from mirage_tpu_torch.nn.attention import sdpa
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.flash_attention import flash_attention_ref
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    lib = _flash_library(False)
+    rows = []
+    for label, shape, cross, ent, _ in ATTN_SHAPES:
+        if ent != entry or label not in per_call:
+            continue
+        q, k, v, out, lse, q_src, kv_src = _attn_inputs(shape, cross, gen)
+        b, nq, nk, h, dh = shape
+        scale = dh ** -0.5
+
+        def heads(t):
+            return t.reshape(b, t.shape[1], h, dh).transpose(1, 2)
+
+        def kernel():
+            if entry == "attention":
+                runtime.attention(q, k, v, out, heads=h, dh=dh, scale=scale)
+                return None
+            return runtime.flash_attention(q, k, v, out, heads=h, dh=dh,
+                                           scale=scale)
+
+        got_lse = kernel()
+        torch.cuda.synchronize()
+        s = heads(q.float()) @ heads(k.float()).transpose(-1, -2) * scale
+        want = (torch.softmax(s, -1) @ heads(v.float())).transpose(1, 2) \
+            .reshape(b, nq, h * dh)
+        diff = out.float() - want
+        errs = {"out": {"max_abs": diff.abs().max().item(),
+                        "rel_l2": (diff.norm() / want.norm()).item()}}
+        ok = (errs["out"]["max_abs"] <= BF16_MAX_ABS
+              and errs["out"]["rel_l2"] <= BF16_REL_L2
+              and bool(torch.isfinite(out).all()))
+        if got_lse is not None:
+            lse_err = (got_lse - torch.logsumexp(s, -1) / math.log(2.0)) \
+                .abs().max().item()
+            errs["lse"] = {"max_abs": lse_err}
+            ok = ok and lse_err <= LSE_ATOL
+        del s, want, diff
+        if not ok:
+            raise AssertionError(f"attention_fwd {label}: kernel disagrees "
+                                 f"with float32 math: {errs}")
+        ms = cuda_ms(kernel)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        plain = sdpa if entry == "attention" else flash_attention_ref
+        plain_ms = cuda_ms(lambda: plain(qh, kh, vh, scale), iters=5)
+        library_ms = cuda_ms(lambda: lib(q_src, kv_src, h, scale))
+        bound_ms, bound_by = _bound(_attn_core_work(shape, entry))
+        key = "calls_per_forward" if entry == "attention" else "calls_per_step"
+        row = {"label": label, "shape": list(shape), "dtype": "bf16",
+               "errors": errs, "max_abs_err": errs["out"]["max_abs"],
+               "rel_l2_err": errs["out"]["rel_l2"], "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "F.scaled_dot_product_attention on the same views",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               key: per_call[label]}
+        log(f"[kernels] attention_fwd {label} {shape}: {errs}; kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms SDPA {library_ms:.4f} ms "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append(row)
+        del q, k, v, out, lse, q_src, kv_src, qh, kh, vh
+    return rows
+
+
 def phase_kernels():
     import torch
 
@@ -448,6 +572,13 @@ def phase_kernels():
                 f"{BF16_REL_L2})")
         results.setdefault(op, []).append(row)
         del args, got, want, diff
+
+    # the attention forward alone at the serving shapes (launches a
+    # reconstruct forward) and the pretraining ones (none a forward)
+    results["attention_fwd"] = attention_core_rows("attention", {
+        "serving encoder (B1)": 24, "serving decoder self (B1)": 6,
+        "serving decoder cross (B3)": 3, "pretraining encoder (B1)": 0,
+        "pretraining decoder (B6)": 0})
 
     # one float32 case per op (batch 2 of the encoder / decoder shapes)
     f32_cases = [("attn_half_block", (2, 257, 1024, 16), {}),
@@ -692,6 +823,166 @@ def mlp_bwd_timing():
                 f"{library_ms:.4f} ms bound {bound_ms:.4f} ms; launches "
                 + ", ".join(f"{n} {t:.4f}" for n, t in split))
         del args, dy
+    return rows
+
+
+# the attention forward's main-path shapes: (label, (batch, nq, nk, heads,
+# dh), cross-attention, C entry, launches on its path: per batch-64
+# reconstruct forward (serving), per pretraining step (B1, B6), per seg step
+# (B8), per three-modality request)
+ATTN_SHAPES = [
+    ("serving encoder (B1)", (BATCH, 257, 257, 16, 64), False, "attention",
+     "24 / forward"),
+    ("serving encoder N=256", (BATCH, 256, 256, 16, 64), False, "attention",
+     "none: the N = 257 row's ragged tail priced"),
+    ("serving decoder self (B1)", (BATCH, 256, 256, 8, 32), False,
+     "attention", "6 / forward"),
+    ("serving decoder cross (B3)", (BATCH, 256, 257, 8, 32), True,
+     "attention", "3 / forward"),
+    ("pretraining encoder (B1)", (TRAIN_BATCH, 99, 99, 12, 64), False,
+     "attention", "12 / step"),
+    ("pretraining decoder (B6)", (TRAIN_BATCH, 256, 256, 8, 32), False,
+     "attention", "6 / step"),
+    ("seg encoder (B8)", (4, 1025, 1025, 12, 64), False, "flash_fwd",
+     "12 / step"),
+    ("seg encoder N=1024", (4, 1024, 1024, 12, 64), False, "flash_fwd",
+     "none: the N = 1025 row's ragged tail priced"),
+    ("three-modality cross (B8)", (BATCH, 256, 769, 8, 32), True,
+     "flash_fwd", "3 / request at batch 1"),
+]
+# compile-time variants of csrc/attention_fwd.cuh (the attention forward of
+# csrc/attention.cu and csrc/flash_attention.cu) that ``--attn-split`` times
+# side by side; only their order of speed is a finding
+ATTN_SPLIT_VARIANTS = {"full": [], "no_pv": ["-DMTT_ATTN_SPLIT_NO_PV"],
+                       "no_softmax": ["-DMTT_ATTN_SPLIT_NO_SOFTMAX"],
+                       "loads": ["-DMTT_ATTN_SPLIT_LOADS"]}
+
+
+def _attn_inputs(shape, cross, gen):
+    """bf16 (q, k, v, out, lse, q_src, kv_src): q, k and v column windows of
+    a packed qkv (self) or of the queries and a packed kv (cross)."""
+    import torch
+
+    b, nq, nk, h, dh = shape
+    d = h * dh
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen).to(torch.bfloat16).cuda()
+
+    if cross:
+        q_src, kv_src = rn(b, nq, d), rn(b, nk, 2 * d)
+        q, k, v = q_src, kv_src[..., :d], kv_src[..., d:]
+    else:
+        q_src, kv_src = rn(b, nq, 3 * d), None
+        q, k, v = q_src[..., :d], q_src[..., d:2 * d], q_src[..., 2 * d:]
+    out = torch.empty(b, nq, d, dtype=torch.bfloat16, device="cuda")
+    lse = torch.empty(b, h, nq, dtype=torch.float32, device="cuda")
+    return q, k, v, out, lse, q_src, kv_src
+
+
+def _attn_entry_call(fn, entry, q, k, v, out, lse, shape):
+    """One launch of a C entry (``mtt_attention`` or ``mtt_flash_fwd``, any
+    build of them) on the views; raises if the launch was refused."""
+    import ctypes
+
+    import torch
+
+    b, nq, nk, h, dh = shape
+    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if entry == "attention":
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                nq, nk, h, dh, *strides, dh ** -0.5, 1, stream)
+    else:
+        arr = (ctypes.c_longlong * 8)(*strides)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), ctypes.addressof(arr), b, nq, nk, h, dh,
+                dh ** -0.5, 1, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+def _attn_core_work(shape, entry):
+    """(FLOPs, bytes): 4·B·H·Nq·Nk·dh; q, k, v read once, out (and B8's
+    float lse) written once."""
+    b, nq, nk, h, dh = shape
+    extra = 4 * b * h * nq if entry == "flash_fwd" else 0
+    return 4 * b * h * nq * nk * dh, (2 * nq + 2 * nk) * b * h * dh * 2 + extra
+
+
+def _bound(work):
+    t_ops, t_bytes = work[0] / PEAK_BF16_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attn_split(csrc):
+    """The attention forward at ATTN_SHAPES, built from ``csrc`` (default:
+    this checkout's sources) once per ATTN_SPLIT_VARIANTS entry into
+    build/mirage_tpu_torch/split/, each variant's ``mtt_attention`` or
+    ``mtt_flash_fwd`` timed by CUDA events beside SDPA and the bound. The
+    variants leave out P·V, the exponentials and the softmax, or every
+    product (the loads alone); the C entries have not changed, so a copy of
+    this script times an older tree's kernels with the same macros added."""
+    import ctypes
+
+    import torch
+
+    from mirage_tpu_torch.ops import _build
+
+    csrc = Path(csrc).resolve()
+    out_dir = _build.BUILD_DIR / "split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    t0 = time.perf_counter()
+    for variant, flags in ATTN_SPLIT_VARIANTS.items():
+        for src in ("attention", "flash_attention"):
+            lib = out_dir / f"lib{src}_{variant}.so"
+            procs.append((lib, subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+                 str(csrc / f"{src}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    for lib, proc in procs:
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{log_text}")
+        serialized = log_text.count("C7520")
+        log(f"[attn_split] {lib.name}: {serialized} ptxas notes of serialized "
+            f"wgmma; " + "; ".join(ln.strip() for ln in log_text.splitlines()
+                                    if "Used" in ln or "spill" in ln)[:600])
+    log(f"[attn_split] {len(procs)} builds from {csrc} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for variant in ATTN_SPLIT_VARIANTS:
+        for entry, (source, symbol, argtypes) in (
+                ("attention", _build.ENTRIES["attention"]),
+                ("flash_fwd", _build.ENTRIES["flash_fwd"])):
+            fn = getattr(ctypes.CDLL(str(out_dir / f"lib{source}_{variant}.so")),
+                         symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            libs[variant, entry] = fn
+    gen = torch.Generator().manual_seed(SEED + 7)
+    lib_fwd = _flash_library(False)
+    rows = []
+    for label, shape, cross, entry, calls in ATTN_SHAPES:
+        q, k, v, out, lse, q_src, kv_src = _attn_inputs(shape, cross, gen)
+        h, dh = shape[3], shape[4]
+        row = {"label": label, "shape": list(shape), "entry": entry,
+               "calls": calls}
+        for variant in ATTN_SPLIT_VARIANTS:
+            fn = libs[variant, entry]
+            row[variant] = cuda_ms(lambda: _attn_entry_call(
+                fn, entry, q, k, v, out, lse, shape), iters=20, repeats=5)
+        row["library_ms"] = cuda_ms(
+            lambda: lib_fwd(q_src, kv_src, h, dh ** -0.5), iters=20,
+            repeats=5)
+        row["bound_ms"], row["bound_by"] = _bound(_attn_core_work(shape,
+                                                                  entry))
+        log(f"[attn_split] {label} {shape} {entry}: "
+            + ", ".join(f"{var} {row[var]:.4f}"
+                        for var in ATTN_SPLIT_VARIANTS)
+            + f"; SDPA {row['library_ms']:.4f}; bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}) ms a call")
+        rows.append(row)
+        del q, k, v, out, lse, q_src, kv_src
     return rows
 
 
@@ -1033,6 +1324,26 @@ def phase_seg_kernels(results):
         names = ["dqkv"] if kv_src is None else ["dq", "dkv"]
         errs_f = check(["out"], f"flash_attention {label}", [out], [want],
                        True)
+        # the log-sum-exp the backward reads, in log2 units
+        d = q_src.shape[-1] // (3 if kv_src is None else 1)
+        qw = q_src[..., :d]
+        kw = q_src[..., d:2 * d] if kv_src is None else kv_src[..., :d]
+
+        def split(t):
+            return t.float().reshape(t.shape[0], t.shape[1], h, -1) \
+                .transpose(1, 2)
+
+        s = split(qw) @ split(kw).transpose(-1, -2) * scale
+        want_lse = torch.logsumexp(s, -1) / math.log(2.0)
+        lse_err = (lse - want_lse).abs().max().item()
+        errs_f["lse"] = {"max_abs": lse_err, "rel_l2": (
+            (lse - want_lse).norm() / want_lse.norm()).item()}
+        log(f"[kernels] flash_attention {label}: lse max_abs {lse_err:.3e} "
+            f"(log2 units; bar {LSE_ATOL})")
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"flash_attention {label}: lse max_abs "
+                                 f"{lse_err} > {LSE_ATOL}")
+        del s, want_lse
         errs_b = check(names, f"flash_attention_bwd {label}",
                        [g for g in grads if g is not None],
                        [w for w in want_g if w is not None], False)
@@ -1877,7 +2188,8 @@ def phase_serve(workdir, card, path):
     from mirage_tpu_torch.serve import MIRAGEServer, pow2_padded
 
     ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "xattn_half_block": xattn_half_block}
+           "xattn_half_block": xattn_half_block,
+           "attention_fwd": runtime.attention}
     t0 = time.perf_counter()
     wrapper = MIRAGEWrapper(weights=str(path), compute_dtype=torch.bfloat16,
                             device="cuda")
@@ -2008,11 +2320,11 @@ def phase_serve(workdir, card, path):
 # of a cross-attention half (B3 + B2) and two 256-wide blocks
 PER_RECONSTRUCT_FUSE = {
     "off": {"attn_half_block": 30, "mlp_block": 33, "xattn_half_block": 3,
-            "fused_block": 0},
+            "fused_block": 0, "attention_fwd": 33},
     "decoder": {"attn_half_block": 24, "mlp_block": 27,
-                "xattn_half_block": 3, "fused_block": 6},
+                "xattn_half_block": 3, "fused_block": 6, "attention_fwd": 27},
     "all": {"attn_half_block": 0, "mlp_block": 3, "xattn_half_block": 3,
-            "fused_block": 30}}
+            "fused_block": 30, "attention_fwd": 3}}
 
 
 def _serve_under_switch(wrapper, x, card):
@@ -2029,7 +2341,8 @@ def _serve_under_switch(wrapper, x, card):
     from mirage_tpu_torch.ops.fused_mlp import mlp_block
 
     ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "xattn_half_block": xattn_half_block, "fused_block": fused_block}
+           "xattn_half_block": xattn_half_block, "fused_block": fused_block,
+           "attention_fwd": runtime.attention}
     with runtime.plain_on_card():
         want = {k: v.float() for k, v in wrapper(x).items()}
     out, first = {}, None
@@ -2088,7 +2401,9 @@ def _three_modality_request(url, wrapper, rng):
            "slo": rng.random((512, 512), dtype=np.float32),
            "bscanlayermap": rng.integers(0, 13, (128, 128)).astype(np.int32)}
     ops = {"flash_attention": flash_attention,
-           "attn_half_block": attn_half_block, "mlp_block": mlp_block}
+           "attn_half_block": attn_half_block, "mlp_block": mlp_block,
+           "attention_fwd": runtime.attention,
+           "attention_fwd (flash entry)": runtime.flash_attention}
     for fn in ops.values():
         fn.launches = 0
     got = _post(url + "/v1/reconstruct", req)
@@ -2097,7 +2412,8 @@ def _three_modality_request(url, wrapper, rng):
     # encoder: 24 × (B8 + B2); decoders: 3 × B8 cross-attention over 769
     # context tokens, 3 × 2 blocks × (B1 + B2)
     want_counts = {"flash_attention": 27, "attn_half_block": 6,
-                   "mlp_block": 30}
+                   "mlp_block": 30, "attention_fwd": 6,
+                   "attention_fwd (flash entry)": 27}
     log(f"[serve] three-modality request: launches {counts}, expected "
         f"{want_counts}")
     if counts != want_counts:
@@ -2931,8 +3247,10 @@ def _bench_counters():
     from mirage_tpu_torch.ops import block_attention as ba
     from mirage_tpu_torch.ops import fused_mlp as fm
     from mirage_tpu_torch.ops import quant as q
+    from mirage_tpu_torch.ops import runtime
 
     return {"attn_half_block": ba.attn_half_block,
+            "attention_fwd": runtime.attention,
             "mlp_block": fm.mlp_block,
             "xattn_half_block": ba.xattn_half_block,
             "block_attention": ba.block_attention,
@@ -3165,6 +3483,13 @@ def main(argv=None):
                     help="only time B5 and B7-MLP at their three shapes and "
                     "split them into launches (mlp_bwd_timing; it runs in an "
                     "older checkout too); prints no result line")
+    ap.add_argument("--attn-split", nargs="?", const=str(
+                        ROOT / "mirage_tpu_torch" / "csrc"), metavar="CSRC",
+                    help="only time the attention forward (csrc/attention.cu"
+                    ", csrc/flash_attention.cu, built from CSRC, default this"
+                    " checkout's) at its main-path shapes, whole and without "
+                    "P·V, the softmax or every product (attn_split); prints "
+                    "no result line")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
     if not torch.cuda.is_available():
@@ -3184,6 +3509,10 @@ def main(argv=None):
     workdir.mkdir(parents=True, exist_ok=True)
     if opts.mlp_bwd_split:
         log(json.dumps({"mlp_bwd": mlp_bwd_timing(), "card": card}))
+        return 0
+    if opts.attn_split:
+        log(json.dumps({"attn_split": attn_split(opts.attn_split),
+                        "card": card}))
         return 0
 
     if "build" in phases:

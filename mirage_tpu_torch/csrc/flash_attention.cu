@@ -10,13 +10,11 @@
 // keys stream through shared memory in chunks and the softmax runs online
 // (FlashAttention-2):
 //
-// - flash_fwd_bf16_kernel: one block per (batch, head, 64 queries), four
-//   warps of 16 query rows; K and V chunks double-buffered by cp.async; S =
-//   Q·Kᵀ and O += P·V are mma.sync m16n8k16 (bf16, float accumulation) with
-//   the scores in registers; the running max and sum in float. Keys at or
-//   past nk are masked to -inf, queries past nq are not written. The output
-//   is divided by the float row sum at the end, and lse = m + log2(l) (log2
-//   units) is written for the backward.
+// - the bf16 forward: csrc/attention_fwd.cuh (TMA, wgmma, two consumer
+//   warpgroups in ping-pong), shared with csrc/attention.cu; the running max
+//   and sum in float, keys at or past nk masked to -inf, queries past nq not
+//   written, the output divided by the float row sum at the end, and lse =
+//   m + log2(l) (log2 units) written for the backward.
 // - flash_bwd_dq_kernel: one block per (batch, head, 64 queries). Pass 1
 //   streams K and V for delta = rowsum(P∘dP) from the float P = exp2(s −
 //   lse) and dP = dO·Vᵀ (the TPU's delta, not rowsum(dO∘O) from the rounded
@@ -44,12 +42,13 @@
 // v once; the backward's 5 products per score spend 9 here: S and dP are
 // recomputed in both kernels and in both passes of the first). The float
 // path runs one warp per query (or key) row on plain FMAs, for the float32
-// checks. What a later PR changes first: wgmma for the products, and one
-// backward kernel with dQ summed by atomics.
+// checks. What a later PR changes first: wgmma for the backward's products,
+// and one backward kernel with dQ summed by atomics.
 #include <math.h>
 
 #include <initializer_list>
 
+#include "attention_fwd.cuh"
 #include "mma_tiles.cuh"
 
 constexpr int MAX_DH = 128;
@@ -79,122 +78,6 @@ __device__ __forceinline__ void store_rows(float (&acc)[DH / 8][4], bf16* out, i
 }
 
 // ---------------------------------------------------------------- bf16 path
-
-template <int DH>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int nq, int nk, int heads, const Strides st,
-                          float scale_log2) {
-  constexpr int DS = DH + 8, CH = chunk_rows<DH>(), NB = CH / 8, KT = DH / 16, NT = DH / 8;
-  extern __shared__ __align__(16) unsigned char flash_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(flash_smem);  // BT × DS
-  bf16* ks = qs + BT * DS;                         // 2 × CH × DS
-  bf16* vs = ks + 2 * CH * DS;                     // 2 × CH × DS
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BT;
-  // st: q, k, v, o batch and row strides, in that order
-  const bf16* qb = q + b * st.s[0] + (long long)h * DH;
-  const bf16* kb = k + b * st.s[2] + (long long)h * DH;
-  const bf16* vb = v + b * st.s[4] + (long long)h * DH;
-  const int q_rs = (int)st.s[1], k_rs = (int)st.s[3], v_rs = (int)st.s[5];
-  stage_rows<DH>(qs, qb, q0, BT, nq, q_rs);
-  stage_rows<DH>(ks, kb, 0, CH, nk, k_rs);
-  stage_rows<DH>(vs, vb, 0, CH, nk, v_rs);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16;
-  const bool active = row0 < nq;  // a warp past the last query only helps load
-  uint32_t qf[KT][4];
-  float oacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows gid, gid + 8
-
-  const int nch = (nk + CH - 1) / CH;
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      const int nb = (c + 1) & 1;
-      stage_rows<DH>(ks + nb * CH * DS, kb, (c + 1) * CH, CH, nk, k_rs);
-      stage_rows<DH>(vs + nb * CH * DS, vb, (c + 1) * CH, CH, nk, v_rs);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk c (and Q) have landed
-    __syncthreads();
-    if (active) {
-      if (c == 0) load_a<DH>(qf, qs, warp * 16);
-      const bf16* kc = ks + (c & 1) * CH * DS;
-      const bf16* vc = vs + (c & 1) * CH * DS;
-      float s[NB][4];
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      mma_abt<DH, NB>(s, qf, kc);  // S = Q Kᵀ
-
-      // scale (log2 units), mask keys past nk, running max and rescale
-      const int key0 = c * CH;
-      float cmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + j * 8 + 2 * tig + (e & 1);
-          s[j][e] = key < nk ? s[j][e] * scale_log2 : -INFINITY;
-          cmax[e >> 1] = fmaxf(cmax[e >> 1], s[j][e]);
-        }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        cmax[hf] = fmaxf(cmax[hf], __shfl_xor_sync(0xffffffffu, cmax[hf], 1));
-        cmax[hf] = fmaxf(cmax[hf], __shfl_xor_sync(0xffffffffu, cmax[hf], 2));
-        const float m_new = fmaxf(m_run[hf], cmax[hf]);  // finite: a chunk has a key
-        const float corr = exp2f(m_run[hf] - m_new);
-        m_run[hf] = m_new;
-        l_run[hf] *= corr;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          oacc[n][2 * hf] *= corr;
-          oacc[n][2 * hf + 1] *= corr;
-        }
-      }
-      // P = exp2(s − m): float row sums, rounded A fragments of P V
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = exp2f(s[j][e] - m_run[e >> 1]);
-          l_run[e >> 1] += s[j][e];
-        }
-      uint32_t pf[NB / 2][4];
-      to_a<NB>(pf, s);
-      mma_ab<DH, NB / 2>(oacc, pf, vc);  // O += T(P) V
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-  if (!active) return;
-
-  bf16* ob = o + b * st.s[6] + (long long)h * DH;
-  const int o_rs = (int)st.s[7];
-  float* lb = lse + ((long long)b * heads + h) * nq;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    float l = l_run[hf];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.f / l;
-    const int gq = row0 + gid + 8 * hf;
-    if (gq >= nq) continue;
-    if (tig == 0) lb[gq] = m_run[hf] + log2f(l);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)gq * o_rs + n * 8 + 2 * tig) =
-          __floats2bfloat162_rn(oacc[n][2 * hf] * inv, oacc[n][2 * hf + 1] * inv);
-  }
-}
 
 template <int DH>
 __global__ void __launch_bounds__(128)
@@ -592,20 +475,6 @@ __global__ void __launch_bounds__(256)
 // ----------------------------------------------------------------- launch
 
 template <int DH>
-static int fwd_bf16(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-                    void* o, float* lse, int nq, int nk, int heads, const Strides& st,
-                    float scale) {
-  constexpr int CH = chunk_rows<DH>();
-  static size_t conf = 0;
-  const size_t bytes = sizeof(bf16) * (BT + 4 * CH) * (DH + 8);
-  if (int err = set_smem(flash_fwd_bf16_kernel<DH>, bytes, &conf)) return err;
-  flash_fwd_bf16_kernel<DH><<<grid, 128, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, nq, nk, heads, st, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-template <int DH>
 static int bwd_bf16(int nq, int nk, int heads, int batch, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* dout, void* dq, void* dk, void* dv,
                     const float* lse, float* delta, const Strides& st, float scale) {
@@ -667,16 +536,8 @@ extern "C" int mtt_flash_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Strides st = copy_strides(strides, 8);
-  if (dtype == MTT_BF16) {
-    if (!bf16_layout_ok(st, 8, {q, k, v, o})) return (int)cudaErrorInvalidValue;
-    const dim3 grid((nq + BT - 1) / BT, heads, batch);
-#define MTT_FWD(D) \
-  case D:          \
-    return fwd_bf16<D>(grid, s, q, k, v, o, l, nq, nk, heads, st, scale);
-    MTT_DH_SWITCH(MTT_FWD)
-#undef MTT_FWD
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == MTT_BF16)
+    return attn_fwd::run(q, k, v, o, l, batch, nq, nk, heads, dh, st.s, scale, s);
   flash_fwd_f32_kernel<<<dim3((nq + FW - 1) / FW, heads, batch), 32 * FW, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), l, nq, nk, heads, dh, st, scale * LOG2E);

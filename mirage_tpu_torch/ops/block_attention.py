@@ -26,7 +26,9 @@ VMEM; an SM has 227 KB, so on the card each op is a chain of CUDA kernels:
   and the packed (B, Nc, 2D) kv; proj GEMM + bias (+ residual).
 
 Bound: operations (the projections and the attention products). The
-projections run on wgmma, the attention products on mma.sync. This first
+projections and the attention forward (csrc/attention_fwd.cuh, tiled as
+:func:`attention_plan` says) run on wgmma, the attention backward on
+mma.sync. This first
 version writes the LN output, qkv, the attention output, dattn, dqkv and the
 float dyln to device memory between kernels; fusing those away is the first
 work of a later PR. The products with a non-transposed weight (dy·Wproj,
@@ -62,6 +64,7 @@ JAX custom VJPs return them; on a CPU tensor the backward runs the plain
 rounding T(·) to the compute dtype where they round.
 """
 
+import functools
 from collections import namedtuple
 
 import torch
@@ -103,6 +106,64 @@ def ln_bwd_ref(x, dyln, ln_w, dy):
 
 def _flat(t):
     return t.reshape(-1, t.shape[-1])
+
+
+# ------------------------------------------- the attention forward's plan
+
+# csrc/attention_fwd.cuh: query rows a consumer warpgroup owns, keys a ring
+# stage holds, consumer warpgroups a CTA
+ATTN_QROWS, ATTN_KEYS, ATTN_CONSUMERS = 64, 64, 2
+AttentionPlan = namedtuple("AttentionPlan", [
+    "grid", "query_tiles", "key_chunks", "tail_width", "box_cols", "boxes",
+    "swizzle_bytes", "pv_width", "stages", "smem_bytes", "ctas_per_sm",
+    "waves"])
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(nq, nk, dh, heads, batch, sms):
+    """How the bf16 attention forward (csrc/attention_fwd.cuh, behind
+    :func:`runtime.attention` and :func:`runtime.flash_attention`) runs one
+    call: an :class:`AttentionPlan`.
+
+    The grid is (⌈nq/128⌉, heads, batch): a CTA holds two warpgroups of 64
+    query rows (``query_tiles``: (first row, rows) of each warpgroup with
+    rows, over one head; a warpgroup past nq exits). Keys stream in chunks of
+    64 (``key_chunks``: (first key, issued width, keys)), the last issued
+    ``tail_width`` = 8·⌈r/8⌉ wide for its r keys, through a ring of
+    ``stages`` (K and V a stage; five where one 64-column box holds the head,
+    so up to 320 keys are all in flight from the start). A head dim of 16 or
+    32 is loaded in boxes of its own width (32- or 64-byte swizzle), the
+    others in ``boxes`` 64-column boxes (128-byte swizzle) whose k-steps stop
+    at dh; P·V runs ``pv_width`` wide. ``ctas_per_sm``: the kernel's launch
+    bounds (two CTAs of 256 threads at a P·V width of 64 or less), ``waves``
+    of them over ``sms`` SMs. A head dim outside 16..128 in steps of 16, or
+    an empty dimension, raises ValueError."""
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
+                         f"up to 128")
+    if min(nq, nk, heads, batch, sms) <= 0:
+        raise ValueError(f"attention_plan: empty shape nq={nq} nk={nk} "
+                         f"heads={heads} batch={batch} sms={sms}")
+    box = dh if dh in (16, 32) else 64
+    boxes = -(-dh // box)
+    pv_width = boxes * box
+    tile = boxes * ATTN_KEYS * box * 2
+    stages = 5 if box == 64 and boxes == 1 else 4
+    smem = 1024 + (ATTN_CONSUMERS + 2 * stages) * tile + 8 * (2 * stages + 1)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"attention_plan: {smem} bytes of shared memory")
+    nch = -(-nk // ATTN_KEYS)
+    tail = nk - (nch - 1) * ATTN_KEYS
+    tail_width = -(-tail // 8) * 8
+    chunks = tuple((c * ATTN_KEYS, ATTN_KEYS if c < nch - 1 else tail_width,
+                    min(ATTN_KEYS, nk - c * ATTN_KEYS)) for c in range(nch))
+    tiles = tuple((t * ATTN_QROWS, min(ATTN_QROWS, nq - t * ATTN_QROWS))
+                  for t in range(-(-nq // ATTN_QROWS)))
+    grid = (-(-nq // (ATTN_QROWS * ATTN_CONSUMERS)), heads, batch)
+    ctas_per_sm = 2 if pv_width <= 64 else 1
+    waves = grid[0] * heads * batch / (sms * ctas_per_sm)
+    return AttentionPlan(grid, tiles, chunks, tail_width, box, boxes, 2 * box,
+                         pv_width, stages, smem, ctas_per_sm, waves)
 
 
 # ------------------------------------------------------------------ B6

@@ -12,9 +12,10 @@ windows of those, so nothing is transposed through device memory; its
 backward writes the gradient of the packed tensors in the same layout.
 
 On the card both directions are csrc/flash_attention.cu (FlashAttention-2:
-keys streamed through shared memory with an online softmax, mma.sync in
-bf16, the per-row log-sum-exp kept for the backward; a dQ kernel and a
-dK/dV kernel with no atomics). Bound: operations (4·B·H·Nq·Nk·dh FLOPs
+keys streamed through shared memory with an online softmax, the per-row
+log-sum-exp kept for the backward; the bf16 forward on wgmma, shared with
+csrc/attention.cu as csrc/attention_fwd.cuh; the backward on mma.sync, a
+dQ kernel and a dK/dV kernel with no atomics). Bound: operations (4·B·H·Nq·Nk·dh FLOPs
 forward, 10 backward, against reading q, k, v once). On a CPU tensor the
 plain versions below run; they follow the TPU kernels step by step: the
 forward rounds the unnormalised exp(s − m) to the working type before P·V

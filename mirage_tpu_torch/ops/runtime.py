@@ -11,7 +11,9 @@ products), ``attention``, ``attention_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
 allocate outputs with ``torch.empty`` (partial sums with ``torch.zeros``)
 and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
-raising if the launch is refused. :func:`wgrad` is the weight-gradient
+raising if the launch is refused (``attention`` and ``flash_attention``, the
+two entries of the bf16 attention forward, count their launches in
+``.launches``). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
 the weight gradients the stash backward (B9) and the accumulating
@@ -479,6 +481,10 @@ def attention(q, k, v, out, *, heads: int, dh: int, scale: float):
     _launch("attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, nq, nk, heads, dh, *strides, scale,
             _DTYPES[q.dtype])
+    attention.launches += 1
+
+
+attention.launches = 0
 
 
 def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
@@ -555,7 +561,11 @@ def flash_attention(q, k, v, out, *, heads: int, dh: int, scale: float):
     _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
+    flash_attention.launches += 1
     return lse
+
+
+flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,

@@ -161,6 +161,60 @@ def test_attention_reads_packed_columns_in_place(cuda, dtype, atol, b, nq,
     assert _max_err(out, want) <= atol
 
 
+def _attn_core_ref(q, k, v, h, dh, scale):
+    """float32 softmax(q kᵀ·scale) v of (B, rows, ≥ h·dh) column windows and
+    the per-row log-sum-exp in log2 units, (B, h, nq)."""
+    b, nq, nk = q.shape[0], q.shape[1], k.shape[1]
+
+    def heads(t):
+        return t[..., :h * dh].float().reshape(b, t.shape[1], h, dh) \
+            .transpose(1, 2)
+
+    s = heads(q) @ heads(k).transpose(-1, -2) * scale
+    out = (torch.softmax(s, -1) @ heads(v)).transpose(1, 2).reshape(
+        b, nq, h * dh)
+    return out, torch.logsumexp(s, -1) / np.log(2.0)
+
+
+# the Hopper forward (csrc/attention_fwd.cuh) at every head dim it takes and
+# at the ragged shapes of its callers: a one-row query tail (257 = 4·64 + 1,
+# 1025), a lone query, nq ≠ nk both ways (B3's 256 × 257, S7's masked keys
+# nk < nq), keys in one chunk, and a long flash sequence
+ATTN_FWD_TAILS = [(257, 257), (1, 35), (256, 257), (264, 257), (99, 99),
+                  (129, 8), (1025, 1025), (70, 4097)]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("nq,nk", ATTN_FWD_TAILS)
+def test_attention_forward_every_head_dim_and_tail(cuda, dh, nq, nk):
+    """bf16 output (max-abs 5e-2, rel-L2 1e-2, rows never written stay NaN
+    past nq) and the flash entry's log-sum-exp (max-abs 1e-3 in log2 units:
+    float scores from the same bf16 inputs) against float32 math; the
+    packed entry too where it takes the key count."""
+    g = torch.Generator(device="cuda").manual_seed(nq * 7 + nk + dh)
+    b, h = 2, 3
+    d = h * dh
+    q_src = torch.randn(b, nq, d, device=cuda, generator=g).bfloat16()
+    kv = torch.randn(b, nk, 2 * d, device=cuda, generator=g).bfloat16()
+    k, v = kv[..., :d], kv[..., d:]
+    scale = dh ** -0.5
+    want, want_lse = _attn_core_ref(q_src, k, v, h, dh, scale)
+    out = torch.full((b, nq + 1, d), float("nan"), device=cuda,
+                     dtype=torch.bfloat16)
+    lse = runtime.flash_attention(q_src, k, v, out[:, :nq], heads=h, dh=dh,
+                                  scale=scale)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[:, nq:]).all()
+    err = (out[:, :nq].float() - want)
+    assert err.abs().max().item() <= 5e-2
+    assert (err.norm() / want.norm()).item() <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    if nk <= runtime.MAX_KEYS:
+        out2 = torch.empty(b, nq, d, device=cuda, dtype=torch.bfloat16)
+        runtime.attention(q_src, k, v, out2, heads=h, dh=dh, scale=scale)
+        assert torch.equal(out2, out[:, :nq])
+
+
 def test_attention_raises_past_512_keys(cuda):
     x = torch.zeros(1, 513, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="B8"):
