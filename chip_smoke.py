@@ -21,7 +21,13 @@ Phases, each of which must pass (any failure exits non-zero):
    version and a composite of PyTorch library calls with CUDA events. The
    attention forward alone (``attention_fwd``) at the serving encoder's,
    the decoders' (self and cross) and the pretraining B1's and B6's shapes
-   beside SDPA; B8's rows hold its log-sum-exp to float32 math too.
+   beside SDPA; B8's rows hold its log-sum-exp to float32 math too. The
+   attention backward alone (``attention_bwd``: B4's core and B6's at the
+   pretraining and classification shapes; ``flash_bwd``: B8's at the seg
+   encoder's and the decoders' cross shapes) beside SDPA's backward alone
+   and SDPA's forward and backward; B6's backward also at the
+   classification shape, and every backward op and kernel row reruns bit
+   for bit the same.
 3. golden: tests/golden/example_triplet_tiny.npz (reference weights and
    outputs) through the port's wrapper on the card in float32.
 4. serve: MIRAGE-Large (1024 wide, 24 layers, 16 heads; three 256/2/8
@@ -97,6 +103,13 @@ and without P·V, without the softmax, and without any product (the loads
 alone), beside SDPA and the bound; the C entries it calls are the parent's
 too, so a copy of an older csrc/ with the same macros is timed the same
 way.
+``--attn-bwd-split [CSRC]`` only times the bf16 attention backward at its
+path shapes (ATTN_BWD_SHAPES), built from CSRC whole and without the dQ
+products, the dK/dV kernel, the exponentials, or every product, beside
+SDPA's backward alone, SDPA's forward and backward and the bound, and splits
+B4's chain into its launches; its C entries and macro names are the
+parent's too, so a copy of this script in an older checkout (its sources
+given the macros) times that tree the same way.
 ``--mlp-bwd-split`` only times B5 and B7-MLP at their three shapes beside
 the library call and the bound, each split into its launches; it calls
 only the two backward ops, so a copy of this script in an older
@@ -179,22 +192,22 @@ PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
 
 
 # the port's CUDA kernels by function name -> their group in a profile (the
-# bf16 forward of csrc/attention_fwd.cuh serves both attention.cu and
-# flash_attention.cu: B8's forward is in "attention" too)
+# bf16 forward of csrc/attention_fwd.cuh and backward of
+# csrc/attention_bwd.cuh serve both the packed and the flash entries: B8's
+# forward is in "attention" and its bf16 backward in "attention_bwd" too)
 PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "gemm_stash_kernel": "gemm_stash",
                 "gemm_stash_f32_kernel": "gemm_stash",
                 "attn_fwd::attention_fwd_kernel": "attention",
                 "attention_f32_kernel": "attention",
-                "attn_bwd_dq_kernel": "attention_bwd",
-                "attn_bwd_dkv_kernel": "attention_bwd",
+                "attn_bwd::dq_kernel": "attention_bwd",
+                "attn_bwd::dkv_kernel": "attention_bwd",
+                "attn_bwd::head_kernel": "attention_bwd",
                 "attn_bwd_dq_f32_kernel": "attention_bwd",
                 "attn_bwd_dkv_f32_kernel": "attention_bwd",
                 "layernorm_kernel": "layernorm",
                 "layernorm_bwd_kernel": "layernorm_bwd",
                 "flash_fwd_f32_kernel": "flash_attention",
-                "flash_bwd_dq_kernel": "flash_attention_bwd",
-                "flash_bwd_dkv_kernel": "flash_attention_bwd",
                 "flash_bwd_dq_f32_kernel": "flash_attention_bwd",
                 "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
                 "wgrad_bf16_kernel": "wgrad", "wgrad_f32_kernel": "wgrad",
@@ -309,37 +322,51 @@ def phase_build():
             + "".join(f"\n[build]   {ln}" for ln in spills))
         if spills and name in NO_SPILL:
             raise AssertionError(f"{name}.cu spills registers")
-    # the attention forward (csrc/attention_fwd.cuh, in both libraries):
-    # registers and spills of each head dim's kernel, none allowed
-    for name in ("attention", "flash_attention"):
+    # the attention forward (csrc/attention_fwd.cuh, in attention.cu and
+    # flash_attention.cu) and backward (csrc/attention_bwd.cuh, in
+    # attention_bwd.cu and flash_attention.cu): registers and spills of each
+    # head dim's kernel, none allowed, and no serialized wgmma
+    for name, kernels in (("attention", ("attention_fwd_kernel",)),
+                          ("attention_bwd", ("dq_kernel", "dkv_kernel")),
+                          ("flash_attention", ("attention_fwd_kernel",
+                                               "dq_kernel", "dkv_kernel"))):
         lines = report[name].splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and "attention_fwd_kernel" in ln:
-                dh = re.search(r"kernelILi(\d+)E", ln).group(1)
-                props = " ".join(x.strip() for x in lines[i + 1:i + 4]
-                                 if "spill" in x or "Used" in x)
-                log(f"[build] {name}: attention_fwd_kernel<{dh}>: {props}")
-                if re.search(r"[1-9]\d* bytes spill", props):
-                    raise AssertionError(f"attention_fwd_kernel<{dh}> spills "
-                                         f"registers in {name}.cu")
+            kernel = next((k for k in kernels if "Compiling entry" in ln
+                           and re.search(rf"\d{k}ILi", ln)), None)
+            if kernel is None:
+                continue
+            args = re.search(r"ILi(\d+)E(Lb[01]E)?", ln)
+            label = f"{kernel}<{args.group(1)}" + (
+                f", {'true' if args.group(2) == 'Lb1E' else 'false'}>"
+                if args.group(2) else ">")
+            props = " ".join(x.strip() for x in lines[i + 1:i + 4]
+                             if "spill" in x or "Used" in x)
+            log(f"[build] {name}: {label}: {props}")
+            if re.search(r"[1-9]\d* bytes spill", props):
+                raise AssertionError(f"{label} spills registers in {name}.cu")
         if "C7520" in report[name]:
             raise AssertionError(f"{name}.cu: ptxas serialized wgmma (C7520)")
-    # the bf16 products of B10 and of the attention forward must be wgmma:
-    # HGMMA in the libraries' SASS; the mma.sync forwards are gone
+    # the bf16 products of B10 and of the attention forward and backward
+    # must be wgmma: HGMMA in the libraries' SASS; the mma.sync forwards and
+    # backwards are gone
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    for lib in ("fused_block", "attention", "flash_attention"):
+    mma_sync = ("attention_bf16_kernel", "flash_fwd_bf16_kernel",
+                "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    for lib in ("fused_block", "attention", "attention_bwd",
+                "flash_attention"):
         sass = subprocess.run([str(tool), "-sass",
                                str(_build.BUILD_DIR / f"lib{lib}.so")],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
         hgmma = sass.count("HGMMA")
-        old = [k for k in ("attention_bf16_kernel", "flash_fwd_bf16_kernel")
-               if k in sass]
+        old = [k for k in mma_sync if k in sass]
         log(f"[build] {lib}: {hgmma} HGMMA instructions in its SASS"
-            + (f"; mma.sync forwards found: {old}" if old else ""))
+            + (f"; mma.sync kernels found: {old}" if old else ""))
         if hgmma == 0 or old:
             raise AssertionError(f"{lib}'s bf16 products are not wgmma, or "
-                                 f"an mma.sync forward is left: {old}")
+                                 f"an mma.sync attention kernel is left: {old}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -623,13 +650,33 @@ BWD_KERNELS = {
         "_block_attn_bwd :169 -> _block_attn_bwd_kernel :111",
         "mirage_tpu_torch/ops/block_attention.py", ["attention_bwd.cu"]),
 }
+# the bf16 attention backward kernel (csrc/attention_bwd.cuh) by its two
+# launchers, each a `kernels` entry on the paths that launch it: name ->
+# (TPU kernel file:line, the TPU kernels whose attention core it is, source,
+# sources)
+ATTN_BWD_KERNELS = {
+    "attention_bwd": (
+        "mirage_tpu/ops/block_attention.py:111",
+        "_block_attn_bwd :169 -> _block_attn_bwd_kernel :111 (B6); the "
+        "attention core (_attn_half_bwd_rows :406-440) of "
+        "_attn_half_bwd_dx_kernel :549 (B4) and _attn_half_bwd_kernel :457 "
+        "(B7)",
+        "mirage_tpu_torch/csrc/attention_bwd.cuh",
+        ["attention_bwd.cuh", "attention_bwd.cu"]),
+    "flash_bwd": (
+        "mirage_tpu/ops/flash_attention.py:115",
+        "_flash_bwd :175 -> _attn_bwd_kernel :115 (B8)",
+        "mirage_tpu_torch/csrc/attention_bwd.cuh",
+        ["attention_bwd.cuh", "flash_attention.cu"]),
+}
 # launches of each op per pretraining step (ViT-B: 12 encoder layers at 99
-# tokens; three decoders of two 256-token blocks)
+# tokens; three decoders of two 256-token blocks; attention_bwd: the bf16
+# backward kernel's launches, one in each B4 and B6 backward)
 PER_STEP = {"attn_half_block": 12, "attn_half_block_bwd": 12,
             "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
             "block_attention_bwd": 6, "xattn_half_block": 0,
             "attn_half_block_acc_bwd": 0, "mlp_block_acc_bwd": 0,
-            "fused_adamw": 0}
+            "fused_adamw": 0, "attention_bwd": 18, "flash_bwd": 0}
 # the same step with the JAX package's three switches on
 # (MIRAGE_OPT_KERNEL=on, MIRAGE_MLP_BWD=accumulate,
 # MIRAGE_ATTN_BWD=accumulate): both halves' backwards take B7, the update B11
@@ -986,6 +1033,294 @@ def attn_split(csrc):
     return rows
 
 
+# the attention backward's path shapes: (label, (batch, nq, nk, heads, dh),
+# cross-attention, C entry, launches on its path)
+ATTN_BWD_SHAPES = [
+    ("B4 core, pretraining encoder", (TRAIN_BATCH, 99, 99, 12, 64), False,
+     "attention_bwd", "12 / pretraining step (B7-attention under its switch)"),
+    ("B6, pretraining decoders", (TRAIN_BATCH, 256, 256, 8, 32), False,
+     "attention_bwd", "6 / pretraining step"),
+    ("B6, cls full fine-tune", (BATCH, 257, 257, 12, 64), False,
+     "attention_bwd", "12 / cls step"),
+    ("B8, seg encoder", (4, 1025, 1025, 12, 64), False, "flash_bwd",
+     "12 / seg step"),
+    ("B8, decoder cross", (BATCH, 256, 769, 8, 32), True, "flash_bwd",
+     "none: phase 2's cross row"),
+]
+# compile-time variants of the bf16 attention backward (csrc/attention_bwd.cu
+# and csrc/flash_attention.cu) that ``--attn-bwd-split`` times side by side
+ATTN_BWD_SPLIT_VARIANTS = {
+    "full": [], "no_dq": ["-DMTT_ATTN_BWD_SPLIT_NO_DQ"],
+    "no_dkv": ["-DMTT_ATTN_BWD_SPLIT_NO_DKV"],
+    "no_softmax": ["-DMTT_ATTN_BWD_SPLIT_NO_SOFTMAX"],
+    "loads": ["-DMTT_ATTN_BWD_SPLIT_LOADS"]}
+
+
+def _attn_bwd_core_work(shape, entry):
+    """(FLOPs, bytes) of one attention backward: 10·B·H·Nq·Nk·dh; q, k, v
+    and dO read once, dq, dk, dv written once, plus the packed form's float
+    16-row partials of dqkv (written) or the flash form's lse (read)."""
+    b, nq, nk, h, dh = shape
+    extra = (3 * h * dh * b * -(-nq // 16) * 4 if entry == "attention_bwd"
+             else 4 * b * h * nq)
+    return (10 * b * h * nq * nk * dh,
+            (3 * nq + 4 * nk) * b * h * dh * 2 + extra)
+
+
+def _sdpa_bwd_alone(q_src, kv_src, h, scale, dy):
+    """A closure that runs only the backward of SDPA's forward on the same
+    packed views (torch.autograd.grad over a graph kept from one forward):
+    the second yardstick of an attention backward row."""
+    import torch
+
+    srcs = [t.detach().requires_grad_() for t in (q_src, kv_src)
+            if t is not None]
+    out = _flash_library(False)(srcs[0], srcs[1] if len(srcs) > 1 else None,
+                                h, scale)
+    return lambda: torch.autograd.grad(out, srcs, dy, retain_graph=True)
+
+
+def _attn_bwd_entry_call(fn, entry, bufs, shape):
+    """One launch of ``mtt_attention_bwd`` or ``mtt_flash_bwd`` (any build of
+    them) on the buffers of :func:`attn_bwd_split`; raises if refused."""
+    import ctypes
+
+    import torch
+
+    b, nq, nk, h, dh = shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if entry == "attention_bwd":
+        rc = fn(bufs["qkv"].data_ptr(), bufs["dout"].data_ptr(),
+                bufs["dqkv"].data_ptr(), bufs["stats"][0].data_ptr(),
+                bufs["stats"][1].data_ptr(), bufs["part"].data_ptr(), b, nq,
+                h, dh, dh ** -0.5, 1, stream)
+    else:
+        views = [bufs[k] for k in ("q", "k", "v", "dout", "dq", "dk", "dv")]
+        arr = (ctypes.c_longlong * 14)(*[t.stride(i) for t in views
+                                         for i in (0, 1)])
+        rc = fn(*[t.data_ptr() for t in views], bufs["lse"].data_ptr(),
+                bufs["delta"].data_ptr(), ctypes.addressof(arr), b, nq, nk,
+                h, dh, dh ** -0.5, 1, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+def attn_bwd_split(csrc):
+    """The bf16 attention backward at ATTN_BWD_SHAPES, built from ``csrc``
+    (default: this checkout's sources) once per ATTN_BWD_SPLIT_VARIANTS
+    entry into build/mirage_tpu_torch/split_bwd/, each variant's C entry
+    timed by CUDA events beside SDPA's backward alone, SDPA's forward and
+    backward, and the bound; then B4's chain (``_attn_half_bwd`` at
+    (256, 99, 768, 12)) split into its launches (:func:`launch_split`). The
+    variants leave out the dQ products, the dK/dV kernel, the exponentials
+    and delta, or every product (the loads alone); the C entries are the
+    parent's too, so a copy of this script in an older checkout's root times
+    that tree's kernels with the same macros added."""
+    import ctypes
+
+    import torch
+
+    from mirage_tpu_torch.ops import _build, runtime
+    from mirage_tpu_torch.ops import block_attention as ba
+
+    csrc = Path(csrc).resolve()
+    out_dir = _build.BUILD_DIR / "split_bwd"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    t0 = time.perf_counter()
+    for variant, flags in ATTN_BWD_SPLIT_VARIANTS.items():
+        for src in ("attention_bwd", "flash_attention"):
+            lib = out_dir / f"lib{src}_{variant}.so"
+            procs.append((lib, subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+                 str(csrc / f"{src}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    for lib, proc in procs:
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{log_text}")
+        log(f"[attn_bwd_split] {lib.name}: {log_text.count('C7520')} ptxas "
+            f"notes of serialized wgmma; " + "; ".join(
+                ln.strip() for ln in log_text.splitlines()
+                if "Used" in ln or "spill" in ln)[:700])
+    log(f"[attn_bwd_split] {len(procs)} builds from {csrc} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for variant in ATTN_BWD_SPLIT_VARIANTS:
+        for entry in ("attention_bwd", "flash_bwd"):
+            source, symbol, argtypes = _build.ENTRIES[entry]
+            fn = getattr(ctypes.CDLL(str(out_dir
+                                         / f"lib{source}_{variant}.so")),
+                         symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            libs[variant, entry] = fn
+    gen = torch.Generator().manual_seed(SEED + 9)
+    lib_bwd = _flash_library(True)
+    rows = []
+    for label, shape, cross, entry, calls in ATTN_BWD_SHAPES:
+        b, nq, nk, h, dh = shape
+        d, scale = h * dh, dh ** -0.5
+        q, k, v, out, lse, q_src, kv_src = _attn_inputs(shape, cross, gen)
+        dy = torch.randn(b, nq, d, generator=gen).to(torch.bfloat16).cuda()
+        d_q = torch.empty_like(q_src)
+        d_kv = None if kv_src is None else torch.empty_like(kv_src)
+        dq, dk, dv = ((d_q[..., :d], d_q[..., d:2 * d], d_q[..., 2 * d:])
+                      if kv_src is None else
+                      (d_q, d_kv[..., :d], d_kv[..., d:]))
+        if entry == "flash_bwd":
+            lse = runtime.flash_attention(q, k, v, out, heads=h, dh=dh,
+                                          scale=scale)
+        bufs = {"qkv": q_src, "dout": dy, "dqkv": d_q, "q": q, "k": k,
+                "v": v, "dq": dq, "dk": dk, "dv": dv, "lse": lse,
+                "delta": torch.empty_like(lse),
+                "stats": torch.empty(2, b, h, nq, device="cuda"),
+                "part": torch.empty(b * -(-nq // 16), 3 * d, device="cuda")}
+        row = {"label": label, "shape": list(shape), "entry": entry,
+               "calls": calls}
+        for variant in ATTN_BWD_SPLIT_VARIANTS:
+            fn = libs[variant, entry]
+            row[variant] = cuda_ms(lambda: _attn_bwd_entry_call(
+                fn, entry, bufs, shape), iters=20, repeats=5)
+        row["sdpa_bwd_ms"] = cuda_ms(
+            _sdpa_bwd_alone(q_src, kv_src, h, scale, dy), iters=20,
+            repeats=5)
+        row["library_ms"] = cuda_ms(
+            lambda: lib_bwd(dy, q_src, kv_src, h, scale), iters=20,
+            repeats=5)
+        row["bound_ms"], row["bound_by"] = _bound(
+            _attn_bwd_core_work(shape, entry))
+        log(f"[attn_bwd_split] {label} {shape} {entry}: "
+            + ", ".join(f"{var} {row[var]:.4f}"
+                        for var in ATTN_BWD_SPLIT_VARIANTS)
+            + f"; SDPA bwd {row['sdpa_bwd_ms']:.4f}, fwd+bwd "
+            f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}) ms a call")
+        rows.append(row)
+        del q, k, v, out, lse, q_src, kv_src, dy, d_q, d_kv, bufs
+    args, dy = _bwd_inputs("attn_half_block_bwd", (TRAIN_BATCH, 99, 768, 12),
+                           torch.bfloat16, gen)
+    chain = launch_split(lambda: ba._attn_half_bwd(args[0], dy, *args[1:6],
+                                                   args[7]))
+    log(f"[attn_bwd_split] B4 chain (256, 99, 768, 12) (device ms a launch): "
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in chain)
+        + f"; sum {sum(ms for _, ms in chain):.4f}")
+    return {"rows": rows, "b4_chain": chain}
+
+
+def attention_bwd_core_rows(cases):
+    """The bf16 attention backward alone (csrc/attention_bwd.cuh through
+    ``runtime.attention_bwd`` or ``runtime.flash_attention_bwd``) at
+    ``cases`` ((label, ATTN_BWD_SHAPES shape, cross, entry, calls a step on
+    its path)), bf16 against its plain version in float32 from the same
+    inputs (rel-L2 BWD_REL_L2, max BWD_REL_MAX; the packed form's dbqkv
+    partials too), a rerun bit for bit the same; then the kernel, its plain
+    version, SDPA's backward alone and SDPA's forward and backward timed."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import block_attention_bwd_ref
+    from mirage_tpu_torch.ops.flash_attention import flash_attention_bwd_ref
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    lib_bwd = _flash_library(True)
+    rows = []
+    for label, shape, cross, entry, per_step in cases:
+        b, nq, nk, h, dh = shape
+        d, scale = h * dh, dh ** -0.5
+        q, k, v, out, lse, q_src, kv_src = _attn_inputs(shape, cross, gen)
+        dy = torch.randn(b, nq, d, generator=gen).to(torch.bfloat16).cuda()
+
+        def heads(t):
+            return t.reshape(b, t.shape[1], h, dh).transpose(1, 2)
+
+        if entry == "attention_bwd":
+            def launch():
+                return runtime.attention_bwd(q_src, dy, heads=h, dh=dh,
+                                             scale=scale, partials=True)
+            kernel = launch
+
+            def plain():
+                return block_attention_bwd_ref(q_src, dy, h, scale)
+            want = block_attention_bwd_ref(q_src.float(), dy.float(), h,
+                                           scale)
+            wants = {"dqkv": want, "dbqkv": want.sum((0, 1))}
+        else:
+            lse = runtime.flash_attention(q, k, v, out, heads=h, dh=dh,
+                                          scale=scale)
+            # the gradients of the packed sources: dqkv, or dq and dkv
+            srcs = [torch.empty_like(t) for t in (q_src, kv_src)
+                    if t is not None]
+            grads = [g[..., i * d:(i + 1) * d] for g in srcs
+                     for i in range(g.shape[-1] // d)]
+
+            def launch():
+                runtime.flash_attention_bwd(q, k, v, dy, lse, *grads,
+                                            heads=h, dh=dh, scale=scale)
+
+            def kernel():
+                launch()
+                return [g.clone() for g in srcs]
+
+            def plain():
+                return flash_attention_bwd_ref(heads(q), heads(k), heads(v),
+                                               heads(dy), scale)
+            want = [w.transpose(1, 2).reshape(b, w.shape[2], d)
+                    for w in flash_attention_bwd_ref(
+                        *(heads(t.float()) for t in (q, k, v, dy)), scale)]
+            wants = ({"dqkv": torch.cat(want, -1)} if kv_src is None else
+                     {"dq": want[0], "dkv": torch.cat(want[1:], -1)})
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"attention_bwd {label}: a rerun is not "
+                                 f"bit-identical")
+        got = {"dqkv": got[0], "dbqkv": got[1].sum(0)} \
+            if entry == "attention_bwd" else dict(zip(wants, got))
+        errs = {}
+        for name, w in wants.items():
+            diff = got[name].float() - w
+            errs[name] = {"max_abs": diff.abs().max().item(),
+                          "rel_max": (diff.abs().max() / w.abs().max()).item(),
+                          "rel_l2": (diff.norm() / w.norm()).item()}
+            if not (bool(torch.isfinite(got[name]).all())
+                    and errs[name]["rel_l2"] <= BWD_REL_L2
+                    and errs[name]["rel_max"] <= BWD_REL_MAX):
+                raise AssertionError(f"attention_bwd {label} {name}: kernel "
+                                     f"disagrees with its plain version: "
+                                     f"{errs[name]}")
+        del got, again, want, wants
+        ms = cuda_ms(launch)
+        plain_ms = cuda_ms(plain, iters=5)
+        sdpa_bwd_ms = cuda_ms(_sdpa_bwd_alone(q_src, kv_src, h, scale, dy))
+        library_ms = cuda_ms(lambda: lib_bwd(dy, q_src, kv_src, h, scale))
+        bound_ms, bound_by = _bound(_attn_bwd_core_work(shape, entry))
+        row = {"label": label, "shape": list(shape), "dtype": "bf16",
+               "entry": entry, "errors": errs,
+               "max_abs_err": max(e["max_abs"] for e in errs.values()),
+               "rerun_bit_identical": True, "ms": ms, "plain_ms": plain_ms,
+               "sdpa_bwd_ms": sdpa_bwd_ms, "library_ms": library_ms,
+               "library": "F.scaled_dot_product_attention forward and "
+                          "backward (torch.autograd.grad) on the same views; "
+                          "sdpa_bwd_ms: its backward alone",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "calls_per_step": per_step}
+        log(f"[kernels] attention_bwd {label} {shape} {entry}: worst rel_l2 "
+            f"{max(e['rel_l2'] for e in errs.values()):.3e}; rerun "
+            f"bit-identical; kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA "
+            f"bwd {sdpa_bwd_ms:.4f} ms fwd+bwd {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        rows.append(row)
+        del q, k, v, out, lse, q_src, kv_src, dy
+    return rows
+
+
+def _rows_of(labels, calls):
+    """The ATTN_BWD_SHAPES cases named in ``labels``, each with its calls a
+    step on the path at hand."""
+    return [(label, shape, cross, entry, calls[label])
+            for label, shape, cross, entry, _ in ATTN_BWD_SHAPES
+            if label in labels]
+
+
 def phase_backward(results):
     """Each backward op (and B6's forward) at the pretraining shapes against
     its plain version computed in float32 from the same inputs; every output
@@ -1041,15 +1376,19 @@ def phase_backward(results):
         ("mlp_block_bwd", "classification encoder", (BATCH, 257, 768), {}, 0),
         ("block_attention", "decoder", (256, 256, 256, 8), {}, 6),
         ("block_attention_bwd", "decoder", (256, 256, 256, 8), {}, 6),
+        # B6's backward in the classification full fine-tune: 12 a cls step
+        ("block_attention_bwd", "classification encoder", (BATCH, 257, 768, 12),
+         {}, 0),
     ]
     gen = torch.Generator().manual_seed(SEED + 1)
     for op, label, shape, kw, per_step in cases:
         kernel, ref = ops[op]
         args, dy = _bwd_inputs(op, shape, torch.bfloat16, gen)
         got = kernel(args, dy, **kw)
-        if op == "mlp_block_bwd":
+        if op != "block_attention":  # every backward reruns bit for bit
             again = kernel(args, dy, **kw)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
                 raise AssertionError(f"{op} {label}: a rerun is not "
                                      f"bit-identical")
             del again
@@ -1091,17 +1430,35 @@ def phase_backward(results):
                "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "calls_per_step": per_step, **kw}
-        if op == "mlp_block_bwd":
+        if op != "block_attention":
             row["rerun_bit_identical"] = True
+        if op == "block_attention_bwd":
+            row["sdpa_bwd_ms"] = cuda_ms(_sdpa_bwd_alone(
+                args[0], None, args[1], args[2], dy), iters=10)
+            if label == "classification encoder":
+                row["calls_per_cls_step"] = 12
+        if op == "mlp_block_bwd":
             row["split_ms"] = mlp_bwd_split(args, dy, f"{op} {label}", **kw)
         log(f"[kernels] {op} {label} {shape}: worst rel_l2 "
             f"{max(e['rel_l2'] for e in errs.values()):.3e} rel_max "
             f"{max(e['rel_max'] for e in errs.values()):.3e} kernel "
             f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
-            f"{library_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+            f"{library_ms:.4f} ms"
+            + (f" SDPA bwd {row['sdpa_bwd_ms']:.4f} ms"
+               if "sdpa_bwd_ms" in row else "")
+            + f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         results.setdefault(op, []).append(row)
         del args, dy
+
+    # the bf16 attention backward alone at the packed shapes: a pretraining
+    # step's B4 (B7-attention under its switch) and B6 calls, and B6's in a
+    # classification full fine-tune step
+    results["attention_bwd"] = attention_bwd_core_rows(_rows_of(
+        ("B4 core, pretraining encoder", "B6, pretraining decoders",
+         "B6, cls full fine-tune"),
+        {"B4 core, pretraining encoder": 12, "B6, pretraining decoders": 6,
+         "B6, cls full fine-tune": 0}))
+    results["attention_bwd"][-1]["calls_per_cls_step"] = 12
 
     # one float32 case per op (batch 2 of the pretraining shapes)
     f32_cases = [("attn_half_block_bwd", (2, 99, 768, 12), {}),
@@ -1316,6 +1673,11 @@ def phase_seg_kernels(results):
                                                       gen)
         out, lse = fa._flash_fwd(q_src, kv_src, h, scale)
         grads = fa._flash_bwd(q_src, kv_src, lse, dy, h, scale)
+        if not all(torch.equal(a, b) for a, b in zip(
+                grads, fa._flash_bwd(q_src, kv_src, lse, dy, h, scale))
+                if a is not None):
+            raise AssertionError(f"flash_attention_bwd {label}: a rerun is "
+                                 f"not bit-identical")
         torch.cuda.synchronize()
         f32 = [t.float() if t is not None else None for t in (q_src, kv_src)]
         with runtime.plain_on_card():
@@ -1359,14 +1721,24 @@ def phase_seg_kernels(results):
         lib_f, lib_b = _flash_library(False), _flash_library(True)
         l_f = cuda_ms(lambda: lib_f(q_src, kv_src, h, scale), iters=10)
         l_b = cuda_ms(lambda: lib_b(dy, q_src, kv_src, h, scale), iters=10)
+        sdpa_b = cuda_ms(_sdpa_bwd_alone(q_src, kv_src, h, scale, dy),
+                         iters=10)
         shape5 = shape if len(shape) == 5 else shape[:3] + shape[2:]
         results.setdefault("flash_attention", []).append(
             row(f"flash_attention {label}", shape, errs_f, k_f, p_f, l_f,
                 _flash_work(shape5, 2, False), per_step))
         results.setdefault("flash_attention_bwd", []).append(
             row(f"flash_attention_bwd {label}", shape, errs_b, k_b, p_b, l_b,
-                _flash_work(shape5, 2, True), per_step))
+                _flash_work(shape5, 2, True), per_step,
+                rerun_bit_identical=True, sdpa_bwd_ms=sdpa_b))
+        log(f"[kernels] flash_attention_bwd {label}: rerun bit-identical; "
+            f"SDPA bwd alone {sdpa_b:.4f} ms")
         del q_src, kv_src, dy, lse
+
+    # the bf16 attention backward alone at B8's shapes: 12 a seg step
+    results["flash_bwd"] = attention_bwd_core_rows(_rows_of(
+        ("B8, seg encoder", "B8, decoder cross"),
+        {"B8, seg encoder": 12, "B8, decoder cross": 0}))
 
     # B9 at the ConvNeXt head's rows: 4 per seg train step
     m, d = 65536, 384
@@ -2453,6 +2825,7 @@ def _launch_counters():
     from mirage_tpu_torch.ops import flash_attention as fa
     from mirage_tpu_torch.ops import fused_adamw as fadam
     from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
 
     return {"attn_half_block": (ba.attn_half_block, "launches"),
             "attn_half_block_bwd": (ba.attn_half_block, "bwd_launches"),
@@ -2467,6 +2840,10 @@ def _launch_counters():
             "xattn_half_block": (ba.xattn_half_block, "launches"),
             "flash_attention": (fa.flash_attention, "launches"),
             "flash_attention_bwd": (fa.flash_attention, "bwd_launches"),
+            # the bf16 backward kernel (csrc/attention_bwd.cuh) by its two
+            # launchers: the packed qkv (B4, B6, B7-attention) and B8's
+            "attention_bwd": (runtime.attention_bwd, "launches"),
+            "flash_bwd": (runtime.flash_attention_bwd, "launches"),
             "mlp_block_stash": (fm.mlp_block, "stash_launches"),
             "mlp_block_stash_bwd": (fm.mlp_block, "stash_bwd_launches")}
 
@@ -2676,6 +3053,7 @@ SEG_TRAIN, SEG_VAL, SEG_BATCH = 8, 4, 4  # synthetic images; the yaml's batch
 # launches per segmentation train step and per eval forward (ViT-B at 1025
 # tokens, 12 layers; four ConvNeXt blocks over 4·128² rows)
 SEG_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
+                "flash_bwd": 12, "attention_bwd": 0,
                 "mlp_block_stash": 4, "mlp_block_stash_bwd": 4,
                 "attn_half_block": 0, "attn_half_block_bwd": 0,
                 "mlp_block": 0, "mlp_block_bwd": 0, "block_attention": 0,
@@ -2882,7 +3260,7 @@ CLS_CLASSES = ("AMD", "DME", "NORMAL")
 # (the fused halves B1 + B2)
 CLS_ZERO = {k: 0 for k in PER_STEP}
 CLS_PER_STEP = {**CLS_ZERO, "block_attention": 12, "block_attention_bwd": 12,
-                "mlp_block": 12, "mlp_block_bwd": 12}
+                "mlp_block": 12, "mlp_block_bwd": 12, "attention_bwd": 12}
 CLS_PER_STEP_ON = {**CLS_PER_STEP, "mlp_block_bwd": 0,
                    "mlp_block_acc_bwd": 12, "fused_adamw": 1}
 CLS_PER_EVAL = {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}
@@ -3412,7 +3790,7 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
         else:
             replaces, tpu_kernel, source, csrc = {
                 **BWD_KERNELS, **SEG_KERNELS, **ACC_KERNELS,
-                **SERVE_KERNELS}[name]
+                **SERVE_KERNELS, **ATTN_BWD_KERNELS}[name]
             csrc = [CSRC + f for f in csrc]
         ms = per_path_sum("ms")
         entries.append({
@@ -3427,6 +3805,8 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
             "ms": ms, "kernel_ms": ms, "plain_ms": per_path_sum("plain_ms"),
             "bound_ms": per_path_sum("bound_ms"), "bound_by": top["bound_by"],
             "library_ms": per_path_sum("library_ms"),
+            **({"sdpa_bwd_ms": per_path_sum("sdpa_bwd_ms")}
+               if all("sdpa_bwd_ms" in r for r in main_rows) else {}),
             "library": top.get("library", (
                 "composite of F.layer_norm, F.linear, F.gelu, "
                 "F.scaled_dot_product_attention"
@@ -3490,6 +3870,15 @@ def main(argv=None):
                     " checkout's) at its main-path shapes, whole and without "
                     "P·V, the softmax or every product (attn_split); prints "
                     "no result line")
+    ap.add_argument("--attn-bwd-split", nargs="?", const=str(
+                        ROOT / "mirage_tpu_torch" / "csrc"), metavar="CSRC",
+                    help="only time the bf16 attention backward (csrc/"
+                    "attention_bwd.cu, csrc/flash_attention.cu, built from "
+                    "CSRC, default this checkout's) at its path shapes, whole "
+                    "and without the dQ products, the dK/dV kernel, the "
+                    "softmax and delta, or every product, and split B4's "
+                    "chain into launches (attn_bwd_split); prints no result "
+                    "line")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
     if not torch.cuda.is_available():
@@ -3514,6 +3903,10 @@ def main(argv=None):
         log(json.dumps({"attn_split": attn_split(opts.attn_split),
                         "card": card}))
         return 0
+    if opts.attn_bwd_split:
+        log(json.dumps({"attn_bwd_split": attn_bwd_split(opts.attn_bwd_split),
+                        "card": card}))
+        return 0
 
     if "build" in phases:
         phase_build()
@@ -3527,6 +3920,12 @@ def main(argv=None):
         bwd_rows = phase_backward({})
         seg_rows = phase_seg_kernels({})
         acc_pre_rows, acc_cls_rows = phase_acc_kernels()
+        # the attention backward kernel's rows on the paths B7-attention
+        # (with B6) and B6 in classification take
+        acc_pre_rows["attention_bwd"] = bwd_rows["attention_bwd"]
+        acc_cls_rows["attention_bwd"] = [
+            dict(r, calls_per_step=r["calls_per_cls_step"])
+            for r in bwd_rows["attention_bwd"] if "calls_per_cls_step" in r]
         serve_rows = phase_serve_kernels({})
         op_launches = {"mlp_block_q": mlp_block_q.launches,
                        "mlp_block_fwd_stash3d": mlp_block_fwd_stash3d.launches}

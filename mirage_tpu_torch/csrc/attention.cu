@@ -135,16 +135,6 @@ static size_t f32_smem_bytes(int nk, int dh) {
   return sizeof(float) * ((size_t)2 * QT * (dh + 1) + (size_t)QT * (nk_pad + 1) + QT);
 }
 
-template <typename Kernel>
-static int set_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  *configured = bytes;
-  return 0;
-}
-
 extern "C" int mtt_attention(const void* q, const void* k, const void* v, void* o, int batch,
                              int nq, int nk, int heads, int dh, long long q_bs, int q_rs,
                              long long k_bs, int k_rs, long long v_bs, int v_rs, long long o_bs,

@@ -55,7 +55,6 @@
 #include <math.h>
 
 #include <initializer_list>
-#include <mutex>
 
 #include "wgmma.cuh"
 
@@ -90,14 +89,6 @@ __device__ __forceinline__ void bar_sync_256(int id) {
 }
 __device__ __forceinline__ void bar_arrive_256(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Keeps the P fragments in their registers up to this point: the P·V that
-// reads them runs asynchronously after its issue.
-__device__ __forceinline__ void keep_frags(uint32_t (&a)[KC / 16][4]) {
-#pragma unroll
-  for (int k = 0; k < KC / 16; ++k)
-    asm volatile("" : "+r"(a[k][0]), "+r"(a[k][1]), "+r"(a[k][2]), "+r"(a[k][3])::"memory");
 }
 
 // S (64 × SW keys) = Q·K_cᵀ over the head's k16 steps
@@ -326,41 +317,6 @@ __global__ void __launch_bounds__(THREADS, Geom<DH>::MIN_BLOCKS)
 
 // ------------------------------------------------------------------ host
 
-// Tensor maps are encoded once per distinct (pointer, shape, strides, box)
-// and kept: a seg step launches this forward 12 times among 1,840 launches,
-// and serving reuses its buffers, so most launches find their maps here.
-struct MapKey {
-  const void* ptr;
-  long long cols, rows, batch, rs, bs;
-  int box_cols;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && cols == o.cols && rows == o.rows && batch == o.batch && rs == o.rs &&
-           bs == o.bs && box_cols == o.box_cols;
-  }
-};
-
-static bool cached_map(CUtensorMap* out, const MapKey& key) {
-  constexpr int N = 64;
-  static MapKey keys[N];
-  static CUtensorMap maps[N];
-  static int used = 0, next = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i)
-    if (keys[i] == key) {
-      *out = maps[i];
-      return true;
-    }
-  if (!make_map_3d(out, key.ptr, key.cols, key.rows, key.batch, key.rs, key.bs, KC,
-                   key.box_cols))
-    return false;
-  keys[next] = key;
-  maps[next] = *out;
-  next = (next + 1) % N;
-  used = used < N ? used + 1 : N;
-  return true;
-}
-
 // st: q, k, v, o batch and row strides (elements); lse may be null
 template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
@@ -375,9 +331,9 @@ static int launch(const void* q, const void* k, const void* v, void* o, float* l
   }
   const long long cols = (long long)heads * DH;
   CUtensorMap mq, mk, mv;
-  if (!cached_map(&mq, {q, cols, nq, batch, st[1], st[0], G::BOXC}) ||
-      !cached_map(&mk, {k, cols, nk, batch, st[3], st[2], G::BOXC}) ||
-      !cached_map(&mv, {v, cols, nk, batch, st[5], st[4], G::BOXC}))
+  if (!cached_map_3d(&mq, {q, cols, nq, batch, st[1], st[0], KC, G::BOXC}) ||
+      !cached_map_3d(&mk, {k, cols, nk, batch, st[3], st[2], KC, G::BOXC}) ||
+      !cached_map_3d(&mv, {v, cols, nk, batch, st[5], st[4], KC, G::BOXC}))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((nq + CONSUMERS * QROWS - 1) / (CONSUMERS * QROWS), heads, batch);
   attention_fwd_kernel<DH><<<grid, THREADS, G::SMEM, s>>>(

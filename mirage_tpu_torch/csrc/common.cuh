@@ -86,6 +86,18 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Raises a kernel's dynamic shared memory limit to `bytes` unless an
+// earlier call (recorded in *configured) already did.
+template <typename Kernel>
+static int set_smem(Kernel kernel, size_t bytes, size_t* configured) {
+  if (bytes <= *configured) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  *configured = bytes;
+  return 0;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);

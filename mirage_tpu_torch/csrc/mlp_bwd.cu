@@ -11,7 +11,8 @@
 //   act = T(0.5·h·(1 + e)), dh = T(acc_d·(0.5·(1 + e) + h·φ(h))),
 // and the float column sums of the unrounded dh over each 16-row group
 // (db1's partials). The float h never reaches device memory.
-// mtt_mlp_bwd_dyln: dyln = dh (M, H) · W1 (H, D), float out.
+// mtt_mlp_bwd_dyln: dyln = dh (M, H) · W1 (H, D), float out, or rounded
+// to bf16 (B4's dattn = T(dy·Wproj), the same form with H = D).
 //
 // Bound: operations (2·M·D·H FLOPs a product, three here at K = D and
 // K = H). The first version wrote h in float (M × 4D × 4 bytes: 311 MB at
@@ -278,9 +279,11 @@ constexpr int D_EPI_WARP = 16 * D_EPI_STRIDE * 4;
 constexpr int D_SMEM = 1024 + D_STAGES * D_STAGE_BYTES + 16 * D_STAGES + 8 * D_EPI_WARP;
 
 // One warp's 16 × DN slice of the float output at (row0, n0), D_EPI_COLS
-// columns at a time through the staging tile, as 16-byte rows.
+// columns at a time through the staging tile, as 16-byte rows (8-byte rows
+// of bf16, rounded once, with OUT = bf16).
+template <typename OUT>
 __device__ __forceinline__ void store_dyln(const float (&acc)[DN / 2], float* __restrict__ stage,
-                                           float* __restrict__ C, int M, int N, long row0,
+                                           OUT* __restrict__ C, int M, int N, long row0,
                                            long n0) {
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -301,18 +304,24 @@ __device__ __forceinline__ void store_dyln(const float (&acc)[DN / 2], float* __
     for (int i = 0; i < 4; ++i) {
       const int e = lane + 32 * i, r = e / (D_EPI_COLS / 4), c = (e % (D_EPI_COLS / 4)) * 4;
       if (row0 + r >= M || c0 + c >= N) continue;
-      *reinterpret_cast<float4*>(C + (row0 + r) * N + c0 + c) =
-          *reinterpret_cast<const float4*>(stage + r * D_EPI_STRIDE + c);
+      const float4 v = *reinterpret_cast<const float4*>(stage + r * D_EPI_STRIDE + c);
+      if constexpr (sizeof(OUT) == 4) {
+        *reinterpret_cast<float4*>(C + (row0 + r) * N + c0 + c) = v;
+      } else {
+        const uint2 w = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        *reinterpret_cast<uint2*>(C + (row0 + r) * N + c0 + c) = w;
+      }
     }
     __syncwarp();
   }
 }
 
 // Persistent as mlp_bwd_hidden_kernel, over the 64 × DN tiling of dyln
-// (M, D), K = H.
+// (M, D), K = H; OUT float or bf16.
+template <typename OUT>
 __global__ void __launch_bounds__(384, 1)
     mlp_bwd_dyln_kernel(const __grid_constant__ CUtensorMap map_dh,
-                        const __grid_constant__ CUtensorMap map_w1, float* __restrict__ dyln, int M,
+                        const __grid_constant__ CUtensorMap map_w1, OUT* __restrict__ dyln, int M,
                         int D, int H) {
   extern __shared__ unsigned char dyln_smem_raw[];
   const uint32_t sbase = (smem_u32(dyln_smem_raw) + 1023) & ~1023u;
@@ -559,21 +568,30 @@ extern "C" int mtt_mlp_bwd_hidden(const void* y, const void* dy, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// dh (M, H) in the working type, w1 (H, D) -> dyln (M, D) float = dh · w1;
-// `grid` CTAs of the bf16 kernel (mlp_bwd_plan).
+// dh (M, H) in the working type, w1 (H, D) -> dyln (M, D) = dh · w1, in
+// float or (out_dtype bf16, a bf16 dh only) rounded to bf16; `grid` CTAs of
+// the bf16 kernel (mlp_bwd_plan).
 extern "C" int mtt_mlp_bwd_dyln(const void* dh, const void* w1, void* dyln, int M, int D, int H,
-                                int dtype, int grid, void* stream) {
-  if (M <= 0 || D <= 0 || H <= 0 || dyln == nullptr) return (int)cudaErrorInvalidValue;
+                                int dtype, int out_dtype, int grid, void* stream) {
+  if (M <= 0 || D <= 0 || H <= 0 || dyln == nullptr || (out_dtype == MTT_BF16 && dtype != MTT_BF16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {
     if (D % 8 != 0 || H % 8 != 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-    static bool configured = false;
-    if (int err = configure(mlp_bwd_dyln_kernel, D_SMEM, configured)) return err;
+    static bool configured_f32 = false, configured_bf16 = false;
+    if (int err = out_dtype == MTT_BF16
+                      ? configure(mlp_bwd_dyln_kernel<bf16>, D_SMEM, configured_bf16)
+                      : configure(mlp_bwd_dyln_kernel<float>, D_SMEM, configured_f32))
+      return err;
     CUtensorMap map_dh, map_w1;
     if (!make_map(&map_dh, dh, M, H, DM, BK) || !make_map(&map_w1, w1, H, D, BK, BK))
       return (int)cudaErrorInvalidValue;
-    mlp_bwd_dyln_kernel<<<grid, 384, D_SMEM, s>>>(map_dh, map_w1, static_cast<float*>(dyln), M,
-                                                  D, H);
+    if (out_dtype == MTT_BF16)
+      mlp_bwd_dyln_kernel<<<grid, 384, D_SMEM, s>>>(map_dh, map_w1, static_cast<bf16*>(dyln), M,
+                                                    D, H);
+    else
+      mlp_bwd_dyln_kernel<<<grid, 384, D_SMEM, s>>>(map_dh, map_w1, static_cast<float*>(dyln), M,
+                                                    D, H);
     return (int)cudaGetLastError();
   }
   const dim3 blocks((D + FT - 1) / FT, (M + FT - 1) / FT);

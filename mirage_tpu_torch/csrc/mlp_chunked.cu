@@ -111,14 +111,6 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
 }
 
-// Keeps A fragments live (in their registers) up to this point: the
-// products that read them run asynchronously after their issue.
-__device__ __forceinline__ void keep_frags(uint32_t (&a)[BK / 16][4]) {
-#pragma unroll
-  for (int k = 0; k < BK / 16; ++k)
-    asm volatile("" : "+r"(a[k][0]), "+r"(a[k][1]), "+r"(a[k][2]), "+r"(a[k][3])::"memory");
-}
-
 // Grid (C, R·ceil(ceil(M / BM) / R)), cluster (C, R, 1): blockIdx.x is the
 // CTA's column c (its 256-column tile of out), blockIdx.y the row tile, and
 // the CTA's rank in the cluster c + C·r, r = blockIdx.y % R. Warpgroups 0

@@ -1,5 +1,5 @@
-// Warp-level tile helpers of the mma.sync attention kernels (attention_bwd.cu,
-// flash_attention.cu): staging rows of a (rows, DH) bf16 operand into shared
+// Warp-level tile helpers of the mma.sync attention stage of csrc/fused_block.cu:
+// staging rows of a (rows, DH) bf16 operand into shared
 // memory, loading a warp's 16 rows as A fragments, and the two products of
 // attention, S = A·tileᵀ and O += P·tile, on m16n8k16 tensor-core MMAs with
 // float accumulation. Tiles are stored with a padded row stride of DH + 8
@@ -81,14 +81,4 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NB / 2][4], float (&c)[NB][4]
     a[j >> 1][(j & 1) * 2] = pack_bf16(c[j][0], c[j][1]);
     a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(c[j][2], c[j][3]);
   }
-}
-
-template <typename Kernel>
-static int set_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  *configured = bytes;
-  return 0;
 }

@@ -12,6 +12,8 @@
 
 #include <cuda.h>  // CUtensorMap
 
+#include <mutex>
+
 #include "common.cuh"
 
 // wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile whose
@@ -67,6 +69,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Keeps register-A fragments in their registers up to this point: a wgmma
+// reads them asynchronously after its issue, until the wait.
+template <int K>
+__device__ __forceinline__ void keep_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    asm volatile("" : "+r"(a[k][0]), "+r"(a[k][1]), "+r"(a[k][2]), "+r"(a[k][3])::"memory");
+}
+
 #define MTT_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
     "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
@@ -112,67 +123,68 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[N], uint64_t da, uint64_t 
 #undef MTT_F8
 
 // d (64 × N: this thread's first N/2 floats of d) = (scale_d ? d : 0) +
-// A (64 × 16) · B (N × 16)ᵀ, both K-major in shared memory; N a multiple of 8
-// up to 64 (the attention forward's score tile and its narrower key tail)
-template <int N, int M>
+// A (64 × 16) · B (N × 16)ᵀ, both in shared memory, K-major or (TA / TB = 1)
+// MN-major; N a multiple of 8 up to 64 (the attention forward's score tile
+// and its narrower key tail, the attention backward's products)
+template <int N, int TA = 0, int TB = 0, int M>
 __device__ __forceinline__ void wgmma_ss(float (&d)[M], uint64_t da, uint64_t db, int scale_d) {
   static_assert(N % 8 == 0 && N >= 8 && N <= 64 && M >= N / 2, "wgmma_ss: N in 8..64");
   if constexpr (N == 8)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 16)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 24)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, %15, %16;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 32)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 40)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, %20, %21, p, 1, 1, %23, %24;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 48)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, %27, %28;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 56)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, %28, %29, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, %28, %29, p, 1, 1, %31, %32;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   else if constexpr (N == 64)
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d (64 × N: this thread's first N/2 floats of d) += A (64 × 16, from
@@ -350,6 +362,43 @@ static bool make_map_3d(CUtensorMap* map, const void* ptr, long long cols, long 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, pitch, box,
             elem_stride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor maps are encoded once per distinct (pointer, shape, strides, box)
+// and kept: a seg step launches the attention kernels 24 times among 1,840
+// launches, and serving reuses its buffers, so most launches find their maps
+// here.
+struct MapKey {
+  const void* ptr;
+  long long cols, rows, batch, rs, bs;
+  int box_rows, box_cols;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && cols == o.cols && rows == o.rows && batch == o.batch && rs == o.rs &&
+           bs == o.bs && box_rows == o.box_rows && box_cols == o.box_cols;
+  }
+};
+
+// make_map_3d through the cache above.
+static bool cached_map_3d(CUtensorMap* out, const MapKey& key) {
+  constexpr int N = 64;
+  static MapKey keys[N];
+  static CUtensorMap maps[N];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key) {
+      *out = maps[i];
+      return true;
+    }
+  if (!make_map_3d(out, key.ptr, key.cols, key.rows, key.batch, key.rs, key.bs, key.box_rows,
+                   key.box_cols))
+    return false;
+  keys[next] = key;
+  maps[next] = *out;
+  next = (next + 1) % N;
+  used = used < N ? used + 1 : N;
+  return true;
 }
 
 static int sm_count() {

@@ -71,7 +71,7 @@ ENTRIES = {
     "mlp_bwd_hidden": ("mlp_bwd", "mtt_mlp_bwd_hidden",
                        [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
     "mlp_bwd_dyln": ("mlp_bwd", "mtt_mlp_bwd_dyln",
-                     [_P] * 3 + [_I] * 5 + [_P]),
+                     [_P] * 3 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()

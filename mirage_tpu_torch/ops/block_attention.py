@@ -16,24 +16,23 @@ VMEM; an SM has 227 KB, so on the card each op is a chain of CUDA kernels:
 - B1: LN (csrc/layernorm.cu) -> qkv GEMM + bias (csrc/gemm.cu) -> attention
   read in place from the packed (B, N, 3D) qkv (csrc/attention.cu) ->
   proj GEMM + bias + residual.
-- B4: recompute LN -> qkv -> attention; dattn = dy·Wproj (GEMM);
-  the attention backward on the packed qkv (csrc/attention_bwd.cu), which
-  also sums the float dqkv for dbqkv; dyln = dqkv·Wqkv (GEMM, float out);
-  the LN backward (csrc/layernorm.cu) with dgamma/dbeta partials. dWqkv and
-  dWproj are contractions outside, as in the JAX package (:628-640).
+- B4: recompute LN -> qkv -> attention; dattn = T(dy·Wproj) and, after
+  the attention backward on the packed qkv (csrc/attention_bwd.cu, which
+  also sums the float dqkv for dbqkv), dyln = dqkv·Wqkv in float, both on
+  csrc/mlp_bwd.cu's dyln product, which reads the weight as it lies (no
+  transposed copy); the LN backward (csrc/layernorm.cu) with dgamma/dbeta
+  partials. dWqkv and dWproj are contractions outside, as in the JAX
+  package (:628-640).
 - B6: the attention kernel forward, csrc/attention_bwd.cu backward.
 - B3: LN_q -> q GEMM; LN_c -> kv GEMM; attention over (B, Nq, D) queries
   and the packed (B, Nc, 2D) kv; proj GEMM + bias (+ residual).
 
 Bound: operations (the projections and the attention products). The
-projections and the attention forward (csrc/attention_fwd.cuh, tiled as
-:func:`attention_plan` says) run on wgmma, the attention backward on
-mma.sync. This first
-version writes the LN output, qkv, the attention output, dattn, dqkv and the
-float dyln to device memory between kernels; fusing those away is the first
-work of a later PR. The products with a non-transposed weight (dy·Wproj,
-dqkv·Wqkv) pass the weight transposed (``w.t().contiguous()``, a copy per
-call).
+projections, the attention forward (csrc/attention_fwd.cuh, tiled as
+:func:`attention_plan` says) and its backward (csrc/attention_bwd.cuh, as
+:func:`attention_bwd_plan` says) run on wgmma. The chains write the LN
+output, qkv, the attention output, dattn, dqkv and the float dyln to device
+memory between kernels; fusing those away is the first work of a later PR.
 
 - B7 (attention half, ``MIRAGE_ATTN_BWD=accumulate`` or ``reg_batch``):
   replaces ``_attn_half_bwd_pallas`` / ``_attn_half_bwd_kernel``
@@ -164,6 +163,102 @@ def attention_plan(nq, nk, dh, heads, batch, sms):
     waves = grid[0] * heads * batch / (sms * ctas_per_sm)
     return AttentionPlan(grid, tiles, chunks, tail_width, box, boxes, 2 * box,
                          pv_width, stages, smem, ctas_per_sm, waves)
+
+
+# ------------------------------------------- the attention backward's plan
+
+# csrc/attention_bwd.cuh: rows of a CTA's one warpgroup (queries in the dQ
+# kernel, keys in the dK/dV kernel), keys a dQ ring stage holds, threads a
+# CTA, the shared memory a CTA is sized to (three an SM), and an SM's;
+# tokens of head_kernel's items (two warpgroups a CTA), its bf16 P or dS
+# plane of 64 keys and its input buffers
+ATTN_BWD_ROWS, ATTN_BWD_KEYS, ATTN_BWD_THREADS = 64, 64, 128
+ATTN_BWD_SMEM_BUDGET, SMEM_PER_SM = 72 * 1024, 233472
+ATTN_BWD_HEAD_ROWS, ATTN_BWD_PLANE, ATTN_BWD_HEAD_BUFS = 128, 128 * 128, 3
+AttentionBwdPlan = namedtuple("AttentionBwdPlan", [
+    "head_kernel", "head_grid", "head_smem_bytes", "dq_grid", "dkv_grid",
+    "query_tiles", "key_tiles", "key_chunks", "query_chunks", "box_cols",
+    "boxes", "swizzle_bytes", "pv_width", "dq_stages", "dkv_stages",
+    "resident", "dq_loads", "dq_smem_bytes", "dkv_smem_bytes", "ctas_per_sm",
+    "products"])
+
+
+def _stages(fit):
+    return max(2, min(8, fit))
+
+
+@functools.lru_cache(maxsize=256)
+def attention_bwd_plan(nq, nk, dh, heads, batch, sms, packed=False):
+    """How the bf16 attention backward (csrc/attention_bwd.cuh, behind
+    :func:`runtime.attention_bwd` and :func:`runtime.flash_attention_bwd`)
+    runs one call: an :class:`AttentionBwdPlan`.
+
+    The packed form at up to 128 tokens and head dims up to 64
+    (``head_kernel``, B4's core) is one persistent launch of ``head_grid``
+    CTAs (one an SM of ``sms``, at most one an item) of two warpgroups,
+    each CTA walking the (batch, head) items with three input buffers (two
+    items loading ahead), every product once (``products`` 5),
+    ``head_smem_bytes`` of shared memory.
+    Otherwise there are two launches, each a CTA of one warpgroup of 128
+    threads (``products`` 7, the head fields None). The dQ kernel's
+    grid is (⌈nq/64⌉, heads, batch): a CTA owns 64 query rows
+    (``query_tiles``: (first row, rows)), loads their Q and dO once and
+    streams K and V in chunks of 64 keys (``key_chunks``: (first key, keys))
+    through a ring of ``dq_stages`` twice, a pass for the row statistics and
+    one for dQ; where every chunk fits the ring (``resident``), the second
+    pass reads what the first loaded (``dq_loads`` chunk loads a CTA). The
+    dK/dV kernel's grid is (⌈nk/64⌉, heads, batch): a CTA owns 64 keys
+    (``key_tiles``), loads their K and V once and streams Q and dO in chunks
+    of 64 queries, 32 above a head dim of 64 (``query_chunks``), through
+    ``dkv_stages``. Head dims 16 and 32 load boxes of their own width, the
+    others 64-column ``boxes``; the dQ, dK and dV products run ``pv_width``
+    wide. The stages fill a CTA's shared memory up to 72 KB (2 to 8 of
+    them), ``ctas_per_sm`` of the larger CTA fitting an SM's; ``products``
+    (7) counts the matrix products a (query, key) pair costs. ``packed``:
+    the packed qkv of mtt_attention_bwd, which takes nq = nk ≤ 512. A head
+    dim outside 16..128 in steps of 16, an empty dimension or a packed shape
+    the entry refuses raises ValueError."""
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"head dim {dh} unsupported: need a multiple of 16 "
+                         f"up to 128")
+    if min(nq, nk, heads, batch, sms) <= 0:
+        raise ValueError(f"attention_bwd_plan: empty shape nq={nq} nk={nk} "
+                         f"heads={heads} batch={batch} sms={sms}")
+    if packed and (nq != nk or nq > runtime.MAX_KEYS):
+        raise ValueError(f"attention_bwd_plan: the packed backward takes "
+                         f"nq = nk ≤ {runtime.MAX_KEYS}, got {nq}, {nk}")
+    rows, kc = ATTN_BWD_ROWS, ATTN_BWD_KEYS
+    box = dh if dh in (16, 32) else 64
+    boxes = -(-dh // box)
+    pv_width = boxes * box
+    qc = 64 if pv_width <= 64 else 32
+    tile, qtile = boxes * rows * 2 * box, boxes * qc * 2 * box
+    budget = ATTN_BWD_SMEM_BUDGET - 1024 - 2 * tile
+    dq_stages, dkv_stages = _stages(budget // (2 * tile)), _stages(
+        budget // (2 * qtile))
+    dq_smem = 1024 + (2 + 2 * dq_stages) * tile + 8 * (2 * dq_stages + 1)
+    dkv_smem = 1024 + 2 * tile + 2 * dkv_stages * qtile \
+        + 8 * (2 * dkv_stages + 1)
+    nch = -(-nk // kc)
+    resident = nch <= dq_stages
+    head = packed and nq <= ATTN_BWD_HEAD_ROWS and pv_width <= 64
+    p_in_kv = 4 * tile >= 2 * ATTN_BWD_PLANE  # T(P) where K and V were
+    head_smem = (1024 + ATTN_BWD_HEAD_BUFS * 8 * tile
+                 + (2 if p_in_kv else 4) * ATTN_BWD_PLANE
+                 + 8 * ATTN_BWD_HEAD_BUFS)
+
+    def spans(n, step):
+        return tuple((i * step, min(step, n - i * step))
+                     for i in range(-(-n // step)))
+
+    return AttentionBwdPlan(
+        head, (min(sms, batch * heads),) if head else None,
+        head_smem if head else None,
+        (-(-nq // rows), heads, batch), (-(-nk // rows), heads, batch),
+        spans(nq, rows), spans(nk, rows), spans(nk, kc), spans(nq, qc), box,
+        boxes, 2 * box, pv_width, dq_stages, dkv_stages, resident,
+        nch if resident else 2 * nch, dq_smem, dkv_smem,
+        SMEM_PER_SM // (max(dq_smem, dkv_smem) + 1024), 5 if head else 7)
 
 
 # ------------------------------------------------------------------ B6
@@ -321,12 +416,15 @@ def _attn_half_bwd_chain(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     attn = x.new_empty(b, n, d)
     runtime.attention(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], attn,
                       heads=num_heads, dh=dh, scale=scale)
-    dattn = runtime.gemm(dy2, wproj.to(x.dtype).t().contiguous())
+    # dattn = T(dy·Wproj) and dyln = dqkv·Wqkv (float) read both weights as
+    # they lie (csrc/mlp_bwd.cu's dyln product: W MN-major, no copy)
+    dattn = runtime.mlp_bwd_dyln(dy2, wproj.to(x.dtype).contiguous(),
+                                 out_dtype=x.dtype)
     dqkv, dbqkv = runtime.attention_bwd(qkv, dattn.view(b, n, d),
                                         heads=num_heads, dh=dh, scale=scale,
                                         partials=True)
     dqkv = dqkv.view(b * n, 3 * d)
-    dyln = runtime.gemm(dqkv, wq.t().contiguous(), out_dtype=torch.float32)
+    dyln = runtime.mlp_bwd_dyln(dqkv, wq)
     dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2,
                                               partials=True)
     return (dx.view(b, n, d), y, dqkv, attn.view(b * n, d), dy2, dgamma,

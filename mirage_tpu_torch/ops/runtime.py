@@ -9,10 +9,12 @@ The launchers below (``layernorm``, ``layernorm_bwd``, ``gemm`` and its
 epilogue forms, ``mlp_bwd_hidden`` and ``mlp_bwd_dyln`` (the MLP backward's
 products), ``attention``, ``attention_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
-allocate outputs with ``torch.empty`` (partial sums with ``torch.zeros``)
+allocate outputs with ``torch.empty`` (``gemm_dgelu_mul``'s partial sums with
+``torch.zeros``)
 and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
 raising if the launch is refused (``attention`` and ``flash_attention``, the
-two entries of the bf16 attention forward, count their launches in
+two entries of the bf16 attention forward, and ``attention_bwd`` and
+``flash_attention_bwd``, the two of its backward, count their launches in
 ``.launches``). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
@@ -297,22 +299,26 @@ def mlp_bwd_hidden(y: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
     return dh, act, part
 
 
-def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
+                 out_dtype=torch.float32) -> torch.Tensor:
     """dyln = dh (M, H) · w1 (H, D) in float (M, D), w1 read as it lies
-    (csrc/mlp_bwd.cu; bf16 tiles as ``mlp_bwd_plan`` says)."""
+    (csrc/mlp_bwd.cu; bf16 tiles as ``mlp_bwd_plan`` says); with
+    ``out_dtype`` dh's dtype, rounded to it once (B4's dattn = T(dy·Wproj))."""
     from mirage_tpu_torch.ops.fused_mlp import mlp_bwd_plan
 
     m, h = dh.shape
     d = w1.shape[1]
     check("dh", dh, dh)
     check("w1", w1, dh, (h, d))
+    if out_dtype not in (torch.float32, dh.dtype):
+        raise ValueError(f"mlp_bwd_dyln out_dtype {out_dtype} unsupported")
     if dh.dtype == torch.bfloat16 and (d % 8 or h % 8):
         raise ValueError(f"bf16 mlp_bwd_dyln needs D and H multiples of 8, "
                          f"got D={d}, H={h}")
     plan = mlp_bwd_plan(m, d, h, _sms(dh.device))
-    dyln = torch.empty((m, d), device=dh.device, dtype=torch.float32)
+    dyln = torch.empty((m, d), device=dh.device, dtype=out_dtype)
     _launch("mlp_bwd_dyln", dh.data_ptr(), w1.data_ptr(), dyln.data_ptr(), m,
-            d, h, _DTYPES[dh.dtype], plan.dyln.grid)
+            d, h, _DTYPES[dh.dtype], _DTYPES[out_dtype], plan.dyln.grid)
     return dyln
 
 
@@ -509,12 +515,18 @@ def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((2, b, heads, n), device=qkv.device,
                         dtype=torch.float32)
-    part = torch.zeros((b * -(-n // 16), 3 * d), device=qkv.device,
+    # every 16-row group's partials are written, by both kernels of either
+    # dtype
+    part = torch.empty((b * -(-n // 16), 3 * d), device=qkv.device,
                        dtype=torch.float32)
     _launch("attention_bwd", qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(), b, n,
             heads, dh, scale, _DTYPES[qkv.dtype])
+    attention_bwd.launches += 1
     return dqkv, part if partials else part.sum(0)
+
+
+attention_bwd.launches = 0
 
 
 def _attn_views(heads, dh, named):
@@ -589,6 +601,10 @@ def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
+    flash_attention_bwd.launches += 1
+
+
+flash_attention_bwd.launches = 0
 
 
 _occupancy = {}

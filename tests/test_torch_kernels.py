@@ -1079,3 +1079,63 @@ def test_mlp_chunked_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 256"):
         mlp_block_chunked(x, v, v, w1, torch.zeros(1280, device=cuda), w2, v,
                           2)
+
+
+# ---------------------------------- the Hopper attention backward
+#
+# csrc/attention_bwd.cuh behind both entries (mtt_attention_bwd, the packed
+# qkv of up to 512 tokens; mtt_flash_bwd, q and kv apart at any length) at
+# every head dim it takes and at the tails of its tiles: 64-row CTAs and
+# 64-key (dQ) or 64/32-query (dK/dV) chunks, a one-row tail (65, 129, 257,
+# 1025), a lone query, one chunk (99), nq ≠ nk both ways. bf16 against the
+# float32 plain version from the same inputs at _check_grads's bars
+# (rel-L2 1e-2), and a rerun bit for bit the same (no atomics).
+
+ATTN_BWD_PACKED = [1, 64, 65, 99, 129, 257, 512]
+ATTN_BWD_FLASH = [(1025, 1025), (256, 769), (70, 1100), (530, 64), (1, 35)]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("n", ATTN_BWD_PACKED)
+def test_attention_backward_packed_every_head_dim_and_tail(cuda, dh, n):
+    """dqkv and the 16-row partials' column sums (dbqkv) of the packed form."""
+    g = torch.Generator(device="cuda").manual_seed(n * 3 + dh)
+    b, h = 2, 3
+    d = h * dh
+    qkv = torch.randn(b, n, 3 * d, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(b, n, d, device=cuda, generator=g).bfloat16()
+    scale = dh ** -0.5
+    before = runtime.attention_bwd.launches
+    dqkv, part = runtime.attention_bwd(qkv, dy, heads=h, dh=dh, scale=scale,
+                                       partials=True)
+    again = runtime.attention_bwd(qkv, dy, heads=h, dh=dh, scale=scale,
+                                  partials=True)
+    assert runtime.attention_bwd.launches == before + 2
+    assert torch.equal(dqkv, again[0]) and torch.equal(part, again[1])
+    with runtime.plain_on_card():
+        want = ba.block_attention_bwd_ref(qkv.float(), dy.float(), h, scale)
+    _check_grads([dqkv, part.sum(0)], [want, want.sum((0, 1))],
+                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("nq,nk", ATTN_BWD_FLASH)
+def test_attention_backward_flash_every_head_dim_and_tail(cuda, dh, nq, nk):
+    """dq and dkv of the flash form on a (B, nq, D) q and a packed kv."""
+    g = torch.Generator(device="cuda").manual_seed(nq * 5 + nk + dh)
+    b, h = 2, 2
+    d = h * dh
+    q = torch.randn(b, nq, d, device=cuda, generator=g).bfloat16()
+    kv = torch.randn(b, nk, 2 * d, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(b, nq, d, device=cuda, generator=g).bfloat16()
+    scale = dh ** -0.5
+    _, lse = fa._flash_fwd(q, kv, h, scale)
+    before = runtime.flash_attention_bwd.launches
+    got = fa._flash_bwd(q, kv, lse, dy, h, scale)
+    again = fa._flash_bwd(q, kv, lse, dy, h, scale)
+    assert runtime.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    with runtime.plain_on_card():
+        want = fa._flash_bwd(q.float(), kv.float(), None, dy.float(), h,
+                             scale)
+    _check_grads(got, want, torch.bfloat16)
