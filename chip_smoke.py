@@ -10,14 +10,19 @@ Phases, each of which must pass (any failure exits non-zero):
    prints the card's name and power limit. The attention forward
    (csrc/attention_fwd.cuh, in attention.cu and flash_attention.cu) must not
    spill nor have its wgmma serialized, and its libraries' SASS must hold
-   HGMMA and no mma.sync forward.
+   HGMMA and no mma.sync forward; so must the ping-pong GEMM
+   (csrc/gemm_pingpong.cuh) in gemm.cu (HGMMA) and quant.cu (IGMMA, no
+   IMMA: no mma.sync int8 product is left).
 2. kernels: each op (B1 attn_half_block, B2 mlp_block, B3 xattn_half_block)
    at the MIRAGE-Large main-path shapes in bf16 against its plain PyTorch
    version computed in float32 from the same bf16 inputs, plus one float32
    case per op; the backward ops B4-B6 at the pretraining shapes; B8
    flash_attention (forward and backward) at the segmentation encoder's
    (4, 12, 1025, 64) and the decoders' (64, 8, 256 × 769, 32), and B9 (the
-   stash MLP pair) at (65536, 384) -> 1536; times the kernel, the plain
+   stash MLP pair) at (65536, 384) -> 1536; the bf16 GEMM alone at its path
+   shapes (``gemm``: every serving product, the pretraining and seg ones,
+   S5's A&S GELU) beside torch.matmul, and the int8 GEMM's S3 and B12
+   products beside torch._int_mm; times the kernel, the plain
    version and a composite of PyTorch library calls with CUDA events. The
    attention forward alone (``attention_fwd``) at the serving encoder's,
    the decoders' (self and cross) and the pretraining B1's and B6's shapes
@@ -110,6 +115,14 @@ SDPA's backward alone, SDPA's forward and backward and the bound, and splits
 B4's chain into its launches; its C entries and macro names are the
 parent's too, so a copy of this script in an older checkout (its sources
 given the macros) times that tree the same way.
+``--gemm-split [CSRC]`` only times the bf16 GEMM (mtt_gemm,
+mtt_gemm_gelu_mode) and the int8 GEMM (mtt_gemm_s8) at GEMM_SHAPES and
+GEMM_S8_SHAPES, built from CSRC whole, without the epilogue's math, without
+the store, the loads alone and without the cluster's multicast, beside
+torch.matmul, the F.linear composition or torch._int_mm and the bound,
+then B9's backward of the checkout it runs in; its C entries and macro
+names are the parent's too, so a copy of this script in an older
+checkout's root times that tree (its sources given the macros).
 ``--mlp-bwd-split`` only times B5 and B7-MLP at their three shapes beside
 the library call and the bound, each split into its launches; it calls
 only the two backward ops, so a copy of this script in an older
@@ -166,6 +179,10 @@ TPU_KERNELS = {
                       "the attention of _attn_half_kernel :251, "
                       "_xattn_half_kernel :745, _block_attn_kernel :58 and "
                       "flash_attention.py:_attn_kernel :42"),
+    # the matrix products inside B1's, B2's and B3's kernels
+    "gemm": ("mirage_tpu/ops/fused_mlp.py:58",
+             "the products of _mlp_kernel :58, block_attention.py:"
+             "_attn_half_kernel :251 and _xattn_half_kernel :745"),
 }
 # op -> (its wrapper, the CUDA sources it launches)
 CSRC = "mirage_tpu_torch/csrc/"
@@ -181,21 +198,24 @@ SOURCES = {
     "attention_fwd": ("mirage_tpu_torch/csrc/attention_fwd.cuh",
                       [CSRC + f for f in ("attention_fwd.cuh", "attention.cu",
                                           "flash_attention.cu")]),
+    "gemm": ("mirage_tpu_torch/csrc/gemm_pingpong.cuh",
+             [CSRC + f for f in ("gemm_pingpong.cuh", "gemm.cu")]),
 }
 # launches of each op per reconstruct / features forward on the main path
 # (attention_fwd: runtime.attention's launches of the forward kernel, one
-# in each B1 and B3)
+# in each B1 and B3; gemm: the bf16 GEMM's, two in each B1 and B2, three in
+# each B3)
 PER_RECONSTRUCT = {"attn_half_block": 30, "mlp_block": 33,
-                   "xattn_half_block": 3, "attention_fwd": 33}
+                   "xattn_half_block": 3, "attention_fwd": 33, "gemm": 135}
 PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
-                "xattn_half_block": 0, "attention_fwd": 24}
+                "xattn_half_block": 0, "attention_fwd": 24, "gemm": 96}
 
 
 # the port's CUDA kernels by function name -> their group in a profile (the
 # bf16 forward of csrc/attention_fwd.cuh and backward of
 # csrc/attention_bwd.cuh serve both the packed and the flash entries: B8's
 # forward is in "attention" and its bf16 backward in "attention_bwd" too)
-PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
+PORT_KERNELS = {"gemm_bf16_pingpong": "gemm", "gemm_f32_kernel": "gemm",
                 "gemm_stash_kernel": "gemm_stash",
                 "gemm_stash_f32_kernel": "gemm_stash",
                 "attn_fwd::attention_fwd_kernel": "attention",
@@ -214,7 +234,8 @@ PORT_KERNELS = {"gemm_bf16_kernel": "gemm", "gemm_f32_kernel": "gemm",
                 "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad",
                 "adamw_kernel": "adamw", "fused_block_kernel": "fused_block",
                 "ln_quant_kernel": "quant", "quant_rows_kernel": "quant",
-                "gemm_s8_kernel": "quant", "gemm_lnfold_kernel": "gemm_lnfold",
+                "gemm_s8_pingpong": "quant",
+                "gemm_lnfold_kernel": "gemm_lnfold",
                 "attention_phased_resident": "attention_phased",
                 "attention_phased_staged": "attention_phased",
                 "mlp_chunked_kernel": "mlp_chunked",
@@ -278,7 +299,7 @@ def profile_forward(fn, top_n=0):
     groups, by_name = {}, {}
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
-        # "gemm_bf16_kernel(...)", "void attention_bf16_kernel<64>(...)"
+        # "void gemm_bf16_pingpong<0, false>(...)", "void attn_fwd::..."
         fname = name.split("(")[0].split("<")[0].split()[-1]
         group = PORT_KERNELS.get(fname, "torch")
         groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
@@ -301,7 +322,7 @@ def profile_forward(fn, top_n=0):
 # ------------------------------------------------------------------ phase 1
 
 # the kernels redesigned for Hopper whose ptxas report must show no spill
-NO_SPILL = ("mlp_chunked", "gemm_stash", "mlp_bwd", "wgrad")
+NO_SPILL = ("mlp_chunked", "gemm_stash", "mlp_bwd", "wgrad", "gemm", "quant")
 
 
 def phase_build():
@@ -347,6 +368,11 @@ def phase_build():
                 raise AssertionError(f"{label} spills registers in {name}.cu")
         if "C7520" in report[name]:
             raise AssertionError(f"{name}.cu: ptxas serialized wgmma (C7520)")
+    # the ping-pong GEMM (csrc/gemm_pingpong.cuh: the bf16 product of
+    # gemm.cu, the int8 one of quant.cu): no serialized wgmma either
+    for name in ("gemm", "quant"):
+        if "C7520" in report[name]:
+            raise AssertionError(f"{name}.cu: ptxas serialized wgmma (C7520)")
     # the bf16 products of B10 and of the attention forward and backward
     # must be wgmma: HGMMA in the libraries' SASS; the mma.sync forwards and
     # backwards are gone
@@ -355,16 +381,24 @@ def phase_build():
                 "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     for lib in ("fused_block", "attention", "attention_bwd",
-                "flash_attention"):
+                "flash_attention", "gemm", "quant"):
         sass = subprocess.run([str(tool), "-sass",
                                str(_build.BUILD_DIR / f"lib{lib}.so")],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
         hgmma = sass.count("HGMMA")
         old = [k for k in mma_sync if k in sass]
+        # the int8 GEMM: wgmma's integer form (IGMMA) and no mma.sync (IMMA)
+        igmma, imma = sass.count("IGMMA"), sass.count("IMMA")
         log(f"[build] {lib}: {hgmma} HGMMA instructions in its SASS"
+            + (f", {igmma} IGMMA, {imma} IMMA" if lib == "quant" else "")
             + (f"; mma.sync kernels found: {old}" if old else ""))
-        if hgmma == 0 or old:
+        if lib == "quant":
+            if igmma + hgmma == 0 or imma:
+                raise AssertionError(f"the int8 GEMM is not wgmma ({igmma} "
+                                     f"IGMMA, {hgmma} HGMMA) or an mma.sync "
+                                     f"is left ({imma} IMMA)")
+        elif hgmma == 0 or old:
             raise AssertionError(f"{lib}'s bf16 products are not wgmma, or "
                                  f"an mma.sync attention kernel is left: {old}")
 
@@ -606,6 +640,9 @@ def phase_kernels():
         "serving encoder (B1)": 24, "serving decoder self (B1)": 6,
         "serving decoder cross (B3)": 3, "pretraining encoder (B1)": 0,
         "pretraining decoder (B6)": 0})
+
+    # the bf16 GEMM alone at its path shapes (launches a reconstruct forward)
+    results["gemm"] = gemm_rows()
 
     # one float32 case per op (batch 2 of the encoder / decoder shapes)
     f32_cases = [("attn_half_block", (2, 257, 1024, 16), {}),
@@ -1204,6 +1241,385 @@ def attn_bwd_split(csrc):
         + ", ".join(f"{n} {ms:.4f}" for n, ms in chain)
         + f"; sum {sum(ms for _, ms in chain):.4f}")
     return {"rows": rows, "b4_chain": chain}
+
+
+# the bf16 GEMM's path shapes: (label, (M, N, K), epilogue, launches on its
+# path). bias: + bias; res: and the residual; gelu: GELU of erff; as26: the
+# A&S 7.1.26 GELU (S5's mode)
+GEMM_SHAPES = [
+    ("serving encoder qkv", (16448, 3072, 1024), "bias", "24 / forward"),
+    ("serving encoder proj", (16448, 1024, 1024), "res", "24 / forward"),
+    ("serving encoder fc1", (16448, 4096, 1024), "gelu", "24 / forward"),
+    ("serving encoder fc2", (16448, 1024, 4096), "res", "24 / forward"),
+    ("serving decoder qkv", (16384, 768, 256), "bias", "6 / forward"),
+    ("serving decoder proj", (16384, 256, 256), "res", "6 / forward"),
+    ("serving decoder fc1", (16384, 1024, 256), "gelu", "9 / forward"),
+    ("serving decoder fc2", (16384, 256, 1024), "res", "9 / forward"),
+    ("pretraining qkv", (25344, 2304, 768), "bias", "12 / step"),
+    ("pretraining proj", (25344, 768, 768), "res", "12 / step"),
+    ("pretraining fc1", (25344, 3072, 768), "gelu", "12 / step"),
+    ("pretraining fc2", (25344, 768, 3072), "res", "12 / step"),
+    ("seg fc2 (B9)", (4100, 768, 3072), "res", "12 / seg step"),
+    ("S5 fc1, A&S GELU", (16448, 4096, 1024), "as26", "S5c/S5d's fc1"),
+]
+# the int8 GEMM's: s32 (S3: the raw accumulator), fc1 and fc2 (B12's)
+GEMM_S8_SHAPES = [
+    ("S3", (16384, 4096, 1024), "s32", "the bench's S3"),
+    ("B12 fc1", (16448, 4096, 1024), "fc1", "B12"),
+    ("B12 fc2", (16448, 1024, 4096), "fc2", "B12"),
+]
+# compile-time variants of csrc/gemm.cu and csrc/quant.cu that
+# ``--gemm-split`` times side by side: the epilogue's math left out (bias
+# added, stored), no store (loads and products), the loads alone, and no
+# cluster (each CTA loads all of W's slices; a tree without that macro times
+# its kernel again: a measure of the spread)
+GEMM_SPLIT_VARIANTS = {"whole": [], "no_epi": ["-DMTT_GEMM_SPLIT_NO_EPI"],
+                       "no_store": ["-DMTT_GEMM_SPLIT_NO_STORE"],
+                       "loads": ["-DMTT_GEMM_SPLIT_LOADS"],
+                       "cluster1": ["-DMTT_GEMM_CLUSTER=1"]}
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
+
+
+def _gemm_work(shape, epi):
+    """(FLOPs or int8 operations, bytes): 2·M·N·K; A, W (and the residual,
+    the bias) read once, C written once (bf16; s32 or float32 for S3's and
+    B12 fc1's outputs, B12 fc2 also reading x)."""
+    m, n, k = shape
+    if epi in ("s32", "fc1", "fc2"):
+        out = 4 if epi != "fc2" else 2 + 2
+        return 2 * m * n * k, m * k + n * k + m * n * out + 4 * (m + 2 * n)
+    res = 2 * m * n if epi == "res" else 0
+    return 2 * m * n * k, 2 * (m * k + n * k + m * n + n) + res
+
+
+def _gemm_entry_call(fn, epi, bufs, shape):
+    """One launch of ``mtt_gemm``, ``mtt_gemm_gelu_mode`` or ``mtt_gemm_s8``
+    (any build of them) on the buffers of :func:`gemm_split`."""
+    import torch
+
+    m, n, k = shape
+    stream = torch.cuda.current_stream().cuda_stream
+    b = bufs
+    if epi in ("s32", "fc1", "fc2"):
+        code = {"fc1": 0, "fc2": 1, "s32": 2}[epi]
+        rc = fn(b["a"].data_ptr(), b["w"].data_ptr(), b["rs"].data_ptr(),
+                b["s"].data_ptr(), b["b"].data_ptr(), code,
+                b["h"].data_ptr() if epi == "fc1" else None,
+                b["amax"].data_ptr() if epi == "fc1" else None,
+                b["x"].data_ptr() if epi == "fc2" else None,
+                b["c"].data_ptr() if epi != "fc1" else None, m, n, k,
+                1, stream)
+    elif epi == "as26":
+        rc = fn(b["a"].data_ptr(), b["w"].data_ptr(), b["c"].data_ptr(),
+                b["bias"].data_ptr(), 1, None, m, n, k, 1, stream)
+    else:
+        rc = fn(b["a"].data_ptr(), b["w"].data_ptr(), b["c"].data_ptr(),
+                b["bias"].data_ptr(), 1,
+                b["res"].data_ptr() if epi == "res" else None, m, n, k,
+                int(epi == "gelu"), 1, 0, None, None, stream)
+    if rc != 0:
+        raise RuntimeError(f"gemm ({epi}) launch failed: CUDA error {rc}")
+
+
+def gemm_split(csrc):
+    """The bf16 GEMM (``mtt_gemm``, ``mtt_gemm_gelu_mode``) at GEMM_SHAPES
+    and the int8 GEMM (``mtt_gemm_s8``) at GEMM_S8_SHAPES, built from
+    ``csrc`` (default: this checkout's sources) once per
+    GEMM_SPLIT_VARIANTS entry into build/mirage_tpu_torch/split_gemm/, each
+    timed by CUDA events beside ``torch.matmul`` of the product alone, the
+    ``F.linear`` (+ ``F.gelu``) (+ residual) composition or
+    ``torch._int_mm``, and the bound; then B9's backward
+    (``fused_mlp._mlp_bwd_stash`` of the checkout it runs in) at the seg
+    head's (65536, 384) -> 1536. The C entries and macro names are the
+    parent's too, so a copy of this script in an older checkout's root
+    times that tree with the same macros added."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from mirage_tpu_torch.ops import _build
+    from mirage_tpu_torch.ops import fused_mlp as fm
+
+    csrc = Path(csrc).resolve()
+    out_dir = _build.BUILD_DIR / "split_gemm"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    t0 = time.perf_counter()
+    for variant, flags in GEMM_SPLIT_VARIANTS.items():
+        for src in ("gemm", "quant"):
+            lib = out_dir / f"lib{src}_{variant}.so"
+            procs.append((lib, subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+                 str(csrc / f"{src}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    for lib, proc in procs:
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{log_text}")
+        log(f"[gemm_split] {lib.name}: {log_text.count('C7520')} ptxas notes "
+            f"of serialized wgmma; " + "; ".join(
+                ln.strip() for ln in log_text.splitlines()
+                if "Used" in ln or "spill" in ln)[:900])
+    log(f"[gemm_split] {len(procs)} builds from {csrc} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for variant in GEMM_SPLIT_VARIANTS:
+        for entry in ("gemm", "gemm_gelu_mode", "gemm_s8"):
+            source, symbol, argtypes = _build.ENTRIES[entry]
+            fn = getattr(ctypes.CDLL(str(out_dir / f"lib{source}_{variant}.so")),
+                         symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            libs[variant, entry] = fn
+    gen = torch.Generator().manual_seed(SEED + 11)
+    dev = "cuda"
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(torch.bfloat16) \
+            .to(dev)
+
+    rows = []
+    for label, shape, epi, calls in GEMM_SHAPES + GEMM_S8_SHAPES:
+        m, n, k = shape
+        row = {"label": label, "shape": list(shape), "epilogue": epi,
+               "calls": calls}
+        if epi in ("s32", "fc1", "fc2"):
+            bufs = {"a": torch.randint(-127, 128, (m, k), generator=gen,
+                                       dtype=torch.int8).to(dev),
+                    "w": torch.randint(-127, 128, (n, k), generator=gen,
+                                       dtype=torch.int8).to(dev),
+                    "rs": torch.rand(m, generator=gen).to(dev) * 1e-3,
+                    "s": torch.rand(n, generator=gen).to(dev) * 1e-3,
+                    "b": torch.randn(n, generator=gen).to(dev) * 0.02,
+                    "h": torch.empty(m, n, device=dev),
+                    "amax": torch.zeros(m, device=dev),
+                    "x": rn(m, n),
+                    "c": torch.empty(m, n, device=dev, dtype=(
+                        torch.int32 if epi == "s32" else torch.bfloat16))}
+            entry = "gemm_s8"
+            a, w = bufs["a"], bufs["w"]
+            row["library_ms"] = cuda_ms(lambda: torch._int_mm(a, w.t()),
+                                        iters=20, repeats=5)
+            row["library"] = "torch._int_mm (s32 out)"
+            flops, nbytes = _gemm_work(shape, epi)
+            t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, \
+                nbytes / PEAK_BYTES * 1e3
+        else:
+            bufs = {"a": rn(m, k), "w": rn(n, k, scale=k ** -0.5),
+                    "bias": rn(n, scale=0.02), "res": rn(m, n),
+                    "c": torch.empty(m, n, device=dev, dtype=torch.bfloat16)}
+            entry = "gemm_gelu_mode" if epi == "as26" else "gemm"
+            a, w, bias, res = bufs["a"], bufs["w"], bufs["bias"], bufs["res"]
+
+            def compose():
+                y = F.linear(a, w, bias)
+                if epi in ("gelu", "as26"):
+                    y = F.gelu(y)
+                return y + res if epi == "res" else y
+
+            row["matmul_ms"] = cuda_ms(lambda: torch.matmul(a, w.t()),
+                                       iters=20, repeats=5)
+            row["library_ms"] = cuda_ms(compose, iters=20, repeats=5)
+            row["library"] = "F.linear (+ F.gelu) (+ residual add)"
+            flops, nbytes = _gemm_work(shape, epi)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, \
+                nbytes / PEAK_BYTES * 1e3
+        row["bound_ms"] = max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        for variant in GEMM_SPLIT_VARIANTS:
+            fn = libs[variant, entry]
+            row[variant] = cuda_ms(lambda: _gemm_entry_call(
+                fn, epi, bufs, shape), iters=20, repeats=5)
+        log(f"[gemm_split] {label} {shape} {epi}: "
+            + ", ".join(f"{var} {row[var]:.4f}"
+                        for var in GEMM_SPLIT_VARIANTS)
+            + (f"; matmul {row['matmul_ms']:.4f}" if "matmul_ms" in row
+               else "")
+            + f"; library {row['library_ms']:.4f}; bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) ms a call")
+        rows.append(row)
+        del bufs
+    # B9's backward (dact and dyln with B9's weights as they lie in this
+    # checkout) at the seg head's rows
+    m, d = 65536, 384
+    args = _op_inputs("mlp_block", (1, m, d), torch.bfloat16, gen)
+    x2, prm = args[0].view(m, d), args[1:]
+    dy = torch.randn(m, d, generator=gen).to(torch.bfloat16).to(dev)
+    _, act, dg = fm._mlp_fwd_stash(x2, *prm)
+    b9 = cuda_ms(lambda: fm._mlp_bwd_stash(x2, dy, act, dg, prm[0], prm[1],
+                                           prm[2], prm[4]), iters=10,
+                 repeats=5)
+    log(f"[gemm_split] B9 backward (65536, 384) -> 1536: {b9:.4f} ms a call")
+    return {"rows": rows, "b9_bwd_ms": b9}
+
+
+# the bf16 GEMM's rows of phase 2: GEMM_SHAPES and B3's cross-attention
+# products, with their launches per batch-64 reconstruct forward
+GEMM_PATH_CALLS = {"serving encoder qkv": 24, "serving encoder proj": 24,
+                   "serving encoder fc1": 24, "serving encoder fc2": 24,
+                   "serving decoder qkv": 6, "serving decoder proj": 6,
+                   "serving decoder fc1": 9, "serving decoder fc2": 9,
+                   "serving decoder cross q": 3,
+                   "serving decoder cross kv": 3,
+                   "serving decoder cross proj": 3}
+GEMM_CROSS_SHAPES = [
+    ("serving decoder cross q", (16384, 256, 256), "bias", "3 / forward"),
+    ("serving decoder cross kv", (16448, 512, 256), "bias", "3 / forward"),
+    ("serving decoder cross proj", (16384, 256, 256), "bias", "3 / forward"),
+]
+
+
+def gemm_rows():
+    """The bf16 GEMM (``runtime.gemm``, csrc/gemm_pingpong.cuh through
+    csrc/gemm.cu) at GEMM_SHAPES and B3's products, bf16 operands, against
+    float32 math from the same inputs (max-abs BF16_MAX_ABS, rel-L2
+    BF16_REL_L2), a rerun bit-identical; then the kernel, the float32 plain
+    version, ``torch.matmul`` of the product alone and the ``F.linear``
+    composition timed, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.quant import _erf_as
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(torch.bfloat16) \
+            .cuda()
+
+    rows = []
+    for label, shape, epi, _ in GEMM_SHAPES + GEMM_CROSS_SHAPES:
+        m, n, k = shape
+        a, w, bias = rn(m, k), rn(n, k, scale=k ** -0.5), rn(n, scale=0.02)
+        res = rn(m, n) if epi == "res" else None
+
+        def kernel():
+            if epi == "as26":
+                return runtime.gemm_gelu_mode(a, w, bias, mode="as26")
+            return runtime.gemm(a, w, bias, residual=res, gelu=epi == "gelu")
+
+        def plain(dt):
+            y = F.linear(a.to(dt), w.to(dt), bias.to(dt))
+            if epi == "gelu":
+                y = F.gelu(y)
+            elif epi == "as26":
+                y = 0.5 * y * (1.0 + _erf_as(y / math.sqrt(2.0)))
+            return y + res.to(dt) if res is not None else y
+
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        want = plain(torch.float32)
+        diff = got.float() - want
+        max_abs = diff.abs().max().item()
+        rel_l2 = (diff.norm() / want.norm()).item()
+        if not (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2
+                and bool(torch.isfinite(got).all())
+                and torch.equal(got, again)):
+            raise AssertionError(
+                f"gemm {label} {shape}: max_abs {max_abs} rel_l2 {rel_l2} "
+                f"against float32 math, or a rerun differs")
+        del got, again, want, diff
+        flops, nbytes = _gemm_work(shape, "res" if res is not None else epi)
+        bound_ms, bound_by = _bound((flops, nbytes))
+        row = {"label": label, "shape": list(shape), "epilogue": epi,
+               "dtype": "bf16", "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+               "ms": cuda_ms(kernel, iters=20, repeats=5),
+               "plain_ms": cuda_ms(lambda: plain(torch.float32), iters=5),
+               "matmul_ms": cuda_ms(lambda: torch.matmul(a, w.t()), iters=20,
+                                    repeats=5),
+               "library_ms": cuda_ms(lambda: plain(torch.bfloat16), iters=20,
+                                     repeats=5),
+               "library": "F.linear (+ F.gelu) (+ residual add) in bf16; "
+                          "matmul_ms: torch.matmul of the product alone",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "calls_per_forward": GEMM_PATH_CALLS.get(label, 0)}
+        log(f"[kernels] gemm {label} {shape} {epi}: max_abs {max_abs:.3e} "
+            f"rel_l2 {rel_l2:.3e}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, matmul {row['matmul_ms']:.4f}, library "
+            f"{row['library_ms']:.4f}, bound {bound_ms:.4f} ({bound_by})")
+        rows.append(row)
+        del a, w, bias, res
+    return rows
+
+
+def gemm_s8_rows():
+    """The int8 GEMM (csrc/gemm_pingpong.cuh through csrc/quant.cu) at
+    GEMM_S8_SHAPES: S3's s32 product exact against the int64 product, B12's
+    fc1 (float h within rel-L2 1e-5 of float32 math: exp2f within 2 ulp;
+    the rows' abs-max the same within that) and fc2 (the bf16 gates) against
+    the plain math on the same codes, each rerun bit-identical; timed
+    beside ``torch._int_mm`` and the bound."""
+    import torch
+
+    from mirage_tpu_torch.ops import quant, runtime
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    rows = []
+    for label, shape, epi, calls in GEMM_S8_SHAPES:
+        m, n, k = shape
+        a = torch.randint(-127, 128, (m, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        w = torch.randint(-127, 128, (n, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        # B12's scales: a row's abs-max / 127 of O(1) activations, a
+        # channel's of weights ~ N(0, 1/K) (abs-max ≈ 4/√K), so v is O(1)
+        rs = ((torch.rand(m, generator=gen) + 1) / 254).cuda()
+        s = ((torch.rand(n, generator=gen) + 1) * 2 / (127 * k ** 0.5)).cuda()
+        b = (torch.randn(n, generator=gen) * 0.02).cuda()
+        x = torch.randn(m, n, generator=gen).to(torch.bfloat16).cuda()
+        prod = quant._int_product(a, w)  # exact, as float32 (the s32 cast)
+        if epi == "s32":
+            def kernel():
+                return runtime.gemm_s8_s32(a, w)
+            got, again = kernel(), kernel()
+            exact = torch.equal(got, quant.gemm_s8_ref(a, w))
+            errs = {"exact": exact}
+            ok = exact
+        elif epi == "fc1":
+            def kernel():
+                return runtime.gemm_s8_fc1(a, w, rs, s, b)
+            got, again = kernel(), kernel()
+            h = prod * rs[:, None] * s + b
+            h = 0.5 * h * (1.0 + quant._erf_as(h / math.sqrt(2.0)))
+            rel = ((got[0] - h).norm() / h.norm()).item()
+            amax = ((got[1] - h.abs().amax(-1)).abs().max()
+                    / h.abs().max()).item()
+            errs = {"rel_l2": rel, "amax_rel": amax}
+            ok = rel <= 1e-5 and amax <= 1e-5
+        else:
+            def kernel():
+                return runtime.gemm_s8_fc2(a, w, rs, s, b, x)
+            got, again = kernel(), kernel()
+            want = x.float() + (prod * rs[:, None] * s + b) \
+                .to(torch.bfloat16).float()
+            d = got.float() - want
+            errs = {"max_abs": d.abs().max().item(),
+                    "rel_l2": (d.norm() / want.norm()).item()}
+            ok = errs["max_abs"] <= BF16_MAX_ABS and \
+                errs["rel_l2"] <= BF16_REL_L2
+        same = all(torch.equal(p, q) for p, q in zip(
+            got if isinstance(got, tuple) else (got,),
+            again if isinstance(again, tuple) else (again,)))
+        if not ok or not same:
+            raise AssertionError(f"gemm_s8 {label} {shape}: {errs}, rerun "
+                                 f"bit-identical {same}")
+        flops, nbytes = _gemm_work(shape, epi)
+        t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"label": label, "shape": list(shape), "epilogue": epi,
+               "errors": errs, "ms": cuda_ms(kernel, iters=20, repeats=5),
+               "library_ms": cuda_ms(lambda: torch._int_mm(a, w.t()),
+                                     iters=20, repeats=5),
+               "library": "torch._int_mm (s32 out)",
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "calls": calls}
+        log(f"[kernels] gemm_s8 {label} {shape} {epi}: {errs}; kernel "
+            f"{row['ms']:.4f} ms, _int_mm {row['library_ms']:.4f}, bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        rows.append(row)
+        del a, w, rs, s, b, x, prod, got, again
+    return rows
 
 
 def attention_bwd_core_rows(cases):
@@ -2561,7 +2977,7 @@ def phase_serve(workdir, card, path):
 
     ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
            "xattn_half_block": xattn_half_block,
-           "attention_fwd": runtime.attention}
+           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
     t0 = time.perf_counter()
     wrapper = MIRAGEWrapper(weights=str(path), compute_dtype=torch.bfloat16,
                             device="cuda")
@@ -2692,11 +3108,12 @@ def phase_serve(workdir, card, path):
 # of a cross-attention half (B3 + B2) and two 256-wide blocks
 PER_RECONSTRUCT_FUSE = {
     "off": {"attn_half_block": 30, "mlp_block": 33, "xattn_half_block": 3,
-            "fused_block": 0, "attention_fwd": 33},
+            "fused_block": 0, "attention_fwd": 33, "gemm": 135},
     "decoder": {"attn_half_block": 24, "mlp_block": 27,
-                "xattn_half_block": 3, "fused_block": 6, "attention_fwd": 27},
+                "xattn_half_block": 3, "fused_block": 6, "attention_fwd": 27,
+                "gemm": 111},
     "all": {"attn_half_block": 0, "mlp_block": 3, "xattn_half_block": 3,
-            "fused_block": 30, "attention_fwd": 3}}
+            "fused_block": 30, "attention_fwd": 3, "gemm": 15}}
 
 
 def _serve_under_switch(wrapper, x, card):
@@ -2714,7 +3131,7 @@ def _serve_under_switch(wrapper, x, card):
 
     ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
            "xattn_half_block": xattn_half_block, "fused_block": fused_block,
-           "attention_fwd": runtime.attention}
+           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
     with runtime.plain_on_card():
         want = {k: v.float() for k, v in wrapper(x).items()}
     out, first = {}, None
@@ -3628,7 +4045,7 @@ def _bench_counters():
     from mirage_tpu_torch.ops import runtime
 
     return {"attn_half_block": ba.attn_half_block,
-            "attention_fwd": runtime.attention,
+            "attention_fwd": runtime.attention, "gemm": runtime.gemm,
             "mlp_block": fm.mlp_block,
             "xattn_half_block": ba.xattn_half_block,
             "block_attention": ba.block_attention,
@@ -3879,6 +4296,14 @@ def main(argv=None):
                     "softmax and delta, or every product, and split B4's "
                     "chain into launches (attn_bwd_split); prints no result "
                     "line")
+    ap.add_argument("--gemm-split", nargs="?", const=str(
+                        ROOT / "mirage_tpu_torch" / "csrc"), metavar="CSRC",
+                    help="only time the bf16 and int8 GEMMs (csrc/gemm.cu, "
+                    "csrc/quant.cu, built from CSRC, default this checkout's)"
+                    " at their path shapes, whole and without the epilogue's "
+                    "math, the store or every product, beside torch.matmul, "
+                    "the F.linear composition or torch._int_mm, and B9's "
+                    "backward (gemm_split); prints no result line")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
     if not torch.cuda.is_available():
@@ -3901,6 +4326,10 @@ def main(argv=None):
         return 0
     if opts.attn_split:
         log(json.dumps({"attn_split": attn_split(opts.attn_split),
+                        "card": card}))
+        return 0
+    if opts.gemm_split:
+        log(json.dumps({"gemm_split": gemm_split(opts.gemm_split),
                         "card": card}))
         return 0
     if opts.attn_bwd_split:
@@ -3927,6 +4356,7 @@ def main(argv=None):
             dict(r, calls_per_step=r["calls_per_cls_step"])
             for r in bwd_rows["attention_bwd"] if "calls_per_cls_step" in r]
         serve_rows = phase_serve_kernels({})
+        s8_rows = gemm_s8_rows()
         op_launches = {"mlp_block_q": mlp_block_q.launches,
                        "mlp_block_fwd_stash3d": mlp_block_fwd_stash3d.launches}
     if "golden" in phases:
@@ -3981,6 +4411,7 @@ def main(argv=None):
                + _op_entries(serve_rows, op_launches)
                + _bench_entries(bench))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
+                    "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "bench": bench,
                     "seconds": time.perf_counter() - t_start}))

@@ -6,7 +6,7 @@
 shapes (the MLP's fc1 and fc2 and the qkv projection at M = 512·257, and a
 large square). On the card:
 
-- int8: ``ops/quant.py:gemm_s8`` (B12's mma.sync int8 GEMM, csrc/quant.cu,
+- int8: ``ops/quant.py:gemm_s8`` (B12's wgmma int8 GEMM, csrc/quant.cu,
   storing the raw s32 accumulator), checked bit for bit against the exact
   int32 product, then timed;
 - bf16: the port's wgmma GEMM (``runtime.gemm``) with a float32 output, as

@@ -13,7 +13,7 @@ rows). On the card the cases are:
 - both again at 320 tokens, a pad that fits this card's tiles: 320 = 5 × 64
   is a whole number of the attention kernel's 64-row query and key chunks,
   and 64 · 320 = 160 × 128 rows a whole number of the GEMM's 128-row M
-  tiles (csrc/gemm.cu, ``BM = 128``).
+  tiles (csrc/gemm_pingpong.cuh, ``BM = 128``).
 
 Each masked case is first held to its plain version at the bench's bars,
 and its first 257 rows to the unmasked B1 at 257 on the same rows. Times

@@ -28,13 +28,17 @@
 // (like torch's exp and XLA's) is within 2 ulp, not correctly rounded.
 //
 // Bound: operations at the encoder shape (2·M·D·4D·2 int8 operations against
-// x, out and the int8 weights read once). The products run on mma.sync
-// m16n8k32 s8·s8 -> s32 tensor-core MMAs: 128 × 128 tiles of 8 warps (32 ×
-// 64 each), K-slices of 64 bytes in a three-stage cp.async ring. The float
-// hidden (M × 4D) goes through device memory between steps 2 and 3: what a
-// later PR removes first (a CTA that owns whole rows of the hidden, or an
-// fp8 hidden), then wgmma.
-#include "common.cuh"
+// x, out and the int8 weights read once). The products run on
+// csrc/gemm_pingpong.cuh's s8 instantiation: wgmma m64nNk32 s8·s8 -> s32
+// on 128-byte (128-element) K-slices fed by TMA, a persistent grid whose two
+// consumer warpgroups each own a tile and take the tensor cores in turn,
+// so one's dequantisation, GELU and staged 16-byte stores run under the
+// other's products. The float hidden (M × 4D) goes through device memory
+// between steps 2 and 3: what a later PR removes first (a CTA that owns
+// whole rows of the hidden, or an fp8 hidden).
+#include <type_traits>
+
+#include "gemm_pingpong.cuh"
 
 constexpr float SQRT2 = 1.4142135623730951f, LOG2E = 1.4426950408889634f;
 constexpr float LN_EPS = 1e-6f;
@@ -128,147 +132,113 @@ __global__ void __launch_bounds__(256)
 
 // ------------------------------------------------------ 2., 4. int8 GEMM
 
-constexpr int QBM = 128, QBN = 128, QBK = 64, QSTAGES = 3;  // QBK in bytes
-constexpr int QDS = QBK + 16;  // padded row stride: ldmatrix rows on distinct banks
-
-// d += a (16×32, row) · b (32×8, col), s8 in, s32 accumulate
-__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 enum { QEPI_FC1 = 0, QEPI_FC2 = 1, QEPI_S32 = 2 };
 
-// acc = A (M, K) int8 · W (N, K) int8ᵀ in s32; v = acc·rs[row]·s[col] +
-// b[col] in float. FC1: h = GELU(v) as float into hout, and atomicMax of
-// |h| per row into amax (float bits, zeroed by the caller). FC2: out =
-// T(x + T(v)). S32: acc itself into out, read as int32 (M, N); rs, s and b
-// are not read.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    gemm_s8_kernel(const signed char* __restrict__ A, const signed char* __restrict__ W,
-                   const float* __restrict__ rs, const float* __restrict__ s,
-                   const float* __restrict__ b, int epi, float* __restrict__ hout,
-                   float* __restrict__ amax, const T* __restrict__ x, T* __restrict__ out, int M,
-                   int N, int K) {
-  extern __shared__ __align__(16) unsigned char q_smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int wr = warp & 3, wc = warp >> 2;  // 32-row group, 64-column half
-  const long m0 = (long)blockIdx.y * QBM, n0 = (long)blockIdx.x * QBN;
-  const int ktiles = (K + QBK - 1) / QBK;
-  auto stage = [&](int st, int kt) {
-    unsigned char* as = q_smem + st * (QBM + QBN) * QDS;
-    unsigned char* ws = as + QBM * QDS;
-    const int k0 = kt * QBK;
-    for (int e = tid; e < (QBM + QBN) * (QBK / 16); e += 256) {
-      const int r = e / (QBK / 16), c = (e % (QBK / 16)) * 16;
-      if (r < QBM) {
-        const long g = m0 + r;
-        const bool ok = g < M && k0 + c < K;
-        cp_async16(smem_u32(as + r * QDS + c), ok ? A + g * K + k0 + c : A, ok ? 16 : 0);
-      } else {
-        const long g = n0 + r - QBM;
-        const bool ok = g < N && k0 + c < K;
-        cp_async16(smem_u32(ws + (r - QBM) * QDS + c), ok ? W + g * K + k0 + c : W, ok ? 16 : 0);
-      }
-    }
+// The int8 epilogues of csrc/gemm_pingpong.cuh, one kind (QEPI) an
+// instantiation. acc = A (M, K) int8 · W (N, K) int8ᵀ in s32; v =
+// acc·rs[row]·s[col] + b[col] in float. FC1: h = GELU(v) as float into hout,
+// and atomicMax of |h| per row into amax (float bits, zeroed by the caller;
+// order-independent). FC2: out = T(x + T(v)). S32: acc itself into out,
+// read as int32 (M, N); rs, s and b are not read. Every value goes through
+// the warp's staging tile into 16-byte rows.
+template <int KIND, typename T = float>
+struct EpiS8 {
+  struct Params {
+    const float* rs;
+    const float* s;
+    const float* b;
+    float* hout;
+    float* amax;
+    const T* x;
+    void* out;
   };
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-#pragma unroll
-  for (int st = 0; st < QSTAGES - 1; ++st) {
-    if (st < ktiles) stage(st, st);
-    cp_async_commit();
+  static constexpr int VECS = KIND == QEPI_S32 ? 0 : 2;  // the weight scales, then the bias
+  __device__ __forceinline__ static float vec(const Params& p, int v, long col, int N) {
+    return col >= N ? 0.f : v == 0 ? p.s[col] : p.b[col];
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<QSTAGES - 2>();  // slice kt has landed
-    __syncthreads();               // and every warp is done with slice kt - 1's stage
-    if (kt + QSTAGES - 1 < ktiles) stage((kt + QSTAGES - 1) % QSTAGES, kt + QSTAGES - 1);
-    cp_async_commit();
-    const unsigned char* as = q_smem + (kt % QSTAGES) * (QBM + QBN) * QDS;
-    const unsigned char* ws = as + QBM * QDS;
+  __device__ __forceinline__ static void store(const Params& p, const int (&acc)[128],
+                                               const gpp::Scratch& sc, int M, int N, long row0,
+                                               long n0) {
+    using namespace gpp;
+    using OutT = typename std::conditional<KIND == QEPI_S32, int,
+                 typename std::conditional<KIND == QEPI_FC1, float, T>::type>::type;
+    OutT* stage = reinterpret_cast<OutT*>(sc.stage);
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int kk = 0; kk < QBK / 32; ++kk) {
-      uint32_t af[2][4];
+    for (int h = 0; h < MH; ++h) {
+      const long r0 = row0 + h * 64;
+      float rsv[2], mx[2] = {0.f, 0.f};
+      if constexpr (KIND != QEPI_S32) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(af[i], smem_u32(as + (wr * 32 + i * 16 + (lane & 15)) * QDS + kk * 32 +
-                                    (lane >> 4) * 16));
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(ws + (wc * 64 + j * 8 + (lane & 7) + ((lane >> 4) << 3)) * QDS +
-                                kk * 32 + ((lane >> 3) & 1) * 16));
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_s8_16832(acc[i][j], af[i], r[0], r[1]);
-          mma_s8_16832(acc[i][j + 1], af[i], r[2], r[3]);
+        for (int r8 = 0; r8 < 2; ++r8) {
+          const long row = r0 + gid + 8 * r8;
+          rsv[r8] = row < M ? p.rs[row] : 0.f;
         }
       }
-    }
-  }
-  // epilogue from the fragments: rows gid, gid + 8 of each 16-row group,
-  // columns 8j + 2·tig and + 1 (N is a multiple of 8)
-  if (epi == QEPI_S32) {
-    int* o = reinterpret_cast<int*>(out);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int cc = 0; cc < BN / EPI_COLS; ++cc) {
+        const long c0 = n0 + cc * EPI_COLS;
+        if (c0 >= N) break;
+#pragma unroll  // fully: acc must stay in registers (constant indices)
+        for (int jj = 0; jj < EPI_COLS / 8; ++jj) {
+          const int j = cc * (EPI_COLS / 8) + jj, c = jj * 8 + 2 * tig;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long row = m0 + wr * 32 + i * 16 + gid + 8 * half;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const long col = n0 + wc * 64 + 8 * j + 2 * tig;
-          if (row < M && col < N)
-            *reinterpret_cast<int2*>(o + row * N + col) =
-                make_int2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+          for (int r8 = 0; r8 < 2; ++r8) {
+            const int a0 = acc[frag(h, j, r8, 0)], a1 = acc[frag(h, j, r8, 1)];
+            if constexpr (KIND == QEPI_S32) {
+              stage_pair(stage, gid + 8 * r8, c, a0, a1);
+            } else {
+              const float2 sv = *reinterpret_cast<const float2*>(sc.vec + cc * EPI_COLS + c);
+              const float2 bv =
+                  *reinterpret_cast<const float2*>(sc.vec + BN + cc * EPI_COLS + c);
+              float v0 = __fadd_rn(__fmul_rn(__fmul_rn((float)a0, rsv[r8]), sv.x), bv.x);
+              float v1 = __fadd_rn(__fmul_rn(__fmul_rn((float)a1, rsv[r8]), sv.y), bv.y);
+#ifndef MTT_GEMM_SPLIT_NO_EPI
+              if constexpr (KIND == QEPI_FC1) {
+                v0 = gelu_as(v0);
+                v1 = gelu_as(v1);
+                mx[r8] = fmaxf(mx[r8], fmaxf(fabsf(v0), fabsf(v1)));
+              }
+#endif
+              stage_pair(stage, gid + 8 * r8, c, v0, v1);
+            }
+          }
         }
-      }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long row = m0 + wr * 32 + i * 16 + gid + 8 * half;
-      const bool row_ok = row < M;
-      const float r_s = row_ok ? rs[row] : 0.f;
-      float mx = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const long col = n0 + wc * 64 + 8 * j + 2 * tig;
-        if (!row_ok || col >= N) continue;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          v[e] = __fadd_rn(
-              __fmul_rn(__fmul_rn((float)acc[i][j][2 * half + e], r_s), s[col + e]), b[col + e]);
-        const long off = row * N + col;
-        if (epi == QEPI_FC1) {
-          v[0] = gelu_as(v[0]);
-          v[1] = gelu_as(v[1]);
-          mx = fmaxf(mx, fmaxf(fabsf(v[0]), fabsf(v[1])));
-          *reinterpret_cast<float2*>(hout + off) = make_float2(v[0], v[1]);
+        __syncwarp();
+        if constexpr (KIND == QEPI_FC1) {
+          store_staged(stage, p.hout, nullptr, M, N, r0, c0);
         } else {
-          const float x0 = to_f(x[off]), x1 = to_f(x[off + 1]);
-          out[off] = from_f<T>(x0 + to_f(from_f<T>(v[0])));
-          out[off + 1] = from_f<T>(x1 + to_f(from_f<T>(v[1])));
+#ifdef MTT_GEMM_SPLIT_NO_EPI
+          const OutT* x = nullptr;
+#else
+          const OutT* x = nullptr;
+          if constexpr (KIND == QEPI_FC2) x = p.x;
+#endif
+          store_staged(stage, static_cast<OutT*>(p.out), x, M, N, r0, c0);
+        }
+        __syncwarp();
+      }
+#ifndef MTT_GEMM_SPLIT_NO_EPI
+      if constexpr (KIND == QEPI_FC1) {
+#pragma unroll
+        for (int r8 = 0; r8 < 2; ++r8) {
+          float m = fmaxf(mx[r8], __shfl_xor_sync(0xffffffffu, mx[r8], 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          const long row = r0 + gid + 8 * r8;
+          if (tig == 0 && row < M) atomicMax(reinterpret_cast<int*>(p.amax + row), __float_as_int(m));
         }
       }
-      if (epi == QEPI_FC1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        if (tig == 0 && row_ok) atomicMax(reinterpret_cast<int*>(amax + row), __float_as_int(mx));
-      }
+#endif
     }
+  }
+};
+
+template <int KIND, typename T>
+__global__ void __launch_bounds__(384, 1)
+    gemm_s8_pingpong(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const typename EpiS8<KIND, T>::Params p, int M, int N, int K, int group) {
+  gpp::gemm_pingpong<gpp::S8, false, EpiS8<KIND, T>>(&map_a, &map_w, p, M, N, K, group);
 }
 
 // ----------------------------------------------------------------- launch
@@ -298,25 +268,27 @@ extern "C" int mtt_quant_rows(const void* h, const void* amax, void* aq, void* r
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <int KIND, typename T = float>
 static int launch_gemm(const void* a, const void* w, const void* rs, const void* s, const void* b,
-                       int epi, void* hout, void* amax, const void* x, void* out, int M, int N,
-                       int K, cudaStream_t st) {
+                       void* hout, void* amax, const void* x, void* out, int M, int N, int K,
+                       cudaStream_t st) {
+  constexpr int bytes = gpp::smem_bytes<EpiS8<KIND, T>::VECS>();
   static bool configured = false;
-  constexpr int bytes = QSTAGES * (QBM + QBN) * QDS;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_s8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const dim3 grid((N + QBN - 1) / QBN, (M + QBM - 1) / QBM);
-  gemm_s8_kernel<T><<<grid, 256, bytes, st>>>(
-      static_cast<const signed char*>(a), static_cast<const signed char*>(w),
+  const int err = gpp::configure_once(gemm_s8_pingpong<KIND, T>, bytes, configured);
+  if (err != 0) return err;
+  const int sms = sm_count();
+  CUtensorMap map_a, map_w;
+  const int u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (sms == 0 || !gpp::cached_map_2d(&map_a, {a, M, K, gpp::BM, 128, u8}) ||
+      !gpp::cached_map_2d(&map_w, {w, N, K, gpp::W_ROWS, 128, u8}))
+    return (int)cudaErrorInvalidValue;
+  const gpp::Plan pl = gpp::plan(M, N, sms);
+  const typename EpiS8<KIND, T>::Params p{
       static_cast<const float*>(rs), static_cast<const float*>(s), static_cast<const float*>(b),
-      epi, static_cast<float*>(hout), static_cast<float*>(amax), static_cast<const T*>(x),
-      static_cast<T*>(out), M, N, K);
-  return (int)cudaGetLastError();
+      static_cast<float*>(hout),     static_cast<float*>(amax),    static_cast<const T*>(x),
+      out};
+  return gpp::launch(gemm_s8_pingpong<KIND, T>, pl, bytes, st, map_a, map_w, p, M, N, K,
+                     pl.group);
 }
 
 // epi QEPI_FC1: hout (M, N) float, amax (M) float zeroed; QEPI_FC2: x, out
@@ -331,7 +303,9 @@ extern "C" int mtt_gemm_s8(const void* a, const void* w, const void* rs, const v
                       : (out == nullptr || (epi == QEPI_FC2 && x == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epi == QEPI_S32) return launch_gemm<QEPI_S32>(a, w, rs, s, b, hout, amax, x, out, M, N, K, st);
+  if (epi == QEPI_FC1) return launch_gemm<QEPI_FC1>(a, w, rs, s, b, hout, amax, x, out, M, N, K, st);
   if (dtype == MTT_BF16)
-    return launch_gemm<bf16>(a, w, rs, s, b, epi, hout, amax, x, out, M, N, K, st);
-  return launch_gemm<float>(a, w, rs, s, b, epi, hout, amax, x, out, M, N, K, st);
+    return launch_gemm<QEPI_FC2, bf16>(a, w, rs, s, b, hout, amax, x, out, M, N, K, st);
+  return launch_gemm<QEPI_FC2, float>(a, w, rs, s, b, hout, amax, x, out, M, N, K, st);
 }

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the wgmma GEMM kernels (csrc/gemm.cu,
-// csrc/gemm_stash.cu, csrc/gemm_lnfold.cu, csrc/mlp_chunked.cu,
-// csrc/fused_block.cu, csrc/mlp_bwd.cu, csrc/wgrad.cu, and the attention
-// forward of csrc/attention_fwd.cuh): warpgroup MMA on 128-, 64- or
-// 32-byte-swizzled K-major or MN-major (transposed) tiles, with A from
+// Hopper building blocks shared by the wgmma GEMM kernels (the bf16 and
+// int8 products of csrc/gemm_pingpong.cuh, csrc/gemm_stash.cu,
+// csrc/gemm_lnfold.cu, csrc/mlp_chunked.cu, csrc/fused_block.cu,
+// csrc/mlp_bwd.cu, csrc/wgrad.cu, and the attention forward of
+// csrc/attention_fwd.cuh): warpgroup MMA (bf16, and s8·s8 -> s32) on 128-,
+// 64- or 32-byte-swizzled K-major or MN-major (transposed) tiles, with A from
 // shared memory or registers, mbarriers (arrived at from another CTA of the
 // cluster too), 2-D and 3-D TMA loads (2-D multicast to several CTAs of a
 // cluster too), the cluster's shared-memory
@@ -120,7 +121,47 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[N], uint64_t da, uint64_t 
         MTT_F8(56)
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
+// d[OFF .. OFF + 63] (64 × 128 of a thread's 128 floats: row block OFF/64 of
+// a 128 × 128 tile) += A (64 × 16) · B (128 × 16)ᵀ; TB as wgmma_n256's
+template <int OFF, int TB = 0>
+__device__ __forceinline__ void wgmma_n128_at(float (&d)[128], uint64_t da, uint64_t db) {
+  static_assert(OFF == 0 || OFF == 64, "wgmma_n128_at: OFF 0 or 64");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : MTT_F8(OFF + 0), MTT_F8(OFF + 8), MTT_F8(OFF + 16), MTT_F8(OFF + 24), MTT_F8(OFF + 32),
+        MTT_F8(OFF + 40), MTT_F8(OFF + 48), MTT_F8(OFF + 56)
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
 #undef MTT_F8
+
+#define MTT_R8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+    "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[OFF .. OFF + 63] (64 × 128 s32 of a thread's 128: row block OFF/64 of a
+// 128 × 128 tile) += A (64 × 32 s8) · B (128 × 32 s8)ᵀ, both K-major (wgmma
+// has no transpose for 8-bit types), exact
+template <int OFF>
+__device__ __forceinline__ void wgmma_s8_n128_at(int (&d)[128], uint64_t da, uint64_t db) {
+  static_assert(OFF == 0 || OFF == 64, "wgmma_s8_n128_at: OFF 0 or 64");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : MTT_R8(OFF + 0), MTT_R8(OFF + 8), MTT_R8(OFF + 16), MTT_R8(OFF + 24), MTT_R8(OFF + 32),
+        MTT_R8(OFF + 40), MTT_R8(OFF + 48), MTT_R8(OFF + 56)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef MTT_R8
 
 // d (64 × N: this thread's first N/2 floats of d) = (scale_d ? d : 0) +
 // A (64 × 16) · B (N × 16)ᵀ, both in shared memory, K-major or (TA / TB = 1)

@@ -35,6 +35,8 @@ ENTRIES = {
                        _P]),
     "gemm": ("gemm", "mtt_gemm", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                                   _I, _P, _P, _P]),
+    "gemm_kn": ("gemm", "mtt_gemm_kn", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                        _I, _I, _P, _P, _P]),
     "gemm_gelu_mode": ("gemm", "mtt_gemm_gelu_mode",
                        [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]),
     "gemm_stash": ("gemm_stash", "mtt_gemm_stash",

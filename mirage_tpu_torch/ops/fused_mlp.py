@@ -27,9 +27,11 @@ d ≥ 384, a row count with a backward block): B9, replacing
 ``_mlp_block_fwd_stash`` / ``_mlp_fwd_stash_kernel`` and
 ``_mlp_block_bwd_stash`` / ``_mlp_bwd_stash_kernel``. Its forward is B2's
 chain with the stash epilogue on fc1, which also writes act = T(GELU(h))
-and dg = T(GELU′(h)) for the backward (csrc/gemm.cu); its backward runs no
-recompute and no transcendental: dact = dy·W2 with the epilogue dh =
-T(dact·dg) and float 16-row partials of db1, dyln = dh·W1 in float, LN
+and dg = T(GELU′(h)) for the backward (csrc/gemm_stash.cu); its backward
+runs no recompute and no transcendental: dact = dy·W2 with the epilogue dh
+= T(dact·dg) and float 16-row partials of db1, dyln = dh·W1 in float (both
+products read W2 and W1 as they lie, ``runtime.gemm(..., w_kn=True)``, so
+no weight is copied), LN
 recomputed for y and the LN backward (csrc/layernorm.cu), and dW1 = dhᵀ·y,
 dW2 = dyᵀ·act, db2 = Σ dy and the reductions of the partials in the wgrad
 kernels (csrc/wgrad.cu: fixed row chunks, fixed order), since the TPU
@@ -307,25 +309,104 @@ def mlp_block_bwd_stash_ref(x, dy, act, dg, ln_w, ln_b, w1, w2):
 
 PingPongPlan = namedtuple("PingPongPlan", [
     "tile", "tiles", "grid", "tiles_per_cta", "ktiles", "stages",
-    "smem_bytes", "cluster"], defaults=(1,))
+    "smem_bytes", "cluster", "group"], defaults=(1, 1))
 
 
-def _pingpong_plan(name, m, n, k, sms, tile, stages, smem_bytes, cluster=1):
+def _pingpong_plan(name, m, n, k, sms, tile, stages, smem_bytes, cluster=1,
+                   bk=64, group=1):
     """A persistent kernel of two consumer warpgroups in ping-pong over a
-    (m, n) output, K = k in slices of 64: ``tile`` tiles in row-major
-    order, each taken by a cluster of ``cluster`` CTAs (one CTA per SM),
-    cluster c taking tiles c, c + clusters, ... (the most a cluster takes is
-    ``tiles_per_cta``) and each CTA handing its rows of them to its two
-    consumers in turn; ``grid`` counts CTAs."""
+    (m, n) output, K = k in slices of ``bk``: ``tile`` tiles in row-major
+    order (``group`` > 1: grouped, :func:`tile_order`), each taken by a
+    cluster of ``cluster`` CTAs (one CTA per SM), cluster c taking tiles c,
+    c + clusters, ... (the most a cluster takes is ``tiles_per_cta``) and
+    each CTA handing its rows of them to its two consumers in turn;
+    ``grid`` counts CTAs."""
     if m <= 0 or n <= 0 or k <= 0 or sms <= 0:
         raise ValueError(f"{name}: empty product ({m}, {n}, {k}) on {sms} "
                          f"SMs")
-    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    tiles_m = -(-m // tile[0])
+    tiles = tiles_m * -(-n // tile[1])
     clusters = min(tiles, sms // cluster)
     return PingPongPlan(tile=tile, tiles=tiles, grid=clusters * cluster,
                         tiles_per_cta=-(-tiles // clusters),
-                        ktiles=-(-k // 64), stages=stages,
-                        smem_bytes=smem_bytes, cluster=cluster)
+                        ktiles=-(-k // bk), stages=stages,
+                        smem_bytes=smem_bytes, cluster=cluster,
+                        group=min(tiles_m, group))
+
+
+# csrc/gemm_pingpong.cuh's tiling (the bf16 GEMM of csrc/gemm.cu and the
+# int8 GEMM of csrc/quant.cu): each consumer warpgroup's tile is 128 × 128,
+# K-slices of 128 bytes (64 bf16, 128 int8) in a ring of five stages (A's
+# and W's 128 rows), clusters of two CTAs along M sharing W's slices by
+# multicast (a cluster tile is 256 × 128), cluster tile rows grouped so a
+# group spans eight tile rows; per warp, up to two column vectors of the
+# tile (bf16: the bias; int8: the weight scales and the bias) and a staging
+# tile of 16 × 72 four-byte elements
+GEMM_TILE, GEMM_STAGES, GEMM_CLUSTER, GEMM_GROUP = (128, 128), 5, 2, 8
+
+
+def _gemm_smem(vecs):
+    stage = (GEMM_TILE[0] + GEMM_TILE[1]) * 128
+    return (1024 + GEMM_STAGES * stage + 16 * GEMM_STAGES
+            + 8 * (vecs * GEMM_TILE[1] * 4 + 16 * 72 * 4))
+
+
+def _gemm_plan(name, m, n, k, sms, bk, vecs):
+    return _pingpong_plan(name, m, n, k, sms,
+                          (GEMM_TILE[0] * GEMM_CLUSTER, GEMM_TILE[1]),
+                          GEMM_STAGES, _gemm_smem(vecs), cluster=GEMM_CLUSTER,
+                          bk=bk, group=GEMM_GROUP // GEMM_CLUSTER)
+
+
+def gemm_plan(m, n, k, sms):
+    """How csrc/gemm.cu's bf16 kernel runs a (m, k) · (n, k)ᵀ product on
+    ``sms`` SMs (:func:`_pingpong_plan` over cluster tiles of 256 × 128,
+    two CTAs of 128 × 128 tiles a cluster, five stages of K-slices of 64).
+    Raises ValueError for a shape the kernel refuses (K or N not a multiple
+    of 8: TMA rows of 16 bytes)."""
+    if k % 8 or n % 8:
+        raise ValueError(f"gemm_plan: bf16 needs K and N multiples of 8, got "
+                         f"K={k}, N={n}")
+    return _gemm_plan("gemm_plan", m, n, k, sms, 64, 1)
+
+
+def gemm_s8_plan(m, n, k, sms):
+    """How csrc/quant.cu's int8 kernel runs a (m, k) · (n, k)ᵀ product
+    (:func:`gemm_plan`'s tiling, K-slices of 128). Raises ValueError unless
+    K is a multiple of 16 (TMA rows of 16 bytes) and N of 8."""
+    if k % 16 or n % 8:
+        raise ValueError(f"gemm_s8_plan: int8 needs K % 16 == 0 and N % 8 == "
+                         f"0, got K={k}, N={n}")
+    return _gemm_plan("gemm_s8_plan", m, n, k, sms, 128, 2)
+
+
+def tile_order(t, tiles_m, tiles_n, group):
+    """(tile row, tile column) of tile t in the grouped raster of
+    csrc/gemm_pingpong.cuh:tile_coords: ``group`` tile rows at a time, down
+    the group's rows column by column."""
+    per_group = group * tiles_n
+    first = t // per_group * group
+    rows = min(tiles_m - first, group)
+    r = t % per_group
+    return first + r % rows, r // rows
+
+
+def pingpong_schedule(plan, m, n):
+    """Each CTA's tiles in the order it runs them, as [(tile row, tile
+    column, consumer)]: cluster c (CTAs c·cluster, ...) takes cluster tiles
+    c, c + clusters, ... in :func:`tile_order`, its CTA of rank r the r-th
+    tile row of each (a row past m: zero-filled, nothing stored), and each
+    CTA hands its g-th tile to consumer g % 2."""
+    tiles_mc, tiles_n = -(-m // plan.tile[0]), -(-n // plan.tile[1])
+    clusters = plan.grid // plan.cluster
+    sched = []
+    for b in range(plan.grid):
+        c, r = divmod(b, plan.cluster)
+        tiles = [tile_order(t, tiles_mc, tiles_n, plan.group)
+                 for t in range(c, plan.tiles, clusters)]
+        sched.append([(tm * plan.cluster + r, tn, g % 2)
+                      for g, (tm, tn) in enumerate(tiles)])
+    return sched
 
 
 # csrc/gemm_stash.cu's tiling: each consumer warpgroup's tile is 64 × 256,
@@ -405,9 +486,9 @@ def _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2):
         return mlp_block_bwd_stash_ref(x, dy, act, dg, ln_w, ln_b, w1, w2)
     runtime.check("x", x, x)
     dy = dy.contiguous()
-    dh, db1 = runtime.gemm_dgelu_mul(dy, w2.to(x.dtype).t().contiguous(), dg)
-    dyln = runtime.gemm(dh, w1.to(x.dtype).t().contiguous(),
-                        out_dtype=torch.float32)
+    dh, db1 = runtime.gemm_dgelu_mul(dy, w2.to(x.dtype), dg, w_kn=True)
+    dyln = runtime.gemm(dh, w1.to(x.dtype), out_dtype=torch.float32,
+                        w_kn=True)
     y = runtime.layernorm(x, ln_w, ln_b)
     dx, dgamma, dbeta = runtime.layernorm_bwd(x, ln_w, dyln, dy,
                                               partials=True)

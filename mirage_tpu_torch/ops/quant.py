@@ -13,7 +13,8 @@ Abramowitz-Stegun erf (``mirage_tpu/ops/fused_mlp.py:43``), which the JAX
 XLA version uses too.
 
 On the card it is a chain of hand-written kernels (``csrc/quant.cu``): LN +
-row quantisation, the fc1 int8 GEMM (mma.sync s8·s8 -> s32) with the
+row quantisation, the fc1 int8 GEMM (wgmma s8·s8 -> s32, the int8
+instantiation of ``csrc/gemm_pingpong.cuh``) with the
 dequantisation, b1, GELU and the rows' abs-max in its epilogue, the
 hidden's quantisation, and the fc2 int8 GEMM with the dequantisation, b2
 and the residual. Bound: operations (2·M·D·H·2 int8 operations). Forward
@@ -145,8 +146,8 @@ def gemm_s8_ref(a, w):
 def gemm_s8(a, w):
     """a (M, K) int8 · w (N, K) int8ᵀ -> (M, N) int32, exact. Replaces
     scripts/bench_int8.py:probe_pallas_int8's kernel (an s8·s8 -> s32 dot
-    with resident weights). On the card it is B12's mma.sync int8 GEMM
-    (csrc/quant.cu) with a third epilogue that stores the raw s32
+    with resident weights). On the card it is B12's wgmma int8 GEMM
+    (csrc/quant.cu on csrc/gemm_pingpong.cuh) with a third epilogue that stores the raw s32
     accumulator. K a multiple of 16 and N of 8."""
     if not runtime.use_kernel(a):
         return gemm_s8_ref(a, w)

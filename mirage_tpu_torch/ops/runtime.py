@@ -9,13 +9,14 @@ The launchers below (``layernorm``, ``layernorm_bwd``, ``gemm`` and its
 epilogue forms, ``mlp_bwd_hidden`` and ``mlp_bwd_dyln`` (the MLP backward's
 products), ``attention``, ``attention_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
-allocate outputs with ``torch.empty`` (``gemm_dgelu_mul``'s partial sums with
-``torch.zeros``)
-and launch the kernels of one ``csrc/`` entry on PyTorch's current stream,
-raising if the launch is refused (``attention`` and ``flash_attention``, the
-two entries of the bf16 attention forward, and ``attention_bwd`` and
-``flash_attention_bwd``, the two of its backward, count their launches in
-``.launches``). :func:`wgrad` is the weight-gradient
+allocate outputs with ``torch.empty`` and launch the kernels of one
+``csrc/`` entry on PyTorch's current stream, raising if the launch is
+refused (``attention`` and ``flash_attention``, the two entries of the
+bf16 attention forward, and ``attention_bwd`` and ``flash_attention_bwd``,
+the two of its backward, count their launches in ``.launches``, as
+``gemm`` counts those of csrc/gemm.cu by its three launchers; ``gemm`` and
+``gemm_dgelu_mul`` read a (K, N) weight as it lies with ``w_kn``, so the
+stash backward copies no weight). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
 the weight gradients the stash backward (B9) and the accumulating
@@ -205,38 +206,60 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
     return dx, dgp.sum(0), dbp.sum(0)
 
 
-def _gemm_operands(a, w):
+def _gemm_operands(a, w, w_kn=False):
     m, k = a.shape
-    n = w.shape[0]
+    n = w.shape[1] if w_kn else w.shape[0]
     check("a", a, a)
-    check("weight", w, a, (n, k))
+    check("weight", w, a, (k, n) if w_kn else (n, k))
     if a.dtype == torch.bfloat16 and (k % 8 or n % 8):
         raise ValueError(f"bf16 gemm needs K and N multiples of 8, got "
                          f"K={k}, N={n}")
     return m, n, k
 
 
+def _gemm_weight(a, w, w_kn):
+    """The C entry and weight of a product: bf16 reads a (K, N) weight as
+    it lies (``mtt_gemm_kn``); the float path takes it transposed."""
+    if not w_kn:
+        return "gemm", w
+    if a.dtype == torch.bfloat16:
+        return "gemm_kn", w
+    return "gemm", w.t().contiguous()
+
+
 def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
-         gelu: bool = False, out_dtype=None) -> torch.Tensor:
+         gelu: bool = False, out_dtype=None, w_kn: bool = False) -> torch.Tensor:
     """a (M, K) · w (N, K)ᵀ (+ bias) [GELU] (+ residual) -> (M, N), in a's
-    dtype or, with out_dtype=torch.float32, in float (no residual then)."""
-    m, n, k = _gemm_operands(a, w)
+    dtype or, with out_dtype=torch.float32, in float (no residual or GELU
+    then).
+    ``w_kn``: w is (K, N) and the product a · w, the weight read as it lies
+    (bf16)."""
+    m, n, k = _gemm_operands(a, w, w_kn)
+    entry, w = _gemm_weight(a, w, w_kn)
     out_f32 = out_dtype == torch.float32
     if out_dtype not in (None, a.dtype, torch.float32):
         raise ValueError(f"gemm out_dtype {out_dtype} unsupported")
-    if out_f32 and residual is not None:
-        raise ValueError("gemm: a float32 output takes no residual")
+    if out_f32 and (residual is not None or gelu):
+        raise ValueError("gemm: a float32 output takes no residual or GELU")
+    if w_kn and a.dtype == torch.bfloat16 and not out_f32:
+        raise ValueError("gemm: a (K, N) weight takes a float32 output (or "
+                         "gemm_dgelu_mul)")
     if bias is not None:
         check("bias", bias, a, (n,), dtype=False)
     if residual is not None:
         check("residual", residual, a, (m, n))
     c = torch.empty((m, n), device=a.device,
                     dtype=torch.float32 if out_f32 else a.dtype)
-    _launch("gemm", a.data_ptr(), w.data_ptr(), c.data_ptr(), _ptr(bias),
+    _launch(entry, a.data_ptr(), w.data_ptr(), c.data_ptr(), _ptr(bias),
             _DTYPES[bias.dtype] if bias is not None else 0, _ptr(residual),
             m, n, k, _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype],
             int(out_f32), None, None)
+    gemm.launches += 1
     return c
+
+
+gemm.launches = 0  # launches of csrc/gemm.cu by gemm, gemm_gelu_mode and
+# gemm_dgelu_mul
 
 
 # the GELU formulas of the epilogue besides erff (csrc/gemm.cu GELU_*)
@@ -261,6 +284,7 @@ def gemm_gelu_mode(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     _launch("gemm_gelu_mode", a.data_ptr(), w.data_ptr(), c.data_ptr(),
             _ptr(bias), _DTYPES[bias.dtype] if bias is not None else 0,
             _ptr(residual), m, n, k, GELU_MODES[mode])
+    gemm.launches += 1
     return c
 
 
@@ -342,17 +366,21 @@ def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
     return act, dg
 
 
-def gemm_dgelu_mul(a: torch.Tensor, w: torch.Tensor, dg: torch.Tensor):
+def gemm_dgelu_mul(a: torch.Tensor, w: torch.Tensor, dg: torch.Tensor,
+                   w_kn: bool = False):
     """The stash backward's dact product with GELU′ from the stash: acc = a
-    (M, K) · w (N, K)ᵀ, dg (M, N) in a's dtype. Returns dh = T(acc·dg) and
-    the float 16-row column partials (ceil(M/16), N) of the unrounded dh."""
-    m, n, k = _gemm_operands(a, w)
+    (M, K) · w (N, K)ᵀ (with ``w_kn``, a · w for w (K, N), read as it
+    lies), dg (M, N) in a's dtype. Returns dh = T(acc·dg) and the float
+    16-row column partials (ceil(M/16), N) of the unrounded dh."""
+    m, n, k = _gemm_operands(a, w, w_kn)
+    entry, w = _gemm_weight(a, w, w_kn)
     check("dg", dg, a, (m, n))
     dh = torch.empty((m, n), device=a.device, dtype=a.dtype)
-    colsum = torch.zeros((-(-m // 16), n), device=a.device, dtype=torch.float32)
-    _launch("gemm", a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
+    colsum = torch.empty((-(-m // 16), n), device=a.device, dtype=torch.float32)
+    _launch(entry, a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
             m, n, k, _EPI["dgelu_mul"], _DTYPES[a.dtype], 0, dg.data_ptr(),
             colsum.data_ptr())
+    gemm.launches += 1
     return dh, colsum
 
 

@@ -13,6 +13,8 @@ version computed in float32 from the same bf16 inputs (the kernels round
 intermediates to bf16, 8 significant bits, as the TPU kernels do).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1139,3 +1141,104 @@ def test_attention_backward_flash_every_head_dim_and_tail(cuda, dh, nq, nk):
         want = fa._flash_bwd(q.float(), kv.float(), None, dy.float(), h,
                              scale)
     _check_grads(got, want, torch.bfloat16)
+
+
+# ------------------------ the ping-pong GEMM (csrc/gemm_pingpong.cuh)
+
+# ragged M, N and K against the 128 × 128 tiles; the last has more tiles than
+# SMs, so CTAs run two and three tiles (both consumers, an odd count too)
+GEMM_EDGES = [(1, 8, 8), (63, 264, 72), (65, 8, 1000), (129, 264, 64),
+              (17985, 136, 72)]
+GEMM_EPIS = ["none", "bias", "gelu", "res", "f32", "dgelu", "as26", "bf16",
+             "hastings", "kn_dgelu", "kn_f32"]
+
+
+@pytest.mark.parametrize("m,n,k", GEMM_EDGES)
+@pytest.mark.parametrize("epi", GEMM_EPIS)
+def test_pingpong_gemm_every_epilogue(cuda, m, n, k, epi):
+    """Every epilogue of the bf16 instantiation against float32 math from
+    the same bf16 inputs (the bf16 bars; the float output 1e-4·√K, the
+    dgelu multiply and its column sums rel-L2 1e-2), a rerun bit-identical;
+    W read as it lies ((K, N), ``w_kn``) bit-equal to W read transposed."""
+    from mirage_tpu_torch.ops.quant import _erf_as
+
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    a = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(n, k, device=cuda, generator=g) * k ** -0.5).bfloat16()
+    b = torch.randn(n, device=cuda, generator=g) * 0.1
+    r = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    dg = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    wt = w.t().contiguous()
+    run = {"none": lambda: runtime.gemm(a, w),
+           "bias": lambda: runtime.gemm(a, w, b),
+           "gelu": lambda: runtime.gemm(a, w, b, gelu=True),
+           "res": lambda: runtime.gemm(a, w, b, residual=r),
+           "f32": lambda: runtime.gemm(a, w, b, out_dtype=torch.float32),
+           "dgelu": lambda: runtime.gemm_dgelu_mul(a, w, dg),
+           "kn_dgelu": lambda: runtime.gemm_dgelu_mul(a, wt, dg, w_kn=True),
+           "kn_f32": lambda: runtime.gemm(a, wt, b, out_dtype=torch.float32,
+                                          w_kn=True)}
+    for mode in ("as26", "bf16", "hastings"):
+        run[mode] = functools.partial(runtime.gemm_gelu_mode, a, w, b,
+                                      mode=mode)
+    before = runtime.gemm.launches
+    got, again = run[epi](), run[epi]()
+    assert runtime.gemm.launches == before + 2
+    pairs = list(zip(got, again)) if isinstance(got, tuple) else [(got, again)]
+    assert all(torch.equal(x, y) for x, y in pairs)
+    acc = a.float() @ w.float().t()
+    h = acc + b
+    if epi in ("dgelu", "kn_dgelu"):
+        want = acc * dg.float()
+        _check_grads([got[0], got[1].sum(0)], [want, want.sum(0)],
+                     torch.bfloat16)
+        if epi == "kn_dgelu":
+            assert all(torch.equal(x, y) for x, y in zip(got, run["dgelu"]()))
+        return
+    if epi in ("f32", "kn_f32"):
+        assert got.dtype == torch.float32
+        assert _max_err(got, h) <= 1e-4 * k ** 0.5
+        if epi == "kn_f32":
+            assert torch.equal(got, run["f32"]())
+        return
+    want = {"none": acc, "bias": h, "gelu": F.gelu(h), "res": h + r.float(),
+            "as26": 0.5 * h * (1 + _erf_as(h / 2 ** 0.5)),
+            "bf16": F.gelu(h), "hastings": F.gelu(h)}[epi]
+    assert got.dtype == torch.bfloat16
+    assert _max_err(got, want) <= 5e-2 and _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("m,n,k", [(17, 8, 16), (63, 264, 80),
+                                   (129, 40, 1008), (17985, 136, 144)])
+def test_pingpong_gemm_s8_is_exact_and_dequantises(cuda, m, n, k):
+    """The int8 instantiation: the s32 product equals torch._int_mm's; fc1
+    (h = GELU(acc·rs·s + b) within rel-L2 1e-5 of float32 math, exp2f within
+    2 ulp, and the rows' abs-max of its own h exactly) and fc2 in both
+    working types (the bf16 bars; float32 1e-5) against the plain math on
+    the same codes; every output reruns bit-identical."""
+    from mirage_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    rs = torch.rand(m, generator=g, device=cuda) * 0.05 + 1e-3
+    s = torch.rand(n, generator=g, device=cuda) * 1e-3 + 1e-5
+    b = torch.randn(n, generator=g, device=cuda) * 0.02
+    s32 = runtime.gemm_s8_s32(a, w)
+    assert torch.equal(s32, torch._int_mm(a, w.t()))
+    assert torch.equal(s32, runtime.gemm_s8_s32(a, w))
+    v = s32.float() * rs[:, None] * s + b
+    hid, amax = runtime.gemm_s8_fc1(a, w, rs, s, b)
+    want = 0.5 * v * (1.0 + quant._erf_as(v / 2 ** 0.5))
+    assert _rel_l2(hid, want) <= 1e-5
+    assert torch.equal(amax, hid.abs().amax(-1))
+    again = runtime.gemm_s8_fc1(a, w, rs, s, b)
+    assert torch.equal(hid, again[0]) and torch.equal(amax, again[1])
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-5)):
+        x = torch.randn(m, n, generator=g, device=cuda).to(dtype)
+        out = runtime.gemm_s8_fc2(a, w, rs, s, b, x)
+        assert torch.equal(out, runtime.gemm_s8_fc2(a, w, rs, s, b, x))
+        want = x.float() + v.to(dtype).float()
+        assert _max_err(out, want) <= tol * max(1.0, want.abs().max().item())
