@@ -32,7 +32,10 @@ Phases, each of which must pass (any failure exits non-zero):
    encoder's and the decoders' cross shapes) beside SDPA's backward alone
    and SDPA's forward and backward; B6's backward also at the
    classification shape, and every backward op and kernel row reruns bit
-   for bit the same.
+   for bit the same. The LN kernel alone (``layernorm``: csrc/layernorm.cu,
+   forward at the serving encoder's, the decoders' and the pretraining
+   shapes, backward at the pretraining ones) beside F.layer_norm and its
+   autograd backward.
 3. golden: tests/golden/example_triplet_tiny.npz (reference weights and
    outputs) through the port's wrapper on the card in float32.
 4. serve: MIRAGE-Large (1024 wide, 24 layers, 16 heads; three 256/2/8
@@ -76,6 +79,18 @@ Phases, each of which must pass (any failure exits non-zero):
    per block), each checked against its plain version and then timed, and
    the five scripts/bench_train.py rows (pretraining, seg twice, cls
    twice).
+10. pretrain: the pretraining entry point, cli/run_pretraining.main, with
+   configs/pretrain_mirage_98_1600e.yaml (ViT-B MultiMAE at batch 256, bf16)
+   on a seeded dataset of 512 samples (uint8 .npy B-scans and SLOs at 512²,
+   layer maps at 128²), warm-started from seeded ViT-B weights with MAE's
+   blocks.{i} keys: one epoch of two steps, then a run to two epochs that
+   resumes at epoch 1. Exact launch counts a train step (phase 5's, and one
+   LN and LN backward in each B1, B2, B4 and B5; the epoch-0 debug
+   forward's counted apart), finite losses, the warm start leaf for leaf,
+   the pixel-space loss against the token-space loss on one loader batch
+   (relative 1e-3), the wall time a step and the loader's share of it
+   beside phase 5's bare step, and the peak memory of one step with and
+   without --remat.
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -664,6 +679,113 @@ def phase_kernels():
                             "dtype": "f32", "max_abs_err": err, **kw})
     torch.cuda.synchronize()
     return results
+
+
+# csrc/layernorm.cu (B1-B5's, B9's and S4's LN) at its path shapes:
+# (label, (rows, width), launches a batch-64 reconstruct forward, launches
+# a batch-256 pretraining step). A reconstruct forward: one LN in each of
+# the encoder's 24 B1 and 24 B2 and the decoders' 6 B1, 9 B2 and 3 B3
+# queries (B3's 3 context LNs, (16448, 256), are left out of the rows). A
+# pretraining step: one LN in each B1 (12 encoder) and B2 (12 encoder, 6
+# decoder), recomputed in each B4 and B5 backward, whose LN backward runs
+# once each.
+LN_FWD_SHAPES = [("serving encoder", (16448, 1024), 48, 0),
+                 ("decoders", (16384, 256), 18, 0),
+                 ("pretraining encoder", (25344, 768), 0, 48),
+                 ("pretraining decoders", (65536, 256), 0, 12)]
+LN_BWD_SHAPES = [("pretraining encoder", (25344, 768), 24),
+                 ("pretraining decoders", (65536, 256), 6)]
+# launches per pretraining step, from the ops' counts: one LN in each B1,
+# B2, B4 and B5 launch, one LN backward in each B4 and B5
+LN_OPS = {"layernorm": ("attn_half_block", "mlp_block",
+                        "attn_half_block_bwd", "mlp_block_bwd"),
+          "layernorm_bwd": ("attn_half_block_bwd", "mlp_block_bwd")}
+
+
+def layernorm_rows():
+    """The LN kernel alone (runtime.layernorm, runtime.layernorm_bwd) at
+    LN_FWD_SHAPES / LN_BWD_SHAPES in bf16 (float32 scale and shift, as the
+    ops pass the parameters): against its plain version in float32 from
+    the same inputs, then timed beside the plain version and F.layer_norm
+    (its autograd backward alone for the backward rows, without the
+    residual's cotangent the kernel adds), and the bytes bound (each input
+    read once, each output written once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mirage_tpu_torch.nn.layers import layer_norm
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import ln_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {"layernorm": [], "layernorm_bwd": []}
+    for label, (m, d), per_fwd, per_step in LN_FWD_SHAPES:
+        x = (torch.randn((m, d), generator=gen, device="cuda") * 2 + 0.5
+             ).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        got = runtime.layernorm(x, w, b)
+        want = layer_norm(x.float(), w, b)
+        diff = got.float() - want
+        max_abs = diff.abs().max().item()
+        rel_l2 = (diff.norm() / want.norm()).item()
+        if not (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2):
+            raise AssertionError(f"layernorm {label}: max_abs {max_abs}, "
+                                 f"rel_l2 {rel_l2}")
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        nbytes = 2 * m * d * 2 + 2 * d * 4
+        row = {"label": label, "shape": [m, d], "dtype": "bf16",
+               "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+               "ms": cuda_ms(lambda: runtime.layernorm(x, w, b)),
+               "plain_ms": cuda_ms(lambda: layer_norm(x, w, b)),
+               "library_ms": cuda_ms(lambda: F.layer_norm(
+                   x, (d,), wb, bb, 1e-6)),
+               "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+               "calls_per_forward": per_fwd, "calls_per_step": per_step}
+        rows["layernorm"].append(row)
+        log(f"[kernels] layernorm {label} ({m}, {d}): max_abs {max_abs:.3e}"
+            f" kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+            f"F.layer_norm {row['library_ms']:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms (bytes)")
+    for label, (m, d), per_step in LN_BWD_SHAPES:
+        x = (torch.randn((m, d), generator=gen, device="cuda") * 2 + 0.5
+             ).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        dyln = torch.randn((m, d), generator=gen, device="cuda")
+        dy = torch.randn((m, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dx, dg, db = runtime.layernorm_bwd(x, w, dyln, dy)
+        wdx, wdg, wdb = ln_bwd_ref(x.float(), dyln, w, dy.float())
+        errs = {}
+        for name, g, r in (("dx", dx.float(), wdx), ("dgamma", dg, wdg),
+                           ("dbeta", db, wdb)):
+            errs[name] = ((g - r).norm() / r.norm()).item()
+        max_abs = (dx.float() - wdx).abs().max().item()
+        if not max(errs.values()) <= BWD_REL_L2:
+            raise AssertionError(f"layernorm_bwd {label}: rel_l2 {errs}")
+        xg = x.clone().requires_grad_(True)
+        wg = w.to(torch.bfloat16).requires_grad_(True)
+        bg = torch.zeros(d, device="cuda", dtype=torch.bfloat16,
+                         requires_grad=True)
+        y = F.layer_norm(xg, (d,), wg, bg, 1e-6)
+        dyb = dyln.to(torch.bfloat16)
+        nbytes = m * d * (2 + 4 + 2 + 2) + 3 * d * 4
+        row = {"label": label, "shape": [m, d], "dtype": "bf16",
+               "max_abs_err": max_abs, "rel_l2_err": errs,
+               "ms": cuda_ms(lambda: runtime.layernorm_bwd(x, w, dyln, dy)),
+               "plain_ms": cuda_ms(lambda: ln_bwd_ref(x, dyln, w, dy)),
+               "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                   y, (xg, wg, bg), dyb, retain_graph=True)),
+               "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+               "calls_per_step": per_step}
+        rows["layernorm_bwd"].append(row)
+        log(f"[kernels] layernorm_bwd {label} ({m}, {d}): rel_l2 {errs} "
+            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+            f"F.layer_norm backward {row['library_ms']:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms (bytes)")
+        del y, xg
+    torch.cuda.synchronize()
+    return rows
 
 
 # backward ops: name -> (TPU kernel file:line, launcher -> kernel, wrapper,
@@ -4187,6 +4309,262 @@ def _bench_entries(res):
     return entries
 
 
+# ----------------------------------------------------------------- phase 10
+
+PRETRAIN_CONFIG = "configs/pretrain_mirage_98_1600e.yaml"
+PRETRAIN_SAMPLES = 512  # two batches of 256: two steps an epoch
+# the pixel-space loss against the token-space loss on one batch, bf16 on
+# the card: the same bf16 predictions and float32 loss math, summed in
+# another order (over pixels or over patches)
+LOSS_SPACE_REL = 1e-3
+
+
+def _pretrain_dataset(root, rng, n):
+    """Seeded uint8 B-scans and SLOs at 512² and layer-map labels 0-12 at
+    128², as .npy in the per-task folders of MultiTaskPretDatasetFolder."""
+    import numpy as np
+
+    for task, size, high in (("bscan", 512, 256), ("slo", 512, 256),
+                             ("bscanlayermap", 128, 13)):
+        (root / task).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            np.save(root / task / f"s{i:04d}.npy",
+                    rng.integers(0, high, (size, size), dtype=np.uint8))
+
+
+def phase_pretrain(workdir, card, bare=None):
+    """The pretraining entry point, run_pretraining.main, with
+    configs/pretrain_mirage_98_1600e.yaml (ViT-B MultiMAE: 768 wide, 12
+    layers, 12 heads; bscan and slo 512² at patch 32, the layer map 128² at
+    patch 8; 98 visible tokens + 1 global; three 256/2/8 decoders; batch
+    256, bf16, AdamW) on a seeded dataset of 512 samples, warm-started from
+    a seeded ViT-B state dict with MAE's blocks.{i} keys: one epoch of two
+    steps, then a second run that resumes at epoch 1. Exact launch counts a
+    train step (the epoch-0 debug forward's read apart), finite losses, the
+    warm start leaf for leaf, the pixel-space loss against the token-space
+    loss on one loader batch, the wall time a step and the loader's share
+    of it beside phase 5's bare step (``bare``), and the peak memory with
+    and without --remat."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.convert import (load_torch_checkpoint,
+                                              rename_keys)
+    from mirage_tpu_torch.cli import run_pretraining as rp
+    from mirage_tpu_torch.cli.config import parse_with_yaml
+    from mirage_tpu_torch.data.augment import PretrainAugment
+    from mirage_tpu_torch.data.folder import MultiTaskPretDatasetFolder
+    from mirage_tpu_torch.data.loader import DataLoader, to_device
+    from mirage_tpu_torch.masking.masking import generate_random_masks
+    from mirage_tpu_torch.losses.masked import (masked_ce_loss,
+                                                masked_mse_loss)
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_train_step, step_generator)
+
+    counters = {**_launch_counters(),
+                "layernorm": (runtime.layernorm, "launches"),
+                "layernorm_bwd": (runtime.layernorm_bwd, "launches")}
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
+                if k in PER_STEP or k in LN_OPS}
+
+    def per_steps(n):
+        want = {k: v * n for k, v in PER_STEP.items()}
+        for name, ops in LN_OPS.items():
+            want[name] = sum(want[op] for op in ops)
+        return want
+
+    root = workdir / "pretrain"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data, out = root / "data", root / "out"
+    _pretrain_dataset(data, np.random.default_rng(SEED), PRETRAIN_SAMPLES)
+    argv = ["-c", str(ROOT / PRETRAIN_CONFIG), "--data_path", str(data),
+            "--output_dir", str(out), "--device", "cuda",
+            "--num_workers", "8"]
+    args = rp.process_args(parse_with_yaml(rp.get_parser(), argv))
+    sd = rename_keys(rp.build_model(
+        args, torch.Generator().manual_seed(SEED + 1)).state_dict(),
+        {r"^encoder\.": "blocks."})
+    weights = root / "vitb_seed1.pth"
+    torch.save({"model": sd}, weights)
+    del sd
+    log(f"[pretrain] {PRETRAIN_SAMPLES} samples and ViT-B weights (seed "
+        f"{SEED + 1}, blocks.{{i}} keys) in {time.perf_counter() - t0:.1f}s")
+
+    # 1. the entry point: epoch 0 (two steps, the debug forward at step 0),
+    # then a run to two epochs that resumes at epoch 1. The config's 40
+    # warm-up epochs exceed a one-epoch schedule (train/schedules.py), so
+    # one warm-up epoch here.
+    cli_argv = argv + ["--weights", str(weights), "--max_steps_per_epoch",
+                       "2", "--save_ckpt_freq", "1", "--log_freq", "1",
+                       "--warmup_epochs", "1"]
+    runs = {}
+    for epochs in (1, 2):
+        reset()
+        t1 = time.perf_counter()
+        res = rp.main(cli_argv + ["--epochs", str(epochs)])
+        torch.cuda.synchronize()
+        runs[epochs] = {"counts": read(), "seconds": time.perf_counter() - t1,
+                        "log": res["log"], "step_s": res["step_s"],
+                        "wait_s": res["wait_s"]}
+        log(f"[pretrain] run_pretraining --epochs {epochs}: "
+            f"{runs[epochs]}")
+        del res
+    rows = [json.loads(line) for line in open(out / "log.txt")]
+    if [r["epoch"] for r in rows] != [0, 1] \
+            or [r["epoch"] for r in runs[2]["log"]] != [1] \
+            or not all((out / f"checkpoint-{e}").is_dir() for e in (0, 1)):
+        raise AssertionError(f"resume: log.txt epochs "
+                             f"{[r['epoch'] for r in rows]}, the second run "
+                             f"{runs[2]['log']}")
+    if not all(np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"non-finite metrics in log.txt: {rows}")
+
+    # 2. the model, optimizer and loss as main builds them; the warm start
+    args = rp.process_args(parse_with_yaml(rp.get_parser(), cli_argv))
+    model, opt, loss_fn = rp.setup(args, torch.device("cuda"))
+    pth = load_torch_checkpoint(str(weights))["model"]
+    enc = {k: v for k, v in model.state_dict().items()
+           if k.startswith("encoder.")}
+    off = [k for k, v in enc.items()
+           if not torch.equal(v.cpu(), pth["blocks." + k[len("encoder."):]])]
+    if off or len(enc) != 12 * 12:
+        raise AssertionError(f"warm start: {len(off)} of {len(enc)} encoder "
+                             f"leaves differ from {weights.name}: {off[:4]}")
+    del pth
+
+    # one loader batch, as main makes it
+    aug = PretrainAugment({d: args.input_size[d] for d in args.in_domains},
+                          hflip=args.hflip,
+                          intensity_shift=args.intensity_shift,
+                          affine=args.affine)
+    ds = MultiTaskPretDatasetFolder(str(data), args.in_domains, transform=aug)
+    t2 = time.perf_counter()
+    for i in range(16):
+        ds[(i, np.random.default_rng(i))]
+    sample_ms = (time.perf_counter() - t2) / 16 * 1e3
+    loader = DataLoader(ds, args.batch_size, shuffle=True, drop_last=True,
+                        num_workers=8, seed=SEED)
+    t3 = time.perf_counter()
+    batches = [bt for bt, _, _ in loader]
+    epoch_s = time.perf_counter() - t3
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    batch = to_device(batches[0], "cuda", args.in_domains)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t4) * 1e3
+    del batches
+
+    # 3. the debug forward's launches (the first run's epoch 0 had one)
+    reset()
+    rp.debug_forward(model, batch, args, 0)
+    torch.cuda.synchronize()
+    debug = read()
+    want = per_steps(2)
+    got1 = {k: runs[1]["counts"][k] - debug[k] for k in want}
+    log(f"[pretrain] launches: debug forward {debug}; run 1 less it "
+        f"{got1}, run 2 {runs[2]['counts']}, expected {want} each")
+    if got1 != want or runs[2]["counts"] != want:
+        raise AssertionError(f"pretraining launches: run 1 less the debug "
+                             f"forward {got1}, run 2 {runs[2]['counts']}, "
+                             f"expected {want}")
+
+    # 4. the pixel-space loss against the token-space loss
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_task = [args.grid_size[d][0] * args.grid_size[d][1]
+              for d in args.in_domains]
+    masks, _, _ = generate_random_masks(gen, n_task, args.batch_size,
+                                        args.num_encoded_tokens)
+    task_masks = dict(zip(args.in_domains, masks))
+    with torch.no_grad():
+        loss, tasks = rp.make_loss(model, args)(
+            batch, task_masks=task_masks, num_visible=args.num_encoded_tokens)
+        losses = {"token": {"loss": loss.item(),
+                            **{k: v.item() for k, v in tasks.items()}}}
+        # the same forward's reconstructions through the pixel-space forms
+        preds, _ = model(batch, task_masks=task_masks,
+                         num_visible=args.num_encoded_tokens,
+                         deterministic=False, pixel_outputs=True)
+        tasks = {}
+        for task, pred in preds.items():
+            patch = args.patch_size[task][0]
+            if rp.DOMAIN_DEFAULTS[task]["loss"] == "ce":
+                value = masked_ce_loss(pred, batch[task], task_masks[task],
+                                       patch_size=patch)
+            else:
+                value = masked_mse_loss(
+                    pred.float(), batch[task].float(), task_masks[task],
+                    patch_size=patch, norm_pix=args.norm_pix_loss)
+            tasks[task] = value.item()
+        losses["pixel"] = {"loss": sum(tasks.values()), **tasks}
+    rel = abs(losses["pixel"]["loss"] - losses["token"]["loss"]) / abs(
+        losses["token"]["loss"])
+    log(f"[pretrain] one loader batch, pixel-space {losses['pixel']} against "
+        f"token-space {losses['token']} (bf16, card): relative {rel:.3e}")
+    if not rel <= LOSS_SPACE_REL:
+        raise AssertionError(f"pixel-space loss {losses['pixel']} against "
+                             f"token-space {losses['token']}: relative "
+                             f"{rel} > {LOSS_SPACE_REL}")
+
+    # 5. peak memory of one step with --remat true and false, at the
+    # config's drop-path 0 (the half-block ops) and at 0.1 (the blocks
+    # checkpointed)
+    state = init_train_state(model, opt)
+    step = make_train_step(loss_fn, opt)
+    memory = {}
+    for rate in (0.0, 0.1):
+        model.drop_path_rate = rate
+        for remat in (True, False):
+            model.encoder.remat = remat
+            step(state, batch, step_generator(SEED, 0, "cuda"), 1e-4)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch, step_generator(SEED, 1, "cuda"), 1e-4)
+            torch.cuda.synchronize()
+            memory[f"drop_path {rate}, remat {remat}"] = {
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "before_step_gib": base / 2 ** 30}
+    log(f"[pretrain] peak memory of one step: {memory}, on {card}")
+
+    walls = runs[1]["step_s"][1:] + runs[2]["step_s"][1:]
+    waits = runs[1]["wait_s"][1:] + runs[2]["wait_s"][1:]
+    firsts = [runs[e]["wait_s"][0] for e in (1, 2)]
+    wall_ms = sum(walls) / len(walls) * 1e3
+    ready_ms = (sum(walls) - sum(waits)) / len(walls) * 1e3
+    timing = {"wall_ms_per_step": wall_ms, "ready_ms_per_step": ready_ms,
+              "wait_share": sum(waits) / sum(walls),
+              "wall_ms": [t * 1e3 for e in (1, 2)
+                          for t in runs[e]["step_s"]],
+              "wait_ms": [t * 1e3 for e in (1, 2)
+                          for t in runs[e]["wait_s"]],
+              "first_batch_wait_s": firsts, "sample_ms_one_thread": sample_ms,
+              "loader_epoch_s": epoch_s, "batch_copy_ms": copy_ms,
+              "bare_step_ms": bare["ms_per_step"] if bare else None}
+    log(f"[pretrain] the CLI's step: {wall_ms:.2f} ms (host clock, each "
+        f"step ends at its synchronising metrics read; the steps after each "
+        f"run's first), loader wait {timing['wait_share']:.1%} of it, "
+        f"{ready_ms:.2f} ms without the wait (the batch's copy to the card "
+        f"alone {copy_ms:.2f} ms); the "
+        f"first step of each run waited {firsts} s; one sample's read and "
+        f"augmentation {sample_ms:.1f} ms on one thread; an epoch of "
+        f"{PRETRAIN_SAMPLES // args.batch_size} batches from the 8-worker "
+        f"loader {epoch_s:.2f} s; phase 5's bare step "
+        f"{timing['bare_step_ms']} ms; on {card}")
+    return {"runs": runs, "debug_counts": debug, "per_step": per_steps(1),
+            "losses": losses, "loss_space_rel": rel, "memory": memory,
+            "timing": timing, "card": card}
+
+
 # --------------------------------------------------------------------- main
 
 def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
@@ -4263,8 +4641,43 @@ def _op_entries(rows_by_op, launches):
     return entries
 
 
+def _ln_entries(rows, pretrain):
+    """The LN kernel's entries of the `kernels` line (forward and backward):
+    times summed over one batch-256 pretraining step (per-call time × its
+    launches at each shape), launches from the second pretraining run of
+    phase 10 (two train steps, no debug forward)."""
+    launches = pretrain["runs"][2]["counts"]
+    entries = []
+    for name, replaces, tpu_kernel in (
+            ("layernorm", "mirage_tpu/ops/block_attention.py:251",
+             "the LN prologue of _attn_half_kernel :251, _xattn_half_kernel "
+             ":745 and fused_mlp.py:_mlp_kernel :58"),
+            ("layernorm_bwd", "mirage_tpu/ops/block_attention.py:549",
+             "the LN tail of _attn_half_bwd_dx_kernel :549 and fused_mlp.py:"
+             "_mlp_bwd_dx_kernel :453")):
+        step = [r for r in rows[name] if r["calls_per_step"]]
+        total = lambda k: sum(r[k] * r["calls_per_step"] for r in step)  # noqa
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "mirage_tpu_torch/csrc/layernorm.cu",
+            "csrc": [CSRC + "layernorm.cu"], "replaces": replaces,
+            "tpu_kernel": tpu_kernel, "launches": launches[name],
+            "launches_per_step": pretrain["per_step"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": total("ms"), "kernel_ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes", "library_ms": total("library_ms"),
+            "library": "F.layer_norm" + (" (its autograd backward alone)"
+                                         if name == "layernorm_bwd" else ""),
+            "times_are": f"sum over one batch-{TRAIN_BATCH} pretraining "
+                         f"step; launches from two steps of "
+                         f"run_pretraining (phase 10)",
+            "shapes": rows[name]})
+    return entries
+
+
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
-          "infer", "bench")
+          "infer", "bench", "pretrain")
 
 
 def main(argv=None):
@@ -4340,7 +4753,7 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
-    infer = bench = None
+    infer = bench = pretrain = ln_rows = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -4357,6 +4770,7 @@ def main(argv=None):
             for r in bwd_rows["attention_bwd"] if "calls_per_cls_step" in r]
         serve_rows = phase_serve_kernels({})
         s8_rows = gemm_s8_rows()
+        ln_rows = layernorm_rows()
         op_launches = {"mlp_block_q": mlp_block_q.launches,
                        "mlp_block_fwd_stash3d": mlp_block_fwd_stash3d.launches}
     if "golden" in phases:
@@ -4375,6 +4789,8 @@ def main(argv=None):
         infer = phase_infer(workdir, card, large)
     if "bench" in phases:
         bench = phase_bench(card)
+    if "pretrain" in phases:
+        pretrain = phase_pretrain(workdir, card, train)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -4409,11 +4825,13 @@ def main(argv=None):
                    f"(6 under decoder: "
                    f"{tput['block_fuse']['decoder']['counts']['fused_block']})")
                + _op_entries(serve_rows, op_launches)
-               + _bench_entries(bench))
+               + _bench_entries(bench)
+               + _ln_entries(ln_rows, pretrain))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
-                    "bench": bench,
+                    "bench": bench, "layernorm": ln_rows,
+                    "pretrain": pretrain,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -16,7 +16,8 @@ blocks.{i}.{dwconv,norm,pwconv1,pwconv2}, final_layer}``.
 (given as numpy arrays) into that namespace, as
 ``mirage_tpu/api/convert.py:params_to_torch`` does. The segmentation
 warm start (:func:`seg_checkpoint_surgery`, :func:`interpolate_pos_embed_sd`,
-:func:`overlay_state_dict`) follows ``mirage_tpu/api/convert.py:288-354``.
+:func:`overlay_state_dict`) follows ``mirage_tpu/api/convert.py:288-354``,
+and :func:`rename_keys` the pretraining warm start's MAE key rename.
 """
 
 import json
@@ -219,6 +220,19 @@ def seg_checkpoint_surgery(sd: Mapping[str, Any]) -> Dict[str, Any]:
     if key in out:
         emb = torch.as_tensor(out[key])
         out[key] = torch.cat([emb, emb.new_zeros(1, emb.shape[1])])
+    return out
+
+
+def rename_keys(sd: Mapping[str, Any], mapping: Mapping[str, str]
+                ) -> Dict[str, Any]:
+    """Every key with each ``re.sub(old, new, key)`` of ``mapping`` applied
+    in turn (mirage_tpu/api/convert.py:357; e.g. MAE's ``^blocks\\.`` ->
+    ``encoder.``, run_pretraining.py:432-436)."""
+    out = {}
+    for key, value in sd.items():
+        for old, new in mapping.items():
+            key = re.sub(old, new, key)
+        out[key] = value
     return out
 
 

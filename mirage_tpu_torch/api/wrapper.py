@@ -44,9 +44,13 @@ def domain_geometry(in_domains, input_size=512, patch_size=32):
 def build_model(model_name: str, args: Dict, in_domains, input_size=512,
                 patch_size=32, compute_dtype=torch.float32,
                 with_outputs: bool = True,
-                generator: Optional[torch.Generator] = None) -> MIRAGEModel:
-    """The MIRAGEModel a checkpoint with ``args`` describes."""
-    geo = domain_geometry(in_domains, input_size, patch_size)
+                generator: Optional[torch.Generator] = None,
+                geometry: Optional[Dict] = None, drop_path_rate: float = 0.0,
+                remat: bool = False) -> MIRAGEModel:
+    """The MIRAGEModel a checkpoint with ``args`` describes. ``geometry``
+    (task -> (input size, patch size) pairs) replaces
+    :func:`domain_geometry`'s sizes."""
+    geo = geometry or domain_geometry(in_domains, input_size, patch_size)
     inputs = {}
     for domain in in_domains:
         conf = default_domain_conf(domain)
@@ -91,7 +95,9 @@ def build_model(model_name: str, args: Dict, in_domains, input_size=512,
     return MIRAGEModel(inputs, outputs,
                        num_global_tokens=args.get("num_global_tokens", 1),
                        dim_tokens=dim, depth=depth, num_heads=heads,
-                       compute_dtype=compute_dtype, generator=generator)
+                       drop_path_rate=drop_path_rate,
+                       compute_dtype=compute_dtype, remat=remat,
+                       generator=generator)
 
 
 class MIRAGEWrapper:

@@ -32,6 +32,8 @@ import torch
 
 from mirage_tpu_torch.cli.config import (normalize_domain_sizes,
                                          parse_with_yaml, save_args, str2bool)
+from mirage_tpu_torch.data.loader import to_device
+from mirage_tpu_torch.train.steps import step_generator
 
 
 def get_parser():
@@ -217,17 +219,6 @@ def setup(args, device):
     loss_fn = make_seg_loss(model, criterion, args.in_domains,
                             frozen_encoder=full_freeze)
     return fm, model, opt, criterion, loss_fn
-
-
-def to_device(batch, device):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
-
-
-def step_generator(seed: int, it: int, device) -> torch.Generator:
-    """The stochastic-depth generator of training step ``it``."""
-    return torch.Generator(device=device).manual_seed(
-        (seed + 1) * 1_000_003 + it)
 
 
 def main(argv=None):

@@ -1,20 +1,22 @@
-"""Host-side preprocessing for segmentation and classification tuning.
+"""Host-side preprocessing for pretraining, segmentation and classification
+tuning.
 
-A fork of the segmentation and classification parts of
-``mirage_tpu/data/augment.py`` (reference mutils/datasets_semseg.py and
-mutils/transforms.py): ``resize_np`` resizes the trailing two dims with
-torch ``F.interpolate`` semantics through the interpolation matrices
-(``nn.resize.resize_matrix``); ``SemSegTransform`` is the shared-geometry
-transform over an image and its label map; ``affine_warp`` is torchvision's
-RandomAffine on scipy's ``affine_transform``, and ``ClsTransform`` the
-classification stack; ``skimage_resize`` is the inference CLI's resize.
-Randomness comes from an explicit
-``np.random.Generator``, drawn in the JAX package's order, so one seed gives
-the same image in both packages.
+A fork of ``mirage_tpu/data/augment.py`` (reference
+mutils/datasets_pretrain.py, mutils/datasets_semseg.py and
+mutils/transforms.py): ``PretrainAugment`` is MultiMAE pretraining's
+correlated flip, affine and intensity shift; ``resize_np`` resizes the
+trailing two dims with torch ``F.interpolate`` semantics through the
+interpolation matrices (``nn.resize.resize_matrix``); ``SemSegTransform``
+is the shared-geometry transform over an image and its label map;
+``affine_warp`` is torchvision's RandomAffine on scipy's
+``affine_transform``, and ``ClsTransform`` the classification stack;
+``skimage_resize`` is the inference CLI's resize. Randomness comes from an
+explicit ``np.random.Generator``, drawn in the JAX package's order, so one
+seed gives the same image in both packages.
 """
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -200,6 +202,69 @@ def affine_warp(img: np.ndarray, angle: float, translate, scale: float,
     if np.issubdtype(img.dtype, np.integer):
         return np.round(out).astype(img.dtype)
     return out.astype(img.dtype)
+
+
+# ------------------------------------------------------ pretraining
+
+LABEL_TASKS = ("layermaps", "bscanlayermap", "semseg")
+
+
+class PretrainAugment:
+    """The correlated augmentation of MultiMAE pretraining
+    (mirage_tpu/data/augment.py:185-245, reference datasets_pretrain.py:
+    18-84). One flip decision and one affine for every task; the affine is
+    drawn against a fixed (512, 512) whatever the raw size and applied at
+    the raw size. bscan and the layer map share it; the SLO (an en-face
+    projection) takes its scale and x-translation only. Images get a
+    gaussian intensity shift of random sign, clipped to [0, 1]. Labels warp
+    and resize nearest and come out (H, W) int32; images bilinear, (C, H, W)
+    float32. ``input_size``: task -> (H, W)."""
+
+    def __init__(self, input_size: Mapping[str, Tuple[int, int]], *,
+                 hflip: float = 0.5, intensity_shift: float = 0.05,
+                 affine: bool = True, degrees: float = 10.0,
+                 translate=(0.1, 0.1), scale=(0.9, 1.1), shear: float = 5.0):
+        self.input_size = {k: tuple(v) for k, v in input_size.items()}
+        self.hflip = hflip
+        self.intensity_shift = intensity_shift
+        self.affine = affine
+        self.affine_cfg = dict(degrees=degrees, translate=translate,
+                               scale=scale, shear=shear)
+
+    def __call__(self, task_dict: Dict[str, np.ndarray],
+                 rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        flip = rng.random() < self.hflip
+        angle, (tx, ty), s, sh = random_affine_params(
+            rng, img_size=(512, 512), **self.affine_cfg)
+        out = {}
+        for task, img in task_dict.items():
+            img = np.asarray(img)
+            if flip:
+                img = img[..., ::-1]
+            is_label = task in LABEL_TASKS
+            if self.intensity_shift > 0 and not is_label:
+                shift = float(rng.normal(0, self.intensity_shift))
+                if rng.random() < 0.5:
+                    shift = -shift
+                img = np.clip(img + shift, 0.0, 1.0)
+            if self.affine:
+                order = 0 if is_label else 1
+                if task in ("bscan", "bscanlayermap"):
+                    img = affine_warp(img, angle, (tx, ty), s, sh,
+                                      order=order)
+                else:
+                    img = affine_warp(img, 0.0, (tx, 0.0), s, 0.0,
+                                      order=order)
+            size = self.input_size[task]
+            if img.shape[-2:] != size:
+                img = resize_np(img, size, mode="nearest" if is_label
+                                else "bilinear")
+            if is_label:
+                out[task] = np.ascontiguousarray(img).astype(np.int32)
+            else:
+                arr = np.ascontiguousarray(img).astype(np.float32)
+                out[task] = arr[None] if arr.ndim == 2 else arr
+        return out
 
 
 # -------------------------------------------------- classification stack

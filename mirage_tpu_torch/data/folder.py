@@ -2,8 +2,10 @@
 
 A fork of ``mirage_tpu/data/folder.py`` (reference mutils/dataset_folder.py:
 the sorted recursive walk, the semseg value -> index mapping, min-max
-normalisation of the images, MultiTaskImageFolder; the torchvision-style
-ImageFolder of classification tuning). Samples are numpy;
+normalisation of the images, MultiTaskDatasetFolder and its segmentation
+(MultiTaskImageFolder) and pretraining (MultiTaskPretDatasetFolder, reference
+mutils/datasets_pretrain.py) forms; the torchvision-style ImageFolder of
+classification tuning). Samples are numpy;
 transforms take an explicit ``np.random.Generator``. ``.npy``/``.npz`` are
 read with numpy; other image files need PIL and raise without it.
 """
@@ -72,25 +74,29 @@ def make_class_dataset(directory: str,
     return paths, np.asarray(targets, np.int64), classes
 
 
-class MultiTaskImageFolder:
+class MultiTaskDatasetFolder:
     """Parallel per-task folders with matching file names:
-    root/task_a/.../xxx.npy, root/task_b/.../xxx.npy.
+    root/{prefix}task_a/.../xxx.npy, root/{prefix}task_b/.../xxx.npy.
 
     transform(sample_dict, rng) -> sample_dict. Tasks named 'semseg' get
     the value -> index ``mapping``; the others are min-max normalised.
-    Items are (sample_dict, None, id)."""
+    ``max_images`` keeps that many samples of a seeded permutation. Items
+    are (sample_dict, None, id)."""
 
     def __init__(self, root: str, tasks: Sequence[str], *,
                  mapping: Optional[Dict[int, int]] = None,
                  extensions: Optional[Tuple[str, ...]] = None,
                  transform: Optional[Callable] = None,
+                 prefixes: Optional[Dict[str, str]] = None,
                  max_images: Optional[int] = None):
         self.root = root
         self.tasks = list(tasks)
         self.mapping = mapping
         self.transform = transform
-        self.samples = {task: make_nonclass_dataset(os.path.join(root, task),
-                                                    extensions)
+        prefixes = {task: "" for task in self.tasks} | dict(prefixes or {})
+        self.samples = {task: make_nonclass_dataset(
+                            os.path.join(root, f"{prefixes[task]}{task}"),
+                            extensions)
                         for task in self.tasks}
         for task, files in self.samples.items():
             if not files:
@@ -134,6 +140,50 @@ class MultiTaskImageFolder:
 
     def __len__(self):
         return len(self.samples[self.tasks[0]])
+
+
+class MultiTaskImageFolder(MultiTaskDatasetFolder):
+    """The per-task folders of segmentation tuning."""
+
+
+class MultiTaskPretDatasetFolder(MultiTaskDatasetFolder):
+    """The pretraining folders (mirage_tpu/data/folder.py:149-184,
+    reference datasets_pretrain.py:86-207): ``.npy``/``.npz`` as they are
+    (``layermaps``: the ``layer_maps`` array of an .npz; ``bscanlayermap``
+    and ``semseg`` as int64; images as float32 / 255), other files through
+    :func:`read_image` as float32 / 255; ``use_cache`` keeps every sample
+    read in RAM and hands back copies."""
+
+    def __init__(self, root, tasks, *, transform=None, use_cache=False,
+                 extensions=None):
+        super().__init__(root, tasks, transform=transform,
+                         extensions=extensions)
+        self.use_cache = use_cache
+        self.cache: Dict[int, tuple] = {}
+
+    def load_raw(self, index: int):
+        if self.use_cache and index in self.cache:
+            sample_dict, sid = self.cache[index]
+            return {k: v.copy() for k, v in sample_dict.items()}, sid
+        sample_dict, sid = {}, None
+        for task in self.tasks:
+            path = self.samples[task][index]
+            if not path.endswith((".npy", ".npz")):
+                sample = read_image(path).astype(np.float32) / 255.0
+            elif task == "layermaps":
+                with np.load(path) as data:
+                    sample = data["layer_maps"].astype(np.int64)
+            elif task in ("bscanlayermap", "semseg"):
+                sample = np.load(path).astype(np.int64)
+            else:
+                sample = np.load(path).astype(np.float32) / 255.0
+            sample_dict[task] = sample
+            if sid is None:
+                sid = Path(path).stem
+        if self.use_cache:
+            self.cache[index] = ({k: v.copy() for k, v in
+                                  sample_dict.items()}, sid)
+        return sample_dict, sid
 
 
 class ImageFolder:

@@ -3,7 +3,8 @@
 A fork of ``mirage_tpu/data/loader.py``: fixed-shape numpy batches built on
 a thread pool, one ``np.random.Generator`` per (epoch, sample) derived from
 a base seed, so the shuffle order and the augmentation draws do not depend
-on worker scheduling. The training loop moves a batch to the device.
+on worker scheduling. The training loop moves a batch to the device
+(:func:`to_device`).
 """
 
 import queue
@@ -12,6 +13,14 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator
 
 import numpy as np
+import torch
+
+
+def to_device(batch, device, keys=None):
+    """A collated dict of numpy arrays (those under ``keys``, or all) as
+    tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items() if keys is None or k in keys}
 
 
 def default_collate(items):

@@ -1,11 +1,13 @@
-"""Masked reconstruction losses for MultiMAE pretraining, in token space.
+"""Masked reconstruction losses for MultiMAE pretraining.
 
-Counterpart of ``mirage_tpu/losses/masked.py`` (``_masked_mean``,
-``masked_mse_loss_tokens``, ``masked_ce_loss_tokens``; reference
-mirage/criterion.py): the losses read the decoders' pre-unpatchify patch
-tokens, which is algebraically the pixel-space loss (every pixel of a patch
-carries the patch's mask value). The pixel-space forms are not ported yet
-(ROADMAP queue A).
+Counterpart of ``mirage_tpu/losses/masked.py`` (reference
+mirage/criterion.py). The token-space forms (``masked_mse_loss_tokens``,
+``masked_ce_loss_tokens``, the losses of ``train/steps.py``) read the
+decoders' pre-unpatchify patch tokens, which is algebraically the
+pixel-space loss (every pixel of a patch carries the patch's mask value);
+the pixel-space forms (``masked_mse_loss``, ``masked_ce_loss``), the
+references the token forms are held to, read the reconstructions with the
+token mask upsampled nearest to the pixels.
 """
 
 from typing import Optional
@@ -13,7 +15,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from mirage_tpu_torch.ops.patch_embed import patchify
+from mirage_tpu_torch.nn.resize import resize2d
+from mirage_tpu_torch.ops.patch_embed import patchify, unpatchify
+
+
+def _upsample_mask(mask, nh: int, nw: int, h: int, w: int):
+    """(B, nh·nw) token mask -> (B, H, W) float pixel mask, nearest."""
+    m = mask.reshape(mask.shape[0], 1, nh, nw).float()
+    return resize2d(m, (h, w), mode="nearest")[:, 0]
 
 
 def _masked_mean(loss, mask):
@@ -28,6 +37,28 @@ def _masked_mean(loss, mask):
     total = torch.where(valid, per_sample, torch.zeros_like(per_sample)).sum()
     count = valid.sum()
     return torch.where(count > 0, total / count.clamp_min(1), total * 0.0)
+
+
+def masked_mse_loss(pred, target, mask: Optional[torch.Tensor] = None,
+                    patch_size: int = 16, stride: int = 1,
+                    norm_pix: bool = False):
+    """pred, target: (B, C, H, W); mask (B, N), 1 = masked. The squared
+    error's channel mean, masked by the upsampled token mask; norm_pix
+    standardises each target patch (unbiased variance)."""
+    scale = patch_size // stride
+    h, w = pred.shape[-2:]
+    nh, nw = h // scale, w // scale
+    if norm_pix:
+        t = patchify(target, scale, scale)
+        mean = t.mean(-1, keepdim=True)
+        var = t.var(-1, keepdim=True, unbiased=True)
+        t = (t - mean) / torch.sqrt(var + 1e-6)
+        target = unpatchify(t, nh, nw, scale, scale, target.shape[1])
+    loss = (pred - target) ** 2
+    if mask is None:
+        return loss.mean()
+    mask_pix = _upsample_mask(mask, nh, nw, h, w)
+    return _masked_mean(loss.mean(1) * mask_pix, mask_pix)
 
 
 def masked_mse_loss_tokens(pred_tokens, target, mask: Optional[torch.Tensor]
@@ -69,3 +100,24 @@ def masked_ce_loss_tokens(logits_tokens, target, mask: Optional[torch.Tensor]
         return loss_p.mean()
     m = mask.to(loss_p.dtype)
     return _masked_mean(loss_p * m, m)
+
+
+def masked_ce_loss(logits, target, mask: Optional[torch.Tensor] = None,
+                   patch_size: int = 16, stride: int = 1,
+                   label_smoothing: float = 0.0):
+    """logits (B, C, H, W); target (B, H, W) integer labels; mask (B, N),
+    1 = masked. Per-pixel cross-entropy in float32 (label smoothing mixes
+    in the mean over the classes), masked by the upsampled token mask; an
+    all-empty mask gives 0."""
+    scale = patch_size // stride
+    h, w = logits.shape[-2:]
+    nh, nw = h // scale, w // scale
+    logp = F.log_softmax(logits.float(), dim=1)
+    nll = -torch.gather(logp, 1, target[:, None].long()).squeeze(1)
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll \
+            + label_smoothing * -logp.mean(dim=1)
+    if mask is None:
+        return nll.mean()
+    mask_pix = _upsample_mask(mask, nh, nw, h, w)
+    return _masked_mean(nll * mask_pix, mask_pix)

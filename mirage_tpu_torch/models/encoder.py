@@ -2,10 +2,18 @@
 
 Counterpart of ``mirage_tpu/models/encoder.py`` (a ``lax.scan`` over stacked
 layers there); the unstacked ``nn.ModuleList`` keeps the reference's
-``encoder.{i}.*`` state-dict keys. No ``torch.utils.checkpoint``: the
-blocks' ops save only their inputs and recompute the rest in the backward,
-which is what the JAX package's ``jax.checkpoint`` with
-``save_only_these_names("attn_half_out")`` achieves.
+``encoder.{i}.*`` state-dict keys.
+
+Rematerialisation (``remat``, mirage_tpu/models/encoder.py:93-101). The JAX
+package's ``jax.checkpoint`` saves only the inter-half activation on the
+fused route and recomputes each half's internals in its backward; off that
+route it is plain per-layer remat. Here the two half-block ops (route (a) of
+``nn/block.py``) already save only their inputs and recompute the rest, so
+a block on that route runs as it is: checkpointing it would rerun both
+halves' forwards for no memory. A block on any other route, whose ops save
+their intermediates, runs under ``torch.utils.checkpoint`` when training
+with ``remat``; its drop-path draws are made before the checkpointed call
+and passed in, since the rerun must not draw from the generator again.
 
 Stochastic depth: block i drops its branches at ``linspace(0, rate,
 depth)[i]`` (models/encoder.py:29-31), drawn from the caller's generator.
@@ -13,8 +21,10 @@ depth)[i]`` (models/encoder.py:29-31), drawn from the caller's generator.
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mirage_tpu_torch.nn.block import Block
+from mirage_tpu_torch.nn.layers import drop_path_noise
 
 
 def drop_path_rates(drop_path_rate: float, depth: int):
@@ -27,13 +37,26 @@ def drop_path_rates(drop_path_rate: float, depth: int):
 
 
 class Encoder(nn.ModuleList):
-    def __init__(self, depth, dim, num_heads, mlp_ratio=4.0, qkv_bias=True):
+    def __init__(self, depth, dim, num_heads, mlp_ratio=4.0, qkv_bias=True,
+                 remat=False):
         super().__init__([Block(dim, num_heads, mlp_ratio, qkv_bias)
                           for _ in range(depth)])
+        self.remat = remat
 
     def forward(self, x, deterministic=True, drop_path_rate=0.0,
                 generator=None, grad_free=False):
         for block, rate in zip(self, drop_path_rates(drop_path_rate,
                                                      len(self))):
-            x = block(x, deterministic, rate, generator, grad_free)
+            if not (self.remat and torch.is_grad_enabled() and not grad_free
+                    and not Block.halves_route(x.shape[1], deterministic,
+                                               rate, grad_free)):
+                x = block(x, deterministic, rate, generator, grad_free)
+                continue
+            noise = (None, None)
+            if not deterministic and float(rate) != 0.0 \
+                    and generator is not None:
+                noise = (drop_path_noise(x, generator),
+                         drop_path_noise(x, generator))
+            x = checkpoint(block, x, deterministic, rate, None, grad_free,
+                           noise, use_reentrant=False)
         return x

@@ -14,10 +14,9 @@ modality fully visible, stochastic depth from a generator, then the output
 heads); ``features`` returns the encoder tokens alone.
 
 Training keeps the parameters in float32 and runs the activations in
-``compute_dtype``; each op casts its weights to the activation dtype. The
-blocks' ops save only their inputs for the backward and recompute the rest
-(the effect of the JAX package's selective remat), so nothing here needs
-``torch.utils.checkpoint``.
+``compute_dtype``; each op casts its weights to the activation dtype.
+``remat`` (mirage_tpu/models/mirage.py:60) checkpoints the encoder blocks
+whose ops save their intermediates (``models/encoder.py``).
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -45,6 +44,7 @@ class MIRAGEModel(nn.Module):
                  depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_path_rate: float = 0.0, compute_dtype=torch.float32,
+                 remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_global_tokens = num_global_tokens
@@ -60,7 +60,7 @@ class MIRAGEModel(nn.Module):
             self.output_adapters = nn.ModuleDict(
                 {t: a.init(dim_tokens) for t, a in output_adapters.items()})
         self.encoder = Encoder(depth, dim_tokens, num_heads, mlp_ratio,
-                               qkv_bias)
+                               qkv_bias, remat)
         self.global_tokens = nn.Parameter(
             torch.empty(1, num_global_tokens, dim_tokens))
         if generator is not None:
@@ -155,7 +155,8 @@ class MIRAGEModel(nn.Module):
         enc = gather_rows(torch.cat(tokens, dim=1), ids_keep)
         enc = torch.cat([enc, self.global_tokens.to(enc.dtype).expand(
             b, self.num_global_tokens, self.dim_tokens)], dim=1)
-        enc = self.encoder(enc, deterministic)
+        enc = self.encoder(enc, deterministic, self.drop_path_rate,
+                           generator)
         if self.output_adapters is None:
             return enc, task_masks
         preds = {task: adapter(enc, input_info, ids_keep=ids_keep,

@@ -53,15 +53,26 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
+    @staticmethod
+    def halves_route(n, deterministic, drop_path_rate, grad_free):
+        """Whether the block runs as the two half-block ops (route (a)),
+        whose autograd Functions save only their inputs."""
+        static_zero = (isinstance(drop_path_rate, (int, float))
+                       and drop_path_rate == 0.0)
+        return n <= FUSED_TOKENS and (deterministic or (
+            static_zero and (n <= FUSED_TRAIN_TOKENS or grad_free)))
+
     def forward(self, x, deterministic=True, drop_path_rate=0.0,
-                generator=None, grad_free=False):
+                generator=None, grad_free=False, noise=(None, None)):
+        """``noise``: the attention and MLP branches' drop-path draws made
+        beforehand (a block rerun under activation checkpointing must
+        not draw again)."""
         a, m, n = self.attn, self.mlp, x.shape[1]
         mlp = (self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                m.fc2.weight, m.fc2.bias)
         static_zero = (isinstance(drop_path_rate, (int, float))
                        and drop_path_rate == 0.0)
-        if n <= FUSED_TOKENS and (deterministic or (
-                static_zero and (n <= FUSED_TRAIN_TOKENS or grad_free))):
+        if self.halves_route(n, deterministic, drop_path_rate, grad_free):
             fuse = runtime.switches["MIRAGE_BLOCK_FUSE"]
             if deterministic and (fuse == "all" or (
                     fuse == "decoder"
@@ -77,7 +88,7 @@ class Block(nn.Module):
             a, layer_norm(x, self.norm1.weight, self.norm1.bias),
             self.num_heads)
         x = x + drop_path(h, drop_path_rate, deterministic=deterministic,
-                          generator=generator)
+                          generator=generator, noise=noise[0])
         if deterministic or static_zero:
             return mlp_block(x, *mlp)
         if grad_free or n <= FUSED_TOKENS:
@@ -85,4 +96,4 @@ class Block(nn.Module):
         else:
             h = mlp_block_ref(x, *mlp, residual=False)
         return x + drop_path(h, drop_path_rate, deterministic=deterministic,
-                             generator=generator)
+                             generator=generator, noise=noise[1])

@@ -57,16 +57,24 @@ def dropout(x, rate: float, *, deterministic: bool = True, generator=None):
     return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
 
 
-def drop_path(x, rate, *, deterministic: bool = True, generator=None):
+def drop_path_noise(x, generator):
+    """The per-sample uniform draws of :func:`drop_path` on ``x``."""
+    return torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                      device=generator.device)
+
+
+def drop_path(x, rate, *, deterministic: bool = True, generator=None,
+              noise=None):
     """Per-sample stochastic depth; the identity at rate 0 or when
     deterministic (or without a generator, as the JAX package's rng=None).
-    ``rate`` is a float or a 0-d tensor (the encoder's per-layer rates)."""
+    ``rate`` is a float or a 0-d tensor (the encoder's per-layer rates).
+    ``noise``: the draws made beforehand (:func:`drop_path_noise`), in
+    place of drawing from ``generator``."""
     rate = float(rate)
-    if deterministic or rate == 0.0 or generator is None:
+    if deterministic or rate == 0.0 or (generator is None and noise is None):
         return x
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
-                   device=generator.device)
+    u = drop_path_noise(x, generator) if noise is None else noise
     return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
 
 

@@ -11,7 +11,8 @@ products), ``attention``, ``attention_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
 allocate outputs with ``torch.empty`` and launch the kernels of one
 ``csrc/`` entry on PyTorch's current stream, raising if the launch is
-refused (``attention`` and ``flash_attention``, the two entries of the
+refused (``layernorm`` and ``layernorm_bwd`` count their launches in
+``.launches``; ``attention`` and ``flash_attention``, the two entries of the
 bf16 attention forward, and ``attention_bwd`` and ``flash_attention_bwd``,
 the two of its backward, count their launches in ``.launches``, as
 ``gemm`` counts those of csrc/gemm.cu by its three launchers; ``gemm`` and
@@ -173,7 +174,11 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _launch("layernorm_onepass" if onepass else "layernorm", x.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], eps)
+    layernorm.launches += 1
     return y
+
+
+layernorm.launches = 0
 
 
 def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
@@ -201,9 +206,13 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
     _launch("layernorm_bwd", x.data_ptr(), weight.data_ptr(), dyln.data_ptr(),
             _ptr(dy), dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), eps)
+    layernorm_bwd.launches += 1
     if partials:
         return dx, dgp, dbp
     return dx, dgp.sum(0), dbp.sum(0)
+
+
+layernorm_bwd.launches = 0
 
 
 def _gemm_operands(a, w, w_kn=False):

@@ -5,9 +5,10 @@ Counterpart of ``mirage_tpu/train/checkpoint.py`` (reference
 mutils/checkpoint.py): ``{output_dir}/checkpoint-{epoch|tag}/`` holds
 ``checkpoint.pth`` (``torch.save`` of the parameters in the model's
 state-dict namespace, the optimizer's moments and step counts, the epoch
-and the run's arguments; host tensors) and ``meta.json``. Loading copies
-into the live train state in place (``load_best_checkpoint`` from
-``checkpoint-best``). A moment that a checkpoint saved with
+and the run's arguments; host tensors) and ``meta.json``; ``keep_every``
+prunes the older epochs. Loading copies into the live train state in place
+(``load_best_checkpoint`` from ``checkpoint-best``). ``resolve_pretrained``
+finds a weights file. A moment that a checkpoint saved with
 other frozen parameters lacks starts at zero, as the reference does for a
 newly trainable parameter; one it has beyond the state's is dropped.
 """
@@ -16,6 +17,7 @@ import glob
 import json
 import os
 import re
+import shutil
 from typing import Optional
 
 import torch
@@ -42,9 +44,11 @@ def snapshot(state):
 
 
 def save_checkpoint(output_dir: str, state, epoch, *,
-                    args: Optional[dict] = None, tag=None) -> str:
+                    args: Optional[dict] = None, tag=None,
+                    keep_every: int = 0) -> str:
     """Writes ``checkpoint-{epoch}`` (or ``checkpoint-{tag}``); ``args`` is
-    kept with its JSON-able values."""
+    kept with its JSON-able values. ``keep_every`` > 0 then prunes the epoch
+    checkpoints (:func:`prune_checkpoints`)."""
     path = _ckpt_dir(output_dir, epoch if tag is None else tag)
     os.makedirs(path, exist_ok=True)
     meta = {"epoch": int(epoch)}
@@ -56,13 +60,28 @@ def save_checkpoint(output_dir: str, state, epoch, *,
                os.path.join(path, FILE))
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
+    if keep_every:
+        prune_checkpoints(output_dir, keep_every)
     return path
 
 
+def _epochs(output_dir: str):
+    """[(epoch, directory)] of the ``checkpoint-N`` directories."""
+    return [(int(m.group(1)), d)
+            for d in glob.glob(_ckpt_dir(output_dir, "*"))
+            if (m := re.search(r"checkpoint-(\d+)$", d))]
+
+
+def prune_checkpoints(output_dir: str, keep_every: int):
+    """Deletes every epoch checkpoint but the latest and those of epochs
+    divisible by ``keep_every``; tagged ones (``checkpoint-best``) stay."""
+    for epoch, path in sorted(_epochs(output_dir))[:-1]:
+        if epoch % keep_every:
+            shutil.rmtree(path, ignore_errors=True)
+
+
 def latest_checkpoint(output_dir: str) -> Optional[str]:
-    found = [(int(m.group(1)), d)
-             for d in glob.glob(_ckpt_dir(output_dir, "*"))
-             if (m := re.search(r"checkpoint-(\d+)$", d))]
+    found = _epochs(output_dir)
     return max(found)[1] if found else None
 
 
@@ -106,3 +125,32 @@ def auto_load_checkpoint(output_dir: str, state):
     state, meta = load_checkpoint(path, state)
     return state, int(meta.get("epoch", -1)) + 1
 
+
+
+def resolve_pretrained(name_or_path: str) -> str:
+    """A local weights file for ``name_or_path``: the path itself, a
+    directory's ``model.safetensors`` or ``model.pth``, or, for a name that
+    is not a local path, ``model.safetensors`` of that Hugging Face repo
+    when ``huggingface_hub`` imports (mirage_tpu/train/checkpoint.py:224).
+    Raises FileNotFoundError when none is found."""
+    if os.path.isdir(name_or_path):
+        for fname in ("model.safetensors", "model.pth"):
+            candidate = os.path.join(name_or_path, fname)
+            if os.path.isfile(candidate):
+                return candidate
+        raise FileNotFoundError(f"no model.safetensors or model.pth under "
+                                f"{name_or_path}")
+    if os.path.exists(name_or_path):
+        return name_or_path
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise FileNotFoundError(
+            f"{name_or_path} is not a local path, and huggingface_hub is "
+            f"not installed to look it up") from e
+    try:
+        return hf_hub_download(repo_id=name_or_path,
+                               filename="model.safetensors")
+    except Exception as e:  # offline, or no such repo
+        raise FileNotFoundError(f"{name_or_path} is neither a local path "
+                                f"nor a reachable repo: {e}") from e

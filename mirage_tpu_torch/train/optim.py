@@ -104,6 +104,13 @@ class GroupedOptimizer:
             state[k] = {n: torch.zeros_like(params[n]) for n in trainable}
         return state
 
+    def count_trainable(self, params: Mapping[str, torch.Tensor]):
+        """(trainable, total) element counts of the named parameters."""
+        meta = self.meta(params)
+        total = sum(p.numel() for p in params.values())
+        trainable = sum(p.numel() for n, p in params.items() if meta[n][2])
+        return trainable, total
+
     def stop_frozen(self, model: torch.nn.Module):
         """Frozen parameters stop requiring grad, so autograd computes no
         weight gradient for them (activation gradients still flow through)."""
@@ -183,3 +190,7 @@ class GroupedOptimizer:
         upd = torch._foreach_mul(upd, steps)
         torch._foreach_add_(ps, torch._foreach_mul(upd, keep_f))
         return gnorm
+
+
+def create_optimizer(cfg: OptimizerConfig) -> GroupedOptimizer:
+    return GroupedOptimizer(cfg)

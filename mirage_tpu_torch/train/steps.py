@@ -104,6 +104,13 @@ def make_cls_loss(model, smoothing: float = 0.1,
     return loss_fn
 
 
+def step_generator(seed: int, it: int, device) -> torch.Generator:
+    """The generator of training step ``it`` (its masks and stochastic
+    depth), seeded from (seed, it) so a resumed run repeats the step."""
+    return torch.Generator(device=device).manual_seed(
+        (seed + 1) * 1_000_003 + it)
+
+
 def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
     """{'params': name -> parameter (the model's own, updated in place),
     'opt': the optimizer state, 'step': a device counter}. Frozen parameters
