@@ -33,9 +33,11 @@ Phases, each of which must pass (any failure exits non-zero):
    and SDPA's forward and backward; B6's backward also at the
    classification shape, and every backward op and kernel row reruns bit
    for bit the same. The LN kernel alone (``layernorm``: csrc/layernorm.cu,
-   forward at the serving encoder's, the decoders' and the pretraining
-   shapes, backward at the pretraining ones) beside F.layer_norm and its
-   autograd backward.
+   forward at the serving encoder's, the decoders' (queries and B3's
+   context) and the pretraining shapes, backward at the pretraining and
+   classification ones, each row naming the instantiation
+   runtime.layernorm_plan picks, each rerun bit for bit) beside
+   F.layer_norm and its autograd backward.
 3. golden: tests/golden/example_triplet_tiny.npz (reference weights and
    outputs) through the port's wrapper on the card in float32.
 4. serve: MIRAGE-Large (1024 wide, 24 layers, 16 heads; three 256/2/8
@@ -95,7 +97,10 @@ Phases, each of which must pass (any failure exits non-zero):
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
 in the last two and fails unless fused_block's SASS holds HGMMA (wgmma)
-instructions. Phases 2 and 6 split the stash forward (B9′, B9) into its
+instructions; it prints the registers and spills of each of csrc/
+layernorm.cu's 32 kernels (forward and backward, three width classes and
+the generic kernel, x and the scale each in bf16 or float32) and fails on a
+spill there. Phases 2 and 6 split the stash forward (B9′, B9) into its
 launches (LN, fc1 with the stash epilogue, the same product with B2's GELU
 epilogue and with none, fc2) and hold its act bit-equal to B2's fc1;
 phase 9 times S6a at R = 1 and 2 row tiles a cluster. Phase 2 splits B5
@@ -241,7 +246,9 @@ PORT_KERNELS = {"gemm_bf16_pingpong": "gemm", "gemm_f32_kernel": "gemm",
                 "attn_bwd_dq_f32_kernel": "attention_bwd",
                 "attn_bwd_dkv_f32_kernel": "attention_bwd",
                 "layernorm_kernel": "layernorm",
+                "layernorm_generic_kernel": "layernorm",
                 "layernorm_bwd_kernel": "layernorm_bwd",
+                "layernorm_bwd_generic_kernel": "layernorm_bwd",
                 "flash_fwd_f32_kernel": "flash_attention",
                 "flash_bwd_dq_f32_kernel": "flash_attention_bwd",
                 "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
@@ -284,6 +291,28 @@ def cuda_ms(fn, iters=20, warmup=3, repeats=3):
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[len(runs) // 2]
+
+
+def device_ms(fn, iters=20, warmup=3, repeats=3):
+    """Milliseconds per call of the device alone: `iters` calls queued
+    behind a ≈ 5 ms device sleep, so the host's launch cost is hidden and
+    CUDA events time the calls back to back; the median of `repeats`."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
         start.record()
         for _ in range(iters):
             fn()
@@ -337,7 +366,36 @@ def profile_forward(fn, top_n=0):
 # ------------------------------------------------------------------ phase 1
 
 # the kernels redesigned for Hopper whose ptxas report must show no spill
-NO_SPILL = ("mlp_chunked", "gemm_stash", "mlp_bwd", "wgrad", "gemm", "quant")
+NO_SPILL = ("mlp_chunked", "gemm_stash", "mlp_bwd", "wgrad", "gemm", "quant",
+            "layernorm")
+
+
+def _ln_instantiations(report):
+    """csrc/layernorm.cu's kernels from its ptxas report: [(label, the
+    report's register and spill lines)], the label demangled from
+    "_Z16layernorm_kernelI13__nv_bfloat16fLi1024EEv..." to
+    "layernorm_kernel<bf16, float, 1024>"."""
+    out = []
+    lines = report.splitlines()
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
+        if not m:
+            continue
+        n, rest = int(m.group(1)), m.group(2)
+        name, args = rest[:n], rest[n + 1:]
+        label = []
+        while args and not args.startswith("E"):
+            # S0_: the first type again (bf16: float is not substituted)
+            t = re.match(r"13__nv_bfloat16|S0_|f|Li(\d+)E", args)
+            if t is None:
+                break
+            label.append({"13__nv_bfloat16": "bf16", "S0_": "bf16",
+                          "f": "float"}.get(t.group(0), t.group(1)))
+            args = args[t.end():]
+        props = " ".join(x.strip() for x in lines[i + 1:i + 4]
+                         if "spill" in x or "Used" in x)
+        out.append((f"{name}<{', '.join(label)}>", props))
+    return out
 
 
 def phase_build():
@@ -358,6 +416,13 @@ def phase_build():
             + "".join(f"\n[build]   {ln}" for ln in spills))
         if spills and name in NO_SPILL:
             raise AssertionError(f"{name}.cu spills registers")
+    # every instantiation of the LN kernels: registers and spills
+    ln = _ln_instantiations(report["layernorm"])
+    for label, props in ln:
+        log(f"[build] layernorm: {label}: {props}")
+    if len(ln) != 32:
+        raise AssertionError(f"layernorm.cu: {len(ln)} kernels in the ptxas "
+                             f"report, expected 32")
     # the attention forward (csrc/attention_fwd.cuh, in attention.cu and
     # flash_attention.cu) and backward (csrc/attention_bwd.cuh, in
     # attention_bwd.cu and flash_attention.cu): registers and spills of each
@@ -685,31 +750,59 @@ def phase_kernels():
 # (label, (rows, width), launches a batch-64 reconstruct forward, launches
 # a batch-256 pretraining step). A reconstruct forward: one LN in each of
 # the encoder's 24 B1 and 24 B2 and the decoders' 6 B1, 9 B2 and 3 B3
-# queries (B3's 3 context LNs, (16448, 256), are left out of the rows). A
-# pretraining step: one LN in each B1 (12 encoder) and B2 (12 encoder, 6
-# decoder), recomputed in each B4 and B5 backward, whose LN backward runs
-# once each.
+# (two each: the queries' and the context's), 69 in all. A pretraining
+# step: one LN in each B1 (12 encoder) and B2 (12 encoder, 6 decoder),
+# recomputed in each B4 and B5 backward, whose LN backward runs once each;
+# a classification full fine-tune step: one LN backward in each of the 12
+# B5.
 LN_FWD_SHAPES = [("serving encoder", (16448, 1024), 48, 0),
                  ("decoders", (16384, 256), 18, 0),
+                 ("B3 context", (16448, 256), 3, 0),
                  ("pretraining encoder", (25344, 768), 0, 48),
                  ("pretraining decoders", (65536, 256), 0, 12)]
-LN_BWD_SHAPES = [("pretraining encoder", (25344, 768), 24),
-                 ("pretraining decoders", (65536, 256), 6)]
+LN_BWD_SHAPES = [("pretraining encoder", (25344, 768), 24, 0),
+                 ("pretraining decoders", (65536, 256), 6, 0),
+                 ("classification encoder", (BATCH * 257, 768), 0, 12)]
 # launches per pretraining step, from the ops' counts: one LN in each B1,
 # B2, B4 and B5 launch, one LN backward in each B4 and B5
 LN_OPS = {"layernorm": ("attn_half_block", "mlp_block",
                         "attn_half_block_bwd", "mlp_block_bwd"),
           "layernorm_bwd": ("attn_half_block_bwd", "mlp_block_bwd")}
+LN_PER_RECONSTRUCT, LN_PER_FEATURES = 69, 48
+
+
+def _ln_instantiation(m, d, backward):
+    """The kernel runtime.layernorm_plan picks for a bf16 (m, d) call with
+    float32 scale and shift, and its grid (in an older checkout without the
+    plan, the kernel's name)."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+
+    name = "layernorm_bwd" if backward else "layernorm"
+    if not hasattr(runtime, "layernorm_plan"):  # a checkout before the plan
+        return {"kernel": f"{name}_kernel (a warp a row)"}
+    plan = runtime.layernorm_plan(m, d, torch.cuda.get_device_properties(
+        0).multi_processor_count, torch.bfloat16, backward)
+    kernel = (f"{name}_kernel<bf16, float, {plan.width}>" if plan.width
+              else f"{name}_generic_kernel<bf16, float>")
+    return {"kernel": kernel, "grid": plan.grid,
+            "threads_per_row": plan.threads_per_row,
+            "rows_per_cta": plan.rows_per_cta,
+            "partial_rows": plan.partial_rows}
 
 
 def layernorm_rows():
     """The LN kernel alone (runtime.layernorm, runtime.layernorm_bwd) at
     LN_FWD_SHAPES / LN_BWD_SHAPES in bf16 (float32 scale and shift, as the
     ops pass the parameters): against its plain version in float32 from
-    the same inputs, then timed beside the plain version and F.layer_norm
-    (its autograd backward alone for the backward rows, without the
-    residual's cotangent the kernel adds), and the bytes bound (each input
-    read once, each output written once)."""
+    the same inputs, rerun bit for bit, then timed beside the plain version
+    and F.layer_norm (its autograd backward alone for the backward rows,
+    without the residual's cotangent the kernel adds), and the bytes bound
+    (each input read once, each output written once); each row names the
+    instantiation the plan picked. ``device_ms``: the same calls with the
+    host's launch cost hidden (:func:`device_ms`), for the kernel and
+    F.layer_norm."""
     import torch
     import torch.nn.functional as F
 
@@ -725,29 +818,37 @@ def layernorm_rows():
         w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         b = 0.1 * torch.randn(d, generator=gen, device="cuda")
         got = runtime.layernorm(x, w, b)
+        rerun = torch.equal(got, runtime.layernorm(x, w, b))
         want = layer_norm(x.float(), w, b)
         diff = got.float() - want
         max_abs = diff.abs().max().item()
         rel_l2 = (diff.norm() / want.norm()).item()
-        if not (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2):
+        if not (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2 and rerun):
             raise AssertionError(f"layernorm {label}: max_abs {max_abs}, "
-                                 f"rel_l2 {rel_l2}")
+                                 f"rel_l2 {rel_l2}, rerun bit-equal {rerun}")
         wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
         nbytes = 2 * m * d * 2 + 2 * d * 4
         row = {"label": label, "shape": [m, d], "dtype": "bf16",
+               **_ln_instantiation(m, d, False),
                "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+               "rerun_bit_equal": rerun,
                "ms": cuda_ms(lambda: runtime.layernorm(x, w, b)),
                "plain_ms": cuda_ms(lambda: layer_norm(x, w, b)),
                "library_ms": cuda_ms(lambda: F.layer_norm(
                    x, (d,), wb, bb, 1e-6)),
+               "device_ms": device_ms(lambda: runtime.layernorm(x, w, b)),
+               "library_device_ms": device_ms(lambda: F.layer_norm(
+                   x, (d,), wb, bb, 1e-6)),
                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
                "calls_per_forward": per_fwd, "calls_per_step": per_step}
         rows["layernorm"].append(row)
-        log(f"[kernels] layernorm {label} ({m}, {d}): max_abs {max_abs:.3e}"
-            f" kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-            f"F.layer_norm {row['library_ms']:.4f} ms bound "
+        log(f"[kernels] layernorm {label} ({m}, {d}) {row['kernel']} grid "
+            f"{row.get('grid')}: max_abs {max_abs:.3e} kernel "
+            f"{row['ms']:.4f} ms (device alone {row['device_ms']:.4f}) plain "
+            f"{row['plain_ms']:.4f} ms F.layer_norm {row['library_ms']:.4f} "
+            f"ms (device alone {row['library_device_ms']:.4f}) bound "
             f"{row['bound_ms']:.4f} ms (bytes)")
-    for label, (m, d), per_step in LN_BWD_SHAPES:
+    for label, (m, d), per_step, per_cls_step in LN_BWD_SHAPES:
         x = (torch.randn((m, d), generator=gen, device="cuda") * 2 + 0.5
              ).to(torch.bfloat16)
         w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
@@ -755,14 +856,17 @@ def layernorm_rows():
         dy = torch.randn((m, d), generator=gen, device="cuda").to(
             torch.bfloat16)
         dx, dg, db = runtime.layernorm_bwd(x, w, dyln, dy)
+        rerun = all(torch.equal(a, b) for a, b in zip(
+            (dx, dg, db), runtime.layernorm_bwd(x, w, dyln, dy)))
         wdx, wdg, wdb = ln_bwd_ref(x.float(), dyln, w, dy.float())
         errs = {}
         for name, g, r in (("dx", dx.float(), wdx), ("dgamma", dg, wdg),
                            ("dbeta", db, wdb)):
             errs[name] = ((g - r).norm() / r.norm()).item()
         max_abs = (dx.float() - wdx).abs().max().item()
-        if not max(errs.values()) <= BWD_REL_L2:
-            raise AssertionError(f"layernorm_bwd {label}: rel_l2 {errs}")
+        if not (max(errs.values()) <= BWD_REL_L2 and rerun):
+            raise AssertionError(f"layernorm_bwd {label}: rel_l2 {errs}, "
+                                 f"rerun bit-equal {rerun}")
         xg = x.clone().requires_grad_(True)
         wg = w.to(torch.bfloat16).requires_grad_(True)
         bg = torch.zeros(d, device="cuda", dtype=torch.bfloat16,
@@ -771,21 +875,58 @@ def layernorm_rows():
         dyb = dyln.to(torch.bfloat16)
         nbytes = m * d * (2 + 4 + 2 + 2) + 3 * d * 4
         row = {"label": label, "shape": [m, d], "dtype": "bf16",
+               **_ln_instantiation(m, d, True),
                "max_abs_err": max_abs, "rel_l2_err": errs,
+               "rerun_bit_equal": rerun,
                "ms": cuda_ms(lambda: runtime.layernorm_bwd(x, w, dyln, dy)),
                "plain_ms": cuda_ms(lambda: ln_bwd_ref(x, dyln, w, dy)),
                "library_ms": cuda_ms(lambda: torch.autograd.grad(
                    y, (xg, wg, bg), dyb, retain_graph=True)),
+               "device_ms": device_ms(
+                   lambda: runtime.layernorm_bwd(x, w, dyln, dy)),
+               "library_device_ms": device_ms(lambda: torch.autograd.grad(
+                   y, (xg, wg, bg), dyb, retain_graph=True)),
                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-               "calls_per_step": per_step}
+               "calls_per_step": per_step, "calls_per_cls_step": per_cls_step}
         rows["layernorm_bwd"].append(row)
-        log(f"[kernels] layernorm_bwd {label} ({m}, {d}): rel_l2 {errs} "
-            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-            f"F.layer_norm backward {row['library_ms']:.4f} ms bound "
-            f"{row['bound_ms']:.4f} ms (bytes)")
+        log(f"[kernels] layernorm_bwd {label} ({m}, {d}) {row['kernel']} "
+            f"grid {row.get('grid')}: rel_l2 {errs} kernel {row['ms']:.4f} ms "
+            f"(device alone {row['device_ms']:.4f}) plain "
+            f"{row['plain_ms']:.4f} ms F.layer_norm backward "
+            f"{row['library_ms']:.4f} ms (device alone "
+            f"{row['library_device_ms']:.4f}) bound {row['bound_ms']:.4f} ms "
+            f"(bytes)")
         del y, xg
     torch.cuda.synchronize()
     return rows
+
+
+def ln_ab(card):
+    """``--ln-ab``: the LN kernel's rows (:func:`layernorm_rows`), the
+    bench's headline and the bare pretraining step (phase 5) of the
+    checkout this copy of the script runs in; it calls only what the port
+    has had since the LN rows were first timed, so copied into the root of
+    an older checkout (the parent by `git archive` into `build/parent/`)
+    it measures that tree the same way: run parent, change, change,
+    parent in one call."""
+    from mirage_tpu_torch.bench import __main__ as head
+
+    rows = layernorm_rows()
+    headline = head.headline()
+    log(json.dumps(headline))
+    train = phase_train(card)
+    prof = train["profile"] or {}
+    return {"layernorm": rows,
+            "ln_per_reconstruct_ms": sum(
+                r["ms"] * r["calls_per_forward"] for r in rows["layernorm"]),
+            "ln_per_reconstruct_device_ms": sum(
+                r["device_ms"] * r["calls_per_forward"]
+                for r in rows["layernorm"]),
+            "headline_img_per_s": headline["value"],
+            "train_ms_per_step": train["ms_per_step"],
+            "train_kernels_per_step": prof.get("kernels"),
+            "train_idle_share": prof.get("idle_share"),
+            "train_kernel_ms_by_group": prof.get("kernel_ms_by_group")}
 
 
 # backward ops: name -> (TPU kernel file:line, launcher -> kernel, wrapper,
@@ -2929,6 +3070,7 @@ def phase_golden(workdir):
     import torch
 
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.ops import runtime
 
     golden = np.load(ROOT / "tests" / "golden" / "example_triplet_tiny.npz")
     sd = {k[2:]: torch.from_numpy(golden[k].astype(np.float32))
@@ -2941,7 +3083,10 @@ def phase_golden(workdir):
     path = workdir / "tiny_golden.pth"
     torch.save({"model": sd, "args": args}, path)
     wrapper = MIRAGEWrapper(weights=str(path), device="cuda")
+    runtime.layernorm.launches = 0
     preds = wrapper({"bscan": golden["in_bscan"]})
+    log(f"[golden] LN launches (runtime.layernorm) in the tiny forward: "
+        f"{runtime.layernorm.launches}")
     errs = {}
     for task in ("bscan", "slo", "bscanlayermap"):
         errs[task] = float(np.abs(preds[task].cpu().numpy()
@@ -3120,6 +3265,7 @@ def phase_serve(workdir, card, path):
     try:
         for fn in ops.values():
             fn.launches = 0
+        runtime.layernorm.launches = 0
         results = [None] * n_req
         errors = []
 
@@ -3139,6 +3285,7 @@ def phase_serve(workdir, card, path):
         feats = _post(url + "/v1/features", {"bscan": images[0]})
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in ops.items()}
+        ln_launches = runtime.layernorm.launches
         stats = server.stats()
         n_rec = server.queues["/v1/reconstruct"].n_batches
         n_feat = server.queues["/v1/features"].n_batches
@@ -3161,9 +3308,13 @@ def phase_serve(workdir, card, path):
         raise AssertionError(f"features shape {feats['features'].shape}")
     expected = {name: PER_RECONSTRUCT[name] * n_rec + PER_FEATURES[name]
                 * n_feat for name in ops}
-    log(f"[serve] launches {counts}, expected {expected}")
-    if counts != expected or not all(counts.values()):
-        raise AssertionError(f"launch counts {counts} != {expected}")
+    ln_expected = LN_PER_RECONSTRUCT * n_rec + LN_PER_FEATURES * n_feat
+    log(f"[serve] launches {counts}, expected {expected}; LN "
+        f"(runtime.layernorm) {ln_launches}, expected {ln_expected}")
+    if counts != expected or not all(counts.values()) \
+            or ln_launches != ln_expected:
+        raise AssertionError(f"launch counts {counts} != {expected} or LN "
+                             f"{ln_launches} != {ln_expected}")
 
     # one batch against the plain path on the card, and the HTTP answers
     # against a direct call
@@ -3543,6 +3694,8 @@ def phase_train(card):
     prof = profile_forward(lambda: step(state, batch, gen, lr), top_n=25)
     log(f"[train] one step under torch.profiler: "
         f"{prof if prof else 'no device kernels seen (not measured)'}")
+    log(f"[train] device kernels in one step: "
+        f"{prof['kernels'] if prof else 'not measured'}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[train] batch {b}: {dt * 1e3:.2f} ms/step, {b / dt:.1f} img/s, "
         f"peak memory {peak:.1f} GiB, on {card}")
@@ -4717,6 +4870,10 @@ def main(argv=None):
                     "math, the store or every product, beside torch.matmul, "
                     "the F.linear composition or torch._int_mm, and B9's "
                     "backward (gemm_split); prints no result line")
+    ap.add_argument("--ln-ab", action="store_true",
+                    help="only the LN kernel's rows, the bench's headline and "
+                    "the bare pretraining step (ln_ab; it runs in an older "
+                    "checkout too); prints no result line")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
     if not torch.cuda.is_available():
@@ -4736,6 +4893,9 @@ def main(argv=None):
     workdir.mkdir(parents=True, exist_ok=True)
     if opts.mlp_bwd_split:
         log(json.dumps({"mlp_bwd": mlp_bwd_timing(), "card": card}))
+        return 0
+    if opts.ln_ab:
+        log(json.dumps({"ln_ab": ln_ab(card), "card": card}))
         return 0
     if opts.attn_split:
         log(json.dumps({"attn_split": attn_split(opts.attn_split),

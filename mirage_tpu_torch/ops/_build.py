@@ -27,12 +27,11 @@ SOURCES = ("layernorm", "gemm", "gemm_stash", "attention", "attention_bwd",
 # a CUDA error code (0: launched).
 ENTRIES = {
     "layernorm": ("layernorm", "mtt_layernorm",
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                  [_P, _P, _P, _P] + [_I] * 6 + [_F, _P]),
     "layernorm_onepass": ("layernorm", "mtt_layernorm_onepass",
-                          [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                          [_P, _P, _P, _P] + [_I] * 6 + [_F, _P]),
     "layernorm_bwd": ("layernorm", "mtt_layernorm_bwd",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                       _P]),
+                      [_P] * 9 + [_I] * 7 + [_F, _P]),
     "gemm": ("gemm", "mtt_gemm", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                                   _I, _P, _P, _P]),
     "gemm_kn": ("gemm", "mtt_gemm_kn", [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,

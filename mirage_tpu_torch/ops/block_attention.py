@@ -20,9 +20,9 @@ VMEM; an SM has 227 KB, so on the card each op is a chain of CUDA kernels:
   the attention backward on the packed qkv (csrc/attention_bwd.cu, which
   also sums the float dqkv for dbqkv), dyln = dqkv·Wqkv in float, both on
   csrc/mlp_bwd.cu's dyln product, which reads the weight as it lies (no
-  transposed copy); the LN backward (csrc/layernorm.cu) with dgamma/dbeta
-  partials. dWqkv and dWproj are contractions outside, as in the JAX
-  package (:628-640).
+  transposed copy); the LN backward (csrc/layernorm.cu), which finishes
+  dgamma and dbeta itself. dWqkv and dWproj are contractions outside, as
+  in the JAX package (:628-640).
 - B6: the attention kernel forward, csrc/attention_bwd.cu backward.
 - B3: LN_q -> q GEMM; LN_c -> kv GEMM; attention over (B, Nq, D) queries
   and the packed (B, Nc, 2D) kv; proj GEMM + bias (+ residual).
@@ -40,10 +40,11 @@ memory between kernels; fusing those away is the first work of a later PR.
   body over a sequential grid. B4's chain, with dWqkv = T(dqkv)ᵀ·y and
   dWproj = dyᵀ·attn from csrc/wgrad.cu (fixed row chunks, then the chunks
   in a fixed order: Hopper's blocks run in no order) and dbqkv (from the
-  float 16-row partials of the unrounded dqkv), dbproj = Σ dy and dγ, dβ
-  from its column-sum kernel. ``reg_batch`` changes only when the TPU
-  kernel writes its VMEM accumulators (:471-497), not what it sums, so both
-  values take this one port. No atomics: a rerun is bit-identical.
+  float 16-row partials of the unrounded dqkv) and dbproj = Σ dy from its
+  column-sum kernel, dγ and dβ from the LN backward. ``reg_batch``
+  changes only when the TPU kernel writes its VMEM accumulators
+  (:471-497), not what it sums, so both values take this one port. No
+  atomics: a rerun is bit-identical.
 
 Three forward-only halves are A/B cases of the port's bench
 (``mirage_tpu_torch.bench``): ``attn_half_block_masked`` (keys past
@@ -403,8 +404,8 @@ def _attn_half_fwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
 def _attn_half_bwd_chain(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     """The kernels B4 and B7 share: the recompute (LN, qkv, attention),
     dattn, the attention backward and the LN backward. Returns dx, the rows
-    y, dqkv, attn and dy, and the float partials of dgamma, dbeta (32-row)
-    and dbqkv (16-row, of the unrounded dqkv)."""
+    y, dqkv, attn and dy, the float dgamma and dbeta, and the float 16-row
+    partials of dbqkv (of the unrounded dqkv)."""
     b, n, d = x.shape
     dh = d // num_heads
     scale = dh ** -0.5
@@ -425,8 +426,7 @@ def _attn_half_bwd_chain(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
                                         partials=True)
     dqkv = dqkv.view(b * n, 3 * d)
     dyln = runtime.mlp_bwd_dyln(dqkv, wq)
-    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2,
-                                              partials=True)
+    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2)
     return (dx.view(b, n, d), y, dqkv, attn.view(b * n, d), dy2, dgamma,
             dbeta, dbqkv)
 
@@ -440,7 +440,7 @@ def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
     attn_half_block.bwd_launches += 1
-    return (dx, dgamma.sum(0), dbeta.sum(0), runtime.wgrad(dqkv, y),
+    return (dx, dgamma, dbeta, runtime.wgrad(dqkv, y),
             dbqkv.sum(0) if bqkv is not None else None,
             runtime.wgrad(dy2, attn), dy2.float().sum(0))
 
@@ -461,8 +461,7 @@ def _attn_half_bwd_acc(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
     attn_half_block.acc_bwd_launches += 1
-    return (dx, runtime.colsum(dgamma), runtime.colsum(dbeta),
-            runtime.weight_grad(dqkv, y),
+    return (dx, dgamma, dbeta, runtime.weight_grad(dqkv, y),
             runtime.colsum(dbqkv) if bqkv is not None else None,
             runtime.weight_grad(dy2, attn), runtime.colsum(dy2))
 

@@ -54,11 +54,11 @@ them in its own body: dW1 = T(dh)ᵀ·y and dW2 = dyᵀ·act in csrc/wgrad.cu
 (wgmma on both operands as they lie; fixed row chunks summed in a fixed
 order: Hopper's blocks run in no order, so the TPU's sequential
 accumulator becomes chunk partials and a second pass), db1 from the float
-16-row partials of the unrounded dh, db2 = Σ dy and dγ, dβ from the LN
-backward's partials in its column-sum kernel. No atomics, so a rerun is
-bit-identical. The rows need no padding: the TPU pads only for its tiling,
-and a zero-cotangent row adds nothing. Bound: operations (the recompute
-2·M·D·4D and the backward 8·M·D·4D FLOPs).
+16-row partials of the unrounded dh and db2 = Σ dy in its column-sum
+kernel, dγ and dβ from the LN backward, which finishes them itself. No
+atomics, so a rerun is bit-identical. The rows need no padding: the TPU
+pads only for its tiling, and a zero-cotangent row adds nothing. Bound:
+operations (the recompute 2·M·D·4D and the backward 8·M·D·4D FLOPs).
 
 ``mlp_block_lnfold`` (an A/B case of the port's bench, scripts/
 bench_lnfold.py) is B2 with the next block's LN1 folded into fc2's
@@ -150,8 +150,8 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
 def _mlp_bwd_chain(x, dy, ln_w, ln_b, w1, b1, w2, residual):
     """The kernels B5 and B7 share: LN, the hidden stage (recompute and
     dact in one launch), dyln and the LN backward. Returns dx, the (M, ·)
-    rows y, dh, act and dy, and the float partials of dgamma, dbeta
-    (32-row) and db1 (16-row, of the unrounded dh)."""
+    rows y, dh, act and dy, the float dgamma and dbeta, and the float
+    16-row partials of db1 (of the unrounded dh)."""
     runtime.check("x", x, x)
     d = x.shape[-1]
     x2, dy2 = x.view(-1, d), dy.contiguous().view(-1, d)
@@ -160,8 +160,8 @@ def _mlp_bwd_chain(x, dy, ln_w, ln_b, w1, b1, w2, residual):
     dh, act, db1 = runtime.mlp_bwd_hidden(y, dy2, w1c, b1,
                                           w2.to(x.dtype).contiguous())
     dyln = runtime.mlp_bwd_dyln(dh, w1c)
-    dx, dgamma, dbeta = runtime.layernorm_bwd(
-        x2, ln_w, dyln, dy2, sub_dy=not residual, partials=True)
+    dx, dgamma, dbeta = runtime.layernorm_bwd(x2, ln_w, dyln, dy2,
+                                              sub_dy=not residual)
     return dx.view(x.shape), y, dh, act, dy2, dgamma, dbeta, db1
 
 
@@ -173,7 +173,7 @@ def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
     mlp_block.bwd_launches += 1
-    return (dx, dgamma.sum(0), dbeta.sum(0), runtime.wgrad(dh, y), db1.sum(0),
+    return (dx, dgamma, dbeta, runtime.wgrad(dh, y), db1.sum(0),
             runtime.wgrad(dy2, act), dy2.sum(0, dtype=torch.float32))
 
 
@@ -185,9 +185,9 @@ def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
     mlp_block.acc_bwd_launches += 1
-    return (dx, runtime.colsum(dgamma), runtime.colsum(dbeta),
-            runtime.weight_grad(dh, y), runtime.colsum(db1),
-            runtime.weight_grad(dy2, act), runtime.colsum(dy2))
+    return (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
+            runtime.colsum(db1), runtime.weight_grad(dy2, act),
+            runtime.colsum(dy2))
 
 
 class _MlpBlock(torch.autograd.Function):
@@ -490,11 +490,10 @@ def _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2):
     dyln = runtime.gemm(dh, w1.to(x.dtype), out_dtype=torch.float32,
                         w_kn=True)
     y = runtime.layernorm(x, ln_w, ln_b)
-    dx, dgamma, dbeta = runtime.layernorm_bwd(x, ln_w, dyln, dy,
-                                              partials=True)
-    grads = (dx, runtime.colsum(dgamma), runtime.colsum(dbeta),
-             runtime.weight_grad(dh, y), runtime.colsum(db1),
-             runtime.weight_grad(dy, act), runtime.colsum(dy))
+    dx, dgamma, dbeta = runtime.layernorm_bwd(x, ln_w, dyln, dy)
+    grads = (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
+             runtime.colsum(db1), runtime.weight_grad(dy, act),
+             runtime.colsum(dy))
     mlp_block.stash_bwd_launches += 1
     return grads
 

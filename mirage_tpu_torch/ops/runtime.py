@@ -12,12 +12,13 @@ products), ``attention``, ``attention_bwd``, ``flash_attention``,
 allocate outputs with ``torch.empty`` and launch the kernels of one
 ``csrc/`` entry on PyTorch's current stream, raising if the launch is
 refused (``layernorm`` and ``layernorm_bwd`` count their launches in
-``.launches``; ``attention`` and ``flash_attention``, the two entries of the
-bf16 attention forward, and ``attention_bwd`` and ``flash_attention_bwd``,
-the two of its backward, count their launches in ``.launches``, as
-``gemm`` counts those of csrc/gemm.cu by its three launchers; ``gemm`` and
-``gemm_dgelu_mul`` read a (K, N) weight as it lies with ``w_kn``, so the
-stash backward copies no weight). :func:`wgrad` is the weight-gradient
+``.launches`` and launch as :func:`layernorm_plan` says; ``attention`` and
+``flash_attention``, the two entries of the bf16 attention forward, and
+``attention_bwd`` and ``flash_attention_bwd``, the two of its backward,
+count their launches in ``.launches``, as ``gemm`` counts those of
+csrc/gemm.cu by its three launchers; ``gemm`` and ``gemm_dgelu_mul`` read
+a (K, N) weight as it lies with ``w_kn``, so the stash backward copies no
+weight). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
 the weight gradients the stash backward (B9) and the accumulating
@@ -49,7 +50,9 @@ launch, B10). An unknown value raises. :func:`set_switch` and
 
 import contextlib
 import ctypes
+import functools
 import os
+from collections import namedtuple
 
 import torch
 
@@ -162,6 +165,59 @@ def _launch(name: str, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+# csrc/layernorm.cu: threads a CTA; the width classes a row of which a lane
+# group holds in registers (a half-warp at 256, a warp above); forward CTAs
+# an SM by x's element size, backward CTAs an SM; rows a block of the generic
+# backward; CTAs whose partial rows one finisher sums
+LN_THREADS, LN_WIDTHS = 256, (256, 768, 1024)
+LN_FWD_CTAS, LN_BWD_CTAS = {2: 2, 4: 1}, 1
+LN_GENERIC_ROWS, LN_FINISH_CTAS = 32, 12
+LayerNormPlan = namedtuple("LayerNormPlan", [
+    "width", "vec", "threads_per_row", "rows_per_cta", "grid",
+    "partial_rows", "finish_groups"])
+
+
+@functools.lru_cache(maxsize=256)
+def layernorm_plan(m, d, sms, dtype, backward):
+    """How csrc/layernorm.cu runs an (m, d) LayerNorm (``backward``: its
+    backward) of ``dtype`` (torch.bfloat16 or torch.float32) on ``sms`` SMs:
+    a :class:`LayerNormPlan`.
+
+    ``width`` is the instantiation: the least of 256, 768 and 1024 that
+    holds d when d is a multiple of ``vec`` (the elements of a 16-byte
+    vector), else 0, the generic kernels (a warp a row, element by element,
+    ``vec`` 1). ``threads_per_row`` lanes hold a row; a CTA takes
+    ``rows_per_cta`` rows at a time (its lane groups; the generic backward:
+    blocks of 32 rows), and CTA c takes the rows of :func:`layernorm_rows`.
+    ``grid``: enough CTAs for every row, at most the CTAs an SM the kernel's
+    launch bounds keep resident. The backward writes one partial row of
+    dgamma and dbeta a CTA (``partial_rows``) and finishes them in
+    ``finish_groups`` groups of up to 12 CTAs."""
+    itemsize = dtype.itemsize
+    vec = 16 // itemsize
+    width = next((w for w in LN_WIDTHS if d <= w), 0) if d % vec == 0 else 0
+    if width:
+        tpr = 16 if width == 256 else 32
+        rows_per_cta = LN_THREADS // tpr
+    else:
+        vec, tpr = 1, 32
+        rows_per_cta = LN_GENERIC_ROWS if backward else LN_THREADS // 32
+    ctas = LN_BWD_CTAS if backward else LN_FWD_CTAS[itemsize]
+    grid = min(-(-m // rows_per_cta), sms * ctas)
+    return LayerNormPlan(width, vec, tpr, rows_per_cta, grid,
+                         grid if backward else 0,
+                         -(-grid // LN_FINISH_CTAS) if backward else 0)
+
+
+def layernorm_rows(plan, m, cta):
+    """The rows CTA ``cta`` of ``plan`` takes, one range a slot (a lane
+    group, or a row of the generic backward's blocks): slot s takes rows
+    (k·grid + cta)·rows_per_cta + s, k = 0, 1, ..., below m."""
+    step = plan.grid * plan.rows_per_cta
+    return [range(cta * plan.rows_per_cta + s, m, step)
+            for s in range(plan.rows_per_cta)]
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6, onepass: bool = False) -> torch.Tensor:
     """(M, D) -> (M, D) LayerNorm, float statistics: the variance in two
@@ -170,25 +226,27 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     check("x", x, x)
     check("ln weight", weight, x, (d,), dtype=False)
     check("ln bias", bias, weight, (d,))
+    plan = layernorm_plan(m, d, _sms(x.device), x.dtype, False)
     y = torch.empty_like(x)
     _launch("layernorm_onepass" if onepass else "layernorm", x.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), m, d,
-            _DTYPES[x.dtype], _DTYPES[weight.dtype], eps)
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], plan.width, plan.grid,
+            eps)
     layernorm.launches += 1
     return y
 
 
 layernorm.launches = 0
+_ln_counters = {}  # device -> the LN backward's finish counters, zero
 
 
 def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
-                  dy=None, sub_dy: bool = False, eps: float = 1e-6,
-                  partials: bool = False):
+                  dy=None, sub_dy: bool = False, eps: float = 1e-6):
     """Backward of (M, D) LayerNorm from x, its scale and the float
     cotangent dyln of its output: (dx, dgamma, dbeta). dx = dy + the LN
     term, in x's dtype (sub_dy: T(T(dy + ·) − dy), the no-residual form);
-    dgamma and dbeta are float sums of the kernel's per-block partials (or,
-    with ``partials``, those (ceil(M/32), D) partials unsummed)."""
+    dgamma and dbeta are (D,) float sums, finished by the kernel in a fixed
+    order (``layernorm_plan``)."""
     m, d = x.shape
     check("x", x, x)
     check("ln weight", weight, x, (d,), dtype=False)
@@ -199,17 +257,24 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
         check("dy", dy, x, (m, d))
     elif sub_dy:
         raise ValueError("sub_dy needs dy")
+    sms = _sms(x.device)
+    plan = layernorm_plan(m, d, sms, x.dtype, True)
+    counters = _ln_counters.get(x.device)
+    if counters is None:
+        counters = _ln_counters[x.device] = torch.zeros(
+            1 + -(-sms * LN_BWD_CTAS // LN_FINISH_CTAS), device=x.device,
+            dtype=torch.int32)
     dx = torch.empty_like(x)
-    blocks = -(-m // 32)
-    dgp = torch.empty((blocks, d), device=x.device, dtype=torch.float32)
-    dbp = torch.empty_like(dgp)
+    # the partial rows, the finish groups' rows, then dgamma and dbeta
+    part = torch.empty((plan.partial_rows + plan.finish_groups + 1, 2, d),
+                       device=x.device, dtype=torch.float32)
     _launch("layernorm_bwd", x.data_ptr(), weight.data_ptr(), dyln.data_ptr(),
-            _ptr(dy), dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), m, d,
-            _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), eps)
+            _ptr(dy), dx.data_ptr(), part.data_ptr(), part[-1, 0].data_ptr(),
+            part[-1, 1].data_ptr(), counters.data_ptr(), m, d,
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), plan.width,
+            plan.grid, eps)
     layernorm_bwd.launches += 1
-    if partials:
-        return dx, dgp, dbp
-    return dx, dgp.sum(0), dbp.sum(0)
+    return dx, part[-1, 0], part[-1, 1]
 
 
 layernorm_bwd.launches = 0
@@ -297,6 +362,7 @@ def gemm_gelu_mode(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     return c
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

@@ -224,21 +224,26 @@ def test_attention_raises_past_512_keys(cuda):
                           scale=0.125)
 
 
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d,offset", [(33, 72, 30.0), (5, 76, 0.0),
-                                        (64, 256, 30.0), (16448, 1024, 0.0)])
-def test_layernorm_matches_plain(cuda, dtype, m, d, offset):
-    """Widths read in 16-byte vectors (72 in bf16, 256, 1024) and element by
-    element (76, 72 in float32), and a large mean (|mean| >> std), where the
-    two-pass statistics stay exact."""
+@pytest.mark.parametrize("m,d,offset", [
+    (33, 72, 30.0), (5, 76, 0.0), (64, 256, 30.0), (16384, 256, 0.0),
+    (7, 768, 30.0), (25344, 768, 0.0), (3, 1024, 30.0), (16448, 1024, 0.0)])
+def test_layernorm_matches_plain(cuda, dtype, wdtype, m, d, offset):
+    """The width classes 256, 768 and 1024 (and 72 in a class, masked),
+    the generic kernel (76 in bf16), fewer rows than the grid, scale and
+    shift in float32 or bf16, and a large mean (|mean| >> std), where the
+    two-pass statistics stay exact; a rerun is bit-identical."""
     g = torch.Generator(device="cuda").manual_seed(m + d)
     x = (torch.randn(m, d, device=cuda, generator=g) + offset).to(dtype)
-    w = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
-    b = 0.05 * torch.randn(d, device=cuda, generator=g)
-    want = F.layer_norm(x.float(), (d,), w, b, 1e-6)
+    w = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(wdtype)
+    b = (0.05 * torch.randn(d, device=cuda, generator=g)).to(wdtype)
+    want = F.layer_norm(x.float(), (d,), w.float(), b.float(), 1e-6)
     # one bf16 step of the O(1) output, or float32 sums in another order
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
-    assert _max_err(runtime.layernorm(x, w, b), want) <= atol
+    got = runtime.layernorm(x, w, b)
+    assert _max_err(got, want) <= atol
+    assert torch.equal(got, runtime.layernorm(x, w, b))
 
 
 # ---------------------------------------------------------------- backward
@@ -330,20 +335,33 @@ def test_block_attention_kernels_match_plain(cuda, dtype, b, n, h, dh):
     _check_grads([out, dqkv], [want, want_d], dtype)
 
 
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d,sub", [(33, 72, False), (65, 256, True),
-                                     (25344, 768, False)])
-def test_layernorm_backward_matches_plain(cuda, dtype, m, d, sub):
+@pytest.mark.parametrize("m,d,sub,with_dy,offset", [
+    (33, 72, False, True, 3.0), (7, 76, False, False, 30.0),
+    (65, 256, True, True, 3.0), (65536, 256, False, True, 0.0),
+    (25344, 768, False, True, 3.0), (16448, 768, True, True, 0.0),
+    (5, 1024, False, False, 30.0), (16448, 1024, False, True, 0.0)])
+def test_layernorm_backward_matches_plain(cuda, dtype, wdtype, m, d, sub,
+                                          with_dy, offset):
+    """dx, dgamma and dbeta (finished on the card) at the width classes
+    and the generic kernel (76), fewer rows than the grid, the scale in
+    bf16, no residual cotangent, a large mean; a rerun is bit-identical."""
     g = torch.Generator(device="cuda").manual_seed(m + d)
-    x = (torch.randn(m, d, device=cuda, generator=g) + 3.0).to(dtype)
-    w = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    x = (torch.randn(m, d, device=cuda, generator=g) + offset).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(wdtype)
     dyln = torch.randn(m, d, device=cuda, generator=g)
     dy = torch.randn(m, d, device=cuda, generator=g).to(dtype)
-    dx, dgamma, dbeta = runtime.layernorm_bwd(x, w, dyln, dy, sub_dy=sub)
-    want_dx, want_g, want_b = ba.ln_bwd_ref(x.float(), dyln, w, dy.float())
+    dy = dy if with_dy else None
+    got = runtime.layernorm_bwd(x, w, dyln, dy, sub_dy=sub)
+    again = runtime.layernorm_bwd(x, w, dyln, dy, sub_dy=sub)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want_dx, want_g, want_b = ba.ln_bwd_ref(
+        x.float(), dyln, w.float(),
+        dy.float() if with_dy else torch.zeros_like(dyln))
     if sub:
         want_dx = want_dx.to(dtype).float() - dy.float()
-    _check_grads([dx, dgamma, dbeta], [want_dx, want_g, want_b], dtype)
+    _check_grads(got, [want_dx, want_g, want_b], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
