@@ -7,7 +7,9 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. build: compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
    source, in parallel) and prints each kernel's registers and shared memory;
-   prints the card's name and power limit. The attention forward
+   prints the card's name and power limit; builds the data path's host
+   library (csrc/fastops.cpp, the host compiler) beside them and prints the
+   compiler, its flags, the build time and the host's CPU. The attention forward
    (csrc/attention_fwd.cuh, in attention.cu and flash_attention.cu) must not
    spill nor have its wgmma serialized, and its libraries' SASS must hold
    HGMMA and no mma.sync forward; so must the ping-pong GEMM
@@ -51,9 +53,18 @@ Phases, each of which must pass (any failure exits non-zero):
    step, launch counts, ms/step, a profile).
 6. seg: segmentation tuning (configs/seg_200e_convnext.yaml, MIRAGE-Base
    at 1025 tokens with the ConvNeXt head) through run_seg_tuning.main on a
-   seeded synthetic dataset, then the bare train step at batch 4: kernel
-   step vs plain step, exact launch counts per step and per eval forward,
-   ms/step, peak memory and a profile.
+   seeded synthetic dataset, then --test on checkpoint-best (a 496 × 512
+   test split of two volumes of two slices: the PNG export, exact
+   launches), run_seg_eval on the export (the AROI layers/lesions CSVs,
+   Dice and IoU in [0, 1]) and --infer_only skipping the finished export;
+   the exported PNGs against the argmax of the same forward taken from the
+   model, its logits against the plain path's (rel-L2 3e-2); the bare
+   train step at batch 4: kernel step vs plain step, exact launch counts
+   per step and per eval forward, ms/step, peak memory and a profile; then
+   --output_adapter linear, segmenter and dpt through the entry point (2
+   steps and a validation pass each, exact launches), and the Segmenter's
+   step (its blocks take B8 and B2/B5) kernel vs plain, with its launches
+   per step and per eval forward.
 7. cls: classification tuning (MIRAGE-Base at 257 tokens, the global
    pool, batch 64) through run_cls_tuning.main on a seeded synthetic class
    folder with seeded MIRAGE-Base weights, then the bare step three ways
@@ -92,7 +103,11 @@ Phases, each of which must pass (any failure exits non-zero):
    the pixel-space loss against the token-space loss on one loader batch
    (relative 1e-3), the wall time a step and the loader's share of it
    beside phase 5's bare step, and the peak memory of one step with and
-   without --remat.
+   without --remat. One sample's read and augmentation split into stages
+   (read, each task's affine warp, the resizes, the rest), through the host
+   library and through the plain versions on the same samples and seeds,
+   which must agree (images within 1e-5, label maps at 99.5 % of pixels),
+   and the 8-worker loader's interval a batch of 256.
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -405,6 +420,12 @@ def phase_build():
     report = _build.build(force=True)
     log(f"[build] nvcc {len(report)} sources in "
         f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}")
+    # the host library of the data path (csrc/fastops.cpp), beside them
+    t0 = time.perf_counter()
+    lib = _build.build_host(force=True)
+    log(f"[build] host library {lib.name}: {_build.host_compiler()} "
+        f"{' '.join(_build.HOST_FLAGS)} -shared in "
+        f"{time.perf_counter() - t0:.1f}s; host {host_line()}")
     for name, text in report.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -3754,25 +3775,60 @@ SEG_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
                 "fused_adamw": 0}
 SEG_PER_EVAL = {**{k: 0 for k in SEG_PER_STEP}, "flash_attention": 12,
                 "mlp_block": 16}
+# the test split: volumes of slices named {scan}_{slice}, at a size that is
+# not 1024² (the eval's nearest resize of the predictions runs)
+SEG_TEST_VOLUMES, SEG_TEST_SLICES, SEG_TEST_HW = 2, 2, (496, 512)
+SEG_CLASSES = 8
+# the other heads' launches per train step and per eval forward: the
+# encoder's (its MLP plain in training at drop-path 0.1, B2 in eval) and,
+# for the Segmenter, two 768-wide blocks over 1024 + 8 tokens: B8 each,
+# block 0's MLP (drop-path statically 0) B2 with B5's backward, block 1's
+# (0.1) the plain MLP in training and B2 in eval
+_SEG_ZERO = {k: 0 for k in SEG_PER_STEP}
+_ENC_STEP = {**_SEG_ZERO, "flash_attention": 12, "flash_attention_bwd": 12,
+             "flash_bwd": 12}
+_ENC_EVAL = {**_SEG_ZERO, "flash_attention": 12, "mlp_block": 12}
+SEG_HEADS = {
+    "linear": (_ENC_STEP, _ENC_EVAL),
+    "segmenter": ({**_ENC_STEP, "flash_attention": 14,
+                   "flash_attention_bwd": 14, "flash_bwd": 14,
+                   "mlp_block": 1, "mlp_block_bwd": 1},
+                  {**_ENC_EVAL, "flash_attention": 14, "mlp_block": 14}),
+    "dpt": (_ENC_STEP, _ENC_EVAL)}
 
 
 def _seg_dataset(root, rng, n_train=SEG_TRAIN, n_val=SEG_VAL, size=1024,
-                 classes=8):
+                 classes=SEG_CLASSES):
     """Seeded B-scans in [0, 1] and banded label maps (each image split
     into `classes` horizontal bands at random heights), as .npy in the
-    folder layout of data/folder.py, and INFO.json (label 0 background)."""
+    folder layout of data/folder.py, and INFO.json (label 0 background);
+    the test split's B-scans as .npy and its labels as PNGs at SEG_TEST_HW,
+    named {scan}_{slice} for run_seg_eval's volumes."""
     import numpy as np
+    from PIL import Image
 
-    for split, n in (("train", n_train), ("val", n_val)):
+    def sample(h, w):
+        cuts = np.sort(rng.choice(np.arange(1, h), classes - 1,
+                                  replace=False))
+        lab = np.searchsorted(cuts, np.arange(h), side="right")
+        lab = np.repeat(lab[:, None], w, axis=1).astype(np.uint8)
+        img = 0.5 * rng.random((h, w), dtype=np.float32) \
+            + lab.astype(np.float32) / (2 * classes)
+        return img, lab
+
+    for split, n in (("train", n_train), ("val", n_val), ("test", None)):
         for task in ("bscan", "semseg"):
             (root / split / task).mkdir(parents=True, exist_ok=True)
+        if split == "test":
+            for v in range(SEG_TEST_VOLUMES):
+                for sl in range(SEG_TEST_SLICES):
+                    img, lab = sample(*SEG_TEST_HW)
+                    np.save(root / split / "bscan" / f"scan{v}_{sl}.npy", img)
+                    Image.fromarray(lab).save(
+                        root / split / "semseg" / f"scan{v}_{sl}.png")
+            continue
         for i in range(n):
-            cuts = np.sort(rng.choice(np.arange(1, size), classes - 1,
-                                      replace=False))
-            lab = np.searchsorted(cuts, np.arange(size), side="right")
-            lab = np.repeat(lab[:, None], size, axis=1).astype(np.uint8)
-            img = 0.5 * rng.random((size, size), dtype=np.float32) \
-                + lab.astype(np.float32) / (2 * classes)
+            img, lab = sample(size, size)
             np.save(root / split / "bscan" / f"s{i:03d}.npy", img)
             np.save(root / split / "semseg" / f"s{i:03d}.npy", lab)
     info = {str(k): {"label": "background" if k == 0 else f"layer{k}",
@@ -3786,17 +3842,30 @@ def phase_seg(workdir, card):
     freeze, the ConvNeXt head (6144 / 16 -> 384 channels at 128², depth 4),
     CE + GDice, batch 4, AdamW with layer decay 0.75) through its entry
     point run_seg_tuning.main on a seeded synthetic dataset and seeded
-    random MIRAGE-Base weights; then the bare train step: kernel step vs
-    plain step, exact launch counts, ms/step and a profile."""
+    random MIRAGE-Base weights; then --test on checkpoint-best (the test
+    split's PNG export, exact launches), run_seg_eval on the export (the
+    layers/lesions CSVs), --infer_only finding the export and skipping; the
+    export against the LUT of the argmax of the same forward taken from the
+    model, its logits against the plain path's; the bare train step:
+    kernel step vs plain step, exact launch counts, ms/step and a profile;
+    then --output_adapter linear, segmenter and dpt through the entry point
+    (2 steps and a validation pass each, exact launches), and the
+    Segmenter's step kernel vs plain with its launches per step and per
+    eval forward."""
+    import shutil
+
     import numpy as np
     import torch
+    from PIL import Image
 
     from mirage_tpu_torch.api.wrapper import build_model as build_pretrain
+    from mirage_tpu_torch.cli import run_seg_eval
     from mirage_tpu_torch.cli import run_seg_tuning as rst
     from mirage_tpu_torch.cli.config import parse_with_yaml
     from mirage_tpu_torch.data.augment import SemSegTransform
     from mirage_tpu_torch.data.folder import MultiTaskImageFolder
     from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.steps import init_train_state, make_train_step
 
     counters = _launch_counters()
@@ -3810,6 +3879,7 @@ def phase_seg(workdir, card):
 
     t0 = time.perf_counter()
     root = workdir / "seg"
+    shutil.rmtree(root, ignore_errors=True)  # a finished run would skip
     data = root / "AROI"
     _seg_dataset(data, np.random.default_rng(SEED))
     domains = ["bscan", "slo", "bscanlayermap"]
@@ -3853,11 +3923,82 @@ def phase_seg(workdir, card):
         raise AssertionError(f"seg tuning launches {cli_counts} != "
                              f"{want_cli}")
 
+    # 1b. --test on checkpoint-best: one eval forward a batch of the test
+    # split, a PNG a slice; run_seg_eval on them; --infer_only then skips
+    run_dir = Path(out["output_dir"])
+    n_test = SEG_TEST_VOLUMES * SEG_TEST_SLICES
+    reset()
+    t5 = time.perf_counter()
+    test_stats = rst.main(argv + ["--test"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t5
+    test_counts = read()
+    want_test = {k: -(-n_test // SEG_BATCH) * v
+                 for k, v in SEG_PER_EVAL.items()}
+    pngs = sorted(p.name for p in (run_dir / "preds").iterdir())
+    log(f"[seg] --test: {test_stats} in {test_s:.1f}s; {len(pngs)} PNGs; "
+        f"launches {test_counts}, expected {want_test}")
+    if test_counts != want_test or pngs != sorted(
+            f"scan{v}_{sl}.png" for v in range(SEG_TEST_VOLUMES)
+            for sl in range(SEG_TEST_SLICES)):
+        raise AssertionError(f"--test: launches {test_counts}, PNGs {pngs}")
+    t6 = time.perf_counter()
+    rows = run_seg_eval.main(["-d", str(root), "-m", str(run_dir)])
+    eval_s = time.perf_counter() - t6
+    csv_rows = sum(len(list(open(run_dir / f"results_{part}.csv"))) - 1
+                   for part in ("layers", "lesions"))
+    scores = [r[k] for r in rows for k in ("Dice", "IoU")]
+    log(f"[seg] run_seg_eval in {eval_s:.1f}s: {csv_rows} CSV rows, mean "
+        f"Dice {np.mean([r['Dice'] for r in rows]):.4f}, IoU "
+        f"{np.mean([r['IoU'] for r in rows]):.4f}")
+    if not (csv_rows == len(rows) == SEG_TEST_VOLUMES * (SEG_CLASSES - 1)
+            and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores)):
+        raise AssertionError(f"run_seg_eval: {csv_rows} CSV rows, {rows}")
+    t7 = time.perf_counter()
+    if rst.main(argv + ["--test", "--infer_only"]) is not None:
+        raise AssertionError("--infer_only did not skip a finished export")
+    skip_s = time.perf_counter() - t7
+
     # 2. the bare step, built as the entry point builds it
     args = rst.process_args(parse_with_yaml(rst.get_parser(), argv))
     _, model, opt, _, loss_fn = rst.setup(args, torch.device("cuda"))
     state = init_train_state(model, opt)
     step = make_train_step(loss_fn, opt)
+
+    # the export against the same forward taken from the model (the best
+    # checkpoint, the test split's one batch as the CLI's loader makes it),
+    # its logits against the plain path's; the export's own time
+    ckpt.load_best_checkpoint(args.output_dir, state)
+    test_ds = MultiTaskImageFolder(str(data / "test"), args.all_domains,
+                                   mapping=args.mapping,
+                                   transform=SemSegTransform(False, 1024))
+    items = [test_ds[i] for i in range(len(test_ds))]
+    x = torch.from_numpy(np.stack([it[0]["bscan"] for it in items])).cuda()
+    with torch.no_grad():
+        logits_k = model.forward_light({"bscan": x})["semseg"].float()
+        with runtime.plain_on_card():
+            logits_p = model.forward_light({"bscan": x})["semseg"].float()
+    logits_rel = ((logits_k - logits_p).norm() / logits_p.norm()).item()
+    lut = np.zeros(args.num_classes, np.uint8)
+    for idx, value in args.inverse_mapping.items():
+        lut[idx] = value
+    pred = lut[logits_k.argmax(1).cpu().numpy()]
+    same = [np.array_equal(np.asarray(Image.open(
+        run_dir / "preds" / f"{it[2]}.png")), p) for it, p in zip(items, pred)]
+    export_dir = root / "export_timing"
+    export_dir.mkdir()
+    t8 = time.perf_counter()
+    for it, p in zip(items, pred):
+        Image.fromarray(p).save(export_dir / f"{it[2]}.png")
+    export_s = time.perf_counter() - t8
+    log(f"[seg] the export against the model's own forward: {same}; "
+        f"logits against the plain path's rel-L2 {logits_rel:.3e} (bar "
+        f"{MODEL_REL_L2}); wall s: test pass {test_s:.2f} (its {n_test} "
+        f"PNGs written in {export_s:.3f}), run_seg_eval {eval_s:.2f}, the "
+        f"--infer_only skip {skip_s:.2f}")
+    if not all(same) or not logits_rel <= MODEL_REL_L2:
+        raise AssertionError(f"exported PNGs {same}, logits rel-L2 "
+                             f"{logits_rel}")
     ds = MultiTaskImageFolder(str(args.train_data_path), args.all_domains,
                               mapping=args.mapping,
                               transform=SemSegTransform(True, 1024))
@@ -3932,11 +4073,112 @@ def phase_seg(workdir, card):
     b = batch["bscan"].shape[0]
     log(f"[seg] batch {b}: {dt * 1e3:.2f} ms/step, {b / dt:.2f} img/s, peak "
         f"memory {peak:.1f} GiB, on {card}")
+    del state, step, model, opt, loss_fn
+
+    # 3. the other heads through the entry point: 2 steps and the
+    # validation pass each
+    t9 = time.perf_counter()
+    heads = {}
+    for head, (per_step, per_eval) in SEG_HEADS.items():
+        hargv = argv + ["--output_adapter", head]
+        reset()
+        t = time.perf_counter()
+        res = rst.main(hargv)
+        torch.cuda.synchronize()
+        counts = read()
+        want = {k: steps * per_step[k] + evals * per_eval[k]
+                for k in SEG_PER_STEP}
+        heads[head] = {"seconds": time.perf_counter() - t, "counts": counts,
+                       "loss": res["last_epoch"].get("train/loss"),
+                       "val": {k: v for k, v in res["last_epoch"].items()
+                               if k.startswith("val/")}}
+        log(f"[seg] --output_adapter {head}: {heads[head]}, expected "
+            f"launches {want}")
+        if counts != want or not np.isfinite(heads[head]["loss"]):
+            raise AssertionError(f"{head} head: launches {counts} != {want} "
+                                 f"or loss {heads[head]['loss']}")
+
+    # the Segmenter's blocks take the kernels: its step kernel vs plain,
+    # and its launches per train step and per eval forward
+    sargs = rst.process_args(parse_with_yaml(
+        rst.get_parser(), argv + ["--output_adapter", "segmenter"]))
+    _, smodel, sopt, _, sloss = rst.setup(sargs, torch.device("cuda"))
+    sstate = init_train_state(smodel, sopt)
+    snames = [n for n, p in sstate["params"].items() if p.requires_grad]
+    shead = smodel.output_adapters["semseg"]
+
+    def seg_loss_and_grads():
+        loss, _ = sloss(batch, generator=rst.step_generator(SEED, 0, "cuda"))
+        return loss.detach(), torch.autograd.grad(
+            loss, [sstate["params"][n] for n in snames])
+
+    def seg_agreement():
+        """The kernel step against the plain step (bf16), and each against
+        the plain step in float32."""
+        runs = {"kernel": seg_loss_and_grads()}
+        with runtime.plain_on_card():
+            runs["plain"] = seg_loss_and_grads()
+            smodel.compute_dtype = torch.float32
+            runs["f32"] = seg_loss_and_grads()
+            smodel.compute_dtype = torch.bfloat16
+        return {f"{a} vs {b}": _agreement(*runs[a], *runs[b], snames)
+                for a, b in (("kernel", "plain"), ("kernel", "f32"),
+                             ("plain", "f32"))}
+
+    # At the init's class embeddings (trunc-normal 0.02) a patch's class
+    # scores differ by ~1e-3 and mask_norm's LN over them magnifies bf16
+    # rounding: the plain bf16 step alone then misses float32 by more than
+    # the bars. Reported, then held to the bars with the class embeddings
+    # redrawn at the RMS of the projected patch tokens they are compared
+    # with (the scale a trained head's class tokens take).
+    seg_init = seg_agreement()
+    with torch.no_grad():
+        enc = smodel.encoder(smodel.process_input(
+            {"bscan": batch["bscan"]})[0])
+        rms = shead.proj_dec(enc[:, :-smodel.num_global_tokens].to(
+            torch.float32)).pow(2).mean().sqrt().item()
+        shead.cls_emb.normal_(0.0, rms, generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+    del enc
+    seg_agree = seg_agreement()
+    log(f"[seg] Segmenter head, one step (bf16, card, same drop-path "
+        f"draws), at the init's class embeddings: {seg_init}; with them "
+        f"at the projected tokens' RMS {rms:.4f}: {seg_agree}")
+    kp = seg_agree["kernel vs plain"]
+    if not (kp["loss_rel"] <= TRAIN_LOSS_REL
+            and kp["worst_leaf_rel_l2"] <= TRAIN_LEAF_REL):
+        raise AssertionError(f"Segmenter kernel step disagrees with the "
+                             f"plain step: {kp}")
+    sstep = make_train_step(sloss, sopt)
+    reset()
+    sstate, _ = sstep(sstate, batch, rst.step_generator(SEED, 1, "cuda"), lr)
+    torch.cuda.synchronize()
+    seg_step_counts = read()
+    reset()
+    with torch.no_grad():
+        smodel.forward_light({"bscan": batch["bscan"]})
+    torch.cuda.synchronize()
+    seg_eval_counts = read()
+    log(f"[seg] Segmenter launches a step {seg_step_counts}, an eval "
+        f"forward {seg_eval_counts}; the heads' part of the phase "
+        f"{time.perf_counter() - t9:.1f}s")
+    if (seg_step_counts, seg_eval_counts) != SEG_HEADS["segmenter"]:
+        raise AssertionError(f"Segmenter launches: step {seg_step_counts}, "
+                             f"eval {seg_eval_counts}")
+    del sstate, smodel, sopt, sloss, sstep
     return {"batch": b, "ms_per_step": dt * 1e3, "img_per_s": b / dt,
             "peak_gib": peak, "agreement": agree, "cli": out,
             "cli_seconds": cli_s, "cli_counts": cli_counts,
             "eval_counts": eval_counts, "step_counts": step_counts,
-            "losses": losses, "profile": prof, "card": card}
+            "losses": losses, "profile": prof, "card": card,
+            "test": {"stats": test_stats, "counts": test_counts,
+                     "seconds": test_s, "export_seconds": export_s,
+                     "eval_seconds": eval_s, "infer_only_skip_s": skip_s,
+                     "logits_rel_l2": logits_rel, "csv_rows": csv_rows},
+            "heads": heads, "segmenter_agreement": seg_agree,
+            "segmenter_agreement_at_init": seg_init,
+            "segmenter_counts": {"step": seg_step_counts,
+                                 "eval": seg_eval_counts}}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -4485,6 +4727,104 @@ def _pretrain_dataset(root, rng, n):
                     rng.integers(0, high, (size, size), dtype=np.uint8))
 
 
+# the library's bilinear output against its plain version (float32 sums in
+# another order), and the share of nearest-warped label pixels that must
+# agree (scipy rounds the .5 boundary its own way): tests/test_native.py's
+# bars for the JAX package's library
+SPLIT_ATOL = 1e-5
+SPLIT_LABELS = 0.995
+
+
+def host_line():
+    """The host's CPU (its model name, or where the machine reports it as
+    unknown its vendor, family and model numbers) and core count: the
+    loader's numbers depend on them, not on the card."""
+    import os
+
+    info = {}
+    for ln in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = ln.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    model = info.get("model name", "unknown")
+    if model == "unknown":
+        model = (f"{info.get('vendor_id', '?')} family "
+                 f"{info.get('cpu family', '?')} model "
+                 f"{info.get('model', '?')}")
+    return f"{model}, os.cpu_count() {os.cpu_count()}"
+
+
+def sample_split(ds, aug, n=16):
+    """One sample's read and augmentation split into its stages (the read,
+    the affine warp of each task, the resizes, the rest: flip, intensity
+    shift, clip and the dtype conversion), ms on one thread, through the
+    host library and through the plain versions (``resize_np_ref``,
+    ``affine_warp_ref``) on the same n samples and seeds. The stages are
+    timed by wrapping the module's ``affine_warp`` and ``resize_np`` around
+    the real ``PretrainAugment`` call, after one warm-up sample of each
+    path. Fails unless the two paths agree:
+    images within SPLIT_ATOL, label maps at SPLIT_LABELS of their pixels."""
+    import numpy as np
+
+    from mirage_tpu_torch.data import augment as A
+
+    impl = {"library": (A.affine_warp, A.resize_np),
+            "plain": (A.affine_warp_ref, A.resize_np_ref)}
+    saved = (A.affine_warp, A.resize_np)
+    stages = {p: {} for p in impl}
+    outs = {p: [] for p in impl}
+
+    def timed(fn, calls):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            calls.append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    for path in impl:  # warm-up: imports, the library's build and load
+        A.affine_warp, A.resize_np = impl[path]
+        aug(ds.load_raw(0)[0], np.random.default_rng(0))
+    try:
+        for i in range(n):
+            t = time.perf_counter()
+            raw, _ = ds.load_raw(i)
+            read_s = time.perf_counter() - t
+            for path in impl:
+                warps, resizes = [], []
+                A.affine_warp = timed(impl[path][0], warps)
+                A.resize_np = timed(impl[path][1], resizes)
+                t = time.perf_counter()
+                outs[path].append(aug({k: v.copy() for k, v in raw.items()},
+                                      np.random.default_rng(i)))
+                total = time.perf_counter() - t
+                st = stages[path]
+                st["read"] = st.get("read", 0.0) + read_s
+                for task, w in zip(raw, warps):
+                    st[f"warp {task}"] = st.get(f"warp {task}", 0.0) + w
+                st["resize"] = st.get("resize", 0.0) + sum(resizes)
+                st["rest"] = st.get("rest", 0.0) + total - sum(warps) \
+                    - sum(resizes)
+    finally:
+        A.affine_warp, A.resize_np = saved
+    ms = {p: {k: v / n * 1e3 for k, v in st.items()}
+          for p, st in stages.items()}
+    for p in ms:
+        ms[p]["sample"] = sum(ms[p].values())
+    err, same = 0.0, []
+    for a, b in zip(outs["library"], outs["plain"]):
+        for task in a:
+            if np.issubdtype(a[task].dtype, np.integer):
+                same.append(float((a[task] == b[task]).mean()))
+            else:
+                err = max(err, float(np.abs(a[task] - b[task]).max()))
+    agree = {"max_abs": err, "labels_equal_min": min(same)}
+    if not (err <= SPLIT_ATOL and min(same) >= SPLIT_LABELS):
+        raise AssertionError(f"the host library against the plain "
+                             f"augmentation: {agree} (bars {SPLIT_ATOL}, "
+                             f"{SPLIT_LABELS})")
+    return {"ms": ms, "agreement": agree, "samples": n, "host": host_line()}
+
+
 def phase_pretrain(workdir, card, bare=None):
     """The pretraining entry point, run_pretraining.main, with
     configs/pretrain_mirage_98_1600e.yaml (ViT-B MultiMAE: 768 wide, 12
@@ -4605,6 +4945,17 @@ def phase_pretrain(workdir, card, bare=None):
     for i in range(16):
         ds[(i, np.random.default_rng(i))]
     sample_ms = (time.perf_counter() - t2) / 16 * 1e3
+    # one sample's stages through the host library and the plain versions
+    split = sample_split(ds, aug)
+    log(f"[pretrain] one sample's read and augmentation by stage, ms on one "
+        f"thread (library, then plain): {split}")
+    # the 8-worker loader's rate over every sample, in batches of 32 so
+    # that all 8 workers are busy: the interval of a 256-sample batch
+    loader = DataLoader(ds, 32, num_workers=8, seed=SEED)
+    t3 = time.perf_counter()
+    for _ in loader:
+        pass
+    interval_s = (time.perf_counter() - t3) / len(ds) * args.batch_size
     loader = DataLoader(ds, args.batch_size, shuffle=True, drop_last=True,
                         num_workers=8, seed=SEED)
     t3 = time.perf_counter()
@@ -4701,6 +5052,7 @@ def phase_pretrain(workdir, card, bare=None):
               "wait_ms": [t * 1e3 for e in (1, 2)
                           for t in runs[e]["wait_s"]],
               "first_batch_wait_s": firsts, "sample_ms_one_thread": sample_ms,
+              "sample_split": split, "batch_interval_s_8_workers": interval_s,
               "loader_epoch_s": epoch_s, "batch_copy_ms": copy_ms,
               "bare_step_ms": bare["ms_per_step"] if bare else None}
     log(f"[pretrain] the CLI's step: {wall_ms:.2f} ms (host clock, each "
@@ -4709,7 +5061,9 @@ def phase_pretrain(workdir, card, bare=None):
         f"{ready_ms:.2f} ms without the wait (the batch's copy to the card "
         f"alone {copy_ms:.2f} ms); the "
         f"first step of each run waited {firsts} s; one sample's read and "
-        f"augmentation {sample_ms:.1f} ms on one thread; an epoch of "
+        f"augmentation {sample_ms:.1f} ms on one thread; the 8-worker "
+        f"loader gives a batch of {args.batch_size} every {interval_s:.2f} "
+        f"s; an epoch of "
         f"{PRETRAIN_SAMPLES // args.batch_size} batches from the 8-worker "
         f"loader {epoch_s:.2f} s; phase 5's bare step "
         f"{timing['bare_step_ms']} ms; on {card}")

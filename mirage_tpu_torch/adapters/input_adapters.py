@@ -4,8 +4,12 @@ Counterparts of ``mirage_tpu/adapters/input_adapters.py``:
 
 - ``PatchedInputAdapter``: patch projection (reshape + matmul) plus a
   bicubic-resized 2-D sin-cos positional embedding.
-- ``SemSegInputAdapter``: class-embedding lookup, then patch projection,
-  plus a bilinear-resized positional embedding.
+- ``SemSegInputAdapter``: class-embedding lookup, then patch projection
+  (or, with ``interpolate_class_emb``, a bilinear downsampling of the
+  embedded map by the patch size and a 1×1 projection), plus a
+  bilinear-resized positional embedding. ``emb_padding_idx`` adds one
+  class whose embedding row starts at zero (a semseg input domain of
+  downstream tuning, reference input_adapters.py:157-158).
 
 As in the reference, an adapter is configured first and given its token
 width by the model (``init(dim_tokens)``), which creates its parameters.
@@ -93,17 +97,22 @@ class SemSegInputAdapter(_Patched):
                  interpolate_class_emb=False,
                  emb_padding_idx: Optional[int] = None):
         super().__init__(stride_level, patch_size_full, image_size)
-        if interpolate_class_emb or emb_padding_idx is not None:
-            raise NotImplementedError(
-                "interpolate_class_emb / emb_padding_idx are not ported yet "
-                "(ROADMAP queue A)")
         self.num_classes = num_classes
         self.dim_class_emb = dim_class_emb
+        self.interpolate_class_emb = interpolate_class_emb
+        self.emb_padding_idx = emb_padding_idx
+
+    @property
+    def effective_num_classes(self):
+        return self.num_classes + (self.emb_padding_idx is not None)
 
     def init(self, dim_tokens):
         self._init_pos_emb(dim_tokens)
-        self.class_emb = Embedding(self.num_classes, self.dim_class_emb)
-        self.proj = PatchProj(self.dim_class_emb, dim_tokens, *self.patch_hw)
+        self.class_emb = Embedding(self.effective_num_classes,
+                                   self.dim_class_emb,
+                                   zero_row=self.emb_padding_idx)
+        proj_hw = (1, 1) if self.interpolate_class_emb else self.patch_hw
+        self.proj = PatchProj(self.dim_class_emb, dim_tokens, *proj_hw)
         return self
 
     def forward(self, x, compute_dtype=None):
@@ -112,8 +121,14 @@ class SemSegInputAdapter(_Patched):
         emb = self.class_emb(x.long()).permute(0, 3, 1, 2)
         if compute_dtype is not None:
             emb = emb.to(compute_dtype)
+        pos = self._pos_tokens(nh, nw, "bilinear")
+        if self.interpolate_class_emb:
+            # torch Upsample(scale_factor=1/patch) then the 1×1 projection
+            # (reference input_adapters.py:194-200)
+            return patch_embed(resize2d(emb, (nh, nw), mode="bilinear"),
+                               self.proj.weight, self.proj.bias, 1, 1,
+                               pos_emb_tokens=pos,
+                               compute_dtype=compute_dtype)
         return patch_embed(emb, self.proj.weight, self.proj.bias,
-                           *self.patch_hw,
-                           pos_emb_tokens=self._pos_tokens(nh, nw, "bilinear"),
+                           *self.patch_hw, pos_emb_tokens=pos,
                            compute_dtype=compute_dtype)
-

@@ -10,8 +10,9 @@ The port's modules use the reference torch state-dict namespace:
   global_tokens
 
 so a reference ``.pth`` loads with ``load_state_dict(strict=True)``; the
-ConvNeXt segmentation head adds ``output_adapters.{task}.{proj_dec,
-blocks.{i}.{dwconv,norm,pwconv1,pwconv2}, final_layer}``.
+segmentation heads add their reference keys under
+``output_adapters.{task}`` (``adapters/seg_heads.py``: the ConvNeXt,
+linear, Segmenter and DPT heads).
 :func:`jax_params_to_state_dict` maps a ``mirage_tpu`` parameter pytree
 (given as numpy arrays) into that namespace, as
 ``mirage_tpu/api/convert.py:params_to_torch`` does. The segmentation
@@ -29,7 +30,9 @@ import numpy as np
 import torch
 
 from mirage_tpu_torch.adapters.input_adapters import SemSegInputAdapter
-from mirage_tpu_torch.adapters.seg_heads import ConvNeXtAdapter
+from mirage_tpu_torch.adapters.seg_heads import (
+    ConvNeXtAdapter, DPTOutputAdapter, LinearSegAdapter,
+    SegmenterMaskTransformerAdapter)
 from mirage_tpu_torch.adapters.spatial_output import SpatialOutputAdapter
 from mirage_tpu_torch.nn.resize import resize_matrix
 
@@ -155,12 +158,10 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
     for task, adapter in model.input_adapters.items():
         pre, p = f"input_adapters.{task}", params["input_adapters"][task]
         put(f"{pre}.pos_emb", p["pos_emb"])
-        ph, pw = adapter.patch_hw
         if isinstance(adapter, SemSegInputAdapter):
             put(f"{pre}.class_emb.weight", p["class_emb"])
-            put_conv(f"{pre}.proj", p["proj"], (adapter.dim_class_emb, ph, pw))
-        else:
-            put_conv(f"{pre}.proj", p["proj"], (adapter.num_channels, ph, pw))
+        put_conv(f"{pre}.proj", p["proj"],
+                 tuple(adapter.proj.weight.shape[1:]))
 
     def layer(tree, i):
         if isinstance(tree, Mapping):
@@ -171,13 +172,61 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
         put_block(f"encoder.{i}", layer(params["encoder"], i))
     put("global_tokens", params["global_tokens"])
 
-    def put_conv2d(prefix, p):
+    def put_conv2d(prefix, p):  # torch layout already, conv or transposed
         put(f"{prefix}.weight", p["w"])
         if "b" in p:
             put(f"{prefix}.bias", p["b"])
 
+    def put_bn(prefix, p):
+        put_ln(prefix, p)
+        put(f"{prefix}.running_mean", p["mean"])
+        put(f"{prefix}.running_var", p["var"])
+
+    def put_rcu(prefix, p):
+        for i in (1, 2):
+            put_conv2d(f"{prefix}.conv{i}", p[f"conv{i}"])
+            if f"bn{i}" in p:
+                put_bn(f"{prefix}.bn{i}", p[f"bn{i}"])
+
+    # inverse of each head's params_from_torch (mirage_tpu/adapters/
+    # seg_heads.py:227, :265, :345, :543)
     for task, adapter in (model.output_adapters or {}).items():
         pre, p = f"output_adapters.{task}", params["output_adapters"][task]
+        if isinstance(adapter, LinearSegAdapter):
+            put_conv2d(f"{pre}.final_layer", p["final_layer"])
+            continue
+        if isinstance(adapter, SegmenterMaskTransformerAdapter):
+            put(f"{pre}.cls_emb", p["cls_emb"])
+            put_linear(f"{pre}.proj_dec", p["proj_dec"])
+            for i, bp in enumerate(p["blocks"]):
+                put_block(f"{pre}.blocks.{i}", bp)
+            put_ln(f"{pre}.decoder_norm", p["decoder_norm"])
+            put_linear(f"{pre}.patch_proj", p["patch_proj"])
+            put_linear(f"{pre}.classes_proj", p["classes_proj"])
+            put_ln(f"{pre}.mask_norm", p["mask_norm"])
+            continue
+        if isinstance(adapter, DPTOutputAdapter):
+            for i, stage in enumerate(p["act_postprocess"]):
+                put_conv2d(f"{pre}.act_postprocess.{i}.0", stage["proj"])
+                if "resample" in stage:
+                    put_conv2d(f"{pre}.act_postprocess.{i}.1",
+                               stage["resample"])
+            for i in range(4):
+                put_conv2d(f"{pre}.scratch.layer{i + 1}_rn",
+                           p["layer_rn"][i])
+                rn, fp = f"{pre}.scratch.refinenet{i + 1}", p["refinenet"][i]
+                put_rcu(f"{rn}.resConfUnit1", fp["resConfUnit1"])
+                put_rcu(f"{rn}.resConfUnit2", fp["resConfUnit2"])
+                put_conv2d(f"{rn}.out_conv", fp["out_conv"])
+            head = p["head"]
+            names = ({"conv1": "0", "conv2": "4"}
+                     if adapter.head_type == "semseg"
+                     else {"conv1": "0", "conv2": "2", "conv3": "4"})
+            for name, idx in names.items():
+                put_conv2d(f"{pre}.head.{idx}", head[name])
+            if "bn" in head:
+                put_bn(f"{pre}.head.1", head["bn"])
+            continue
         if isinstance(adapter, ConvNeXtAdapter):
             # inverse of mirage_tpu/adapters/seg_heads.py:120-133, :227-233
             put_linear(f"{pre}.proj_dec", p["proj_dec"])

@@ -1,23 +1,28 @@
 """Segmentation tuning on the PyTorch/CUDA port.
 
 Counterpart of ``mirage_tpu/cli/run_seg_tuning.py`` (reference
-run_seg_tuning.py): a pretrained MIRAGE encoder with the ConvNeXt head, the
-reference freeze by default (encoder blocks frozen, the input adapters and
-global tokens trained through them), stochastic depth in the encoder, the
-CE / CE-ignore-background / CE+GDice losses, AdamW with layer-wise LR decay,
-a validation pass per epoch (mIoU, aAcc, mAcc) keeping the best checkpoint
-by mIoU, and resuming from the newest checkpoint.
+run_seg_tuning.py): a pretrained MIRAGE encoder with the ConvNeXt,
+Segmenter, DPT or linear head (``--output_adapter``), the reference freeze
+by default (encoder blocks frozen, the input adapters and global tokens
+trained through them), stochastic depth in the encoder, the CE /
+CE-ignore-background / CE+GDice losses, AdamW with layer-wise LR decay, a
+validation pass per epoch (mIoU, aAcc, mAcc, an input | prediction | GT
+panel in ``val_images/``) keeping the best checkpoint by mIoU, resuming
+from the newest checkpoint, then the test pass with the best checkpoint
+where a test split exists. ``--test`` runs only that pass: prediction PNGs
+(the class values of INFO.json) named ``{sid}.png`` in ``preds`` or
+``preds_{external}`` for ``run_seg_eval``; ``--infer_only`` exports without
+scoring and skips when every PNG is there.
 
 Usage:
   python -m mirage_tpu_torch.cli.run_seg_tuning -c configs/seg_200e_convnext.yaml \\
       --data_path /data/Segmentation/AROI --weights MIRAGE-Base.pth [--device cuda]
+  ... --test [--test_data_path /data/Segmentation/Duke_iAMD/test] [--infer_only]
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device cpu``
-runs the plain PyTorch path. The dataset is ``{data_path}/{train,val}/
+runs the plain PyTorch path. The dataset is ``{data_path}/{train,val,test}/
 {bscan,semseg}/...`` with matching file names and ``{data_path}/INFO.json``
-({"0": {"label": "background", "value": 0}, ...}). Not ported yet: the
-DPT, Segmenter and linear heads, prediction export (``--test``), the
-debug image panel and ``run_seg_eval``.
+({"0": {"label": "background", "value": 0}, ...}).
 """
 
 import argparse
@@ -77,11 +82,20 @@ def get_parser():
     p.add_argument("--learnable_pos_emb", default=False, type=str2bool)
     p.add_argument("--no_learnable_pos_emb", dest="learnable_pos_emb",
                    action="store_false")
+    p.add_argument("--remat", default=False, action="store_true",
+                   help="encoder activation checkpointing (full-FT memory)")
     p.add_argument("--weights", required=True, type=str)
     p.add_argument("--data_path", required=True, type=str)
+    p.add_argument("--test_data_path", default=None, type=str)
+    p.add_argument("--external", default=None, type=str,
+                   help="name of an external test dataset: predictions go "
+                        "to preds_{external} for run_seg_eval --external "
+                        "(set for a Duke_iAMD test path)")
     p.add_argument("--output_dir", default="./output/seg", type=str)
     p.add_argument("--version", default="v1", type=str)
     p.add_argument("--minmax", default=True, type=str2bool)
+    p.add_argument("--test", default=False, action="store_true")
+    p.add_argument("--infer_only", default=False, action="store_true")
     p.add_argument("--num_workers", default=8, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--dtype", default="bfloat16",
@@ -104,6 +118,13 @@ def process_args(args):
     args.dataset_name = args.data_path.stem
     args.train_data_path = args.data_path / "train"
     args.eval_data_path = args.data_path / "val"
+    if args.test and args.test_data_path is None:
+        args.test_data_path = args.data_path / "test"
+    # an AROI model tested on Duke iAMD (mirage_tpu/cli/run_seg_tuning.py:
+    # 106-113): preds_Duke_iAMD for run_seg_eval's class translator
+    if args.external is None and args.test and args.test_data_path \
+            is not None and "Duke_iAMD" in str(args.test_data_path):
+        args.external = "Duke_iAMD"
     with open(args.data_path / "INFO.json") as f:
         original = json.load(f)
     mapping = {}
@@ -113,6 +134,7 @@ def process_args(args):
             args.ignore_index = int(k)
         mapping[v["value"]] = int(k)
     args.mapping = mapping
+    args.inverse_mapping = {v: k for k, v in mapping.items()}
     args.num_classes = len(mapping)
     name = Path(args.weights).stem
     if args.freeze_encoder:
@@ -131,17 +153,16 @@ def process_args(args):
 
 
 def build_model(args, fm, dtype, generator):
-    """The MIRAGE light model with the seg head, initialised from
+    """The MIRAGE light model with the ``--output_adapter`` head (the head
+    factory of mirage_tpu/cli/run_seg_tuning.py:171-191), initialised from
     ``generator`` (a checkpoint then overlays it)."""
     from mirage_tpu_torch.adapters.input_adapters import (PatchedInputAdapter,
                                                           SemSegInputAdapter)
-    from mirage_tpu_torch.adapters.seg_heads import ConvNeXtAdapter
+    from mirage_tpu_torch.adapters.seg_heads import (
+        ConvNeXtAdapter, DPTOutputAdapter, LinearSegAdapter,
+        SegmenterMaskTransformerAdapter)
     from mirage_tpu_torch.models.mirage import model_factory
 
-    if args.output_adapter != "convnext":
-        raise NotImplementedError(
-            f"the {args.output_adapter} head is not ported yet (ROADMAP "
-            f"queue A); use --output_adapter convnext")
     conf = fm.domain_conf()
     inputs = {}
     for d in args.in_domains:
@@ -158,17 +179,30 @@ def build_model(args, fm, dtype, generator):
                 num_channels=c["channels"], stride_level=c["stride_level"],
                 patch_size_full=args.patch_size[d],
                 image_size=args.input_size[d])
+    model_name = args.model_override or fm.model
+    if model_name != "miragelight_base" and args.output_adapter == "dpt" \
+            and not args.model_override:
+        raise NotImplementedError("DPT head is configured for ViT-B only")
     main = args.in_domains[0]
-    head = ConvNeXtAdapter(
-        num_classes=args.num_classes, embed_dim=6144, preds_per_patch=16,
-        main_tasks=tuple(args.decoder_main_tasks.split("-")),
-        patch_size=args.patch_size[main], depth=4,
-        interpolate_mode=args.decoder_interpolate_mode, task="semseg",
-        image_size=args.input_size[main])
-    return model_factory[args.model_override or fm.model](
-        inputs, {"semseg": head}, num_global_tokens=args.num_global_tokens,
+    main_tasks = tuple(args.decoder_main_tasks.split("-"))
+    common = dict(num_classes=args.num_classes, main_tasks=main_tasks,
+                  patch_size=args.patch_size[main], task="semseg",
+                  image_size=args.input_size[main])
+    mode = args.decoder_interpolate_mode
+    heads = {
+        "segmenter": lambda: SegmenterMaskTransformerAdapter(
+            embed_dim=768, **common),
+        "convnext": lambda: ConvNeXtAdapter(
+            embed_dim=6144, preds_per_patch=16, depth=4,
+            interpolate_mode=mode, **common),
+        "dpt": lambda: DPTOutputAdapter(stride_level=1, head_type="semseg",
+                                        **common),
+        "linear": lambda: LinearSegAdapter(interpolate_mode=mode, **common)}
+    return model_factory[model_name](
+        inputs, {"semseg": heads[args.output_adapter]()},
+        num_global_tokens=args.num_global_tokens,
         drop_path_rate=args.drop_path_encoder, compute_dtype=dtype,
-        generator=generator)
+        remat=args.remat, generator=generator)
 
 
 def make_criterion(args):
@@ -185,17 +219,25 @@ def make_criterion(args):
     return ce_gdice_loss
 
 
-def setup(args, device):
-    """The model (seg head, pretrained weights overlaid, on ``device``), the
-    optimizer, the criterion and the loss function of a run: (fm, model,
-    optimizer, criterion, loss_fn)."""
+def pick_seg_fm(args):
+    """The foundation-model config the weights' file name picks, with the
+    min-max norm under ``--minmax``."""
     from mirage_tpu_torch.api.fm_configs import pick_fm, seg_fm_factory
-    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
-    from mirage_tpu_torch.train.steps import make_seg_loss
 
     fm = pick_fm(seg_fm_factory, args.weights)
     if args.minmax:
         fm.norm = "minmax"
+    return fm
+
+
+def setup(args, device):
+    """The model (seg head, pretrained weights overlaid, on ``device``), the
+    optimizer, the criterion and the loss function of a run: (fm, model,
+    optimizer, criterion, loss_fn)."""
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+    from mirage_tpu_torch.train.steps import make_seg_loss
+
+    fm = pick_seg_fm(args)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = build_model(args, fm, dtype,
                         torch.Generator().manual_seed(args.seed))
@@ -217,8 +259,30 @@ def setup(args, device):
         else (), learnable_pos_emb=args.learnable_pos_emb))
     criterion = make_criterion(args)
     loss_fn = make_seg_loss(model, criterion, args.in_domains,
-                            frozen_encoder=full_freeze)
+                            frozen_encoder=full_freeze,
+                            return_all_layers=args.output_adapter == "dpt")
     return fm, model, opt, criterion, loss_fn
+
+
+def save_panel(args, batch, pred, epoch, mode):
+    """The input | prediction | GT debug panel of a batch's first sample,
+    each min-max scaled to uint8, as ``val_images/e{epoch:04d}_{mode}.png``
+    (mirage_tpu/cli/run_seg_tuning.py:372-383)."""
+    from PIL import Image
+
+    img = np.asarray(batch[args.in_domains[0]][0])
+    img = img[0] if img.ndim == 3 else img
+
+    def u8(a):
+        return ((a - a.min()) / max(a.max() - a.min(), 1e-12)
+                * 255).astype(np.uint8)
+
+    panel = np.concatenate(
+        [u8(img), u8(pred[0].astype(np.float32)),
+         u8(np.asarray(batch["semseg"][0], np.float32))], axis=1)
+    out = Path(args.output_dir) / "val_images"
+    out.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(panel).save(out / f"e{epoch:04d}_{mode}.png")
 
 
 def main(argv=None):
@@ -228,6 +292,7 @@ def main(argv=None):
     from mirage_tpu_torch.data.folder import MultiTaskImageFolder
     from mirage_tpu_torch.data.loader import DataLoader
     from mirage_tpu_torch.metrics.semseg import SegMetricAccumulator
+    from mirage_tpu_torch.nn.resize import resize2d
     from mirage_tpu_torch.ops.runtime import resolve_device
     from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.logger import MetricLogger, append_log
@@ -235,24 +300,42 @@ def main(argv=None):
     from mirage_tpu_torch.train.steps import init_train_state, make_train_step
 
     device = resolve_device(args.device)
+    # idempotence guards (mirage_tpu/cli/run_seg_tuning.py:230-238): skip a
+    # finished training, refuse a test without a best checkpoint
     best_dir = Path(args.output_dir) / "checkpoint-best"
     final_dir = Path(args.output_dir) / f"checkpoint-{args.epochs - 1}"
-    if best_dir.is_dir() and final_dir.is_dir():
+    if not args.test and best_dir.is_dir() and final_dir.is_dir():
         print("Model already trained. Skipping...")
         return None
+    if args.test and not best_dir.is_dir():
+        raise SystemExit("ERROR: Model not fully trained (no checkpoint-best)")
 
-    fm, model, opt, criterion, loss_fn = setup(args, device)
-    step_fn = make_train_step(loss_fn, opt)
     size = args.input_size[args.in_domains[0]][0]
+    norm = pick_seg_fm(args).norm
+    val_tf = SemSegTransform(train=False, input_size=size, norm=norm)
     dataset_train = MultiTaskImageFolder(
         str(args.train_data_path), args.all_domains, mapping=args.mapping,
-        transform=SemSegTransform(train=True, input_size=size, norm=fm.norm))
+        transform=SemSegTransform(train=True, input_size=size, norm=norm))
     dataset_val = MultiTaskImageFolder(
         str(args.eval_data_path), args.all_domains, mapping=args.mapping,
-        transform=SemSegTransform(train=False, input_size=size, norm=fm.norm))
+        transform=val_tf)
     print(f"Training on {len(dataset_train)}, validating on "
           f"{len(dataset_val)}")
+    dataset_test = None
+    if args.test_data_path is not None and Path(args.test_data_path).exists():
+        dataset_test = MultiTaskImageFolder(
+            str(args.test_data_path), args.all_domains, mapping=args.mapping,
+            transform=val_tf)
+    preds_dir = Path(args.output_dir) / (
+        f"preds_{args.external}" if args.external else "preds")
+    if (args.infer_only and args.test and dataset_test is not None
+            and preds_dir.is_dir()
+            and len(list(preds_dir.iterdir())) == len(dataset_test)):
+        print("Inference already done. Skipping...")
+        return None
 
+    _, model, opt, criterion, loss_fn = setup(args, device)
+    step_fn = make_train_step(loss_fn, opt)
     loader_train = DataLoader(dataset_train, args.batch_size, shuffle=True,
                               drop_last=True, num_workers=args.num_workers,
                               seed=args.seed)
@@ -272,35 +355,75 @@ def main(argv=None):
                                 args.epochs, steps_per_epoch)
 
     state = init_train_state(model, opt)
-    state, start_epoch = ckpt.auto_load_checkpoint(args.output_dir, state)
+    start_epoch = 0
+    if not args.test:
+        state, start_epoch = ckpt.auto_load_checkpoint(args.output_dir, state)
     save_args(args.output_dir, args)
     total = sum(p.numel() for p in model.parameters())
     trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
     print(f"Params: {total / 1e6:.1f}M total, {trainable / 1e6:.2f}M "
           f"trainable (freeze_encoder={args.freeze_encoder})")
+    lut = np.zeros(args.num_classes, np.uint8)
+    for idx, value in args.inverse_mapping.items():
+        lut[idx] = value
+    return_all_layers = args.output_adapter == "dpt"
 
     @torch.no_grad()
-    def evaluate(epoch):
+    def evaluate(loader, mode="val", epoch=0, save_preds=False):
         logger = MetricLogger()
         acc = SegMetricAccumulator(args.num_classes, ignore_index=255)
-        for batch, _, _ in loader_val:
+        if save_preds:
+            from PIL import Image
+
+            preds_dir.mkdir(parents=True, exist_ok=True)
+        step_to_save = int(np.random.default_rng(epoch).integers(
+            0, max(len(loader), 1)))
+        for step_i, (batch, _, sids) in enumerate(loader):
             x = to_device(batch, device)
             logits = model.forward_light(
-                {k: v for k, v in x.items() if k in args.in_domains})
-            logits = logits["semseg"].float()
+                {k: v for k, v in x.items() if k in args.in_domains},
+                return_all_layers=return_all_layers)["semseg"].float()
+            if logits.shape[-2:] != x["semseg"].shape[-2:]:
+                logits = resize2d(logits, x["semseg"].shape[-2:],
+                                  mode="bilinear")
             loss = criterion(logits, x["semseg"])
-            acc.update(logits.argmax(1).cpu().numpy(), batch["semseg"])
-            logger.update(loss=loss.item())
+            pred = logits.argmax(1).cpu().numpy()
+            if not args.infer_only and step_i == step_to_save:
+                save_panel(args, batch, pred, epoch, mode)
+            if save_preds:
+                for i, sid in enumerate(sids):
+                    Image.fromarray(lut[pred[i]]).save(
+                        preds_dir / f"{sid}.png")
+            if not args.infer_only:
+                acc.update(pred, batch["semseg"])
+                logger.update(loss=loss.item())
+        if args.infer_only:
+            print("Inference done. Exiting...")
+            sys.exit(0)
         all_acc, cls_acc, iou = acc.compute(["mIoU"])
         stats = {"loss": logger.meters["loss"].global_avg
                  if logger.meters else 0.0,
                  "mean_iou": float(np.nanmean(iou)),
                  "pixel_accuracy": float(all_acc),
                  "mean_accuracy": float(np.nanmean(cls_acc))}
-        print(f"[val e{epoch}] mIoU {stats['mean_iou']:.4f} "
+        print(f"[{mode} e{epoch}] mIoU {stats['mean_iou']:.4f} "
               f"aAcc {stats['pixel_accuracy']:.4f} "
               f"mAcc {stats['mean_accuracy']:.4f} loss {stats['loss']:.4f}")
         return stats
+
+    def test():
+        if dataset_test is None:
+            raise SystemExit(f"ERROR: no test split at {args.test_data_path}")
+        ckpt.load_best_checkpoint(args.output_dir, state)
+        stats = evaluate(DataLoader(dataset_test, args.batch_size,
+                                    num_workers=args.num_workers),
+                         mode="test", save_preds=True)
+        append_log(args.output_dir,
+                   {f"test/{k}": v for k, v in stats.items()})
+        return stats
+
+    if args.test:
+        return test()
 
     print(f"Start training for {args.epochs} epochs")
     t0 = time.time()
@@ -332,7 +455,7 @@ def main(argv=None):
             ckpt.save_checkpoint(args.output_dir, state, epoch,
                                  args=vars(args))
         if epoch % args.eval_freq == 0 or epoch == args.epochs - 1:
-            stats = evaluate(epoch)
+            stats = evaluate(loader_val, epoch=epoch)
             if stats["mean_iou"] > max_miou:
                 max_miou = stats["mean_iou"]
                 ckpt.save_checkpoint(args.output_dir, state, epoch,
@@ -341,8 +464,12 @@ def main(argv=None):
             log_stats.update({f"val/{k}": v for k, v in stats.items()})
         append_log(args.output_dir, log_stats)
     print(f"Training time {time.time() - t0:.1f}s")
-    return {"max_miou": max_miou, "last_epoch": log_stats,
-            "output_dir": args.output_dir}
+    out = {"max_miou": max_miou, "last_epoch": log_stats,
+           "output_dir": args.output_dir}
+    if dataset_test is not None:
+        print("Testing with best checkpoint")
+        out["test"] = test()
+    return out
 
 
 if __name__ == "__main__":

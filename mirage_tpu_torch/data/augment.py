@@ -5,14 +5,21 @@ A fork of ``mirage_tpu/data/augment.py`` (reference
 mutils/datasets_pretrain.py, mutils/datasets_semseg.py and
 mutils/transforms.py): ``PretrainAugment`` is MultiMAE pretraining's
 correlated flip, affine and intensity shift; ``resize_np`` resizes the
-trailing two dims with torch ``F.interpolate`` semantics through the
-interpolation matrices (``nn.resize.resize_matrix``); ``SemSegTransform``
+trailing two dims with torch ``F.interpolate`` semantics; ``SemSegTransform``
 is the shared-geometry transform over an image and its label map;
-``affine_warp`` is torchvision's RandomAffine on scipy's
-``affine_transform``, and ``ClsTransform`` the classification stack;
-``skimage_resize`` is the inference CLI's resize. Randomness comes from an
-explicit ``np.random.Generator``, drawn in the JAX package's order, so one
-seed gives the same image in both packages.
+``affine_warp`` is torchvision's RandomAffine, and ``ClsTransform`` the
+classification stack; ``skimage_resize`` is the inference CLI's resize.
+Randomness comes from an explicit ``np.random.Generator``, drawn in the JAX
+package's order, so one seed gives the same image in both packages.
+
+The hot resizes (bilinear float32, nearest integer) and every affine warp
+run in the host library (``utils/native.py`` over ``csrc/fastops.cpp``), as
+the JAX package sends them (mirage_tpu/data/augment.py:36-65, :142-182).
+Their plain versions, ``resize_np_ref`` (the interpolation matrices of
+``nn.resize.resize_matrix``) and ``affine_warp_ref`` (scipy's
+``affine_transform``), are the references the tests and the card's stage
+split hold the library to; ``resize_np`` takes ``resize_np_ref`` for the
+modes and dtypes the library does not cover.
 """
 
 import math
@@ -23,12 +30,27 @@ import numpy as np
 from mirage_tpu_torch.data.constants import (IMAGENET_DEFAULT_MEAN,
                                              IMAGENET_DEFAULT_STD)
 from mirage_tpu_torch.nn.resize import resize_matrix
+from mirage_tpu_torch.utils import native
 
 
 def resize_np(img: np.ndarray, out_size: Tuple[int, int],
               mode: str = "bilinear", align_corners: bool = False
               ) -> np.ndarray:
-    """The trailing (H, W) resized to out_size, in float32 matrix products;
+    """The trailing (H, W) resized to out_size: bilinear float32 and nearest
+    integer maps in the host library, the rest as :func:`resize_np_ref`."""
+    if tuple(img.shape[-2:]) == tuple(out_size):
+        return img
+    if mode == "bilinear" and img.dtype == np.float32:
+        return native.resize_bilinear(img, out_size, align_corners)
+    if mode == "nearest" and np.issubdtype(img.dtype, np.integer):
+        return native.resize_nearest(img, out_size)
+    return resize_np_ref(img, out_size, mode, align_corners)
+
+
+def resize_np_ref(img: np.ndarray, out_size: Tuple[int, int],
+                  mode: str = "bilinear", align_corners: bool = False
+                  ) -> np.ndarray:
+    """The plain resize: float32 products with the interpolation matrices;
     integer inputs are rounded back to their type."""
     in_h, in_w = img.shape[-2], img.shape[-1]
     out_h, out_w = out_size
@@ -174,20 +196,36 @@ def _inverse_affine_matrix(center, angle, translate, scale, shear):
     return [0.0 if abs(v) < 1e-9 else v for v in m]
 
 
+def _affine_coeffs(shape, angle, translate, scale, shear):
+    """scipy's (matrix, offset) in (y, x) order for TF.affine's inverse map
+    over a plane of ``shape``'s trailing (H, W)."""
+    if not isinstance(shear, (tuple, list)):
+        shear = (float(shear), 0.0)
+    h, w = shape[-2], shape[-1]
+    m = _inverse_affine_matrix(((w - 1) * 0.5, (h - 1) * 0.5), angle,
+                               translate, scale, shear)
+    return (np.array([[m[4], m[3]], [m[1], m[0]]], np.float64),
+            np.array([m[5], m[2]], np.float64))
+
+
 def affine_warp(img: np.ndarray, angle: float, translate, scale: float,
                 shear, *, order: int = 1, fill: float = 0.0) -> np.ndarray:
     """The trailing (H, W) warped as torchvision's TF.affine warps it
     (rotation about the centre, then translation; bilinear order=1 or
-    nearest order=0; constant fill), through scipy's affine_transform."""
+    nearest order=0; constant fill), in the host library."""
+    matrix, offset = _affine_coeffs(img.shape, angle, translate, scale, shear)
+    return native.affine_warp(img, matrix, offset, order=order, cval=fill)
+
+
+def affine_warp_ref(img: np.ndarray, angle: float, translate, scale: float,
+                    shear, *, order: int = 1, fill: float = 0.0
+                    ) -> np.ndarray:
+    """The plain :func:`affine_warp`: scipy's ``affine_transform`` plane by
+    plane in float32."""
     from scipy.ndimage import affine_transform
 
-    if not isinstance(shear, (tuple, list)):
-        shear = (float(shear), 0.0)
+    matrix, offset = _affine_coeffs(img.shape, angle, translate, scale, shear)
     h, w = img.shape[-2], img.shape[-1]
-    m = _inverse_affine_matrix(((w - 1) * 0.5, (h - 1) * 0.5), angle,
-                               translate, scale, shear)
-    matrix = np.array([[m[4], m[3]], [m[1], m[0]]], np.float64)  # (y, x)
-    offset = np.array([m[5], m[2]], np.float64)
 
     def warp2d(plane):
         return affine_transform(plane.astype(np.float32), matrix,

@@ -3,7 +3,9 @@
 A numpy fork of ``mirage_tpu/metrics/semseg.py`` (mmseg-style histograms
 with ignore_index masking, an optional label map and reduce_zero_label), so
 the port imports nothing of the JAX package. ``SegMetricAccumulator``
-streams batches instead of keeping every prediction.
+streams batches instead of keeping every prediction; the functional forms
+(``total_intersect_and_union``, ``eval_metrics``, ``mean_iou``,
+``mean_dice``) take lists of label maps over it.
 """
 
 from typing import Dict, Optional, Sequence
@@ -81,3 +83,43 @@ class SegMetricAccumulator:
         if nan_to_num is not None:
             ret = [np.nan_to_num(m, nan=nan_to_num) for m in ret]
         return ret
+
+
+def total_intersect_and_union(results, gt_seg_maps, num_classes, ignore_index,
+                              label_map=None, reduce_zero_label=False):
+    """The class histograms summed over pairs of label maps: (intersect,
+    union, pred_area, label_area)."""
+    if len(results) != len(gt_seg_maps):
+        raise ValueError(f"{len(results)} predictions for "
+                         f"{len(gt_seg_maps)} ground truths")
+    acc = SegMetricAccumulator(num_classes, ignore_index, label_map,
+                               reduce_zero_label)
+    for pred, gt in zip(results, gt_seg_maps):
+        acc.update(pred, gt)
+    return acc.intersect, acc.union, acc.pred, acc.label
+
+
+def eval_metrics(results, gt_seg_maps, num_classes, ignore_index,
+                 metrics=("mIoU",), nan_to_num=None, label_map=None,
+                 reduce_zero_label=False):
+    """[overall accuracy, per-class accuracy, then each of ``metrics``]
+    over pairs of label maps."""
+    if isinstance(metrics, str):
+        metrics = [metrics]
+    acc = SegMetricAccumulator(num_classes, ignore_index, label_map,
+                               reduce_zero_label)
+    for pred, gt in zip(results, gt_seg_maps):
+        acc.update(pred, gt)
+    return acc.compute(metrics, nan_to_num)
+
+
+def mean_iou(results, gt_seg_maps, num_classes, ignore_index, nan_to_num=None,
+             label_map=None, reduce_zero_label=False):
+    return eval_metrics(results, gt_seg_maps, num_classes, ignore_index,
+                        ["mIoU"], nan_to_num, label_map, reduce_zero_label)
+
+
+def mean_dice(results, gt_seg_maps, num_classes, ignore_index, nan_to_num=None,
+              label_map=None, reduce_zero_label=False):
+    return eval_metrics(results, gt_seg_maps, num_classes, ignore_index,
+                        ["mDice"], nan_to_num, label_map, reduce_zero_label)

@@ -17,6 +17,8 @@ and passed in, since the rerun must not draw from the generator again.
 
 Stochastic depth: block i drops its branches at ``linspace(0, rate,
 depth)[i]`` (models/encoder.py:29-31), drawn from the caller's generator.
+``return_layers`` (models/encoder.py:50) also hands back the output of
+each listed block, which the DPT head reads.
 """
 
 import torch
@@ -44,19 +46,24 @@ class Encoder(nn.ModuleList):
         self.remat = remat
 
     def forward(self, x, deterministic=True, drop_path_rate=0.0,
-                generator=None, grad_free=False):
-        for block, rate in zip(self, drop_path_rates(drop_path_rate,
-                                                     len(self))):
+                generator=None, grad_free=False, return_layers=None):
+        """The blocks' output, or with ``return_layers`` (block indices)
+        (output, {i: block i's output})."""
+        outs = {}
+        for i, (block, rate) in enumerate(zip(
+                self, drop_path_rates(drop_path_rate, len(self)))):
             if not (self.remat and torch.is_grad_enabled() and not grad_free
                     and not Block.halves_route(x.shape[1], deterministic,
                                                rate, grad_free)):
                 x = block(x, deterministic, rate, generator, grad_free)
-                continue
-            noise = (None, None)
-            if not deterministic and float(rate) != 0.0 \
-                    and generator is not None:
-                noise = (drop_path_noise(x, generator),
-                         drop_path_noise(x, generator))
-            x = checkpoint(block, x, deterministic, rate, None, grad_free,
-                           noise, use_reentrant=False)
-        return x
+            else:
+                noise = (None, None)
+                if not deterministic and float(rate) != 0.0 \
+                        and generator is not None:
+                    noise = (drop_path_noise(x, generator),
+                             drop_path_noise(x, generator))
+                x = checkpoint(block, x, deterministic, rate, None,
+                               grad_free, noise, use_reentrant=False)
+            if return_layers is not None and i in return_layers:
+                outs[i] = x
+        return x if return_layers is None else (x, outs)

@@ -11,7 +11,10 @@ mask tokens), where the token shuffle is the identity and the forward is
 concatenation and slicing; that call returns the predictions alone.
 ``forward_light`` is the unmasked forward of downstream tuning (every given
 modality fully visible, stochastic depth from a generator, then the output
-heads); ``features`` returns the encoder tokens alone.
+heads); ``features`` returns the encoder tokens alone. ``return_all_layers``
+(mirage_tpu/models/mirage.py:199, :349) gives every block's output: the
+masked forward returns them as spatial maps, the light forward hands the
+list to its heads (the DPT head reads four of them).
 
 Training keeps the parameters in float32 and runs the activations in
 ``compute_dtype``; each op casts its weights to the activation dtype.
@@ -114,7 +117,8 @@ class MIRAGEModel(nn.Module):
                 alphas: Union[float, Sequence[float]] = 1.0,
                 sample_tasks_uniformly: bool = False,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True, pixel_outputs: bool = True):
+                deterministic: bool = True, pixel_outputs: bool = True,
+                return_all_layers: bool = False):
         """x: task -> (B, C, H, W) image or (B, H, W) labels.
 
         With ``absent_tasks`` (a sequence, possibly empty): the wrapper's
@@ -128,7 +132,9 @@ class MIRAGEModel(nn.Module):
         with ``num_visible`` visible tokens per sample, or masks drawn from
         ``generator`` with ``num_encoded_tokens`` visible (all tokens if not
         ``mask_inputs``). Returns (preds, task_masks); preds are pixels, or
-        the decoders' patch tokens if not ``pixel_outputs``."""
+        the decoders' patch tokens if not ``pixel_outputs``; with
+        ``return_all_layers``, {"layer_{i}": block i's output without the
+        global tokens as a (B, D, gh, gw) map of the first task's grid}."""
         if absent_tasks is not None:
             return self._forward_static(x, tuple(absent_tasks))
         input_info = self.generate_input_info(x)
@@ -155,6 +161,13 @@ class MIRAGEModel(nn.Module):
         enc = gather_rows(torch.cat(tokens, dim=1), ids_keep)
         enc = torch.cat([enc, self.global_tokens.to(enc.dtype).expand(
             b, self.num_global_tokens, self.dim_tokens)], dim=1)
+        if return_all_layers:
+            _, outs = self.encoder(enc, deterministic, self.drop_path_rate,
+                                   generator,
+                                   return_layers=range(self.depth))
+            gh, gw = input_info["tasks"][task_order[0]]["grid_size"]
+            return {f"layer_{i}": t[:, :-self.num_global_tokens].reshape(
+                b, gh, gw, -1).permute(0, 3, 1, 2) for i, t in outs.items()}
         enc = self.encoder(enc, deterministic, self.drop_path_rate,
                            generator)
         if self.output_adapters is None:
@@ -183,6 +196,7 @@ class MIRAGEModel(nn.Module):
         return self.encoder(self._tokens(x))
 
     def forward_light(self, x: Mapping[str, torch.Tensor], *,
+                      return_all_layers: bool = False,
                       deterministic: bool = True,
                       generator: Optional[torch.Generator] = None,
                       frozen_encoder: bool = False):
@@ -190,14 +204,23 @@ class MIRAGEModel(nn.Module):
         (mirage_tpu/models/mirage.py:344-398): every given modality fully
         visible, the encoder with stochastic depth drawn from ``generator``
         when not ``deterministic``, then task -> prediction of each output
-        head (or the encoder tokens without heads). ``frozen_encoder`` (the
-        encoder and input adapters carry no trainable parameter) runs the
-        blocks grad-free and detaches their output."""
+        head (or the encoder tokens without heads). ``return_all_layers``
+        puts the list of every block's output (B, N + G, D) in place of
+        the encoder tokens. ``frozen_encoder`` (the encoder and input
+        adapters carry no trainable parameter) runs the blocks grad-free
+        and detaches their output."""
         tokens, input_info = self.process_input(x)
-        enc = self.encoder(tokens, deterministic, self.drop_path_rate,
-                           generator, grad_free=frozen_encoder)
-        if frozen_encoder:
-            enc = enc.detach()
+        if return_all_layers:
+            _, outs = self.encoder(tokens, deterministic, self.drop_path_rate,
+                                   generator, grad_free=frozen_encoder,
+                                   return_layers=range(self.depth))
+            enc = [outs[i].detach() if frozen_encoder else outs[i]
+                   for i in range(self.depth)]
+        else:
+            enc = self.encoder(tokens, deterministic, self.drop_path_rate,
+                               generator, grad_free=frozen_encoder)
+            if frozen_encoder:
+                enc = enc.detach()
         if self.output_adapters is None:
             return enc
         return {task: adapter(enc, input_info, deterministic=deterministic,

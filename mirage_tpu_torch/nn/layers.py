@@ -148,14 +148,19 @@ class PatchProj(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table (num, dim) with the key ``weight``; trunc-normal init."""
+    """Lookup table (num, dim) with the key ``weight``; trunc-normal init,
+    the row ``zero_row`` (a padding class) set to zero."""
 
-    def __init__(self, num, dim):
+    def __init__(self, num, dim, zero_row=None):
         super().__init__()
+        self.zero_row = zero_row
         self.weight = nn.Parameter(torch.empty(num, dim))
 
     def init_params(self, generator):
         vinit.trunc_normal_(self.weight, generator)
+        if self.zero_row is not None:
+            with torch.no_grad():
+                self.weight[self.zero_row] = 0.0
 
     def forward(self, idx):
         return F.embedding(idx, self.weight)

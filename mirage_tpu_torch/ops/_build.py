@@ -1,13 +1,17 @@
-"""Builds the CUDA sources under ``mirage_tpu_torch/csrc`` and loads them.
+"""Builds the sources under ``mirage_tpu_torch/csrc`` and loads them.
 
 Each ``csrc/<name>.cu`` becomes ``build/mirage_tpu_torch/lib<name>.so`` with
 a plain C interface, compiled by ``nvcc`` for ``sm_90a`` (one process per
-source, all started together) and loaded with ``ctypes``. The build runs at
-first use and again whenever a source is newer than its library. A failed
-build raises; there is no fallback.
+source, all started together) and loaded with ``ctypes``. The host library
+``csrc/fastops.cpp`` (the data loader's resizes and warps) is compiled by
+the host's C++ compiler instead (:func:`build_host`), so it builds on a
+machine without ``nvcc``. Each build runs at first use and again whenever a
+source is newer than its library. A failed build raises; there is no
+fallback.
 """
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -16,6 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mirage_tpu_torch"
+# native/Makefile's CXXFLAGS, so the port's host library gives the JAX
+# package's bits
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-march=native", "-pthread")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -139,3 +146,55 @@ def entry(name: str):
             fn.restype = ctypes.c_int
             _funcs[name] = fn
         return _funcs[name]
+
+
+def host_compiler() -> str:
+    """``$CXX``, else ``g++``."""
+    return os.environ.get("CXX") or "g++"
+
+
+def build_host(build_dir: Path = BUILD_DIR, force: bool = False) -> Path:
+    """``csrc/fastops.cpp`` compiled by :func:`host_compiler` with
+    HOST_FLAGS into ``build_dir/libfastops.so`` where that library is
+    missing or older than its source (always with ``force``); never calls
+    nvcc. Returns the library's path.
+
+    Safe under several processes and threads: a lock file
+    (``fcntl.flock``) serialises the compile across processes, the
+    compiler writes ``libfastops.so.tmp<pid>`` and ``os.replace`` moves it
+    into place, so no process loads a half-written library. A compiler
+    that cannot run or fails raises RuntimeError with its output."""
+    src = CSRC / "fastops.cpp"
+    lib = Path(build_dir) / "libfastops.so"
+
+    def fresh():
+        return (not force and lib.exists()
+                and lib.stat().st_mtime >= src.stat().st_mtime)
+
+    with _lock:
+        if fresh():
+            return lib
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        with open(lib.parent / "libfastops.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if fresh():  # another process built it while we waited
+                    return lib
+                tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+                cmd = [host_compiler(), *HOST_FLAGS, "-shared", "-o",
+                       str(tmp), str(src)]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True,
+                                          text=True, timeout=600)
+                except OSError as e:
+                    raise RuntimeError(f"{' '.join(cmd)}: the host compiler "
+                                       f"could not run: {e}") from e
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"{' '.join(cmd)} failed (rc {proc.returncode}):\n"
+                        f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, lib)
+                return lib
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)

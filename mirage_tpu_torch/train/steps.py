@@ -60,15 +60,19 @@ def make_pretrain_loss(model, domain_conf: Mapping[str, Mapping[str, Any]],
 
 
 def make_seg_loss(model, criterion: Callable, in_domains,
-                  frozen_encoder: bool = False):
+                  frozen_encoder: bool = False,
+                  return_all_layers: bool = False):
     """Segmentation tuning's loss: loss_fn(batch, generator=None) -> (loss,
-    {}). The light forward (stochastic depth from ``generator``), the seg
-    head's logits in float, resized bilinearly to the labels' size when they
-    differ, and ``criterion(logits, batch["semseg"])``."""
+    {}). The light forward (stochastic depth from ``generator``; every
+    block's output to the head with ``return_all_layers``, as the DPT head
+    takes them), the seg head's logits in float, resized bilinearly to the
+    labels' size when they differ, and ``criterion(logits,
+    batch["semseg"])``."""
 
     def loss_fn(batch, generator: Optional[torch.Generator] = None):
         preds = model.forward_light(
             {k: v for k, v in batch.items() if k in in_domains},
+            return_all_layers=return_all_layers,
             deterministic=False, generator=generator,
             frozen_encoder=frozen_encoder)
         logits = preds["semseg"].float()

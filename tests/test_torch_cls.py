@@ -143,18 +143,10 @@ def test_train_epoch_metrics_match_sklearn():
 
 # ------------------------------------------------------------- transforms
 
-@pytest.mark.parametrize("train", [False, True])
-@pytest.mark.parametrize("fill,norm", [(0.0, "minmax"), (1.0, "minmax"),
-                                       (0.5, "minmax"), (0.0, "imagenet")])
-def test_cls_transform_is_bit_equal(monkeypatch, train, fill, norm):
-    """One Generator seed, the same image in both packages. The JAX package
-    warps and resizes through its optional C++ library when that is built;
-    its numpy/scipy path, which the port copies, is the reference here."""
+def _assert_cls_transform_bit_equal(train, fill, norm):
     from mirage_tpu.data.augment import ClsTransform as JaxTransform
-    from mirage_tpu.utils import native
     from mirage_tpu_torch.data.augment import ClsTransform
 
-    monkeypatch.setattr(native, "_load", lambda: None)
     rng = np.random.default_rng(7)
     for img in ((rng.random((70, 90)) * 255).astype(np.uint8),
                 rng.random((50, 40, 3)).astype(np.float32)):
@@ -164,6 +156,37 @@ def test_cls_transform_is_bit_equal(monkeypatch, train, fill, norm):
             want = JaxTransform(**kw)(img, np.random.default_rng(seed))
             assert got.dtype == want.dtype and got.shape == want.shape
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("fill,norm", [(0.0, "minmax"), (1.0, "minmax"),
+                                       (0.5, "minmax"), (0.0, "imagenet")])
+def test_cls_transform_is_bit_equal(monkeypatch, train, fill, norm):
+    """One Generator seed, the same image in both packages: the port's
+    plain path (resize_np_ref, affine_warp_ref) against the JAX package
+    with its C++ library patched off (its numpy/scipy path)."""
+    from mirage_tpu.utils import native
+    from mirage_tpu_torch.data import augment
+
+    monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setattr(augment, "resize_np", augment.resize_np_ref)
+    monkeypatch.setattr(augment, "affine_warp", augment.affine_warp_ref)
+    _assert_cls_transform_bit_equal(train, fill, norm)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_cls_transform_with_the_library_is_bit_equal(monkeypatch, tmp_path,
+                                                     train):
+    """The port through its host library against the JAX package through
+    its own, native/fastops.cpp compiled into a temporary directory."""
+    from test_torch_fastops import jax_fastops
+
+    from mirage_tpu.utils import native
+
+    lib = jax_fastops(tmp_path)
+    monkeypatch.setattr(native, "_load", lambda: lib)
+    for fill, norm in ((0.5, "minmax"), (0.0, "imagenet")):
+        _assert_cls_transform_bit_equal(train, fill, norm)
 
 
 def test_cls_norms_match_jax():

@@ -215,8 +215,25 @@ def _tokens_input():
 @pytest.mark.parametrize("kw", [{"emb_padding_idx": 0},
                                 {"interpolate_class_emb": True}])
 def test_semseg_options_not_ported_raise(kw):
-    with pytest.raises(NotImplementedError):
-        SemSegInputAdapter(num_classes=13, **kw)
+    """Both SemSegInputAdapter options build and run (their values are
+    held to the JAX package in tests/test_torch_seg.py): a padding index
+    adds a class whose row starts at zero; interpolate_class_emb projects
+    1×1."""
+    from mirage_tpu_torch.models.mirage import MIRAGEModel
+
+    adapter = SemSegInputAdapter(num_classes=13, patch_size_full=4,
+                                 image_size=16, dim_class_emb=8, **kw)
+    model = MIRAGEModel({"semseg": adapter}, None, dim_tokens=16, depth=1,
+                        num_heads=2, generator=torch.Generator().manual_seed(0))
+    emb = model.input_adapters["semseg"].class_emb.weight
+    proj = model.input_adapters["semseg"].proj.weight
+    if "emb_padding_idx" in kw:
+        assert emb.shape == (14, 8) and not emb[0].any()
+        assert proj.shape == (16, 8, 4, 4)
+    else:
+        assert emb.shape == (13, 8) and proj.shape == (16, 8, 1, 1)
+    x = torch.randint(0, 13, (2, 16, 16))
+    assert model.features({"semseg": x}).shape == (2, 16 + 1, 16)
 
 
 def test_wrapper_default_device_raises_without_a_card(monkeypatch):

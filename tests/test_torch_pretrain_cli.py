@@ -61,6 +61,15 @@ TINY = ["--in_domains", "bscan-slo-bscanlayermap",
 N_TASK = 64  # tokens per task at 64² and patch 8
 
 
+@pytest.fixture(scope="module")
+def jax_fastops_lib(tmp_path_factory):
+    """The JAX package's native/fastops.cpp built into a temporary
+    directory (never into native/), for its ``_load`` to return."""
+    from test_torch_fastops import jax_fastops
+
+    return jax_fastops(tmp_path_factory.mktemp("jax_fastops"))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """The tiny models run no faster on more threads, and the suite runs
@@ -123,18 +132,15 @@ def test_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch):
 
 # ----------------------------------------------------------- augmentation
 
-@pytest.mark.parametrize("hflip,affine", [(0.0, False), (1.0, False),
-                                          (0.0, True), (0.5, True)])
-def test_pretrain_augment_is_bit_equal(monkeypatch, hflip, affine):
-    """One Generator seed, the same sample in both packages, at raw sizes
-    that differ from the target and one that equals it. The JAX package
-    warps and resizes through its optional C++ library when that is built;
-    its numpy/scipy path, which the port copies, is the reference."""
-    monkeypatch.setattr(native, "_load", lambda: None)
+def _augment_sample():
     rng = np.random.default_rng(3)
-    sample = {"bscan": rng.random((96, 80), dtype=np.float32),
-              "slo": rng.random((64, 64), dtype=np.float32),
-              "bscanlayermap": rng.integers(0, 13, (40, 50)).astype(np.int64)}
+    return {"bscan": rng.random((96, 80), dtype=np.float32),
+            "slo": rng.random((64, 64), dtype=np.float32),
+            "bscanlayermap": rng.integers(0, 13, (40, 50)).astype(np.int64)}
+
+
+def _assert_augment_bit_equal(hflip, affine):
+    sample = _augment_sample()
     size = {"bscan": (64, 64), "slo": (64, 64), "bscanlayermap": (32, 32)}
     kw = dict(hflip=hflip, intensity_shift=0.1, affine=affine)
     for seed in range(4):
@@ -147,6 +153,32 @@ def test_pretrain_augment_is_bit_equal(monkeypatch, hflip, affine):
             np.testing.assert_array_equal(got[task], want[task])
         assert got["bscanlayermap"].dtype == np.int32
         assert got["bscan"].shape == (1, 64, 64)
+
+
+@pytest.mark.parametrize("hflip,affine", [(0.0, False), (1.0, False),
+                                          (0.0, True), (0.5, True)])
+def test_pretrain_augment_is_bit_equal(monkeypatch, hflip, affine):
+    """One Generator seed, the same sample in both packages, at raw sizes
+    that differ from the target and one that equals it: the port's plain
+    path (resize_np_ref, affine_warp_ref) against the JAX package with its
+    C++ library patched off (its numpy/scipy path)."""
+    from mirage_tpu_torch.data import augment
+
+    monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setattr(augment, "resize_np", augment.resize_np_ref)
+    monkeypatch.setattr(augment, "affine_warp", augment.affine_warp_ref)
+    _assert_augment_bit_equal(hflip, affine)
+
+
+@pytest.mark.parametrize("hflip,affine", [(0.0, False), (1.0, False),
+                                          (0.0, True), (0.5, True)])
+def test_pretrain_augment_with_the_library_is_bit_equal(
+        monkeypatch, jax_fastops_lib, hflip, affine):
+    """The port through its host library against the JAX package through
+    its own, native/fastops.cpp compiled into a temporary directory (the
+    same source and flags)."""
+    monkeypatch.setattr(native, "_load", lambda: jax_fastops_lib)
+    _assert_augment_bit_equal(hflip, affine)
 
 
 # --------------------------------------------------------------- datasets
@@ -505,9 +537,12 @@ def _fixed_masks(num_tokens_per_task, b, num_encoded):
     return split, ids_shuffle[:, :num_encoded], ids_restore
 
 
-def test_pretraining_cli_matches_the_jax_cli(tmp_path, monkeypatch):
+def test_pretraining_cli_matches_the_jax_cli(tmp_path, monkeypatch,
+                                            jax_fastops_lib):
     """Both command lines from one warm-start .pth (the JAX model's own
-    initialisation at the run's seed, encoder as blocks.{i}), float32,
+    initialisation at the run's seed, encoder as blocks.{i}), each
+    augmenting through its host library (the JAX package's compiled into a
+    temporary directory, the same source and flags as the port's), float32,
     drop-path 0, one step an epoch, two epochs, the same masks injected into
     both packages' generate_random_masks (one mask for every sample, so the
     JAX package's data-parallel step over the test's 8 virtual devices, one
@@ -518,7 +553,7 @@ def test_pretraining_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     import mirage_tpu_torch.models.mirage as port_mirage
     from mirage_tpu.cli.config import normalize_domain_sizes
 
-    monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setattr(native, "_load", lambda: jax_fastops_lib)
 
     def jax_masks(rng, n_per_task, b, num_encoded, **_):
         masks, keep, restore = _fixed_masks(n_per_task, b, num_encoded)

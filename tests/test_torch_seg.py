@@ -14,6 +14,7 @@ every pixel of the head).
 """
 
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -630,3 +631,399 @@ def test_gemm_stash_plan_covers_every_tile_once(m, n, k):
 def test_gemm_stash_plan_raises_for_an_empty_product():
     with pytest.raises(ValueError, match="empty product"):
         fm.gemm_stash_plan(0, 1536, 384, sms=132)
+
+
+# ------------------------------------- the linear, Segmenter and DPT heads
+
+HEAD_TINY = dict(dim_tokens=32, depth=4, num_heads=2, num_global_tokens=1)
+
+
+def _heads(kind, size=64, patch=8, num_classes=5, use_bn=False):
+    """(JAX head, port head) of one kind at the tiny size, configured
+    alike; DPT reads layers 0-3 of the 4-layer encoder."""
+    from mirage_tpu.adapters import DPTOutputAdapter as JaxDPT
+    from mirage_tpu.adapters import LinearSegAdapter as JaxLinear
+    from mirage_tpu.adapters import \
+        SegmenterMaskTransformerAdapter as JaxSegmenter
+
+    from mirage_tpu_torch.adapters import seg_heads as sh
+
+    common = dict(num_classes=num_classes, patch_size=patch, task="semseg",
+                  image_size=(size, size))
+    if kind == "linear":
+        return JaxLinear(**common), sh.LinearSegAdapter(**common)
+    if kind == "segmenter":
+        kw = dict(embed_dim=32, num_heads=2, depth=2, **common)
+        return JaxSegmenter(**kw), sh.SegmenterMaskTransformerAdapter(**kw)
+    kw = dict(hooks=(0, 1, 2, 3), layer_dims=(8, 12, 16, 24), feature_dim=16,
+              use_bn=use_bn, **common)
+    if kind == "dpt_regression":
+        kw["head_type"] = "regression"
+    if not use_bn:
+        return JaxDPT(**kw), sh.DPTOutputAdapter(**kw)
+
+    class Jax(JaxDPT):
+        def __call__(self, *a, **k):
+            return super().__call__(*a, training=True, **k)
+
+    class Port(sh.DPTOutputAdapter):
+        def forward(self, *a, **k):
+            return super().forward(*a, training=True, **k)
+
+    import dataclasses
+    return dataclasses.dataclass(frozen=True)(Jax)(**kw), Port(**kw)
+
+
+def _head_models(kind, seed=21, use_bn=False, drop_path=0.0):
+    """The tiny model with one head in both packages and the JAX
+    parameters. The Segmenter's class embeddings are drawn at std 1, not
+    the init's 0.02: at 0.02 the five class scores of a patch differ by
+    ~3e-3, and mask_norm's LN over them magnifies float32 rounding 300-fold.
+    With use_bn (DPT in training mode, subclasses that pass training=True,
+    which the JAX model never does) the batch norms start away from their
+    identity init."""
+    jhead, phead = _heads(kind, use_bn=use_bn)
+    jmodel = JaxModel(
+        input_adapters={"bscan": JaxPatched(num_channels=1,
+                                            patch_size_full=8,
+                                            image_size=64)},
+        output_adapters={"semseg": jhead}, mlp_ratio=4.0, qkv_bias=True,
+        drop_path_rate=drop_path, **HEAD_TINY)
+    params = jax.tree_util.tree_map(
+        np.asarray, jmodel.init_params(jax.random.PRNGKey(seed)))
+    if use_bn:  # batch norm away from its identity init
+        rng = np.random.default_rng(seed)
+
+        def perturb(tree):
+            if isinstance(tree, dict):
+                if set(tree) == {"scale", "bias", "mean", "var"}:
+                    return {k: (v + 0.1 * rng.standard_normal(v.shape)
+                                ).astype(np.float32) if k != "var"
+                            else (v + rng.random(v.shape)).astype(np.float32)
+                            for k, v in tree.items()}
+                return {k: perturb(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [perturb(v) for v in tree]
+            return tree
+
+        params = perturb(params)
+    if kind == "segmenter":
+        head = params["output_adapters"]["semseg"]
+        head["cls_emb"] = head["cls_emb"] * 50.0
+    port = MIRAGEModel(
+        {"bscan": PatchedInputAdapter(1, patch_size_full=8, image_size=64)},
+        {"semseg": phead}, drop_path_rate=drop_path, **HEAD_TINY)
+    port.load_state_dict(jax_params_to_state_dict(params, port), strict=True)
+    return jmodel, params, port
+
+
+HEAD_CASES = [("linear", False), ("segmenter", False), ("dpt", False),
+              ("dpt", True)]
+
+
+@pytest.mark.parametrize("kind,use_bn",
+                         HEAD_CASES + [("dpt_regression", False)])
+def test_head_forward_matches_jax(kind, use_bn):
+    """The light forward through each head (DPT on every layer's tokens,
+    return_all_layers; with batch norm in training mode; DPT's regression
+    head too) at 1e-5."""
+    jmodel, params, port = _head_models(kind, use_bn=use_bn)
+    x = np.random.default_rng(22).random((2, 1, 64, 64), dtype=np.float32)
+    every = kind.startswith("dpt")
+    want = jax.jit(lambda p, x: jmodel.forward_light(
+        p, {"bscan": x}, return_all_layers=every)["semseg"])(
+            params, jnp.asarray(x))
+    with torch.no_grad():
+        got = port.forward_light({"bscan": _t(x)},
+                                 return_all_layers=every)["semseg"]
+    # DPT predicts at 16 / patch times the image size (2 × the finest scale)
+    side = 128 if every else 64
+    assert got.shape == (2, 5, side, side)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("kind,use_bn", HEAD_CASES)
+def test_head_step_matches_jax(kind, use_bn):
+    """One float32 seg tuning step with each head against the JAX step, as
+    test_seg_step_matches_jax: the reference freeze, layer decay 0.75,
+    AdamW, CE + GDice (DPT's logits resized to the labels), no random draw
+    (the JAX forward deterministic, the port's without a generator: the
+    Segmenter's drop-path 0.1 and DPT's dropout stay off). The loss to
+    1e-5, every trainable gradient to a relative L2 error of 1e-4, every
+    updated parameter to 1e-5."""
+    from mirage_tpu.losses import ce_gdice_loss as jax_loss
+    from mirage_tpu.train.optim import GroupedOptimizer as JaxOpt
+    from mirage_tpu.train.optim import OptimizerConfig as JaxCfg
+
+    from mirage_tpu_torch.losses.gdice import ce_gdice_loss
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+    from mirage_tpu_torch.train.steps import (init_train_state, make_seg_loss,
+                                              make_train_step)
+
+    jmodel, params, port = _head_models(kind, use_bn=use_bn)
+    every = kind == "dpt"
+    rng = np.random.default_rng(23)
+    batch = {"bscan": rng.random((2, 1, 64, 64), dtype=np.float32),
+             "semseg": rng.integers(0, 5, (2, 64, 64)).astype(np.int32)}
+    kw = dict(opt="adamw", betas=(0.9, 0.999), weight_decay=0.05,
+              layer_decay=0.75, num_layers=HEAD_TINY["depth"],
+              freeze_encoder=True)
+    jopt = JaxOpt(JaxCfg(**kw))
+
+    def jloss(p, b):
+        preds = jmodel.forward_light(p, {"bscan": b["bscan"]},
+                                     return_all_layers=every)
+        logits = preds["semseg"].astype(jnp.float32)
+        if logits.shape[-2:] != b["semseg"].shape[-2:]:
+            from mirage_tpu.nn.resize import resize2d as jax_resize
+
+            logits = jax_resize(logits, b["semseg"].shape[-2:],
+                                mode="bilinear")
+        return jax_loss(logits, b["semseg"]), {}
+
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    # the JAX step's value_and_grad and update (train/steps.py:121-130),
+    # the gradients compiled once
+    (want_loss, _), jax_g = jax.jit(jax.value_and_grad(
+        lambda p: jloss(jopt.stop_frozen(p), jbatch), has_aux=True))(params)
+    opt = GroupedOptimizer(OptimizerConfig(**kw))
+    state = init_train_state(port, opt)
+    loss_fn = make_seg_loss(port, ce_gdice_loss, ["bscan"],
+                            return_all_layers=every)
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    loss, _ = loss_fn(tbatch)
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=ATOL,
+                               rtol=ATOL)
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+    assert any(n.startswith("output_adapters.semseg.") for n in names)
+    assert not any(n.startswith("encoder.") for n in names)
+    # DPT's coarsest fusion block has no skip input: its first RCU is
+    # unused (no gradient here, zeros in JAX)
+    grads = torch.autograd.grad(loss, [state["params"][n] for n in names],
+                                allow_unused=True)
+    want_g = jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, jax_g), port)
+    for n, g in zip(names, grads):
+        if g is None:
+            assert "refinenet4.resConfUnit1" in n and not want_g[n].any(), n
+            continue
+        err = ((g - want_g[n]).norm() / want_g[n].norm()).item()
+        assert err <= 1e-4, (n, err)
+    new_params, _, _ = jax.jit(lambda g, p: jopt.update(
+        g, jopt.init(p), p, 1e-4, 1.0))(jax_g, params)
+    state, _ = make_train_step(loss_fn, opt)(state, tbatch, None, 1e-4)
+    want_p = jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, new_params), port)
+    for n, p in state["params"].items():
+        got, want = _np(p), want_p[n].numpy()
+        if n.endswith("attn.qkv.bias"):
+            # the key bias: softmax is invariant to it, so its gradient is
+            # float32 rounding noise, which AdamW's first step normalises
+            # to ±lr; the query and value biases are held
+            third = got.shape[0] // 3
+            got, want = (np.delete(a, np.s_[third:2 * third])
+                         for a in (got, want))
+        np.testing.assert_allclose(got, want, atol=ATOL, err_msg=n)
+
+
+@pytest.mark.parametrize("kind,use_bn",
+                         HEAD_CASES + [("dpt_regression", False)])
+def test_head_keys_round_trip_through_params_from_torch(kind, use_bn):
+    """The port's state dict is the reference namespace each JAX head's
+    params_from_torch reads: JAX params -> the port's keys -> JAX params,
+    leaf for leaf."""
+    jmodel, params, port = _head_models(kind, use_bn=use_bn)
+    sd = {k[len("output_adapters.semseg."):]: v.numpy()
+          for k, v in port.state_dict().items()
+          if k.startswith("output_adapters.semseg.")}
+    back = jmodel.output_adapters["semseg"].params_from_torch(
+        {f"h.{k}": v for k, v in sd.items()}, "h")
+    want = params["output_adapters"]["semseg"]
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(flat_w) == len(flat_g)
+    for path, leaf in flat_w:
+        np.testing.assert_array_equal(np.asarray(flat_g[path]), leaf,
+                                      err_msg=str(path))
+
+
+@pytest.mark.parametrize("stride,pad,k", [(4, 0, 4), (2, 0, 2), (2, 1, 3)])
+def test_conv_transpose2d_matches_jax(stride, pad, k):
+    from mirage_tpu.nn.conv import conv_transpose2d as jax_convt
+
+    from mirage_tpu_torch.nn.conv import conv_transpose2d
+
+    rng = np.random.default_rng(stride + k)
+    x = rng.standard_normal((2, 6, 5, 7)).astype(np.float32)
+    w = rng.standard_normal((6, 4, k, k)).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    want = jax_convt({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+                     jnp.asarray(x), stride=stride, padding=pad)
+    got = conv_transpose2d(_t(x), _t(w), _t(b), stride=stride, padding=pad)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_batch_norm2d_matches_jax_with_its_running_statistics(training):
+    """y and the running statistics the JAX function returns (momentum
+    0.1, the unbiased batch variance, eps 1e-5); the module takes the new
+    statistics into its buffers in training and keeps them otherwise."""
+    from mirage_tpu.nn.conv import batch_norm2d as jax_bn
+
+    from mirage_tpu_torch.nn.conv import BatchNorm2d, batch_norm2d
+
+    rng = np.random.default_rng(24)
+    x = (3 + 2 * rng.standard_normal((3, 4, 5, 6))).astype(np.float32)
+    p = {"scale": rng.random(4).astype(np.float32) + 0.5,
+         "bias": rng.standard_normal(4).astype(np.float32),
+         "mean": rng.standard_normal(4).astype(np.float32),
+         "var": rng.random(4).astype(np.float32) + 0.5}
+    want, stats = jax_bn({k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x), training=training)
+    got, mean, var = batch_norm2d(_t(x), _t(p["scale"]), _t(p["bias"]),
+                                  _t(p["mean"]), _t(p["var"]),
+                                  training=training)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(_np(mean), np.asarray(stats["mean"]),
+                               atol=1e-6)
+    np.testing.assert_allclose(_np(var), np.asarray(stats["var"]), atol=1e-6)
+    bn = BatchNorm2d(4)
+    bn.load_state_dict({"weight": _t(p["scale"]), "bias": _t(p["bias"]),
+                        "running_mean": _t(p["mean"]),
+                        "running_var": _t(p["var"])})
+    with torch.no_grad():
+        np.testing.assert_allclose(_np(bn(_t(x), training)),
+                                   np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(_np(bn.running_var), np.asarray(stats["var"]),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("interpolate", [False, True])
+def test_semseg_input_domain_matches_jax(interpolate):
+    """semseg as an input domain (fm.domain_conf(): 4 classes, stride 4,
+    padding index 4, so 5 embedding rows) beside the B-scan: the encoder
+    tokens of the light forward, with the class embedding looked up and
+    patch-projected, or (interpolate_class_emb) bilinearly downsampled and
+    projected 1×1; a fresh port model starts with the padding row zero."""
+    from mirage_tpu.adapters import SemSegInputAdapter as JaxSemSeg
+
+    from mirage_tpu_torch.adapters.input_adapters import SemSegInputAdapter
+
+    kw = dict(num_classes=4, stride_level=4, patch_size_full=8,
+              image_size=64, dim_class_emb=16, emb_padding_idx=4,
+              interpolate_class_emb=interpolate)
+    jmodel = JaxModel(
+        input_adapters={"bscan": JaxPatched(num_channels=1,
+                                            patch_size_full=8,
+                                            image_size=64),
+                        "semseg": JaxSemSeg(**kw)},
+        output_adapters=None, mlp_ratio=4.0, qkv_bias=True, **HEAD_TINY)
+    params = jax.tree_util.tree_map(
+        np.asarray, jmodel.init_params(jax.random.PRNGKey(25)))
+    assert not params["input_adapters"]["semseg"]["class_emb"][4].any()
+    port = MIRAGEModel(
+        {"bscan": PatchedInputAdapter(1, patch_size_full=8, image_size=64),
+         "semseg": SemSegInputAdapter(**kw)}, None, **HEAD_TINY)
+    port.load_state_dict(jax_params_to_state_dict(params, port), strict=True)
+    rng = np.random.default_rng(26)
+    x = {"bscan": rng.random((2, 1, 64, 64), dtype=np.float32),
+         "semseg": rng.integers(0, 5, (2, 16, 16)).astype(np.int32)}
+    want = jmodel.forward_light(params, {k: jnp.asarray(v)
+                                         for k, v in x.items()})
+    with torch.no_grad():
+        got = port.forward_light({k: _t(v) for k, v in x.items()})
+    assert got.shape == (2, 64 + 64 + 1, 32)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
+    fresh = MIRAGEModel({"semseg": SemSegInputAdapter(**kw)}, None,
+                        generator=torch.Generator().manual_seed(0),
+                        **HEAD_TINY)
+    emb = fresh.input_adapters["semseg"].class_emb.weight
+    assert emb.shape == (5, 16) and not emb[4].any() and emb[:4].all()
+
+
+@pytest.mark.parametrize("head", ["linear", "segmenter", "dpt"])
+def test_run_seg_tuning_cli_with_each_head(tmp_path, monkeypatch, head):
+    """The entry point with --output_adapter linear, segmenter (768 wide,
+    12 heads) and dpt (hooks 2, 5, 8, 11: a 12-layer tiny encoder, the
+    model_override preset miragepre_tiny12 added for the test): one epoch
+    of 2 steps, the validation pass with its input | prediction | GT
+    panel, checkpoint-best, a finite loss, the test pass with the best
+    checkpoint (--test_data_path) exporting a PNG per sample, then --test
+    alone (--remat set, which changes nothing at this size) scoring the
+    same."""
+    from mirage_tpu_torch.cli import run_seg_tuning
+    from mirage_tpu_torch.models import mirage
+
+    monkeypatch.setitem(mirage.model_factory, "miragepre_tiny12",
+                        mirage._preset(dict(dim_tokens=32, depth=12,
+                                            num_heads=2)))
+    rng = np.random.default_rng(15)
+    _seg_dataset(tmp_path / "AROI", rng, size=64)
+    (tmp_path / "AROI" / "test").mkdir()
+    for task in ("bscan", "semseg"):
+        shutil.copytree(tmp_path / "AROI" / "val" / task,
+                        tmp_path / "AROI" / "test" / task)
+    weights = tmp_path / "mirage-base_tiny.pth"
+    torch.save({"model": {}}, weights)
+    argv = ["-c", str(CONFIG), "--data_path", str(tmp_path / "AROI"),
+            "--weights", str(weights), "--model_override",
+            "miragepre_tiny12" if head == "dpt" else "miragepre_tiny",
+            "--input_size", "64", "--patch_size", "8", "--batch_size", "2",
+            "--dtype", "float32", "--output_dir", str(tmp_path / "out"),
+            "--num_workers", "0", "--epochs", "1",
+            "--max_steps_per_epoch", "2", "--device", "cpu",
+            "--output_adapter", head]
+    out = run_seg_tuning.main(argv + ["--test_data_path",
+                                      str(tmp_path / "AROI" / "test")])
+    run_dir = Path(out["output_dir"])
+    assert run_dir.name == f"mirage-base_tiny_frozen_{head}_CEGDice_minmax"
+    assert (run_dir / "checkpoint-best").is_dir()
+    assert np.isfinite(out["last_epoch"]["train/loss"])
+    assert 0.0 <= out["test"]["mean_iou"] <= 1.0
+    assert sorted(p.name for p in (run_dir / "preds").iterdir()) == \
+        ["s0.png", "s1.png"]
+    assert (run_dir / "val_images" / "e0000_val.png").is_file()
+    stats = run_seg_tuning.main(argv + ["--test", "--remat"])
+    assert stats["mean_iou"] == out["test"]["mean_iou"]
+
+
+def test_dpt_is_refused_beyond_vit_b(tmp_path):
+    from mirage_tpu_torch.cli import run_seg_tuning
+
+    _seg_dataset(tmp_path / "AROI", np.random.default_rng(0), size=64)
+    with pytest.raises(NotImplementedError, match="ViT-B only"):
+        run_seg_tuning.main(["--data_path", str(tmp_path / "AROI"),
+                             "--weights", "mirage-large.pth",
+                             "--output_dir", str(tmp_path / "out"),
+                             "--output_adapter", "dpt", "--device", "cpu"])
+
+
+def test_masked_forward_returns_every_layer_like_jax():
+    """return_all_layers on the masked forward (mirage_tpu/models/
+    mirage.py:277-290), every token visible through explicit task masks:
+    each block's output without the global token as a (B, D, gh, gw)
+    map."""
+    jmodel = JaxModel(
+        input_adapters={"bscan": JaxPatched(num_channels=1,
+                                            patch_size_full=8,
+                                            image_size=64)},
+        output_adapters=None, mlp_ratio=4.0, qkv_bias=True, **HEAD_TINY)
+    params = jax.tree_util.tree_map(
+        np.asarray, jmodel.init_params(jax.random.PRNGKey(27)))
+    port = MIRAGEModel(
+        {"bscan": PatchedInputAdapter(1, patch_size_full=8, image_size=64)},
+        None, **HEAD_TINY)
+    port.load_state_dict(jax_params_to_state_dict(params, port), strict=True)
+    x = np.random.default_rng(28).random((2, 1, 64, 64), dtype=np.float32)
+    masks = np.zeros((2, 64), np.int32)
+    want = jmodel(params, {"bscan": jnp.asarray(x)},
+                  task_masks={"bscan": jnp.asarray(masks)}, num_visible=64,
+                  return_all_layers=True)
+    with torch.no_grad():
+        got = port({"bscan": _t(x)}, task_masks={"bscan": _t(masks)},
+                   num_visible=64, return_all_layers=True)
+    assert sorted(got) == sorted(want) == [f"layer_{i}" for i in range(4)]
+    for k in want:
+        assert got[k].shape == (2, 32, 8, 8)
+        np.testing.assert_allclose(_np(got[k]), np.asarray(want[k]),
+                                   atol=ATOL, err_msg=k)

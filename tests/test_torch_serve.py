@@ -196,7 +196,8 @@ SEG_MODULES = ("ops.flash_attention", "nn.conv", "adapters.seg_heads",
                "losses.gdice", "api.fm_configs", "metrics.semseg",
                "data.folder", "data.augment", "data.loader",
                "train.checkpoint", "train.logger", "cli.config",
-               "cli.run_seg_tuning")
+               "cli.run_seg_tuning", "cli.run_seg_eval", "metrics.volume",
+               "utils.native")
 # the serving slice's modules under MIRAGE_BLOCK_FUSE and its entry points
 SERVE_MODULES = ("ops.fused_block", "ops.quant", "cli.infer", "hf")
 
