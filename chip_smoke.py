@@ -108,6 +108,23 @@ Phases, each of which must pass (any failure exits non-zero):
    library and through the plain versions on the same samples and seeds,
    which must agree (images within 1e-5, label maps at 99.5 % of pixels),
    and the 8-worker loader's interval a batch of 256.
+11. parallel: multi-GPU training (mirage_tpu_torch/parallel, train/steps.py
+   sharded steps). (a) One process, NCCL, world 1: phase 5's pretraining
+   step (ViT-B, batch 256, bf16) with injected masks under dp (DDP), fsdp
+   (FSDP2), tp (t = 1) and tp_fsdp (1 × 1), each against the bare step
+   (the first step's loss, grad norm and every gradient, the second
+   step's loss; phase 5's bars), exact launch counts (the tp layouts
+   through Block.tp_forward: B6 and the LN / GEMM ops of ops/linear.py in
+   place of B1 / B4), ms a step beside the bare step's; the pretraining
+   command line one step with --distributed --num_processes 1. (b) Two
+   processes on cuda:0 over gloo: tp = 2 and dp = 2 at global batch 256
+   from the same weights and masks against (a)'s bare step within the same
+   bars, exact launches, each rank's ms a step (printed, not compared: the
+   processes share the card). (c) The GEMM (qkv, proj, fc1, fc2), B6's
+   attention forward and backward and csrc/mlp_bwd.cu's hidden stage and
+   dyln at the tensor-local shapes of ViT-B (t = 2, 4) and ViT-L (t = 4,
+   8) against their plain versions (phase 2's bars), timed beside the
+   plain versions, the library and the bound.
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -592,14 +609,15 @@ def _library(op):
     return fn
 
 
-def attention_core_rows(entry, per_call):
+def attention_core_rows(entry, per_call, shapes=None, key=None):
     """The attention forward alone (csrc/attention_fwd.cuh through
-    ``runtime.attention`` or ``runtime.flash_attention``) at the ATTN_SHAPES
-    of ``entry`` that a path calls (``per_call``: label -> launches a
-    forward or step), bf16, against float32 math from the same inputs
-    (max-abs BF16_MAX_ABS, rel-L2 BF16_REL_L2; the flash entry's
-    log-sum-exp within LSE_ATOL in log2 units); then the kernel, its plain
-    version (``sdpa``, or ``flash_attention_ref``) and SDPA timed."""
+    ``runtime.attention`` or ``runtime.flash_attention``) at the ``shapes``
+    (default ATTN_SHAPES) of ``entry`` that a path calls (``per_call``:
+    label -> launches a forward or step, in each row's ``key``), bf16,
+    against float32 math from the same inputs (max-abs BF16_MAX_ABS, rel-L2
+    BF16_REL_L2; the flash entry's log-sum-exp within LSE_ATOL in log2
+    units); then the kernel, its plain version (``sdpa``, or
+    ``flash_attention_ref``) and SDPA timed."""
     import torch
 
     from mirage_tpu_torch.nn.attention import sdpa
@@ -609,7 +627,7 @@ def attention_core_rows(entry, per_call):
     gen = torch.Generator().manual_seed(SEED + 8)
     lib = _flash_library(False)
     rows = []
-    for label, shape, cross, ent, _ in ATTN_SHAPES:
+    for label, shape, cross, ent, _ in shapes or ATTN_SHAPES:
         if ent != entry or label not in per_call:
             continue
         q, k, v, out, lse, q_src, kv_src = _attn_inputs(shape, cross, gen)
@@ -652,7 +670,8 @@ def attention_core_rows(entry, per_call):
         plain_ms = cuda_ms(lambda: plain(qh, kh, vh, scale), iters=5)
         library_ms = cuda_ms(lambda: lib(q_src, kv_src, h, scale))
         bound_ms, bound_by = _bound(_attn_core_work(shape, entry))
-        key = "calls_per_forward" if entry == "attention" else "calls_per_step"
+        key = key or ("calls_per_forward" if entry == "attention"
+                      else "calls_per_step")
         row = {"label": label, "shape": list(shape), "dtype": "bf16",
                "errors": errs, "max_abs_err": errs["out"]["max_abs"],
                "rel_l2_err": errs["out"]["rel_l2"], "ms": ms,
@@ -1752,13 +1771,15 @@ GEMM_CROSS_SHAPES = [
 ]
 
 
-def gemm_rows():
+def gemm_rows(shapes=None, calls=None, key="calls_per_forward"):
     """The bf16 GEMM (``runtime.gemm``, csrc/gemm_pingpong.cuh through
-    csrc/gemm.cu) at GEMM_SHAPES and B3's products, bf16 operands, against
-    float32 math from the same inputs (max-abs BF16_MAX_ABS, rel-L2
-    BF16_REL_L2), a rerun bit-identical; then the kernel, the float32 plain
-    version, ``torch.matmul`` of the product alone and the ``F.linear``
-    composition timed, beside the bound."""
+    csrc/gemm.cu) at ``shapes`` (default GEMM_SHAPES and B3's products;
+    epilogue "none": no bias), bf16 operands, against float32 math from
+    the same inputs (max-abs BF16_MAX_ABS, rel-L2 BF16_REL_L2), a rerun
+    bit-identical; then the kernel, the float32 plain version,
+    ``torch.matmul`` of the product alone and the ``F.linear`` composition
+    timed, beside the bound. ``calls`` (default GEMM_PATH_CALLS): label ->
+    launches on the path, in each row's ``key``."""
     import torch
     import torch.nn.functional as F
 
@@ -1772,9 +1793,11 @@ def gemm_rows():
             .cuda()
 
     rows = []
-    for label, shape, epi, _ in GEMM_SHAPES + GEMM_CROSS_SHAPES:
+    calls = GEMM_PATH_CALLS if calls is None else calls
+    for label, shape, epi, _ in shapes or GEMM_SHAPES + GEMM_CROSS_SHAPES:
         m, n, k = shape
-        a, w, bias = rn(m, k), rn(n, k, scale=k ** -0.5), rn(n, scale=0.02)
+        a, w = rn(m, k), rn(n, k, scale=k ** -0.5)
+        bias = None if epi == "none" else rn(n, scale=0.02)
         res = rn(m, n) if epi == "res" else None
 
         def kernel():
@@ -1783,7 +1806,8 @@ def gemm_rows():
             return runtime.gemm(a, w, bias, residual=res, gelu=epi == "gelu")
 
         def plain(dt):
-            y = F.linear(a.to(dt), w.to(dt), bias.to(dt))
+            y = F.linear(a.to(dt), w.to(dt),
+                         None if bias is None else bias.to(dt))
             if epi == "gelu":
                 y = F.gelu(y)
             elif epi == "as26":
@@ -1817,7 +1841,7 @@ def gemm_rows():
                "library": "F.linear (+ F.gelu) (+ residual add) in bf16; "
                           "matmul_ms: torch.matmul of the product alone",
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "calls_per_forward": GEMM_PATH_CALLS.get(label, 0)}
+               key: calls.get(label, 0)}
         log(f"[kernels] gemm {label} {shape} {epi}: max_abs {max_abs:.3e} "
             f"rel_l2 {rel_l2:.3e}; kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f}, matmul {row['matmul_ms']:.4f}, library "
@@ -3531,6 +3555,32 @@ TRAIN_STEPS_ON = 3  # timed steps with the switches on, after one warm-up
 TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL = 1e-2, 2e-2, 5e-2
 
 
+TRAIN_DOMAINS = ["bscan", "slo", "bscanlayermap"]
+TRAIN_ARGS = dict(model="miragepre_base", num_global_tokens=1,
+                  in_domains=TRAIN_DOMAINS, out_domains=TRAIN_DOMAINS,
+                  decoder_dim=256, decoder_depth=2, decoder_num_heads=8)
+TRAIN_DOMAIN_CONF = {
+    "bscan": {"loss": "mse", "patch_size": 32, "norm_pix": True},
+    "slo": {"loss": "mse", "patch_size": 32, "norm_pix": True},
+    "bscanlayermap": {"loss": "ce", "patch_size": 8}}
+
+
+def _train_model():
+    """Phase 5's ViT-B pretraining model (seed SEED) on the card and its
+    optimizer."""
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import build_model
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+
+    model = build_model("miragepre_base", TRAIN_ARGS, TRAIN_DOMAINS, 512, 32,
+                        compute_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(SEED)).cuda()
+    opt = GroupedOptimizer(OptimizerConfig(
+        opt="adamw", betas=(0.9, 0.95), weight_decay=0.05, clip_grad=1.0))
+    return model, opt
+
+
 def _launch_counters():
     from mirage_tpu_torch.ops import block_attention as ba
     from mirage_tpu_torch.ops import flash_attention as fa
@@ -3598,10 +3648,8 @@ def phase_train(card):
     import numpy as np
     import torch
 
-    from mirage_tpu_torch.api.wrapper import build_model
     from mirage_tpu_torch.masking.masking import generate_random_masks
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
     from mirage_tpu_torch.train.steps import (init_train_state,
                                               make_pretrain_loss,
                                               make_train_step)
@@ -3615,21 +3663,11 @@ def phase_train(card):
     def read():
         return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
-    domains = ["bscan", "slo", "bscanlayermap"]
-    args = dict(model="miragepre_base", num_global_tokens=1,
-                in_domains=domains, out_domains=domains, decoder_dim=256,
-                decoder_depth=2, decoder_num_heads=8)
+    domains = TRAIN_DOMAINS
     t0 = time.perf_counter()
-    model = build_model("miragepre_base", args, domains, 512, 32,
-                        compute_dtype=torch.bfloat16,
-                        generator=torch.Generator().manual_seed(SEED)).cuda()
-    opt = GroupedOptimizer(OptimizerConfig(
-        opt="adamw", betas=(0.9, 0.95), weight_decay=0.05, clip_grad=1.0))
-    dc = {"bscan": {"loss": "mse", "patch_size": 32, "norm_pix": True},
-          "slo": {"loss": "mse", "patch_size": 32, "norm_pix": True},
-          "bscanlayermap": {"loss": "ce", "patch_size": 8}}
-    loss_fn = make_pretrain_loss(model, dc, num_encoded_tokens=98,
-                                 alphas=1.0)
+    model, opt = _train_model()
+    loss_fn = make_pretrain_loss(model, TRAIN_DOMAIN_CONF,
+                                 num_encoded_tokens=98, alphas=1.0)
     state = init_train_state(model, opt)
     step = make_train_step(loss_fn, opt)
     b = TRAIN_BATCH
@@ -5183,8 +5221,640 @@ def _ln_entries(rows, pretrain):
     return entries
 
 
+# ----------------------------------------------------------------- phase 11
+
+PARALLEL_LAYOUTS = ("dp", "fsdp", "tp", "tp_fsdp")
+PARALLEL_STEPS = 3  # timed steps a layout, after the two compared ones
+PARALLEL_LR = 1e-4
+PARALLEL_TIMEOUT = 600  # seconds for a worker of (b) to join
+# a tensor-parallel pretraining step: the encoder's blocks take
+# Block.tp_forward (LN, the qkv product, B6 on H/t heads, the proj product;
+# B2 and B5 with residual=False) in place of B1 / B4
+PER_STEP_TP = {**PER_STEP, "attn_half_block": 0, "attn_half_block_bwd": 0,
+               "block_attention": 18, "block_attention_bwd": 18}
+# ops/linear.py's ops a step: the LN and the qkv and proj products of the
+# 12 tensor-parallel blocks
+DENSE_PER_STEP = {"linear": 0, "linear_bwd": 0, "layer_norm": 0,
+                  "layer_norm_bwd": 0}
+DENSE_PER_STEP_TP = {"linear": 24, "linear_bwd": 24, "layer_norm": 12,
+                     "layer_norm_bwd": 12}
+# the kernels of a step by their launchers' counts (reported, and each
+# must launch)
+RAW_COUNTERS = ("gemm", "attention", "attention_bwd", "mlp_bwd_hidden",
+                "mlp_bwd_dyln", "layernorm", "layernorm_bwd")
+# tensor-local shapes of the pretraining step (batch 256 × 99 tokens):
+# (label, width, heads, t); the first is the one (b) runs
+TP_SHAPES = [("ViT-B t=2", 768, 12, 2), ("ViT-B t=4", 768, 12, 4),
+             ("ViT-L t=4", 1024, 16, 4), ("ViT-L t=8", 1024, 16, 8)]
+TP_ROWS = TRAIN_BATCH * 99
+# phase 11's `kernels` entries: name -> (TPU kernel file:line, the TPU
+# kernels it serves on the tensor-parallel path, source, sources)
+PARALLEL_KERNELS = {
+    "gemm": ("mirage_tpu/ops/fused_mlp.py:58",
+             "the products of _mlp_kernel :58 (fc1 at 4D/t columns, fc2 at "
+             "4D/t rows) and, in place of XLA's, _tp_block_apply's qkv and "
+             "proj (nn/block.py:191,207)", CSRC + "gemm_pingpong.cuh",
+             ["gemm_pingpong.cuh", "gemm.cu"]),
+    "attention_fwd": ("mirage_tpu/ops/block_attention.py:58",
+                      "_block_attn_fwd :88 -> _block_attn_kernel :58 (B6) "
+                      "on H/t heads", CSRC + "attention_fwd.cuh",
+                      ["attention_fwd.cuh", "attention.cu"]),
+    "attention_bwd": ("mirage_tpu/ops/block_attention.py:111",
+                      "_block_attn_bwd :169 -> _block_attn_bwd_kernel :111 "
+                      "(B6) on H/t heads", CSRC + "attention_bwd.cuh",
+                      ["attention_bwd.cuh", "attention_bwd.cu"]),
+    "mlp_bwd_hidden": ("mirage_tpu/ops/fused_mlp.py:453",
+                       "the hidden stage of _mlp_bwd_dx_kernel :453 (B5) at "
+                       "4D/t hidden", CSRC + "mlp_bwd.cu", ["mlp_bwd.cu"]),
+    "mlp_bwd_dyln": ("mirage_tpu/ops/fused_mlp.py:453",
+                     "dyln of _mlp_bwd_dx_kernel :453 (B5) at 4D/t hidden; "
+                     "dx of the qkv and proj products", CSRC + "mlp_bwd.cu",
+                     ["mlp_bwd.cu"]),
+    "layernorm": ("mirage_tpu/ops/fused_mlp.py:58",
+                  "the LN prologue of _mlp_kernel :58 and, in place of "
+                  "XLA's, _tp_block_apply's norm1", CSRC + "layernorm.cu",
+                  ["layernorm.cu"]),
+    "layernorm_bwd": ("mirage_tpu/ops/fused_mlp.py:453",
+                      "the LN tail of _mlp_bwd_dx_kernel :453 and, in place "
+                      "of XLA's, _tp_block_apply's norm1 backward",
+                      CSRC + "layernorm.cu", ["layernorm.cu"]),
+}
+
+
+def _parallel_counters():
+    from mirage_tpu_torch.ops import linear as dense
+    from mirage_tpu_torch.ops import runtime
+
+    return {**_launch_counters(),
+            "linear": (dense.linear, "launches"),
+            "linear_bwd": (dense.linear, "bwd_launches"),
+            "layer_norm": (dense.layer_norm, "launches"),
+            "layer_norm_bwd": (dense.layer_norm, "bwd_launches"),
+            "gemm": (runtime.gemm, "launches"),
+            "attention": (runtime.attention, "launches"),
+            "mlp_bwd_hidden": (runtime.mlp_bwd_hidden, "launches"),
+            "mlp_bwd_dyln": (runtime.mlp_bwd_dyln, "launches"),
+            "layernorm": (runtime.layernorm, "launches"),
+            "layernorm_bwd": (runtime.layernorm_bwd, "launches")}
+
+
+def _parallel_expected(layout):
+    """The ops' launches a step in ``layout``."""
+    tp = layout in ("tp", "tp_fsdp")
+    return {**(PER_STEP_TP if tp else PER_STEP),
+            **(DENSE_PER_STEP_TP if tp else DENSE_PER_STEP)}
+
+
+def _parallel_batch():
+    """Phase 5's inputs at batch 256 from a numpy seed, with one set of
+    masks (98 visible tokens a sample) carried as batch leaves
+    "mask_<task>", so they shard with the batch: numpy arrays."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.masking.masking import generate_random_masks
+
+    b = TRAIN_BATCH
+    rng = np.random.default_rng(SEED + 11)
+    batch = {"bscan": rng.random((b, 1, 512, 512), dtype=np.float32),
+             "slo": rng.random((b, 1, 512, 512), dtype=np.float32),
+             "bscanlayermap": rng.integers(0, 13, (b, 128, 128))}
+    masks, _, _ = generate_random_masks(
+        torch.Generator().manual_seed(SEED + 11), [256, 256, 256], b, 98)
+    for task, m in zip(TRAIN_DOMAINS, masks):
+        batch[f"mask_{task}"] = m.numpy()
+    return batch
+
+
+def _masked_loss(model):
+    """The pretraining loss with the masks of the batch."""
+    from mirage_tpu_torch.train.steps import make_pretrain_loss
+
+    base = make_pretrain_loss(model, TRAIN_DOMAIN_CONF,
+                              num_encoded_tokens=98)
+
+    def loss_fn(batch, generator=None):
+        return base({t: batch[t] for t in TRAIN_DOMAINS}, generator,
+                    task_masks={t: batch[f"mask_{t}"]
+                                for t in TRAIN_DOMAINS}, num_visible=98)
+    return loss_fn
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _timed_steps(step, state, batch, gen, counters, n):
+    """``n`` steps after resetting the counters: (state, ms a step by the
+    host clock after a synchronise, the device ms of each step by CUDA
+    events, the counts, the last metrics)."""
+    import torch
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n):
+        state, m = step(state, batch, gen, PARALLEL_LR)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    dev = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    return state, ms, dev, counts, m
+
+
+def _check_counts(what, counts, expected, steps):
+    want = {k: v * steps for k, v in expected.items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    silent = [k for k in RAW_COUNTERS if not counts[k]]
+    if silent:
+        raise AssertionError(f"{what}: kernels launched no time: {silent}")
+
+
+def _step_grads(state, names):
+    """The gradients the sharded step left in .grad, whole (one process)."""
+    from mirage_tpu_torch.train.optim import local
+
+    return [local(state["params"][n].grad) for n in names]
+
+
+def phase_parallel_one(workdir, card):
+    """(a) One process, NCCL, world 1: phase 5's pretraining step (ViT-B,
+    batch 256, bf16) with injected masks under dp (DDP), fsdp (FSDP2), tp
+    (t = 1) and tp_fsdp (1 × 1), each from the same weights: its first
+    step's loss, grad norm and every gradient, and its second step's loss,
+    against the bare step's (make_train_step without a mesh) within phase
+    5's bars; exact launch counts of each (the tp layouts through
+    Block.tp_forward); ms a step beside the bare step's. Then the
+    pretraining command line, one step with --distributed --num_processes
+    1 on a seeded dataset of 256 samples. Returns the results and the bare
+    step's reference (loss, norms, gradients) for (b)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mirage_tpu_torch.cli import run_pretraining as rp
+    from mirage_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_train_step, shard_state)
+
+    counters = _parallel_counters()
+    init_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}",
+                     world_size=1, rank=0)
+    mesh = make_mesh({"data": 1}, "cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _parallel_batch().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    # the bare step: one forward and backward, then the steps
+    model, opt = _train_model()
+    loss_fn = _masked_loss(model)
+    state = init_train_state(model, opt)
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+    loss0, _ = loss_fn(batch)
+    grads0 = torch.autograd.grad(loss0, [state["params"][n] for n in names])
+    loss0 = loss0.detach()
+    step = make_train_step(loss_fn, opt)
+    ref = {"loss": [], "grad_norm": []}
+    for _ in range(2):
+        state, m = step(state, batch, gen, PARALLEL_LR)
+        ref["loss"].append(m["loss"].item())
+        ref["grad_norm"].append(m["grad_norm"].item())
+    state, ms, dev, counts, _ = _timed_steps(step, state, batch, gen,
+                                             counters, PARALLEL_STEPS)
+    _check_counts("bare step", counts, _parallel_expected("dp"),
+                  PARALLEL_STEPS)
+    out = {"bare": {**ref, "ms_per_step": ms, "device_ms": dev,
+                    "counts": counts}}
+    log(f"[parallel] bare step: losses {ref['loss']}, grad norms "
+        f"{ref['grad_norm']}, {ms:.2f} ms a step, launches {counts}")
+    del model, state, step, loss_fn
+    torch.cuda.empty_cache()
+
+    for layout in PARALLEL_LAYOUTS:
+        model, opt = _train_model()
+        loss_fn = _masked_loss(model)
+        state = shard_state(init_train_state(model, opt), mesh, model,
+                            tp_num_heads=model.num_heads, layout=layout)
+        step = make_train_step(loss_fn, opt, mesh=mesh)
+        state, m1 = step(state, batch, gen, PARALLEL_LR)
+        agree = _agreement(m1["loss"], _step_grads(state, names), loss0,
+                           grads0, names)
+        state, m2 = step(state, batch, gen, PARALLEL_LR)
+        agree["step2_loss"], agree["bare_step2_loss"] = (
+            m2["loss"].item(), ref["loss"][1])
+        agree["step2_loss_rel"] = abs(m2["loss"].item() - ref["loss"][1]) \
+            / abs(ref["loss"][1])
+        agree["grad_norm_step2"] = m2["grad_norm"].item()
+        log(f"[parallel] {layout} (world 1): {agree}")
+        _check_agreement(f"{layout} step (world 1)", agree)
+        if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
+            raise AssertionError(f"{layout}: second step's loss {agree}")
+        state, ms, dev, counts, m = _timed_steps(step, state, batch, gen,
+                                                 counters, PARALLEL_STEPS)
+        _check_counts(f"{layout} (world 1)", counts,
+                      _parallel_expected(layout), PARALLEL_STEPS)
+        if not np.isfinite(m["loss"].item()):
+            raise AssertionError(f"{layout}: loss {m['loss'].item()}")
+        out[layout] = {"agreement": agree, "ms_per_step": ms,
+                       "device_ms": dev, "counts": counts,
+                       "bare_ms_per_step": out["bare"]["ms_per_step"]}
+        log(f"[parallel] {layout} (world 1): {ms:.2f} ms a step (bare "
+            f"{out['bare']['ms_per_step']:.2f}), device ms {dev}, launches "
+            f"{counts}, on {card}")
+        del model, state, step, loss_fn
+        torch.cuda.empty_cache()
+
+    # the command line, one step in the group of one
+    root = workdir / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    _pretrain_dataset(root / "data", np.random.default_rng(SEED + 12),
+                      TRAIN_BATCH)
+    argv = ["-c", str(ROOT / PRETRAIN_CONFIG), "--data_path",
+            str(root / "data"), "--output_dir", str(root / "out"),
+            "--device", "cuda", "--num_workers", "8", "--distributed",
+            "--num_processes", "1", "--process_id", "0", "--epochs", "1",
+            "--warmup_epochs", "0", "--max_steps_per_epoch", "1",
+            "--debug_images", "false", "--log_freq", "1"]
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = rp.main(argv)
+    torch.cuda.synchronize()
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    cli = {"seconds": time.perf_counter() - t0, "counts": counts,
+           "log": res["log"], "step_s": res["step_s"]}
+    log(f"[parallel] run_pretraining --distributed --num_processes 1: {cli}")
+    _check_counts("run_pretraining --distributed", counts,
+                  _parallel_expected("dp"), 1)
+    if res["state"]["layout"].kind != "dp" or not np.isfinite(
+            res["log"][-1]["train_loss"]) or not (
+            root / "out" / "checkpoint-0").is_dir():
+        raise AssertionError(f"run_pretraining --distributed: {cli}")
+    out["cli"] = cli
+    del res
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ref["step1_loss"] = loss0.item()
+    ref["grads"] = {n: g.float().cpu() for n, g in zip(names, grads0)}
+    return out, ref
+
+
+def _parallel_worker(rank, world, store, outdir):
+    """A process of (b): gloo on cuda:0, the tp = 2 and dp = 2 steps from
+    phase 5's weights at global batch 256 with the same masks; rank 0
+    gathers the first step's gradients in the standard layout and holds
+    them to (a)'s bare step."""
+    import datetime
+    import traceback
+
+    outdir = Path(outdir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, str(ROOT))
+        from mirage_tpu_torch.parallel.mesh import local_batch, make_mesh
+        from mirage_tpu_torch.train.optim import local
+        from mirage_tpu_torch.train.steps import (gather_leaf,
+                                                  init_train_state,
+                                                  make_train_step,
+                                                  shard_state)
+
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT))
+        counters = _parallel_counters()
+        ref = torch.load(outdir / "ref.pt") if rank == 0 else None
+        whole = {k: torch.from_numpy(v).cuda()
+                 for k, v in _parallel_batch().items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        results = {}
+        for layout, axes in (("tp", {"tensor": world}),
+                             ("dp", {"data": world})):
+            mesh = make_mesh(axes, "cpu")  # gloo: no device mesh on the card
+            model, opt = _train_model()
+            state = shard_state(init_train_state(model, opt), mesh, model,
+                                tp_num_heads=model.num_heads, layout=layout)
+            step = make_train_step(_masked_loss(model), opt, mesh=mesh)
+            batch = local_batch(whole, mesh)
+            names = [n for n, p in state["params"].items()
+                     if p.requires_grad]
+            state, m1 = step(state, batch, gen, PARALLEL_LR)
+            lay = state["layout"]
+            grads = [gather_leaf(local(state["params"][n].grad).float()
+                                 .cpu(), n, lay, state["params"][n])
+                     for n in names]
+            res = {"loss": [m1["loss"].item()],
+                   "grad_norm": [m1["grad_norm"].item()]}
+            if rank == 0:
+                res["agreement"] = _agreement(
+                    m1["loss"].cpu(), grads, torch.tensor(ref["step1_loss"]),
+                    [ref["grads"][n] for n in names], names)
+            del grads
+            state, m2 = step(state, batch, gen, PARALLEL_LR)
+            res["loss"].append(m2["loss"].item())
+            res["grad_norm"].append(m2["grad_norm"].item())
+            state, ms, dev, counts, _ = _timed_steps(
+                step, state, batch, gen, counters, PARALLEL_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            res.update({"ms_per_step": ms, "device_ms": dev,
+                        "counts": counts, "local_batch": len(batch["bscan"]),
+                        "peak_gib": peak})
+            results[layout] = res
+            del model, state, step, lay
+            torch.cuda.empty_cache()
+        torch.save(results, outdir / f"rank{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        (outdir / f"err{rank}").write_text(traceback.format_exc())
+        raise
+
+
+def phase_parallel_two(workdir, card, ref):
+    """(b) Two processes on cuda:0 over gloo (it carries all-reduce and
+    broadcast of CUDA tensors, and two NCCL ranks may not share a GPU; so
+    tp = 2 and dp = 2 run here, and fsdp > 1 is held on the CPU): ViT-B at
+    global batch 256, two steps from phase 5's weights with (a)'s masks;
+    the first step's loss, grad norm and gradients (gathered, standard
+    layout) and the second step's loss against (a)'s bare step within phase
+    5's bars; exact launch counts; each rank's ms a step (two processes
+    share the card: printed, not compared)."""
+    import multiprocessing
+    import shutil
+
+    import torch
+
+    outdir = workdir / "parallel2"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    torch.save(ref, outdir / "ref.pt")
+    ctx = multiprocessing.get_context("spawn")
+    world = 2
+    procs = [ctx.Process(target=_parallel_worker,
+                         args=(r, world, str(outdir / "store"), str(outdir)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(PARALLEL_TIMEOUT)
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(30)
+    errs = [f.read_text() for f in sorted(outdir.glob("err*"))]
+    codes = [p.exitcode for p in procs]
+    if hung or errs or any(codes):
+        raise AssertionError(f"(b) workers: exit codes {codes}, hung "
+                             f"{len(hung)}\n" + "\n".join(errs))
+    ranks = [torch.load(outdir / f"rank{r}.pt") for r in range(world)]
+    out = {"seconds": time.perf_counter() - t0}
+    for layout in ("tp", "dp"):
+        r0 = ranks[0][layout]
+        agree = dict(r0["agreement"])
+        agree["step2_loss_rel"] = abs(r0["loss"][1] - ref["loss"][1]) \
+            / abs(ref["loss"][1])
+        by_rank = [r[layout] for r in ranks]
+        log(f"[parallel] {layout} = 2 (two processes, gloo, cuda:0): "
+            f"{agree}; ms a step by rank "
+            f"{[r['ms_per_step'] for r in by_rank]}, device ms "
+            f"{[r['device_ms'] for r in by_rank]}, launches {r0['counts']}, "
+            f"on {card}")
+        _check_agreement(f"{layout} = 2", agree)
+        if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
+            raise AssertionError(f"{layout} = 2: second step's loss {agree}")
+        for r, res in enumerate(ranks):
+            _check_counts(f"{layout} = 2, rank {r}", res[layout]["counts"],
+                          _parallel_expected(layout), PARALLEL_STEPS)
+        out[layout] = {"agreement": agree,
+                       "ranks": [res[layout] for res in ranks]}
+    return out
+
+
+def mlp_bwd_rows(cases):
+    """csrc/mlp_bwd.cu's two products alone at ``cases`` ((label, (m, d,
+    h), calls a step of the hidden stage, [(label, (m, h, d), out dtype,
+    calls a step)] of dyln)), bf16: the hidden stage against its plain
+    version in float32 from the same inputs (dh and db1 at BWD_REL_L2 /
+    BWD_REL_MAX, act at the bf16 bars), dyln = dh · W1 against float32
+    math; reruns bit for bit; timed beside the plain versions and (dyln)
+    torch.matmul."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_mlp import mlp_bwd_hidden_ref
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(
+            torch.bfloat16).cuda()
+
+    def check(what, got, want, rel_l2_bar, rel_max_bar):
+        diff = got.float() - want
+        err = {"max_abs": diff.abs().max().item(),
+               "rel_l2": (diff.norm() / want.norm()).item(),
+               "rel_max": (diff.abs().max() / want.abs().max()).item()}
+        if not (bool(torch.isfinite(got).all())
+                and err["rel_l2"] <= rel_l2_bar
+                and err["rel_max"] <= rel_max_bar):
+            raise AssertionError(f"{what}: kernel disagrees with its plain "
+                                 f"version: {err}")
+        return err
+
+    hidden_rows, dyln_rows = [], []
+    for label, (m, d, h), calls, dylns in cases:
+        y, dy = rn(m, d), rn(m, d)
+        w1, w2 = rn(h, d, scale=d ** -0.5), rn(d, h, scale=h ** -0.5)
+        b1 = (torch.randn(h, generator=gen) * 0.02).cuda()
+        got = runtime.mlp_bwd_hidden(y, dy, w1, b1, w2)
+        again = runtime.mlp_bwd_hidden(y, dy, w1, b1, w2)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"mlp_bwd_hidden {label}: a rerun differs")
+        wdh, wact, wdb1 = mlp_bwd_hidden_ref(y.float(), dy.float(),
+                                             w1.float(), b1, w2.float())
+        errs = {"dh": check(f"mlp_bwd_hidden {label} dh", got[0], wdh,
+                            BWD_REL_L2, BWD_REL_MAX),
+                "act": check(f"mlp_bwd_hidden {label} act", got[1], wact,
+                             BF16_REL_L2, BWD_REL_MAX),
+                "db1": check(f"mlp_bwd_hidden {label} db1", got[2].sum(0),
+                             wdb1, BWD_REL_L2, BWD_REL_MAX)}
+        del got, again, wdh, wact, wdb1
+        flops = 4 * m * d * h
+        nbytes = 2 * (2 * m * d + 2 * h * d + 2 * m * h) + 4 * h \
+            + 4 * -(-m // 16) * h
+        bound_ms, bound_by = _bound((flops, nbytes))
+        row = {"label": label, "shape": [m, d, h], "dtype": "bf16",
+               "errors": errs, "max_abs_err": max(
+                   e["max_abs"] for e in errs.values()),
+               "rerun_bit_identical": True,
+               "ms": cuda_ms(lambda: runtime.mlp_bwd_hidden(
+                   y, dy, w1, b1, w2)),
+               "plain_ms": cuda_ms(lambda: mlp_bwd_hidden_ref(
+                   y, dy, w1, b1, w2), iters=5),
+               "library_ms": None,
+               "library": "none: no one PyTorch call computes the hidden "
+                          "stage",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "calls_per_step": calls}
+        log(f"[parallel] mlp_bwd_hidden {label} ({m}, {d}, {h}): {errs}; "
+            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        hidden_rows.append(row)
+        del y, dy, w1, w2, b1
+        for dlabel, (dm, dh_, dd), out_dtype, dcalls in dylns:
+            g, w = rn(dm, dh_), rn(dh_, dd, scale=dh_ ** -0.5)
+            got = runtime.mlp_bwd_dyln(g, w, out_dtype=out_dtype)
+            again = runtime.mlp_bwd_dyln(g, w, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"mlp_bwd_dyln {dlabel}: a rerun "
+                                     f"differs")
+            err = check(f"mlp_bwd_dyln {dlabel}", got, g.float() @ w.float(),
+                        BWD_REL_L2, BWD_REL_MAX)
+            del got, again
+            out_bytes = 4 if out_dtype == torch.float32 else 2
+            bound_ms, bound_by = _bound((2 * dm * dh_ * dd, 2 * dm * dh_
+                                         + 2 * dh_ * dd + out_bytes * dm * dd))
+            drow = {"label": dlabel, "shape": [dm, dh_, dd], "dtype": "bf16",
+                    "out_dtype": str(out_dtype).split(".")[-1],
+                    "errors": {"dyln": err}, "max_abs_err": err["max_abs"],
+                    "rerun_bit_identical": True,
+                    "ms": cuda_ms(lambda: runtime.mlp_bwd_dyln(
+                        g, w, out_dtype=out_dtype)),
+                    "plain_ms": cuda_ms(lambda: g.float() @ w.float(),
+                                        iters=5),
+                    "library_ms": cuda_ms(lambda: torch.matmul(g, w)),
+                    "library": "torch.matmul in bf16",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "calls_per_step": dcalls}
+            log(f"[parallel] mlp_bwd_dyln {dlabel} ({dm}, {dh_}, {dd}): "
+                f"{err}; kernel {drow['ms']:.4f} ms plain "
+                f"{drow['plain_ms']:.4f} ms matmul {drow['library_ms']:.4f} "
+                f"ms bound {bound_ms:.4f} ms ({bound_by})")
+            dyln_rows.append(drow)
+            del g, w
+    return hidden_rows, dyln_rows
+
+
+def phase_parallel_kernels():
+    """(c) The kernels of the tensor-parallel step against their plain
+    versions at the tensor-local shapes of TP_SHAPES (phase 2's bars): the
+    GEMM (qkv 3·D/t columns with its bias, proj D/t columns in with no
+    bias, fc1 4·D/t columns with GELU, fc2 4·D/t in with no bias), B6's
+    attention forward and backward on H/t heads, and csrc/mlp_bwd.cu's
+    hidden stage at 4·D/t and its dyln product (B5's, and dx of the qkv and
+    proj products). ``calls_per_step``: the launches a ViT-B t = 2 step
+    makes at that shape (the shape (b) runs); the other rows are checked
+    and timed per call."""
+    import torch
+
+    gemm, fwd, bwd, mlp = [], [], [], []
+    calls = {}
+    for i, (label, d, heads, t) in enumerate(TP_SHAPES):
+        per = 12 if i == 0 else 0
+        m, hl = TP_ROWS, heads // t
+        for name, shape, epi in (("qkv", (m, 3 * d // t, d), "bias"),
+                                 ("proj", (m, d, d // t), "none"),
+                                 ("fc1", (m, 4 * d // t, d), "gelu"),
+                                 ("fc2", (m, d, 4 * d // t), "none")):
+            gemm.append((f"{label} {name}", shape, epi, f"{per} / step"))
+            calls[f"{label} {name}"] = per
+        fwd.append((f"{label} B6", (TRAIN_BATCH, 99, 99, hl, 64), False,
+                    "attention", per))
+        bwd.append((f"{label} B6", (TRAIN_BATCH, 99, 99, hl, 64), False,
+                    "attention_bwd", per))
+        mlp.append((f"{label} B5", (m, d, 4 * d // t), per, [
+            (f"{label} B5 dyln", (m, 4 * d // t, d), torch.float32, per),
+            (f"{label} qkv dx", (m, 3 * d // t, d), torch.bfloat16, per),
+            (f"{label} proj dx", (m, d, d // t), torch.bfloat16, per)]))
+    rows = {"gemm": gemm_rows(gemm, calls, "calls_per_step"),
+            "attention_fwd": attention_core_rows(
+                "attention", {c[0]: c[4] for c in fwd}, fwd,
+                "calls_per_step"),
+            "attention_bwd": attention_bwd_core_rows(bwd)}
+    rows["mlp_bwd_hidden"], rows["mlp_bwd_dyln"] = mlp_bwd_rows(mlp)
+    return rows
+
+
+def phase_parallel(workdir, card):
+    one, ref = phase_parallel_one(workdir, card)
+    two = phase_parallel_two(workdir, card, ref)
+    del ref
+    return {"world_1": one, "two_processes": two,
+            "kernels": phase_parallel_kernels()}
+
+
+def _parallel_entries(par, ln_rows):
+    """Phase 11's entries of the `kernels` line: the kernels of the
+    tensor-parallel step, times summed over one ViT-B t = 2 pretraining
+    step's tensor-local calls (per-call time × calls at each shape; the
+    other shapes checked and timed per call), launches from rank 0 of
+    (b)'s tp = 2 run (PARALLEL_STEPS steps), the LN rows from phase 2 at
+    the shapes the step runs them."""
+    rows = dict(par["kernels"])
+    tp_calls = {"layernorm": {"pretraining encoder": 36,
+                              "pretraining decoders": 12},
+                "layernorm_bwd": {"pretraining encoder": 24,
+                                  "pretraining decoders": 6}}
+    for name, calls in tp_calls.items():
+        rows[name] = [dict(r, calls_per_step=calls.get(r["label"], 0))
+                      for r in ln_rows[name]]
+    counts = par["two_processes"]["tp"]["ranks"][0]["counts"]
+    entries = []
+    for name, (replaces, tpu_kernel, source, csrc) in \
+            PARALLEL_KERNELS.items():
+        rs = rows[name]
+        main = [r for r in rs if r.get("calls_per_step")]
+
+        def total(k):
+            if any(r.get(k) is None for r in main):
+                return None
+            return sum(r[k] * r["calls_per_step"] for r in main)
+
+        top = max(main, key=lambda r: r["bound_ms"] * r["calls_per_step"])
+        launches = counts["attention" if name == "attention_fwd" else name]
+        entries.append({
+            "name": f"{name} [tensor-parallel]", "route": "cuda",
+            "source": source, "csrc": [CSRC + f for f in csrc],
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": launches,
+            "launches_per_step": launches // PARALLEL_STEPS,
+            "launches_are": f"rank 0 of the tp = 2 run (phase 11 (b)), "
+                            f"{PARALLEL_STEPS} timed steps, the decoders' "
+                            f"launches included",
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": total("ms"), "kernel_ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": top["bound_by"], "library_ms": total("library_ms"),
+            "library": top.get("library"),
+            "times_are": "sum over the calls of one ViT-B t = 2 "
+                         "pretraining step at the shapes listed; the "
+                         "other rows are checked and timed per call",
+            "shapes": rs})
+    return entries
+
+
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
-          "infer", "bench", "pretrain")
+          "infer", "bench", "pretrain", "parallel")
 
 
 def main(argv=None):
@@ -5267,7 +5937,7 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
-    infer = bench = pretrain = ln_rows = None
+    infer = bench = pretrain = ln_rows = parallel = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -5305,6 +5975,8 @@ def main(argv=None):
         bench = phase_bench(card)
     if "pretrain" in phases:
         pretrain = phase_pretrain(workdir, card, train)
+    if "parallel" in phases:
+        parallel = phase_parallel(workdir, card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -5340,12 +6012,13 @@ def main(argv=None):
                    f"{tput['block_fuse']['decoder']['counts']['fused_block']})")
                + _op_entries(serve_rows, op_launches)
                + _bench_entries(bench)
-               + _ln_entries(ln_rows, pretrain))
+               + _ln_entries(ln_rows, pretrain)
+               + _parallel_entries(parallel, ln_rows))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "bench": bench, "layernorm": ln_rows,
-                    "pretrain": pretrain,
+                    "pretrain": pretrain, "parallel": parallel,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -21,7 +21,16 @@ and test optional). ``--device`` defaults to ``cuda`` and fails without a
 card; ``--device cpu`` runs the plain PyTorch path. Neither sklearn nor
 pandas is needed: the metrics are numpy (``metrics/classification.py``)
 and the CSVs come from the ``csv`` module. Not ported yet: the baseline
-ViTs (``vit_base``, ``vit_large`` weights) and the multi-device mesh.
+ViTs (``vit_base``, ``vit_large`` weights).
+
+Several GPUs, data-parallel over every process (mirage_tpu/cli/
+run_cls_tuning.py:172-): ``torchrun --nproc_per_node N -m
+mirage_tpu_torch.cli.run_cls_tuning ...``. ``--batch_size`` is the global
+batch and must divide over the processes; each process loads its stripe of
+every batch (padded to a multiple of the processes with zero-weight rows,
+which the evaluation drops), the predictions, targets and losses are
+gathered from every process before the metrics are read, and process 0
+alone logs and writes.
 """
 
 import argparse
@@ -178,7 +187,22 @@ def setup(args, device):
 
 
 def main(argv=None):
+    import sys
+
+    from mirage_tpu_torch.ops.runtime import resolve_device
+    from mirage_tpu_torch.parallel.mesh import data_parallel, writer_prints
+
     args = process_args(parse_with_yaml(get_parser(), argv))
+    device, mesh = data_parallel(resolve_device(args.device))
+    n = 1 if mesh is None else mesh.size
+    if args.batch_size % n:
+        sys.exit(f"--batch_size {args.batch_size} must be divisible by the "
+                 f"{n} processes")
+    with writer_prints(mesh):
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
 
     from mirage_tpu_torch.data.folder import ImageFolder
     from mirage_tpu_torch.data.loader import DataLoader
@@ -186,21 +210,27 @@ def main(argv=None):
     from mirage_tpu_torch.metrics.classification import (balanced_accuracy,
                                                          compute_cls_metrics,
                                                          weighted_f1)
-    from mirage_tpu_torch.ops.runtime import resolve_device
+    from mirage_tpu_torch.parallel.mesh import (batch_count, batch_rank,
+                                                gather_rows, is_writer)
     from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.early_stop import EarlyStopping
     from mirage_tpu_torch.train.logger import MetricLogger, append_log
     from mirage_tpu_torch.train.schedules import adjust_learning_rate
-    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_train_step, shard_state)
 
-    device = resolve_device(args.device)
+    writer = is_writer(mesh)
+    shards = {} if mesh is None else {"shard_index": batch_rank(mesh),
+                                      "num_shards": batch_count(mesh)}
+    local_bs = args.batch_size // shards.get("num_shards", 1)
     fm, model, opt, loss_fn = setup(args, device)
     print(f">> {'Linear probing' if args.linear_probing else 'Full finetune'}"
           f" lr={args.lr} input_size={args.input_size} device {device}")
     args.output_dir = output_dir(args, type(fm).__name__)
-    os.makedirs(args.output_dir, exist_ok=True)
-    save_args(args.output_dir, args)
-    step_fn = make_train_step(loss_fn, opt)
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
+        save_args(args.output_dir, args)
+    step_fn = make_train_step(loss_fn, opt, mesh=mesh)
     loaders = {}
     for subset in ("train", "val", "test"):
         path = Path(args.data_path) / subset
@@ -210,24 +240,38 @@ def main(argv=None):
                                 input_size=args.input_size, fill=args.fill,
                                 affine=args.affine)
         loaders[subset] = DataLoader(
-            ImageFolder(str(path), transform=tf), args.batch_size,
+            ImageFolder(str(path), transform=tf), local_bs,
             shuffle=subset == "train", drop_last=False,
-            num_workers=args.num_workers, seed=args.seed)
+            num_workers=args.num_workers, seed=args.seed, **shards)
         print(f"{subset}: {len(loaders[subset].dataset)} samples")
 
     @torch.no_grad()
     def evaluate(loader, epoch, mode="Valid", save_predictions=False):
-        probs_all, targets_all, losses = [], [], []
-        for images, targets, _ in loader:
-            logits = model(torch.from_numpy(np.ascontiguousarray(images))
-                           .to(device))
-            t = torch.from_numpy(np.asarray(targets)).to(device)
-            losses.append(float(cross_entropy_loss(logits[..., None, None],
-                                                   t[..., None, None])))
-            probs_all.append(torch.softmax(logits, dim=-1).cpu().numpy())
-            targets_all.append(np.asarray(targets))
-        probs_all = np.concatenate(probs_all)
-        targets_all = np.concatenate(targets_all)
+        probs_all, targets_all, sums = [], [], []
+        for i, (images, targets, _) in enumerate(loader):
+            real = loader.real_rows(i)  # the rest pads the stripe
+            images, targets = images[:real], np.asarray(targets)[:real]
+            probs = np.zeros((0, args.num_classes), np.float32)
+            nll = (0.0, 0)
+            if real:
+                logits = model(torch.from_numpy(
+                    np.ascontiguousarray(images)).to(device))
+                t = torch.from_numpy(targets).to(device)
+                nll = tuple(float(v) for v in cross_entropy_loss(
+                    logits[..., None, None], t[..., None, None],
+                    normalize=False))
+                probs = torch.softmax(logits, dim=-1).cpu().numpy()
+            probs_all.append(probs)
+            targets_all.append(targets)
+            sums.append(np.float64(nll))
+        # every process's rows, in the samples' order, before any metric;
+        # a batch's loss from the sums over its stripes
+        probs_all = np.concatenate(gather_rows(probs_all))
+        targets_all = np.concatenate(gather_rows(targets_all))
+        sums = np.reshape(gather_rows(sums), (len(loader), -1, 2)).sum(1)
+        losses = [s / n for s, n in sums if n]
+        if save_predictions and not writer:
+            return None
         if save_predictions:
             np.savez_compressed(
                 os.path.join(args.output_dir, "predictions.npz"),
@@ -244,11 +288,13 @@ def main(argv=None):
         return m
 
     state = init_train_state(model, opt)
+    if mesh is not None:
+        state = shard_state(state, mesh, model)
     if args.eval or args.save_predictions:
         state = ckpt.load_best_checkpoint(args.output_dir, state)
         stats = evaluate(loaders["test"], "Best", mode="Test",
                          save_predictions=args.save_predictions)
-        if stats is not None:
+        if stats is not None and writer:
             write_csv(os.path.join(args.output_dir, "test_eval.csv"),
                       VAL_COLS, [[stats[k] for k in VAL_KEYS]])
         return stats
@@ -276,9 +322,10 @@ def main(argv=None):
             lr = adjust_learning_rate(args.lr, args.min_lr,
                                       epoch + step / steps_per_epoch,
                                       args.epochs, args.warmup_epochs)
-            n_real = images.shape[0]
+            n_real = loaders["train"].real_rows(step)
             images, targets, weights = pad_batch(
-                np.asarray(images), np.asarray(targets), args.batch_size)
+                np.asarray(images), np.asarray(targets), local_bs)
+            weights[n_real:] = 0.0  # the loader's padding of the stripe
             batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                      for k, v in (("images", images), ("targets", targets),
                                   ("weights", weights))}
@@ -297,15 +344,17 @@ def main(argv=None):
             tgts_ep.append(targets[:n_real])
         if stop:
             break
-        y, yh = np.concatenate(tgts_ep), np.concatenate(preds_ep)
+        y = np.concatenate(gather_rows(tgts_ep))
+        yh = np.concatenate(gather_rows(preds_ep))
         train_rows.append([epoch, logger.meters["loss"].global_avg,
                            balanced_accuracy(y, yh), weighted_f1(y, yh)])
         print(f"[Train] epoch {epoch} loss {train_rows[-1][1]:.4f} "
               f"bacc {train_rows[-1][2]:.4f}")
         if "val" not in loaders:  # no val split: the latest is the best
             best_state, best_epoch = ckpt.snapshot(state), epoch
-            append_log(args.output_dir, {"epoch": epoch,
-                                         "train_loss": train_rows[-1][1]})
+            if writer:
+                append_log(args.output_dir, {"epoch": epoch,
+                                             "train_loss": train_rows[-1][1]})
             continue
         stats = evaluate(loaders["val"], epoch)
         val_rows.append([stats[k] for k in VAL_KEYS])
@@ -318,24 +367,27 @@ def main(argv=None):
             best_state, best_epoch = ckpt.snapshot(state), epoch
             print(f"New best model @ epoch {epoch} "
                   f"({early.best_value:.4f}, {early.best_value_two:.4f})")
-        append_log(args.output_dir, {
-            "epoch": epoch, "train_loss": train_rows[-1][1],
-            **{f"val_{k}": v for k, v in stats.items() if k != "epoch"}})
+        if writer:
+            append_log(args.output_dir, {
+                "epoch": epoch, "train_loss": train_rows[-1][1],
+                **{f"val_{k}": v for k, v in stats.items() if k != "epoch"}})
 
     if best_state is None:
         best_state, best_epoch = ckpt.snapshot(state), args.epochs - 1
     ckpt.save_checkpoint(args.output_dir, best_state, best_epoch, tag="best",
                          args=vars(args))
     print(f"Training time {time.time() - t0:.1f}s")
-    write_csv(os.path.join(args.output_dir, "train_eval.csv"),
-              ["Epoch", "Loss", "BAcc", "F1-score"], train_rows)
-    write_csv(os.path.join(args.output_dir, "valid_eval.csv"), VAL_COLS,
-              val_rows)
+    if writer:
+        write_csv(os.path.join(args.output_dir, "train_eval.csv"),
+                  ["Epoch", "Loss", "BAcc", "F1-score"], train_rows)
+        write_csv(os.path.join(args.output_dir, "valid_eval.csv"), VAL_COLS,
+                  val_rows)
     if "test" in loaders:
         state = ckpt.load_best_checkpoint(args.output_dir, state)
         stats = evaluate(loaders["test"], "Best", mode="Test")
-        write_csv(os.path.join(args.output_dir, "test_eval.csv"), VAL_COLS,
-                  [[stats[k] for k in VAL_KEYS]])
+        if writer:
+            write_csv(os.path.join(args.output_dir, "test_eval.csv"),
+                      VAL_COLS, [[stats[k] for k in VAL_KEYS]])
         return stats
     return None
 

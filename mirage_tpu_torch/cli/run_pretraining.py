@@ -14,14 +14,32 @@ Usage:
   python -m mirage_tpu_torch.cli.run_pretraining -c configs/pretrain_mirage_98_1600e.yaml \\
       --data_path /data/pretrain --output_dir ./out [--device cuda]
 
+Several GPUs, one process each (``parallel/mesh.py``, ``train/steps.py``):
+  torchrun --nproc_per_node 8 -m mirage_tpu_torch.cli.run_pretraining \
+      -c configs/pretrain_mirage_98_1600e.yaml --data_path ... \
+      [--mesh_tensor 2] [--mesh_fsdp 2]
+
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device cpu``
-runs the plain PyTorch path. The dataset is ``{data_path}/{task}/...`` per
-domain with matching file names (``data/folder.py:
-MultiTaskPretDatasetFolder``). Each step draws its masks (and drop-path)
-from a ``torch.Generator`` on the device seeded from (seed + 1, step), so a
-resumed run repeats the same steps; the metrics stay on the device and are
-read on log steps only. Not ported yet: the multi-GPU meshes and
-``--distributed`` (ROADMAP queue A 4), which exit.
+runs the plain PyTorch path (gloo between processes). The dataset is
+``{data_path}/{task}/...`` per domain with matching file names
+(``data/folder.py:MultiTaskPretDatasetFolder``). Each step draws its masks
+(and drop-path) from a ``torch.Generator`` on the device seeded from (seed +
+1, step), folded by the process's batch position, so a resumed run repeats
+the same steps; the metrics stay on the device and are read on log steps
+only.
+
+The mesh (mirage_tpu/cli/run_pretraining.py:253-320): 'tensor' is
+``--mesh_tensor`` (it must divide the heads and the MLP hidden width),
+'fsdp' ``--mesh_fsdp``, and 'data' what remains of the processes; the
+layout follows (dp, fsdp, tp or tp_fsdp). ``--distributed`` with
+``--coordinator_address`` / ``--num_processes`` / ``--process_id`` joins
+the group at tcp://ADDRESS (torchrun's environment fills in what is not
+given); torchrun alone is enough. ``--batch_size`` keeps the JAX command
+line's meaning: the batch of one host (here: the processes of one node
+under torchrun, or one process launched by hand with ``--distributed``),
+split over its processes; the learning rate scales with it times the
+hosts. Process 0 alone logs and writes. ``--mesh_pipe`` above 1 (pipeline
+parallelism) exits: ROADMAP queue A 4b.
 """
 
 import argparse
@@ -38,13 +56,16 @@ from mirage_tpu_torch.api import wrapper
 from mirage_tpu_torch.cli.config import (normalize_domain_sizes,
                                          parse_with_yaml, save_args, str2bool)
 
-MULTI_GPU = "is not ported yet: multi-GPU training is ROADMAP queue A 4"
+PIPELINE = "is not ported yet: pipeline parallelism is ROADMAP queue A 4b"
 
 
 def get_parser():
     p = argparse.ArgumentParser("MIRAGE pretraining (PyTorch/CUDA)")
     # schedule / batch
-    p.add_argument("--batch_size", default=256, type=int)
+    p.add_argument("--batch_size", default=256, type=int,
+                   help="the batch of one host (a node's processes under "
+                        "torchrun, else one process), split over its "
+                        "processes' batch stripes (data x fsdp)")
     p.add_argument("--epochs", default=1600, type=int)
     p.add_argument("--save_ckpt_freq", default=20, type=int)
     # tasks
@@ -104,15 +125,16 @@ def get_parser():
                    help="per-layer activation checkpointing of the encoder "
                         "blocks whose ops keep their intermediates")
     p.add_argument("--mesh_fsdp", default=1, type=int,
-                   help="above 1 " + MULTI_GPU)
+                   help="processes the parameters and moments shard over")
     p.add_argument("--mesh_tensor", default=1, type=int,
-                   help="above 1 " + MULTI_GPU)
+                   help="processes the encoder runs tensor-parallel over")
     p.add_argument("--mesh_pipe", default=1, type=int,
-                   help="above 1 " + MULTI_GPU)
+                   help="above 1 " + PIPELINE)
     p.add_argument("--pp_microbatches", default=0, type=int,
-                   help="above 0 " + MULTI_GPU)
+                   help="above 0 " + PIPELINE)
     p.add_argument("--distributed", default=False, action="store_true",
-                   help=MULTI_GPU)
+                   help="join a process group (torchrun's, or the one the "
+                        "next three flags give)")
     p.add_argument("--coordinator_address", default=None, type=str)
     p.add_argument("--num_processes", default=None, type=int)
     p.add_argument("--process_id", default=None, type=int)
@@ -142,17 +164,14 @@ WARMSTART_MODEL_KEYS = {"multimae-b": "miragepre_base",
 
 def process_args(args):
     """Domains as lists, per-domain sizes and grids, and the visible-token
-    count from ``perc_encoded_tokens``; mesh flags and ``--distributed``
-    exit."""
-    for flag, value, single in (("--mesh_fsdp", args.mesh_fsdp, 1),
-                                ("--mesh_tensor", args.mesh_tensor, 1),
-                                ("--mesh_pipe", args.mesh_pipe, 1),
+    count from ``perc_encoded_tokens``; the pipeline flags exit."""
+    for flag, value, single in (("--mesh_pipe", args.mesh_pipe, 1),
                                 ("--pp_microbatches", args.pp_microbatches,
                                  0)):
         if value != single:
-            sys.exit(f"{flag} {value} {MULTI_GPU}")
-    if args.distributed:
-        sys.exit(f"--distributed {MULTI_GPU}")
+            sys.exit(f"{flag} {value} {PIPELINE}")
+    if args.mesh_fsdp < 1 or args.mesh_tensor < 1:
+        sys.exit("--mesh_fsdp and --mesh_tensor must be at least 1")
     args.in_domains = args.in_domains.split("-")
     args.out_domains = args.out_domains.split("-")
     args.all_domains = sorted(set(args.in_domains) | set(args.out_domains))
@@ -235,6 +254,45 @@ def setup(args, device):
     return model, opt, make_loss(model, args)
 
 
+def setup_mesh(args, device):
+    """(device, mesh, hosts): for a multi-process run (``--distributed``,
+    torchrun's WORLD_SIZE above 1, or a process group already joined) the
+    group is joined, the device is this process's, and the mesh is
+    ('data': the rest, 'fsdp', 'tensor'); else (device, None, 1). Exits on
+    a model axis above 1 without a group, on ``--distributed`` without a
+    rendezvous and on a mesh that does not divide the processes."""
+    import torch.distributed as dist
+
+    from mirage_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    if not (args.distributed or int(os.environ.get("WORLD_SIZE", "1")) > 1
+            or dist.is_initialized()):
+        if args.mesh_fsdp > 1 or args.mesh_tensor > 1:
+            sys.exit(f"--mesh_fsdp {args.mesh_fsdp} x --mesh_tensor "
+                     f"{args.mesh_tensor} needs as many processes: run "
+                     f"under torchrun (or with --distributed)")
+        return device, None, 1
+    if not (dist.is_initialized() or args.coordinator_address
+            or "MASTER_ADDR" in os.environ):
+        sys.exit("--distributed needs --coordinator_address or torchrun's "
+                 "environment (MASTER_ADDR)")
+    device = init_distributed(
+        device, world_size=args.num_processes, rank=args.process_id,
+        init_method=(f"tcp://{args.coordinator_address}"
+                     if args.coordinator_address else None))
+    world = dist.get_world_size()
+    model_axes = args.mesh_fsdp * args.mesh_tensor
+    if world % model_axes:
+        sys.exit(f"--mesh_fsdp {args.mesh_fsdp} x --mesh_tensor "
+                 f"{args.mesh_tensor} does not divide {world} processes")
+    mesh = make_mesh({"data": world // model_axes, "fsdp": args.mesh_fsdp,
+                      "tensor": args.mesh_tensor}, device.type)
+    hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    print(f"process {dist.get_rank()}/{world} on {device}, mesh "
+          f"{mesh.shape}, {hosts} host(s)")
+    return device, mesh, hosts
+
+
 @torch.no_grad()
 def debug_forward(model, batch, args, epoch: int):
     """The epoch-start forward of the reconstruction panels: the first 8
@@ -285,19 +343,42 @@ def main(argv=None):
     synchronised)}."""
     args = process_args(parse_with_yaml(get_parser(), argv))
 
+    from mirage_tpu_torch.ops.runtime import resolve_device
+    from mirage_tpu_torch.parallel.mesh import (batch_count, is_writer,
+                                                writer_prints)
+
+    device, mesh, hosts = setup_mesh(args, resolve_device(args.device))
+    writer = is_writer(mesh)
+    stripes = 1 if mesh is None else batch_count(mesh)
+    global_batch = args.batch_size * hosts
+    if global_batch % stripes:
+        sys.exit(f"--batch_size {args.batch_size} x {hosts} host(s) must be "
+                 f"divisible by the {stripes} batch stripes (data x fsdp)")
+    with writer_prints(mesh):
+        return _train(args, device, mesh, writer, global_batch // stripes,
+                      hosts)
+
+
+def _train(args, device, mesh, writer, local_batch_size, hosts):
     from mirage_tpu_torch.data.augment import PretrainAugment
     from mirage_tpu_torch.data.folder import MultiTaskPretDatasetFolder
     from mirage_tpu_torch.data.loader import DataLoader, to_device
-    from mirage_tpu_torch.ops.runtime import resolve_device
+    from mirage_tpu_torch.parallel.mesh import batch_count, batch_rank
     from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.logger import MetricLogger, append_log
     from mirage_tpu_torch.train.schedules import cosine_scheduler
     from mirage_tpu_torch.train.steps import (init_train_state,
-                                              make_train_step, step_generator)
+                                              make_train_step, shard_state,
+                                              step_generator)
     from mirage_tpu_torch.utils.profiling import annotate, trace
 
-    device = resolve_device(args.device)
     model, opt, loss_fn = setup(args, device)
+    if mesh is not None and args.mesh_tensor > 1:
+        hidden = model.encoder[0].mlp.fc1.weight.shape[0]
+        if model.num_heads % args.mesh_tensor or hidden % args.mesh_tensor:
+            sys.exit(f"--mesh_tensor {args.mesh_tensor} must divide "
+                     f"num_heads ({model.num_heads}) and the MLP hidden "
+                     f"dim ({hidden})")
 
     aug = PretrainAugment(
         {d: args.input_size[d] for d in args.in_domains}, hflip=args.hflip,
@@ -305,9 +386,11 @@ def main(argv=None):
     dataset = MultiTaskPretDatasetFolder(
         args.data_path, args.in_domains, transform=aug,
         use_cache=args.use_cache)
-    loader = DataLoader(dataset, args.batch_size, shuffle=True,
-                        drop_last=True, num_workers=args.num_workers,
-                        seed=args.seed)
+    loader = DataLoader(
+        dataset, local_batch_size, shuffle=True, drop_last=True,
+        num_workers=args.num_workers, seed=args.seed,
+        shard_index=0 if mesh is None else batch_rank(mesh),
+        num_shards=1 if mesh is None else batch_count(mesh))
     steps_per_epoch = len(loader)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
@@ -315,7 +398,7 @@ def main(argv=None):
         raise RuntimeError("Dataset smaller than one batch")
 
     if args.lr is None:
-        args.lr = args.blr * args.batch_size / 256.0
+        args.lr = args.blr * args.batch_size * hosts / 256.0
     lr_sched = cosine_scheduler(args.lr, args.min_lr, args.epochs,
                                 steps_per_epoch,
                                 warmup_epochs=args.warmup_epochs,
@@ -325,17 +408,21 @@ def main(argv=None):
         else args.weight_decay
     wd_sched = cosine_scheduler(1.0, wd_end / max(args.weight_decay, 1e-12),
                                 args.epochs, steps_per_epoch)
-    step_fn = make_train_step(loss_fn, opt)
+    step_fn = make_train_step(loss_fn, opt, mesh=mesh)
 
     state = init_train_state(model, opt)
+    trainable, total = opt.count_trainable(state["params"])
+    if mesh is not None:
+        state = shard_state(state, mesh, model, tp_num_heads=model.num_heads)
+        print(f">> layout {state['layout'].kind}")
     start_epoch = 0
     if args.auto_resume:
         state, start_epoch = ckpt.auto_load_checkpoint(args.output_dir,
                                                        state)
         if start_epoch:
             print(f">> Resumed from epoch {start_epoch}")
-    save_args(args.output_dir, args)
-    trainable, total = opt.count_trainable(state["params"])
+    if writer:
+        save_args(args.output_dir, args)
     print(f"Params: {total / 1e6:.1f}M ({trainable / 1e6:.1f}M trainable), "
           f"device {device}")
 
@@ -368,8 +455,9 @@ def main(argv=None):
                     logger.update(lr=lr, **host)
                 if args.debug_images and step == 0 and epoch % 20 == 0:
                     preds, masks = debug_forward(model, batch, args, epoch)
-                    save_debug_images(args.output_dir, epoch, batch, preds,
-                                      masks, args)
+                    if writer:
+                        save_debug_images(args.output_dir, epoch, batch,
+                                          preds, masks, args)
                 it += 1
                 wait_s.append(t_got - t_end)
                 t_prev, t_end = t_end, time.perf_counter()
@@ -379,12 +467,15 @@ def main(argv=None):
                                  args=vars(args))
         row = {"epoch": epoch, **{f"train_{k}": m.global_avg
                                   for k, m in logger.meters.items()}}
-        append_log(args.output_dir, row)
+        if writer:
+            append_log(args.output_dir, row)
         log.append(row)
 
     total_time = time.time() - t_start
-    with open(os.path.join(args.output_dir, "training_time.txt"), "w") as f:
-        f.write(f"{total_time}\n")
+    if writer:
+        with open(os.path.join(args.output_dir, "training_time.txt"),
+                  "w") as f:
+            f.write(f"{total_time}\n")
     print(f"Training done in {total_time:.1f}s")
     return {"state": state, "log": log, "step_s": step_s, "wait_s": wait_s}
 

@@ -19,10 +19,21 @@ Usage:
       --data_path /data/Segmentation/AROI --weights MIRAGE-Base.pth [--device cuda]
   ... --test [--test_data_path /data/Segmentation/Duke_iAMD/test] [--infer_only]
 
+Several GPUs, data-parallel over every process (mirage_tpu/cli/
+run_seg_tuning.py:289-336): ``torchrun --nproc_per_node N -m
+mirage_tpu_torch.cli.run_seg_tuning ...``. ``--batch_size`` is the global
+batch and must divide over the processes; each process loads its stripe of
+every batch (the validation and test passes too, padded to a multiple of
+the processes and the padding dropped), the metrics (the segmentation
+histogram, the loss) are summed over the processes before they are read,
+and process 0 alone logs and writes, but every process writes the
+prediction PNGs of its own samples.
+
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device cpu``
-runs the plain PyTorch path. The dataset is ``{data_path}/{train,val,test}/
-{bscan,semseg}/...`` with matching file names and ``{data_path}/INFO.json``
-({"0": {"label": "background", "value": 0}, ...}).
+runs the plain PyTorch path (gloo between processes). The dataset is
+``{data_path}/{train,val,test}/{bscan,semseg}/...`` with matching file
+names and ``{data_path}/INFO.json`` ({"0": {"label": "background",
+"value": 0}, ...}).
 """
 
 import argparse
@@ -43,7 +54,8 @@ from mirage_tpu_torch.train.steps import step_generator
 
 def get_parser():
     p = argparse.ArgumentParser("MIRAGE segmentation tuning (PyTorch/CUDA)")
-    p.add_argument("--batch_size", default=4, type=int)
+    p.add_argument("--batch_size", default=4, type=int,
+                   help="the global batch, split over the processes")
     p.add_argument("--epochs", default=200, type=int)
     p.add_argument("--save_ckpt_freq", default=200, type=int)
     p.add_argument("--eval_freq", default=1, type=int)
@@ -286,20 +298,37 @@ def save_panel(args, batch, pred, epoch, mode):
 
 
 def main(argv=None):
-    args = process_args(parse_with_yaml(get_parser(), argv))
+    from mirage_tpu_torch.ops.runtime import resolve_device
+    from mirage_tpu_torch.parallel.mesh import data_parallel, writer_prints
 
+    args = process_args(parse_with_yaml(get_parser(), argv))
+    device, mesh = data_parallel(resolve_device(args.device))
+    n = 1 if mesh is None else mesh.size
+    if args.batch_size % n:
+        sys.exit(f"--batch_size {args.batch_size} must be divisible by the "
+                 f"{n} processes")
+    with writer_prints(mesh):
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
     from mirage_tpu_torch.data.augment import SemSegTransform
     from mirage_tpu_torch.data.folder import MultiTaskImageFolder
     from mirage_tpu_torch.data.loader import DataLoader
     from mirage_tpu_torch.metrics.semseg import SegMetricAccumulator
     from mirage_tpu_torch.nn.resize import resize2d
-    from mirage_tpu_torch.ops.runtime import resolve_device
+    from mirage_tpu_torch.parallel.mesh import (batch_count, batch_rank,
+                                                is_writer, sum_across)
     from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.logger import MetricLogger, append_log
     from mirage_tpu_torch.train.schedules import cosine_scheduler
-    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_train_step, shard_state)
 
-    device = resolve_device(args.device)
+    writer = is_writer(mesh)
+    shards = {} if mesh is None else {"shard_index": batch_rank(mesh),
+                                      "num_shards": batch_count(mesh)}
+    local_bs = args.batch_size // shards.get("num_shards", 1)
     # idempotence guards (mirage_tpu/cli/run_seg_tuning.py:230-238): skip a
     # finished training, refuse a test without a best checkpoint
     best_dir = Path(args.output_dir) / "checkpoint-best"
@@ -335,12 +364,12 @@ def main(argv=None):
         return None
 
     _, model, opt, criterion, loss_fn = setup(args, device)
-    step_fn = make_train_step(loss_fn, opt)
-    loader_train = DataLoader(dataset_train, args.batch_size, shuffle=True,
+    step_fn = make_train_step(loss_fn, opt, mesh=mesh)
+    loader_train = DataLoader(dataset_train, local_bs, shuffle=True,
                               drop_last=True, num_workers=args.num_workers,
-                              seed=args.seed)
-    loader_val = DataLoader(dataset_val, args.batch_size,
-                            num_workers=args.num_workers)
+                              seed=args.seed, **shards)
+    loader_val = DataLoader(dataset_val, local_bs,
+                            num_workers=args.num_workers, **shards)
     steps_per_epoch = len(loader_train)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
@@ -355,10 +384,13 @@ def main(argv=None):
                                 args.epochs, steps_per_epoch)
 
     state = init_train_state(model, opt)
+    if mesh is not None:
+        state = shard_state(state, mesh, model)
     start_epoch = 0
     if not args.test:
         state, start_epoch = ckpt.auto_load_checkpoint(args.output_dir, state)
-    save_args(args.output_dir, args)
+    if writer:
+        save_args(args.output_dir, args)
     total = sum(p.numel() for p in model.parameters())
     trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
     print(f"Params: {total / 1e6:.1f}M total, {trainable / 1e6:.2f}M "
@@ -370,7 +402,6 @@ def main(argv=None):
 
     @torch.no_grad()
     def evaluate(loader, mode="val", epoch=0, save_preds=False):
-        logger = MetricLogger()
         acc = SegMetricAccumulator(args.num_classes, ignore_index=255)
         if save_preds:
             from PIL import Image
@@ -378,7 +409,12 @@ def main(argv=None):
             preds_dir.mkdir(parents=True, exist_ok=True)
         step_to_save = int(np.random.default_rng(epoch).integers(
             0, max(len(loader), 1)))
+        losses = []
         for step_i, (batch, _, sids) in enumerate(loader):
+            real = loader.real_rows(step_i)  # the rest pads the stripe
+            if real == 0:
+                continue
+            batch = {k: v[:real] for k, v in batch.items()}
             x = to_device(batch, device)
             logits = model.forward_light(
                 {k: v for k, v in x.items() if k in args.in_domains},
@@ -388,21 +424,26 @@ def main(argv=None):
                                   mode="bilinear")
             loss = criterion(logits, x["semseg"])
             pred = logits.argmax(1).cpu().numpy()
-            if not args.infer_only and step_i == step_to_save:
+            if (writer and not args.infer_only
+                    and step_i == step_to_save):
                 save_panel(args, batch, pred, epoch, mode)
             if save_preds:
-                for i, sid in enumerate(sids):
+                for i, sid in enumerate(sids[:real]):
                     Image.fromarray(lut[pred[i]]).save(
                         preds_dir / f"{sid}.png")
             if not args.infer_only:
                 acc.update(pred, batch["semseg"])
-                logger.update(loss=loss.item())
+                losses.append(loss.item())
         if args.infer_only:
             print("Inference done. Exiting...")
             sys.exit(0)
+        # every process's histogram and losses, summed before they are read
+        (acc.intersect, acc.union, acc.pred, acc.label,
+         (loss_sum, loss_n)) = sum_across(
+            [acc.intersect, acc.union, acc.pred, acc.label,
+             [sum(losses), len(losses)]], device)
         all_acc, cls_acc, iou = acc.compute(["mIoU"])
-        stats = {"loss": logger.meters["loss"].global_avg
-                 if logger.meters else 0.0,
+        stats = {"loss": loss_sum / loss_n if loss_n else 0.0,
                  "mean_iou": float(np.nanmean(iou)),
                  "pixel_accuracy": float(all_acc),
                  "mean_accuracy": float(np.nanmean(cls_acc))}
@@ -415,11 +456,12 @@ def main(argv=None):
         if dataset_test is None:
             raise SystemExit(f"ERROR: no test split at {args.test_data_path}")
         ckpt.load_best_checkpoint(args.output_dir, state)
-        stats = evaluate(DataLoader(dataset_test, args.batch_size,
-                                    num_workers=args.num_workers),
+        stats = evaluate(DataLoader(dataset_test, local_bs,
+                                    num_workers=args.num_workers, **shards),
                          mode="test", save_preds=True)
-        append_log(args.output_dir,
-                   {f"test/{k}": v for k, v in stats.items()})
+        if writer:
+            append_log(args.output_dir,
+                       {f"test/{k}": v for k, v in stats.items()})
         return stats
 
     if args.test:
@@ -462,7 +504,8 @@ def main(argv=None):
                                      tag="best", args=vars(args))
             print(f"Max mIoU: {max_miou:.4f}")
             log_stats.update({f"val/{k}": v for k, v in stats.items()})
-        append_log(args.output_dir, log_stats)
+        if writer:
+            append_log(args.output_dir, log_stats)
     print(f"Training time {time.time() - t0:.1f}s")
     out = {"max_miou": max_miou, "last_epoch": log_stats,
            "output_dir": args.output_dir}

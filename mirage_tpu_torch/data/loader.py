@@ -5,6 +5,18 @@ a thread pool, one ``np.random.Generator`` per (epoch, sample) derived from
 a base seed, so the shuffle order and the augmentation draws do not depend
 on worker scheduling. The training loop moves a batch to the device
 (:func:`to_device`).
+
+Multi-GPU (``shard_index`` / ``num_shards``: the batch-axes rank and count,
+``parallel/mesh.py``): the epoch's order is cut into global batches of
+``batch_size · num_shards`` samples, and each process loads the contiguous
+stripe ``shard_index`` of every one (its device's block, as the JAX
+package's ``shard_batch`` places a global batch on one host's devices), so
+the global batch is the one a single process loading ``batch_size ·
+num_shards`` samples sees, and every process sees equal counts. Without
+``drop_last``, a short last global batch is padded to a multiple of
+``num_shards`` with the epoch's first samples; :meth:`DataLoader.real_rows`
+says how many of a stripe's rows are real, so evaluation drops the
+padding.
 """
 
 import queue
@@ -41,7 +53,12 @@ def default_collate(items):
 class DataLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8, seed: int = 0,
-                 collate_fn: Callable = default_collate, prefetch: int = 2):
+                 collate_fn: Callable = default_collate, prefetch: int = 2,
+                 shard_index: int = 0, num_shards: int = 1):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards}")
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -61,16 +78,38 @@ class DataLoader:
             return np.random.default_rng((self.seed, self.epoch)).permutation(n)
         return np.arange(n)
 
+    def _stripes(self):
+        """[(this process's sample indices, how many of them are real)]
+        for each batch of the epoch."""
+        indices = self._epoch_indices()
+        n, shards = len(indices), self.num_shards
+        size = self.batch_size * shards
+        out = []
+        for i in range(n // size if self.drop_last else -(-n // size)):
+            chunk = indices[i * size:(i + 1) * size]
+            real = len(chunk)
+            if real % shards:
+                chunk = np.concatenate([chunk, indices[
+                    np.arange(shards - real % shards) % n]])
+            per = len(chunk) // shards
+            start = self.shard_index * per
+            out.append((chunk[start:start + per],
+                        min(max(real - start, 0), per)))
+        return out
+
     def __len__(self):
         n = len(self.dataset)
-        return n // self.batch_size if self.drop_last \
-            else -(-n // self.batch_size)
+        size = self.batch_size * self.num_shards
+        return n // size if self.drop_last else -(-n // size)
+
+    def real_rows(self, i: int) -> int:
+        """The real (not padding) rows of this process's batch ``i`` of
+        the current epoch."""
+        return self._stripes()[i][1]
 
     def __iter__(self) -> Iterator[Any]:
-        indices = self._epoch_indices()
-        nb = len(self)
-        batches = [indices[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(nb)]
+        batches = [b for b, _ in self._stripes()]
+        nb = len(batches)
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

@@ -19,6 +19,14 @@ Stochastic depth: block i drops its branches at ``linspace(0, rate,
 depth)[i]`` (models/encoder.py:29-31), drawn from the caller's generator.
 ``return_layers`` (models/encoder.py:50) also hands back the output of
 each listed block, which the DPT head reads.
+
+Tensor parallelism (``tp``, mirage_tpu/models/mirage.py:61-68): a (group,
+t) pair routes every block to its tensor-parallel form
+(``nn/block.py:Block.tp_forward``); ``train/steps.py:shard_state`` sets it
+when it cuts the blocks' weights to their tensor-local shards. A
+tensor-parallel block saves its ops' intermediates, so under ``remat`` it
+runs checkpointed (its all-reduces rerun in the backward on every tensor
+rank alike).
 """
 
 import torch
@@ -45,6 +53,15 @@ class Encoder(nn.ModuleList):
                           for _ in range(depth)])
         self.remat = remat
 
+    @property
+    def tp(self):
+        return self[0].tp if len(self) else None
+
+    @tp.setter
+    def tp(self, value):
+        for block in self:
+            block.tp = value
+
     def forward(self, x, deterministic=True, drop_path_rate=0.0,
                 generator=None, grad_free=False, return_layers=None):
         """The blocks' output, or with ``return_layers`` (block indices)
@@ -53,8 +70,8 @@ class Encoder(nn.ModuleList):
         for i, (block, rate) in enumerate(zip(
                 self, drop_path_rates(drop_path_rate, len(self)))):
             if not (self.remat and torch.is_grad_enabled() and not grad_free
-                    and not Block.halves_route(x.shape[1], deterministic,
-                                               rate, grad_free)):
+                    and not (block.tp is None and Block.halves_route(
+                        x.shape[1], deterministic, rate, grad_free))):
                 x = block(x, deterministic, rate, generator, grad_free)
             else:
                 noise = (None, None)

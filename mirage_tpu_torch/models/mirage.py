@@ -19,7 +19,8 @@ list to its heads (the DPT head reads four of them).
 Training keeps the parameters in float32 and runs the activations in
 ``compute_dtype``; each op casts its weights to the activation dtype.
 ``remat`` (mirage_tpu/models/mirage.py:60) checkpoints the encoder blocks
-whose ops save their intermediates (``models/encoder.py``).
+whose ops save their intermediates (``models/encoder.py``); ``tp`` runs
+the encoder tensor-parallel (``parallel/tp.py``).
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -71,6 +72,16 @@ class MIRAGEModel(nn.Module):
 
     def init_params(self, generator):
         vinit.trunc_normal_(self.global_tokens, generator)
+
+    @property
+    def tp(self):
+        """None, or the encoder's tensor parallelism (group, t)
+        (``models/encoder.py``)."""
+        return self.encoder.tp
+
+    @tp.setter
+    def tp(self, value):
+        self.encoder.tp = value
 
     def generate_input_info(self, x: Mapping[str, torch.Tensor]) -> Dict:
         """Token bookkeeping per task, from the input shapes."""

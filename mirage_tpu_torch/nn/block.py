@@ -23,16 +23,23 @@ A drop-path rate is "statically zero" only as the float 0.0: the encoder
 passes 0-d tensors (``torch.linspace``) whenever its rate is non-zero, as
 the JAX scan threads traced per-layer rates (models/encoder.py:82-83), so
 then even layer 0 at rate 0.0 routes as stochastic. Dropout is zero in
-every configuration; the tensor-parallel branch comes with the multi-GPU
-slice.
+every configuration.
+
+A block with ``tp`` set (a (group, t) pair, by ``train/steps.py:
+shard_state``) holds tensor-local weights and runs :meth:`Block.tp_forward`,
+the counterpart of ``mirage_tpu/nn/block.py:_tp_block_apply``.
 """
 
+import torch
 from torch import nn
 
 from mirage_tpu_torch.nn.attention import Attention, attention_apply
 from mirage_tpu_torch.nn.layers import LayerNorm, Mlp, drop_path, layer_norm
+from mirage_tpu_torch.ops import linear as dense
 from mirage_tpu_torch.ops import runtime
-from mirage_tpu_torch.ops.block_attention import attn_half_block
+from mirage_tpu_torch.ops.block_attention import (attn_half_block,
+                                                  block_attention)
+from mirage_tpu_torch.ops.flash_attention import flash_attention
 from mirage_tpu_torch.ops.fused_block import fused_block
 from mirage_tpu_torch.ops.fused_mlp import mlp_block, mlp_block_ref
 
@@ -52,6 +59,7 @@ class Block(nn.Module):
         self.attn = Attention(dim, qkv_bias=qkv_bias)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.tp = None
 
     @staticmethod
     def halves_route(n, deterministic, drop_path_rate, grad_free):
@@ -67,6 +75,9 @@ class Block(nn.Module):
         """``noise``: the attention and MLP branches' drop-path draws made
         beforehand (a block rerun under activation checkpointing must
         not draw again)."""
+        if self.tp is not None:
+            return self.tp_forward(x, deterministic, drop_path_rate,
+                                   generator, grad_free, noise)
         a, m, n = self.attn, self.mlp, x.shape[1]
         mlp = (self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                m.fc2.weight, m.fc2.bias)
@@ -95,5 +106,47 @@ class Block(nn.Module):
             h = mlp_block(x, *mlp, residual=False)
         else:
             h = mlp_block_ref(x, *mlp, residual=False)
+        return x + drop_path(h, drop_path_rate, deterministic=deterministic,
+                             generator=generator, noise=noise[1])
+
+    def tp_forward(self, x, deterministic=True, drop_path_rate=0.0,
+                   generator=None, grad_free=False, noise=(None, None)):
+        """The tensor-parallel block (mirage_tpu/nn/block.py:154-226) on
+        this process's weights: H/t heads' qkv rows and proj columns, the
+        MLP's hidden/t fc1 rows and fc2 columns (``parallel/tp.py``).
+
+        The attention branch is LN (the LN kernel), the qkv product at
+        3·D/t columns (the GEMM), the attention core on H/t heads (B6 up to
+        512 tokens, B8 above) and the proj product with no bias and no
+        residual, then the all-reduce and the proj bias; the MLP branch is
+        ``mlp_block(residual=False)`` (B2, backward B5) with a zero fc2
+        bias, then the all-reduce and the fc2 bias. Drop-path scales each
+        completed branch with the generator every tensor rank shares."""
+        from mirage_tpu_torch.parallel.tp import ident_f, psum_g
+
+        group, t = self.tp
+        a, m, n = self.attn, self.mlp, x.shape[1]
+        heads = self.num_heads // t
+        assert heads * t == self.num_heads
+        h = dense.layer_norm(ident_f(x, group), self.norm1.weight,
+                             self.norm1.bias)
+        qkv = dense.linear(h, a.qkv.weight, a.qkv.bias)
+        dh = qkv.shape[-1] // 3 // heads
+        if n <= FUSED_TOKENS:
+            out = block_attention(qkv, heads, dh ** -0.5)
+        else:
+            out = flash_attention(qkv, num_heads=heads, scale=dh ** -0.5)
+        part = dense.linear(out, a.proj.weight)
+        h = psum_g(part, group) + a.proj.bias.to(part.dtype)
+        x = x + drop_path(h, drop_path_rate, deterministic=deterministic,
+                          generator=generator, noise=noise[0])
+        mlp = (self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+               m.fc2.weight, torch.zeros_like(m.fc2.bias))
+        xf = ident_f(x, group)
+        if grad_free or n <= FUSED_TOKENS:
+            part = mlp_block(xf, *mlp, residual=False)
+        else:
+            part = mlp_block_ref(xf, *mlp, residual=False)
+        h = psum_g(part, group) + m.fc2.bias.to(part.dtype)
         return x + drop_path(h, drop_path_rate, deterministic=deterministic,
                              generator=generator, noise=noise[1])

@@ -16,7 +16,8 @@ refused (``layernorm`` and ``layernorm_bwd`` count their launches in
 ``flash_attention``, the two entries of the bf16 attention forward, and
 ``attention_bwd`` and ``flash_attention_bwd``, the two of its backward,
 count their launches in ``.launches``, as ``gemm`` counts those of
-csrc/gemm.cu by its three launchers; ``gemm`` and ``gemm_dgelu_mul`` read
+csrc/gemm.cu by its three launchers and ``mlp_bwd_hidden`` and
+``mlp_bwd_dyln`` those of csrc/mlp_bwd.cu; ``gemm`` and ``gemm_dgelu_mul`` read
 a (K, N) weight as it lies with ``w_kn``, so the stash backward copies no
 weight). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
@@ -395,7 +396,11 @@ def mlp_bwd_hidden(y: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
             b1.data_ptr(), _DTYPES[b1.dtype], w2.data_ptr(), dh.data_ptr(),
             act.data_ptr(), part.data_ptr(), m, d, h, _DTYPES[y.dtype],
             plan.hidden.grid)
+    mlp_bwd_hidden.launches += 1
     return dh, act, part
+
+
+mlp_bwd_hidden.launches = 0
 
 
 def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
@@ -418,7 +423,11 @@ def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
     dyln = torch.empty((m, d), device=dh.device, dtype=out_dtype)
     _launch("mlp_bwd_dyln", dh.data_ptr(), w1.data_ptr(), dyln.data_ptr(), m,
             d, h, _DTYPES[dh.dtype], _DTYPES[out_dtype], plan.dyln.grid)
+    mlp_bwd_dyln.launches += 1
     return dyln
+
+
+mlp_bwd_dyln.launches = 0
 
 
 def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):

@@ -11,6 +11,13 @@ prunes the older epochs. Loading copies into the live train state in place
 finds a weights file. A moment that a checkpoint saved with
 other frozen parameters lacks starts at zero, as the reference does for a
 newly trainable parameter; one it has beyond the state's is dropped.
+
+A state placed on a mesh (``train/steps.py:shard_state``) is gathered to
+the standard layout (the qkv leaves unrelayouted, every shard joined) by
+every process together, and process 0 alone writes it and prunes; each
+process loads the whole file and copies in its own part, so a run resumes
+into any layout (a tensor-parallel checkpoint into data parallelism, and
+the reverse).
 """
 
 import glob
@@ -21,6 +28,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 FILE = "checkpoint.pth"
 
@@ -29,18 +37,18 @@ def _ckpt_dir(output_dir: str, tag) -> str:
     return os.path.join(os.path.abspath(output_dir), f"checkpoint-{tag}")
 
 
-def _host(tree):
-    if torch.is_tensor(tree):
-        return tree.detach().cpu()
-    return {k: _host(v) for k, v in tree.items()}
+def _writer() -> bool:
+    """Whether this process writes (process 0 of a group, or no group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def snapshot(state):
-    """A host copy of a train state, kept apart from the live one (which
-    the steps update in place): the best model held in memory."""
-    if torch.is_tensor(state):
-        return state.detach().to("cpu", copy=True)
-    return {k: snapshot(v) for k, v in state.items()}
+    """A host copy of a train state in the standard layout, kept apart from
+    the live one (which the steps update in place): the best model held in
+    memory. Collective for a placed state."""
+    from mirage_tpu_torch.train.steps import gather_state
+
+    return gather_state(state)
 
 
 def save_checkpoint(output_dir: str, state, epoch, *,
@@ -49,20 +57,28 @@ def save_checkpoint(output_dir: str, state, epoch, *,
     """Writes ``checkpoint-{epoch}`` (or ``checkpoint-{tag}``); ``args`` is
     kept with its JSON-able values. ``keep_every`` > 0 then prunes the epoch
     checkpoints (:func:`prune_checkpoints`)."""
+    from mirage_tpu_torch.train.steps import gather_state
+
     path = _ckpt_dir(output_dir, epoch if tag is None else tag)
+    whole = gather_state(state)
+    if _writer():
+        _write(path, whole, epoch, args, output_dir, keep_every)
+    if dist.is_initialized():
+        dist.barrier()  # every process may read it from here on
+    return path
+
+
+def _write(path, whole, epoch, args, output_dir, keep_every):
     os.makedirs(path, exist_ok=True)
     meta = {"epoch": int(epoch)}
     if args is not None:
         meta["args"] = {k: v for k, v in args.items() if isinstance(
             v, (int, float, str, bool, list, dict, type(None)))}
-    torch.save({"params": _host(state["params"]), "opt": _host(state["opt"]),
-                "step": _host(state["step"]), **meta},
-               os.path.join(path, FILE))
+    torch.save({**whole, **meta}, os.path.join(path, FILE))
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
     if keep_every:
         prune_checkpoints(output_dir, keep_every)
-    return path
 
 
 def _epochs(output_dir: str):
@@ -85,25 +101,17 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
     return max(found)[1] if found else None
 
 
-@torch.no_grad()
 def load_checkpoint(path: str, state):
-    """Copies a checkpoint into ``state`` in place; returns (state, meta)."""
+    """Copies a checkpoint into ``state`` (placed or not) in place;
+    returns (state, meta)."""
+    from mirage_tpu_torch.train.steps import load_whole
+
     ckpt = torch.load(os.path.join(path, FILE), map_location="cpu",
                       weights_only=False)
-    for name, p in state["params"].items():
+    for name in state["params"]:
         if name not in ckpt["params"]:
             raise KeyError(f"{path}: no parameter {name}")
-        p.copy_(ckpt["params"][name])
-    opt = state["opt"]
-    opt["count"].copy_(ckpt["opt"]["count"])
-    for key in ("mu", "nu"):
-        for name, m in opt.get(key, {}).items():
-            saved = ckpt["opt"].get(key, {}).get(name)
-            if saved is None:
-                m.zero_()
-            else:
-                m.copy_(saved)
-    state["step"].copy_(ckpt["step"])
+    load_whole(state, ckpt)
     return state, {k: ckpt[k] for k in ("epoch", "args") if k in ckpt}
 
 

@@ -23,6 +23,13 @@ leaves that ``ops.fused_adamw.leaf_update_viable`` admits take the fused
 AdamW update (B11: one launch over all of them on the card); the rest take
 the ``torch._foreach_*`` route, unchanged. gnorm, gscale, keep, c1 and c2
 stay device scalars on both routes.
+
+Sharded training (``train/steps.py``): a parameter FSDP2 shards is a
+DTensor, and the update runs on its local shard (``.to_local()``), as do
+its moments, which are plain tensors of the local shard's shape; a
+tensor-parallel leaf is its tensor-local block. The caller then hands in
+the global gradient norm (``gnorm``), so clipping and skipping follow the
+whole model's gradient.
 """
 
 import dataclasses
@@ -75,6 +82,13 @@ def leaf_meta(cfg: OptimizerConfig, name: str, param: torch.Tensor):
     return wd, lr_scale, trainable
 
 
+def local(t):
+    """The local shard of a DTensor (a view: in-place updates write the
+    parameter), any other tensor as it is."""
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(Σ ‖t‖²) in float, on the tensors' device."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
@@ -91,8 +105,9 @@ class GroupedOptimizer:
         return {n: leaf_meta(self.cfg, n, p) for n, p in params.items()}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
-        """Moments for the trainable parameters only, and the step count."""
-        first = next(iter(params.values()))
+        """Moments for the trainable parameters only (of their local
+        shards), and the step count."""
+        first = local(next(iter(params.values())))
         state = {"count": torch.zeros((), dtype=torch.int32,
                                       device=first.device)}
         trainable = [n for n, (_, _, t) in self.meta(params).items() if t]
@@ -101,7 +116,8 @@ class GroupedOptimizer:
         if not moments:
             raise ValueError(f"Unknown optimizer {self.cfg.opt}")
         for k in moments:
-            state[k] = {n: torch.zeros_like(params[n]) for n in trainable}
+            state[k] = {n: torch.zeros_like(local(params[n]))
+                        for n in trainable}
         return state
 
     def count_trainable(self, params: Mapping[str, torch.Tensor]):
@@ -123,8 +139,12 @@ class GroupedOptimizer:
                params: Mapping[str, torch.Tensor], lr: float,
                wd_scale: float = 1.0, gnorm=None) -> torch.Tensor:
         """One step in place on ``params`` and ``state``; returns the global
-        grad norm (a device scalar) over the given grads."""
+        grad norm (a device scalar): ``gnorm`` when given, else the norm of
+        the given grads."""
         cfg = self.cfg
+        grads = {n: None if g is None else local(g) for n, g in grads.items()}
+        meta = self.meta(params)
+        params = {n: local(p) for n, p in params.items()}
         if gnorm is None:
             gnorm = global_norm([g for g in grads.values() if g is not None])
         keep = (torch.isfinite(gnorm) & (gnorm < cfg.skip_grad)
@@ -135,7 +155,6 @@ class GroupedOptimizer:
                   if cfg.clip_grad is not None else None)
         state["count"] += keep.to(torch.int32)
         names = [n for n in state["mu"] if grads.get(n) is not None]
-        meta = self.meta({n: params[n] for n in names})
         if cfg.opt in ("adamw", "adam"):
             b1, b2 = cfg.betas
             count = torch.clamp(state["count"].float(), min=1.0)

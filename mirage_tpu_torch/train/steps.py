@@ -13,16 +13,51 @@ the backward runs through them to the input adapters without their weight
 gradients, as the reference freeze does), the clipped update, and metrics
 ``{"loss", "grad_norm", "loss_<task>"}`` left on the device (no host sync
 in the step); the classification loss hands its logits back as the
-metric ``logits``. The multi-device steps come with the multi-GPU slice.
+metric ``logits``.
+
+The multi-GPU steps (``mirage_tpu/train/steps.py:163-378``): one process a
+GPU over a ('data', 'fsdp', 'tensor') mesh (``parallel/mesh.py``), in one of
+four layouts, which :func:`shard_state` places and :func:`make_train_step`
+steps:
+
+- 'dp': ``DistributedDataParallel`` over the batch axes, the parameters
+  and moments whole on every process;
+- 'fsdp': FSDP2 (``fully_shard``) on each ``encoder.{i}`` block, then on
+  the model, over the 'fsdp' sub-mesh (HSDP, replicated over 'data', when
+  data > 1): every parameter and its moments sharded on axis 0;
+- 'tp': Megatron tensor parallelism with explicit collectives
+  (``parallel/tp.py``): the encoder's qkv/proj/fc1/fc2 cut to their
+  tensor-local blocks (qkv relayouted head-group-major), the blocks run
+  ``Block.tp_forward``; DDP over the batch axes;
+- 'tp_fsdp': the tensor-local model, then FSDP2 over the 'fsdp' sub-mesh.
+
+The step's generator is folded by the batch-axes index (every tensor rank
+of one batch position draws the same masks and drop-path). Gradients: DDP
+and FSDP2 take the batch mean in their backward hooks (so the sharded step
+runs ``loss.backward()``); the in-block LayerNorms' 'partial' gradients are
+then all-reduced over 'tensor'. The clip/skip norm sums each gradient's
+squares over the axes it is split across ('fsdp' for FSDP2's shards,
+'tensor' for the tensor-local leaves), one all-reduce a bucket, and the
+optimizer updates the local shards with it. ``MIRAGE_FSDP_STEP`` /
+``MIRAGE_TP_STEP`` take 'shardmap' (the default: these steps); 'gspmd'
+(the JAX package's automatic partitioning with the kernels off) has no
+counterpart here and raises.
 """
 
+import dataclasses
 from typing import Any, Callable, Mapping, Optional
 
 import torch
 
 from mirage_tpu_torch.losses.masked import (masked_ce_loss_tokens,
                                             masked_mse_loss_tokens)
-from mirage_tpu_torch.train.optim import GroupedOptimizer
+from mirage_tpu_torch.ops.runtime import env_choice
+from mirage_tpu_torch.train.optim import GroupedOptimizer, local
+
+# mirage_tpu/train/steps.py:42,49: read once at import
+_FSDP_STEP = env_choice("MIRAGE_FSDP_STEP", "shardmap", ("shardmap", "gspmd"))
+_TP_STEP = env_choice("MIRAGE_TP_STEP", "shardmap", ("shardmap", "gspmd"))
+LAYOUTS = ("dp", "fsdp", "tp", "tp_fsdp")
 
 
 def make_pretrain_loss(model, domain_conf: Mapping[str, Mapping[str, Any]],
@@ -126,13 +161,20 @@ def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
-def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer):
+def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer,
+                    mesh=None):
     """step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs) ->
     (state, metrics): loss_fn(batch, generator=generator, **loss_kwargs)
     (e.g. the pretraining loss's task_masks and num_visible), gradients of
     every parameter that requires grad, the optimizer update in place, the
     step counter. The loss function's 0-d extras become metrics
-    ``loss_<name>``, any other extra the metric ``<name>`` (detached)."""
+    ``loss_<name>``, any other extra the metric ``<name>`` (detached).
+
+    With ``mesh`` the sharded step of the layout :func:`shard_state` placed
+    the state in: ``batch`` is this process's stripe and the metrics are
+    means over the batch axes."""
+    if mesh is not None:
+        return _make_sharded_step(loss_fn, optimizer, mesh)
 
     def step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
         params = state["params"]
@@ -150,3 +192,325 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer):
         return state, metrics
 
     return step_fn
+
+
+# ------------------------------------------------------------ multi-GPU
+
+@dataclasses.dataclass(eq=False)
+class Layout:
+    """How :func:`shard_state` placed a state: the layout, the mesh, the
+    model it cut (updated in place by the steps) and the encoder's head
+    count (the qkv relayout's)."""
+
+    kind: str
+    mesh: Any
+    model: torch.nn.Module
+    num_heads: Optional[int] = None
+
+    @property
+    def tp(self) -> bool:
+        return self.kind in ("tp", "tp_fsdp")
+
+    @property
+    def fsdp(self) -> bool:
+        return self.kind in ("fsdp", "tp_fsdp")
+
+
+def mesh_layout(mesh) -> str:
+    """The layout a mesh's shape selects (mirage_tpu/train/steps.py:
+    make_train_step's routing)."""
+    from mirage_tpu_torch.parallel.mesh import is_dp_only
+    from mirage_tpu_torch.parallel.tp import is_tp_fsdp, is_tp_only
+
+    if is_tp_fsdp(mesh):
+        return "tp_fsdp"
+    if is_tp_only(mesh):
+        return "tp"
+    return "dp" if is_dp_only(mesh) else "fsdp"
+
+
+def _check_switches(kind: str):
+    for name, value, kinds in (("MIRAGE_FSDP_STEP", _FSDP_STEP,
+                                ("fsdp", "tp_fsdp")),
+                               ("MIRAGE_TP_STEP", _TP_STEP,
+                                ("tp", "tp_fsdp"))):
+        if value == "gspmd" and kind in kinds:
+            raise ValueError(
+                f"{name}=gspmd selects the JAX package's automatic (GSPMD) "
+                f"partitioning with the kernels off, which has no "
+                f"counterpart in the port: use shardmap (the default)")
+
+
+def _fsdp_mesh(mesh):
+    dm = mesh.device_mesh
+    return dm["data", "fsdp"] if mesh.shape["data"] > 1 else dm["fsdp"]
+
+
+def _fsdp_range(n: int, parts: int, index: int):
+    """The rows of axis 0 FSDP2 gives shard ``index`` of ``parts``
+    (torch.chunk's: ceil(n / parts) rows each, the last ones short or
+    empty)."""
+    size = -(-n // parts)
+    start = min(index * size, n)
+    return start, min(start + size, n)
+
+
+def _tp_cut(full: torch.Tensor, name: str, lay: Layout) -> torch.Tensor:
+    """The tensor-local block of a standard-layout full leaf."""
+    from mirage_tpu_torch.parallel.tp import tp_relayout, tp_slice
+
+    t = lay.mesh.shape["tensor"]
+    full = tp_relayout({name: full}, lay.num_heads, t)[name]
+    return tp_slice(full, name, lay.mesh.coords["tensor"], t)
+
+
+def _cut(full: torch.Tensor, name: str, lay: Layout, param) -> torch.Tensor:
+    """This process's part of a standard-layout full leaf (a parameter or
+    a moment) named ``name`` in layout ``lay``, shaped as the local shard
+    of ``param`` (the live parameter)."""
+    mesh = lay.mesh
+    if full.ndim == 0:
+        return full
+    if lay.tp:
+        full = _tp_cut(full, name, lay)
+    if lay.fsdp:
+        start, end = _fsdp_range(full.shape[0], mesh.shape["fsdp"],
+                                 mesh.coords["fsdp"])
+        full = full[start:end]
+    want = local(param).shape
+    assert tuple(full.shape) == tuple(want), (name, full.shape, want)
+    return full
+
+
+def gather_leaf(part: torch.Tensor, name: str, lay: Layout, param):
+    """The standard-layout full leaf named ``name`` (a parameter, its
+    moment or its gradient) from every process's local ``part`` of it, for
+    the live parameter ``param`` of layout ``lay`` (the inverse of
+    :func:`_cut`); collective over the mesh."""
+    import torch.distributed as dist
+
+    from mirage_tpu_torch.parallel.tp import tp_leaf_axis, tp_unrelayout
+
+    mesh = lay.mesh
+    if part.ndim == 0:
+        return part
+    if lay.fsdp:
+        from torch.distributed.tensor import DTensor
+
+        part = DTensor.from_local(part, param.device_mesh, param.placements,
+                                  shape=param.shape,
+                                  stride=param.stride()).full_tensor()
+    axis = tp_leaf_axis(name) if lay.tp else None
+    if axis is not None:
+        t = mesh.shape["tensor"]
+        parts = [torch.empty_like(part) for _ in range(t)]
+        dist.all_gather(parts, part.contiguous(),
+                        group=mesh.group(("tensor",)))
+        part = tp_unrelayout({name: torch.cat(parts, axis)}, lay.num_heads,
+                             t)[name]
+    return part
+
+
+def shard_state(state, mesh, model: torch.nn.Module, tp_num_heads=None,
+                layout: Optional[str] = None):
+    """Places a whole train state (``init_train_state``, possibly loaded
+    from a checkpoint) on ``mesh`` in ``layout`` (by default the one the
+    mesh's shape selects, :func:`mesh_layout`); returns the placed state,
+    whose 'layout' entry is a :class:`Layout`. The model is cut in place:
+    under 'tp'/'tp_fsdp' its encoder weights become their tensor-local
+    blocks and its blocks run tensor-parallel (``tp_num_heads``, the
+    encoder's head count, is required); under 'fsdp'/'tp_fsdp' FSDP2
+    shards it. The moments are cut as their parameters are.
+    Counterpart of mirage_tpu/train/steps.py:504."""
+    from mirage_tpu_torch.parallel.tp import tp_leaf_axis
+
+    kind = layout or mesh_layout(mesh)
+    if kind not in LAYOUTS:
+        raise ValueError(f"layout {kind!r} not in {LAYOUTS}")
+    _check_switches(kind)
+    lay = Layout(kind, mesh, model, tp_num_heads)
+    if lay.tp and tp_num_heads is None:
+        raise ValueError("a tensor-parallel layout needs tp_num_heads")
+    if lay.tp:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if tp_leaf_axis(n) is not None:
+                    p.data = _tp_cut(p.data, n, lay).contiguous()
+        model.tp = (mesh.group(("tensor",)), mesh.shape["tensor"])
+    if lay.fsdp:
+        from torch.distributed.fsdp import (fully_shard,
+                                            register_fsdp_forward_method)
+
+        fmesh = _fsdp_mesh(mesh)
+        for block in model.encoder:
+            fully_shard(block, mesh=fmesh)
+        fully_shard(model, mesh=fmesh)
+        if hasattr(model, "forward_light"):
+            register_fsdp_forward_method(model, "forward_light")
+    params = dict(model.named_parameters())
+
+    def cut(m, n):
+        part = _cut(m, n, lay, params[n])
+        return part if part is m else part.clone()
+
+    opt = {k: ({n: cut(m, n) for n, m in v.items()}
+               if k in ("mu", "nu") else v)
+           for k, v in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": state["step"],
+            "layout": lay}
+
+
+def gather_state(state):
+    """The standard-layout whole state of a placed one, on the host:
+    {'params', 'opt', 'step'} as a one-GPU run holds it (the qkv leaves
+    unrelayouted, every shard gathered). Collective: every process of the
+    mesh calls it."""
+    lay, params = state.get("layout"), state["params"]
+
+    def host(t, name=None):
+        t = t.detach()
+        if lay is not None and name is not None:
+            t = gather_leaf(local(t), name, lay, params[name])
+        return t.to("cpu", copy=True)
+
+    return {"params": {n: host(p, n) for n, p in params.items()},
+            "opt": {k: ({n: host(m, n) for n, m in v.items()}
+                        if isinstance(v, dict) else host(v))
+                    for k, v in state["opt"].items()},
+            "step": host(state["step"])}
+
+
+@torch.no_grad()
+def load_whole(state, whole):
+    """Copies a standard-layout whole state {'params', 'opt', 'step'}
+    (host tensors, as :func:`gather_state` or a checkpoint gives it) into a
+    state, placed or not, in place: each process takes its own part."""
+    lay = state.get("layout")
+    params = state["params"]
+
+    def part(full, name):
+        if lay is None:
+            return full
+        return _cut(full, name, lay, params[name])
+
+    for n, p in params.items():
+        local(p).copy_(part(whole["params"][n], n))
+    for k, v in state["opt"].items():
+        if isinstance(v, dict):
+            for n, m in v.items():
+                saved = whole["opt"].get(k, {}).get(n)
+                if saved is None:
+                    m.zero_()
+                else:
+                    m.copy_(part(saved, n))
+        else:
+            v.copy_(whole["opt"][k])
+    state["step"].copy_(whole["step"])
+    return state
+
+
+def fold_generator(generator: torch.Generator, index: int):
+    """The generator of batch position ``index`` of a step whose generator
+    is ``generator`` (fresh, as :func:`step_generator` makes it): itself at
+    index 0, else one seeded at initial_seed + index·2³² (the counterpart of
+    ``jax.random.fold_in(rng, axis_index(('data', 'fsdp')))``)."""
+    if index == 0:
+        return generator
+    return torch.Generator(device=generator.device).manual_seed(
+        generator.initial_seed() + (index << 32))
+
+
+class _LossModule(torch.nn.Module):
+    """The loss as a module over the model's parameters, for DDP, whose
+    reducer is prepared by its own forward."""
+
+    def __init__(self, model, loss_fn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *args, **kwargs):
+        return self.loss_fn(*args, **kwargs)
+
+
+def _make_sharded_step(loss_fn: Callable, optimizer: GroupedOptimizer,
+                       mesh):
+    """The step of every layout (mirage_tpu/train/steps.py:163-339): the
+    batch mean of the gradients in DDP's or FSDP2's backward hooks, the
+    'partial' gradients all-reduced over 'tensor', the bucketed global
+    norm, the update on the local shards."""
+    import torch.distributed as dist
+
+    from mirage_tpu_torch.parallel.mesh import batch_count, batch_rank
+    from mirage_tpu_torch.parallel.tp import tp_grad_kind
+
+    cache = {}
+    batch_group = mesh.group(("data", "fsdp"))
+    n_batch = batch_count(mesh)
+
+    def build(lay: Layout):
+        if lay.mesh is not mesh:
+            raise ValueError("the state was placed on another mesh")
+        if lay.fsdp:
+            return loss_fn
+        from torch.nn.parallel import DistributedDataParallel
+
+        dev = next(lay.model.parameters()).device
+        return DistributedDataParallel(
+            _LossModule(lay.model, loss_fn), process_group=batch_group,
+            device_ids=[dev] if dev.type == "cuda" else None,
+            find_unused_parameters=True)
+
+    def stepper(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
+        lay = state["layout"]
+        if "fn" not in cache:
+            cache["fn"] = build(lay)
+        params = state["params"]
+        names = [n for n, p in params.items() if p.requires_grad]
+        for n in names:
+            params[n].grad = None
+        loss, task_losses = cache["fn"](
+            batch, generator=fold_generator(generator, batch_rank(mesh)),
+            **loss_kwargs)
+        loss.backward()
+        grads = {n: params[n].grad for n in names}
+        if lay.tp:
+            partial = [local(grads[n]) for n in names
+                       if grads[n] is not None
+                       and tp_grad_kind(n) == "partial"]
+            if partial:
+                flat = torch.cat([g.reshape(-1) for g in partial])
+                dist.all_reduce(flat, group=mesh.group(("tensor",)))
+                torch._foreach_copy_(partial, [
+                    c.view_as(g) for c, g in zip(
+                        flat.split([g.numel() for g in partial]), partial)])
+        # the squared sums bucketed by the axes each gradient is split
+        # across; the buckets come from the names alone, so every process
+        # all-reduces the same ones in the same order
+        split = {n: (("fsdp",) if lay.fsdp else ()) + (
+            ("tensor",) if lay.tp and tp_grad_kind(n) == "local" else ())
+            for n in names}
+        buckets = {axes: torch.zeros((), device=loss.device)
+                   for axes in sorted(set(split.values()))}
+        for n in names:
+            if grads[n] is not None:
+                buckets[split[n]] += local(grads[n]).float().square().sum()
+        for axes, v in buckets.items():
+            if axes:
+                dist.all_reduce(v, group=mesh.group(axes))
+        gnorm = torch.sqrt(sum(buckets.values()))
+        optimizer.update(grads, state["opt"], params, lr, wd_scale,
+                         gnorm=gnorm)
+        state["step"] += 1
+        scalars = {k: v for k, v in task_losses.items() if v.ndim == 0}
+        means = torch.stack([loss.detach().float()] + [
+            v.detach().float() for v in scalars.values()])
+        dist.all_reduce(means, group=batch_group)
+        means = means / n_batch
+        metrics = {"loss": means[0], "grad_norm": gnorm}
+        metrics.update({f"loss_{k}": v for k, v in zip(scalars, means[1:])})
+        metrics.update({k: v.detach() for k, v in task_losses.items()
+                        if v.ndim})
+        return state, metrics
+
+    return stepper

@@ -30,6 +30,19 @@ from mirage_tpu_torch.ops import fused_mlp as fm
 from mirage_tpu_torch.ops import quant as q
 from mirage_tpu_torch.ops import runtime
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The tiny blocks run no faster on more threads, and the suite runs
+    several test processes on the same cores: the float64 gradcheck's many
+    small forwards took 1008 s on the default threads under six workers
+    (17 s alone on one thread)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 TOL = dict(atol=3e-5, rtol=1e-4)
 Q_TOL = dict(atol=2e-5, rtol=1e-4)
 

@@ -200,12 +200,14 @@ SEG_MODULES = ("ops.flash_attention", "nn.conv", "adapters.seg_heads",
                "utils.native")
 # the serving slice's modules under MIRAGE_BLOCK_FUSE and its entry points
 SERVE_MODULES = ("ops.fused_block", "ops.quant", "cli.infer", "hf")
+# the multi-GPU slice's modules
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.tp", "ops.linear")
 
 
 def test_package_imports_neither_jax_nor_mirage_tpu():
     """Subprocess: this test process has already imported jax. Every module
-    of the package, the segmentation and serving slices' included (hf.py
-    and cli/infer.py among them)."""
+    of the package, the segmentation, serving and multi-GPU slices'
+    included (hf.py, cli/infer.py and parallel/ among them)."""
     code = """
 import importlib, pkgutil, sys
 import mirage_tpu_torch
@@ -222,5 +224,5 @@ print("MODS", sorted(n for n in sys.modules if n.startswith("mirage_tpu_torch.")
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     mods = out.stdout.split("MODS", 1)[1]
-    for name in SEG_MODULES + SERVE_MODULES:
+    for name in SEG_MODULES + SERVE_MODULES + PARALLEL_MODULES:
         assert f"'mirage_tpu_torch.{name}'" in mods, name
