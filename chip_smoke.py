@@ -125,6 +125,26 @@ Phases, each of which must pass (any failure exits non-zero):
    dyln at the tensor-local shapes of ViT-B (t = 2, 4) and ViT-L (t = 4,
    8) against their plain versions (phase 2's bars), timed beside the
    plain versions, the library and the bound.
+12. pipeline: GPipe pipeline parallelism and multi-device serving
+   (mirage_tpu_torch/parallel/pp.py, the wrapper's mesh=).
+   (a) Phase 5's bare step at batch 256 with injected masks, then the
+   pipeline flag on a pipe = 1 mesh (one process, NCCL), equal to it with
+   the same launches; two processes on cuda:0 over gloo, pipe = 2, M = 4,
+   plain and with remat: the first step's loss, grad norm and every
+   gradient (gathered to the standard layout) and the second step's loss
+   against the bare step (phase 5's bars), each stage holding its six
+   blocks, exact launches on each rank (B1/B4 and B2/B5 6 × 4 times, the
+   decoders replicated), each rank's ms a step (printed, not compared).
+   (b) The wrapper (MIRAGE-Large, bf16) with a mesh of one bit-equal to
+   the plain wrapper at batch 64, 3 and 1 for __call__ and features with
+   exact launches; two replicas on cuda:0 (two threads, two streams)
+   within phase 4's bar with exact launches (twice one forward's), their img/s beside the plain wrapper's and the
+   overlap of their device time; the server over the mesh of one answering
+   16 HTTP requests, p50 / p95. (c) The GEMM, B1, B2, B4, B5 and the LN at
+   a microbatch of S = 2, M = 4 (6336 rows) and S = 4, M = 8 (3168), and
+   the GEMM, B1, B2 and B3 at a serving replica's batch 32, against their
+   plain versions (phase 2's bars), timed beside them, the library and the
+   bound.
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -175,6 +195,13 @@ torch.matmul, the F.linear composition or torch._int_mm and the bound,
 then B9's backward of the checkout it runs in; its C entries and macro
 names are the parent's too, so a copy of this script in an older
 checkout's root times that tree (its sources given the macros).
+``--multi-card`` runs only what exists across cards, on every card of the
+machine (at least two; the pipelines need four): phase 5's bare step on
+cuda:0, then one process a card over NCCL through the pipelines of
+MULTI_PIPES (data 2 × pipe 2 at M = 4, pipe 4 at M = 8) against it with
+exact launches, then the wrapper with one replica a card against the
+plain wrapper on cuda:0 at batch 64, 3 and 1, with img/s and each card's
+device time.
 ``--mlp-bwd-split`` only times B5 and B7-MLP at their three shapes beside
 the library call and the bound, each split into its launches; it calls
 only the two backward ops, so a copy of this script in an older
@@ -687,6 +714,64 @@ def attention_core_rows(entry, per_call, shapes=None, key=None):
     return rows
 
 
+def fwd_op_rows(cases, gen, key="calls_per_forward"):
+    """The bf16 forward ops (B1, B2, B3) at ``cases`` ((op, label, shape,
+    kwargs, calls on the path, in each row's ``key``)) against their plain
+    versions in float32 from the same inputs (BF16_MAX_ABS, BF16_REL_L2),
+    timed beside the plain version, the library composition and the bound:
+    op -> rows."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import (
+        attn_half_block, attn_half_block_ref, xattn_half_block,
+        xattn_half_block_ref)
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block, mlp_block_ref
+
+    ops = {"attn_half_block": (attn_half_block, attn_half_block_ref),
+           "mlp_block": (mlp_block, mlp_block_ref),
+           "xattn_half_block": (xattn_half_block, xattn_half_block_ref)}
+    results = {}
+    for op, label, shape, kw, per_fwd in cases:
+        kernel, ref = ops[op]
+        args = _op_inputs(op, shape, torch.bfloat16, gen)
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        with runtime.plain_on_card():
+            want = ref(*[a.float() if torch.is_tensor(a) else a
+                         for a in args], **kw)
+        diff = (got.float() - want)
+        max_abs = diff.abs().max().item()
+        rel_l2 = (diff.norm() / want.norm()).item()
+        ok = (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2
+              and bool(torch.isfinite(got).all()))
+        kernel_ms = cuda_ms(lambda: kernel(*args, **kw))
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: ref(*args, **kw))
+        lib = _library(op)
+        library_ms = cuda_ms(lambda: lib(*args, **kw))
+        flops, nbytes = _work(op, shape, 2)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"label": label, "shape": list(shape), "dtype": "bf16",
+               "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               key: per_fwd, **kw}
+        log(f"[kernels] {op} {label} {shape}: max_abs {max_abs:.3e} "
+            f"rel_l2 {rel_l2:.3e} kernel {kernel_ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if not ok:
+            raise AssertionError(
+                f"{op} {label}: bf16 kernel disagrees with its plain version "
+                f"(max_abs {max_abs} > {BF16_MAX_ABS} or rel_l2 {rel_l2} > "
+                f"{BF16_REL_L2})")
+        results.setdefault(op, []).append(row)
+        del args, got, want, diff
+    return results
+
+
 def phase_kernels():
     import torch
 
@@ -715,44 +800,7 @@ def phase_kernels():
         ("xattn_half_block", "decoder", (BATCH, 256, 257, 256, 8), {}, 0),
     ]
     gen = torch.Generator().manual_seed(SEED)
-    results = {}
-    for op, label, shape, kw, per_fwd in cases:
-        kernel, ref = ops[op]
-        args = _op_inputs(op, shape, torch.bfloat16, gen)
-        got = kernel(*args, **kw)
-        torch.cuda.synchronize()
-        with runtime.plain_on_card():
-            want = ref(*[a.float() if torch.is_tensor(a) else a
-                         for a in args], **kw)
-        diff = (got.float() - want)
-        max_abs = diff.abs().max().item()
-        rel_l2 = (diff.norm() / want.norm()).item()
-        ok = (max_abs <= BF16_MAX_ABS and rel_l2 <= BF16_REL_L2
-              and bool(torch.isfinite(got).all()))
-        kernel_ms = cuda_ms(lambda: kernel(*args, **kw))
-        with runtime.plain_on_card():
-            plain_ms = cuda_ms(lambda: ref(*args, **kw))
-        lib = _library(op)
-        library_ms = cuda_ms(lambda: lib(*args, **kw))
-        flops, nbytes = _work(op, shape, 2)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        row = {"label": label, "shape": list(shape), "dtype": "bf16",
-               "max_abs_err": max_abs, "rel_l2_err": rel_l2,
-               "ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "calls_per_forward": per_fwd, **kw}
-        log(f"[kernels] {op} {label} {shape}: max_abs {max_abs:.3e} "
-            f"rel_l2 {rel_l2:.3e} kernel {kernel_ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-        if not ok:
-            raise AssertionError(
-                f"{op} {label}: bf16 kernel disagrees with its plain version "
-                f"(max_abs {max_abs} > {BF16_MAX_ABS} or rel_l2 {rel_l2} > "
-                f"{BF16_REL_L2})")
-        results.setdefault(op, []).append(row)
-        del args, got, want, diff
+    results = fwd_op_rows(cases, gen)
 
     # the attention forward alone at the serving shapes (launches a
     # reconstruct forward) and the pretraining ones (none a forward)
@@ -832,9 +880,9 @@ def _ln_instantiation(m, d, backward):
             "partial_rows": plan.partial_rows}
 
 
-def layernorm_rows():
+def layernorm_rows(fwd_shapes=None, bwd_shapes=None):
     """The LN kernel alone (runtime.layernorm, runtime.layernorm_bwd) at
-    LN_FWD_SHAPES / LN_BWD_SHAPES in bf16 (float32 scale and shift, as the
+    LN_FWD_SHAPES / LN_BWD_SHAPES (or the shapes given) in bf16 (float32 scale and shift, as the
     ops pass the parameters): against its plain version in float32 from
     the same inputs, rerun bit for bit, then timed beside the plain version
     and F.layer_norm (its autograd backward alone for the backward rows,
@@ -852,7 +900,8 @@ def layernorm_rows():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"layernorm": [], "layernorm_bwd": []}
-    for label, (m, d), per_fwd, per_step in LN_FWD_SHAPES:
+    for label, (m, d), per_fwd, per_step in (
+            LN_FWD_SHAPES if fwd_shapes is None else fwd_shapes):
         x = (torch.randn((m, d), generator=gen, device="cuda") * 2 + 0.5
              ).to(torch.bfloat16)
         w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
@@ -888,7 +937,8 @@ def layernorm_rows():
             f"{row['plain_ms']:.4f} ms F.layer_norm {row['library_ms']:.4f} "
             f"ms (device alone {row['library_device_ms']:.4f}) bound "
             f"{row['bound_ms']:.4f} ms (bytes)")
-    for label, (m, d), per_step, per_cls_step in LN_BWD_SHAPES:
+    for label, (m, d), per_step, per_cls_step in (
+            LN_BWD_SHAPES if bwd_shapes is None else bwd_shapes):
         x = (torch.randn((m, d), generator=gen, device="cuda") * 2 + 0.5
              ).to(torch.bfloat16)
         w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
@@ -2045,15 +2095,11 @@ def _rows_of(labels, calls):
             if label in labels]
 
 
-def phase_backward(results):
-    """Each backward op (and B6's forward) at the pretraining shapes against
-    its plain version computed in float32 from the same inputs; every output
-    compared. Adds rows to ``results``."""
-    import torch
-
+def _bwd_ops():
+    """op -> (kernel, plain version), each called as fn(args, dy, **kw),
+    and op -> the names of its outputs, of phase 2's backward rows."""
     from mirage_tpu_torch.ops import block_attention as ba
     from mirage_tpu_torch.ops import fused_mlp as fm
-    from mirage_tpu_torch.ops import runtime
 
     def b4(args, dy):
         return ba._attn_half_bwd(args[0], dy, *args[1:6], args[7])
@@ -2088,23 +2134,20 @@ def phase_backward(results):
              "mlp_block_bwd": ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
                                "db2"],
              "block_attention": ["out"], "block_attention_bwd": ["dqkv"]}
-    # (op, label, shape, kwargs, calls per pretraining step)
-    cases = [
-        ("attn_half_block_bwd", "encoder", (256, 99, 768, 12), {}, 12),
-        ("mlp_block_bwd", "encoder", (256, 99, 768), {}, 12),
-        ("mlp_block_bwd", "decoder", (256, 256, 256), {}, 6),
-        ("mlp_block_bwd", "encoder residual=False", (256, 99, 768),
-         {"residual": False}, 0),
-        ("mlp_block_bwd", "decoder residual=False", (256, 256, 256),
-         {"residual": False}, 0),
-        ("mlp_block_bwd", "classification encoder", (BATCH, 257, 768), {}, 0),
-        ("block_attention", "decoder", (256, 256, 256, 8), {}, 6),
-        ("block_attention_bwd", "decoder", (256, 256, 256, 8), {}, 6),
-        # B6's backward in the classification full fine-tune: 12 a cls step
-        ("block_attention_bwd", "classification encoder", (BATCH, 257, 768, 12),
-         {}, 0),
-    ]
-    gen = torch.Generator().manual_seed(SEED + 1)
+    return ops, names
+
+
+def bwd_op_rows(cases, gen, results, key="calls_per_step"):
+    """Each backward op (and B6's forward) at ``cases`` ((op, label, shape,
+    kwargs, calls on the path, in each row's ``key``)) against its plain
+    version in float32 from the same inputs, every output compared and
+    every backward rerun bit for bit; timed beside the plain version, the
+    library and the bound. Adds rows to ``results``."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+
+    ops, names = _bwd_ops()
     for op, label, shape, kw, per_step in cases:
         kernel, ref = ops[op]
         args, dy = _bwd_inputs(op, shape, torch.bfloat16, gen)
@@ -2153,7 +2196,7 @@ def phase_backward(results):
                "ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "calls_per_step": per_step, **kw}
+               key: per_step, **kw}
         if op != "block_attention":
             row["rerun_bit_identical"] = True
         if op == "block_attention_bwd":
@@ -2173,6 +2216,36 @@ def phase_backward(results):
             + f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         results.setdefault(op, []).append(row)
         del args, dy
+    return results
+
+
+def phase_backward(results):
+    """Each backward op (and B6's forward) at the pretraining shapes against
+    its plain version computed in float32 from the same inputs; every output
+    compared. Adds rows to ``results``."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+
+    ops, _ = _bwd_ops()
+    # (op, label, shape, kwargs, calls per pretraining step)
+    cases = [
+        ("attn_half_block_bwd", "encoder", (256, 99, 768, 12), {}, 12),
+        ("mlp_block_bwd", "encoder", (256, 99, 768), {}, 12),
+        ("mlp_block_bwd", "decoder", (256, 256, 256), {}, 6),
+        ("mlp_block_bwd", "encoder residual=False", (256, 99, 768),
+         {"residual": False}, 0),
+        ("mlp_block_bwd", "decoder residual=False", (256, 256, 256),
+         {"residual": False}, 0),
+        ("mlp_block_bwd", "classification encoder", (BATCH, 257, 768), {}, 0),
+        ("block_attention", "decoder", (256, 256, 256, 8), {}, 6),
+        ("block_attention_bwd", "decoder", (256, 256, 256, 8), {}, 6),
+        # B6's backward in the classification full fine-tune: 12 a cls step
+        ("block_attention_bwd", "classification encoder", (BATCH, 257, 768, 12),
+         {}, 0),
+    ]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    bwd_op_rows(cases, gen, results)
 
     # the bf16 attention backward alone at the packed shapes: a pretraining
     # step's B4 (B7-attention under its switch) and B6 calls, and B6's in a
@@ -5853,8 +5926,807 @@ def _parallel_entries(par, ln_rows):
     return entries
 
 
+# ----------------------------------------------------------------- phase 12
+
+PIPE_MICRO = 4  # M of the two-stage pipeline: ViT-B batch 256, 64 a microbatch
+PIPE_STEPS = 3  # timed steps a run, after the two compared ones
+PIPE_TIMEOUT = 600  # seconds for a worker of (a) to join
+# the launches of a two-stage pipeline step on each rank: its 6 encoder
+# blocks run B1/B4 and B2/B5 once a microbatch (6 x 4), the decoders (6 B2/B5
+# blocks, 6 B6) replicated on both stages; one attention backward kernel in
+# each B4 and B6 backward
+PER_STEP_PP = {**PER_STEP, "attn_half_block": 24, "attn_half_block_bwd": 24,
+               "mlp_block": 30, "mlp_block_bwd": 30, "attention_bwd": 30}
+# the rows of a microbatch (64 or 32 samples of 99 tokens) at S = 2, M = 4
+# and S = 4, M = 8
+PIPE_ROWS = {"S=2 M=4": 64 * 99, "S=4 M=8": 32 * 99}
+SERVE_MESH_BATCHES = (BATCH, 3, 1)
+SERVE_MESH_REQUESTS = 16
+# phase 12's `kernels` entries beside the ops' own tables: LN forward and
+# backward
+PIPE_LN = {"layernorm": ("mirage_tpu/ops/block_attention.py:251",
+                         "the LN prologue of _attn_half_kernel :251 and "
+                         "fused_mlp.py:_mlp_kernel :58"),
+           "layernorm_bwd": ("mirage_tpu/ops/block_attention.py:549",
+                             "the LN tail of _attn_half_bwd_dx_kernel :549 "
+                             "and fused_mlp.py:_mlp_bwd_dx_kernel :453")}
+
+
+def _pipe_model(remat=False):
+    """Phase 5's model with the pipeline flag (M = PIPE_MICRO) and
+    ``remat``."""
+    model, opt = _train_model()
+    model.encoder.remat = remat
+    model.pp = ("pipe", PIPE_MICRO)
+    return model, opt
+
+
+def phase_pipeline_one(card):
+    """(a) in one process: phase 5's bare step (batch 256, injected masks;
+    the reference of (a)), then the pipeline flag on a mesh with pipe = 1
+    (NCCL, world 1: the JAX package's degenerate one-stage view, here the
+    data-parallel step), which must equal the bare step with the same
+    launches. Returns its results and the bare step's reference."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mirage_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_train_step, shard_state)
+
+    counters = _parallel_counters()
+    bare, ref, (loss0, grads0) = _bare_reference(card)
+    out = {"bare": bare}
+    names = ref["names"]
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _parallel_batch().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    init_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}",
+                     world_size=1, rank=0)
+    mesh = make_mesh({"data": 1, "pipe": 1}, "cuda")
+    model, opt = _pipe_model()
+    loss_fn = _masked_loss(model)
+    state = shard_state(init_train_state(model, opt), mesh, model)
+    step = make_train_step(loss_fn, opt, mesh=mesh, pp=True)
+    state, m1 = step(state, batch, gen, PARALLEL_LR)
+    agree = _agreement(m1["loss"], _step_grads(state, names), loss0, grads0,
+                       names)
+    state, m2 = step(state, batch, gen, PARALLEL_LR)
+    agree["step2_loss_rel"] = abs(m2["loss"].item() - ref["loss"][1]) \
+        / abs(ref["loss"][1])
+    _check_agreement("pipe = 1 step", agree)
+    if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
+        raise AssertionError(f"pipe = 1: second step's loss {agree}")
+    state, ms, dev, counts, m = _timed_steps(step, state, batch, gen,
+                                             counters, PIPE_STEPS)
+    _check_counts("pipe = 1", counts, _parallel_expected("dp"), PIPE_STEPS)
+    if not np.isfinite(m["loss"].item()):
+        raise AssertionError(f"pipe = 1: loss {m['loss'].item()}")
+    out["pipe_1"] = {"layout": state["layout"].kind, "agreement": agree,
+                     "ms_per_step": ms, "device_ms": dev, "counts": counts}
+    log(f"[pipeline] pipe = 1 (world 1, layout {state['layout'].kind}): "
+        f"{agree}; {ms:.2f} ms a step (bare {out['bare']['ms_per_step']:.2f})"
+        f", launches {counts}, on {card}")
+    del model, state, step, loss_fn, grads0
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out, ref
+
+
+def _bare_reference(card):
+    """Phase 5's bare step (batch 256, (a)'s injected masks) on the current
+    card: the first step's loss and gradients, two steps' losses and grad
+    norms, then PIPE_STEPS timed steps with exact launches. Returns (its
+    results, the reference the pipelines are held to (host tensors), the
+    first step's loss and gradients on the card)."""
+    import torch
+
+    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
+
+    counters = _parallel_counters()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _parallel_batch().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model, opt = _train_model()
+    loss_fn = _masked_loss(model)
+    state = init_train_state(model, opt)
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+    loss0, _ = loss_fn(batch)
+    grads0 = torch.autograd.grad(loss0, [state["params"][n] for n in names])
+    loss0 = loss0.detach()
+    step = make_train_step(loss_fn, opt)
+    ref = {"loss": [], "grad_norm": []}
+    for _ in range(2):
+        state, m = step(state, batch, gen, PARALLEL_LR)
+        ref["loss"].append(m["loss"].item())
+        ref["grad_norm"].append(m["grad_norm"].item())
+    state, ms, dev, counts, _ = _timed_steps(step, state, batch, gen,
+                                             counters, PIPE_STEPS)
+    _check_counts("bare step", counts, _parallel_expected("dp"), PIPE_STEPS)
+    bare = {**ref, "ms_per_step": ms, "device_ms": dev, "counts": counts}
+    log(f"[pipeline] bare step: losses {ref['loss']}, grad norms "
+        f"{ref['grad_norm']}, {ms:.2f} ms a step on {card}")
+    del model, state, step, loss_fn
+    torch.cuda.empty_cache()
+    ref.update({"step1_loss": loss0.item(), "names": names,
+                "grads": {n: g.float().cpu() for n, g in zip(names, grads0)}})
+    return bare, ref, (loss0, grads0)
+
+
+def _pipeline_worker(rank, world, store, outdir):
+    """A process of (a): gloo on cuda:0, stage ``rank`` of a two-stage
+    pipeline (M = PIPE_MICRO) over phase 5's weights and masks, plain and
+    with remat; rank 0 gathers the first step's gradients in the standard
+    layout and holds them to the bare step."""
+    import datetime
+    import traceback
+
+    outdir = Path(outdir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, str(ROOT))
+        from mirage_tpu_torch.parallel.mesh import make_mesh
+        from mirage_tpu_torch.train.steps import (gather_pp,
+                                                  init_train_state,
+                                                  make_train_step,
+                                                  shard_state)
+
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=PIPE_TIMEOUT))
+        counters = _parallel_counters()
+        ref = torch.load(outdir / "ref.pt")
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in _parallel_batch().items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        results = {}
+        for remat in (False, True):
+            mesh = make_mesh({"pipe": world}, "cpu")  # gloo: no device mesh
+            model, opt = _pipe_model(remat)
+            state = shard_state(init_train_state(model, opt), mesh, model)
+            lay = state["layout"]
+            step = make_train_step(_masked_loss(model), opt, mesh=mesh,
+                                   pp=True)
+            state, m1 = step(state, batch, gen, PARALLEL_LR)
+            params = state["params"]
+            parts = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                     .float() for n, p in params.items()}
+            whole = gather_pp(parts, lay)
+            del parts
+            res = {"loss": [m1["loss"].item()],
+                   "grad_norm": [m1["grad_norm"].item()],
+                   "blocks": sorted({int(n.split(".")[1]) for n in params
+                                     if n.startswith("encoder.")})}
+            if rank == 0:
+                res["agreement"] = _agreement(
+                    m1["loss"].cpu(), [whole[n] for n in ref["names"]],
+                    torch.tensor(ref["step1_loss"]),
+                    [ref["grads"][n] for n in ref["names"]], ref["names"])
+            del whole
+            state, m2 = step(state, batch, gen, PARALLEL_LR)
+            res["loss"].append(m2["loss"].item())
+            res["grad_norm"].append(m2["grad_norm"].item())
+            torch.cuda.reset_peak_memory_stats()
+            state, ms, dev, counts, _ = _timed_steps(
+                step, state, batch, gen, counters, PIPE_STEPS)
+            res.update({"ms_per_step": ms, "device_ms": dev,
+                        "counts": counts,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30})
+            results["remat" if remat else "plain"] = res
+            del model, state, step, lay, params
+            torch.cuda.empty_cache()
+        torch.save(results, outdir / f"rank{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        (outdir / f"err{rank}").write_text(traceback.format_exc())
+        raise
+
+
+def phase_pipeline_two(workdir, card, ref):
+    """(a) on two processes: cuda:0 shared over gloo (two NCCL ranks may
+    not share a card), pipe = 2, M = PIPE_MICRO, ViT-B at batch 256 from
+    phase 5's weights and (a)'s masks, plain and with remat: the first
+    step's loss, grad norm and every gradient (gathered to the standard
+    layout) and the second step's loss against the bare step within phase
+    5's bars, exact launches on each rank (PER_STEP_PP), each rank's ms a
+    step (printed, not compared: the processes share the card)."""
+    import multiprocessing
+    import shutil
+
+    import torch
+
+    outdir = workdir / "pipeline2"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    torch.save(ref, outdir / "ref.pt")
+    ctx = multiprocessing.get_context("spawn")
+    world = 2
+    procs = [ctx.Process(target=_pipeline_worker,
+                         args=(r, world, str(outdir / "store"), str(outdir)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(PIPE_TIMEOUT)
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(30)
+    errs = [f.read_text() for f in sorted(outdir.glob("err*"))]
+    codes = [p.exitcode for p in procs]
+    if hung or errs or any(codes):
+        raise AssertionError(f"(a) workers: exit codes {codes}, hung "
+                             f"{len(hung)}\n" + "\n".join(errs))
+    ranks = [torch.load(outdir / f"rank{r}.pt") for r in range(world)]
+    out = {"seconds": time.perf_counter() - t0}
+    for run in ("plain", "remat"):
+        r0 = ranks[0][run]
+        agree = dict(r0["agreement"])
+        agree["step2_loss_rel"] = abs(r0["loss"][1] - ref["loss"][1]) \
+            / abs(ref["loss"][1])
+        by_rank = [r[run] for r in ranks]
+        log(f"[pipeline] pipe = 2, M = {PIPE_MICRO}, {run} (two processes, "
+            f"gloo, cuda:0): {agree}; blocks by rank "
+            f"{[r['blocks'] for r in by_rank]}; ms a step by rank "
+            f"{[r['ms_per_step'] for r in by_rank]}, device ms "
+            f"{[r['device_ms'] for r in by_rank]}, peak GiB "
+            f"{[r['peak_gib'] for r in by_rank]}, launches "
+            f"{r0['counts']}, on {card}")
+        _check_agreement(f"pipe = 2 {run}", agree)
+        if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
+            raise AssertionError(f"pipe = 2 {run}: second step's loss "
+                                 f"{agree}")
+        if [r["blocks"] for r in by_rank] != [list(range(6)),
+                                               list(range(6, 12))]:
+            raise AssertionError(f"pipe = 2 {run}: stages hold "
+                                 f"{[r['blocks'] for r in by_rank]}")
+        for r, res in enumerate(by_rank):
+            _check_counts(f"pipe = 2 {run}, rank {r}", res["counts"],
+                          {**PER_STEP_PP, **DENSE_PER_STEP}, PIPE_STEPS)
+        out[run] = {"agreement": agree, "ranks": by_rank}
+    return out
+
+
+def phase_serve_mesh(workdir, card, path):
+    """(b) The wrapper's mesh on cuda:0 (MIRAGE-Large, bf16, phase 4's
+    weights): a mesh of one bit-equal to the plain wrapper at batch 64, 3
+    and 1, for __call__ and features, with exact launches; two replicas on
+    cuda:0 (two threads, two streams; the device list given, the card being
+    single) within phase 4's bar of the plain wrapper, the largest
+    difference, img/s beside one replica's, and how far the replicas'
+    device time overlapped; then the server over the mesh of one answering
+    HTTP requests, p50 / p95."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.cli.serve import device_names, make_model_fns
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
+                                                      xattn_half_block)
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block
+    from mirage_tpu_torch.parallel.mesh import make_serve_mesh
+    from mirage_tpu_torch.serve import MIRAGEServer, pow2_padded
+
+    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
+           "xattn_half_block": xattn_half_block,
+           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
+
+    def reset():
+        for fn in ops.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in ops.items()}
+
+    kw = dict(weights=str(path), compute_dtype=torch.bfloat16,
+              device="cuda")
+    plain = MIRAGEWrapper(**kw)
+    one = MIRAGEWrapper(**kw, mesh={"data": 1})
+    two = MIRAGEWrapper(**kw, mesh=make_serve_mesh(
+        {"data": 2}, "cuda", devices=["cuda:0", "cuda:0"]))
+    rng = np.random.default_rng(SEED + 20)
+    out = {"bit_equal": {}}
+    try:
+        for b in SERVE_MESH_BATCHES:
+            x = {"bscan": rng.random((b, 1, 512, 512), dtype=np.float32)}
+            want = plain(x)
+            reset()
+            got = one(x)
+            torch.cuda.synchronize()
+            counts = read()
+            exp = {k: PER_RECONSTRUCT[k] for k in ops}
+            if counts != exp:
+                raise AssertionError(f"mesh of one, batch {b}: launches "
+                                     f"{counts} != {exp}")
+            eq = all(torch.equal(got[t], want[t]) for t in want)
+            feq = torch.equal(one.features(x), plain.features(x))
+            out["bit_equal"][b] = {"call": eq, "features": feq}
+            if not (eq and feq):
+                raise AssertionError(f"mesh of one, batch {b}: not "
+                                     f"bit-equal to the plain wrapper "
+                                     f"(call {eq}, features {feq})")
+        log(f"[pipeline] serving mesh of one on cuda:0: bit-equal to the "
+            f"plain wrapper at batches {SERVE_MESH_BATCHES} (call and "
+            f"features), launches {PER_RECONSTRUCT} a call")
+
+        x = {"bscan": rng.random((BATCH, 1, 512, 512), dtype=np.float32)}
+        want = plain(x)
+        reset()
+        got = two(x)
+        torch.cuda.synchronize()
+        counts = read()
+        agree = {}
+        for t in want:
+            d = (got[t].float() - want[t].float())
+            agree[t] = {"max_abs": d.abs().max().item(),
+                        "rel_l2": (d.norm() / want[t].float().norm()).item()}
+        exp = {k: 2 * PER_RECONSTRUCT[k] for k in ops}
+        log(f"[pipeline] serving mesh, two replicas on cuda:0 (two threads, "
+            f"two streams): against the plain wrapper {agree}; launches "
+            f"{counts} (two replicas' forwards: {exp} expected)")
+        bad = {t: a for t, a in agree.items()
+               if not a["rel_l2"] <= MODEL_REL_L2}
+        if bad or counts != exp:
+            raise AssertionError(f"two replicas: {bad} above rel_l2 "
+                                 f"{MODEL_REL_L2}, or launches {counts} != "
+                                 f"{exp}")
+        times = {}
+        for name, w in (("plain", plain), ("two replicas", two),
+                        ("plain", plain), ("two replicas", two)):
+            for _ in range(2):
+                w(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                w(x)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(
+                BATCH * 5 / (time.perf_counter() - t0))
+        spans = two.device_spans()
+        (s0, e0), (s1, e1) = spans
+        union = max(e0, e1) - min(s0, s1)
+        overlap = max(0.0, min(e0, e1) - max(s0, s1)) / union
+        out["two_replicas"] = {"agreement": agree, "launches": counts,
+                               "img_per_s": times, "device_spans_ms": spans,
+                               "overlap": overlap, "card": card}
+        log(f"[pipeline] batch {BATCH}: img/s plain wrapper "
+            f"{times['plain']}, two replicas on one card "
+            f"{times['two replicas']}; the replicas' device spans (ms) "
+            f"{spans}: {overlap:.1%} of their union overlapped; on {card}")
+
+        reconstruct, features = make_model_fns(one, one.in_domains)
+        server = MIRAGEServer(
+            reconstruct_fn=pow2_padded(reconstruct),
+            features_fn=pow2_padded(features), max_batch=16,
+            max_wait_ms=5, device=device_names(one), n_params=one.n_params,
+            request_timeout_s=300)
+        httpd = server.serve(host="127.0.0.1", port=0, background=True)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        images = rng.random((SERVE_MESH_REQUESTS, 512, 512),
+                            dtype=np.float32)
+        try:
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            _post(url + "/v1/reconstruct", {"bscan": images[0]})  # warm
+            lat = []
+            for img in images:
+                t0 = time.perf_counter()
+                res = _post(url + "/v1/reconstruct", {"bscan": img})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if not all(np.isfinite(v).all() for v in res.values()):
+                    raise AssertionError("non-finite answer")
+        finally:
+            server.close()
+        p50, p95 = np.percentile(lat, [50, 95])
+        if health["device"] != device_names(one):
+            raise AssertionError(f"/healthz names {health['device']}")
+        out["server"] = {"requests": len(lat), "p50_ms": float(p50),
+                         "p95_ms": float(p95), "healthz": health,
+                         "card": card}
+        log(f"[pipeline] server over the mesh of one (/healthz device "
+            f"{health['device']!r}): {len(lat)} sequential reconstruct "
+            f"requests, p50 {p50:.2f} ms, p95 {p95:.2f} ms, on {card}")
+    finally:
+        one.close()
+        two.close()
+    del plain, one, two
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline_kernels():
+    """(c) The kernels at the new shapes against their plain versions
+    (phase 2's bars): the GEMM's four ViT-B products at a microbatch of S =
+    2, M = 4 (6336 rows) and S = 4, M = 8 (3168), the serving products at a
+    replica's batch 32 of MIRAGE-Large (8224 rows); B1 and B2 and their
+    backwards B4 and B5 at microbatches of 64 and 32; B1, B2 and B3 at a
+    replica's batch 32; the LN forward and backward at (6336, 768).
+    ``calls_per_step``: the launches of one rank's step of (a) at that
+    shape; ``calls_per_forward``: one replica's reconstruct forward."""
+    import torch
+
+    gemm, fwd, bwd = [], [], []
+    for i, (label, m) in enumerate(PIPE_ROWS.items()):
+        per = 24 if i == 0 else 0
+        for name, shape, epi in (("qkv", (m, 2304, 768), "bias"),
+                                 ("proj", (m, 768, 768), "res"),
+                                 ("fc1", (m, 3072, 768), "gelu"),
+                                 ("fc2", (m, 768, 3072), "res")):
+            gemm.append((f"pipeline {label} {name}", shape, epi,
+                         f"{per} / step"))
+        b = m // 99
+        fwd += [("attn_half_block", f"pipeline {label}", (b, 99, 768, 12),
+                 {}, per),
+                ("mlp_block", f"pipeline {label}", (b, 99, 768), {}, per)]
+        bwd += [("attn_half_block_bwd", f"pipeline {label}",
+                 (b, 99, 768, 12), {}, per),
+                ("mlp_block_bwd", f"pipeline {label}", (b, 99, 768), {},
+                 per)]
+    rows = {"pipeline": {
+        "gemm": gemm_rows(gemm, {g[0]: int(g[3].split()[0]) for g in gemm},
+                          "calls_per_step"),
+        **fwd_op_rows(fwd, torch.Generator().manual_seed(SEED + 21),
+                      "calls_per_step")}}
+    bwd_op_rows(bwd, torch.Generator().manual_seed(SEED + 22),
+                rows["pipeline"])
+    ln = layernorm_rows(
+        [("pipeline S=2 M=4", (PIPE_ROWS["S=2 M=4"], 768), 0, 96)],
+        [("pipeline S=2 M=4", (PIPE_ROWS["S=2 M=4"], 768), 48, 0)])
+    rows["pipeline"].update(ln)
+    m = 32 * 257
+    serve_gemm = [(f"serving replica {name}", shape, epi, "24 / forward")
+                  for name, shape, epi in (
+                      ("qkv", (m, 3072, 1024), "bias"),
+                      ("proj", (m, 1024, 1024), "res"),
+                      ("fc1", (m, 4096, 1024), "gelu"),
+                      ("fc2", (m, 1024, 4096), "res"))]
+    rows["serving"] = {
+        "gemm": gemm_rows(serve_gemm, {g[0]: 24 for g in serve_gemm}),
+        **fwd_op_rows([
+            ("attn_half_block", "serving replica encoder",
+             (32, 257, 1024, 16), {}, 24),
+            ("attn_half_block", "serving replica decoder",
+             (32, 256, 256, 8), {}, 6),
+            ("mlp_block", "serving replica encoder", (32, 257, 1024), {},
+             24),
+            ("mlp_block", "serving replica decoder", (32, 256, 256), {}, 9),
+            ("xattn_half_block", "serving replica decoder residual=False",
+             (32, 256, 257, 256, 8), {"residual": False}, 3)],
+            torch.Generator().manual_seed(SEED + 23))}
+    return rows
+
+
+def phase_pipeline(workdir, card):
+    one, ref = phase_pipeline_one(card)
+    two = phase_pipeline_two(workdir, card, ref)
+    del ref
+    serve = phase_serve_mesh(workdir, card, _large_weights(workdir))
+    return {"world_1": one, "two_processes": two,
+            "serving_mesh": serve, "kernels": phase_pipeline_kernels()}
+
+
+def _pipeline_entries(pipe):
+    """Phase 12's entries of the `kernels` line: B1, B2, B4, B5 and the
+    GEMM and LN at a pipeline stage's microbatch, times summed over one
+    rank's step of (a) (per-call time × its launches at each shape),
+    launches from rank 0 of (a)'s plain run; B1, B2, B3 and the GEMM at a
+    serving replica's batch, times summed over one replica's forward,
+    launches from the two-replica call of (b)."""
+    counts = pipe["two_processes"]["plain"]["ranks"][0]["counts"]
+    steps = f"rank 0 of phase 12 (a)'s pipe = 2 plain run, {PIPE_STEPS} " \
+            f"timed steps (the replicated decoders' launches included)"
+    rows = pipe["kernels"]["pipeline"]
+    entries = _kernel_entries(
+        {k: rows[k] for k in ("attn_half_block", "mlp_block",
+                              "attn_half_block_bwd", "mlp_block_bwd",
+                              "gemm")},
+        counts, {k: counts[k] // PIPE_STEPS for k in counts}, "step",
+        f"sum over one rank's step of a two-stage pipeline (ViT-B, batch "
+        f"256, M = {PIPE_MICRO}) at the microbatch shapes; launches from "
+        + steps)
+    for name, (replaces, tpu_kernel) in PIPE_LN.items():
+        main = [r for r in rows[name] if r["calls_per_step"]]
+        total = lambda k: sum(r[k] * r["calls_per_step"] for r in main)  # noqa
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": CSRC + "layernorm.cu", "csrc": [CSRC + "layernorm.cu"],
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": counts[name],
+            "launches_per_step": counts[name] // PIPE_STEPS,
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": total("ms"), "kernel_ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes", "library_ms": total("library_ms"),
+            "library": "F.layer_norm" + (" (its autograd backward alone)"
+                                         if name == "layernorm_bwd" else ""),
+            "times_are": "the encoder's LNs of one rank's step at the "
+                         "microbatch shape; launches from " + steps,
+            "shapes": rows[name]})
+    for e in entries:
+        e["name"] += " [pipeline]"
+    serve = pipe["kernels"]["serving"]
+    launches = pipe["serving_mesh"]["two_replicas"]["launches"]
+    serve_entries = _kernel_entries(
+        serve, launches, {k: v // 2 for k, v in launches.items()},
+        "forward", "sum over one replica's batch-32 reconstruct forward "
+        "(MIRAGE-Large, bf16); launches from the two-replica batch-64 call "
+        "of phase 12 (b) (two forwards, checked equal to twice one "
+        "forward's)")
+    for e in serve_entries:
+        e["name"] += " [serving mesh]"
+    return entries + serve_entries
+
+# ------------------------------------------------------------ --multi-card
+
+# the pipelines of --multi-card, one process a card over NCCL: (label, mesh
+# axes, M); each stage runs B1/B4 and B2/B5 24 times a step in both (6
+# blocks x 4 microbatches of 32, 3 blocks x 8 microbatches of 32), so
+# PER_STEP_PP holds on every rank
+MULTI_PIPES = [("data 2 x pipe 2", {"data": 2, "pipe": 2}, 4),
+               ("pipe 4", {"pipe": 4}, 8)]
+MULTI_TIMEOUT = 600  # seconds for a process of --multi-card to join
+
+
+def _multi_pipeline_worker(rank, world, port, outdir):
+    """A process of --multi-card: NCCL on cuda:rank; each pipeline of
+    MULTI_PIPES from phase 5's weights and (a)'s masks at global batch 256;
+    rank 0 gathers the first step's gradients in the standard layout and
+    holds them to the bare step."""
+    import datetime
+    import traceback
+
+    outdir = Path(outdir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, str(ROOT))
+        from mirage_tpu_torch.parallel.mesh import (init_distributed,
+                                                    local_batch, make_mesh)
+        from mirage_tpu_torch.train.steps import (gather_pp,
+                                                  init_train_state,
+                                                  make_train_step,
+                                                  shard_state)
+
+        init_distributed(f"cuda:{rank}",
+                         init_method=f"tcp://localhost:{port}",
+                         world_size=world, rank=rank,
+                         timeout=datetime.timedelta(seconds=MULTI_TIMEOUT))
+        counters = _parallel_counters()
+        ref = torch.load(outdir / "ref.pt")
+        whole = {k: torch.from_numpy(v).cuda()
+                 for k, v in _parallel_batch().items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        results = {}
+        for label, axes, micro in MULTI_PIPES:
+            mesh = make_mesh(dict(axes), "cuda")
+            model, opt = _train_model()
+            model.pp = ("pipe", micro)
+            state = shard_state(init_train_state(model, opt), mesh, model)
+            step = make_train_step(_masked_loss(model), opt, mesh=mesh,
+                                   pp=True)
+            batch = local_batch(whole, mesh)
+            state, m1 = step(state, batch, gen, PARALLEL_LR)
+            params = state["params"]
+            whole_grads = gather_pp(
+                {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 .float() for n, p in params.items()}, state["layout"])
+            res = {"loss": [m1["loss"].item()],
+                   "grad_norm": [m1["grad_norm"].item()],
+                   "blocks": sorted({int(n.split(".")[1]) for n in params
+                                     if n.startswith("encoder.")})}
+            if rank == 0:
+                res["agreement"] = _agreement(
+                    m1["loss"].cpu(), [whole_grads[n] for n in ref["names"]],
+                    torch.tensor(ref["step1_loss"]),
+                    [ref["grads"][n] for n in ref["names"]], ref["names"])
+            del whole_grads
+            state, m2 = step(state, batch, gen, PARALLEL_LR)
+            res["loss"].append(m2["loss"].item())
+            res["grad_norm"].append(m2["grad_norm"].item())
+            torch.cuda.reset_peak_memory_stats()
+            state, ms, dev, counts, _ = _timed_steps(
+                step, state, batch, gen, counters, PIPE_STEPS)
+            res.update({"ms_per_step": ms, "device_ms": dev,
+                        "counts": counts,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30})
+            results[label] = res
+            del model, state, step, params
+            torch.cuda.empty_cache()
+        torch.save(results, outdir / f"rank{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        (outdir / f"err{rank}").write_text(traceback.format_exc())
+        raise
+
+
+def multi_card_pipelines(workdir, card, n):
+    """--multi-card's pipelines: the bare step on cuda:0 (the reference),
+    then ``n`` processes, one a card, over NCCL (sends and receives by
+    ``batch_isend_irecv``) through each of MULTI_PIPES: the first step's
+    loss, grad norm and every gradient and the second step's loss against
+    the bare step (phase 5's bars), each stage's blocks, exact launches on
+    every rank, each rank's ms a step."""
+    import multiprocessing
+    import shutil
+
+    import torch
+
+    bare, ref, _ = _bare_reference(card)
+    torch.cuda.empty_cache()
+    outdir = workdir / "multi_card"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    torch.save(ref, outdir / "ref.pt")
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_multi_pipeline_worker,
+                         args=(r, n, port, str(outdir))) for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MULTI_TIMEOUT)
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(30)
+    errs = [f.read_text() for f in sorted(outdir.glob("err*"))]
+    codes = [p.exitcode for p in procs]
+    if hung or errs or any(codes):
+        raise AssertionError(f"--multi-card workers: exit codes {codes}, "
+                             f"hung {len(hung)}\n" + "\n".join(errs))
+    ranks = [torch.load(outdir / f"rank{r}.pt") for r in range(n)]
+    out = {"bare": bare}
+    for label, axes, micro in MULTI_PIPES:
+        r0 = ranks[0][label]
+        agree = dict(r0["agreement"])
+        agree["step2_loss_rel"] = abs(r0["loss"][1] - ref["loss"][1]) \
+            / abs(ref["loss"][1])
+        by_rank = [r[label] for r in ranks]
+        log(f"[multi-card] {label}, M = {micro}, NCCL, one process a card: "
+            f"{agree}; blocks by rank {[r['blocks'] for r in by_rank]}; ms "
+            f"a step by rank {[r['ms_per_step'] for r in by_rank]} (bare "
+            f"{bare['ms_per_step']:.2f} on one card), device ms "
+            f"{[r['device_ms'] for r in by_rank]}, peak GiB "
+            f"{[r['peak_gib'] for r in by_rank]}, launches {r0['counts']}, "
+            f"on {n} x {card}")
+        _check_agreement(f"{label} (NCCL)", agree)
+        if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
+            raise AssertionError(f"{label}: second step's loss {agree}")
+        for r, res in enumerate(by_rank):
+            _check_counts(f"{label}, rank {r}", res["counts"],
+                          {**PER_STEP_PP, **DENSE_PER_STEP}, PIPE_STEPS)
+        out[label] = {"agreement": agree, "ranks": by_rank}
+    return out
+
+
+def multi_card_serving(workdir, card, n):
+    """--multi-card's serving mesh: the wrapper (MIRAGE-Large, bf16) with
+    one replica on each of ``n`` cards (one thread and stream a card, each
+    card's launch state its own) against the plain wrapper on cuda:0 at
+    batch 64, 3 and 1, for __call__ and features (phase 4's bar, the
+    largest difference and whether it is bit-equal printed); img/s beside
+    the plain wrapper's; each card's device time."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
+                                                      xattn_half_block)
+    from mirage_tpu_torch.ops.fused_mlp import mlp_block
+
+    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
+           "xattn_half_block": xattn_half_block,
+           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
+
+    def counted(call, per, b):
+        """call() with the ops' counts set to 0 first; raises unless each
+        of the n replicas' forwards launched ``per``."""
+        for fn in ops.values():
+            fn.launches = 0
+        res = call()
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        counts = {name: fn.launches for name, fn in ops.items()}
+        exp = {k: n * per[k] for k in ops}
+        if counts != exp:
+            raise AssertionError(f"serving mesh, batch {b}: launches "
+                                 f"{counts} != {exp}")
+        return res, counts
+
+    path = _large_weights(workdir)
+    kw = dict(weights=str(path), compute_dtype=torch.bfloat16,
+              device="cuda")
+    plain = MIRAGEWrapper(**kw)
+    mesh = MIRAGEWrapper(**kw, mesh={"data": n})
+    rng = np.random.default_rng(SEED + 30)
+    out = {"devices": [str(d) for d in mesh.mesh.devices], "agreement": {}}
+    try:
+        for b in SERVE_MESH_BATCHES:
+            x = {"bscan": rng.random((b, 1, 512, 512), dtype=np.float32)}
+            got, counts = counted(lambda: mesh(x), PER_RECONSTRUCT, b)
+            feats, feat_counts = counted(lambda: mesh.features(x),
+                                         PER_FEATURES, b)
+            want = plain(x)
+            pairs = [(t, got[t], want[t]) for t in want]
+            pairs.append(("features", feats, plain.features(x)))
+            agree = {}
+            for t, got, want in pairs:
+                d = got.float() - want.float()
+                agree[t] = {"max_abs": d.abs().max().item(),
+                            "rel_l2": (d.norm() / want.float().norm()).item(),
+                            "bit_equal": torch.equal(got, want)}
+            out["agreement"][b] = agree
+            log(f"[multi-card] serving mesh over {out['devices']}, batch "
+                f"{b}: {agree}; launches {counts} a call, {feat_counts} "
+                f"a features call ({n} replicas' forwards, as expected)")
+            bad = {t: a for t, a in agree.items()
+                   if not a["rel_l2"] <= MODEL_REL_L2}
+            if bad:
+                raise AssertionError(f"serving mesh, batch {b}: {bad} above "
+                                     f"rel_l2 {MODEL_REL_L2}")
+        x = {"bscan": rng.random((BATCH, 1, 512, 512), dtype=np.float32)}
+        times = {}
+        for name, w in (("plain", plain), ("mesh", mesh), ("plain", plain),
+                        ("mesh", mesh)):
+            for _ in range(2):
+                w(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                w(x)
+            for i in range(n):
+                torch.cuda.synchronize(i)
+            times.setdefault(name, []).append(
+                BATCH * 5 / (time.perf_counter() - t0))
+        out.update({"img_per_s": times,
+                    "device_spans_ms": mesh.device_spans(), "card": card})
+        log(f"[multi-card] batch {BATCH}: img/s plain wrapper (cuda:0) "
+            f"{times['plain']}, {n} replicas {times['mesh']}; each card's "
+            f"device span (ms, from its own start) "
+            f"{out['device_spans_ms']}; on {n} x {card}")
+    finally:
+        mesh.close()
+    return out
+
+
+def multi_card(workdir, card):
+    """``--multi-card``: the paths that exist only across cards, on every
+    card of the machine (at least two): the pipelines over NCCL, then the
+    serving mesh over the cards."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--multi-card needs two cards or more, {n} "
+                           f"found")
+    log("[multi-card] cards: " + "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()))
+    pipes = multi_card_pipelines(workdir, card, n) if n == 4 else None
+    return {"cards": n, "pipelines": pipes,
+            "serving": multi_card_serving(workdir, card, n)}
+
+
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
-          "infer", "bench", "pretrain", "parallel")
+          "infer", "bench", "pretrain", "parallel", "pipeline")
 
 
 def main(argv=None):
@@ -5894,6 +6766,11 @@ def main(argv=None):
                     "math, the store or every product, beside torch.matmul, "
                     "the F.linear composition or torch._int_mm, and B9's "
                     "backward (gemm_split); prints no result line")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="only the paths that exist across cards, on every "
+                    "card of the machine: the pipelines over NCCL (data 2 x "
+                    "pipe 2, pipe 4; four cards) and the serving mesh over "
+                    "the cards (multi_card); prints no result line")
     ap.add_argument("--ln-ab", action="store_true",
                     help="only the LN kernel's rows, the bench's headline and "
                     "the bare pretraining step (ln_ab; it runs in an older "
@@ -5921,6 +6798,11 @@ def main(argv=None):
     if opts.ln_ab:
         log(json.dumps({"ln_ab": ln_ab(card), "card": card}))
         return 0
+    if opts.multi_card:
+        phase_build()
+        log(json.dumps({"multi_card": multi_card(workdir, card),
+                        "card": card}))
+        return 0
     if opts.attn_split:
         log(json.dumps({"attn_split": attn_split(opts.attn_split),
                         "card": card}))
@@ -5937,7 +6819,7 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
-    infer = bench = pretrain = ln_rows = parallel = None
+    infer = bench = pretrain = ln_rows = parallel = pipeline = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -5977,6 +6859,8 @@ def main(argv=None):
         pretrain = phase_pretrain(workdir, card, train)
     if "parallel" in phases:
         parallel = phase_parallel(workdir, card)
+    if "pipeline" in phases:
+        pipeline = phase_pipeline(workdir, card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -6013,12 +6897,14 @@ def main(argv=None):
                + _op_entries(serve_rows, op_launches)
                + _bench_entries(bench)
                + _ln_entries(ln_rows, pretrain)
-               + _parallel_entries(parallel, ln_rows))
+               + _parallel_entries(parallel, ln_rows)
+               + _pipeline_entries(pipeline))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "bench": bench, "layernorm": ln_rows,
                     "pretrain": pretrain, "parallel": parallel,
+                    "pipeline": pipeline,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -17,7 +17,7 @@ Usage:
 Several GPUs, one process each (``parallel/mesh.py``, ``train/steps.py``):
   torchrun --nproc_per_node 8 -m mirage_tpu_torch.cli.run_pretraining \
       -c configs/pretrain_mirage_98_1600e.yaml --data_path ... \
-      [--mesh_tensor 2] [--mesh_fsdp 2]
+      [--mesh_tensor 2] [--mesh_fsdp 2] [--mesh_pipe 2 [--pp_microbatches 4]]
 
 ``--device`` defaults to ``cuda`` and fails without a card; ``--device cpu``
 runs the plain PyTorch path (gloo between processes). The dataset is
@@ -30,16 +30,19 @@ only.
 
 The mesh (mirage_tpu/cli/run_pretraining.py:253-320): 'tensor' is
 ``--mesh_tensor`` (it must divide the heads and the MLP hidden width),
-'fsdp' ``--mesh_fsdp``, and 'data' what remains of the processes; the
-layout follows (dp, fsdp, tp or tp_fsdp). ``--distributed`` with
+'fsdp' ``--mesh_fsdp``, 'pipe' ``--mesh_pipe`` (GPipe stages over the
+encoder's depth, ``parallel/pp.py``: with 'data' only, a depth it divides
+and ``--drop_path 0``; ``--pp_microbatches`` M a divisor of the local
+batch, by default 2·S shrunk to one, the bubble (S − 1)/(M + S − 1)
+printed), and 'data' what remains of the processes; the layout follows
+(dp, fsdp, tp, tp_fsdp or pp). ``--distributed`` with
 ``--coordinator_address`` / ``--num_processes`` / ``--process_id`` joins
 the group at tcp://ADDRESS (torchrun's environment fills in what is not
 given); torchrun alone is enough. ``--batch_size`` keeps the JAX command
 line's meaning: the batch of one host (here: the processes of one node
 under torchrun, or one process launched by hand with ``--distributed``),
 split over its processes; the learning rate scales with it times the
-hosts. Process 0 alone logs and writes. ``--mesh_pipe`` above 1 (pipeline
-parallelism) exits: ROADMAP queue A 4b.
+hosts. Process 0 alone logs and writes.
 """
 
 import argparse
@@ -55,9 +58,6 @@ import torch
 from mirage_tpu_torch.api import wrapper
 from mirage_tpu_torch.cli.config import (normalize_domain_sizes,
                                          parse_with_yaml, save_args, str2bool)
-
-PIPELINE = "is not ported yet: pipeline parallelism is ROADMAP queue A 4b"
-
 
 def get_parser():
     p = argparse.ArgumentParser("MIRAGE pretraining (PyTorch/CUDA)")
@@ -129,9 +129,13 @@ def get_parser():
     p.add_argument("--mesh_tensor", default=1, type=int,
                    help="processes the encoder runs tensor-parallel over")
     p.add_argument("--mesh_pipe", default=1, type=int,
-                   help="above 1 " + PIPELINE)
+                   help="GPipe pipeline stages over the encoder depth "
+                        "(parallel/pp.py; kernels engaged; composes with "
+                        "data parallelism only; requires --drop_path 0)")
     p.add_argument("--pp_microbatches", default=0, type=int,
-                   help="above 0 " + PIPELINE)
+                   help="microbatches per local batch for --mesh_pipe > 1 "
+                        "(0 = auto: 2x stages, shrunk to divide the local "
+                        "batch; bubble fraction is (S-1)/(M+S-1))")
     p.add_argument("--distributed", default=False, action="store_true",
                    help="join a process group (torchrun's, or the one the "
                         "next three flags give)")
@@ -164,14 +168,10 @@ WARMSTART_MODEL_KEYS = {"multimae-b": "miragepre_base",
 
 def process_args(args):
     """Domains as lists, per-domain sizes and grids, and the visible-token
-    count from ``perc_encoded_tokens``; the pipeline flags exit."""
-    for flag, value, single in (("--mesh_pipe", args.mesh_pipe, 1),
-                                ("--pp_microbatches", args.pp_microbatches,
-                                 0)):
-        if value != single:
-            sys.exit(f"{flag} {value} {PIPELINE}")
-    if args.mesh_fsdp < 1 or args.mesh_tensor < 1:
-        sys.exit("--mesh_fsdp and --mesh_tensor must be at least 1")
+    count from ``perc_encoded_tokens``."""
+    if args.mesh_fsdp < 1 or args.mesh_tensor < 1 or args.mesh_pipe < 1:
+        sys.exit("--mesh_fsdp, --mesh_tensor and --mesh_pipe must be at "
+                 "least 1")
     args.in_domains = args.in_domains.split("-")
     args.out_domains = args.out_domains.split("-")
     args.all_domains = sorted(set(args.in_domains) | set(args.out_domains))
@@ -182,6 +182,47 @@ def process_args(args):
         args.num_encoded_tokens = int(total * args.perc_encoded_tokens)
     print(f"Tokens: {args.num_encoded_tokens} encoded of {total}")
     return args
+
+
+def check_pipeline(args):
+    """The pipeline's refusals that need no process group, in the JAX
+    command line's order and words (mirage_tpu/cli/run_pretraining.py:
+    295-306): 'pipe' with 'data' only, a depth it divides, drop-path 0."""
+    s = args.mesh_pipe
+    if s == 1:
+        return
+    if args.mesh_fsdp > 1 or args.mesh_tensor > 1:
+        sys.exit("--mesh_pipe composes only with data parallelism "
+                 "(pipe x fsdp/tensor is not implemented)")
+    _, depth, _ = wrapper.model_dims(args.model, vars(args))
+    if depth % s:
+        sys.exit(f"--mesh_pipe {s} must divide the encoder depth ({depth})")
+    if args.drop_path != 0.0:
+        sys.exit("--mesh_pipe requires --drop_path 0 (per-layer rates "
+                 "span the full depth — parallel/pp.py scope note; every "
+                 "reference pretraining config uses 0.0)")
+
+
+def pipeline_microbatches(stages: int, requested: int, local_b: int) -> int:
+    """M of a pipeline of ``stages`` over a local batch of ``local_b``:
+    ``requested`` (a positive divisor of the local batch, else the run
+    exits), or with 0 the JAX command line's automatic 2·S shrunk to a
+    divisor (mirage_tpu/cli/run_pretraining.py:307-316); prints the
+    bubble fraction."""
+    if requested:
+        n_micro = requested
+        if n_micro < 1 or local_b % n_micro:
+            sys.exit(f"--pp_microbatches {n_micro} must be a positive "
+                     f"divisor of the local batch ({local_b} = batch_size "
+                     f"x hosts / (data x fsdp))")
+    else:  # auto: 2x stages, shrunk to the nearest divisor
+        n_micro = min(local_b, 2 * stages)
+        while local_b % n_micro:
+            n_micro -= 1
+    print(f">> pipe mesh: GPipe step, {stages} stages x {n_micro} "
+          f"microbatches (bubble "
+          f"{(stages - 1) / (n_micro + stages - 1):.0%}, kernels engaged)")
+    return n_micro
 
 
 def build_model(args, generator=None):
@@ -258,19 +299,21 @@ def setup_mesh(args, device):
     """(device, mesh, hosts): for a multi-process run (``--distributed``,
     torchrun's WORLD_SIZE above 1, or a process group already joined) the
     group is joined, the device is this process's, and the mesh is
-    ('data': the rest, 'fsdp', 'tensor'); else (device, None, 1). Exits on
-    a model axis above 1 without a group, on ``--distributed`` without a
-    rendezvous and on a mesh that does not divide the processes."""
+    ('data': the rest, 'fsdp', 'tensor', 'pipe'); else (device, None, 1).
+    Exits on a model axis above 1 without a group, on ``--distributed``
+    without a rendezvous and on a mesh that does not divide the
+    processes."""
     import torch.distributed as dist
 
     from mirage_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
     if not (args.distributed or int(os.environ.get("WORLD_SIZE", "1")) > 1
             or dist.is_initialized()):
-        if args.mesh_fsdp > 1 or args.mesh_tensor > 1:
+        if args.mesh_fsdp > 1 or args.mesh_tensor > 1 or args.mesh_pipe > 1:
             sys.exit(f"--mesh_fsdp {args.mesh_fsdp} x --mesh_tensor "
-                     f"{args.mesh_tensor} needs as many processes: run "
-                     f"under torchrun (or with --distributed)")
+                     f"{args.mesh_tensor} x --mesh_pipe {args.mesh_pipe} "
+                     f"needs as many processes: run under torchrun (or "
+                     f"with --distributed)")
         return device, None, 1
     if not (dist.is_initialized() or args.coordinator_address
             or "MASTER_ADDR" in os.environ):
@@ -281,12 +324,14 @@ def setup_mesh(args, device):
         init_method=(f"tcp://{args.coordinator_address}"
                      if args.coordinator_address else None))
     world = dist.get_world_size()
-    model_axes = args.mesh_fsdp * args.mesh_tensor
+    model_axes = args.mesh_fsdp * args.mesh_tensor * args.mesh_pipe
     if world % model_axes:
         sys.exit(f"--mesh_fsdp {args.mesh_fsdp} x --mesh_tensor "
-                 f"{args.mesh_tensor} does not divide {world} processes")
+                 f"{args.mesh_tensor} x --mesh_pipe {args.mesh_pipe} does "
+                 f"not divide {world} processes")
     mesh = make_mesh({"data": world // model_axes, "fsdp": args.mesh_fsdp,
-                      "tensor": args.mesh_tensor}, device.type)
+                      "tensor": args.mesh_tensor, "pipe": args.mesh_pipe},
+                     device.type)
     hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
     print(f"process {dist.get_rank()}/{world} on {device}, mesh "
           f"{mesh.shape}, {hosts} host(s)")
@@ -296,11 +341,17 @@ def setup_mesh(args, device):
 @torch.no_grad()
 def debug_forward(model, batch, args, epoch: int):
     """The epoch-start forward of the reconstruction panels: the first 8
-    samples, masked, deterministic; (preds, masks)."""
+    samples, masked, deterministic; (preds, masks). Under a pipeline every
+    stage calls it (the forward runs the schedule), in microbatches that
+    divide the 8."""
     dev = next(iter(batch.values())).device
-    return model({k: v[:8] for k, v in batch.items()}, mask_inputs=True,
+    x = {k: v[:8] for k, v in batch.items()}
+    n_micro = None if model.pp is None else math.gcd(
+        len(next(iter(x.values()))), model.pp[1])
+    return model(x, mask_inputs=True,
                  num_encoded_tokens=args.num_encoded_tokens,
-                 generator=torch.Generator(device=dev).manual_seed(epoch))
+                 generator=torch.Generator(device=dev).manual_seed(epoch),
+                 n_micro=n_micro)
 
 
 def save_debug_images(output_dir, epoch, batch, preds, masks, args):
@@ -342,6 +393,8 @@ def main(argv=None):
     metrics are read, so with --log_freq 1 on the card each is
     synchronised)}."""
     args = process_args(parse_with_yaml(get_parser(), argv))
+    args.model = pick_model_from_weights(args)
+    check_pipeline(args)
 
     from mirage_tpu_torch.ops.runtime import resolve_device
     from mirage_tpu_torch.parallel.mesh import (batch_count, is_writer,
@@ -355,11 +408,14 @@ def main(argv=None):
         sys.exit(f"--batch_size {args.batch_size} x {hosts} host(s) must be "
                  f"divisible by the {stripes} batch stripes (data x fsdp)")
     with writer_prints(mesh):
+        n_micro = (pipeline_microbatches(
+            args.mesh_pipe, args.pp_microbatches, global_batch // stripes)
+            if args.mesh_pipe > 1 else None)
         return _train(args, device, mesh, writer, global_batch // stripes,
-                      hosts)
+                      hosts, n_micro)
 
 
-def _train(args, device, mesh, writer, local_batch_size, hosts):
+def _train(args, device, mesh, writer, local_batch_size, hosts, n_micro):
     from mirage_tpu_torch.data.augment import PretrainAugment
     from mirage_tpu_torch.data.folder import MultiTaskPretDatasetFolder
     from mirage_tpu_torch.data.loader import DataLoader, to_device
@@ -379,6 +435,8 @@ def _train(args, device, mesh, writer, local_batch_size, hosts):
             sys.exit(f"--mesh_tensor {args.mesh_tensor} must divide "
                      f"num_heads ({model.num_heads}) and the MLP hidden "
                      f"dim ({hidden})")
+    if n_micro is not None:
+        model.pp = ("pipe", n_micro)
 
     aug = PretrainAugment(
         {d: args.input_size[d] for d in args.in_domains}, hflip=args.hflip,
@@ -408,7 +466,8 @@ def _train(args, device, mesh, writer, local_batch_size, hosts):
         else args.weight_decay
     wd_sched = cosine_scheduler(1.0, wd_end / max(args.weight_decay, 1e-12),
                                 args.epochs, steps_per_epoch)
-    step_fn = make_train_step(loss_fn, opt, mesh=mesh)
+    step_fn = make_train_step(loss_fn, opt, mesh=mesh,
+                              pp=n_micro is not None)
 
     state = init_train_state(model, opt)
     trainable, total = opt.count_trainable(state["params"])

@@ -4,7 +4,11 @@ reconstruction and feature serving.
 Usage:
   python -m mirage_tpu_torch.cli.serve --weights ./MIRAGE-Base.pth \
       [--device cuda] [--bf16] [--port 8473] [--max_batch 16] \
-      [--max_wait_ms 5] [--warmup]
+      [--max_wait_ms 5] [--warmup] [--mesh data=4,fsdp=1,tensor=2]
+
+``--mesh`` serves from several cards of this host (the wrapper's
+``mesh=``: one replica a card, every axis sharding the batch; a batch is
+padded to a multiple of the mesh size, below the power-of-two ladder).
 
 Client (stdlib):
   import io, urllib.request, numpy as np
@@ -68,6 +72,18 @@ def warmup(wrapper, model_fns, max_batch: int, *, pow2: bool = True):
     print("warmup: done", flush=True)
 
 
+def device_names(wrapper) -> str:
+    """What /healthz reports: the card's name, or each mesh position's
+    device and name."""
+    def name(d):
+        return torch.cuda.get_device_name(d) if d.type == "cuda" else str(d)
+
+    if wrapper.mesh is None:
+        return name(wrapper.device)
+    return ", ".join(f"{d} ({name(d)})" if d.type == "cuda" else str(d)
+                     for d in wrapper.mesh.devices)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--weights", required=True)
@@ -91,16 +107,24 @@ def main(argv=None):
     ap.add_argument("--warmup", action="store_true",
                     help="run the full batch-size ladder before accepting "
                          "traffic")
+    ap.add_argument("--mesh", default=None,
+                    help="multi-device serving, e.g. data=4,fsdp=1,tensor=2 "
+                         "(every axis shards the batch; one replica a "
+                         "device of --device's type). Slower than one card "
+                         "for now: the replicas run from host threads of "
+                         "one process that share one interpreter lock")
     args = ap.parse_args(argv)
 
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.parallel.mesh import parse_mesh
     from mirage_tpu_torch.serve import MIRAGEServer, pow2_padded
 
     wrapper = MIRAGEWrapper(
         input_size=args.input_size, patch_size=args.patch_size,
         modalities=args.modalities, weights=args.weights,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.device)
+        device=args.device,
+        mesh=parse_mesh(args.mesh) if args.mesh else None)
     reconstruct, features = make_model_fns(wrapper, wrapper.in_domains)
     if not args.no_pad_pow2:
         reconstruct, features = pow2_padded(reconstruct), pow2_padded(features)
@@ -108,8 +132,7 @@ def main(argv=None):
         warmup(wrapper, [reconstruct, features], args.max_batch,
                pow2=not args.no_pad_pow2)
 
-    device = (torch.cuda.get_device_name(wrapper.device)
-              if wrapper.device.type == "cuda" else str(wrapper.device))
+    device = device_names(wrapper)
     server = MIRAGEServer(
         reconstruct_fn=reconstruct, features_fn=features,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
@@ -124,6 +147,7 @@ def main(argv=None):
         pass
     finally:
         server.close()
+        wrapper.close()
 
 
 if __name__ == "__main__":

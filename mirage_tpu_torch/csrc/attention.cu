@@ -147,9 +147,9 @@ extern "C" int mtt_attention(const void* q, const void* k, const void* v, void* 
     const long long st[8] = {q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs};
     return attn_fwd::run(q, k, v, o, nullptr, batch, nq, nk, heads, dh, st, scale, s);
   }
-  static size_t configured = 0;
+  static SmemLimit limit;
   const size_t bytes = f32_smem_bytes(nk, dh);
-  if (int err = set_smem(attention_f32_kernel, bytes, &configured)) return err;
+  if (int err = set_smem(attention_f32_kernel, bytes, limit)) return err;
   attention_f32_kernel<<<grid, 256, bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), nq, nk, dh, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale);

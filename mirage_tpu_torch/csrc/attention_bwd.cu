@@ -193,10 +193,10 @@ extern "C" int mtt_attention_bwd(const void* qkv, const void* dout, void* dqkv, 
     return attn_bwd::run(q, q + off, q + 2 * off, dout, g, g + off, g + 2 * off, l, dl, p, batch, n,
                          n, heads, dh, st, scale, true, s);
   }
-  static size_t conf_dq = 0, conf_dkv = 0;
+  static SmemLimit limit_dq, limit_dkv;
   const size_t bytes = sizeof(float) * (2 * FR * (size_t)dh + 2 * FR * (size_t)n);
-  if (int err = set_smem(attn_bwd_dq_f32_kernel, bytes, &conf_dq)) return err;
-  if (int err = set_smem(attn_bwd_dkv_f32_kernel, bytes, &conf_dkv)) return err;
+  if (int err = set_smem(attn_bwd_dq_f32_kernel, bytes, limit_dq)) return err;
+  if (int err = set_smem(attn_bwd_dkv_f32_kernel, bytes, limit_dkv)) return err;
   const dim3 grid(groups, heads, batch);
   const float* q = static_cast<const float*>(qkv);
   const float* g = static_cast<const float*>(dout);

@@ -840,10 +840,10 @@ static int launch(const void* q, const void* k, const void* v, const void* dout,
                   int nk, int heads, const long long* st, float scale, bool stats,
                   cudaStream_t s) {
   using G = Geom<DH>;
-  static size_t conf_stats = 0, conf_flash = 0, conf_kv = 0;
-  if (int err = set_smem(dq_kernel<DH, true>, G::DQ_SMEM, &conf_stats)) return err;
-  if (int err = set_smem(dq_kernel<DH, false>, G::DQ_SMEM, &conf_flash)) return err;
-  if (int err = set_smem(dkv_kernel<DH>, G::KV_SMEM, &conf_kv)) return err;
+  static SmemLimit limit_stats, limit_flash, limit_kv;
+  if (int err = set_smem(dq_kernel<DH, true>, G::DQ_SMEM, limit_stats)) return err;
+  if (int err = set_smem(dq_kernel<DH, false>, G::DQ_SMEM, limit_flash)) return err;
+  if (int err = set_smem(dkv_kernel<DH>, G::KV_SMEM, limit_kv)) return err;
   const long long cols = (long long)heads * DH;
   CUtensorMap mq, mk, mv, mdo, mqc, mdoc;
   if (!cached_map_3d(&mq, {q, cols, nq, batch, st[1], st[0], ROWS, G::BOXC}) ||
@@ -858,8 +858,8 @@ static int launch(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (G::NPV <= 64) {
     // the packed form at up to 128 tokens: one persistent launch
     if (stats && nq == nk && nq <= HEAD_ROWS) {
-      static size_t conf_head = 0;
-      if (int err = set_smem(head_kernel<DH>, HeadGeom<DH>::SMEM, &conf_head)) return err;
+      static SmemLimit limit_head;
+      if (int err = set_smem(head_kernel<DH>, HeadGeom<DH>::SMEM, limit_head)) return err;
       const int grid = std::max(1, std::min(batch * heads, sm_count()));
       head_kernel<DH><<<grid, HEAD_THREADS, HeadGeom<DH>::SMEM, s>>>(
           mq, mk, mv, mdo, static_cast<bf16*>(dq), part, nq, heads, batch, sl2, scale);

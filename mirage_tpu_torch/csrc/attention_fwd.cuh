@@ -322,13 +322,8 @@ template <int DH>
 static int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
                   int nq, int nk, int heads, const long long* st, float scale, cudaStream_t s) {
   using G = Geom<DH>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static SmemLimit limit;
+  if (int err = set_smem(attention_fwd_kernel<DH>, G::SMEM, limit)) return err;
   const long long cols = (long long)heads * DH;
   CUtensorMap mq, mk, mv;
   if (!cached_map_3d(&mq, {q, cols, nq, batch, st[1], st[0], KC, G::BOXC}) ||

@@ -453,13 +453,8 @@ struct PhasedArgs {
 
 template <int DH>
 static int launch_resident(const PhasedArgs& a, size_t bytes, cudaStream_t s) {
-  static size_t configured = 0;
-  if (bytes > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_phased_resident<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = bytes;
-  }
+  static SmemLimit limit;
+  if (int err = set_smem(attention_phased_resident<DH>, bytes, limit)) return err;
   const int cl = a.group / a.hpc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl * (a.heads / a.group), a.qsplit, a.batch);
@@ -483,13 +478,8 @@ static int launch_resident(const PhasedArgs& a, size_t bytes, cudaStream_t s) {
 
 template <int DH>
 static int launch_staged(const PhasedArgs& a, size_t bytes, cudaStream_t s) {
-  static size_t configured = 0;
-  if (bytes > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_phased_staged<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = bytes;
-  }
+  static SmemLimit limit;
+  if (int err = set_smem(attention_phased_staged<DH>, bytes, limit)) return err;
   const dim3 grid((a.nq + PQ - 1) / PQ, a.heads / a.group, a.batch);
   attention_phased_staged<DH><<<grid, PH_THREADS, bytes, s>>>(
       a.q, a.k, a.v, a.o, a.nq, a.nk, a.group, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs,

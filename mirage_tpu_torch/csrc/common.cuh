@@ -11,6 +11,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 enum MttDtype { MTT_F32 = 0, MTT_BF16 = 1 };
 
 typedef __nv_bfloat16 bf16;
@@ -86,16 +89,62 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Raises a kernel's dynamic shared memory limit to `bytes` unless an
-// earlier call (recorded in *configured) already did.
+// Launch state is kept per device: one process may drive several cards,
+// from one host thread each, and cudaFuncSetAttribute and the attribute
+// queries act on the calling thread's current device only. Each slot is
+// indexed by cudaGetDevice; the Python launcher makes the tensors' device
+// current around every launch.
+constexpr int MAX_DEVICES = 64;
+
+// The current device, or -1 when it cannot be read or has no slot.
+static inline int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return -1;
+  return dev;
+}
+
+// The dynamic shared memory a kernel has been raised to, per device
+// (`start`: what it holds without the attribute).
+struct SmemLimit {
+  size_t bytes[MAX_DEVICES];
+  explicit SmemLimit(size_t start = 0) {
+    for (size_t& b : bytes) b = start;
+  }
+};
+
+static inline std::mutex& launch_state_mutex() {
+  static std::mutex mu;
+  return mu;
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes` on the current
+// device unless an earlier call (recorded in `limit`) already did there.
+// The check and the raise hold one lock, so two threads never lower it.
 template <typename Kernel>
-static int set_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return 0;
+static int set_smem(Kernel kernel, size_t bytes, SmemLimit& limit) {
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(launch_state_mutex());
+  if (bytes <= limit.bytes[dev]) return 0;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  *configured = bytes;
+  limit.bytes[dev] = bytes;
   return 0;
+}
+
+// The current device's SM count (0 when it cannot be read), cached per
+// device.
+static inline int sm_count() {
+  static std::atomic<int> counts[MAX_DEVICES];
+  const int dev = current_device();
+  if (dev < 0) return 0;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -891,9 +891,9 @@ struct Maps {
 
 template <typename T, int DH>
 static int configure(int n, int dh, size_t* bytes) {
-  static size_t configured = 0;
+  static SmemLimit limit;
   *bytes = smem_bytes(DH != 0, n, dh);
-  return set_smem(fused_block_kernel<T, DH>, *bytes, &configured);
+  return set_smem(fused_block_kernel<T, DH>, *bytes, limit);
 }
 
 template <typename T, int DH>

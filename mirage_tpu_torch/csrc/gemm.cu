@@ -203,8 +203,8 @@ static int launch_kind(const void* a, const void* w, void* c, const void* bias, 
                        const void* residual, int M, int N, int K, const void* aux_in,
                        void* colsum, cudaStream_t s) {
   constexpr int bytes = gpp::smem_bytes<1>();
-  static bool configured = false;
-  const int err = gpp::configure_once(gemm_bf16_pingpong<KIND, GM, W_MN>, bytes, configured);
+  static SmemLimit limit;
+  const int err = set_smem(gemm_bf16_pingpong<KIND, GM, W_MN>, bytes, limit);
   if (err != 0) return err;
   const int sms = sm_count();
   CUtensorMap map_a, map_w;

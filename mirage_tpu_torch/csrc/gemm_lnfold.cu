@@ -264,13 +264,8 @@ extern "C" int mtt_gemm_lnfold(const void* a, const void* w, const void* bias, i
     return (int)cudaErrorInvalidValue;
   constexpr int bytes =
       1024 + RING_BYTES + 16 * STAGES + 2 * 4 * MAX_CLUSTER * BM + 8 * EPI_WARP_BYTES;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_lnfold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static SmemLimit limit;
+  if (int err = set_smem(gemm_lnfold_kernel, bytes, limit)) return err;
   CUtensorMap map_a, map_w;
   if (!make_map(&map_a, a, M, K, BM, BK) || !make_map(&map_w, w, N, K, BN, BK))
     return (int)cudaErrorInvalidValue;

@@ -448,14 +448,5 @@ static int launch(Kernel kernel, const Plan& pl, int smem, cudaStream_t s, Args.
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The dynamic shared memory raised once per kernel.
-template <class Kernel>
-static int configure_once(Kernel kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return (int)err;
-}
 
 }  // namespace gpp

@@ -271,13 +271,8 @@ extern "C" int mtt_gemm_stash(const void* a, const void* w, void* act, void* dg,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {
     if (K % 8 != 0 || N % 8 != 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          gemm_stash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STASH_SMEM_BYTES);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
+    static SmemLimit limit;
+    if (int err = set_smem(gemm_stash_kernel, STASH_SMEM_BYTES, limit)) return err;
     CUtensorMap map_a, map_w;
     if (!make_map(&map_a, a, M, K, BM, BK) || !make_map(&map_w, w, N, K, BN, BK))
       return (int)cudaErrorInvalidValue;

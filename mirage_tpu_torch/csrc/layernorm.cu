@@ -584,9 +584,9 @@ static int launch_bwd(const void* x, const void* gamma, const void* dyln, const 
           xt, gt, gl, dyt, sub_dy, dxt, pt, dg, db, cnt, rows, dim, eps);
       break;
     default: {
-      static size_t configured = 48 * 1024;
+      static SmemLimit limit(48 * 1024);
       const size_t smem = (2 * (size_t)dim + 4 * LN_GENERIC_ROWS) * sizeof(float);
-      const int err = set_smem(layernorm_bwd_generic_kernel<T, P>, smem, &configured);
+      const int err = set_smem(layernorm_bwd_generic_kernel<T, P>, smem, limit);
       if (err) return err;
       layernorm_bwd_generic_kernel<T, P><<<grid, LN_THREADS, smem, s>>>(
           xt, gt, gl, dyt, sub_dy, dxt, pt, dg, db, cnt, rows, dim, eps);

@@ -514,15 +514,6 @@ __global__ void __launch_bounds__(256)
 
 // ----------------------------------------------------------------- entries
 
-template <typename K>
-static int configure(K kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return (int)err;
-}
-
 // y, dy (M, D), w1 (H, D), w2 (D, H), b1 (H) of type b1_dtype -> dh, act
 // (M, H) in the working type (dtype) and part (ceil(M/16), H) float, the
 // 16-row column sums of the float dh; `grid` CTAs of the bf16 kernel, in
@@ -536,8 +527,8 @@ extern "C" int mtt_mlp_bwd_hidden(const void* y, const void* dy, const void* w1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {
     if (D % 8 != 0 || H % 8 != 0 || grid <= 0 || grid % 2) return (int)cudaErrorInvalidValue;
-    static bool configured = false;
-    if (int err = configure(mlp_bwd_hidden_kernel, H_SMEM, configured)) return err;
+    static SmemLimit limit;
+    if (int err = set_smem(mlp_bwd_hidden_kernel, H_SMEM, limit)) return err;
     CUtensorMap map_y, map_dy, map_w1, map_w2;
     if (!make_map(&map_y, y, M, D, HM, BK) || !make_map(&map_dy, dy, M, D, HM, BK) ||
         !make_map(&map_w1, w1, H, D, BK, BK) || !make_map(&map_w2, w2, D, H, BK, BK))
@@ -578,10 +569,10 @@ extern "C" int mtt_mlp_bwd_dyln(const void* dh, const void* w1, void* dyln, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {
     if (D % 8 != 0 || H % 8 != 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-    static bool configured_f32 = false, configured_bf16 = false;
+    static SmemLimit limit_f32, limit_bf16;
     if (int err = out_dtype == MTT_BF16
-                      ? configure(mlp_bwd_dyln_kernel<bf16>, D_SMEM, configured_bf16)
-                      : configure(mlp_bwd_dyln_kernel<float>, D_SMEM, configured_f32))
+                      ? set_smem(mlp_bwd_dyln_kernel<bf16>, D_SMEM, limit_bf16)
+                      : set_smem(mlp_bwd_dyln_kernel<float>, D_SMEM, limit_f32))
       return err;
     CUtensorMap map_dh, map_w1;
     if (!make_map(&map_dh, dh, M, H, DM, BK) || !make_map(&map_w1, w1, H, D, BK, BK))

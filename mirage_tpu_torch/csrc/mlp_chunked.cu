@@ -300,13 +300,8 @@ template <int C>
 static int launch(const void* y, const void* w1, const void* b1, const void* w2, const void* b2,
                   int bias_dtype, const void* x, void* out, int M, int H, int R,
                   cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mlp_chunked_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, MC_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static SmemLimit limit;
+  if (int err = set_smem(mlp_chunked_kernel<C>, MC_SMEM_BYTES, limit)) return err;
   constexpr int D = BN * C;
   // each of the first BM / y_rows columns multicasts y_rows rows of y
   const int y_rows = BM % C == 0 ? BM / C : BM / 2;
@@ -328,12 +323,16 @@ static int launch(const void* y, const void* w1, const void* b1, const void* w2,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // a cluster that cannot be co-resident is refused here, not run otherwise
-  static int clusters[MAX_R + 1] = {};
-  if (clusters[R] == 0) {
-    const cudaError_t err =
-        cudaOccupancyMaxActiveClusters(&clusters[R], mlp_chunked_kernel<C>, &cfg);
+  // (per device, as the shared memory limit it depends on)
+  static std::atomic<int> clusters[MAX_DEVICES][MAX_R + 1];
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (clusters[dev][R].load(std::memory_order_relaxed) == 0) {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, mlp_chunked_kernel<C>, &cfg);
     if (err != cudaSuccess) return (int)err;
-    if (clusters[R] == 0) return (int)cudaErrorInvalidConfiguration;
+    if (n == 0) return (int)cudaErrorInvalidConfiguration;
+    clusters[dev][R].store(n, std::memory_order_relaxed);
   }
   const cudaError_t err = cudaLaunchKernelEx(&cfg, mlp_chunked_kernel<C>, map_y, map_w1, map_w2, b1, b2,
                            bias_dtype, static_cast<const bf16*>(x), static_cast<bf16*>(out), M,

@@ -273,8 +273,8 @@ static int launch_gemm(const void* a, const void* w, const void* rs, const void*
                        void* hout, void* amax, const void* x, void* out, int M, int N, int K,
                        cudaStream_t st) {
   constexpr int bytes = gpp::smem_bytes<EpiS8<KIND, T>::VECS>();
-  static bool configured = false;
-  const int err = gpp::configure_once(gemm_s8_pingpong<KIND, T>, bytes, configured);
+  static SmemLimit limit;
+  const int err = set_smem(gemm_s8_pingpong<KIND, T>, bytes, limit);
   if (err != 0) return err;
   const int sms = sm_count();
   CUtensorMap map_a, map_w;

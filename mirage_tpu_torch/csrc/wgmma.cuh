@@ -442,13 +442,3 @@ static bool cached_map_3d(CUtensorMap* out, const MapKey& key) {
   return true;
 }
 
-static int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 0;
-  }
-  return n;
-}

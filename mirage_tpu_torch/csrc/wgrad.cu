@@ -203,13 +203,8 @@ extern "C" int mtt_wgrad(const void* a, const void* b, void* c, void* part, int 
     if (N1 % 8 || N2 % 8 || rows_per_chunk % WK || reinterpret_cast<uintptr_t>(a) % 16 ||
         reinterpret_cast<uintptr_t>(b) % 16)
       return (int)cudaErrorInvalidValue;
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          wgrad_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
+    static SmemLimit limit;
+    if (int err = set_smem(wgrad_bf16_kernel, W_SMEM, limit)) return err;
     CUtensorMap map_a, map_b;
     if (!make_map(&map_a, a, M, N1, WK, 64) || !make_map(&map_b, b, M, N2, WK, 64))
       return (int)cudaErrorInvalidValue;

@@ -27,6 +27,15 @@ when it cuts the blocks' weights to their tensor-local shards. A
 tensor-parallel block saves its ops' intermediates, so under ``remat`` it
 runs checkpointed (its all-reduces rerun in the backward on every tensor
 rank alike).
+
+Pipeline parallelism (``pp``, mirage_tpu/models/mirage.py:69-95): a
+("pipe", n_micro) pair routes the stack through the GPipe schedule of
+``parallel/pp.py:pp_encoder_apply``; ``train/steps.py:shard_state`` keeps
+only the stage's blocks (the others' slots hold None, so the kept ones
+keep their global ``encoder.{i}`` names) and binds ``pipe``, the stage's
+place in its pipeline. Without ``pipe`` (or with one stage) the flag is
+the plain loop over every block held. It needs a drop-path rate of 0 and
+refuses ``return_layers``.
 """
 
 import torch
@@ -52,35 +61,59 @@ class Encoder(nn.ModuleList):
         super().__init__([Block(dim, num_heads, mlp_ratio, qkv_bias)
                           for _ in range(depth)])
         self.remat = remat
+        self.pp = None
+        self.pipe = None
 
     @property
     def tp(self):
-        return self[0].tp if len(self) else None
+        blocks = [b for b in self if b is not None]
+        return blocks[0].tp if blocks else None
 
     @tp.setter
     def tp(self, value):
         for block in self:
-            block.tp = value
+            if block is not None:
+                block.tp = value
+
+    def block_step(self, block, x, deterministic, rate, generator,
+                   grad_free):
+        """One block, checkpointed under ``remat`` when its ops save their
+        intermediates."""
+        if not (self.remat and torch.is_grad_enabled() and not grad_free
+                and not (block.tp is None and Block.halves_route(
+                    x.shape[1], deterministic, rate, grad_free))):
+            return block(x, deterministic, rate, generator, grad_free)
+        noise = (None, None)
+        if not deterministic and float(rate) != 0.0 \
+                and generator is not None:
+            noise = (drop_path_noise(x, generator),
+                     drop_path_noise(x, generator))
+        return checkpoint(block, x, deterministic, rate, None, grad_free,
+                          noise, use_reentrant=False)
 
     def forward(self, x, deterministic=True, drop_path_rate=0.0,
-                generator=None, grad_free=False, return_layers=None):
+                generator=None, grad_free=False, return_layers=None,
+                n_micro=None):
         """The blocks' output, or with ``return_layers`` (block indices)
-        (output, {i: block i's output})."""
+        (output, {i: block i's output}); ``n_micro``: this call's
+        microbatches under ``pp`` (default: ``pp``'s)."""
+        if self.pp is not None:
+            from mirage_tpu_torch.parallel.pp import pp_encoder_apply
+
+            if return_layers is not None:
+                raise ValueError("return_all_layers is not supported under "
+                                 "pipeline parallelism")
+            if drop_path_rate != 0.0:
+                raise ValueError("pipeline parallelism requires "
+                                 "drop_path_rate == 0.0 (parallel/pp.py "
+                                 "scope note)")
+            return pp_encoder_apply(self, x, deterministic, grad_free,
+                                    n_micro)
         outs = {}
         for i, (block, rate) in enumerate(zip(
                 self, drop_path_rates(drop_path_rate, len(self)))):
-            if not (self.remat and torch.is_grad_enabled() and not grad_free
-                    and not (block.tp is None and Block.halves_route(
-                        x.shape[1], deterministic, rate, grad_free))):
-                x = block(x, deterministic, rate, generator, grad_free)
-            else:
-                noise = (None, None)
-                if not deterministic and float(rate) != 0.0 \
-                        and generator is not None:
-                    noise = (drop_path_noise(x, generator),
-                             drop_path_noise(x, generator))
-                x = checkpoint(block, x, deterministic, rate, None,
-                               grad_free, noise, use_reentrant=False)
+            x = self.block_step(block, x, deterministic, rate, generator,
+                                grad_free)
             if return_layers is not None and i in return_layers:
                 outs[i] = x
         return x if return_layers is None else (x, outs)

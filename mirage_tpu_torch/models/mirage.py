@@ -20,7 +20,9 @@ Training keeps the parameters in float32 and runs the activations in
 ``compute_dtype``; each op casts its weights to the activation dtype.
 ``remat`` (mirage_tpu/models/mirage.py:60) checkpoints the encoder blocks
 whose ops save their intermediates (``models/encoder.py``); ``tp`` runs
-the encoder tensor-parallel (``parallel/tp.py``).
+the encoder tensor-parallel (``parallel/tp.py``); ``pp`` ("pipe",
+n_micro) runs it as a GPipe schedule over the stages of a 'pipe' mesh
+axis (``parallel/pp.py``; a drop-path rate of 0, no ``return_all_layers``).
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -49,7 +51,7 @@ class MIRAGEModel(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_path_rate: float = 0.0, compute_dtype=torch.float32,
                  remat: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, pp=None):
         super().__init__()
         self.num_global_tokens = num_global_tokens
         self.drop_path_rate = drop_path_rate
@@ -69,6 +71,7 @@ class MIRAGEModel(nn.Module):
             torch.empty(1, num_global_tokens, dim_tokens))
         if generator is not None:
             vinit.init_weights(self, generator)
+        self.pp = pp
 
     def init_params(self, generator):
         vinit.trunc_normal_(self.global_tokens, generator)
@@ -81,7 +84,34 @@ class MIRAGEModel(nn.Module):
 
     @tp.setter
     def tp(self, value):
+        if value is not None and self.pp is not None:
+            raise ValueError("pipeline x tensor parallelism is not "
+                             "implemented: build the model with exactly one "
+                             "of tp/pp set")
         self.encoder.tp = value
+
+    @property
+    def pp(self):
+        """None, or the encoder's pipeline parallelism ("pipe", n_micro)
+        (mirage_tpu/models/mirage.py:69-75)."""
+        return self.encoder.pp
+
+    @pp.setter
+    def pp(self, value):
+        if value is not None:
+            if self.drop_path_rate != 0.0:
+                raise ValueError("pipeline parallelism requires "
+                                 "drop_path_rate == 0.0 (parallel/pp.py "
+                                 "scope note)")
+            if self.tp is not None:
+                raise ValueError("pipeline x tensor parallelism is not "
+                                 "implemented: build the model with exactly "
+                                 "one of tp/pp set")
+            axis, n_micro = value
+            if int(n_micro) < 1:
+                raise ValueError(f"pp n_micro {n_micro} < 1")
+            value = (axis, int(n_micro))
+        self.encoder.pp = value
 
     def generate_input_info(self, x: Mapping[str, torch.Tensor]) -> Dict:
         """Token bookkeeping per task, from the input shapes."""
@@ -129,7 +159,8 @@ class MIRAGEModel(nn.Module):
                 sample_tasks_uniformly: bool = False,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, pixel_outputs: bool = True,
-                return_all_layers: bool = False):
+                return_all_layers: bool = False,
+                n_micro: Optional[int] = None):
         """x: task -> (B, C, H, W) image or (B, H, W) labels.
 
         With ``absent_tasks`` (a sequence, possibly empty): the wrapper's
@@ -145,7 +176,9 @@ class MIRAGEModel(nn.Module):
         ``mask_inputs``). Returns (preds, task_masks); preds are pixels, or
         the decoders' patch tokens if not ``pixel_outputs``; with
         ``return_all_layers``, {"layer_{i}": block i's output without the
-        global tokens as a (B, D, gh, gw) map of the first task's grid}."""
+        global tokens as a (B, D, gh, gw) map of the first task's grid}.
+        ``n_micro``: the masked forward's microbatches under ``pp`` (default:
+        ``pp``'s)."""
         if absent_tasks is not None:
             return self._forward_static(x, tuple(absent_tasks))
         input_info = self.generate_input_info(x)
@@ -180,7 +213,7 @@ class MIRAGEModel(nn.Module):
             return {f"layer_{i}": t[:, :-self.num_global_tokens].reshape(
                 b, gh, gw, -1).permute(0, 3, 1, 2) for i, t in outs.items()}
         enc = self.encoder(enc, deterministic, self.drop_path_rate,
-                           generator)
+                           generator, n_micro=n_micro)
         if self.output_adapters is None:
             return enc, task_masks
         preds = {task: adapter(enc, input_info, ids_keep=ids_keep,

@@ -294,7 +294,7 @@ def _block_attn_fwd(qkv, num_heads, scale):
     out = qkv.new_empty(b, n, d)
     runtime.attention(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], out,
                       heads=num_heads, dh=d // num_heads, scale=scale)
-    block_attention.launches += 1
+    runtime.count(block_attention)
     return out
 
 
@@ -304,7 +304,7 @@ def _block_attn_bwd(qkv, dout, num_heads, scale):
     d = qkv.shape[-1] // 3
     dqkv, _ = runtime.attention_bwd(qkv, dout.contiguous(), heads=num_heads,
                                     dh=d // num_heads, scale=scale)
-    block_attention.bwd_launches += 1
+    runtime.count(block_attention, "bwd_launches")
     return dqkv
 
 
@@ -397,7 +397,7 @@ def _attn_half_fwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    attn_half_block.launches += 1
+    runtime.count(attn_half_block)
     return out.view(b, n, d)
 
 
@@ -439,7 +439,7 @@ def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
                                        num_heads)
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
-    attn_half_block.bwd_launches += 1
+    runtime.count(attn_half_block, "bwd_launches")
     return (dx, dgamma, dbeta, runtime.wgrad(dqkv, y),
             dbqkv.sum(0) if bqkv is not None else None,
             runtime.wgrad(dy2, attn), dy2.float().sum(0))
@@ -460,7 +460,7 @@ def _attn_half_bwd_acc(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
                                            wproj, num_heads)
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
-    attn_half_block.acc_bwd_launches += 1
+    runtime.count(attn_half_block, "acc_bwd_launches")
     return (dx, dgamma, dbeta, runtime.weight_grad(dqkv, y),
             runtime.colsum(dbqkv) if bqkv is not None else None,
             runtime.weight_grad(dy2, attn), runtime.colsum(dy2))
@@ -543,7 +543,7 @@ def xattn_half_block(x, context, lnq_w, lnq_b, lnc_w, lnc_b, wq, bq, wkv,
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * nq, d), wproj.to(x.dtype), bproj,
                        residual=x2 if residual else None)
-    xattn_half_block.launches += 1
+    runtime.count(xattn_half_block)
     return out.view(b, nq, d)
 
 
@@ -600,7 +600,7 @@ def attn_half_block_masked(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                       attn, heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    attn_half_block_masked.launches += 1
+    runtime.count(attn_half_block_masked)
     return out.view(b, n, d)
 
 
@@ -639,7 +639,7 @@ def attn_half_block_prenormed(x, y, wqkv, bqkv, wproj, bproj, num_heads):
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    attn_half_block_prenormed.launches += 1
+    runtime.count(attn_half_block_prenormed)
     return out.view(b, n, d)
 
 
@@ -824,7 +824,7 @@ def attn_half_block_phased(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                              scale=dh ** -0.5, smax=smax)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    attn_half_block_phased.launches += 1
+    runtime.count(attn_half_block_phased)
     return out.view(b, n, d)
 
 

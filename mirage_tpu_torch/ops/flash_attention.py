@@ -88,7 +88,7 @@ def _flash_fwd(q_src, kv_src, num_heads, scale):
     out = q_src.new_empty(q.shape[0], q.shape[1], d)
     lse = runtime.flash_attention(q, k, v, out, heads=num_heads,
                                   dh=d // num_heads, scale=scale)
-    flash_attention.launches += 1
+    runtime.count(flash_attention)
     return out, lse
 
 
@@ -108,7 +108,7 @@ def _flash_bwd(q_src, kv_src, lse, dout, num_heads, scale):
     runtime.flash_attention_bwd(q, k, v, dout.contiguous(), lse, dq, dk, dv,
                                 heads=num_heads, dh=d // num_heads,
                                 scale=scale)
-    flash_attention.bwd_launches += 1
+    runtime.count(flash_attention, "bwd_launches")
     return d_q, d_kv
 
 

@@ -85,7 +85,7 @@ def fused_adamw(gs, ms, ns, ps, lrs, wds, *, gscale, c1, c2, keep, b1, b2,
                            for v in (gscale, c1, c2, keep)])
     runtime.adamw(table, len(rows), max(p.numel() for p in ps), scalars, b1,
                   b2, eps)
-    fused_adamw.launches += 1
+    runtime.count(fused_adamw)
 
 
 fused_adamw.launches = 0

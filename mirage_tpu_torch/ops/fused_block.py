@@ -146,7 +146,8 @@ def fused_block_launch(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     b, n, d = x.shape
     dtype = "bf16" if x.dtype == torch.bfloat16 else "float32"
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = runtime.fused_block_blocks_per_sm(n, d // num_heads, x.dtype)
+    blocks = runtime.fused_block_blocks_per_sm(n, d // num_heads, x.dtype,
+                                               x.device)
     plan = fused_block_plan(b, n, d, w1.shape[0], num_heads, sms, blocks,
                             tile_n, dtype)
     return runtime.fused_block(
@@ -191,7 +192,7 @@ def _fused_block_fwd(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
     out = fused_block_launch(x.contiguous(), ln1_w, vecs[0], wts[0],
                              vecs[1], wts[1], vecs[2], vecs[3], vecs[4],
                              wts[2], vecs[5], wts[3], vecs[6], num_heads)
-    fused_block.launches += 1
+    runtime.count(fused_block)
     return out
 
 

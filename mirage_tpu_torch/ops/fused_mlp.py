@@ -143,7 +143,7 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
     h = runtime.gemm(y, w1.to(x.dtype), b1, gelu=True)
     out = runtime.gemm(h, w2.to(x.dtype), b2,
                        residual=x2 if residual else None)
-    mlp_block.launches += 1
+    runtime.count(mlp_block)
     return out.view(x.shape)
 
 
@@ -172,7 +172,7 @@ def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
         return mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
-    mlp_block.bwd_launches += 1
+    runtime.count(mlp_block, "bwd_launches")
     return (dx, dgamma, dbeta, runtime.wgrad(dh, y), db1.sum(0),
             runtime.wgrad(dy2, act), dy2.sum(0, dtype=torch.float32))
 
@@ -184,7 +184,7 @@ def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
         return mlp_block_bwd_acc_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
-    mlp_block.acc_bwd_launches += 1
+    runtime.count(mlp_block, "acc_bwd_launches")
     return (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
             runtime.colsum(db1), runtime.weight_grad(dy2, act),
             runtime.colsum(dy2))
@@ -476,7 +476,7 @@ def _mlp_fwd_stash(x, ln_w, ln_b, w1, b1, w2, b2):
     if not runtime.use_kernel(x):
         return mlp_block_fwd_stash_ref(x, ln_w, ln_b, w1, b1, w2, b2)
     out = _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2)
-    mlp_block.stash_launches += 1
+    runtime.count(mlp_block, "stash_launches")
     return out
 
 
@@ -494,7 +494,7 @@ def _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2):
     grads = (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
              runtime.colsum(db1), runtime.weight_grad(dy, act),
              runtime.colsum(dy))
-    mlp_block.stash_bwd_launches += 1
+    runtime.count(mlp_block, "stash_bwd_launches")
     return grads
 
 
@@ -541,7 +541,7 @@ def mlp_block_fwd_stash3d(x, ln_w, ln_b, w1, b1, w2, b2, residual=True,
     b, n, d = x.shape
     out, act, dg = _stash_chain(x.view(b * n, d), ln_w, ln_b, w1, b1, w2, b2,
                                 residual)
-    mlp_block_fwd_stash3d.launches += 1
+    runtime.count(mlp_block_fwd_stash3d)
     shape = (b * n, -1) if stash_flat else (b, n, -1)
     return out.view(b, n, d), act.view(shape), dg.view(shape)
 
@@ -604,7 +604,7 @@ def mlp_block_lnfold(x, ln_w, ln_b, w1, b1, w2, b2, ln_next_w, ln_next_b):
                      gelu=True)
     out, y = runtime.gemm_lnfold(h, w2.to(x.dtype), b2, x2, ln_next_w,
                                  ln_next_b)
-    mlp_block_lnfold.launches += 1
+    runtime.count(mlp_block_lnfold)
     return out.view(x.shape), y.view(x.shape)
 
 
@@ -699,7 +699,7 @@ def mlp_block_modes(x, ln_w, ln_b, w1, b1, w2, b2, ln="two_pass",
     else:
         h = runtime.gemm_gelu_mode(y, w1.to(x.dtype), b1, mode=act)
     out = runtime.gemm(h, w2.to(x.dtype), b2, residual=x2)
-    mlp_block_modes.launches += 1
+    runtime.count(mlp_block_modes)
     return out.view(x.shape)
 
 
@@ -815,7 +815,7 @@ def mlp_block_chunked(x, ln_w, ln_b, w1, b1, w2, b2, chunks,
     out = runtime.mlp_chunked(runtime.layernorm(x2, ln_w, ln_b),
                               w1.to(x.dtype), b1, w2.to(x.dtype), b2, x2,
                               rows_per_cluster)
-    mlp_block_chunked.launches += 1
+    runtime.count(mlp_block_chunked)
     return out.view(x.shape)
 
 

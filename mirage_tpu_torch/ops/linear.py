@@ -31,7 +31,7 @@ class _LayerNorm(torch.autograd.Function):
         x2 = x.reshape(-1, x.shape[-1])
         ctx.save_for_backward(x2, w)
         ctx.shape = x.shape
-        layer_norm.launches += 1
+        runtime.count(layer_norm)
         return runtime.layernorm(x2, w, b).view(x.shape)
 
     @staticmethod
@@ -39,7 +39,7 @@ class _LayerNorm(torch.autograd.Function):
         x2, w = ctx.saved_tensors
         dyln = dy.reshape(x2.shape).float().contiguous()
         dx, dgamma, dbeta = runtime.layernorm_bwd(x2, w, dyln)
-        layer_norm.bwd_launches += 1
+        runtime.count(layer_norm, "bwd_launches")
         return dx.view(ctx.shape), dgamma, dbeta
 
 
@@ -61,7 +61,7 @@ class _Linear(torch.autograd.Function):
         x2 = x.reshape(-1, x.shape[-1])
         ctx.save_for_backward(x2, w)
         ctx.shape, ctx.has_bias = x.shape, b is not None
-        linear.launches += 1
+        runtime.count(linear)
         y = runtime.gemm(x2, w.to(x.dtype).contiguous(), b)
         return y.view(*x.shape[:-1], w.shape[0])
 
@@ -71,7 +71,7 @@ class _Linear(torch.autograd.Function):
         g2 = dy.reshape(-1, w.shape[0]).contiguous()
         dx = runtime.mlp_bwd_dyln(g2, w.to(x2.dtype).contiguous(),
                                   out_dtype=x2.dtype)
-        linear.bwd_launches += 1
+        runtime.count(linear, "bwd_launches")
         db = g2.float().sum(0) if ctx.has_bias else None
         return dx.view(ctx.shape), runtime.wgrad(g2, x2), db
 

@@ -53,6 +53,7 @@ import contextlib
 import ctypes
 import functools
 import os
+import threading
 from collections import namedtuple
 
 import torch
@@ -160,8 +161,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, *args):
-    rc = _build.entry(name)(*args, torch.cuda.current_stream().cuda_stream)
+_count_lock = threading.Lock()
+
+
+def count(fn, attr: str = "launches"):
+    """Adds one to ``fn``'s launch count ``attr``, under one lock: the
+    serving mesh's replicas launch from several host threads at once, and a
+    bare ``+= 1`` on a function attribute can lose an update between them."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def _launch(name: str, like: torch.Tensor, *args):
+    """Calls the C entry ``name`` with ``args`` and the current stream of
+    ``like``'s device (the caller's stream there: a host thread serving one
+    device launches on its own), with that device current: the launchers
+    keep their shared-memory limits and SM counts per device, read by
+    ``cudaGetDevice`` (csrc/common.cuh)."""
+    dev = like.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if torch.cuda.current_device() == dev.index:
+        rc = _build.entry(name)(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = _build.entry(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -229,11 +252,11 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     check("ln bias", bias, weight, (d,))
     plan = layernorm_plan(m, d, _sms(x.device), x.dtype, False)
     y = torch.empty_like(x)
-    _launch("layernorm_onepass" if onepass else "layernorm", x.data_ptr(),
+    _launch("layernorm_onepass" if onepass else "layernorm", x, x.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], plan.width, plan.grid,
             eps)
-    layernorm.launches += 1
+    count(layernorm)
     return y
 
 
@@ -269,12 +292,13 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
     # the partial rows, the finish groups' rows, then dgamma and dbeta
     part = torch.empty((plan.partial_rows + plan.finish_groups + 1, 2, d),
                        device=x.device, dtype=torch.float32)
-    _launch("layernorm_bwd", x.data_ptr(), weight.data_ptr(), dyln.data_ptr(),
-            _ptr(dy), dx.data_ptr(), part.data_ptr(), part[-1, 0].data_ptr(),
-            part[-1, 1].data_ptr(), counters.data_ptr(), m, d,
+    _launch("layernorm_bwd", x, x.data_ptr(), weight.data_ptr(),
+            dyln.data_ptr(), _ptr(dy), dx.data_ptr(), part.data_ptr(),
+            part[-1, 0].data_ptr(), part[-1, 1].data_ptr(),
+            counters.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), plan.width,
             plan.grid, eps)
-    layernorm_bwd.launches += 1
+    count(layernorm_bwd)
     return dx, part[-1, 0], part[-1, 1]
 
 
@@ -325,11 +349,11 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
         check("residual", residual, a, (m, n))
     c = torch.empty((m, n), device=a.device,
                     dtype=torch.float32 if out_f32 else a.dtype)
-    _launch(entry, a.data_ptr(), w.data_ptr(), c.data_ptr(), _ptr(bias),
+    _launch(entry, a, a.data_ptr(), w.data_ptr(), c.data_ptr(), _ptr(bias),
             _DTYPES[bias.dtype] if bias is not None else 0, _ptr(residual),
             m, n, k, _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype],
             int(out_f32), None, None)
-    gemm.launches += 1
+    count(gemm)
     return c
 
 
@@ -356,10 +380,10 @@ def gemm_gelu_mode(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     if residual is not None:
         check("residual", residual, a, (m, n))
     c = torch.empty((m, n), device=a.device, dtype=a.dtype)
-    _launch("gemm_gelu_mode", a.data_ptr(), w.data_ptr(), c.data_ptr(),
+    _launch("gemm_gelu_mode", a, a.data_ptr(), w.data_ptr(), c.data_ptr(),
             _ptr(bias), _DTYPES[bias.dtype] if bias is not None else 0,
             _ptr(residual), m, n, k, GELU_MODES[mode])
-    gemm.launches += 1
+    count(gemm)
     return c
 
 
@@ -392,11 +416,11 @@ def mlp_bwd_hidden(y: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
     dh = torch.empty((m, h), device=y.device, dtype=y.dtype)
     act = torch.empty_like(dh)
     part = torch.empty((-(-m // 16), h), device=y.device, dtype=torch.float32)
-    _launch("mlp_bwd_hidden", y.data_ptr(), dy.data_ptr(), w1.data_ptr(),
+    _launch("mlp_bwd_hidden", y, y.data_ptr(), dy.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), _DTYPES[b1.dtype], w2.data_ptr(), dh.data_ptr(),
             act.data_ptr(), part.data_ptr(), m, d, h, _DTYPES[y.dtype],
             plan.hidden.grid)
-    mlp_bwd_hidden.launches += 1
+    count(mlp_bwd_hidden)
     return dh, act, part
 
 
@@ -421,9 +445,10 @@ def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
                          f"got D={d}, H={h}")
     plan = mlp_bwd_plan(m, d, h, _sms(dh.device))
     dyln = torch.empty((m, d), device=dh.device, dtype=out_dtype)
-    _launch("mlp_bwd_dyln", dh.data_ptr(), w1.data_ptr(), dyln.data_ptr(), m,
-            d, h, _DTYPES[dh.dtype], _DTYPES[out_dtype], plan.dyln.grid)
-    mlp_bwd_dyln.launches += 1
+    _launch("mlp_bwd_dyln", dh, dh.data_ptr(), w1.data_ptr(),
+            dyln.data_ptr(), m, d, h, _DTYPES[dh.dtype], _DTYPES[out_dtype],
+            plan.dyln.grid)
+    count(mlp_bwd_dyln)
     return dyln
 
 
@@ -443,7 +468,7 @@ def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
     act = torch.empty((m, n), device=a.device, dtype=a.dtype)
     dg = torch.empty_like(act)
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    _launch("gemm_stash", a.data_ptr(), w.data_ptr(), act.data_ptr(),
+    _launch("gemm_stash", a, a.data_ptr(), w.data_ptr(), act.data_ptr(),
             dg.data_ptr(), _ptr(bias),
             _DTYPES[bias.dtype] if bias is not None else 0, m, n, k,
             _DTYPES[a.dtype], gemm_stash_plan(m, n, k, sms).grid)
@@ -461,10 +486,10 @@ def gemm_dgelu_mul(a: torch.Tensor, w: torch.Tensor, dg: torch.Tensor,
     check("dg", dg, a, (m, n))
     dh = torch.empty((m, n), device=a.device, dtype=a.dtype)
     colsum = torch.empty((-(-m // 16), n), device=a.device, dtype=torch.float32)
-    _launch(entry, a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
+    _launch(entry, a, a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
             m, n, k, _EPI["dgelu_mul"], _DTYPES[a.dtype], 0, dg.data_ptr(),
             colsum.data_ptr())
-    gemm.launches += 1
+    count(gemm)
     return dh, colsum
 
 
@@ -526,7 +551,7 @@ def weight_grad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     chunks, rows = wgrad_chunks(m, n1, n2, _sms(g.device))
     part = (torch.empty((chunks, n1, n2), device=g.device,
                         dtype=torch.float32) if chunks > 1 else None)
-    _launch("wgrad", g.data_ptr(), a.data_ptr(), out.data_ptr(), _ptr(part),
+    _launch("wgrad", g, g.data_ptr(), a.data_ptr(), out.data_ptr(), _ptr(part),
             m, n1, n2, chunks, rows, _DTYPES[g.dtype])
     return out
 
@@ -540,8 +565,8 @@ def colsum(x: torch.Tensor) -> torch.Tensor:
     chunks, rows = _row_chunks(m, -(-n // 256), _sms(x.device), 64)
     part = (torch.empty((chunks, n), device=x.device, dtype=torch.float32)
             if chunks > 1 else None)
-    _launch("colsum", x.data_ptr(), out.data_ptr(), _ptr(part), m, n, chunks,
-            rows, _DTYPES[x.dtype])
+    _launch("colsum", x, x.data_ptr(), out.data_ptr(), _ptr(part), m, n,
+            chunks, rows, _DTYPES[x.dtype])
     return out
 
 
@@ -561,8 +586,8 @@ def adamw(table: torch.Tensor, n_leaves: int, max_numel: int,
     if not 0 < n_leaves <= 65535:
         raise ValueError(f"adamw: {n_leaves} leaves (1..65535)")
     blocks = max(1, min(-(-max_numel // (4 * 256 * 4)), 65535))
-    _launch("adamw", table.data_ptr(), n_leaves, blocks, scalars.data_ptr(),
-            b1, 1.0 - b1, b2, 1.0 - b2, eps)
+    _launch("adamw", table, table.data_ptr(), n_leaves, blocks,
+            scalars.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps)
 
 
 def wgrad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -596,10 +621,10 @@ def attention(q, k, v, out, *, heads: int, dh: int, scale: float):
                                       ("out", out)])
     if out.shape[:2] != (b, nq) or v.shape[:2] != (b, nk) or k.shape[0] != b:
         raise ValueError("attention: batch/row shapes disagree")
-    _launch("attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, nq, nk, heads, dh, *strides, scale,
             _DTYPES[q.dtype])
-    attention.launches += 1
+    count(attention)
 
 
 attention.launches = 0
@@ -631,10 +656,10 @@ def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
     # dtype
     part = torch.empty((b * -(-n // 16), 3 * d), device=qkv.device,
                        dtype=torch.float32)
-    _launch("attention_bwd", qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(), b, n,
-            heads, dh, scale, _DTYPES[qkv.dtype])
-    attention_bwd.launches += 1
+    _launch("attention_bwd", qkv, qkv.data_ptr(), dout.data_ptr(),
+            dqkv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            part.data_ptr(), b, n, heads, dh, scale, _DTYPES[qkv.dtype])
+    count(attention_bwd)
     return dqkv, part if partials else part.sum(0)
 
 
@@ -682,10 +707,10 @@ def flash_attention(q, k, v, out, *, heads: int, dh: int, scale: float):
         raise ValueError("flash attention: batch/row shapes disagree")
     lse = torch.empty((b, heads, nq), device=q.device, dtype=torch.float32)
     arr, ptr = _strides(strides)
-    _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
-    flash_attention.launches += 1
+    count(flash_attention)
     return lse
 
 
@@ -709,11 +734,11 @@ def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
     check("lse", lse, lse, (b, heads, nq))
     delta = torch.empty_like(lse)
     arr, ptr = _strides(strides)
-    _launch("flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("flash_bwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
-    flash_attention_bwd.launches += 1
+    count(flash_attention_bwd)
 
 
 flash_attention_bwd.launches = 0
@@ -722,15 +747,20 @@ flash_attention_bwd.launches = 0
 _occupancy = {}
 
 
-def fused_block_blocks_per_sm(n: int, dh: int, dtype: torch.dtype) -> int:
-    """CTAs of csrc/fused_block.cu that one SM holds at once (its shared
-    memory and registers at n tokens and head dim dh), from the CUDA
-    occupancy calculator; cached."""
-    key = (n, dh, dtype)
+def fused_block_blocks_per_sm(n: int, dh: int, dtype: torch.dtype,
+                              device=None) -> int:
+    """CTAs of csrc/fused_block.cu that one SM of ``device`` (default: the
+    current one) holds at once (its shared memory and registers at n tokens
+    and head dim dh), from the CUDA occupancy calculator; cached per
+    device."""
+    device = torch.device("cuda", torch.cuda.current_device()
+                          if device is None else torch.device(device).index)
+    key = (n, dh, dtype, device)
     if key not in _occupancy:
         blocks = ctypes.c_int(0)
-        rc = _build.entry("fused_block_occupancy")(n, dh, _DTYPES[dtype],
-                                                   ctypes.byref(blocks))
+        with torch.cuda.device(device):
+            rc = _build.entry("fused_block_occupancy")(
+                n, dh, _DTYPES[dtype], ctypes.byref(blocks))
         if rc != 0 or blocks.value <= 0:
             raise RuntimeError(f"fused_block occupancy query failed: CUDA "
                                f"error {rc}, {blocks.value} blocks per SM")
@@ -773,7 +803,7 @@ def fused_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
     bar = scratch[5 * nd + nh:]
     if stamps is not None:
         _check_plain("stamps", stamps, x, (7 + grid,), torch.int64)
-    _launch("fused_block", x.data_ptr(), out.data_ptr(), ln1_w.data_ptr(),
+    _launch("fused_block", x, x.data_ptr(), out.data_ptr(), ln1_w.data_ptr(),
             ln1_b.data_ptr(), wqkv.data_ptr(), _ptr(bqkv), wproj.data_ptr(),
             bproj.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -805,7 +835,7 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
     check("ln bias", bias, weight, (d,))
     yq = torch.empty((m, d), device=x.device, dtype=torch.int8)
     rs = torch.empty((m,), device=x.device, dtype=torch.float32)
-    _launch("ln_quant", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+    _launch("ln_quant", x, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             _DTYPES[weight.dtype], yq.data_ptr(), rs.data_ptr(), m, d,
             _DTYPES[x.dtype])
     return yq, rs
@@ -831,7 +861,7 @@ def gemm_s8_fc1(a, wq, rs, s, b):
     m, n, k = _s8_operands(a, wq, rs, s, b)
     h = torch.empty((m, n), device=a.device, dtype=torch.float32)
     amax = torch.zeros((m,), device=a.device, dtype=torch.float32)
-    _launch("gemm_s8", a.data_ptr(), wq.data_ptr(), rs.data_ptr(),
+    _launch("gemm_s8", a, a.data_ptr(), wq.data_ptr(), rs.data_ptr(),
             s.data_ptr(), b.data_ptr(), 0, h.data_ptr(), amax.data_ptr(),
             None, None, m, n, k, 0)
     return h, amax
@@ -846,7 +876,7 @@ def quant_rows(h: torch.Tensor, amax: torch.Tensor):
         raise ValueError(f"quant_rows needs a width multiple of 4, got {n}")
     aq = torch.empty((m, n), device=h.device, dtype=torch.int8)
     rs = torch.empty((m,), device=h.device, dtype=torch.float32)
-    _launch("quant_rows", h.data_ptr(), amax.data_ptr(), aq.data_ptr(),
+    _launch("quant_rows", h, h.data_ptr(), amax.data_ptr(), aq.data_ptr(),
             rs.data_ptr(), m, n)
     return aq, rs
 
@@ -856,7 +886,7 @@ def gemm_s8_fc2(a, wq, rs, s, b, x):
     m, n, k = _s8_operands(a, wq, rs, s, b)
     check("x", x, x, (m, n))
     out = torch.empty_like(x)
-    _launch("gemm_s8", a.data_ptr(), wq.data_ptr(), rs.data_ptr(),
+    _launch("gemm_s8", a, a.data_ptr(), wq.data_ptr(), rs.data_ptr(),
             s.data_ptr(), b.data_ptr(), 1, None, None, x.data_ptr(),
             out.data_ptr(), m, n, k, _DTYPES[x.dtype])
     return out
@@ -873,8 +903,8 @@ def gemm_s8_s32(a, wq):
         raise ValueError(f"int8 gemm needs K % 16 == 0 and N % 8 == 0, got "
                          f"K={k}, N={n}")
     out = torch.empty((m, n), device=a.device, dtype=torch.int32)
-    _launch("gemm_s8", a.data_ptr(), wq.data_ptr(), None, None, None, 2, None,
-            None, None, out.data_ptr(), m, n, k, 0)
+    _launch("gemm_s8", a, a.data_ptr(), wq.data_ptr(), None, None, None, 2,
+            None, None, None, out.data_ptr(), m, n, k, 0)
     return out
 
 
@@ -904,7 +934,7 @@ def gemm_lnfold(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     check("ln bias", ln_b, ln_w, (n,))
     out = torch.empty((m, n), device=a.device, dtype=a.dtype)
     y = torch.empty_like(out)
-    _launch("gemm_lnfold", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+    _launch("gemm_lnfold", a, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
             _DTYPES[bias.dtype], residual.data_ptr(), ln_w.data_ptr(),
             ln_b.data_ptr(), _DTYPES[ln_w.dtype], out.data_ptr(), y.data_ptr(),
             m, n, k, eps)
@@ -940,7 +970,7 @@ def attention_phased(q, k, v, out, *, heads: int, dh: int, group: int,
         raise ValueError("attention_phased: batch/row shapes disagree")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     plan = phased_plan(nk, dh, heads, group, batch=b, sms=sms, nq=nq)
-    _launch("attention_phased", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("attention_phased", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, nq, nk, heads, dh, group,
             int(plan.branch == "resident"), plan.heads_per_cta, plan.qtile,
             plan.qsplit, *strides, scale, SMAX_MODES[smax], int(divide))
@@ -968,7 +998,7 @@ def mlp_chunked(y: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     check("b1", b1, y, (hidden,), dtype=False)
     check("b2", b2, b1, (d,))
     out = torch.empty_like(x)
-    _launch("mlp_chunked", y.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+    _launch("mlp_chunked", y, y.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), _DTYPES[b1.dtype], x.data_ptr(),
             out.data_ptr(), m, d, hidden, rows_per_cluster)
     return out

@@ -1,28 +1,38 @@
-"""The process mesh of multi-GPU training: one process a GPU, its axes named
-as the JAX package names them.
+"""The process mesh of multi-GPU training (one process a GPU, its axes
+named as the JAX package names them) and the device list of multi-GPU
+serving (one process, one host thread a device).
 
-Counterpart of ``mirage_tpu/parallel/mesh.py``. A 3-axis mesh ('data',
-'fsdp', 'tensor') over the processes of a ``torch.distributed`` group, rank
-((d·F) + f)·T + t at coordinate (d, f, t), as ``make_mesh`` reshapes the
-device list there. The batch shards over ('data', 'fsdp'); 'fsdp' shards
-the parameters and moments (FSDP2); 'tensor' runs the encoder blocks
-head- and hidden-parallel (``parallel/tp.py``). Unused axes have size 1.
+Counterpart of ``mirage_tpu/parallel/mesh.py``. A 4-axis mesh ('data',
+'fsdp', 'tensor', 'pipe') over the processes of a ``torch.distributed``
+group, rank ((d·F + f)·T + t)·P + p at coordinate (d, f, t, p), as
+``make_mesh`` reshapes the device list there ('pipe' innermost, so a
+pipeline's stages are neighbouring ranks). The batch shards over ('data',
+'fsdp'); 'fsdp' shards the parameters and moments (FSDP2); 'tensor' runs
+the encoder blocks head- and hidden-parallel (``parallel/tp.py``); 'pipe'
+splits the encoder's depth into GPipe stages (``parallel/pp.py``). Unused
+axes have size 1.
 
 The JAX package's ``shard_batch`` / ``global_batch_from_local`` assemble a
 global array from per-host stripes; here each process loads its own stripe
 (``data/loader.py``'s ``shard_index`` / ``num_shards``, which are
-:func:`batch_rank` / :func:`batch_count`), and every tensor rank of one
-batch position loads the same stripe. :func:`local_batch` cuts a global
-batch that a process holds whole into its stripe.
+:func:`batch_rank` / :func:`batch_count`), and every tensor and pipe
+rank of one batch position loads the same stripe. :func:`local_batch` cuts
+a global batch that a process holds whole into its stripe.
 
 :func:`init_distributed` joins the process group: NCCL for a CUDA device,
 gloo for the CPU, picked from the device; a failed NCCL init raises.
+
+:func:`make_serve_mesh` is the one-process counterpart of ``make_mesh(axes,
+devices=)`` for the wrapper's ``mesh=`` (``api/wrapper.py``): serving is
+pure data parallelism, so every axis ('data', 'fsdp', 'tensor') shards the
+batch and the mesh is its list of devices, one model replica on each.
 """
 
 import contextlib
 import dataclasses
 import datetime
 import itertools
+import math
 import os
 from typing import Dict, Optional, Tuple
 
@@ -30,12 +40,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXES = ("data", "fsdp", "tensor")
+AXES = ("data", "fsdp", "tensor", "pipe")
 BATCH_AXES = ("data", "fsdp")
 # the axis combinations a group is made for: the batch axes (DDP, the
-# metrics), 'tensor' (the Megatron collectives), and the gradient norm's
-# buckets ('fsdp', 'tensor', both)
-GROUP_AXES = (BATCH_AXES, ("fsdp",), ("tensor",), ("fsdp", "tensor"))
+# metrics), 'tensor' (the Megatron collectives), the gradient norm's
+# buckets ('fsdp', 'tensor', both), and 'pipe' (the pipeline's sends and
+# receives, its broadcast and its gradient sums)
+GROUP_AXES = (BATCH_AXES, ("fsdp",), ("tensor",), ("fsdp", "tensor"),
+              ("pipe",))
+# the axes of a serving mesh, all of which shard the batch
+# (mirage_tpu/api/wrapper.py:104 _SERVE_AXES)
+SERVE_AXES = ("data", "fsdp", "tensor")
 TIMEOUT = datetime.timedelta(seconds=300)
 
 
@@ -66,7 +81,8 @@ def init_distributed(device, *, init_method: Optional[str] = None,
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """A ('data', 'fsdp', 'tensor') mesh over the default group: ``shape``
+    """A ('data', 'fsdp', 'tensor', 'pipe') mesh over the default group:
+    ``shape``
     (axis -> size), this process's ``coords`` (axis -> index), the
     ``DeviceMesh`` FSDP2 shards over and a process group for each
     combination of :data:`GROUP_AXES`."""
@@ -78,7 +94,7 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["fsdp"] * self.shape["tensor"]
+        return math.prod(self.shape[a] for a in AXES)
 
     def group(self, axes):
         return self.groups[tuple(a for a in AXES if a in axes)]
@@ -86,18 +102,18 @@ class Mesh:
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
               device_type: str = "cpu") -> Mesh:
-    """axes e.g. {'data': 2, 'fsdp': 2, 'tensor': 2}; missing axes are 1,
+    """axes e.g. {'data': 2, 'fsdp': 2, 'tensor': 2} or {'data': 2, 'pipe':
+    2}; missing axes are 1,
     and without ``axes`` all processes are 'data'. The sizes' product must
     be the world size. Every process of the group calls this together."""
     world = dist.get_world_size()
     axes = dict(axes or {"data": world})
     for name in axes:
         if name not in AXES:
-            raise ValueError(f"unknown mesh axis {name!r} (axes {AXES}; the "
-                             f"pipe axis is ROADMAP queue A 4b)")
+            raise ValueError(f"unknown mesh axis {name!r} (axes {AXES})")
     for name in AXES:
         axes.setdefault(name, 1)
-    n = axes["data"] * axes["fsdp"] * axes["tensor"]
+    n = math.prod(axes[a] for a in AXES)
     assert n == world, f"mesh {axes} != {world} processes"
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -140,12 +156,15 @@ def batch_count(mesh: Mesh) -> int:
 
 def is_dp_only(mesh: Mesh) -> bool:
     """True when the mesh shards nothing but the batch."""
-    return mesh.shape["fsdp"] == 1 and mesh.shape["tensor"] == 1
+    return (mesh.shape["fsdp"] == 1 and mesh.shape["tensor"] == 1
+            and mesh.shape["pipe"] == 1)
 
 
 def is_fsdp_only(mesh: Mesh) -> bool:
-    """(data, fsdp) meshes with fsdp > 1 and no tensor parallelism."""
-    return mesh.shape["fsdp"] > 1 and mesh.shape["tensor"] == 1
+    """(data, fsdp) meshes with fsdp > 1 and no tensor or pipeline
+    parallelism."""
+    return (mesh.shape["fsdp"] > 1 and mesh.shape["tensor"] == 1
+            and mesh.shape["pipe"] == 1)
 
 
 def local_batch(batch, mesh: Mesh):
@@ -218,3 +237,62 @@ def gather_rows(parts):
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, list(parts))
     return [rows for batch in zip(*every) for rows in batch]
+
+
+# ------------------------------------------------------------ serving mesh
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh:
+    """The serving mesh: ``shape`` (axis -> size over :data:`SERVE_AXES`)
+    and ``devices``, one a mesh position in row-major order, each holding
+    a replica of the model."""
+
+    shape: Dict[str, int]
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_serve_mesh(axes: Optional[Dict[str, int]] = None, device="cuda",
+                    devices=None) -> ServeMesh:
+    """axes e.g. {'data': 4, 'fsdp': 1, 'tensor': 2} (missing axes are 1;
+    without ``axes``, 'data' over every device given, or every card);
+    ``devices`` the list to take, by default cuda:0 … cuda:n−1 for a CUDA
+    ``device`` (raising when there are fewer cards) and n times the CPU
+    for the CPU. Several entries may name one card: each runs its own
+    replica from its own thread and stream."""
+    dev = torch.device(device)
+    if devices is None and axes is None:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        axes = {"data": n}
+    axes = dict(axes or {"data": len(devices)})
+    for name in axes:
+        if name not in SERVE_AXES:
+            raise ValueError(f"unknown serving mesh axis {name!r} (axes "
+                             f"{SERVE_AXES})")
+        if int(axes[name]) < 1:
+            raise ValueError(f"mesh axis {name} = {axes[name]} < 1")
+    shape = {a: int(axes.get(a, 1)) for a in SERVE_AXES}
+    n = math.prod(shape.values())
+    if devices is None:
+        if dev.type == "cuda":
+            have = torch.cuda.device_count()
+            if have < n:
+                raise RuntimeError(f"serving mesh {shape} needs {n} CUDA "
+                                   f"devices, {have} available")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        else:
+            devices = [dev] * n
+    devices = tuple(torch.device(d) for d in devices)
+    if len(devices) != n:
+        raise ValueError(f"serving mesh {shape} != {len(devices)} devices")
+    return ServeMesh(shape, devices)
+
+
+def parse_mesh(text: str) -> Dict[str, int]:
+    """'data=4,fsdp=1,tensor=2' -> {'data': 4, 'fsdp': 1, 'tensor': 2}
+    (mirage_tpu/cli/serve.py:119-124)."""
+    axes = dict(kv.split("=") for kv in text.split(","))
+    return {k.strip(): int(v) for k, v in axes.items()}

@@ -15,10 +15,10 @@ gradients, as the reference freeze does), the clipped update, and metrics
 in the step); the classification loss hands its logits back as the
 metric ``logits``.
 
-The multi-GPU steps (``mirage_tpu/train/steps.py:163-378``): one process a
-GPU over a ('data', 'fsdp', 'tensor') mesh (``parallel/mesh.py``), in one of
-four layouts, which :func:`shard_state` places and :func:`make_train_step`
-steps:
+The multi-GPU steps (``mirage_tpu/train/steps.py:163-498``): one process a
+GPU over a ('data', 'fsdp', 'tensor', 'pipe') mesh (``parallel/mesh.py``),
+in one of five layouts, which :func:`shard_state` places and
+:func:`make_train_step` steps:
 
 - 'dp': ``DistributedDataParallel`` over the batch axes, the parameters
   and moments whole on every process;
@@ -29,7 +29,15 @@ steps:
   (``parallel/tp.py``): the encoder's qkv/proj/fc1/fc2 cut to their
   tensor-local blocks (qkv relayouted head-group-major), the blocks run
   ``Block.tp_forward``; DDP over the batch axes;
-- 'tp_fsdp': the tensor-local model, then FSDP2 over the 'fsdp' sub-mesh.
+- 'tp_fsdp': the tensor-local model, then FSDP2 over the 'fsdp' sub-mesh;
+- 'pp': GPipe pipeline parallelism (``parallel/pp.py``) over 'pipe', with
+  'data' only: each stage keeps its ``encoder.{i}`` blocks and their
+  moments, everything else whole; ``make_train_step(..., pp=True)`` with a
+  model carrying ``pp=("pipe", n_micro)``. Its gradients are summed and
+  averaged by explicit bucketed all-reduces (DDP cannot do the 'pipe'
+  sum): the loss scaled by 1/S, the 'sum' leaves all-reduced over 'pipe',
+  every leaf averaged over the batch axes, the norm
+  sqrt(replicated² + all-reduce_pipe(local²)).
 
 The step's generator is folded by the batch-axes index (every tensor rank
 of one batch position draws the same masks and drop-path). Gradients: DDP
@@ -45,7 +53,8 @@ counterpart here and raises.
 """
 
 import dataclasses
-from typing import Any, Callable, Mapping, Optional
+import math
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -57,7 +66,11 @@ from mirage_tpu_torch.train.optim import GroupedOptimizer, local
 # mirage_tpu/train/steps.py:42,49: read once at import
 _FSDP_STEP = env_choice("MIRAGE_FSDP_STEP", "shardmap", ("shardmap", "gspmd"))
 _TP_STEP = env_choice("MIRAGE_TP_STEP", "shardmap", ("shardmap", "gspmd"))
-LAYOUTS = ("dp", "fsdp", "tp", "tp_fsdp")
+LAYOUTS = ("dp", "fsdp", "tp", "tp_fsdp", "pp")
+PIPE_SCOPE = ("pipeline parallelism composes only with data parallelism "
+              "(mesh {}); fsdp/tensor x pipe is not implemented")
+# elements of one bucket of the pipeline step's explicit all-reduces
+BUCKET = 1 << 24
 
 
 def make_pretrain_loss(model, domain_conf: Mapping[str, Mapping[str, Any]],
@@ -162,7 +175,7 @@ def init_train_state(model: torch.nn.Module, optimizer: GroupedOptimizer):
 
 
 def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer,
-                    mesh=None):
+                    mesh=None, pp: bool = False):
     """step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs) ->
     (state, metrics): loss_fn(batch, generator=generator, **loss_kwargs)
     (e.g. the pretraining loss's task_masks and num_visible), gradients of
@@ -172,8 +185,21 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer,
 
     With ``mesh`` the sharded step of the layout :func:`shard_state` placed
     the state in: ``batch`` is this process's stripe and the metrics are
-    means over the batch axes."""
+    means over the batch axes. A mesh with a 'pipe' axis above 1 takes the
+    pipeline step only with ``pp`` (the caller promises a model built with
+    ``pp=("pipe", n_micro)``), as mirage_tpu/train/steps.py:140-146 routes
+    it; there is no other step for it."""
     if mesh is not None:
+        from mirage_tpu_torch.parallel.pp import is_pp
+
+        if is_pp(mesh):
+            if not pp:
+                raise ValueError(
+                    "mesh has a pipe axis > 1 but make_train_step was not "
+                    "called with pp=True (and a model carrying "
+                    "pp=('pipe', n_micro)): there is no other step for "
+                    "pipeline parallelism")
+            return _make_pp_step(loss_fn, optimizer, mesh)
         return _make_sharded_step(loss_fn, optimizer, mesh)
 
     def step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
@@ -200,12 +226,18 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer,
 class Layout:
     """How :func:`shard_state` placed a state: the layout, the mesh, the
     model it cut (updated in place by the steps) and the encoder's head
-    count (the qkv relayout's)."""
+    count (the qkv relayout's); under 'pp' the stage's ``pipe``
+    (``parallel/pp.py:Pipe``), the standard layout's leaves ``full``
+    ({'params' | 'mu' | 'nu': {name: (shape, dtype)}}, in the standard
+    order) and each leaf's owning stage (``owners``, None: every stage)."""
 
     kind: str
     mesh: Any
     model: torch.nn.Module
     num_heads: Optional[int] = None
+    pipe: Any = None
+    full: Optional[Dict] = None
+    owners: Optional[Dict] = None
 
     @property
     def tp(self) -> bool:
@@ -220,8 +252,13 @@ def mesh_layout(mesh) -> str:
     """The layout a mesh's shape selects (mirage_tpu/train/steps.py:
     make_train_step's routing)."""
     from mirage_tpu_torch.parallel.mesh import is_dp_only
+    from mirage_tpu_torch.parallel.pp import is_pp
     from mirage_tpu_torch.parallel.tp import is_tp_fsdp, is_tp_only
 
+    if is_pp(mesh):
+        if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1:
+            raise ValueError(PIPE_SCOPE.format(dict(mesh.shape)))
+        return "pp"
     if is_tp_fsdp(mesh):
         return "tp_fsdp"
     if is_tp_only(mesh):
@@ -320,14 +357,17 @@ def shard_state(state, mesh, model: torch.nn.Module, tp_num_heads=None,
     under 'tp'/'tp_fsdp' its encoder weights become their tensor-local
     blocks and its blocks run tensor-parallel (``tp_num_heads``, the
     encoder's head count, is required); under 'fsdp'/'tp_fsdp' FSDP2
-    shards it. The moments are cut as their parameters are.
-    Counterpart of mirage_tpu/train/steps.py:504."""
+    shards it; under 'pp' (a model with ``pp`` set) it keeps the stage's
+    encoder blocks and binds the stage's pipe. The moments are cut as their
+    parameters are. Counterpart of mirage_tpu/train/steps.py:504."""
     from mirage_tpu_torch.parallel.tp import tp_leaf_axis
 
     kind = layout or mesh_layout(mesh)
     if kind not in LAYOUTS:
         raise ValueError(f"layout {kind!r} not in {LAYOUTS}")
     _check_switches(kind)
+    if kind == "pp":
+        return _shard_pp(state, mesh, model)
     lay = Layout(kind, mesh, model, tp_num_heads)
     if lay.tp and tp_num_heads is None:
         raise ValueError("a tensor-parallel layout needs tp_num_heads")
@@ -363,9 +403,11 @@ def shard_state(state, mesh, model: torch.nn.Module, tp_num_heads=None,
 def gather_state(state):
     """The standard-layout whole state of a placed one, on the host:
     {'params', 'opt', 'step'} as a one-GPU run holds it (the qkv leaves
-    unrelayouted, every shard gathered). Collective: every process of the
-    mesh calls it."""
+    unrelayouted, every shard gathered, every stage's blocks). Collective:
+    every process of the mesh calls it."""
     lay, params = state.get("layout"), state["params"]
+    if lay is not None and lay.kind == "pp":
+        return _gather_pp_state(state)
 
     def host(t, name=None):
         t = t.detach()
@@ -475,15 +517,10 @@ def _make_sharded_step(loss_fn: Callable, optimizer: GroupedOptimizer,
         loss.backward()
         grads = {n: params[n].grad for n in names}
         if lay.tp:
-            partial = [local(grads[n]) for n in names
-                       if grads[n] is not None
-                       and tp_grad_kind(n) == "partial"]
-            if partial:
-                flat = torch.cat([g.reshape(-1) for g in partial])
-                dist.all_reduce(flat, group=mesh.group(("tensor",)))
-                torch._foreach_copy_(partial, [
-                    c.view_as(g) for c, g in zip(
-                        flat.split([g.numel() for g in partial]), partial)])
+            _all_reduce_buckets([local(grads[n]) for n in names
+                                 if grads[n] is not None
+                                 and tp_grad_kind(n) == "partial"],
+                                mesh.group(("tensor",)))
         # the squared sums bucketed by the axes each gradient is split
         # across; the buckets come from the names alone, so every process
         # all-reduces the same ones in the same order
@@ -502,15 +539,200 @@ def _make_sharded_step(loss_fn: Callable, optimizer: GroupedOptimizer,
         optimizer.update(grads, state["opt"], params, lr, wd_scale,
                          gnorm=gnorm)
         state["step"] += 1
-        scalars = {k: v for k, v in task_losses.items() if v.ndim == 0}
-        means = torch.stack([loss.detach().float()] + [
-            v.detach().float() for v in scalars.values()])
-        dist.all_reduce(means, group=batch_group)
-        means = means / n_batch
-        metrics = {"loss": means[0], "grad_norm": gnorm}
-        metrics.update({f"loss_{k}": v for k, v in zip(scalars, means[1:])})
-        metrics.update({k: v.detach() for k, v in task_losses.items()
-                        if v.ndim})
-        return state, metrics
+        return state, _batch_metrics(loss, task_losses, gnorm, batch_group,
+                                     n_batch)
+
+    return stepper
+
+
+def _batch_metrics(loss, task_losses, gnorm, batch_group, n_batch):
+    """A sharded step's metrics: the loss and the 0-d extras averaged over
+    the batch axes (one all-reduce), the grad norm, the other extras as
+    they are."""
+    import torch.distributed as dist
+
+    scalars = {k: v for k, v in task_losses.items() if v.ndim == 0}
+    means = torch.stack([loss.detach().float()] + [
+        v.detach().float() for v in scalars.values()])
+    dist.all_reduce(means, group=batch_group)
+    means = means / n_batch
+    metrics = {"loss": means[0], "grad_norm": gnorm}
+    metrics.update({f"loss_{k}": v for k, v in zip(scalars, means[1:])})
+    metrics.update({k: v.detach() for k, v in task_losses.items()
+                    if v.ndim})
+    return metrics
+
+
+# ----------------------------------------------------- pipeline parallelism
+
+def _shard_pp(state, mesh, model):
+    """The 'pp' placement (mirage_tpu/train/steps.py:529-535): the stage
+    keeps its ``encoder.{i}`` blocks (the others' slots emptied, so the
+    kept ones keep their global names) and their moments, everything else
+    whole; the model's encoder is bound to the stage's pipe."""
+    from mirage_tpu_torch.parallel.pp import Pipe, pp_param_specs
+
+    if model.pp is None:
+        raise ValueError("mesh has a pipe axis > 1 but the model carries no "
+                         "pp=('pipe', n_micro): build it with one")
+    n_stages, stage = mesh.shape["pipe"], mesh.coords["pipe"]
+    if model.depth % n_stages:
+        raise ValueError(f"encoder depth {model.depth} is not divisible by "
+                         f"{n_stages} pipeline stages")
+    full = {"params": {n: (tuple(p.shape), p.dtype)
+                       for n, p in state["params"].items()}}
+    for k in ("mu", "nu"):
+        if k in state["opt"]:
+            full[k] = {n: (tuple(m.shape), m.dtype)
+                       for n, m in state["opt"][k].items()}
+    owners = pp_param_specs(full["params"], model.depth, n_stages)
+    per = model.depth // n_stages
+    for i in range(model.depth):
+        if i // per != stage:
+            model.encoder._modules[str(i)] = None
+    device = next(model.parameters()).device
+    lay = Layout("pp", mesh, model, pipe=Pipe(mesh, device), full=full,
+                 owners=owners)
+    model.encoder.pipe = lay.pipe
+    params = dict(model.named_parameters())
+    opt = {k: ({n: m for n, m in v.items() if n in params}
+               if k in ("mu", "nu") else v)
+           for k, v in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": state["step"],
+            "layout": lay}
+
+
+def gather_pp(parts: Mapping[str, torch.Tensor], lay: Layout, kind="params"):
+    """The standard-layout whole leaves of ``kind`` ('params', 'mu', 'nu';
+    a gradient gathers as its parameter) from this stage's ``parts`` (name
+    -> tensor for the leaves it holds), on the host, in the standard order:
+    one broadcast over 'pipe' from each stage of its leaves, flattened
+    (per dtype). Collective over the pipe group."""
+    pipe, full, owners = lay.pipe, lay.full[kind], lay.owners
+    out = {n: parts[n].detach().to("cpu", copy=True)
+           for n in full if owners[n] is None}
+    device = next(iter(parts.values())).device
+    for stage in range(pipe.size):
+        mine = [n for n in full if owners[n] == stage]
+        for dtype in sorted({full[n][1] for n in mine}, key=str):
+            names = [n for n in mine if full[n][1] == dtype]
+            sizes = [math.prod(full[n][0]) for n in names]
+            if stage == pipe.stage:
+                flat = torch.cat([parts[n].detach().reshape(-1).to(dtype)
+                                  for n in names])
+            else:
+                flat = torch.empty(sum(sizes), dtype=dtype, device=device)
+            flat = pipe.broadcast(flat, stage).cpu()
+            for n, piece in zip(names, flat.split(sizes)):
+                out[n] = piece.view(full[n][0]).clone()
+    return {n: out[n] for n in full}
+
+
+def _gather_pp_state(state):
+    lay = state["layout"]
+    opt = {}
+    for k, v in state["opt"].items():
+        if isinstance(v, dict):
+            opt[k] = gather_pp(v, lay, k)
+        else:
+            opt[k] = v.detach().to("cpu", copy=True)
+    return {"params": gather_pp(state["params"], lay),
+            "opt": opt, "step": state["step"].detach().to("cpu", copy=True)}
+
+
+def _all_reduce_buckets(tensors, group):
+    """Sums each tensor over ``group`` in place, in flat buckets of at most
+    :data:`BUCKET` elements (per dtype), one all-reduce a bucket, the same
+    buckets in the same order on every process."""
+    import torch.distributed as dist
+
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype in sorted(by_dtype, key=str):
+        bucket, size = [], 0
+        for t in by_dtype[dtype] + [None]:
+            if t is not None and (not bucket or size + t.numel() <= BUCKET):
+                bucket.append(t)
+                size += t.numel()
+                continue
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            dist.all_reduce(flat, group=group)
+            torch._foreach_copy_(bucket, [
+                c.view_as(b) for c, b in zip(flat.split(
+                    [b.numel() for b in bucket]), bucket)])
+            bucket, size = ([t], t.numel()) if t is not None else ([], 0)
+
+
+def _make_pp_step(loss_fn: Callable, optimizer: GroupedOptimizer, mesh):
+    """The GPipe step (mirage_tpu/train/steps.py:_make_pp_train_step): the
+    loss scaled by 1/S and ``backward`` through the schedule; the 'sum'
+    leaves' gradients (with a flag a leaf: a leaf no stage reached keeps no
+    gradient, as on one GPU) all-reduced over 'pipe'; every gradient
+    averaged over the batch axes; the norm sqrt(replicated² +
+    all-reduce_pipe(local²)); the update on the stage's leaves."""
+    from mirage_tpu_torch.parallel.mesh import batch_count, batch_rank
+    from mirage_tpu_torch.parallel.pp import pp_grad_kind
+
+    if mesh.shape["fsdp"] > 1 or mesh.shape["tensor"] > 1:
+        raise ValueError(PIPE_SCOPE.format(dict(mesh.shape)))
+    if getattr(optimizer, "cfg", None) is not None \
+            and optimizer.cfg.layer_decay is not None:
+        raise ValueError(
+            "pipeline parallelism requires layer_decay=None: the "
+            "layer-decay lr scales span the full depth, which a stage's "
+            "blocks do not (parallel/pp.py scope note)")
+    batch_group = mesh.group(("data", "fsdp"))
+    n_batch = batch_count(mesh)
+    n_stages = mesh.shape["pipe"]
+    reached = {}  # the 'sum' leaves some stage's backward reaches
+
+    def stepper(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
+        lay = state["layout"]
+        if lay.mesh is not mesh or lay.kind != "pp":
+            raise ValueError("the state was not placed on this mesh's "
+                             "pipeline layout")
+        pipe = lay.pipe
+        params = state["params"]
+        names = [n for n, p in params.items() if p.requires_grad]
+        for n in names:
+            params[n].grad = None
+        loss, task_losses = loss_fn(
+            batch, generator=fold_generator(generator, batch_rank(mesh)),
+            **loss_kwargs)
+        (loss / n_stages).backward()
+        kinds = pp_grad_kind(names)
+        grads = {n: params[n].grad for n in names}
+        summed = [n for n in names if kinds[n] == "sum"]
+        dev = loss.device
+        flags = []
+        if "names" not in reached:  # the same leaves every step: once
+            flags = [torch.tensor([grads[n] is not None for n in summed],
+                                  dtype=torch.float32, device=dev)]
+        for n in summed:
+            if grads[n] is None:
+                grads[n] = torch.zeros_like(params[n])
+        _all_reduce_buckets([grads[n] for n in summed] + flags, pipe.group)
+        if flags:
+            reached["names"] = {n for n, f in zip(summed, flags[0].tolist())
+                                if f}
+        for n in summed:
+            if n not in reached["names"]:
+                grads[n] = None
+        held = [grads[n] for n in names if grads[n] is not None]
+        if n_batch > 1:
+            _all_reduce_buckets(held, batch_group)
+            torch._foreach_div_(held, float(n_batch))
+        sq = {"local": torch.zeros((), device=dev),
+              "sum": torch.zeros((), device=dev)}
+        for n in names:
+            if grads[n] is not None:
+                sq[kinds[n]] += grads[n].float().square().sum()
+        gnorm = torch.sqrt(sq["sum"] + pipe.sum(sq["local"]))
+        optimizer.update(grads, state["opt"], params, lr, wd_scale,
+                         gnorm=gnorm)
+        state["step"] += 1
+        return state, _batch_metrics(loss, task_losses, gnorm, batch_group,
+                                     n_batch)
 
     return stepper

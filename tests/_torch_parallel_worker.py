@@ -33,9 +33,9 @@ TIMEOUT = 120
 ADAM_EPS = 1e-5
 
 
-def make_batch(seed, b=BATCH):
+def make_batch(seed, b=BATCH, visible=NUM_VISIBLE):
     """Images, labels and explicit masks (1 = masked) carried as batch
-    leaves "mask_<task>", NUM_VISIBLE visible tokens a sample and at least
+    leaves "mask_<task>", ``visible`` visible tokens a sample and at least
     one masked token a task."""
     rng = np.random.default_rng(seed)
     x = {"bscan": rng.random((b, 1, SIZE, SIZE), dtype=np.float32),
@@ -44,31 +44,33 @@ def make_batch(seed, b=BATCH):
              np.int32)}
     mask = np.ones((b, 3 * N_TASK), np.int32)
     for i in range(b):
-        mask[i, rng.choice(3 * N_TASK, NUM_VISIBLE, replace=False)] = 0
+        mask[i, rng.choice(3 * N_TASK, visible, replace=False)] = 0
     for k, t in enumerate(DOMAINS):
         x[f"mask_{t}"] = mask[:, k * N_TASK:(k + 1) * N_TASK]
     return x
 
 
-def build_tiny(state_dict=None):
+def build_tiny(state_dict=None, remat=False):
     from mirage_tpu_torch.api.wrapper import build_model
 
-    model = build_model("miragepre_tiny", ARGS, DOMAINS, geometry=GEOMETRY)
+    model = build_model("miragepre_tiny", ARGS, DOMAINS, geometry=GEOMETRY,
+                        remat=remat)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model
 
 
-def masked_loss(model):
-    """The pretraining loss reading its masks from the batch."""
+def masked_loss(model, visible=NUM_VISIBLE):
+    """The pretraining loss reading its masks (``visible`` visible tokens
+    a sample) from the batch."""
     from mirage_tpu_torch.train.steps import make_pretrain_loss
 
-    base = make_pretrain_loss(model, DOMAIN_CONF, NUM_VISIBLE)
+    base = make_pretrain_loss(model, DOMAIN_CONF, visible)
 
     def loss_fn(batch, generator=None):
         return base({t: batch[t] for t in DOMAINS}, generator,
                     task_masks={t: batch[f"mask_{t}"] for t in DOMAINS},
-                    num_visible=NUM_VISIBLE)
+                    num_visible=visible)
 
     return loss_fn
 
@@ -85,10 +87,12 @@ def optimizer(clip_grad):
                                             clip_grad=clip_grad))
 
 
-def run_steps(model, opt, batches, mesh=None, layout=None, lr=1e-3):
+def run_steps(model, opt, batches, mesh=None, layout=None, lr=1e-3,
+              visible=NUM_VISIBLE):
     """Two steps of the masked pretraining loss from whole-batch numpy
-    ``batches``; on a mesh each process takes its stripe. Returns (losses,
-    grad norms, the standard-layout whole state)."""
+    ``batches``; on a mesh each process takes its stripe (a model with
+    ``pp`` set takes the pipeline step). Returns (losses, grad norms, the
+    standard-layout whole state)."""
     from mirage_tpu_torch.parallel.mesh import local_batch
     from mirage_tpu_torch.train.steps import (gather_state, init_train_state,
                                               make_train_step, shard_state,
@@ -98,7 +102,8 @@ def run_steps(model, opt, batches, mesh=None, layout=None, lr=1e-3):
     if mesh is not None:
         state = shard_state(state, mesh, model, tp_num_heads=ARGS["num_heads"],
                             layout=layout)
-    step = make_train_step(masked_loss(model), opt, mesh=mesh)
+    step = make_train_step(masked_loss(model, visible), opt, mesh=mesh,
+                           pp=model.pp is not None)
     losses, norms = [], []
     for it, whole in enumerate(batches):
         batch = {k: torch.from_numpy(v) for k, v in whole.items()}
@@ -279,20 +284,86 @@ def task_tp_block(rank, world, workdir):
     return out
 
 
+def tiny_depth(base, depth):
+    """A ``model_dims`` that gives the dev size ("tiny" in a model name)
+    ``depth`` blocks, else ``base``'s (the pretraining command line has no
+    depth flag, and a pipeline over two stages needs an even depth)."""
+
+    def dims(name, args):
+        width, d, heads = base(name, args)
+        return (width, depth, heads) if "tiny" in name else (width, d, heads)
+
+    return dims
+
+
 def task_cli(rank, world, workdir):
     """A command line's main in every process: the module and argv of
-    ``workdir/cli.json``; returns rank 0's log rows (or its result)."""
+    ``workdir/cli.json`` (and its "tiny_depth"); returns rank 0's log rows
+    (or its result)."""
     import importlib
     import json
 
     with open(os.path.join(workdir, "cli.json")) as f:
         spec = json.load(f)
+    if spec.get("tiny_depth"):
+        from mirage_tpu_torch.api import wrapper
+
+        wrapper.model_dims = tiny_depth(wrapper.model_dims,
+                                        spec["tiny_depth"])
     out = importlib.import_module(spec["module"]).main(spec["argv"])
     return out.get("log", out) if isinstance(out, dict) else out
 
 
+# the pipeline cases on four processes: data 2 x pipe 2 (depth 2: one
+# block a stage), two microbatches of the local batch of 4
+PP_AXES = {"data": 2, "pipe": 2}
+PP_MICRO = 2
+
+
+def task_pp(rank, world, workdir):
+    """The cases of ``workdir/pp.json`` ([name, clip_grad, remat, visible
+    tokens]) on PP_AXES: two pipeline steps each from ``init.pt``, then
+    the gathered standard-layout state; with "resume": the last case's
+    checkpoint read into dp and back into the pipeline."""
+    import json
+
+    from mirage_tpu_torch.parallel.mesh import make_mesh
+    from mirage_tpu_torch.train import checkpoint as ckpt
+    from mirage_tpu_torch.train.steps import (gather_state, init_train_state,
+                                              shard_state)
+
+    with open(os.path.join(workdir, "pp.json")) as f:
+        spec = json.load(f)
+    init = torch.load(os.path.join(workdir, "init.pt"))
+    out = {}
+    for name, clip, remat, visible in spec["cases"]:
+        mesh = make_mesh(dict(PP_AXES))
+        model = build_tiny(init, remat=remat)
+        model.pp = ("pipe", PP_MICRO)
+        batches = [make_batch(s, visible=visible) for s in (11, 12)]
+        losses, norms, state = run_steps(model, optimizer(clip), batches,
+                                         mesh, visible=visible)
+        out[name] = {"loss": losses, "grad_norm": norms,
+                     "kept": sorted(state["params"]),
+                     **gather_state(state)}
+    if spec.get("resume"):
+        ckpt.save_checkpoint(workdir, state, 0)
+        for epoch, axes in enumerate(({"data": world}, dict(PP_AXES))):
+            mesh = make_mesh(axes)
+            model = build_tiny(init)
+            if "pipe" in axes:
+                model.pp = ("pipe", PP_MICRO)
+            opt = optimizer(None)
+            state = shard_state(init_train_state(model, opt), mesh, model)
+            state, _ = ckpt.load_checkpoint(
+                os.path.join(workdir, f"checkpoint-{epoch}"), state)
+            out[f"resumed_{state['layout'].kind}"] = gather_state(state)
+            ckpt.save_checkpoint(workdir, state, epoch + 1)
+    return out
+
+
 TASKS = {"layouts": task_layouts, "tp_block": task_tp_block,
-         "cli": task_cli}
+         "cli": task_cli, "pp": task_pp}
 
 
 def run(rank, world, store, task, workdir):

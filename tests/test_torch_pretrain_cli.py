@@ -115,18 +115,18 @@ def test_parser_has_every_jax_flag_with_its_default():
 @pytest.mark.parametrize("flags", [["--mesh_fsdp", "2"],
                                    ["--mesh_tensor", "2"],
                                    ["--mesh_pipe", "4"],
-                                   ["--pp_microbatches", "8"],
+                                   ["--mesh_pipe", "2",
+                                    "--pp_microbatches", "8"],
                                    ["--distributed"]])
 def test_multi_gpu_flags_exit_naming_the_queue(tmp_path, flags,
                                               monkeypatch):
-    """Pipeline parallelism exits naming its queue (A 4b); in one process
-    with no process group, the mesh flags and --distributed exit naming
-    what they need (tests/test_torch_parallel_cli.py runs them in one)."""
+    """In one process with no process group, the mesh flags (the pipeline's
+    too, tests/test_torch_pp_cli.py runs it in two) and --distributed exit
+    naming what they need (tests/test_torch_parallel_cli.py runs them in
+    one)."""
     for var in ("WORLD_SIZE", "MASTER_ADDR"):
         monkeypatch.delenv(var, raising=False)
-    pipe = flags[0] in ("--mesh_pipe", "--pp_microbatches")
-    with pytest.raises(SystemExit, match="queue A 4b" if pipe
-                       else "torchrun"):
+    with pytest.raises(SystemExit, match="torchrun"):
         cli.main(["--data_path", str(tmp_path), "--device", "cpu"] + flags)
 
 

@@ -201,7 +201,8 @@ SEG_MODULES = ("ops.flash_attention", "nn.conv", "adapters.seg_heads",
 # the serving slice's modules under MIRAGE_BLOCK_FUSE and its entry points
 SERVE_MODULES = ("ops.fused_block", "ops.quant", "cli.infer", "hf")
 # the multi-GPU slice's modules
-PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.tp", "ops.linear")
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.tp", "parallel.pp",
+                    "ops.linear")
 
 
 def test_package_imports_neither_jax_nor_mirage_tpu():
