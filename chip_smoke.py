@@ -78,7 +78,10 @@ Phases, each of which must pass (any failure exits non-zero):
    (reconstructions and --features, the features held to MIRAGEWrapper's);
    the same weights written as model.safetensors and read by
    hf.MIRAGEWrapper.from_pretrained and by MIRAGEWrapper (the repaired
-   reader): hf's batch-64 features against the wrapper's in float32.
+   reader): hf's batch-64 features against the wrapper's in float32; then
+   cli/hf_push -t push of the weights (the encoder's tensors bit-equal to
+   the checkpoint's) and -t load on the card (its features bit-equal to
+   hf.py's from the .pth).
 9. bench: the port's bench (mirage_tpu_torch.bench) through its entry
    points: bench.py's headline (MIRAGE-Large reconstruction at batch 512,
    its JSON line printed), the A/B cases S1 (B6 in a 24-layer chain), S3
@@ -107,7 +110,9 @@ Phases, each of which must pass (any failure exits non-zero):
    (read, each task's affine warp, the resizes, the rest), through the host
    library and through the plain versions on the same samples and seeds,
    which must agree (images within 1e-5, label maps at 99.5 % of pixels),
-   and the 8-worker loader's interval a batch of 256.
+   and the 8-worker loader's interval a batch of 256. cli/hf_push -t
+   export of checkpoint-1, read by hf.py on the card: its float32 features
+   against the checkpoint's model's (HF_ATOL).
 11. parallel: multi-GPU training (mirage_tpu_torch/parallel, train/steps.py
    sharded steps). (a) One process, NCCL, world 1: phase 5's pretraining
    step (ViT-B, batch 256, bf16) with injected masks under dp (DDP), fsdp
@@ -145,6 +150,24 @@ Phases, each of which must pass (any failure exits non-zero):
    the GEMM, B1, B2 and B3 at a serving replica's batch 32, against their
    plain versions (phase 2's bars), timed beside them, the library and the
    bound.
+13. vit: the baseline ViT classifiers (mirage_tpu_torch/models/vit.py) at
+   ViT-L/16 width (1024 wide, 24 layers, 16 heads; ImageNet-normalised RGB
+   at 224² -> 197 tokens) from a seeded timm-keyed 224-grid checkpoint
+   named vit_large, on a seeded RGB class folder. (a) run_cls_tuning.main
+   at batch 64: two full fine-tune steps, a validation and a test pass,
+   --eval and --save_predictions, then the same as a linear probe, with
+   exact launches. (b) The bare step three ways (default switches: B6,
+   B2, B5; the switches on: B7-MLP and B11 over 98 leaves; the linear
+   probe: B1 + B2), each against the plain step with exact launches
+   (VIT_PER_STEP), ms a step, peak memory and a profile; the eval forward
+   against the plain path under MIRAGE_BLOCK_FUSE=off (B1 + B2) and all
+   (B10). (c) At 512² from the 224-grid checkpoint (pos_embed resized,
+   1025 tokens): the eval forward at batch 64 and a full fine-tune step at
+   batch 16 through B8, against the plain path, with exact launches, ms a
+   step, peak memory and a profile. (d) B1, B2, B6 forward and backward,
+   B5 and B10 at (64, 197, 1024) and B8 at (16, 16, 1025, 64) against
+   their plain versions (phase 2's bars). (e) The ViT-B/16 eval forward at
+   batch 64 against the plain path.
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -2409,63 +2432,66 @@ def stash_split(x2, prm, label):
     return split
 
 
-def phase_seg_kernels(results):
-    """B8 (flash attention) and B9 (the stash MLP pair) at the
-    segmentation shapes and B8 at the three-modality cross-attention shape,
-    forward and backward, against their plain versions in float32 from the
-    same bf16 inputs; float32 checks at smaller shapes. Adds rows to
-    ``results``."""
+def _check_outputs(name, label, got, want, fwd, f32=False):
+    """Each output against its plain version: float32 within F32_ATOL of
+    its scale, a bf16 forward within BF16_MAX_ABS and BF16_REL_L2, a bf16
+    backward within BWD_REL_L2 and BWD_REL_MAX; name -> errors."""
+    import torch
+
+    errs = {}
+    for key, g, w in zip(name, got, want):
+        diff = g.float() - w.float()
+        errs[key] = {"max_abs": diff.abs().max().item(),
+                     "rel_max": (diff.abs().max()
+                                 / w.abs().max()).item(),
+                     "rel_l2": (diff.norm() / w.norm()).item()}
+        e = errs[key]
+        if f32:
+            ok = e["max_abs"] <= F32_ATOL * max(1.0, w.abs().max().item())
+        elif fwd:
+            ok = e["max_abs"] <= BF16_MAX_ABS and \
+                e["rel_l2"] <= BF16_REL_L2
+        else:
+            ok = e["rel_l2"] <= BWD_REL_L2 and e["rel_max"] <= BWD_REL_MAX
+        if not (ok and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{label} {key}: kernel disagrees with "
+                                 f"its plain version: {e}")
+    return errs
+
+
+def _op_row(label, shape, errs, kernel_ms, plain_ms, library_ms, work,
+            per_step, **extra):
+    """A timed row of a checked op, logged."""
+    flops, nbytes = work
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    r = {"label": label, "shape": list(shape), "dtype": "bf16",
+         "errors": errs,
+         "max_abs_err": max(e["max_abs"] for e in errs.values()),
+         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "calls_per_step": per_step, **extra}
+    log(f"[kernels] {label} {shape}: worst rel_l2 "
+        f"{max(e['rel_l2'] for e in errs.values()):.3e} max_abs "
+        f"{r['max_abs_err']:.3e} kernel {kernel_ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return r
+
+
+def flash_op_rows(cases, gen, results):
+    """B8 (flash attention), forward and backward, at ``cases`` ((label,
+    shape: (b, h, n, dh) self or (b, h, nq, nk, dh) cross, calls a step on
+    its path)) against its plain version in float32 from the same bf16
+    inputs, the log-sum-exp within LSE_ATOL, the backward rerun bit for
+    bit; timed beside the plain version, the library and SDPA's backward
+    alone. Adds rows to ``results``."""
     import torch
 
     from mirage_tpu_torch.ops import flash_attention as fa
-    from mirage_tpu_torch.ops import fused_mlp as fm
     from mirage_tpu_torch.ops import runtime
 
-    gen = torch.Generator().manual_seed(SEED + 2)
-
-    def check(name, label, got, want, fwd, f32=False):
-        errs = {}
-        for key, g, w in zip(name, got, want):
-            diff = g.float() - w.float()
-            errs[key] = {"max_abs": diff.abs().max().item(),
-                         "rel_max": (diff.abs().max()
-                                     / w.abs().max()).item(),
-                         "rel_l2": (diff.norm() / w.norm()).item()}
-            e = errs[key]
-            if f32:
-                ok = e["max_abs"] <= F32_ATOL * max(1.0, w.abs().max().item())
-            elif fwd:
-                ok = e["max_abs"] <= BF16_MAX_ABS and \
-                    e["rel_l2"] <= BF16_REL_L2
-            else:
-                ok = e["rel_l2"] <= BWD_REL_L2 and e["rel_max"] <= BWD_REL_MAX
-            if not (ok and bool(torch.isfinite(g).all())):
-                raise AssertionError(f"{label} {key}: kernel disagrees with "
-                                     f"its plain version: {e}")
-        return errs
-
-    def row(label, shape, errs, kernel_ms, plain_ms, library_ms, work,
-            per_step, **extra):
-        flops, nbytes = work
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        r = {"label": label, "shape": list(shape), "dtype": "bf16",
-             "errors": errs,
-             "max_abs_err": max(e["max_abs"] for e in errs.values()),
-             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-             "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "calls_per_step": per_step, **extra}
-        log(f"[kernels] {label} {shape}: worst rel_l2 "
-            f"{max(e['rel_l2'] for e in errs.values()):.3e} max_abs "
-            f"{r['max_abs_err']:.3e} kernel {kernel_ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-        return r
-
-    # B8: (label, shape, calls per seg train step)
-    for label, shape, per_step in [
-            ("encoder self-attention", (4, 12, 1025, 64), 12),
-            ("decoder cross-attention", (64, 8, 256, 769, 32), 0)]:
+    for label, shape, per_step in cases:
         (q_src, kv_src, h, scale), dy = _flash_inputs(shape, torch.bfloat16,
                                                       gen)
         out, lse = fa._flash_fwd(q_src, kv_src, h, scale)
@@ -2481,8 +2507,8 @@ def phase_seg_kernels(results):
             want = fa._flash_fwd(f32[0], f32[1], h, scale)[0]
             want_g = fa._flash_bwd(f32[0], f32[1], None, dy.float(), h, scale)
         names = ["dqkv"] if kv_src is None else ["dq", "dkv"]
-        errs_f = check(["out"], f"flash_attention {label}", [out], [want],
-                       True)
+        errs_f = _check_outputs(["out"], f"flash_attention {label}", [out],
+                                [want], True)
         # the log-sum-exp the backward reads, in log2 units
         d = q_src.shape[-1] // (3 if kv_src is None else 1)
         qw = q_src[..., :d]
@@ -2503,9 +2529,9 @@ def phase_seg_kernels(results):
             raise AssertionError(f"flash_attention {label}: lse max_abs "
                                  f"{lse_err} > {LSE_ATOL}")
         del s, want_lse
-        errs_b = check(names, f"flash_attention_bwd {label}",
-                       [g for g in grads if g is not None],
-                       [w for w in want_g if w is not None], False)
+        errs_b = _check_outputs(names, f"flash_attention_bwd {label}",
+                                [g for g in grads if g is not None],
+                                [w for w in want_g if w is not None], False)
         del out, grads, want, want_g, f32
         k_f = cuda_ms(lambda: fa._flash_fwd(q_src, kv_src, h, scale), iters=10)
         k_b = cuda_ms(lambda: fa._flash_bwd(q_src, kv_src, lse, dy, h, scale),
@@ -2522,15 +2548,36 @@ def phase_seg_kernels(results):
                          iters=10)
         shape5 = shape if len(shape) == 5 else shape[:3] + shape[2:]
         results.setdefault("flash_attention", []).append(
-            row(f"flash_attention {label}", shape, errs_f, k_f, p_f, l_f,
-                _flash_work(shape5, 2, False), per_step))
+            _op_row(f"flash_attention {label}", shape, errs_f, k_f, p_f,
+                    l_f, _flash_work(shape5, 2, False), per_step))
         results.setdefault("flash_attention_bwd", []).append(
-            row(f"flash_attention_bwd {label}", shape, errs_b, k_b, p_b, l_b,
-                _flash_work(shape5, 2, True), per_step,
-                rerun_bit_identical=True, sdpa_bwd_ms=sdpa_b))
+            _op_row(f"flash_attention_bwd {label}", shape, errs_b, k_b, p_b,
+                    l_b, _flash_work(shape5, 2, True), per_step,
+                    rerun_bit_identical=True, sdpa_bwd_ms=sdpa_b))
         log(f"[kernels] flash_attention_bwd {label}: rerun bit-identical; "
             f"SDPA bwd alone {sdpa_b:.4f} ms")
         del q_src, kv_src, dy, lse
+    return results
+
+
+def phase_seg_kernels(results):
+    """B8 (flash attention) and B9 (the stash MLP pair) at the
+    segmentation shapes and B8 at the three-modality cross-attention shape,
+    forward and backward, against their plain versions in float32 from the
+    same bf16 inputs; float32 checks at smaller shapes. Adds rows to
+    ``results``."""
+    import torch
+
+    from mirage_tpu_torch.ops import flash_attention as fa
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    # B8: (label, shape, calls per seg train step)
+    flash_op_rows([("encoder self-attention", (4, 12, 1025, 64), 12),
+                   ("decoder cross-attention", (64, 8, 256, 769, 32), 0)],
+                  gen, results)
 
     # the bf16 attention backward alone at B8's shapes: 12 a seg step
     results["flash_bwd"] = attention_bwd_core_rows(_rows_of(
@@ -2558,10 +2605,11 @@ def phase_seg_kernels(results):
         want_g = fm.mlp_block_bwd_stash_ref(
             x2.float(), dy.float(), act.float(), dg.float(), pf[0], pf[1],
             pf[2], pf[4])
-    errs_f = check(["out", "act", "dgelu"], "mlp_block_stash",
-                   [out, act, dg], want, True)
-    errs_b = check(["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"],
-                   "mlp_block_stash_bwd", grads, want_g, False)
+    errs_f = _check_outputs(["out", "act", "dgelu"], "mlp_block_stash",
+                            [out, act, dg], want, True)
+    errs_b = _check_outputs(["dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                             "db2"], "mlp_block_stash_bwd", grads, want_g,
+                            False)
     del grads, want, want_g, pf
     k_f = cuda_ms(lambda: fm._mlp_fwd_stash(x2, *prm), iters=10)
     k_b = cuda_ms(lambda: fm._mlp_bwd_stash(x2, dy, act, dg, prm[0], prm[1],
@@ -2576,11 +2624,12 @@ def phase_seg_kernels(results):
     l_b = cuda_ms(lambda: lib_b(dy, x2, *prm), iters=10)
     split = stash_split(x2, prm, "mlp_block_stash ConvNeXt head")
     results.setdefault("mlp_block_stash", []).append(
-        row("mlp_block_stash ConvNeXt head", (m, d, 4 * d), errs_f, k_f, p_f,
-            l_f, _stash_work(m, d, 2, False), 4, split_ms=split))
+        _op_row("mlp_block_stash ConvNeXt head", (m, d, 4 * d), errs_f,
+                k_f, p_f, l_f, _stash_work(m, d, 2, False), 4,
+                split_ms=split))
     results.setdefault("mlp_block_stash_bwd", []).append(
-        row("mlp_block_stash_bwd ConvNeXt head", (m, d, 4 * d), errs_b, k_b,
-            p_b, l_b, _stash_work(m, d, 2, True), 4))
+        _op_row("mlp_block_stash_bwd ConvNeXt head", (m, d, 4 * d), errs_b,
+                k_b, p_b, l_b, _stash_work(m, d, 2, True), 4))
     del args, x2, prm, dy, out, act, dg
 
     # float32: B8 self and cross, B9 at 2048 rows
@@ -2594,9 +2643,10 @@ def phase_seg_kernels(results):
             want = fa._flash_fwd(q_src, kv_src, h, scale)[0]
             want_g = [g for g in fa._flash_bwd(q_src, kv_src, None, dy, h,
                                                scale) if g is not None]
-        errs = check(["out"] + [f"grad{i}" for i in range(len(grads))],
-                     f"flash_attention float32 {shape}", [out] + grads,
-                     [want] + want_g, True, f32=True)
+        errs = _check_outputs(
+            ["out"] + [f"grad{i}" for i in range(len(grads))],
+            f"flash_attention float32 {shape}", [out] + grads,
+            [want] + want_g, True, f32=True)
         err = max(e["max_abs"] for e in errs.values())
         log(f"[kernels] flash_attention float32 {shape}: max_abs {err:.3e}")
         results["flash_attention"].append(
@@ -2612,9 +2662,9 @@ def phase_seg_kernels(results):
         want = fm.mlp_block_fwd_stash_ref(x2, *prm)
         want_g = fm.mlp_block_bwd_stash_ref(x2, dy, got[1], got[2], prm[0],
                                             prm[1], prm[2], prm[4])
-    errs = check([f"out{i}" for i in range(10)], "mlp_block_stash float32",
-                 list(got) + list(got_g), list(want) + list(want_g), True,
-                 f32=True)
+    errs = _check_outputs([f"out{i}" for i in range(10)],
+                          "mlp_block_stash float32", list(got) + list(got_g),
+                          list(want) + list(want_g), True, f32=True)
     err = max(e["max_abs"] for e in errs.values())
     log(f"[kernels] mlp_block_stash float32 (2048, 384): max_abs {err:.3e}")
     results["mlp_block_stash"].append(
@@ -2916,21 +2966,42 @@ def _quant_library(x, lw, lb, w1q, s1, b1, w2q, s2, b2):
     return (x2 + o.to(x.dtype)).view(x.shape)
 
 
-def phase_serve_kernels(results):
-    """B10 (the one-launch whole block) at the decoder and MIRAGE-Large
-    encoder shapes in bf16 (beside B1 + B2 on the same inputs, with a rerun
-    bit for bit and a sweep of the plan's GEMM tile width) and one float32
-    case, B12 (the int8 MLP) at the
-    encoder's (64, 257, 1024) and (16384, 1024) rows with bit-identical
-    reruns, and B9′ (the 3-D stash forward) at the pretraining (256, 99,
-    768), out bit-equal to B2's; each against its plain version, with
-    kernel, plain and library ms and the bound. Adds rows to ``results``.
-    B12 and B9′ have no caller in either package: their launches are those
-    of their own timed calls."""
+def _block_inputs(shape, dtype, gen):
+    """B10's operands at (b, n, d, heads): B1's then B2's, one LN each."""
+    attn = _op_inputs("attn_half_block", shape, dtype, gen)
+    mlp = _op_inputs("mlp_block", shape[:3], dtype, gen)
+    return attn[:7] + mlp[1:] + (shape[3],)
+
+
+def _fused_tile_sweep(args):
+    """ms of B10 at each GEMM tile width of its plan (128, 256; the op
+    takes ``fused_block.TILE_N``), each output within the bf16 bars of the
+    op's."""
+    from mirage_tpu_torch.ops.fused_block import (fused_block,
+                                                  fused_block_launch)
+
+    x, *prm, heads = args
+    ref, out = fused_block(*args), {}
+    for tn in (128, 256):
+        got = fused_block_launch(x, *prm, heads, tile_n=tn)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= BF16_MAX_ABS:
+            raise AssertionError(f"fused_block: tile_n {tn} moves the "
+                                 f"output by {err}")
+        out[tn] = cuda_ms(lambda: fused_block_launch(x, *prm, heads,
+                                                     tile_n=tn), iters=5)
+    return out
+
+
+def fused_block_rows(cases, gen, results):
+    """B10 (the one-launch whole block) in bf16 at ``cases`` ((label,
+    shape, calls a forward)) against its plain version in float32 from the
+    same inputs, beside B1 + B2 on the same inputs, with a rerun bit for
+    bit, a sweep of the plan's GEMM tile width and µs by stage; timed
+    beside the plain version, the library and the bound. Adds rows to
+    ``results``."""
     import torch
 
-    from mirage_tpu_torch.ops import fused_mlp as fm
-    from mirage_tpu_torch.ops import quant as q
     from mirage_tpu_torch.ops import runtime
     from mirage_tpu_torch.ops.block_attention import attn_half_block
     from mirage_tpu_torch.ops.fused_block import (fused_block,
@@ -2939,44 +3010,18 @@ def phase_serve_kernels(results):
                                                   fused_block_ref, stage_us)
     from mirage_tpu_torch.ops.fused_mlp import mlp_block
 
-    gen = torch.Generator().manual_seed(SEED + 4)
-
-    def block_inputs(shape, dtype):
-        attn = _op_inputs("attn_half_block", shape, dtype, gen)
-        mlp = _op_inputs("mlp_block", shape[:3], dtype, gen)
-        return attn[:7] + mlp[1:] + (shape[3],)
-
     lib_attn, lib_mlp = _library("attn_half_block"), _library("mlp_block")
 
     def library(*a):
         return lib_mlp(lib_attn(*a[:7], a[-1]), *a[7:13])
-
-    def tile_sweep(args):
-        """ms of the kernel at each GEMM tile width of its plan (128, 256;
-        the op takes ``fused_block.TILE_N``), each output within the bf16
-        bars of the op's."""
-        x, *prm, heads = args
-        ref, out = fused_block(*args), {}
-        for tn in (128, 256):
-            got = fused_block_launch(x, *prm, heads, tile_n=tn)
-            err = (got.float() - ref.float()).abs().max().item()
-            if not err <= BF16_MAX_ABS:
-                raise AssertionError(f"fused_block: tile_n {tn} moves the "
-                                     f"output by {err}")
-            out[tn] = cuda_ms(lambda: fused_block_launch(x, *prm, heads,
-                                                         tile_n=tn), iters=5)
-        return out
 
     def halves(*a):
         """B1 then B2 (the unfused route, seven launches) on the same
         inputs: what the one launch competes with."""
         return mlp_block(attn_half_block(*a[:7], a[-1]), *a[7:13])
 
-    # B10: (label, shape, calls per reconstruct forward under
-    # MIRAGE_BLOCK_FUSE=all)
-    for label, shape, per_fwd in [("decoder", (BATCH, 256, 256, 8), 6),
-                                  ("encoder", (BATCH, 257, 1024, 16), 24)]:
-        args = block_inputs(shape, torch.bfloat16)
+    for label, shape, per_fwd in cases:
+        args = _block_inputs(shape, torch.bfloat16, gen)
         got = fused_block(*args)
         torch.cuda.synchronize()
         with runtime.plain_on_card():
@@ -2999,7 +3044,7 @@ def phase_serve_kernels(results):
         launches = attn_half_block.launches, mlp_block.launches
         halves_ms = cuda_ms(lambda: halves(*args), iters=10)
         attn_half_block.launches, mlp_block.launches = launches
-        sweep = tile_sweep(args)
+        sweep = _fused_tile_sweep(args)
         flops, nbytes = _block_work(shape, 2)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         x = args[0]
@@ -3033,9 +3078,36 @@ def phase_serve_kernels(results):
                                            for k, v in stages.items()}))
         results.setdefault("fused_block", []).append(row)
         del args
+    return results
+
+
+def phase_serve_kernels(results):
+    """B10 (the one-launch whole block) at the decoder and MIRAGE-Large
+    encoder shapes in bf16 (:func:`fused_block_rows`) and one float32
+    case, B12 (the int8 MLP) at the
+    encoder's (64, 257, 1024) and (16384, 1024) rows with bit-identical
+    reruns, and B9′ (the 3-D stash forward) at the pretraining (256, 99,
+    768), out bit-equal to B2's; each against its plain version, with
+    kernel, plain and library ms and the bound. Adds rows to ``results``.
+    B12 and B9′ have no caller in either package: their launches are those
+    of their own timed calls."""
+    import torch
+
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import quant as q
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_block import fused_block, fused_block_ref
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    lib_mlp = _library("mlp_block")
+
+    # B10: (label, shape, calls per reconstruct forward under
+    # MIRAGE_BLOCK_FUSE=all)
+    fused_block_rows([("decoder", (BATCH, 256, 256, 8), 6),
+                      ("encoder", (BATCH, 257, 1024, 16), 24)], gen, results)
     # one MIRAGE-Base block at batch 1 (the golden's shape) in bf16: the
     # whole grid on one batch element's 257 rows
-    args = block_inputs((1, 257, 768, 12), torch.bfloat16)
+    args = _block_inputs((1, 257, 768, 12), torch.bfloat16, gen)
     got = fused_block(*args)
     with runtime.plain_on_card():
         want = fused_block_ref(*[a.float() if torch.is_tensor(a) else a
@@ -3047,7 +3119,7 @@ def phase_serve_kernels(results):
             and bool(torch.isfinite(got).all())):
         raise AssertionError(f"fused_block batch 1: max_abs {max_abs}, "
                              f"rel_l2 {rel_l2}")
-    sweep = tile_sweep(args)
+    sweep = _fused_tile_sweep(args)
     log(f"[kernels] fused_block (1, 257, 768, 12) bf16: max_abs "
         f"{max_abs:.3e} rel_l2 {rel_l2:.3e}; ms by GEMM tile width {sweep}")
     results["fused_block"].append({"label": "batch-1 tile sweep",
@@ -3055,7 +3127,7 @@ def phase_serve_kernels(results):
                                    "dtype": "bf16", "max_abs_err": max_abs,
                                    "rel_l2_err": rel_l2,
                                    "ms_by_tile_n": sweep})
-    args = block_inputs((2, 257, 1024, 16), torch.float32)
+    args = _block_inputs((2, 257, 1024, 16), torch.float32, gen)
     got = fused_block(*args)
     with runtime.plain_on_card():
         want = fused_block_ref(*args)
@@ -4311,10 +4383,11 @@ CLS_PER_STEP_ON = {**CLS_PER_STEP, "mlp_block_bwd": 0,
 CLS_PER_EVAL = {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}
 
 
-def _cls_dataset(root, rng):
-    """Seeded non-square uint8 B-scans (496 × 768, the shape of a common
-    OCT export) in the class-folder layout, a per-class brightness offset
-    so that the classes differ."""
+def _cls_dataset(root, rng, shape=(496, 768)):
+    """Seeded non-square uint8 images of ``shape`` (by default B-scans of
+    496 × 768, the shape of a common OCT export; (H, W, 3) for RGB) in the
+    class-folder layout, a per-class brightness offset so that the classes
+    differ."""
     import numpy as np
 
     for split, n in CLS_SPLITS.items():
@@ -4322,7 +4395,7 @@ def _cls_dataset(root, rng):
             d = root / split / c
             d.mkdir(parents=True, exist_ok=True)
             for i in range(n):
-                img = rng.random((496, 768), dtype=np.float32) * 160 + 40 * k
+                img = rng.random(shape, dtype=np.float32) * 160 + 40 * k
                 np.save(d / f"{c}_{i:03d}.npy", img.astype(np.uint8))
 
 
@@ -4340,11 +4413,6 @@ def phase_cls(workdir, card):
 
     from mirage_tpu_torch.api.wrapper import build_model as build_pretrain
     from mirage_tpu_torch.cli import run_cls_tuning as rct
-    from mirage_tpu_torch.cli.config import parse_with_yaml
-    from mirage_tpu_torch.data.folder import ImageFolder
-    from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
-    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
 
     counters = _launch_counters()
 
@@ -4401,15 +4469,41 @@ def phase_cls(workdir, card):
                              f"{want_cli}")
 
     # 2. the bare step, built as the entry point builds it
+    results = bare_cls_steps("cls", argv, [
+        ("full fine-tune", [], {}, CLS_PER_STEP, 0),
+        ("full fine-tune, switches on", [], SWITCHES_ON, CLS_PER_STEP_ON, 49),
+        ("linear probe", ["--linear_probing"], {},
+         {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}, 0)],
+        reset, read, card)
+    return {"batch": CLS_BATCH, "cli": dict(stats), "cli_seconds": cli_s,
+            "cli_counts": cli_counts, "steps": results, "card": card}
+
+
+def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
+                   steps=CLS_STEPS):
+    """The classification tuning step at ``batch_size``, built as
+    run_cls_tuning's ``setup`` builds it from ``argv``, each of ``ways``
+    ((way, extra flags, switches, launches a step, B11 leaves)): one
+    forward and backward against the plain path on the card (phase 5's
+    bars) with exact launches, one step changing every trainable tensor (the
+    head's alone under linear probing), then ``steps`` timed steps with
+    exact launches, the peak memory and one step under torch.profiler. A
+    way without switches builds its model; one with switches reuses the
+    previous way's. Returns way -> results."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.cli import run_cls_tuning as rct
+    from mirage_tpu_torch.cli.config import parse_with_yaml
+    from mirage_tpu_torch.data.folder import ImageFolder
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
+    from mirage_tpu_torch.train.steps import init_train_state, make_train_step
+
     ds = None
     results = {}
-    for way, extra, switches, per_step in (
-            ("full fine-tune", [], {}, CLS_PER_STEP),
-            ("full fine-tune, switches on", [], SWITCHES_ON,
-             CLS_PER_STEP_ON),
-            ("linear probe", ["--linear_probing"], {},
-             {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12})):
-        if not switches:  # the switches-on way reuses the fine-tune model
+    for way, extra, switches, per_step, want_leaves in ways:
+        if not switches:  # the switches-on way reuses the previous model
             args = rct.process_args(parse_with_yaml(rct.get_parser(),
                                                     argv + extra))
             fm, model, opt, loss_fn = rct.setup(args, torch.device("cuda"))
@@ -4421,11 +4515,11 @@ def phase_cls(workdir, card):
                                  train=True, input_size=args.input_size,
                                  fill=args.fill))
             items = [ds[(i, np.random.default_rng(i))]
-                     for i in range(CLS_BATCH)]
+                     for i in range(batch_size)]
             batch = {"images": torch.from_numpy(np.stack(
                          [it[0] for it in items])).cuda(),
                      "targets": torch.tensor([it[1] for it in items]).cuda(),
-                     "weights": torch.ones(CLS_BATCH, device="cuda")}
+                     "weights": torch.ones(batch_size, device="cuda")}
         names = [n for n, p in state["params"].items() if p.requires_grad]
 
         def loss_and_grads():
@@ -4442,12 +4536,12 @@ def phase_cls(workdir, card):
                 loss_p, grads_p = loss_and_grads()
             agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
             del grads_k, grads_p
-            log(f"[cls] {way}: one step, kernel path vs plain path (bf16, "
+            log(f"[{tag}] {way}: one step, kernel path vs plain path (bf16, "
                 f"card): {agree}")
-            _check_agreement(f"cls {way}", agree)
+            _check_agreement(f"{tag} {way}", agree)
             want_pass = {**per_step, "fused_adamw": 0}
             if one_pass != want_pass:
-                raise AssertionError(f"cls {way}: launches in one forward+"
+                raise AssertionError(f"{tag} {way}: launches in one forward+"
                                      f"backward {one_pass} != {want_pass}")
             before = {n: p.detach().clone() for n, p in
                       state["params"].items()}
@@ -4461,43 +4555,42 @@ def phase_cls(workdir, card):
             reset()
             t2 = time.perf_counter()
             metrics = []
-            for _ in range(CLS_STEPS):
+            for _ in range(steps):
                 state, m = step(state, batch, None, lr)
                 metrics.append(m["loss"])
             torch.cuda.synchronize()
-            dt = (time.perf_counter() - t2) / CLS_STEPS
+            dt = (time.perf_counter() - t2) / steps
             counts = read()
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             prof = profile_forward(lambda: step(state, batch, None, lr),
                                    top_n=20)
         losses = [v.item() for v in metrics]
-        expected = {k: v * CLS_STEPS for k, v in per_step.items()}
+        expected = {k: v * steps for k, v in per_step.items()}
         leaves = fused_adamw.last_routed_count if switches else 0
-        want_leaves = 49 if switches else 0
-        log(f"[cls] {way}: {CLS_STEPS} steps, launches {counts}, expected "
+        log(f"[{tag}] {way}: {steps} steps, launches {counts}, expected "
             f"{expected}; B11 leaves {leaves}, expected {want_leaves}; "
             f"losses {losses}; {dt * 1e3:.2f} ms/step, "
-            f"{CLS_BATCH / dt:.1f} img/s, peak memory {peak:.2f} GiB, on "
+            f"{batch_size / dt:.1f} img/s, peak memory {peak:.2f} GiB, on "
             f"{card}; one step under torch.profiler: "
             f"{prof if prof else 'no device kernels seen (not measured)'}")
         if counts != expected or leaves != want_leaves \
                 or not all(np.isfinite(losses)):
-            raise AssertionError(f"cls {way}: launches {counts}, leaves "
+            raise AssertionError(f"{tag} {way}: launches {counts}, leaves "
                                  f"{leaves}, losses {losses}")
         if "--linear_probing" in extra and changed != ["head.bias",
                                                         "head.weight"]:
-            raise AssertionError(f"linear probe changed {changed}")
+            raise AssertionError(f"{tag} linear probe changed {changed}")
         if "--linear_probing" not in extra and len(changed) != len(names):
-            raise AssertionError(f"full fine-tune changed {len(changed)} of "
-                                 f"{len(names)} trainable tensors")
+            raise AssertionError(f"{tag} full fine-tune changed "
+                                 f"{len(changed)} of {len(names)} trainable "
+                                 f"tensors")
         results[way] = {"agreement": agree, "counts": counts,
                         "one_pass": one_pass, "b11_leaves": leaves,
                         "ms_per_step": dt * 1e3,
-                        "img_per_s": CLS_BATCH / dt, "peak_gib": peak,
+                        "img_per_s": batch_size / dt, "peak_gib": peak,
                         "losses": losses, "changed_tensors": len(changed),
                         "profile": prof}
-    return {"batch": CLS_BATCH, "cli": dict(stats), "cli_seconds": cli_s,
-            "cli_counts": cli_counts, "steps": results, "card": card}
+    return results
 
 
 # ------------------------------------------------------------------ phase 8
@@ -4518,10 +4611,11 @@ def phase_infer(workdir, card, path):
     import torch
 
     from mirage_tpu_torch import hf
-    from mirage_tpu_torch.api.convert import (load_torch_checkpoint,
+    from mirage_tpu_torch.api.convert import (load_safetensors,
+                                              load_torch_checkpoint,
                                               save_safetensors)
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
-    from mirage_tpu_torch.cli import infer
+    from mirage_tpu_torch.cli import hf_push, infer
 
     root = workdir / "infer"
     shutil.rmtree(root, ignore_errors=True)
@@ -4598,9 +4692,39 @@ def phase_infer(workdir, card, path):
                                                               1024):
         raise AssertionError(f"hf / safetensors features: max_abs {hf_err}, "
                              f"bit-equal {same}")
+
+    # cli/hf_push: push the weights (encoder only), load them back on the
+    # card; the pushed tensors bit-equal to the checkpoint's, the features
+    # bit-equal to hf.py's from the .pth
+    push_dir = root / "MIRAGE-Large"
+    t2 = time.perf_counter()
+    hf_push.main(["-t", "push", "-s", "large", "--weights", str(path),
+                  "--path", str(push_dir)])
+    pushed = load_safetensors(str(push_dir / "model.safetensors"))
+    source = {k: v for k, v in load_torch_checkpoint(str(path))["model"]
+              .items() if "output_adapters" not in k}
+    push_same = sorted(pushed) == sorted(source) and all(
+        torch.equal(pushed[k], source[k]) for k in source)
+    f_push = hf_push.main(["-t", "load", "-s", "large", "--path",
+                           str(push_dir), "--device", "cuda"])
+    zeros = np.zeros((1, 1, 512, 512), np.float32)
+    f_src = hf.MIRAGEWrapper.from_pretrained(str(path), size="large")(
+        {"bscan": zeros, "slo": zeros})
+    torch.cuda.synchronize()
+    push_s = time.perf_counter() - t2
+    load_same = f_push.is_cuda and torch.equal(f_push, f_src)
+    log(f"[infer] hf_push push + load in {push_s:.1f}s: {len(pushed)} "
+        f"tensors bit-equal to the checkpoint's encoder {push_same}; load's "
+        f"features {tuple(f_push.shape)} on {f_push.device} bit-equal to "
+        f"hf.py's from the .pth {load_same}")
+    if not (push_same and load_same
+            and tuple(f_push.shape) == (1, 513, 1024)):
+        raise AssertionError(f"hf_push: tensors equal {push_same}, features "
+                             f"equal {load_same}")
     return {"cli_seconds": cli_s, "pngs": pngs, "features_max_abs": feat_err,
             "hf_vs_wrapper_max_abs": hf_err, "features_max": scale,
-            "safetensors_bit_equal_to_pth": same, "load_seconds": load_s}
+            "safetensors_bit_equal_to_pth": same, "load_seconds": load_s,
+            "hf_push_seconds": push_s}
 
 
 # ------------------------------------------------------------------ phase 9
@@ -4954,8 +5078,10 @@ def phase_pretrain(workdir, card, bare=None):
     import numpy as np
     import torch
 
+    from mirage_tpu_torch import hf
     from mirage_tpu_torch.api.convert import (load_torch_checkpoint,
                                               rename_keys)
+    from mirage_tpu_torch.cli import hf_push
     from mirage_tpu_torch.cli import run_pretraining as rp
     from mirage_tpu_torch.cli.config import parse_with_yaml
     from mirage_tpu_torch.data.augment import PretrainAugment
@@ -5032,6 +5158,41 @@ def phase_pretrain(workdir, card, bare=None):
                              f"{runs[2]['log']}")
     if not all(np.isfinite(v) for r in rows for v in r.values()):
         raise AssertionError(f"non-finite metrics in log.txt: {rows}")
+
+    # cli/hf_push -t export of checkpoint-1 (the model rebuilt from its
+    # meta.json), read by hf.py on the card: its float32 features against
+    # the checkpoint's model's own (the port's kernels, float32)
+    t5 = time.perf_counter()
+    export = hf_push.main(["-t", "export", "--weights",
+                           str(out / "checkpoint-1"),
+                           "--path", str(root / "hf" / "model.safetensors")])
+    export_s = time.perf_counter() - t5
+    f32_args = rp.process_args(parse_with_yaml(
+        rp.get_parser(), argv + ["--dtype", "float32"]))
+    ck_model = rp.build_model(f32_args)
+    ck_model.load_state_dict(torch.load(
+        out / "checkpoint-1" / "checkpoint.pth", map_location="cpu",
+        weights_only=False)["params"], strict=True)
+    ck_model = ck_model.cuda()
+    reader = hf.MIRAGEWrapper.from_pretrained(
+        str(root / "hf"), size="base", modalities="bscan-slo",
+        input_size=512, patch_size=32)
+    xrng = np.random.default_rng(SEED + 5)
+    x = {d: xrng.random((8, 1, 512, 512), dtype=np.float32)
+         for d in ("bscan", "slo")}
+    with torch.no_grad():
+        want_f = ck_model.features({d: torch.from_numpy(v).cuda()
+                                    for d, v in x.items()})
+    got_f = reader(x)
+    export_err = (got_f - want_f).abs().max().item()
+    log(f"[pretrain] hf_push -t export of checkpoint-1 in {export_s:.1f}s "
+        f"-> {export}; hf.py's batch-8 float32 features {tuple(got_f.shape)} "
+        f"against the checkpoint's model's: max_abs {export_err:.3e} "
+        f"(features up to {want_f.abs().max().item():.2f}; bar {HF_ATOL})")
+    if not export_err <= HF_ATOL or got_f.shape != want_f.shape:
+        raise AssertionError(f"hf_push export: features differ by "
+                             f"{export_err}")
+    del ck_model, reader, got_f, want_f
 
     # 2. the model, optimizer and loss as main builds them; the warm start
     args = rp.process_args(parse_with_yaml(rp.get_parser(), cli_argv))
@@ -5180,7 +5341,7 @@ def phase_pretrain(workdir, card, bare=None):
         f"{timing['bare_step_ms']} ms; on {card}")
     return {"runs": runs, "debug_counts": debug, "per_step": per_steps(1),
             "losses": losses, "loss_space_rel": rel, "memory": memory,
-            "timing": timing, "card": card}
+            "timing": timing, "export_max_abs": export_err, "card": card}
 
 
 # --------------------------------------------------------------------- main
@@ -6467,6 +6628,351 @@ def _pipeline_entries(pipe):
         e["name"] += " [serving mesh]"
     return entries + serve_entries
 
+# ----------------------------------------------------------------- phase 13
+
+VIT_BATCH_512 = 16  # the full fine-tune step at 512² (1025 tokens)
+VIT_STEPS_512 = 3  # timed steps at 512², after the compared one
+# the launches of the ViT-L/16 classifier (24 layers, 16 heads, 1024 wide)
+# at 224² (197 tokens; 197 = 3·64 + 5, a key tail of 5 issued 8 wide): a
+# full fine-tune step takes route (b) above 128 tokens (B6, the bf16
+# attention backward in each B6 backward, B2 / B5), the switches-on step B7
+# and B11, the linear probe's grad-free encoder and every eval forward the
+# fused halves B1 + B2 (MIRAGE_BLOCK_FUSE=all: B10 alone); at 512² (1025
+# tokens, above 512) B8 forward and backward with B2 / B5
+VIT_ZERO = {k: 0 for k in (*PER_STEP, "flash_attention",
+                           "flash_attention_bwd")}
+VIT_PER_STEP = {**VIT_ZERO, "block_attention": 24, "block_attention_bwd": 24,
+                "mlp_block": 24, "mlp_block_bwd": 24, "attention_bwd": 24}
+VIT_PER_STEP_ON = {**VIT_PER_STEP, "mlp_block_bwd": 0,
+                   "mlp_block_acc_bwd": 24, "fused_adamw": 1}
+VIT_PER_EVAL = {**VIT_ZERO, "attn_half_block": 24, "mlp_block": 24}
+VIT_PER_STEP_512 = {**VIT_ZERO, "flash_attention": 24,
+                    "flash_attention_bwd": 24, "flash_bwd": 24,
+                    "mlp_block": 24, "mlp_block_bwd": 24}
+VIT_PER_EVAL_512 = {**VIT_ZERO, "flash_attention": 24, "mlp_block": 24}
+VIT_B_PER_EVAL = {**VIT_ZERO, "attn_half_block": 12, "mlp_block": 12}
+# B11's leaves of a ViT-L step (at least 2^17 elements): qkv, proj, fc1 and
+# fc2 of 24 layers, pos_embed (197 × 1024) and the patch projection
+VIT_B11_LEAVES = 98
+
+
+def _vit_eval(tag, model, x, want_counts, reset, read, card, switches=None):
+    """One eval forward on the kernel path against the plain path on the
+    card (MODEL_REL_L2) with exact launches (``fused_block``: B10's, read
+    apart), then both timed."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.fused_block import fused_block
+
+    with torch.no_grad(), runtime.switched(switches or {}):
+        reset()
+        fused_before = fused_block.launches
+        got = model(x)
+        torch.cuda.synchronize()
+        counts = {**read(), "fused_block": fused_block.launches
+                  - fused_before}
+        with runtime.plain_on_card():
+            want = model(x)
+        rel = ((got - want).norm() / want.norm()).item()
+        ok = bool(torch.isfinite(got).all()) and rel <= MODEL_REL_L2
+        del got, want
+        ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: model(x), iters=2, warmup=1,
+                               repeats=1)
+    log(f"[vit] {tag}: logits rel_l2 {rel:.3e} against the plain path (bar "
+        f"{MODEL_REL_L2}); launches {counts}, expected {want_counts}; "
+        f"{ms:.2f} ms a forward (plain {plain_ms:.2f}), on {card}")
+    if not ok or counts != want_counts:
+        raise AssertionError(f"vit {tag}: rel_l2 {rel}, launches {counts}")
+    return {"rel_l2": rel, "counts": counts, "ms": ms, "plain_ms": plain_ms,
+            "img_per_s": x.shape[0] / ms * 1e3}
+
+
+def phase_vit(workdir, card):
+    """The baseline ViT classifiers (models/vit.py) through run_cls_tuning
+    at ViT-L/16 width (1024 wide, 24 layers, 16 heads; ImageNet-normalised
+    RGB at 224² -> 197 tokens), from a seeded timm-keyed 224-grid checkpoint
+    named vit_large (its 1000-class head replaced by a fresh 3-class one),
+    on a seeded RGB class folder. (a) The entry point at batch 64: two
+    full fine-tune steps, a validation pass and the test pass, then --eval
+    and --save_predictions; the same as a linear probe; exact launches.
+    (b) The bare step at batch 64 three ways (default switches, the
+    switches on, the linear probe) against the plain step (phase 7's
+    ``bare_cls_steps``); the eval forward under MIRAGE_BLOCK_FUSE=off and
+    all (B10) against the plain path. (c) At 512² from the 224-grid
+    checkpoint (pos_embed resized to 32²; 1025 tokens): the eval forward at
+    batch 64 and the full fine-tune step at batch 16, both through B8,
+    against the plain path, with exact launches, ms a step, peak memory and
+    a profile. (d) B1, B2, B6 forward and backward, B5 and B10 at (64, 197,
+    1024) and B8 at 1025 tokens against their plain versions (phase 2's
+    bars), timed beside the library and the bound. (e) The ViT-B/16 eval
+    forward at batch 64 against the plain path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.convert import interpolate_vit_pos_embed
+    from mirage_tpu_torch.api.fm_configs import ViTBaseClsFM, ViTLargeClsFM
+    from mirage_tpu_torch.cli import run_cls_tuning as rct
+    from mirage_tpu_torch.models.vit import vit_factory
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+    from mirage_tpu_torch.train.steps import (init_train_state, make_cls_loss,
+                                              make_train_step)
+
+    counters = _launch_counters()
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
+                if k in VIT_ZERO}
+
+    def times(per, n):
+        return {k: v * n for k, v in per.items()}
+
+    t0 = time.perf_counter()
+    root = workdir / "vit"
+    shutil.rmtree(root, ignore_errors=True)
+    _cls_dataset(root / "data" / "OCTID", np.random.default_rng(SEED),
+                 (256, 320, 3))
+    weights = root / "vit_large_patch16_224_seed0.pth"
+    sd = vit_factory["vit_large_patch16"](
+        num_classes=1000, device="cpu",
+        generator=torch.Generator().manual_seed(SEED)).state_dict()
+    torch.save(sd, weights)
+    log(f"[vit] RGB class folder and timm-keyed ViT-L/16 weights (224 grid, "
+        f"1000 classes, seed {SEED}) in {time.perf_counter() - t0:.1f}s")
+
+    # (a) the entry point: fine-tune and linear probe, then --eval and
+    # --save_predictions from each one's checkpoint-best
+    argv = ["--data_root", str(root / "data"), "--data_set", "OCTID",
+            "--weights", str(weights), "--device", "cuda", "--epochs", "1",
+            "--batch_size", str(CLS_BATCH), "--max_steps_per_epoch", "2",
+            "--output_dir", str(root / "out"), "--num_workers", "8",
+            "--seed", str(SEED)]
+    cli = {}
+    runs = root / "out" / "v1" / str(SEED) / "OCTID"
+    for way, extra, per_step, kind in (
+            ("full fine-tune", [], VIT_PER_STEP, "finetune"),
+            ("linear probe", ["--linear_probing"], VIT_PER_EVAL, "linear")):
+        reset()
+        t1 = time.perf_counter()
+        stats = rct.main(argv + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = read()
+        want = {k: 2 * per_step[k] + 2 * VIT_PER_EVAL[k] for k in VIT_ZERO}
+        run = next(p for p in runs.iterdir()
+                   if p.name.startswith(f"ViTLargeClsFM_{kind}_"))
+        rows = (run / "train_eval.csv").read_text().splitlines()
+        reset()
+        again = rct.main(argv + extra + ["--eval"])
+        eval_counts = read()
+        reset()
+        saved = rct.main(argv + extra + ["--save_predictions"])
+        pred_counts = read()
+        with np.load(run / "predictions.npz") as z:
+            probs = z["prediction_list"]
+        missing = [m for m in ("sklearn", "pandas", "jax", "mirage_tpu")
+                   if m in sys.modules]
+        log(f"[vit] run_cls_tuning {way} in {secs:.1f}s: {run.name}; test "
+            f"stats {dict(stats)}; train_eval.csv {rows}; launches {counts}, "
+            f"expected {want}; --eval bacc {again['bacc']}, launches "
+            f"{eval_counts}; --save_predictions {probs.shape}, launches "
+            f"{pred_counts}; imported of sklearn/pandas/jax/mirage_tpu: "
+            f"{missing}")
+        loss = float(rows[-1].split(",")[1])
+        if not (np.isfinite(loss) and len(rows) == 2
+                and (run / "checkpoint-best").is_dir()
+                and len((run / "valid_eval.csv").read_text().splitlines())
+                == 2 and (run / "test_eval.csv").is_file()) or missing:
+            raise AssertionError(f"vit {way}: loss {loss}, outputs of {run}")
+        if counts != want or eval_counts != VIT_PER_EVAL \
+                or pred_counts != VIT_PER_EVAL:
+            raise AssertionError(f"vit {way} launches: {counts}, --eval "
+                                 f"{eval_counts}, --save_predictions "
+                                 f"{pred_counts}")
+        if again["bacc"] != stats["bacc"] or saved is not None \
+                or probs.shape != (2 * len(CLS_CLASSES), 3) \
+                or not np.allclose(probs.sum(1), 1, atol=1e-5):
+            raise AssertionError(f"vit {way}: --eval {again}, predictions "
+                                 f"{probs.shape}")
+        cli[way] = {"seconds": secs, "stats": dict(stats), "counts": counts,
+                    "eval": dict(again), "run": run.name}
+
+    # (b) the bare step three ways, then the eval forward
+    steps = bare_cls_steps("vit", argv, [
+        ("full fine-tune", [], {}, VIT_PER_STEP, 0),
+        ("full fine-tune, switches on", [], SWITCHES_ON, VIT_PER_STEP_ON,
+         VIT_B11_LEAVES),
+        ("linear probe", ["--linear_probing"], {}, VIT_PER_EVAL, 0)],
+        reset, read, card)
+    torch.cuda.empty_cache()
+    fm = ViTLargeClsFM(linear_probing=False)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    model = fm.build_model(num_classes=3, pool="global", weights=str(weights),
+                           input_size=224, compute_dtype=torch.bfloat16,
+                           device="cuda")
+    x = torch.randn(CLS_BATCH, 3, 224, 224, generator=gen).cuda()
+    evals = {"224 off": _vit_eval(
+        "ViT-L eval at 224², batch 64", model, x,
+        {**VIT_PER_EVAL, "fused_block": 0}, reset, read, card)}
+    evals["224 all"] = _vit_eval(
+        "ViT-L eval at 224², batch 64, MIRAGE_BLOCK_FUSE=all", model, x,
+        {**VIT_ZERO, "fused_block": 24}, reset, read, card,
+        {"MIRAGE_BLOCK_FUSE": "all"})
+    del model, x
+
+    # (c) 512² from the 224-grid checkpoint: 1025 tokens, B8
+    model = fm.build_model(num_classes=3, pool="global", weights=str(weights),
+                           input_size=512, compute_dtype=torch.bfloat16,
+                           device="cuda")
+    pos = torch.from_numpy(interpolate_vit_pos_embed(sd["pos_embed"], 32))
+    if not torch.equal(model.pos_embed.detach().cpu(), pos):
+        raise AssertionError("vit: pos_embed not resized to the 32² grid")
+    del sd
+    x = torch.randn(CLS_BATCH, 3, 512, 512, generator=gen).cuda()
+    evals["512 off"] = _vit_eval(
+        "ViT-L eval at 512² (1025 tokens), batch 64", model, x,
+        {**VIT_PER_EVAL_512, "fused_block": 0}, reset, read, card)
+    del x
+    opt = GroupedOptimizer(OptimizerConfig(
+        opt="adamw", betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2))
+    state = init_train_state(model, opt)
+    loss_fn = make_cls_loss(model, 0.1)
+    step = make_train_step(loss_fn, opt)
+    batch = {"images": torch.randn(VIT_BATCH_512, 3, 512, 512,
+                                   generator=gen).cuda(),
+             "targets": torch.arange(VIT_BATCH_512).cuda() % 3,
+             "weights": torch.ones(VIT_BATCH_512, device="cuda")}
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+
+    def loss_and_grads():
+        loss, _ = loss_fn(batch)
+        return loss.detach(), torch.autograd.grad(
+            loss, [state["params"][n] for n in names])
+
+    reset()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    one_pass = read()
+    with runtime.plain_on_card():
+        loss_p, grads_p = loss_and_grads()
+    agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    log(f"[vit] full fine-tune at 512², batch {VIT_BATCH_512}: kernel path "
+        f"vs plain path (bf16, card): {agree}; launches {one_pass}")
+    _check_agreement("vit 512²", agree)
+    if one_pass != VIT_PER_STEP_512:
+        raise AssertionError(f"vit 512² launches {one_pass} != "
+                             f"{VIT_PER_STEP_512}")
+    step(state, batch, None, 1e-5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t2 = time.perf_counter()
+    losses = []
+    for _ in range(VIT_STEPS_512):
+        state, m = step(state, batch, None, 1e-5)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t2) / VIT_STEPS_512
+    counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_forward(lambda: step(state, batch, None, 1e-5), top_n=20)
+    losses = [v.item() for v in losses]
+    log(f"[vit] full fine-tune at 512², batch {VIT_BATCH_512}: "
+        f"{VIT_STEPS_512} steps, launches {counts}; losses {losses}; "
+        f"{dt * 1e3:.2f} ms/step, {VIT_BATCH_512 / dt:.1f} img/s, peak "
+        f"memory {peak:.2f} GiB, on {card}; one step under torch.profiler: "
+        f"{prof if prof else 'no device kernels seen (not measured)'}")
+    if counts != times(VIT_PER_STEP_512, VIT_STEPS_512) \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"vit 512² steps: launches {counts}, losses "
+                             f"{losses}")
+    step_512 = {"agreement": agree, "counts": counts, "one_pass": one_pass,
+                "ms_per_step": dt * 1e3, "img_per_s": VIT_BATCH_512 / dt,
+                "peak_gib": peak, "losses": losses, "profile": prof}
+    del model, state, step, loss_fn, batch, opt
+    torch.cuda.empty_cache()
+
+    # (d) the kernels at the ViT-L shapes against their plain versions
+    kgen = torch.Generator().manual_seed(SEED + 31)
+    shape = (CLS_BATCH, 197, 1024, 16)
+    eval_rows = fwd_op_rows([
+        ("attn_half_block", "ViT-L 224²", shape, {}, 24),
+        ("mlp_block", "ViT-L 224²", shape[:3], {}, 24)], kgen)
+    step_rows = {"mlp_block": [dict(r, calls_per_step=24)
+                               for r in eval_rows["mlp_block"]]}
+    bwd_op_rows([("block_attention", "ViT-L 224²", shape, {}, 24),
+                 ("block_attention_bwd", "ViT-L 224²", shape, {}, 24),
+                 ("mlp_block_bwd", "ViT-L 224²", shape[:3], {}, 24)], kgen,
+                step_rows)
+    fused_rows = fused_block_rows([("ViT-L 224²", shape, 24)], kgen, {})
+    flash_rows = flash_op_rows([
+        ("ViT-L 512² step", (VIT_BATCH_512, 16, 1025, 64), 24)], kgen, {})
+
+    # (e) the ViT-B/16 eval forward
+    model = ViTBaseClsFM(linear_probing=False).build_model(
+        num_classes=3, pool="cls", weights="", input_size=224,
+        compute_dtype=torch.bfloat16, device="cuda")
+    x = torch.randn(CLS_BATCH, 3, 224, 224, generator=gen).cuda()
+    evals["ViT-B 224 off"] = _vit_eval(
+        "ViT-B/16 eval at 224², batch 64", model, x,
+        {**VIT_B_PER_EVAL, "fused_block": 0}, reset, read, card)
+    del model, x
+    torch.cuda.empty_cache()
+    return {"batch": CLS_BATCH, "cli": cli, "steps": steps, "evals": evals,
+            "step_512": step_512, "card": card,
+            "kernels": {"eval": eval_rows, "step": step_rows,
+                        "fused_block": fused_rows["fused_block"],
+                        "flash": flash_rows}}
+
+
+def _vit_entries(vit):
+    """Phase 13's entries of the `kernels` line: B6 forward and backward,
+    B2 and B5 of a ViT-L full fine-tune step at 197 tokens (launches from
+    the bare step's timed steps), B1 and B2 of its eval forward (launches
+    from the linear probe's, which runs the same forward), B10 under
+    MIRAGE_BLOCK_FUSE=all and B8 forward and backward of the 512² step at
+    batch 16; times summed over one such pass (per-call time × calls)."""
+    rows = vit["kernels"]
+    step_counts = vit["steps"]["full fine-tune"]["counts"]
+    probe_counts = vit["steps"]["linear probe"]["counts"]
+    entries = _kernel_entries(
+        rows["step"], step_counts, VIT_PER_STEP, "step",
+        f"sum over one batch-{CLS_BATCH} ViT-L/16 full fine-tune step at 197 "
+        f"tokens; launches from {CLS_STEPS} such steps")
+    entries += _kernel_entries(
+        rows["eval"], probe_counts, VIT_PER_EVAL, "forward",
+        f"sum over one batch-{CLS_BATCH} ViT-L/16 eval forward at 197 "
+        f"tokens; launches from {CLS_STEPS} linear-probe steps (the same "
+        f"grad-free forward)")
+    entries += _kernel_entries(
+        {"fused_block": rows["fused_block"]},
+        {"fused_block": vit["evals"]["224 all"]["counts"]["fused_block"]},
+        {"fused_block": 24}, "forward",
+        f"sum over one batch-{CLS_BATCH} ViT-L/16 eval forward at 197 tokens "
+        f"under MIRAGE_BLOCK_FUSE=all; launches from that forward")
+    counts_512 = vit["step_512"]["counts"]
+    entries += _kernel_entries(
+        {k: rows["flash"][k] for k in ("flash_attention",
+                                       "flash_attention_bwd")},
+        counts_512, VIT_PER_STEP_512, "step",
+        f"sum over one batch-{VIT_BATCH_512} ViT-L/16 full fine-tune step "
+        f"at 512² (1025 tokens); launches from {VIT_STEPS_512} such steps")
+    for e in entries:
+        e["name"] += " [vit]"
+    return entries
+
+
 # ------------------------------------------------------------ --multi-card
 
 # the pipelines of --multi-card, one process a card over NCCL: (label, mesh
@@ -6726,7 +7232,7 @@ def multi_card(workdir, card):
 
 
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
-          "infer", "bench", "pretrain", "parallel", "pipeline")
+          "infer", "bench", "pretrain", "parallel", "pipeline", "vit")
 
 
 def main(argv=None):
@@ -6819,7 +7325,7 @@ def main(argv=None):
     if "build" in phases:
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
-    infer = bench = pretrain = ln_rows = parallel = pipeline = None
+    infer = bench = pretrain = ln_rows = parallel = pipeline = vit = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -6861,6 +7367,8 @@ def main(argv=None):
         parallel = phase_parallel(workdir, card)
     if "pipeline" in phases:
         pipeline = phase_pipeline(workdir, card)
+    if "vit" in phases:
+        vit = phase_vit(workdir, card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -6898,13 +7406,14 @@ def main(argv=None):
                + _bench_entries(bench)
                + _ln_entries(ln_rows, pretrain)
                + _parallel_entries(parallel, ln_rows)
-               + _pipeline_entries(pipeline))
+               + _pipeline_entries(pipeline)
+               + _vit_entries(vit))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "bench": bench, "layernorm": ln_rows,
                     "pretrain": pretrain, "parallel": parallel,
-                    "pipeline": pipeline,
+                    "pipeline": pipeline, "vit": vit,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

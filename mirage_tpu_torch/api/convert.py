@@ -18,7 +18,11 @@ linear, Segmenter and DPT heads).
 ``mirage_tpu/api/convert.py:params_to_torch`` does. The segmentation
 warm start (:func:`seg_checkpoint_surgery`, :func:`interpolate_pos_embed_sd`,
 :func:`overlay_state_dict`) follows ``mirage_tpu/api/convert.py:288-354``,
-and :func:`rename_keys` the pretraining warm start's MAE key rename.
+and :func:`rename_keys` the pretraining warm start's MAE key rename. The
+baseline ViTs (``models/vit.py``) use timm's namespace (``cls_token``,
+``pos_embed``, ``patch_embed.proj``, ``blocks.{i}``, ``norm``, ``head``);
+:func:`interpolate_vit_pos_embed` resizes their learned position
+embedding (mirage_tpu/api/convert.py:318-338).
 """
 
 import json
@@ -35,6 +39,10 @@ from mirage_tpu_torch.adapters.seg_heads import (
     SegmenterMaskTransformerAdapter)
 from mirage_tpu_torch.adapters.spatial_output import SpatialOutputAdapter
 from mirage_tpu_torch.nn.resize import resize_matrix
+
+# the top-level names of a mirage_tpu ViT pytree (mirage_tpu/models/vit.py)
+VIT_PARAM_NAMES = {"cls_token", "pos_embed", "patch_embed", "encoder", "norm",
+                   "head"}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:
@@ -118,7 +126,8 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
     port's ``model``. A classification tree {"model", "norm", "head"}
     (mirage_tpu/api/cls.py) maps onto a ``MIRAGECls``: ``model.*`` from the
     backbone, ``norm.*``, and ``head.*`` with the (fan_in, C) weight
-    transposed to torch's (C, fan_in)."""
+    transposed to torch's (C, fan_in). A ViT tree (:data:`VIT_PARAM_NAMES`)
+    maps onto a ``models/vit.py:VisionTransformer`` in timm's keys."""
     if set(params) == {"model", "norm", "head"}:
         sd = {f"model.{k}": v for k, v in
               jax_params_to_state_dict(params["model"], model.model).items()}
@@ -155,6 +164,22 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
         put_linear(f"{prefix}.mlp.fc1", p["mlp"]["fc1"])
         put_linear(f"{prefix}.mlp.fc2", p["mlp"]["fc2"])
 
+    def layer(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    if set(params) == VIT_PARAM_NAMES:  # the inverse of vit.py:107-118
+        put("cls_token", params["cls_token"])
+        put("pos_embed", params["pos_embed"])
+        put_conv("patch_embed.proj", params["patch_embed"],
+                 tuple(model.patch_embed.proj.weight.shape[1:]))
+        for i in range(len(model.blocks)):
+            put_block(f"blocks.{i}", layer(params["encoder"], i))
+        put_ln("norm", params["norm"])
+        put_linear("head", params["head"])
+        return sd
+
     for task, adapter in model.input_adapters.items():
         pre, p = f"input_adapters.{task}", params["input_adapters"][task]
         put(f"{pre}.pos_emb", p["pos_emb"])
@@ -162,11 +187,6 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
             put(f"{pre}.class_emb.weight", p["class_emb"])
         put_conv(f"{pre}.proj", p["proj"],
                  tuple(adapter.proj.weight.shape[1:]))
-
-    def layer(tree, i):
-        if isinstance(tree, Mapping):
-            return {k: layer(v, i) for k, v in tree.items()}
-        return np.asarray(tree)[i]
 
     for i in range(len(model.encoder)):
         put_block(f"encoder.{i}", layer(params["encoder"], i))
@@ -308,6 +328,27 @@ def interpolate_pos_embed_sd(sd: Mapping[str, Any], model) -> Dict[str, Any]:
                         resize_matrix(arr.shape[-1], new_w, "bicubic"), arr)
         out[key] = torch.from_numpy(arr)
     return out
+
+
+def interpolate_vit_pos_embed(arr, new_grid: int,
+                              num_prefix_tokens: int = 1) -> np.ndarray:
+    """A timm-style learned ``pos_embed`` (1, P + G·G, D) bicubic-resized
+    to a square grid of ``new_grid`` (F.interpolate, align_corners=False),
+    the P prefix (cls) tokens kept; returned as it is (float32) when the
+    grid already matches (mirage_tpu/api/convert.py:318-338)."""
+    arr = np.asarray(arr, dtype=np.float32)
+    prefix, patch = arr[:, :num_prefix_tokens], arr[:, num_prefix_tokens:]
+    orig = int(round(patch.shape[1] ** 0.5))
+    if orig * orig != patch.shape[1]:
+        raise ValueError(f"pos_embed patch count {patch.shape[1]} not square")
+    if orig == new_grid:
+        return arr
+    d = patch.shape[-1]
+    m = resize_matrix(orig, new_grid, "bicubic")
+    grid = np.einsum("oh,bhwd->bowd", m, patch.reshape(1, orig, orig, d))
+    grid = np.einsum("pw,bhwd->bhpd", m, grid)
+    return np.concatenate([prefix, grid.reshape(1, new_grid * new_grid, d)],
+                          axis=1)
 
 
 def overlay_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]):

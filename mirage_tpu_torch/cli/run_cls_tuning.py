@@ -2,7 +2,9 @@
 
 Counterpart of ``mirage_tpu/cli/run_cls_tuning.py`` (reference
 run_cls_tuning.py): linear probing (lr 1e-3, all but the head frozen) or a
-full fine-tune (lr 1e-5) of a pretrained MIRAGE with a pooled linear head;
+full fine-tune (lr 1e-5) of a pretrained MIRAGE with a pooled linear head,
+or of a baseline ViT (``vit_base`` / ``vit_large`` in the weights' name:
+``models/vit.py``, timm keys, ImageNet-normalised RGB at 224² by default);
 AdamW (0.9, 0.999), wd 1e-2; a half-cycle cosine LR set every iteration;
 label-smoothed cross-entropy (0.1) in its sum form over batches padded to a
 fixed size with zero-weight rows; dual-metric early stopping (BAcc, then
@@ -15,13 +17,17 @@ number of classes and the batch size from the dataset folder.
 Usage:
   python -m mirage_tpu_torch.cli.run_cls_tuning --data_root /data/Classification \\
       --data_set OCTID --weights MIRAGE-Base.pth [--linear_probing] [--device cuda]
+  python -m mirage_tpu_torch.cli.run_cls_tuning --data_root /data/Classification \\
+      --data_set OCTID --weights vit_large_patch16_224.pth [--pool cls]
 
 The dataset is ``{data_root}/{data_set}/{train,val,test}/{class}/*`` (val
 and test optional). ``--device`` defaults to ``cuda`` and fails without a
 card; ``--device cpu`` runs the plain PyTorch path. Neither sklearn nor
 pandas is needed: the metrics are numpy (``metrics/classification.py``)
-and the CSVs come from the ``csv`` module. Not ported yet: the baseline
-ViTs (``vit_base``, ``vit_large`` weights).
+and the CSVs come from the ``csv`` module. The linear probe's frozen
+parameters are the config's (``api/fm_configs.py:probe_frozen``): for a
+baseline every name but ``head``, where the JAX CLI freezes only the final
+norm (queue C fault 9, ``mirage_tpu_torch/DEVIATIONS.md``).
 
 Several GPUs, data-parallel over every process (mirage_tpu/cli/
 run_cls_tuning.py:172-): ``torchrun --nproc_per_node N -m
@@ -66,7 +72,8 @@ def get_parser():
                    choices=["global", "cls", "token_mix"])
     p.add_argument("--linear_probing", default=False, action="store_true")
     p.add_argument("--input_size", default=None, type=int,
-                   help="default: 512 for MIRAGE")
+                   help="default: 512 for MIRAGE, 224 for the baseline "
+                   "ViTs")
     p.add_argument("--patch_size", default=32, type=int)
     p.add_argument("--smoothing", default=0.1, type=float)
     p.add_argument("--warmup_epochs", default=5, type=int)
@@ -180,7 +187,7 @@ def setup(args, device):
     opt = GroupedOptimizer(OptimizerConfig(
         opt="adamw", betas=(0.9, 0.999), eps=1e-8,
         weight_decay=args.weight_decay,
-        frozen_paths=("model", "norm") if args.linear_probing else ()))
+        frozen_paths=fm.frozen_paths()))
     loss_fn = make_cls_loss(model, args.smoothing,
                             frozen_encoder=args.linear_probing)
     return fm, model, opt, loss_fn

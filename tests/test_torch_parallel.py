@@ -199,3 +199,27 @@ def test_tp_block_matches_block_and_jax(tmp_path):
             for n, g in got["grads"].items():
                 torch.testing.assert_close(g, want_g[n], atol=ATOL,
                                            rtol=ATOL, msg=n)
+
+
+def test_gspmd_steps_are_refused(monkeypatch):
+    """MIRAGE_FSDP_STEP / MIRAGE_TP_STEP=gspmd (XLA's automatic
+    partitioning with the kernels off, no counterpart in the port) raise for
+    the layouts they govern; the default shardmap and the other layouts run
+    (mirage_tpu_torch/DEVIATIONS.md)."""
+    import pytest
+
+    from mirage_tpu_torch.train import steps
+
+    for kind in ("dp", "fsdp", "tp", "tp_fsdp"):
+        steps._check_switches(kind)
+    for attr, name, kinds in (("_FSDP_STEP", "MIRAGE_FSDP_STEP",
+                               ("fsdp", "tp_fsdp")),
+                              ("_TP_STEP", "MIRAGE_TP_STEP",
+                               ("tp", "tp_fsdp"))):
+        monkeypatch.setattr(steps, attr, "gspmd")
+        for kind in ("dp", "fsdp", "tp", "tp_fsdp"):
+            if kind in kinds:
+                with pytest.raises(ValueError, match=f"{name}=gspmd"):
+                    steps._check_switches(kind)
+        monkeypatch.setattr(steps, attr, "shardmap")
+    steps._check_switches("dp")
