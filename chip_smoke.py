@@ -168,6 +168,26 @@ Phases, each of which must pass (any failure exits non-zero):
    B5 and B10 at (64, 197, 1024) and B8 at (16, 16, 1025, 64) against
    their plain versions (phase 2's bars). (e) The ViT-B/16 eval forward at
    batch 64 against the plain path.
+14. decbatch: the decoders' tails as one task stack (MIRAGE_DEC_BATCH=on,
+   adapters/spatial_output.py:batched_spatial_decode). (a) Each
+   task-strided op and kernel at the three decoders' shapes (width 256,
+   hidden 1024; 3·64·256 rows serving, 3·256·256 pretraining, B3's context
+   3·64·257), bf16: B1, B2, B3, the GEMM (bias, GELU, residual) and the LN
+   forward bit-equal to three one-task calls; B5, B7-MLP and the LN
+   backward within phase 2's bars of them (the LN's dx bit-equal); each
+   against its plain version (phase 2's bars), rerun bit for bit, timed
+   beside the one-task calls, the plain version, the library over the
+   stacked weights and the bound. (b) nn/block.py:DecoderBlock at batch 64,
+   256 queries and 257 and 600 context tokens (the second through B8),
+   forward and backward against its plain version with exact launches.
+   (c) Phase 4's batch-64 MIRAGE-Large forward with the switch on against
+   off and the plain path (MODEL_REL_L2), exact launches (DEC_PER_FORWARD:
+   each decoder op once instead of three times). (d) Phase 5's
+   pretraining step (remat on, injected masks) with the switch on, and with
+   MIRAGE_MLP_BWD=accumulate too, against off: loss, grad norm and every
+   leaf within phase 5's bars, exact launches (DEC_PER_STEP,
+   DEC_PER_STEP_ACC). (e) Both arms of (c) and (d) timed in ABBA rounds
+   (mirage_tpu_torch/bench/decbatch.py: CUDA events and the host clock).
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -317,7 +337,8 @@ PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
 # bf16 forward of csrc/attention_fwd.cuh and backward of
 # csrc/attention_bwd.cuh serve both the packed and the flash entries: B8's
 # forward is in "attention" and its bf16 backward in "attention_bwd" too)
-PORT_KERNELS = {"gemm_bf16_pingpong": "gemm", "gemm_f32_kernel": "gemm",
+PORT_KERNELS = {"gemm_bf16_pingpong": "gemm",
+                "gemm_bf16_pingpong_tasks": "gemm", "gemm_f32_kernel": "gemm",
                 "gemm_stash_kernel": "gemm_stash",
                 "gemm_stash_f32_kernel": "gemm_stash",
                 "attn_fwd::attention_fwd_kernel": "attention",
@@ -5364,7 +5385,7 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
         else:
             replaces, tpu_kernel, source, csrc = {
                 **BWD_KERNELS, **SEG_KERNELS, **ACC_KERNELS,
-                **SERVE_KERNELS, **ATTN_BWD_KERNELS}[name]
+                **SERVE_KERNELS, **ATTN_BWD_KERNELS, **DEC_KERNELS}[name]
             csrc = [CSRC + f for f in csrc]
         ms = per_path_sum("ms")
         entries.append({
@@ -6973,6 +6994,792 @@ def _vit_entries(vit):
     return entries
 
 
+# ----------------------------------------------------------------- phase 14
+
+# The decoders' tails as one task stack (MIRAGE_DEC_BATCH=on): the three
+# decoders of the reconstruct forward and of the pretraining step (width
+# 256, hidden 1024, 8 heads, 256 queries; B3's keys: a reconstruct
+# forward's 257 visible tokens)
+DEC_TASKS, DEC_DIM, DEC_HEADS, DEC_QUERIES, DEC_CONTEXT = 3, 256, 8, 256, 257
+DEC_ABBA_ROUNDS = 8  # ABBA rounds a case (mirage_tpu_torch/bench/decbatch.py)
+DEC_STEP_ITERS, DEC_FORWARD_ITERS = 3, 5  # calls a round
+DEC_BLOCK_CONTEXTS = (257, 600)  # DecoderBlock's keys: B3's; B8's above 512
+# the counters phase 14 reads: an op's or launcher's attribute -> the
+# suffix of its name
+_DEC_SUFFIX = {"launches": "", "task_launches": " [tasks]",
+               "bwd_launches": "_bwd", "task_bwd_launches": "_bwd [tasks]",
+               "acc_bwd_launches": "_acc_bwd",
+               "task_acc_bwd_launches": "_acc_bwd [tasks]"}
+# launches of one batch-64 MIRAGE-Large reconstruct forward (phase 4's):
+# off, the 24 encoder blocks and three decoders of B3 + B2 and two blocks;
+# on, the encoder's as before and each decoder op once over the task stack
+# (the attention core: the encoder's 24 and one a decoder op over T·B rows)
+DEC_PER_FORWARD = {
+    "off": {"attn_half_block": 30, "xattn_half_block": 3, "mlp_block": 33,
+            "layernorm": 69, "gemm": 135, "attention_fwd": 33},
+    "on": {"attn_half_block": 24, "attn_half_block [tasks]": 2,
+           "xattn_half_block [tasks]": 1, "mlp_block": 24,
+           "mlp_block [tasks]": 3, "layernorm": 48, "layernorm [tasks]": 7,
+           "gemm": 96, "gemm [tasks]": 13, "attention_fwd": 27}}
+# launches of one batch-256 pretraining step's forward and backward (phase
+# 5's, remat on: no block of it is rerun): the decoders' two blocks a task
+# take B6 and B2/B5, their cross-attention and its MLP the plain path
+DEC_PER_STEP = {
+    "off": {"attn_half_block": 12, "attn_half_block_bwd": 12,
+            "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
+            "block_attention_bwd": 6, "layernorm": 60, "layernorm_bwd": 30,
+            "gemm": 72, "attention_fwd": 30, "attention_bwd": 18,
+            "mlp_bwd_hidden": 18, "mlp_bwd_dyln": 42},
+    "on": {"attn_half_block": 12, "attn_half_block_bwd": 12,
+           "mlp_block": 12, "mlp_block [tasks]": 2, "mlp_block_bwd": 12,
+           "mlp_block_bwd [tasks]": 2, "block_attention": 2,
+           "block_attention_bwd": 2, "layernorm": 48, "layernorm [tasks]": 4,
+           "layernorm_bwd": 24, "layernorm_bwd [tasks]": 2, "gemm": 60,
+           "gemm [tasks]": 4, "attention_fwd": 26, "attention_bwd": 14,
+           "mlp_bwd_hidden": 12, "mlp_bwd_hidden [tasks]": 2,
+           "mlp_bwd_dyln": 36, "mlp_bwd_dyln [tasks]": 2}}
+# the same step with MIRAGE_MLP_BWD=accumulate too: the MLP backwards as B7,
+# the decoders' over the stack (csrc/wgrad.cu's task-strided kernels)
+DEC_PER_STEP_ACC = {
+    **{k: v for k, v in DEC_PER_STEP["on"].items()
+       if not k.startswith("mlp_block_bwd")},
+    "mlp_block_acc_bwd": 12, "mlp_block_acc_bwd [tasks]": 2,
+    "weight_grad": 24, "weight_grad [tasks]": 4, "colsum": 24,
+    "colsum [tasks]": 4}
+# launches of one DecoderBlock forward and backward: B6 for its
+# self-attention, B2/B5 for its MLP, B8 for the cross-attention at 512 keys
+# or more (the plain path below)
+_DEC_BLOCK = {"block_attention": 1, "block_attention_bwd": 1,
+              "mlp_block": 1, "mlp_block_bwd": 1, "layernorm": 2,
+              "layernorm_bwd": 1, "gemm": 2, "attention_fwd": 1,
+              "attention_bwd": 1, "mlp_bwd_hidden": 1, "mlp_bwd_dyln": 1}
+DEC_BLOCK_PER_CALL = {257: _DEC_BLOCK,
+                      600: {**_DEC_BLOCK, "flash_attention": 1,
+                            "flash_attention_bwd": 1}}
+# the task-strided ops and kernels: name -> (TPU kernel file:line, the TPU
+# kernel jax.vmap lifts, port source, CUDA sources)
+DEC_KERNELS = {
+    "attn_half_block [tasks]": (
+        "mirage_tpu/ops/block_attention.py:251",
+        "_attn_half_kernel :251 under jax.vmap (spatial_output.py:314)",
+        "mirage_tpu_torch/ops/block_attention.py",
+        ["layernorm.cu", "gemm.cu", "gemm_pingpong.cuh", "attention.cu"]),
+    "xattn_half_block [tasks]": (
+        "mirage_tpu/ops/block_attention.py:745",
+        "_xattn_half_kernel :745 under jax.vmap (spatial_output.py:314)",
+        "mirage_tpu_torch/ops/block_attention.py",
+        ["layernorm.cu", "gemm.cu", "gemm_pingpong.cuh", "attention.cu"]),
+    "mlp_block [tasks]": (
+        "mirage_tpu/ops/fused_mlp.py:58",
+        "_mlp_kernel :58 under jax.vmap (spatial_output.py:314)",
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "gemm.cu", "gemm_pingpong.cuh"]),
+    "gemm [tasks]": (
+        "mirage_tpu/ops/fused_mlp.py:58",
+        "the products of _mlp_kernel :58, block_attention.py:"
+        "_attn_half_kernel :251 and :_xattn_half_kernel :745 under jax.vmap",
+        "mirage_tpu_torch/csrc/gemm.cu", ["gemm.cu", "gemm_pingpong.cuh"]),
+    "layernorm [tasks]": (
+        "mirage_tpu/ops/block_attention.py:251",
+        "the LN prologue of _attn_half_kernel :251, _xattn_half_kernel :745 "
+        "and fused_mlp.py:_mlp_kernel :58 under jax.vmap",
+        "mirage_tpu_torch/csrc/layernorm.cu", ["layernorm.cu"]),
+    "layernorm_bwd [tasks]": (
+        "mirage_tpu/ops/fused_mlp.py:453",
+        "the LN tail of fused_mlp.py:_mlp_bwd_dx_kernel :453 under jax.vmap",
+        "mirage_tpu_torch/csrc/layernorm.cu", ["layernorm.cu"]),
+    "mlp_block_bwd [tasks]": (
+        "mirage_tpu/ops/fused_mlp.py:453",
+        "_mlp_block_bwd_defused :469 -> _mlp_bwd_dx_kernel :453 under "
+        "jax.vmap", "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "mlp_bwd.cu"]),
+    "mlp_block_acc_bwd [tasks]": (
+        "mirage_tpu/ops/fused_mlp.py:311",
+        "_mlp_block_bwd_pallas :240 -> _mlp_bwd_kernel :311 under jax.vmap",
+        "mirage_tpu_torch/ops/fused_mlp.py",
+        ["layernorm.cu", "mlp_bwd.cu", "wgrad.cu"]),
+}
+
+
+def _dec_counters():
+    """name -> (function, attribute) of every launch count phase 14 reads."""
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import flash_attention as fa
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    out = {}
+    for name, fn, attrs in (
+            ("attn_half_block", ba.attn_half_block,
+             ("launches", "task_launches", "bwd_launches")),
+            ("xattn_half_block", ba.xattn_half_block,
+             ("launches", "task_launches")),
+            ("mlp_block", fm.mlp_block,
+             ("launches", "task_launches", "bwd_launches",
+              "task_bwd_launches", "acc_bwd_launches",
+              "task_acc_bwd_launches")),
+            ("block_attention", ba.block_attention,
+             ("launches", "bwd_launches")),
+            ("flash_attention", fa.flash_attention,
+             ("launches", "bwd_launches")),
+            ("attention_fwd", runtime.attention, ("launches",)),
+            ("attention_bwd", runtime.attention_bwd, ("launches",)),
+            *((n, getattr(runtime, n), ("launches", "task_launches"))
+              for n in ("layernorm", "layernorm_bwd", "gemm",
+                        "mlp_bwd_hidden", "mlp_bwd_dyln", "weight_grad",
+                        "colsum"))):
+        for attr in attrs:
+            out[name + _DEC_SUFFIX[attr]] = (fn, attr)
+    return out
+
+
+def _dec_count(fn):
+    """fn() with every phase-14 launch count at 0 first: (its value, the
+    counts after a synchronise)."""
+    import torch
+
+    counters = _dec_counters()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+
+
+def _dec_check_counts(what, got, want):
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        bad = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def _dec_rn(gen, *shape, scale=1.0):
+    import torch
+
+    return (torch.randn(*shape, generator=gen) * scale).to(
+        torch.bfloat16).cuda()
+
+
+def _dec_stack(op, shape, gen):
+    """An op's bf16 operands for DEC_TASKS tasks of per-task ``shape``:
+    the activations (x; B3's context too) concatenated task-major, each
+    weight stacked on a leading task axis, then the head count."""
+    import torch
+
+    sets = [_op_inputs(op, shape, torch.bfloat16, gen)
+            for _ in range(DEC_TASKS)]
+    acts = 2 if op == "xattn_half_block" else 1
+    heads = [] if op == "mlp_block" else [sets[0][-1]]
+    n_w = len(sets[0]) - acts - len(heads)
+    return ([torch.cat([s[i] for s in sets]) for i in range(acts)]
+            + [torch.stack([s[acts + i] for s in sets]).contiguous()
+               for i in range(n_w)] + heads)
+
+
+def _dec_tasks(fn, acts, args):
+    """fn on each task's activation rows (the first ``acts`` of ``args``)
+    and weights, the outputs concatenated (a tuple's second and later
+    outputs, the weights' gradients, stacked): what DEC_TASKS separate
+    calls compute."""
+    import torch
+
+    t = DEC_TASKS
+    outs = [fn(*[a.chunk(t)[i].contiguous() for a in args[:acts]],
+               *[w[i] if torch.is_tensor(w) else w for w in args[acts:]])
+            for i in range(t)]
+    if not isinstance(outs[0], tuple):
+        return torch.cat(outs)
+    return (torch.cat([o[0] for o in outs]),) + tuple(
+        None if o[0] is None else torch.stack(o)
+        for o in list(zip(*outs))[1:])
+
+
+def _dec_library(op):
+    """The task stack's function from PyTorch library calls over the stacked
+    weights (F.layer_norm a task, torch.bmm / baddbmm, F.gelu,
+    F.scaled_dot_product_attention over the T·B batch; a backward by
+    torch.autograd.grad): a yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    t = DEC_TASKS
+
+    def ln(x, w, b):
+        return torch.cat([F.layer_norm(xt, (x.shape[-1],), wt.to(x.dtype),
+                                       bt.to(x.dtype), 1e-6)
+                          for xt, wt, bt in zip(x.chunk(t), w, b)])
+
+    def lin(x, w, b=None):
+        xt = x.reshape(t, -1, x.shape[-1])
+        y = (torch.bmm(xt, w.transpose(1, 2)) if b is None else
+             torch.baddbmm(b.unsqueeze(1), xt, w.transpose(1, 2)))
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    def heads(x, h):
+        b, n, c = x.shape
+        return x.view(b, n, h, c // h).transpose(1, 2)
+
+    def merge(x):
+        b, h, n, dh = x.shape
+        return x.transpose(1, 2).reshape(b, n, h * dh)
+
+    if op == "layernorm":
+        return ln
+    if op == "gemm":
+        def fn(a, w, b, res=None, gelu=False):
+            y = lin(a, w, b)
+            y = F.gelu(y) if gelu else y
+            return y if res is None else res + y
+        return fn
+    if op == "attn_half_block":
+        def fn(x, lw, lb, wqkv, bqkv, wp, bp, h):
+            q, k, v = lin(ln(x, lw, lb), wqkv, bqkv).chunk(3, dim=-1)
+            o = F.scaled_dot_product_attention(heads(q, h), heads(k, h),
+                                               heads(v, h))
+            return x + lin(merge(o), wp, bp)
+        return fn
+    if op == "xattn_half_block":
+        def fn(x, c, qw, qb, cw, cb, wq, bq, wkv, bkv, wp, bp, h,
+               residual=True):
+            q = lin(ln(x, qw, qb), wq, bq)
+            k, v = lin(ln(c, cw, cb), wkv, bkv).chunk(2, dim=-1)
+            o = F.scaled_dot_product_attention(heads(q, h), heads(k, h),
+                                               heads(v, h))
+            out = lin(merge(o), wp, bp)
+            return x + out if residual else out
+        return fn
+
+    def mlp(x, lw, lb, w1, b1, w2, b2):
+        return x + lin(F.gelu(lin(ln(x, lw, lb), w1, b1)), w2, b2)
+    if op == "mlp_block":
+        return mlp
+
+    def bwd(dy, *args):  # the MLP half's forward and its backward
+        args = [a.detach().requires_grad_() for a in args]
+        return torch.autograd.grad(mlp(*args), args, dy)
+    return bwd
+
+
+def _dec_errs(what, names, got, want, fwd):
+    """Each output against ``want``: max-abs, relative max and relative L2,
+    within phase 2's forward (``fwd``) or backward bars."""
+    import torch
+
+    errs = {}
+    for n, g, w in zip(names, got, want):
+        if g is None:
+            continue
+        d = g.float() - w.float()
+        e = errs[n] = {"max_abs": d.abs().max().item(),
+                       "rel_max": (d.abs().max()
+                                   / w.float().abs().max()).item(),
+                       "rel_l2": (d.norm() / w.float().norm()).item()}
+        ok = ((e["max_abs"] <= BF16_MAX_ABS and e["rel_l2"] <= BF16_REL_L2)
+              if fwd else
+              (e["rel_l2"] <= BWD_REL_L2 and e["rel_max"] <= BWD_REL_MAX))
+        if not (ok and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{what} {n}: {e} above the bars")
+    return errs
+
+
+def _dec_case(rows, name, label, shape, kernel, one_task, ref, plain,
+              yardstick, names, fwd, work, key, calls, **extra):
+    """One row of phase 14: ``kernel()`` (the task-strided call) rerun bit
+    for bit; against ``one_task()`` (DEC_TASKS separate calls), bit for bit
+    where ``fwd`` (and every forward output), within phase 2's backward
+    bars otherwise; against ``ref()`` (its plain version in float32 from
+    the same inputs) within phase 2's bars; then the kernel, the one-task
+    calls, ``plain()`` (the plain version on the bf16 inputs) and
+    ``yardstick()`` (the library's, described by ``library`` in ``extra``)
+    timed with CUDA events beside the bound of ``work``."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+
+    def tup(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    got = tup(kernel())
+    if not all(torch.equal(a, b) for a, b in zip(got, tup(kernel()))
+               if a is not None):
+        raise AssertionError(f"{name} {label}: a rerun is not bit-identical")
+    split = tup(one_task())
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, split)
+                    if a is not None)
+    if fwd and not bit_equal:
+        raise AssertionError(f"{name} {label}: not bit-equal to "
+                             f"{DEC_TASKS} one-task calls")
+    vs_split = _dec_errs(f"{name} {label} vs one-task calls", names, got,
+                         split, fwd)
+    del split
+    with runtime.plain_on_card():
+        want = tup(ref())
+    errs = _dec_errs(f"{name} {label}", names, got, want, fwd)
+    del got, want
+    flops, nbytes = work
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ms = cuda_ms(kernel, iters=10)
+    one_ms = cuda_ms(one_task, iters=10)
+    with runtime.plain_on_card():
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    library_ms = cuda_ms(yardstick, iters=10)
+    row = {"label": label, "shape": list(shape), "dtype": "bf16",
+           "tasks": DEC_TASKS, "errors": errs, "vs_one_task_calls": vs_split,
+           "bit_equal_to_one_task_calls": bit_equal,
+           "max_abs_err": max(e["max_abs"] for e in errs.values()),
+           "rerun_bit_identical": True, "ms": ms, "one_task_calls_ms": one_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           key: calls, **extra}
+    log(f"[decbatch] {name} {label} {list(shape)} ({DEC_TASKS} tasks): "
+        f"errors {errs}; bit-equal to the one-task calls: {bit_equal} "
+        f"({vs_split}); {ms:.4f} ms, {DEC_TASKS} one-task calls "
+        f"{one_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    rows.setdefault(name, []).append(row)
+
+
+def dec_kernel_rows():
+    """Each task-strided op and kernel at the decoders' shapes (bf16,
+    DEC_TASKS tasks): the forward ops (B1, B2, B3), the GEMM and the LN
+    forward bit-equal to DEC_TASKS one-task calls, the backwards (B5,
+    B7-MLP, the LN's) within phase 2's bars of them (dx of the LN backward
+    bit-equal), every one against its plain version (phase 2's bars) and
+    rerun bit for bit; timed beside the one-task calls, the plain version
+    and the library (_dec_case). name -> rows."""
+    import torch
+
+    from mirage_tpu_torch.nn.layers import gelu, layer_norm, linear
+    from mirage_tpu_torch.ops import block_attention as ba
+    from mirage_tpu_torch.ops import fused_mlp as fm
+    from mirage_tpu_torch.ops import runtime
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    rows = {}
+    t, d, h, q, c = DEC_TASKS, DEC_DIM, DEC_HEADS, DEC_QUERIES, DEC_CONTEXT
+
+    def f32(args):
+        return [a.float() if torch.is_tensor(a) else a for a in args]
+
+    # the forward ops: (op, label, per-task shape, kwargs, path key, calls)
+    ops = {"attn_half_block": (ba.attn_half_block, ba.attn_half_block_ref),
+           "xattn_half_block": (ba.xattn_half_block,
+                                ba.xattn_half_block_ref),
+           "mlp_block": (fm.mlp_block, fm.mlp_block_ref)}
+    for op, label, shape, kw, key, calls in (
+            ("attn_half_block", "serving decoder block", (BATCH, q, d, h),
+             {}, "calls_per_forward", 2),
+            ("xattn_half_block", "serving decoder cross-attention",
+             (BATCH, q, c, d, h), {"residual": False}, "calls_per_forward",
+             1),
+            ("mlp_block", "serving decoder MLP", (BATCH, q, d), {},
+             "calls_per_forward", 3),
+            ("mlp_block", "pretraining decoder MLP", (TRAIN_BATCH, q, d), {},
+             "calls_per_step", 2)):
+        kernel, ref = ops[op]
+        args = _dec_stack(op, shape, gen)
+        acts = 2 if op == "xattn_half_block" else 1
+        lib = _dec_library(op)
+        flops, nbytes = _work(op, shape, 2)
+        _dec_case(rows, f"{op} [tasks]", label, (t * shape[0], *shape[1:]),
+                  lambda: kernel(*args, **kw),
+                  lambda: _dec_tasks(lambda *a: kernel(*a, **kw), acts, args),
+                  lambda: ref(*f32(args), **kw), lambda: ref(*args, **kw),
+                  lambda: lib(*args, **kw), ["out"], True,
+                  (t * flops, t * nbytes), key, calls,
+                  library="F.layer_norm a task, torch.baddbmm over the "
+                          "stacked weights, F.gelu and F.scaled_dot_product_"
+                          "attention over the T·B batch")
+        del args
+
+    # the GEMM: (label, rows a task, N, K, epilogue, path key, calls)
+    for label, m, n, k, epi, key, calls in (
+            ("serving decoder qkv", BATCH * q, 3 * d, d, "bias",
+             "calls_per_forward", 2),
+            ("serving decoder proj", BATCH * q, d, d, "residual",
+             "calls_per_forward", 2),
+            ("serving cross-attention q, proj", BATCH * q, d, d, "bias",
+             "calls_per_forward", 2),
+            ("serving cross-attention kv", BATCH * c, 2 * d, d, "bias",
+             "calls_per_forward", 1),
+            ("serving decoder fc1", BATCH * q, 4 * d, d, "gelu",
+             "calls_per_forward", 3),
+            ("serving decoder fc2", BATCH * q, d, 4 * d, "residual",
+             "calls_per_forward", 3),
+            ("pretraining decoder fc1", TRAIN_BATCH * q, 4 * d, d, "gelu",
+             "calls_per_step", 2),
+            ("pretraining decoder fc2", TRAIN_BATCH * q, d, 4 * d,
+             "residual", "calls_per_step", 2)):
+        gelu_on = epi == "gelu"
+        args = [_dec_rn(gen, t * m, k), _dec_rn(gen, t, n, k, scale=k ** -0.5),
+                _dec_rn(gen, t, n, scale=0.02)]
+        if epi == "residual":
+            args.append(_dec_rn(gen, t * m, n))
+        acts = 2 if epi == "residual" else 1
+        order = [args[0]] + args[3:] + args[1:3]  # activations first
+
+        def launch(a, *rest):
+            res, (w, b) = (rest[0], rest[1:]) if len(rest) == 3 else \
+                (None, rest)
+            return runtime.gemm(a, w, b, residual=res, gelu=gelu_on)
+
+        def plain(a, *rest):
+            res, (w, b) = (rest[0], rest[1:]) if len(rest) == 3 else \
+                (None, rest)
+            y = linear(a, w, b)
+            y = gelu(y) if gelu_on else y
+            return y if res is None else res + y.to(res.dtype)
+
+        lib = _dec_library("gemm")
+        nbytes = 2 * (t * m * k + t * n * k + t * m * n * (1 + acts - 1)) \
+            + 4 * t * n
+        _dec_case(rows, "gemm [tasks]", label, (t * m, n, k),
+                  lambda: launch(*order),
+                  lambda: _dec_tasks(launch, acts, order),
+                  lambda: _dec_tasks(plain, acts, f32(order)),
+                  lambda: _dec_tasks(plain, acts, order),
+                  lambda: lib(args[0], args[1], args[2],
+                              args[3] if acts == 2 else None, gelu_on),
+                  ["out"], True, (2 * t * m * n * k, nbytes), key, calls,
+                  epilogue=epi, library="torch.baddbmm over the stacked "
+                                        "weights (then F.gelu, the residual)")
+        del args, order
+
+    # the LN forward: (label, rows a task, path key, calls)
+    lib = _dec_library("layernorm")
+    for label, m, key, calls in (
+            ("serving decoder queries", BATCH * q, "calls_per_forward", 6),
+            ("serving cross-attention context", BATCH * c,
+             "calls_per_forward", 1),
+            ("pretraining decoder rows", TRAIN_BATCH * q, "calls_per_step",
+             4)):
+        args = [_dec_rn(gen, t * m, d),
+                (1 + 0.1 * torch.randn(t, d, generator=gen)).cuda(),
+                (0.02 * torch.randn(t, d, generator=gen)).cuda()]
+        _dec_case(rows, "layernorm [tasks]", label, (t * m, d),
+                  lambda: runtime.layernorm(*args),
+                  lambda: _dec_tasks(runtime.layernorm, 1, args),
+                  lambda: layer_norm(args[0].float(), *args[1:]),
+                  lambda: layer_norm(*args), lambda: lib(*args), ["y"], True,
+                  (0, 4 * t * m * d + 8 * t * d), key, calls,
+                  instantiation=_ln_instantiation(m, d, False),
+                  library="F.layer_norm a task")
+        del args
+
+    # the backwards at the pretraining decoders' rows: B5 and B7-MLP over
+    # the stack, and the LN backward they end in
+    shape = (TRAIN_BATCH, q, d)
+    full = _dec_stack("mlp_block", shape, gen)  # x, the six weights
+    args = full[:6]  # a backward takes no b2
+    dy = _dec_rn(gen, t * TRAIN_BATCH, q, d)
+    names = ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"]
+    flops, nbytes = _bwd_work("mlp_block_bwd", shape, 2)
+    lib = _dec_library("mlp_block_bwd")
+
+    def ref_bwd(x, g, *w):
+        return fm.mlp_block_bwd_ref(x, g, *w)
+
+    for name, bwd, switch in (
+            ("mlp_block_bwd [tasks]", fm._mlp_bwd, "defused"),
+            ("mlp_block_acc_bwd [tasks]", fm._mlp_bwd_acc, "accumulate")):
+        _dec_case(rows, name, "pretraining decoder MLP",
+                  (t * TRAIN_BATCH, q, d),
+                  lambda: bwd(args[0], dy, *args[1:]),
+                  lambda: _dec_tasks(bwd, 2, [args[0], dy] + args[1:]),
+                  lambda: _dec_tasks(ref_bwd, 2, f32([args[0], dy])
+                                     + f32(args[1:])),
+                  lambda: _dec_tasks(ref_bwd, 2, [args[0], dy] + args[1:]),
+                  lambda: lib(dy, *full), names, False,
+                  (t * flops, t * nbytes), "calls_per_step", 2,
+                  switch=f"MIRAGE_MLP_BWD={switch}",
+                  library="the forward from F.layer_norm a task, "
+                          "torch.baddbmm over the stacked weights and F.gelu"
+                          ", and its torch.autograd.grad")
+    x2, dy2 = args[0].view(-1, d), dy.view(-1, d)
+    dyln = torch.randn(x2.shape, generator=gen).cuda()
+    ln_args = [x2, args[1], dyln, dy2]
+
+    def ln_lib():
+        xs, ws = x2.detach().requires_grad_(), args[1].detach() \
+            .requires_grad_()
+        y = _dec_library("layernorm")(xs, ws, args[2])
+        return torch.autograd.grad(y, (xs, ws), dyln.to(y.dtype))
+
+    def ln_ref(x, w, g, dy):
+        dx, dgamma, dbeta = ba.ln_bwd_ref(x, g, w, dy)
+        return dx.to(x.dtype), dgamma, dbeta
+
+    def ln_one(x, w, g, dy):
+        return runtime.layernorm_bwd(x, w, g, dy)
+
+    _dec_case(rows, "layernorm_bwd [tasks]", "pretraining decoder rows",
+              tuple(x2.shape), lambda: runtime.layernorm_bwd(*ln_args),
+              lambda: _dec_tasks(ln_one, 1, [x2] + ln_args[1:2]
+                                 + [dyln.view(t, -1, d), dy2.view(t, -1, d)]),
+              lambda: _dec_tasks(ln_ref, 1, [x2.float()] + ln_args[1:2]
+                                 + [dyln.view(t, -1, d), dy2.view(t, -1, d)]),
+              lambda: _dec_tasks(ln_ref, 1, [x2] + ln_args[1:2]
+                                 + [dyln.view(t, -1, d), dy2.view(t, -1, d)]),
+              ln_lib, ["dx", "dgamma", "dbeta"], False,
+              (0, x2.numel() * (2 + 4 + 2 + 2) + 8 * t * d * 2),
+              "calls_per_step", 2,
+              instantiation=_ln_instantiation(TRAIN_BATCH * q, d, True),
+              library="F.layer_norm a task and its torch.autograd.grad")
+    ln_row = rows["layernorm_bwd [tasks]"][-1]
+    if ln_row["vs_one_task_calls"]["dx"]["max_abs"] != 0:
+        raise AssertionError("layernorm_bwd [tasks]: dx not bit-equal to the "
+                             "one-task launches")
+    del full, args, dy, x2, dy2, dyln, ln_args
+    return rows
+
+
+def _dec_step(card):
+    """Phase 5's pretraining step (ViT-B at batch 256, three 256/2/8
+    decoders, remat on, injected masks, 98 visible tokens, bf16) with
+    MIRAGE_DEC_BATCH on against off: the loss, the grad norm and every
+    leaf's gradient within phase 5's bars (the decoders' worst leaf
+    reported apart), exact launches of one forward and backward in each
+    (DEC_PER_STEP), and with MIRAGE_MLP_BWD=accumulate too
+    (DEC_PER_STEP_ACC) against off. Returns (the result, the step
+    function to time)."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import build_model
+    from mirage_tpu_torch.masking.masking import generate_random_masks
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+    from mirage_tpu_torch.train.steps import (init_train_state,
+                                              make_pretrain_loss,
+                                              make_train_step)
+
+    t0 = time.perf_counter()
+    model = build_model("miragepre_base", TRAIN_ARGS, TRAIN_DOMAINS, 512, 32,
+                        compute_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(SEED),
+                        remat=True).cuda()
+    opt = GroupedOptimizer(OptimizerConfig(
+        opt="adamw", betas=(0.9, 0.95), weight_decay=0.05, clip_grad=1.0))
+    loss_fn = make_pretrain_loss(model, TRAIN_DOMAIN_CONF,
+                                 num_encoded_tokens=98, alphas=1.0)
+    state = init_train_state(model, opt)
+    step = make_train_step(loss_fn, opt)
+    b = TRAIN_BATCH
+    rng = np.random.default_rng(SEED)
+    batch = {"bscan": rng.random((b, 1, 512, 512), dtype=np.float32),
+             "slo": rng.random((b, 1, 512, 512), dtype=np.float32),
+             "bscanlayermap": rng.integers(0, 13, (b, 128, 128))}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    masks, _, _ = generate_random_masks(
+        torch.Generator().manual_seed(SEED), [256, 256, 256], b, 98)
+    masks = {k: m.cuda() for k, m in zip(TRAIN_DOMAINS, masks)}
+    names = [n for n, p in state["params"].items() if p.requires_grad]
+    log(f"[decbatch] the ViT-B pretraining step (remat on) built in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def loss_and_grads():
+        loss, _ = loss_fn(batch, task_masks=masks, num_visible=98)
+        return loss.detach(), torch.autograd.grad(
+            loss, [state["params"][n] for n in names])
+
+    runs = {}
+    for label, switches, want in (
+            ("off", {"MIRAGE_DEC_BATCH": "off"}, DEC_PER_STEP["off"]),
+            ("on", {"MIRAGE_DEC_BATCH": "on"}, DEC_PER_STEP["on"]),
+            ("on, accumulate", {"MIRAGE_DEC_BATCH": "on",
+                                "MIRAGE_MLP_BWD": "accumulate"},
+             DEC_PER_STEP_ACC)):
+        with runtime.switched(switches):
+            (loss, grads), counts = _dec_count(loss_and_grads)
+        _dec_check_counts(f"step, {label}", counts, want)
+        runs[label] = (loss, grads, counts)
+    off_loss, off_grads, _ = runs["off"]
+    out = {"counts": {k: v[2] for k, v in runs.items()}}
+    for label in ("on", "on, accumulate"):
+        loss, grads, _ = runs[label]
+        agree = _agreement(loss, grads, off_loss, off_grads, names)
+        dec = {n: ((g - w).norm() / w.norm()).item()
+               for n, g, w in zip(names, grads, off_grads)
+               if n.startswith("output_adapters.") and w.norm() > 0}
+        worst = max(dec, key=dec.get)
+        agree["worst_decoder_leaf"] = worst
+        agree["worst_decoder_leaf_rel_l2"] = dec[worst]
+        agree["decoder_leaves"] = len(dec)
+        log(f"[decbatch] step with {label} against off: {agree}")
+        _check_agreement(f"decbatch step ({label})", agree)
+        out[label] = agree
+    del runs, off_grads
+
+    def call():
+        step(state, batch, None, 1e-4, task_masks=masks, num_visible=98)
+
+    return out, call
+
+
+def _dec_forward(wrapper, x):
+    """Phase 4's batch-64 MIRAGE-Large reconstruct forward with
+    MIRAGE_DEC_BATCH on against off: exact launches (DEC_PER_FORWARD), the
+    outputs within phase 4's bar of each other and of the plain path.
+    Returns (the result, the forward to time)."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+
+    outs, counts = {}, {}
+    for label in ("off", "on"):
+        with runtime.switched({"MIRAGE_DEC_BATCH": label}):
+            outs[label], counts[label] = _dec_count(lambda: wrapper(x))
+        _dec_check_counts(f"forward, {label}", counts[label],
+                          DEC_PER_FORWARD[label])
+    with runtime.plain_on_card():
+        want = wrapper(x)
+    agree = {}
+    for task in want:
+        on, off, w = (outs["on"][task].float(), outs["off"][task].float(),
+                      want[task].float())
+        agree[task] = {
+            "max_abs_on_vs_off": (on - off).abs().max().item(),
+            "rel_l2_on_vs_off": ((on - off).norm() / off.norm()).item(),
+            "bit_equal_on_off": bool(torch.equal(outs["on"][task],
+                                                  outs["off"][task])),
+            "rel_l2_on_vs_plain": ((on - w).norm() / w.norm()).item()}
+        a = agree[task]
+        if not (a["rel_l2_on_vs_off"] <= MODEL_REL_L2
+                and a["rel_l2_on_vs_plain"] <= MODEL_REL_L2
+                and bool(torch.isfinite(on).all())):
+            raise AssertionError(f"decbatch forward {task}: {a} (bar "
+                                 f"{MODEL_REL_L2})")
+    log(f"[decbatch] the batch-{BATCH} forward with MIRAGE_DEC_BATCH=on "
+        f"against off and the plain path: {agree}")
+    return {"counts": counts, "agreement": agree}, lambda: wrapper(x)
+
+
+def _dec_block_rows():
+    """nn/block.py:DecoderBlock at decoder width (batch 64, 256 queries,
+    DEC_BLOCK_CONTEXTS context tokens; 600 takes B8), bf16 activations
+    with float32 parameters: its forward and backward (the input's, the
+    context's and every parameter's gradient) against its plain version
+    in float32 on the same values (phase 2's bars), exact launches of one
+    call (DEC_BLOCK_PER_CALL), ms of a forward and backward beside the
+    plain version's."""
+    import torch
+
+    from mirage_tpu_torch.nn import init as vinit
+    from mirage_tpu_torch.nn.block import DecoderBlock
+    from mirage_tpu_torch.ops import runtime
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    block = vinit.init_weights(DecoderBlock(DEC_DIM, DEC_HEADS), gen).cuda()
+    params = list(block.parameters())
+    names = [n for n, _ in block.named_parameters()]
+    rows = []
+    for nc in DEC_BLOCK_CONTEXTS:
+        x = _dec_rn(gen, BATCH, DEC_QUERIES, DEC_DIM)
+        ctx = _dec_rn(gen, BATCH, nc, DEC_DIM)
+        dy = _dec_rn(gen, BATCH, DEC_QUERIES, DEC_DIM)
+
+        def run(x, ctx):
+            xs, cs = x.detach().requires_grad_(), ctx.detach() \
+                .requires_grad_()
+            out = block(xs, cs)
+            return (out,) + torch.autograd.grad(out, [xs, cs] + params,
+                                                dy.to(out.dtype))
+
+        got, counts = _dec_count(lambda: run(x, ctx))
+        _dec_check_counts(f"DecoderBlock at {nc} keys", counts,
+                          DEC_BLOCK_PER_CALL[nc])
+        with runtime.plain_on_card():
+            want = run(x.float(), ctx.float())
+        errs = _dec_errs(f"DecoderBlock at {nc} keys", ["out"], got[:1],
+                         want[:1], True)
+        errs.update(_dec_errs(f"DecoderBlock at {nc} keys",
+                              ["dx", "dcontext"] + names, got[1:], want[1:],
+                              False))
+        ms = cuda_ms(lambda: run(x, ctx), iters=5)
+        with runtime.plain_on_card():
+            plain_ms = cuda_ms(lambda: run(x, ctx), iters=3, warmup=1)
+        row = {"shape": [BATCH, DEC_QUERIES, nc, DEC_DIM, DEC_HEADS],
+               "counts": counts, "errors": errs,
+               "worst_rel_l2": max(e["rel_l2"] for e in errs.values()),
+               "forward_backward_ms": ms, "plain_ms": plain_ms}
+        log(f"[decbatch] DecoderBlock {row['shape']}: launches {counts}; "
+            f"worst rel_l2 {row['worst_rel_l2']:.3e}; forward and backward "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        rows.append(row)
+        del x, ctx, dy, got, want
+    return rows
+
+
+def phase_decbatch(workdir, card, large):
+    """Phase 14 (module docstring): the task-strided kernels, the forward
+    and the step with MIRAGE_DEC_BATCH on against off, DecoderBlock, and
+    the ABBA timings of mirage_tpu_torch/bench/decbatch.py."""
+    import numpy as np
+    import torch
+
+    from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
+    from mirage_tpu_torch.bench import decbatch
+
+    t0 = time.perf_counter()
+    kernels = dec_kernel_rows()
+    blocks = _dec_block_rows()
+    wrapper = MIRAGEWrapper(weights=str(large), compute_dtype=torch.bfloat16,
+                            device="cuda")
+    rng = np.random.default_rng(SEED + 14)
+    x = {"bscan": torch.from_numpy(
+        rng.random((BATCH, 1, 512, 512), dtype=np.float32)).cuda()}
+    forward, fwd_call = _dec_forward(wrapper, x)
+    step, step_call = _dec_step(card)
+    timing = {}
+    for case, call, iters in (("forward", fwd_call, DEC_FORWARD_ITERS),
+                              ("step", step_call, DEC_STEP_ITERS)):
+        timing[case] = decbatch.abba({a: call for a in decbatch.ARMS},
+                                     DEC_ABBA_ROUNDS, iters, True)
+        log(f"[decbatch] ABBA {case} ({DEC_ABBA_ROUNDS} rounds of {iters}) "
+            f"on {card}: {timing[case]}")
+    del wrapper
+    torch.cuda.empty_cache()
+    log(f"[decbatch] phase 14 in {time.perf_counter() - t0:.1f}s")
+    return {"kernels": kernels, "decoder_block": blocks, "forward": forward,
+            "step": step, "timing": timing, "card": card}
+
+
+def _decbatch_entries(dec):
+    """Phase 14's entries of the `kernels` line: the task-strided ops and
+    kernels on the reconstruct forward (launches from its batch-64 forward
+    with MIRAGE_DEC_BATCH=on) and on the pretraining step (launches from
+    its forward and backward with the switch on; B7-MLP's with
+    MIRAGE_MLP_BWD=accumulate too); times summed over one such pass."""
+    rows = dec["kernels"]
+    entries = []
+    for path, key, counts, per_path, suffix, times in (
+            ("forward", "calls_per_forward", dec["forward"]["counts"]["on"],
+             DEC_PER_FORWARD["on"], " [decbatch forward]",
+             f"sum over one batch-{BATCH} MIRAGE-Large reconstruct forward "
+             f"with MIRAGE_DEC_BATCH=on; launches from that forward"),
+            ("step", "calls_per_step", dec["step"]["counts"]["on"],
+             DEC_PER_STEP["on"], " [decbatch step]",
+             f"sum over one batch-{TRAIN_BATCH} pretraining step with "
+             f"MIRAGE_DEC_BATCH=on; launches from its forward and backward"),
+            ("step", "calls_per_step",
+             dec["step"]["counts"]["on, accumulate"], DEC_PER_STEP_ACC,
+             " [decbatch step, accumulate]",
+             f"sum over one batch-{TRAIN_BATCH} pretraining step with "
+             f"MIRAGE_DEC_BATCH=on and MIRAGE_MLP_BWD=accumulate; launches "
+             f"from its forward and backward")):
+        acc = "accumulate" in suffix
+        picked = {name: [r for r in rs if r.get(key)]
+                  for name, rs in rows.items()
+                  if ("acc_bwd" in name) == acc}
+        picked = {k: v for k, v in picked.items() if v}
+        for e in _kernel_entries(picked, counts, per_path, path, times):
+            e["name"] += suffix
+            entries.append(e)
+    return entries
+
+
 # ------------------------------------------------------------ --multi-card
 
 # the pipelines of --multi-card, one process a card over NCCL: (label, mesh
@@ -7232,7 +8039,8 @@ def multi_card(workdir, card):
 
 
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
-          "infer", "bench", "pretrain", "parallel", "pipeline", "vit")
+          "infer", "bench", "pretrain", "parallel", "pipeline", "vit",
+          "decbatch")
 
 
 def main(argv=None):
@@ -7326,6 +8134,7 @@ def main(argv=None):
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
     infer = bench = pretrain = ln_rows = parallel = pipeline = vit = None
+    decbatch = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -7347,7 +8156,7 @@ def main(argv=None):
                        "mlp_block_fwd_stash3d": mlp_block_fwd_stash3d.launches}
     if "golden" in phases:
         golden = phase_golden(workdir)
-    if {"serve", "infer"} & set(phases):
+    if {"serve", "infer", "decbatch"} & set(phases):
         large = _large_weights(workdir)
     if "serve" in phases:
         counts, n_rec, tput = phase_serve(workdir, card, large)
@@ -7369,6 +8178,8 @@ def main(argv=None):
         pipeline = phase_pipeline(workdir, card)
     if "vit" in phases:
         vit = phase_vit(workdir, card)
+    if "decbatch" in phases:
+        decbatch = phase_decbatch(workdir, card, large)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -7407,13 +8218,14 @@ def main(argv=None):
                + _ln_entries(ln_rows, pretrain)
                + _parallel_entries(parallel, ln_rows)
                + _pipeline_entries(pipeline)
-               + _vit_entries(vit))
+               + _vit_entries(vit)
+               + _decbatch_entries(decbatch))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "bench": bench, "layernorm": ln_rows,
                     "pretrain": pretrain, "parallel": parallel,
-                    "pipeline": pipeline, "vit": vit,
+                    "pipeline": pipeline, "vit": vit, "decbatch": decbatch,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -20,10 +20,21 @@ The cross-attention adds no skip from the queries: the reference decoder
 computes x = xattn(LN_q(q), LN_c(ctx)); x = x + mlp(LN(x)). (The JAX
 package's fused TPU route at spatial_output.py:209-225 calls its
 xattn_half_block, which adds x; the port calls B3 with residual=False.)
+
+The forward is ``_prepare`` (everything before the transformer tail),
+``_tail`` (the cross-attention, its MLP and the blocks) and ``_finish`` (the
+output projection and unpatchify), as in the JAX package, so that
+identically configured decoders can run their tails as one:
+:func:`batched_spatial_decode` (``MIRAGE_DEC_BATCH=on``,
+``models/mirage.py``) stacks the tasks' queries and contexts task-major
+into one T·B batch and their tail weights on a leading task axis, and runs
+one tail over the task stack (``ops/tasks.py``): each kernel of the tail
+launches once for the T decoders instead of T times.
 """
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mirage_tpu_torch.adapters.input_adapters import pair
 from mirage_tpu_torch.masking.masking import gather_rows, scatter_rows
@@ -179,6 +190,13 @@ class SpatialOutputAdapter(nn.Module):
         False."""
         x, ctx, (nh, nw) = self._prepare(encoder_tokens, input_info,
                                          absent_tasks, ids_keep)
+        return self._finish(self._tail(x, ctx, deterministic), nh, nw,
+                            pixel_output)
+
+    def _tail(self, x, ctx, deterministic=True):
+        """The cross-attention and its MLP, then the transformer blocks,
+        over the prepared queries x (B, nq, d) and context (B, nc, d); its
+        weights may be a task stack (:func:`batched_spatial_decode`)."""
         if self.use_xattn:
             dec, qn, cn, on, m = (self.decoder, self.query_norm,
                                   self.context_norm, self.out_norm, self.mlp)
@@ -199,8 +217,88 @@ class SpatialOutputAdapter(nn.Module):
                 x = mlp_block_ref(x, *mlp_args)
         for block in getattr(self, "decoder_transformer", ()):
             x = block(x, deterministic)
+        return x
+
+    def _finish(self, x, nh, nw, pixel_output=True):
+        """The output projection, then the pixels (B, C, H, W) unless
+        pixel_output is False."""
         x = self.out_proj(x)
         if not pixel_output:
             return x
         ph, pw = self.patch_hw
         return unpatchify(x, nh, nw, ph, pw, self.num_channels)
+
+
+# ------------------------------------------------------------- task batching
+
+# Settings that must agree across adapters for their tails to stack: the
+# same weight shapes and the same routes inside _tail and Block
+# (mirage_tpu/adapters/spatial_output.py:_BATCH_KEYS)
+_BATCH_KEYS = ("dim_tokens", "depth", "num_heads", "mlp_ratio", "qkv_bias",
+               "use_task_queries", "use_xattn")
+# the submodules that make up the tail
+_TAIL_KEYS = ("decoder", "context_norm", "query_norm", "out_norm", "mlp",
+              "decoder_transformer")
+
+
+def decoders_batchable(adapters, input_info) -> bool:
+    """True when the output adapters are two or more SpatialOutputAdapters
+    with cross-attention and task queries, the same tail settings, tasks
+    present in input_info with equal token counts and the same context
+    tasks (mirage_tpu/adapters/spatial_output.py:decoders_batchable): the
+    reference pretraining decoders (dim 256, depth 2, 8 heads, 256 tokens
+    each)."""
+    ads = list(adapters.values())
+    if len(ads) < 2 or not all(isinstance(a, SpatialOutputAdapter)
+                               for a in ads):
+        return False
+    a0 = ads[0]
+    if not (a0.use_xattn and a0.use_task_queries):
+        return False
+    if not all(getattr(a, k) == getattr(a0, k) for a in ads
+               for k in _BATCH_KEYS):
+        return False
+    if not all(a.task in input_info["tasks"] for a in ads):
+        return False
+    if len({input_info["tasks"][a.task]["num_tokens"] for a in ads}) != 1:
+        return False
+    return len({a.context_tasks for a in ads}) == 1
+
+
+class _Tail(nn.Module):
+    """An adapter's tail as a module's forward, for functional_call."""
+
+    def __init__(self, adapter):
+        super().__init__()
+        self.adapter = adapter
+
+    def forward(self, x, ctx, deterministic):
+        return self.adapter._tail(x, ctx, deterministic)
+
+
+def batched_spatial_decode(adapters, encoder_tokens, input_info,
+                           absent_tasks=(), ids_keep=None, deterministic=True,
+                           pixel_output=True):
+    """Every adapter's prediction (task -> output, as each adapter's
+    forward gives it) with the tails run as one: each task's ``_prepare``;
+    the queries and contexts stacked task-major into (T·B, n, d) (task t's
+    rows contiguous) and each tail weight stacked on a leading task axis
+    (T, ...); one ``_tail`` of the first adapter over that task stack
+    (``torch.func.functional_call`` with the stacked weights, as the JAX
+    package vmaps ``_tail`` over its stacked parameters,
+    mirage_tpu/adapters/spatial_output.py:314); then each task's
+    ``_finish``. Gradients reach each adapter's own parameters through the
+    stack. ``decoders_batchable`` must hold."""
+    tasks = list(adapters.keys())
+    ads = [adapters[t] for t in tasks]
+    prepared = [a._prepare(encoder_tokens, input_info, absent_tasks, ids_keep)
+                for a in ads]
+    queries = torch.cat([p[0] for p in prepared])
+    context = torch.cat([p[1] for p in prepared])
+    named = [dict(a.named_parameters()) for a in ads]
+    stack = {f"adapter.{name}": torch.stack([n[name] for n in named])
+             for name in named[0] if name.split(".")[0] in _TAIL_KEYS}
+    x = functional_call(_Tail(ads[0]), stack,
+                        (queries, context, deterministic))
+    return {t: a._finish(xt, *p[2], pixel_output)
+            for t, a, xt, p in zip(tasks, ads, x.chunk(len(ads)), prepared)}

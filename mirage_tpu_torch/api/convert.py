@@ -43,6 +43,9 @@ from mirage_tpu_torch.nn.resize import resize_matrix
 # the top-level names of a mirage_tpu ViT pytree (mirage_tpu/models/vit.py)
 VIT_PARAM_NAMES = {"cls_token", "pos_embed", "patch_embed", "encoder", "norm",
                    "head"}
+# mirage_tpu/nn/block.py:decoder_block_init's leaves (nn/block.py:DecoderBlock)
+DECODER_BLOCK_NAMES = {"norm1", "self_attn", "cross_attn", "query_norm",
+                       "context_norm", "norm2", "mlp"}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:
@@ -127,7 +130,9 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
     (mirage_tpu/api/cls.py) maps onto a ``MIRAGECls``: ``model.*`` from the
     backbone, ``norm.*``, and ``head.*`` with the (fan_in, C) weight
     transposed to torch's (C, fan_in). A ViT tree (:data:`VIT_PARAM_NAMES`)
-    maps onto a ``models/vit.py:VisionTransformer`` in timm's keys."""
+    maps onto a ``models/vit.py:VisionTransformer`` in timm's keys, a
+    decoder block's (:data:`DECODER_BLOCK_NAMES`) onto an
+    ``nn/block.py:DecoderBlock``."""
     if set(params) == {"model", "norm", "head"}:
         sd = {f"model.{k}": v for k, v in
               jax_params_to_state_dict(params["model"], model.model).items()}
@@ -168,6 +173,17 @@ def jax_params_to_state_dict(params: Mapping[str, Any], model
         if isinstance(tree, Mapping):
             return {k: layer(v, i) for k, v in tree.items()}
         return np.asarray(tree)[i]
+
+    if set(params) == DECODER_BLOCK_NAMES:  # nn/block.py:decoder_block_init
+        for name in ("norm1", "query_norm", "context_norm", "norm2"):
+            put_ln(name, params[name])
+        for name in ("qkv", "proj"):
+            put_linear(f"self_attn.{name}", params["self_attn"][name])
+        for name in ("q", "kv", "proj"):
+            put_linear(f"cross_attn.{name}", params["cross_attn"][name])
+        put_linear("mlp.fc1", params["mlp"]["fc1"])
+        put_linear("mlp.fc2", params["mlp"]["fc2"])
+        return sd
 
     if set(params) == VIT_PARAM_NAMES:  # the inverse of vit.py:107-118
         put("cls_token", params["cls_token"])

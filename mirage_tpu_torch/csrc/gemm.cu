@@ -24,6 +24,12 @@
 // other's products. K and N must be multiples of 8 (16-byte rows). float
 // runs a plain 64×64 FMA tile for the float32 golden.
 //
+// mtt_gemm_tasks runs T products of one shape in one launch (the
+// task-batched decoder tails): A (T, M, K), W (T, N, K), bias (T, N), C and
+// the residual (T, M, N), every epilogue of mtt_gemm's but the (K, N)
+// weight, bit-equal to T launches of mtt_gemm (csrc/gemm_pingpong.cuh's
+// TASKS; a float product runs the FMA tile on a grid with the task in z).
+//
 // The bf16 GELU epilogue takes its formula as a template parameter, for the
 // bench's S5 ablation (scripts/bench_vpu.py:_mlp_kernel_v's ``act``): erff
 // (GELU_ERF, the main path's), the Abramowitz & Stegun 7.1.26 polynomial the
@@ -119,6 +125,21 @@ struct EpiBf16 {
   __device__ __forceinline__ static float vec(const Params& p, int, long col, int N) {
     return p.bias != nullptr && col < N ? load_param(p.bias, col, p.bias_dtype) : 0.f;
   }
+  // task `task` of a task-strided launch: its rows of C, the residual and
+  // dg, its bias row and its row groups of the column sums
+  __device__ __forceinline__ static Params at_task(const Params& p, int task, int M, int N) {
+    using OutT = typename std::conditional<KIND == EK_F32, float, bf16>::type;
+    const long rows = (long)task * M * N;
+    Params q = p;
+    q.C = static_cast<OutT*>(p.C) + rows;
+    if (p.bias != nullptr)
+      q.bias = static_cast<const char*>(p.bias) +
+               (long)task * N * (p.bias_dtype == MTT_BF16 ? 2 : 4);
+    if (p.res != nullptr) q.res = p.res + rows;
+    if (p.dg != nullptr) q.dg = p.dg + rows;
+    if (p.colsum != nullptr) q.colsum = p.colsum + (long)task * ((M + 15) / 16) * N;
+    return q;
+  }
   __device__ __forceinline__ static void store(const Params& p, const float (&acc)[128],
                                                const gpp::Scratch& s, int M, int N, long row0,
                                                long n0) {
@@ -198,6 +219,17 @@ __global__ void __launch_bounds__(384, 1)
   gpp::gemm_pingpong<gpp::Bf16, W_MN, EpiBf16<KIND, GM>>(&map_a, &map_w, p, M, N, K, group);
 }
 
+// The task-strided kernel: `tasks` products over 3-D maps of A and W.
+template <int KIND>
+__global__ void __launch_bounds__(384, 1)
+    gemm_bf16_pingpong_tasks(const __grid_constant__ CUtensorMap map_a,
+                             const __grid_constant__ CUtensorMap map_w,
+                             const typename EpiBf16<KIND>::Params p, int M, int N, int K,
+                             int group, int tasks) {
+  gpp::gemm_pingpong<gpp::Bf16, false, EpiBf16<KIND>, true>(&map_a, &map_w, p, M, N, K, group,
+                                                              tasks);
+}
+
 template <int KIND, int GM = GELU_ERF, bool W_MN = false>
 static int launch_kind(const void* a, const void* w, void* c, const void* bias, int bias_dtype,
                        const void* residual, int M, int N, int K, const void* aux_in,
@@ -242,6 +274,29 @@ static int launch_bf16(const void* a, const void* w, void* c, const void* bias, 
   return launch_kind<EK_PLAIN>(a, w, c, bias, bias_dtype, residual, M, N, K, nullptr, nullptr, s);
 }
 
+// `tasks` products of M rows a task (gpp::plan over the tasks' tiles).
+template <int KIND>
+static int launch_kind_tasks(const void* a, const void* w, void* c, const void* bias,
+                             int bias_dtype, const void* residual, int M, int N, int K, int tasks,
+                             cudaStream_t s) {
+  constexpr int bytes = gpp::smem_bytes<1>();
+  static SmemLimit limit;
+  const int err = set_smem(gemm_bf16_pingpong_tasks<KIND>, bytes, limit);
+  if (err != 0) return err;
+  const int sms = sm_count();
+  CUtensorMap map_a, map_w;
+  // A (T, M, K) in boxes of BM rows; W (T, N, K), this CTA's W_ROWS rows
+  const MapKey ka{a, K, M, tasks, K, (long long)M * K, gpp::BM, 64};
+  const MapKey kw{w, K, N, tasks, K, (long long)N * K, gpp::W_ROWS, 64};
+  if (sms == 0 || !cached_map_3d(&map_a, ka) || !cached_map_3d(&map_w, kw))
+    return (int)cudaErrorInvalidValue;
+  const gpp::Plan pl = gpp::plan(M, N, sms, tasks);
+  const typename EpiBf16<KIND>::Params p{c, bias, bias_dtype,
+                                         static_cast<const bf16*>(residual), nullptr, nullptr};
+  return gpp::launch(gemm_bf16_pingpong_tasks<KIND>, pl, bytes, s, map_a, map_w, p, M, N, K,
+                     pl.group, tasks);
+}
+
 // --------------------------------------------------------------- float path
 
 constexpr int FT = 64, FK = 16;
@@ -255,6 +310,15 @@ __global__ void __launch_bounds__(256)
   __shared__ float bs[FK][FT + 4];  // bs[k][n]
   __shared__ float red[4][16][FT];  // the colsum epilogue's terms, by row
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  if (blockIdx.z > 0) {  // task blockIdx.z of a task-strided launch (no colsum epilogue)
+    const long task = blockIdx.z;
+    A += task * M * K;
+    W += task * N * K;
+    C += task * M * N;
+    if (res != nullptr) res += task * M * N;
+    if (bias != nullptr)
+      bias = static_cast<const char*>(bias) + task * N * (bias_dtype == MTT_BF16 ? 2 : 4);
+  }
   const long m0 = (long)blockIdx.y * FT, n0 = (long)blockIdx.x * FT;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += FK) {
@@ -362,6 +426,32 @@ extern "C" int mtt_gemm_gelu_mode(const void* a, const void* w, void* c, const v
                                                  nullptr, nullptr, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// mtt_gemm over `tasks` products of one shape: a (tasks, M, K), w (tasks,
+// N, K), bias (tasks, N) or null, residual and c (tasks, M, N); epi
+// EPI_NONE or EPI_GELU (out_f32 with EPI_NONE), as mtt_gemm.
+extern "C" int mtt_gemm_tasks(const void* a, const void* w, void* c, const void* bias,
+                              int bias_dtype, const void* residual, int M, int N, int K,
+                              int tasks, int epi, int dtype, int out_f32, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || tasks <= 0 || tasks > 65535 ||
+      (epi != EPI_NONE && epi != EPI_GELU) || (out_f32 && (epi != EPI_NONE || residual != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == MTT_BF16) {
+    if (K % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
+    if (out_f32)
+      return launch_kind_tasks<EK_F32>(a, w, c, bias, bias_dtype, nullptr, M, N, K, tasks, s);
+    if (epi == EPI_GELU)
+      return launch_kind_tasks<EK_GELU>(a, w, c, bias, bias_dtype, residual, M, N, K, tasks, s);
+    return launch_kind_tasks<EK_PLAIN>(a, w, c, bias, bias_dtype, residual, M, N, K, tasks, s);
+  }
+  const dim3 grid((N + FT - 1) / FT, (M + FT - 1) / FT, tasks);
+  gemm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(a), static_cast<const float*>(w),
+                                       static_cast<float*>(c), bias, bias_dtype, epi,
+                                       static_cast<const float*>(residual), M, N, K, nullptr,
+                                       nullptr);
+  return (int)cudaGetLastError();
 }
 
 // mtt_gemm with W as (K, N) row-major, read as it lies (bf16 only): the

@@ -39,6 +39,15 @@
 //   branches between epilogues inside the unrolled store made every kind
 //   slower than its own code (measured on the H100).
 // - The tensor maps are encoded once per (pointer, shape, box) and kept.
+// - TASKS (the task-batched decoder tails): T products of one shape, A
+//   (T, M, K), W (T, N, K), C (T, M, N), each task its own bias row, in one
+//   launch. A and W are 3-D tensor maps over the task stack, so a tile never
+//   reads another task's rows (rows past M read as zero, as in a one-task
+//   launch); the persistent scheduler walks (task, cluster tile) with the
+//   grouped raster inside a task, so both CTAs of a cluster stay in one task
+//   and W's multicast slice is that task's. Each output element sums the same
+//   K-slices in the same order as T one-task launches: the outputs are
+//   bit-equal to them.
 //
 // The products of one output element run over the K-slices in order from a
 // zero accumulator, as csrc/gemm_stash.cu's, csrc/gemm_lnfold.cu's and
@@ -128,7 +137,8 @@ __device__ __forceinline__ void bar_arrive_256(int id) {
 
 // Tile t of the grouped raster (of cluster tiles): ``group`` rows at a
 // time, down the rows of the group column by column (ops/fused_mlp.py:
-// tile_order mirrors it)
+// tile_order mirrors it); a task-strided launch takes the tasks' tiles one
+// task after another, each task's in this raster
 __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n, int group, int& tm,
                                             int& tn) {
   const int per_group = group * tiles_n, first = t / per_group * group;
@@ -269,13 +279,34 @@ static bool cached_map_2d(CUtensorMap* out, const MapKey2d& key) {
 
 // ------------------------------------------------------------ the kernel body
 
-// W's share of this CTA into the stage of every CTA of the cluster.
+// W's share of this CTA into the stage of every CTA of the cluster (of
+// task `task` of a 3-D map when TASKS).
+template <bool TASKS>
 __device__ __forceinline__ void load_w(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-  if constexpr (CLUSTER > 1)
+                                       int c1, int task) {
+  if constexpr (TASKS) {
+    if constexpr (CLUSTER > 1)
+      tma_load_3d_multicast(dst, map, bar, c0, c1, task, (1 << CLUSTER) - 1);
+    else
+      tma_load_3d(dst, map, bar, c0, c1, task);
+  } else if constexpr (CLUSTER > 1) {
     tma_load_2d_multicast(dst, map, bar, c0, c1, (1 << CLUSTER) - 1);
-  else
+  } else {
     tma_load_2d(dst, map, bar, c0, c1);
+  }
+}
+
+// Tile t of a launch over `tasks` tasks of `per_task` cluster tiles each:
+// its task and its (tile row, tile column) in the task's grouped raster.
+template <bool TASKS>
+__device__ __forceinline__ void task_tile(int t, int per_task, int tiles_m, int tiles_n,
+                                          int group, int& task, int& tm, int& tn) {
+  task = 0;
+  if constexpr (TASKS) {
+    task = t / per_task;
+    t -= task * per_task;
+  }
+  tile_coords(t, tiles_m, tiles_n, group, tm, tn);
 }
 
 // This warp is done with the stage behind `bar`: one arrival on it in every
@@ -292,11 +323,14 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 // smem_bytes<Epi::VECS>() of dynamic shared memory. Epi provides VECS,
 // vec(p, v, col) (column vector v at col; 0 past N) and store(p, acc,
 // scratch, M, N, row0, n0) (one warp's 16 rows of each row block, row0 its
-// first in block 0). W_MN: W is (K, N), read MN-major.
-template <class Op, bool W_MN, class Epi>
+// first in block 0). W_MN: W is (K, N), read MN-major. TASKS: `tasks`
+// products over 3-D maps of A and W (K-major W), M rows a task, and
+// Epi::at_task(p, task, M, N) the task's epilogue parameters.
+template <class Op, bool W_MN, class Epi, bool TASKS = false>
 __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CUtensorMap* map_w,
                                               const typename Epi::Params& p, int M, int N, int K,
-                                              int group) {
+                                              int group, int tasks = 1) {
+  static_assert(!(TASKS && W_MN), "task-strided products take W (N, K)");
   using Acc = typename Op::Acc;
   constexpr int VECS = Epi::VECS;
   extern __shared__ unsigned char gpp_smem_raw[];
@@ -310,7 +344,8 @@ __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CU
   const int rank = blockIdx.x % CLUSTER, cluster = blockIdx.x / CLUSTER;
   const int clusters = gridDim.x / CLUSTER;
   const int tiles_mc = ((M + BM - 1) / BM + CLUSTER - 1) / CLUSTER, tiles_n = (N + BN - 1) / BN;
-  const int tiles = tiles_mc * tiles_n, ktiles = (K + Op::BK - 1) / Op::BK;
+  const int per_task = tiles_mc * tiles_n, ktiles = (K + Op::BK - 1) / Op::BK;
+  const int tiles = per_task * (TASKS ? tasks : 1);
   const int mine = tiles > cluster ? (tiles - cluster + clusters - 1) / clusters : 0;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -331,22 +366,25 @@ __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CU
     if (tid == 0) {
       int i = 0;
       for (int g = 0; g < mine; ++g) {
-        int tm, tn;
-        tile_coords(cluster + g * clusters, tiles_mc, tiles_n, group, tm, tn);
+        int task, tm, tn;
+        task_tile<TASKS>(cluster + g * clusters, per_task, tiles_mc, tiles_n, group, task, tm, tn);
         tm = tm * CLUSTER + rank;
         for (int kt = 0; kt < ktiles; ++kt, ++i) {
           const int s = i % STAGES;
           mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);  // free in every CTA; first round
           const uint32_t st = sbase + s * STAGE_BYTES, bar = full + 8 * s;
           mbar_expect_tx(bar, STAGE_BYTES);  // A's rows and all of W's, this CTA's share or not
-          tma_load_2d(st, map_a, bar, kt * Op::BK, tm * BM);
+          if constexpr (TASKS)
+            tma_load_3d(st, map_a, bar, kt * Op::BK, tm * BM, task);
+          else
+            tma_load_2d(st, map_a, bar, kt * Op::BK, tm * BM);
           if constexpr (W_MN) {
 #pragma unroll
             for (int b = rank * W_BOXES; b < (rank + 1) * W_BOXES; ++b)
-              load_w(st + A_BYTES + b * MN_BOX, map_w, bar, tn * BN + 64 * b, kt * 64);
+              load_w<false>(st + A_BYTES + b * MN_BOX, map_w, bar, tn * BN + 64 * b, kt * 64, 0);
           } else {
-            load_w(st + A_BYTES + rank * W_ROWS * 128, map_w, bar, kt * Op::BK,
-                   tn * BN + rank * W_ROWS);
+            load_w<TASKS>(st + A_BYTES + rank * W_ROWS * 128, map_w, bar, kt * Op::BK,
+                          tn * BN + rank * W_ROWS, task);
           }
         }
       }
@@ -361,9 +399,17 @@ __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CU
                          (cw * 4 + warp) * WARP_BYTES;  // 16-byte aligned
     const Scratch scratch{reinterpret_cast<float*>(raw), raw + VECS * BN * 4};
     for (int g = cw; g < mine; g += 2) {
-      int tm, tn;
-      tile_coords(cluster + g * clusters, tiles_mc, tiles_n, group, tm, tn);
+      int task, tm, tn;
+      task_tile<TASKS>(cluster + g * clusters, per_task, tiles_mc, tiles_n, group, task, tm, tn);
       const long n0 = (long)tn * BN, row0 = (long)(tm * CLUSTER + rank) * BM + warp * 16;
+      // the task's epilogue parameters (a one-task launch reads p as it is)
+      typename Epi::Params task_p;
+      const typename Epi::Params* pp = &p;
+      if constexpr (TASKS) {
+        task_p = Epi::at_task(p, task, M, N);
+        pp = &task_p;
+      }
+      const typename Epi::Params& pt = *pp;
       // lane l's share of the tile's column vectors, loaded before the main
       // loop so its products hide the loads
       float vecs[VECS > 0 ? VECS : 1][BN / 32];
@@ -371,7 +417,7 @@ __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CU
       for (int v = 0; v < VECS; ++v)
 #pragma unroll
         for (int e = 0; e < BN / 32; ++e)
-          vecs[v][e] = Epi::vec(p, v, n0 + lane * (BN / 32) + e, N);
+          vecs[v][e] = Epi::vec(pt, v, n0 + lane * (BN / 32) + e, N);
       Acc acc[128];
 #pragma unroll
       for (int j = 0; j < 128; ++j) acc[j] = 0;
@@ -404,7 +450,7 @@ __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CU
 #pragma unroll
         for (int e = 0; e < BN / 32; ++e) scratch.vec[v * BN + lane * (BN / 32) + e] = vecs[v][e];
       __syncwarp();
-      Epi::store(p, acc, scratch, M, N, row0, n0);
+      Epi::store(pt, acc, scratch, M, N, row0, n0);
       __syncwarp();  // the lanes are done with the scratch before the next tile's vectors
 #endif
     }
@@ -415,16 +461,17 @@ __device__ __forceinline__ void gemm_pingpong(const CUtensorMap* map_a, const CU
   }
 }
 
-// The launch of an (M, N) product on `sms` SMs: one cluster per CLUSTER
-// SMs (or per cluster tile, if fewer), cluster tile rows grouped so that a
-// group spans eight tile rows (ops/fused_mlp.py:gemm_plan).
+// The launch of an (M, N) product (of `tasks` of them) on `sms` SMs: one
+// cluster per CLUSTER SMs (or per cluster tile, if fewer), cluster tile rows
+// grouped so that a group spans eight tile rows (ops/fused_mlp.py:
+// gemm_plan).
 struct Plan {
   int grid, group;
 };
-static Plan plan(int M, int N, int sms) {
+static Plan plan(int M, int N, int sms, int tasks = 1) {
   constexpr int GROUP = 8 / CLUSTER;
   const int tiles_mc = ((M + BM - 1) / BM + CLUSTER - 1) / CLUSTER;
-  const int tiles = tiles_mc * ((N + BN - 1) / BN), clusters = sms / CLUSTER;
+  const int tiles = tasks * tiles_mc * ((N + BN - 1) / BN), clusters = sms / CLUSTER;
   return {CLUSTER * (tiles < clusters ? tiles : clusters), tiles_mc < GROUP ? tiles_mc : GROUP};
 }
 

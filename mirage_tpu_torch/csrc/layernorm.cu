@@ -31,6 +31,15 @@
 // Widths that are not a multiple of the vector (rows not 16-byte aligned) or
 // wider than 1024 take the generic kernels: a warp a row, element by element.
 //
+// Task-strided launches (mtt_layernorm_tasks, mtt_layernorm_bwd_tasks: the
+// task-batched decoder tails, each task its own gamma and beta, and its own
+// dgamma and dbeta) run the same kernels on a grid (G, T): blockIdx.y is the
+// task, whose rows are contiguous, so no CTA's rows straddle two tasks and
+// the forward still keeps one gamma/beta over a lane group's rows. The
+// backward's partial rows, finish groups and counters are per task; each
+// task's dgamma and dbeta are summed in the fixed order of a one-task launch
+// of G CTAs. A one-task launch is the grid (G, 1).
+//
 // ops/runtime.py:layernorm_plan mirrors every launch; tests/
 // test_torch_layernorm.py reads the constants below from this file. What a
 // later PR fuses first: the normalised rows into the A-tile load of the GEMM
@@ -140,6 +149,11 @@ __global__ void __launch_bounds__(LN_THREADS, LN_FWD_CTAS<T>)
   using V = Vec16<T>;
   constexpr int VEC = V::N, TPR = ln_tpr(W), NV = W / (VEC * TPR), GROUPS = LN_THREADS / TPR;
   const int lane = threadIdx.x % TPR, nvec = dim / VEC;
+  // task blockIdx.y: its `rows` rows and its gamma and beta
+  x += (long)blockIdx.y * rows * dim;
+  y += (long)blockIdx.y * rows * dim;
+  gamma += (long)blockIdx.y * dim;
+  beta += (long)blockIdx.y * dim;
   const long stride = (long)gridDim.x * GROUPS;
   long row = (long)blockIdx.x * GROUPS + threadIdx.x / TPR;
   // the warp's lane groups move together, so each shuffle sees the whole warp
@@ -216,6 +230,10 @@ __global__ void __launch_bounds__(LN_THREADS)
                              int onepass, float eps) {
   constexpr int WARPS = LN_THREADS / 32;
   const int lane = threadIdx.x & 31;
+  x += (long)blockIdx.y * rows * dim;
+  y += (long)blockIdx.y * rows * dim;
+  gamma += (long)blockIdx.y * dim;
+  beta += (long)blockIdx.y * dim;
   for (int row = blockIdx.x * WARPS + (threadIdx.x >> 5); row < rows;
        row += gridDim.x * WARPS) {
     const T* xr = x + (long)row * dim;
@@ -243,26 +261,28 @@ __global__ void __launch_bounds__(LN_THREADS)
 
 template <typename T, typename P>
 static int launch_fwd(const void* x, const void* gamma, const void* beta, void* y, int rows,
-                      int dim, int width, int grid, int onepass, float eps, cudaStream_t s) {
+                      int tasks, int dim, int width, int grid, int onepass, float eps,
+                      cudaStream_t s) {
+  const dim3 blocks(grid, tasks);
   const T* xt = static_cast<const T*>(x);
   const P* gt = static_cast<const P*>(gamma);
   const P* bt = static_cast<const P*>(beta);
   T* yt = static_cast<T*>(y);
   switch (width) {
     case 256:
-      layernorm_kernel<T, P, 256><<<grid, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
+      layernorm_kernel<T, P, 256><<<blocks, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
                                                               onepass, eps);
       break;
     case 768:
-      layernorm_kernel<T, P, 768><<<grid, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
+      layernorm_kernel<T, P, 768><<<blocks, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
                                                               onepass, eps);
       break;
     case 1024:
-      layernorm_kernel<T, P, 1024><<<grid, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
+      layernorm_kernel<T, P, 1024><<<blocks, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
                                                                onepass, eps);
       break;
     default:
-      layernorm_generic_kernel<T, P><<<grid, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
+      layernorm_generic_kernel<T, P><<<blocks, LN_THREADS, 0, s>>>(xt, gt, bt, yt, rows, dim,
                                                                  onepass, eps);
   }
   return (int)cudaGetLastError();
@@ -270,40 +290,49 @@ static int launch_fwd(const void* x, const void* gamma, const void* beta, void* 
 
 // The width class (256, 768 or 1024; 0: the generic kernel) and the grid
 // are layernorm_plan's; anything else is refused before a launch.
-static bool plan_ok(int rows, int dim, int dtype, int width, int grid) {
+static bool plan_ok(int rows, int tasks, int dim, int dtype, int width, int grid) {
   const int vec = dtype == MTT_BF16 ? 8 : 4;
-  if (rows <= 0 || dim <= 0 || grid <= 0) return false;
+  if (rows <= 0 || tasks <= 0 || tasks > 65535 || dim <= 0 || grid <= 0) return false;
   if (width == 0) return true;
   return (width == 256 || width == 768 || width == 1024) && dim % vec == 0 && dim <= width;
 }
 
 static int ln_forward(const void* x, const void* gamma, const void* beta, void* y, int rows,
-                      int dim, int dtype, int wdtype, int width, int grid, int onepass, float eps,
-                      void* stream) {
-  if (!plan_ok(rows, dim, dtype, width, grid)) return (int)cudaErrorInvalidValue;
+                      int tasks, int dim, int dtype, int wdtype, int width, int grid,
+                      int onepass, float eps, void* stream) {
+  if (!plan_ok(rows, tasks, dim, dtype, width, grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16)
-    return wdtype == MTT_BF16
-               ? launch_fwd<bf16, bf16>(x, gamma, beta, y, rows, dim, width, grid, onepass, eps, s)
-               : launch_fwd<bf16, float>(x, gamma, beta, y, rows, dim, width, grid, onepass, eps,
-                                         s);
-  return wdtype == MTT_BF16
-             ? launch_fwd<float, bf16>(x, gamma, beta, y, rows, dim, width, grid, onepass, eps, s)
-             : launch_fwd<float, float>(x, gamma, beta, y, rows, dim, width, grid, onepass, eps,
-                                        s);
+    return wdtype == MTT_BF16 ? launch_fwd<bf16, bf16>(x, gamma, beta, y, rows, tasks, dim,
+                                                       width, grid, onepass, eps, s)
+                              : launch_fwd<bf16, float>(x, gamma, beta, y, rows, tasks, dim,
+                                                        width, grid, onepass, eps, s);
+  return wdtype == MTT_BF16 ? launch_fwd<float, bf16>(x, gamma, beta, y, rows, tasks, dim, width,
+                                                      grid, onepass, eps, s)
+                            : launch_fwd<float, float>(x, gamma, beta, y, rows, tasks, dim,
+                                                       width, grid, onepass, eps, s);
 }
 
 extern "C" int mtt_layernorm(const void* x, const void* gamma, const void* beta, void* y,
                              int rows, int dim, int dtype, int wdtype, int width, int grid,
                              float eps, void* stream) {
-  return ln_forward(x, gamma, beta, y, rows, dim, dtype, wdtype, width, grid, 0, eps, stream);
+  return ln_forward(x, gamma, beta, y, rows, 1, dim, dtype, wdtype, width, grid, 0, eps, stream);
 }
 
 // The one-pass form (S5's ln=onepass), same arguments.
 extern "C" int mtt_layernorm_onepass(const void* x, const void* gamma, const void* beta, void* y,
                                      int rows, int dim, int dtype, int wdtype, int width,
                                      int grid, float eps, void* stream) {
-  return ln_forward(x, gamma, beta, y, rows, dim, dtype, wdtype, width, grid, 1, eps, stream);
+  return ln_forward(x, gamma, beta, y, rows, 1, dim, dtype, wdtype, width, grid, 1, eps, stream);
+}
+
+// The task-strided form: x and y (tasks, rows, dim), gamma and beta (tasks,
+// dim); `grid` CTAs a task.
+extern "C" int mtt_layernorm_tasks(const void* x, const void* gamma, const void* beta, void* y,
+                                   int rows, int tasks, int dim, int dtype, int wdtype, int width,
+                                   int grid, float eps, void* stream) {
+  return ln_forward(x, gamma, beta, y, rows, tasks, dim, dtype, wdtype, width, grid, 0, eps,
+                    stream);
 }
 
 // ---------------------------------------------------------------- backward
@@ -364,6 +393,24 @@ __device__ __forceinline__ void ln_finish(float* __restrict__ part, float* __res
   if (threadIdx.x == 0) counters[0] = 0;
 }
 
+// Task blockIdx.y of a backward launch: its rows of x, dyln, dy and dx, its
+// gamma, its partial and finish-group rows (gridDim.x + groups rows of
+// 2·dim), its dgamma and dbeta (`dim` apart) and its 1 + groups counters.
+#define LN_BWD_TASK_OFFSETS()                                               \
+  do {                                                                      \
+    const long task_ = blockIdx.y, rows_off_ = task_ * rows * dim;          \
+    const int groups_ = (gridDim.x + LN_FINISH_CTAS - 1) / LN_FINISH_CTAS;  \
+    x += rows_off_;                                                         \
+    dyln += rows_off_;                                                      \
+    dx += rows_off_;                                                        \
+    if (dy != nullptr) dy += rows_off_;                                     \
+    gamma += task_ * dim;                                                   \
+    part += task_ * (gridDim.x + groups_) * 2 * dim;                        \
+    dgamma += task_ * dim;                                                  \
+    dbeta += task_ * dim;                                                   \
+    counters += task_ * (1 + groups_);                                      \
+  } while (0)
+
 template <typename T, typename P, int W>
 __global__ void __launch_bounds__(LN_THREADS, LN_BWD_CTAS)
     layernorm_bwd_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
@@ -375,6 +422,7 @@ __global__ void __launch_bounds__(LN_THREADS, LN_BWD_CTAS)
   constexpr int VEC = V::N, TPR = ln_tpr(W), NV = W / (VEC * TPR), GROUPS = LN_THREADS / TPR;
   __shared__ float red[2][W];  // the CTA's dgamma and dbeta sums
   const int lane = threadIdx.x % TPR, group = threadIdx.x / TPR, nvec = dim / VEC;
+  LN_BWD_TASK_OFFSETS();
   const long stride = (long)gridDim.x * GROUPS;
   long row = (long)blockIdx.x * GROUPS + group;
   const long first = row - (threadIdx.x % 32) / TPR;
@@ -500,6 +548,7 @@ __global__ void __launch_bounds__(LN_THREADS, LN_BWD_CTAS)
   extern __shared__ float red[];  // dgamma's and dbeta's sums (2·dim), then stats
   float(*stats)[4] = reinterpret_cast<float(*)[4]>(red + 2 * dim);  // mean, inv, means
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  LN_BWD_TASK_OFFSETS();
   for (int i = tid; i < 2 * dim; i += LN_THREADS) red[i] = 0.f;
   for (long blk = blockIdx.x; blk * LN_GENERIC_ROWS < rows; blk += gridDim.x) {
     const long r0 = blk * LN_GENERIC_ROWS;
@@ -559,8 +608,9 @@ __global__ void __launch_bounds__(LN_THREADS, LN_BWD_CTAS)
 template <typename T, typename P>
 static int launch_bwd(const void* x, const void* gamma, const void* dyln, const void* dy,
                       int sub_dy, void* dx, void* part, void* dgamma, void* dbeta,
-                      void* counters, int rows, int dim, int width, int grid, float eps,
-                      cudaStream_t s) {
+                      void* counters, int rows, int tasks, int dim, int width, int grid,
+                      float eps, cudaStream_t s) {
+  const dim3 blocks(grid, tasks);
   const T* xt = static_cast<const T*>(x);
   const P* gt = static_cast<const P*>(gamma);
   const float* gl = static_cast<const float*>(dyln);
@@ -572,15 +622,15 @@ static int launch_bwd(const void* x, const void* gamma, const void* dyln, const 
   int* cnt = static_cast<int*>(counters);
   switch (width) {
     case 256:
-      layernorm_bwd_kernel<T, P, 256><<<grid, LN_THREADS, 0, s>>>(
+      layernorm_bwd_kernel<T, P, 256><<<blocks, LN_THREADS, 0, s>>>(
           xt, gt, gl, dyt, sub_dy, dxt, pt, dg, db, cnt, rows, dim, eps);
       break;
     case 768:
-      layernorm_bwd_kernel<T, P, 768><<<grid, LN_THREADS, 0, s>>>(
+      layernorm_bwd_kernel<T, P, 768><<<blocks, LN_THREADS, 0, s>>>(
           xt, gt, gl, dyt, sub_dy, dxt, pt, dg, db, cnt, rows, dim, eps);
       break;
     case 1024:
-      layernorm_bwd_kernel<T, P, 1024><<<grid, LN_THREADS, 0, s>>>(
+      layernorm_bwd_kernel<T, P, 1024><<<blocks, LN_THREADS, 0, s>>>(
           xt, gt, gl, dyt, sub_dy, dxt, pt, dg, db, cnt, rows, dim, eps);
       break;
     default: {
@@ -588,7 +638,7 @@ static int launch_bwd(const void* x, const void* gamma, const void* dyln, const 
       const size_t smem = (2 * (size_t)dim + 4 * LN_GENERIC_ROWS) * sizeof(float);
       const int err = set_smem(layernorm_bwd_generic_kernel<T, P>, smem, limit);
       if (err) return err;
-      layernorm_bwd_generic_kernel<T, P><<<grid, LN_THREADS, smem, s>>>(
+      layernorm_bwd_generic_kernel<T, P><<<blocks, LN_THREADS, smem, s>>>(
           xt, gt, gl, dyt, sub_dy, dxt, pt, dg, db, cnt, rows, dim, eps);
     }
   }
@@ -598,22 +648,43 @@ static int launch_bwd(const void* x, const void* gamma, const void* dyln, const 
 // part: (grid + ceil(grid / LN_FINISH_CTAS), 2, dim) float scratch;
 // dgamma, dbeta: (dim,) float; counters: 1 + ceil(grid / LN_FINISH_CTAS)
 // ints, zero.
-extern "C" int mtt_layernorm_bwd(const void* x, const void* gamma, const void* dyln,
-                                 const void* dy, void* dx, void* part, void* dgamma, void* dbeta,
-                                 void* counters, int rows, int dim, int dtype, int wdtype,
-                                 int sub_dy, int width, int grid, float eps, void* stream) {
-  if (!plan_ok(rows, dim, dtype, width, grid) || (sub_dy && dy == nullptr))
+static int ln_backward(const void* x, const void* gamma, const void* dyln, const void* dy,
+                       void* dx, void* part, void* dgamma, void* dbeta, void* counters, int rows,
+                       int tasks, int dim, int dtype, int wdtype, int sub_dy, int width, int grid,
+                       float eps, void* stream) {
+  if (!plan_ok(rows, tasks, dim, dtype, width, grid) || (sub_dy && dy == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16)
     return wdtype == MTT_BF16
                ? launch_bwd<bf16, bf16>(x, gamma, dyln, dy, sub_dy, dx, part, dgamma, dbeta,
-                                        counters, rows, dim, width, grid, eps, s)
+                                        counters, rows, tasks, dim, width, grid, eps, s)
                : launch_bwd<bf16, float>(x, gamma, dyln, dy, sub_dy, dx, part, dgamma, dbeta,
-                                         counters, rows, dim, width, grid, eps, s);
+                                         counters, rows, tasks, dim, width, grid, eps, s);
   return wdtype == MTT_BF16
              ? launch_bwd<float, bf16>(x, gamma, dyln, dy, sub_dy, dx, part, dgamma, dbeta,
-                                       counters, rows, dim, width, grid, eps, s)
+                                       counters, rows, tasks, dim, width, grid, eps, s)
              : launch_bwd<float, float>(x, gamma, dyln, dy, sub_dy, dx, part, dgamma, dbeta,
-                                        counters, rows, dim, width, grid, eps, s);
+                                        counters, rows, tasks, dim, width, grid, eps, s);
+}
+
+extern "C" int mtt_layernorm_bwd(const void* x, const void* gamma, const void* dyln,
+                                 const void* dy, void* dx, void* part, void* dgamma, void* dbeta,
+                                 void* counters, int rows, int dim, int dtype, int wdtype,
+                                 int sub_dy, int width, int grid, float eps, void* stream) {
+  return ln_backward(x, gamma, dyln, dy, dx, part, dgamma, dbeta, counters, rows, 1, dim, dtype,
+                     wdtype, sub_dy, width, grid, eps, stream);
+}
+
+// The task-strided form: x, dyln, dy and dx (tasks, rows, dim), gamma
+// (tasks, dim); part (tasks, grid + ceil(grid / LN_FINISH_CTAS), 2, dim)
+// float scratch; dgamma and dbeta (tasks, dim) float; counters tasks · (1 +
+// ceil(grid / LN_FINISH_CTAS)) ints, zero; `grid` CTAs a task.
+extern "C" int mtt_layernorm_bwd_tasks(const void* x, const void* gamma, const void* dyln,
+                                       const void* dy, void* dx, void* part, void* dgamma,
+                                       void* dbeta, void* counters, int rows, int tasks, int dim,
+                                       int dtype, int wdtype, int sub_dy, int width, int grid,
+                                       float eps, void* stream) {
+  return ln_backward(x, gamma, dyln, dy, dx, part, dgamma, dbeta, counters, rows, tasks, dim,
+                     dtype, wdtype, sub_dy, width, grid, eps, stream);
 }

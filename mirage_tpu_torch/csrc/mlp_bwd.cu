@@ -49,6 +49,16 @@
 // float, the same erff, one rounding. float32 runs plain 64 × 64 FMA tiles
 // of the same functions, for the float32 checks.
 //
+// The task-strided entries (mtt_mlp_bwd_hidden_tasks, mtt_mlp_bwd_dyln_tasks:
+// the task-batched decoder tails) run T backwards of one shape in one launch,
+// each task its own W1, W2 and b1: y, dy, dh and act (T, M, ·), W1 (T, H, D),
+// W2 (T, D, H) are 3-D tensor maps over the task stack (a box never reads
+// another task's rows), the persistent grid walks the tasks' tiles one task
+// after another (both CTAs of a hidden-stage cluster in one task, so the
+// weights' multicast slices are that task's), and db1's 16-row partials stay
+// within a task: (T, ceil(M/16), H). The outputs are bit-equal to T
+// one-task launches.
+//
 // What a later PR changes first: the hidden stage's epilogue (erff, the
 // exponential, the 16-row sums and the stores), which at the decoder's
 // K = 256 (4 slices a tile) outlasts the other consumer's main loop (a
@@ -166,20 +176,22 @@ __device__ __forceinline__ void store_hidden(const float (&acc_h)[HN / 2],
 // byte is read from L2 once per cluster. full[s] counts a stage's bytes in;
 // empty[s] the eight warps (four in each CTA) done with it, each warp
 // arriving in both CTAs, since the partner's loader writes this stage too.
+// TASKS: `tasks` tasks of M rows, 3-D maps, each task's tiles in turn.
+template <bool TASKS>
 __global__ void __launch_bounds__(384, 1)
     mlp_bwd_hidden_kernel(const __grid_constant__ CUtensorMap map_y,
                           const __grid_constant__ CUtensorMap map_dy,
                           const __grid_constant__ CUtensorMap map_w1,
                           const __grid_constant__ CUtensorMap map_w2, const void* __restrict__ b1,
                           int b1_dtype, bf16* __restrict__ dh, bf16* __restrict__ act,
-                          float* __restrict__ part, int M, int D, int H) {
+                          float* __restrict__ part, int M, int D, int H, int tasks) {
   extern __shared__ unsigned char hid_smem_raw[];
   const uint32_t sbase = (smem_u32(hid_smem_raw) + 1023) & ~1023u;  // the swizzle's period
   const uint32_t full = sbase + H_STAGES * H_STAGE_BYTES, empty = full + 8 * H_STAGES;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int rank = blockIdx.x & 1, cluster = blockIdx.x >> 1, clusters = gridDim.x >> 1;
-  const int tiles_n = (H + HN - 1) / HN, tiles = tiles_n * ((M + 2 * HM - 1) / (2 * HM));
-  const int ktiles = (D + BK - 1) / BK;
+  const int tiles_n = (H + HN - 1) / HN, per_task = tiles_n * ((M + 2 * HM - 1) / (2 * HM));
+  const int tiles = per_task * (TASKS ? tasks : 1), ktiles = (D + BK - 1) / BK;
   const int mine = tiles > cluster ? (tiles - cluster + clusters - 1) / clusters : 0;
   if (tid == 0) {
     for (int s = 0; s < H_STAGES; ++s) {
@@ -196,17 +208,29 @@ __global__ void __launch_bounds__(384, 1)
     if (tid == 0) {
       int i = 0;
       for (int g = 0; g < mine; ++g) {
-        const int t = cluster + g * clusters;
+        const int tg = cluster + g * clusters, task = TASKS ? tg / per_task : 0;
+        const int t = tg - task * per_task;
         const int m0 = t / tiles_n * 2 * HM + rank * HM, n0 = t % tiles_n * HN;
         for (int kt = 0; kt < ktiles; ++kt, ++i) {
           const int s = i % H_STAGES;
           mbar_wait(empty + 8 * s, ((i / H_STAGES) & 1) ^ 1);  // free in both CTAs
           const uint32_t st = sbase + s * H_STAGE_BYTES, bar = full + 8 * s;
           mbar_expect_tx(bar, H_STAGE_BYTES);
-          tma_load_2d(st + H_Y, &map_y, bar, kt * BK, m0);
-          tma_load_2d(st + H_DY, &map_dy, bar, kt * BK, m0);
-          tma_load_2d_multicast(st + H_W1 + rank * BOX, &map_w1, bar, kt * BK, n0 + rank * BK, 3);
-          tma_load_2d_multicast(st + H_W2 + rank * BOX, &map_w2, bar, n0 + rank * BK, kt * BK, 3);
+          if constexpr (TASKS) {
+            tma_load_3d(st + H_Y, &map_y, bar, kt * BK, m0, task);
+            tma_load_3d(st + H_DY, &map_dy, bar, kt * BK, m0, task);
+            tma_load_3d_multicast(st + H_W1 + rank * BOX, &map_w1, bar, kt * BK, n0 + rank * BK,
+                                  task, 3);
+            tma_load_3d_multicast(st + H_W2 + rank * BOX, &map_w2, bar, n0 + rank * BK, kt * BK,
+                                  task, 3);
+          } else {
+            tma_load_2d(st + H_Y, &map_y, bar, kt * BK, m0);
+            tma_load_2d(st + H_DY, &map_dy, bar, kt * BK, m0);
+            tma_load_2d_multicast(st + H_W1 + rank * BOX, &map_w1, bar, kt * BK, n0 + rank * BK,
+                                  3);
+            tma_load_2d_multicast(st + H_W2 + rank * BOX, &map_w2, bar, n0 + rank * BK, kt * BK,
+                                  3);
+          }
         }
       }
     }
@@ -223,13 +247,24 @@ __global__ void __launch_bounds__(384, 1)
       if (lane < 2) mbar_arrive_cluster(empty + 8 * s, lane);
     };
     for (int g = cw; g < mine; g += 2) {
-      const int t = cluster + g * clusters;
+      const int tg = cluster + g * clusters, task = TASKS ? tg / per_task : 0;
+      const int t = tg - task * per_task;
       const long n0 = t % tiles_n * HN, row0 = t / tiles_n * 2 * HM + rank * HM + warp * 16;
+      // the task's b1, rows of dh and act, and row groups of the partials
+      const void* tb1 = b1;
+      bf16 *tdh = dh, *tact = act;
+      float* tpart = part;
+      if constexpr (TASKS) {
+        tb1 = static_cast<const char*>(b1) + (long)task * H * (b1_dtype == MTT_BF16 ? 2 : 4);
+        tdh += (long)task * M * H;
+        tact += (long)task * M * H;
+        tpart += (long)task * ((M + 15) / 16) * H;
+      }
       float tile_bias[HN / 32];
       const long bc0 = n0 + lane * (HN / 32);
 #pragma unroll
       for (int e = 0; e < HN / 32; ++e)
-        tile_bias[e] = bc0 + e < H ? load_param(b1, bc0 + e, b1_dtype) : 0.f;
+        tile_bias[e] = bc0 + e < H ? load_param(tb1, bc0 + e, b1_dtype) : 0.f;
       float acc_h[HN / 2], acc_d[HN / 2];
 #pragma unroll
       for (int j = 0; j < HN / 2; ++j) acc_h[j] = acc_d[j] = 0.f;
@@ -259,7 +294,7 @@ __global__ void __launch_bounds__(384, 1)
       fence_regs(acc_h);
       fence_regs(acc_d);
       release((i - 1) % H_STAGES);
-      store_hidden(acc_h, acc_d, tile_bias, sbias, sact, sdh, act, dh, part, M, H, row0, n0);
+      store_hidden(acc_h, acc_d, tile_bias, sbias, sact, sdh, tact, tdh, tpart, M, H, row0, n0);
     }
   }
   cluster_arrive();  // no CTA exits while its partner may still arrive on its barriers
@@ -318,17 +353,17 @@ __device__ __forceinline__ void store_dyln(const float (&acc)[DN / 2], float* __
 
 // Persistent as mlp_bwd_hidden_kernel, over the 64 × DN tiling of dyln
 // (M, D), K = H; OUT float or bf16.
-template <typename OUT>
+template <typename OUT, bool TASKS>
 __global__ void __launch_bounds__(384, 1)
     mlp_bwd_dyln_kernel(const __grid_constant__ CUtensorMap map_dh,
                         const __grid_constant__ CUtensorMap map_w1, OUT* __restrict__ dyln, int M,
-                        int D, int H) {
+                        int D, int H, int tasks) {
   extern __shared__ unsigned char dyln_smem_raw[];
   const uint32_t sbase = (smem_u32(dyln_smem_raw) + 1023) & ~1023u;
   const uint32_t full = sbase + D_STAGES * D_STAGE_BYTES, empty = full + 8 * D_STAGES;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int tiles_n = (D + DN - 1) / DN, tiles = tiles_n * ((M + DM - 1) / DM);
-  const int ktiles = (H + BK - 1) / BK;
+  const int tiles_n = (D + DN - 1) / DN, per_task = tiles_n * ((M + DM - 1) / DM);
+  const int tiles = per_task * (TASKS ? tasks : 1), ktiles = (H + BK - 1) / BK;
   const int mine = tiles > (int)blockIdx.x ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
   if (tid == 0) {
     for (int s = 0; s < D_STAGES; ++s) {
@@ -344,17 +379,25 @@ __global__ void __launch_bounds__(384, 1)
     if (tid == 0) {
       int i = 0;
       for (int g = 0; g < mine; ++g) {
-        const int t = blockIdx.x + g * gridDim.x;
+        const int tg = blockIdx.x + g * gridDim.x, task = TASKS ? tg / per_task : 0;
+        const int t = tg - task * per_task;
         const int m0 = t / tiles_n * DM, n0 = t % tiles_n * DN;
         for (int kt = 0; kt < ktiles; ++kt, ++i) {
           const int s = i % D_STAGES;
           mbar_wait(empty + 8 * s, ((i / D_STAGES) & 1) ^ 1);
           const uint32_t st = sbase + s * D_STAGE_BYTES, bar = full + 8 * s;
           mbar_expect_tx(bar, D_STAGE_BYTES);
-          tma_load_2d(st, &map_dh, bar, kt * BK, m0);
+          if constexpr (TASKS) {
+            tma_load_3d(st, &map_dh, bar, kt * BK, m0, task);
 #pragma unroll
-          for (int b = 0; b < DN / BK; ++b)
-            tma_load_2d(st + D_W1 + b * BOX, &map_w1, bar, n0 + b * BK, kt * BK);
+            for (int b = 0; b < DN / BK; ++b)
+              tma_load_3d(st + D_W1 + b * BOX, &map_w1, bar, n0 + b * BK, kt * BK, task);
+          } else {
+            tma_load_2d(st, &map_dh, bar, kt * BK, m0);
+#pragma unroll
+            for (int b = 0; b < DN / BK; ++b)
+              tma_load_2d(st + D_W1 + b * BOX, &map_w1, bar, n0 + b * BK, kt * BK);
+          }
         }
       }
     }
@@ -365,7 +408,8 @@ __global__ void __launch_bounds__(384, 1)
         dyln_smem_raw + (empty + 8 * D_STAGES - smem_u32(dyln_smem_raw)) +
         (cw * 4 + warp) * D_EPI_WARP);
     for (int g = cw; g < mine; g += 2) {
-      const int t = blockIdx.x + g * gridDim.x;
+      const int tg = blockIdx.x + g * gridDim.x, task = TASKS ? tg / per_task : 0;
+      const int t = tg - task * per_task;
       const long n0 = t % tiles_n * DN, row0 = t / tiles_n * DM + warp * 16;
       float acc[DN / 2];
 #pragma unroll
@@ -389,7 +433,7 @@ __global__ void __launch_bounds__(384, 1)
       wgmma_wait<0>();
       fence_regs(acc);
       if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % D_STAGES));
-      store_dyln(acc, stage, dyln, M, D, row0, n0);
+      store_dyln(acc, stage, dyln + (long)task * M * D, M, D, row0, n0);
     }
   }
 }
@@ -410,6 +454,17 @@ __global__ void __launch_bounds__(256)
   __shared__ float w1s[FK][FT + 4], w2s[FK][FT + 4];  // [k][hidden column]
   __shared__ float red[4][16][FT];                    // dh by row, for the sums
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  if (blockIdx.z > 0) {  // task blockIdx.z of a task-strided launch
+    const long task = blockIdx.z;
+    Y += task * M * D;
+    DY += task * M * D;
+    W1 += task * H * D;
+    W2 += task * D * H;
+    b1 = static_cast<const char*>(b1) + task * H * (b1_dtype == MTT_BF16 ? 2 : 4);
+    dh += task * M * H;
+    act += task * M * H;
+    part += task * ((M + 15) / 16) * H;
+  }
   const long m0 = (long)blockIdx.y * FT, n0 = (long)blockIdx.x * FT;
   float acc_h[4][4] = {}, acc_d[4][4] = {};
   for (int k0 = 0; k0 < D; k0 += FK) {
@@ -478,6 +533,12 @@ __global__ void __launch_bounds__(256)
   __shared__ float as[FK][FT + 4];  // [k][row]
   __shared__ float bs[FK][FT + 4];  // [k][column]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  if (blockIdx.z > 0) {  // task blockIdx.z of a task-strided launch
+    const long task = blockIdx.z;
+    DH += task * M * H;
+    W1 += task * H * D;
+    dyln += task * M * D;
+  }
   const long m0 = (long)blockIdx.y * FT, n0 = (long)blockIdx.x * FT;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < H; k0 += FK) {
@@ -518,40 +579,54 @@ __global__ void __launch_bounds__(256)
 // (M, H) in the working type (dtype) and part (ceil(M/16), H) float, the
 // 16-row column sums of the float dh; `grid` CTAs of the bf16 kernel, in
 // clusters of two (mlp_bwd_plan). bf16 needs D and H multiples of 8.
-extern "C" int mtt_mlp_bwd_hidden(const void* y, const void* dy, const void* w1, const void* b1,
-                                  int b1_dtype, const void* w2, void* dh, void* act, void* part,
-                                  int M, int D, int H, int dtype, int grid, void* stream) {
-  if (M <= 0 || D <= 0 || H <= 0 || b1 == nullptr || dh == nullptr || act == nullptr ||
-      part == nullptr)
+template <bool TASKS>
+static int hidden_bf16(const void* y, const void* dy, const void* w1, const void* b1,
+                       int b1_dtype, const void* w2, void* dh, void* act, void* part, int M, int D,
+                       int H, int tasks, int grid, cudaStream_t s) {
+  if (D % 8 != 0 || H % 8 != 0 || grid <= 0 || grid % 2) return (int)cudaErrorInvalidValue;
+  static SmemLimit limit;
+  if (int err = set_smem(mlp_bwd_hidden_kernel<TASKS>, H_SMEM, limit)) return err;
+  CUtensorMap map_y, map_dy, map_w1, map_w2;
+  const bool ok = TASKS ? make_task_map(&map_y, y, tasks, M, D, HM, BK) &&
+                              make_task_map(&map_dy, dy, tasks, M, D, HM, BK) &&
+                              make_task_map(&map_w1, w1, tasks, H, D, BK, BK) &&
+                              make_task_map(&map_w2, w2, tasks, D, H, BK, BK)
+                        : make_map(&map_y, y, M, D, HM, BK) && make_map(&map_dy, dy, M, D, HM, BK) &&
+                              make_map(&map_w1, w1, H, D, BK, BK) &&
+                              make_map(&map_w2, w2, D, H, BK, BK);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(384, 1, 1);
+  cfg.dynamicSmemBytes = H_SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, mlp_bwd_hidden_kernel<TASKS>, map_y, map_dy, map_w1, map_w2, b1, b1_dtype,
+      static_cast<bf16*>(dh), static_cast<bf16*>(act), static_cast<float*>(part), M, D, H, tasks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+static int hidden(const void* y, const void* dy, const void* w1, const void* b1, int b1_dtype,
+                  const void* w2, void* dh, void* act, void* part, int M, int D, int H, int tasks,
+                  int dtype, int grid, void* stream) {
+  if (M <= 0 || D <= 0 || H <= 0 || tasks <= 0 || tasks > 65535 || b1 == nullptr ||
+      dh == nullptr || act == nullptr || part == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == MTT_BF16) {
-    if (D % 8 != 0 || H % 8 != 0 || grid <= 0 || grid % 2) return (int)cudaErrorInvalidValue;
-    static SmemLimit limit;
-    if (int err = set_smem(mlp_bwd_hidden_kernel, H_SMEM, limit)) return err;
-    CUtensorMap map_y, map_dy, map_w1, map_w2;
-    if (!make_map(&map_y, y, M, D, HM, BK) || !make_map(&map_dy, dy, M, D, HM, BK) ||
-        !make_map(&map_w1, w1, H, D, BK, BK) || !make_map(&map_w2, w2, D, H, BK, BK))
-      return (int)cudaErrorInvalidValue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid, 1, 1);
-    cfg.blockDim = dim3(384, 1, 1);
-    cfg.dynamicSmemBytes = H_SMEM;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 2;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, mlp_bwd_hidden_kernel, map_y, map_dy, map_w1, map_w2, b1, b1_dtype,
-        static_cast<bf16*>(dh), static_cast<bf16*>(act), static_cast<float*>(part), M, D, H);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-  }
-  const dim3 blocks((H + FT - 1) / FT, (M + FT - 1) / FT);
+  if (dtype == MTT_BF16)
+    return tasks > 1 ? hidden_bf16<true>(y, dy, w1, b1, b1_dtype, w2, dh, act, part, M, D, H,
+                                         tasks, grid, s)
+                     : hidden_bf16<false>(y, dy, w1, b1, b1_dtype, w2, dh, act, part, M, D, H, 1,
+                                          grid, s);
+  const dim3 blocks((H + FT - 1) / FT, (M + FT - 1) / FT, tasks);
   mlp_bwd_hidden_f32_kernel<<<blocks, 256, 0, s>>>(
       static_cast<const float*>(y), static_cast<const float*>(dy), static_cast<const float*>(w1),
       static_cast<const float*>(w2), b1, b1_dtype, static_cast<float*>(dh),
@@ -559,35 +634,71 @@ extern "C" int mtt_mlp_bwd_hidden(const void* y, const void* dy, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// dh (M, H) in the working type, w1 (H, D) -> dyln (M, D) = dh · w1, in
-// float or (out_dtype bf16, a bf16 dh only) rounded to bf16; `grid` CTAs of
-// the bf16 kernel (mlp_bwd_plan).
-extern "C" int mtt_mlp_bwd_dyln(const void* dh, const void* w1, void* dyln, int M, int D, int H,
-                                int dtype, int out_dtype, int grid, void* stream) {
-  if (M <= 0 || D <= 0 || H <= 0 || dyln == nullptr || (out_dtype == MTT_BF16 && dtype != MTT_BF16))
+extern "C" int mtt_mlp_bwd_hidden(const void* y, const void* dy, const void* w1, const void* b1,
+                                  int b1_dtype, const void* w2, void* dh, void* act, void* part,
+                                  int M, int D, int H, int dtype, int grid, void* stream) {
+  return hidden(y, dy, w1, b1, b1_dtype, w2, dh, act, part, M, D, H, 1, dtype, grid, stream);
+}
+
+// The task-strided form: y, dy (tasks, M, D), w1 (tasks, H, D), w2 (tasks,
+// D, H), b1 (tasks, H) -> dh, act (tasks, M, H) and part (tasks,
+// ceil(M/16), H); `grid` CTAs in all (mlp_bwd_plan over the tasks' tiles).
+extern "C" int mtt_mlp_bwd_hidden_tasks(const void* y, const void* dy, const void* w1,
+                                        const void* b1, int b1_dtype, const void* w2, void* dh,
+                                        void* act, void* part, int M, int D, int H, int tasks,
+                                        int dtype, int grid, void* stream) {
+  return hidden(y, dy, w1, b1, b1_dtype, w2, dh, act, part, M, D, H, tasks, dtype, grid, stream);
+}
+
+template <typename OUT, bool TASKS>
+static int dyln_bf16(const void* dh, const void* w1, void* dyln, int M, int D, int H, int tasks,
+                     int grid, cudaStream_t s) {
+  static SmemLimit limit;
+  if (int err = set_smem(mlp_bwd_dyln_kernel<OUT, TASKS>, D_SMEM, limit)) return err;
+  CUtensorMap map_dh, map_w1;
+  const bool ok = TASKS ? make_task_map(&map_dh, dh, tasks, M, H, DM, BK) &&
+                              make_task_map(&map_w1, w1, tasks, H, D, BK, BK)
+                        : make_map(&map_dh, dh, M, H, DM, BK) && make_map(&map_w1, w1, H, D, BK, BK);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  mlp_bwd_dyln_kernel<OUT, TASKS><<<grid, 384, D_SMEM, s>>>(map_dh, map_w1,
+                                                            static_cast<OUT*>(dyln), M, D, H,
+                                                            tasks);
+  return (int)cudaGetLastError();
+}
+
+static int dyln(const void* dh, const void* w1, void* out, int M, int D, int H, int tasks,
+                int dtype, int out_dtype, int grid, void* stream) {
+  if (M <= 0 || D <= 0 || H <= 0 || tasks <= 0 || tasks > 65535 || out == nullptr ||
+      (out_dtype == MTT_BF16 && dtype != MTT_BF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == MTT_BF16) {
     if (D % 8 != 0 || H % 8 != 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-    static SmemLimit limit_f32, limit_bf16;
-    if (int err = out_dtype == MTT_BF16
-                      ? set_smem(mlp_bwd_dyln_kernel<bf16>, D_SMEM, limit_bf16)
-                      : set_smem(mlp_bwd_dyln_kernel<float>, D_SMEM, limit_f32))
-      return err;
-    CUtensorMap map_dh, map_w1;
-    if (!make_map(&map_dh, dh, M, H, DM, BK) || !make_map(&map_w1, w1, H, D, BK, BK))
-      return (int)cudaErrorInvalidValue;
     if (out_dtype == MTT_BF16)
-      mlp_bwd_dyln_kernel<<<grid, 384, D_SMEM, s>>>(map_dh, map_w1, static_cast<bf16*>(dyln), M,
-                                                    D, H);
-    else
-      mlp_bwd_dyln_kernel<<<grid, 384, D_SMEM, s>>>(map_dh, map_w1, static_cast<float*>(dyln), M,
-                                                    D, H);
-    return (int)cudaGetLastError();
+      return tasks > 1 ? dyln_bf16<bf16, true>(dh, w1, out, M, D, H, tasks, grid, s)
+                       : dyln_bf16<bf16, false>(dh, w1, out, M, D, H, 1, grid, s);
+    return tasks > 1 ? dyln_bf16<float, true>(dh, w1, out, M, D, H, tasks, grid, s)
+                     : dyln_bf16<float, false>(dh, w1, out, M, D, H, 1, grid, s);
   }
-  const dim3 blocks((D + FT - 1) / FT, (M + FT - 1) / FT);
+  const dim3 blocks((D + FT - 1) / FT, (M + FT - 1) / FT, tasks);
   mlp_bwd_dyln_f32_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(dh),
                                                  static_cast<const float*>(w1),
-                                                 static_cast<float*>(dyln), M, D, H);
+                                                 static_cast<float*>(out), M, D, H);
   return (int)cudaGetLastError();
+}
+
+// dh (M, H) in the working type, w1 (H, D) -> dyln (M, D) = dh · w1, in
+// float or (out_dtype bf16, a bf16 dh only) rounded to bf16; `grid` CTAs of
+// the bf16 kernel (mlp_bwd_plan).
+extern "C" int mtt_mlp_bwd_dyln(const void* dh, const void* w1, void* out, int M, int D, int H,
+                                int dtype, int out_dtype, int grid, void* stream) {
+  return dyln(dh, w1, out, M, D, H, 1, dtype, out_dtype, grid, stream);
+}
+
+// The task-strided form: dh (tasks, M, H), w1 (tasks, H, D) -> (tasks, M,
+// D); `grid` CTAs in all (mlp_bwd_plan over the tasks' tiles).
+extern "C" int mtt_mlp_bwd_dyln_tasks(const void* dh, const void* w1, void* out, int M, int D,
+                                      int H, int tasks, int dtype, int out_dtype, int grid,
+                                      void* stream) {
+  return dyln(dh, w1, out, M, D, H, tasks, dtype, out_dtype, grid, stream);
 }

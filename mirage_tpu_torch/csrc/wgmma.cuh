@@ -5,8 +5,8 @@
 // csrc/attention_fwd.cuh): warpgroup MMA (bf16, and s8·s8 -> s32) on 128-,
 // 64- or 32-byte-swizzled K-major or MN-major (transposed) tiles, with A from
 // shared memory or registers, mbarriers (arrived at from another CTA of the
-// cluster too), 2-D and 3-D TMA loads (2-D multicast to several CTAs of a
-// cluster too), the cluster's shared-memory
+// cluster too), 2-D and 3-D TMA loads (multicast to several CTAs of a
+// cluster too; 3-D maps over a task stack), the cluster's shared-memory
 // addresses and barriers, and the tensor-map encoder fetched from the
 // driver at run time (so the libraries need no link against libcuda).
 #pragma once
@@ -326,6 +326,18 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtens
       : "memory");
 }
 
+// tma_load_2d_multicast for a box (c0, c1, c2) of a 3-D tensor map (the
+// task-strided kernels: c2 is the task).
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Address of the shared-memory word at local address `local` in the CTA of
 // cluster rank `rank`.
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t local, int rank) {
@@ -403,6 +415,15 @@ static bool make_map_3d(CUtensorMap* map, const void* ptr, long long cols, long 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, pitch, box,
             elem_stride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a contiguous bf16 (tasks, rows, cols) stack, read in boxes
+// of 1 × box_rows × box_cols (the task-strided kernels: a box never crosses
+// into the next task's rows; rows past `rows` read as zero).
+static bool make_task_map(CUtensorMap* map, const void* ptr, int tasks, int rows, int cols,
+                          int box_rows, int box_cols) {
+  return make_map_3d(map, ptr, cols, rows, tasks, cols, (long long)rows * cols, box_rows,
+                     box_cols);
 }
 
 // Tensor maps are encoded once per distinct (pointer, shape, strides, box)

@@ -23,6 +23,14 @@ whose ops save their intermediates (``models/encoder.py``); ``tp`` runs
 the encoder tensor-parallel (``parallel/tp.py``); ``pp`` ("pipe",
 n_micro) runs it as a GPipe schedule over the stages of a 'pipe' mesh
 axis (``parallel/pp.py``; a drop-path rate of 0, no ``return_all_layers``).
+
+``MIRAGE_DEC_BATCH=on`` (``ops/runtime.py``'s switch, default off, read at
+import as mirage_tpu/models/mirage.py:37 reads it) runs identically
+configured decoders' tails as one task stack
+(``adapters/spatial_output.py:batched_spatial_decode``) wherever
+``decoders_batchable`` holds, in the masked forward and the static forward
+alike (mirage_tpu/models/mirage.py:310-320); ``forward_light`` keeps its
+heads one by one.
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -31,11 +39,14 @@ import torch
 from torch import nn
 
 from mirage_tpu_torch.adapters.input_adapters import SemSegInputAdapter
+from mirage_tpu_torch.adapters.spatial_output import (batched_spatial_decode,
+                                                      decoders_batchable)
 from mirage_tpu_torch.masking.masking import (gather_rows,
                                               generate_random_masks,
                                               masks_to_indices)
 from mirage_tpu_torch.models.encoder import Encoder
 from mirage_tpu_torch.nn import init as vinit
+from mirage_tpu_torch.ops import runtime
 
 
 class MIRAGEModel(nn.Module):
@@ -216,17 +227,30 @@ class MIRAGEModel(nn.Module):
                            generator, n_micro=n_micro)
         if self.output_adapters is None:
             return enc, task_masks
+        if self._decoders_batched(input_info):
+            return batched_spatial_decode(
+                self.output_adapters, enc, input_info, ids_keep=ids_keep,
+                deterministic=deterministic,
+                pixel_output=pixel_outputs), task_masks
         preds = {task: adapter(enc, input_info, ids_keep=ids_keep,
                                deterministic=deterministic,
                                pixel_output=pixel_outputs)
                  for task, adapter in self.output_adapters.items()}
         return preds, task_masks
 
+    def _decoders_batched(self, input_info) -> bool:
+        """MIRAGE_DEC_BATCH is on and the decoders' tails stack."""
+        return (runtime.switches["MIRAGE_DEC_BATCH"] == "on"
+                and decoders_batchable(self.output_adapters, input_info))
+
     def _forward_static(self, x, absent_tasks):
         input_info = self.generate_input_info(x)
         encoded = self.encoder(self._tokens(x, absent_tasks))
         if self.output_adapters is None:
             return encoded
+        if self._decoders_batched(input_info):
+            return batched_spatial_decode(self.output_adapters, encoded,
+                                          input_info, absent_tasks)
         return {task: adapter(encoded, input_info, absent_tasks)
                 for task, adapter in self.output_adapters.items()}
 

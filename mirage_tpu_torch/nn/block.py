@@ -28,12 +28,22 @@ every configuration.
 A block with ``tp`` set (a (group, t) pair, by ``train/steps.py:
 shard_state``) holds tensor-local weights and runs :meth:`Block.tp_forward`,
 the counterpart of ``mirage_tpu/nn/block.py:_tp_block_apply``.
+
+A block whose weights are a task stack (``adapters/spatial_output.py:
+batched_spatial_decode`` calls it with each weight stacked on a leading task
+axis over a T·B batch) routes exactly as above on (T·B, n, d): each op it
+reaches takes the stack (``ops/tasks.py``).
+
+:class:`DecoderBlock` is ``mirage_tpu/nn/block.py:decoder_block_init`` /
+``decoder_block_apply``: self-attention, cross-attention and MLP branches.
 """
 
 import torch
 from torch import nn
 
-from mirage_tpu_torch.nn.attention import Attention, attention_apply
+from mirage_tpu_torch.nn.attention import (Attention, CrossAttention,
+                                           attention_apply,
+                                           cross_attention_apply)
 from mirage_tpu_torch.nn.layers import LayerNorm, Mlp, drop_path, layer_norm
 from mirage_tpu_torch.ops import linear as dense
 from mirage_tpu_torch.ops import runtime
@@ -150,3 +160,50 @@ class Block(nn.Module):
         h = psum_g(part, group) + m.fc2.bias.to(part.dtype)
         return x + drop_path(h, drop_path_rate, deterministic=deterministic,
                              generator=generator, noise=noise[1])
+
+
+class DecoderBlock(nn.Module):
+    """A decoder block with cross-attention (mirage_tpu/nn/block.py:229-260):
+    the leaves of ``decoder_block_init`` (``norm1``, ``self_attn`` (qkv,
+    proj), ``cross_attn`` (q, kv, proj), ``query_norm``, ``context_norm``,
+    ``norm2``, ``mlp``), no qkv bias by default. Nothing in either package
+    builds one; it is ported with its test."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm1 = LayerNorm(dim)
+        self.self_attn = Attention(dim, qkv_bias=qkv_bias)
+        self.cross_attn = CrossAttention(dim, qkv_bias=qkv_bias)
+        self.query_norm = LayerNorm(dim)
+        self.context_norm = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x, context, deterministic=True, drop_path_rate=0.0,
+                generator=None):
+        """x (B, N, D) queries, context (B, M, D) -> (B, N, D): the three
+        residual branches of decoder_block_apply, each scaled by drop-path
+        when not ``deterministic``: self-attention (``attention_apply``: B6
+        up to 512 tokens, B8 above), cross-attention
+        (``cross_attention_apply``: B8 at 512 context tokens or more, the
+        plain path below) and the MLP (``mlp_block(residual=False)``: B2,
+        backward B5). Dropout is zero, as in every configuration."""
+        m, h = self.mlp, self.num_heads
+
+        def branch(x, out):
+            return x + drop_path(out, drop_path_rate,
+                                 deterministic=deterministic,
+                                 generator=generator)
+
+        x = branch(x, attention_apply(
+            self.self_attn, layer_norm(x, self.norm1.weight, self.norm1.bias),
+            h))
+        x = branch(x, cross_attention_apply(
+            self.cross_attn,
+            layer_norm(x, self.query_norm.weight, self.query_norm.bias),
+            layer_norm(context, self.context_norm.weight,
+                       self.context_norm.bias), h))
+        return branch(x, mlp_block(x, self.norm2.weight, self.norm2.bias,
+                                   m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                                   m.fc2.bias, residual=False))

@@ -5,6 +5,11 @@ like ``torch.nn.Linear``/``LayerNorm``, so reference checkpoints load with
 ``load_state_dict``; they allocate without drawing random numbers and are
 initialised by :func:`mirage_tpu_torch.nn.init.init_weights` from an
 explicit generator. Counterpart of ``mirage_tpu/nn/layers.py``.
+
+``linear`` and ``layer_norm`` also take a task stack (``ops/tasks.py``): a
+weight (T, out, in) or (T, D) with a leading task axis over x whose leading
+batch is T·B, each task's rows with its own weights (a batched product,
+as jax.vmap makes of the JAX package's products).
 """
 
 import math
@@ -30,18 +35,33 @@ def gelu(x):
 
 
 def linear(x, weight, bias=None):
-    """x · weightᵀ + bias in x's dtype; weight is (out, in)."""
+    """x · weightᵀ + bias in x's dtype; weight is (out, in), or a task
+    stack (T, out, in) (bias (T, out)) over x's leading batch T·B."""
+    if weight.ndim == 3:
+        tasks, n, k = weight.shape
+        xt = x.reshape(tasks, -1, k)
+        w = weight.to(x.dtype).transpose(1, 2)
+        y = (torch.bmm(xt, w) if bias is None else
+             torch.baddbmm(bias.to(x.dtype).unsqueeze(1), xt, w))
+        return y.reshape(*x.shape[:-1], n)
     return F.linear(x, weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype))
 
 
 def layer_norm(x, weight, bias, eps=LN_EPS):
-    """LayerNorm with float statistics, output in x's dtype."""
+    """LayerNorm with float statistics, output in x's dtype; weight and
+    bias (D,), or a task stack (T, D) over x's leading batch T·B."""
     acc = acc_dtype(x)
     x32 = x.to(acc)
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
+    if weight.ndim == 2:  # a task stack: task t's rows take row t
+        tasks, d = weight.shape
+        shape = (tasks, -1) + (1,) * (x.ndim - 2) + (d,)
+        out = (y.reshape(tasks, -1, *y.shape[1:]) * weight.to(acc).view(shape)
+               + bias.to(acc).view(shape))
+        return out.reshape(y.shape).to(x.dtype)
     return (y * weight.to(acc) + bias.to(acc)).to(x.dtype)
 
 

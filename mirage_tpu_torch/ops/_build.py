@@ -80,6 +80,19 @@ ENTRIES = {
                        [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
     "mlp_bwd_dyln": ("mlp_bwd", "mtt_mlp_bwd_dyln",
                      [_P] * 3 + [_I] * 6 + [_P]),
+    # the task-strided forms (one launch over a stack of T tasks' weights)
+    "layernorm_tasks": ("layernorm", "mtt_layernorm_tasks",
+                        [_P, _P, _P, _P] + [_I] * 7 + [_F, _P]),
+    "layernorm_bwd_tasks": ("layernorm", "mtt_layernorm_bwd_tasks",
+                            [_P] * 9 + [_I] * 8 + [_F, _P]),
+    "gemm_tasks": ("gemm", "mtt_gemm_tasks",
+                   [_P, _P, _P, _P, _I, _P] + [_I] * 7 + [_P]),
+    "mlp_bwd_hidden_tasks": ("mlp_bwd", "mtt_mlp_bwd_hidden_tasks",
+                             [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_P]),
+    "mlp_bwd_dyln_tasks": ("mlp_bwd", "mtt_mlp_bwd_dyln_tasks",
+                           [_P] * 3 + [_I] * 7 + [_P]),
+    "wgrad_tasks": ("wgrad", "mtt_wgrad_tasks", [_P] * 4 + [_I] * 7 + [_P]),
+    "colsum_tasks": ("wgrad", "mtt_colsum_tasks", [_P] * 3 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -57,6 +57,16 @@ a group of heads (csrc/attention_phased.cu, tiled by :func:`phased_plan`),
 its LN in two passes, one pass or skipped, and its softmax in one of four
 modes.
 
+``attn_half_block`` and ``xattn_half_block`` also take a task stack
+(``ops/tasks.py``: every weight with a leading task axis T, x's and
+context's leading batch T·B): on the card each LN, projection and (B4, B7)
+backward product runs once over the stack on the task-strided kernels and
+the attention core once over the T·B batch (it carries no weights),
+counted in ``.task_launches`` (``.task_bwd_launches``,
+``.task_acc_bwd_launches``), the parameter gradients (T, ·); the plain
+versions loop over the tasks. ``block_attention`` (no weights) takes the
+T·B batch as it is.
+
 Every op saves only its inputs for the backward and recomputes the rest,
 as the TPU kernels do. Parameter gradients come back in float32, as the
 JAX custom VJPs return them; on a CPU tensor the backward runs the plain
@@ -73,6 +83,7 @@ from mirage_tpu_torch.nn.attention import (cross_attention, merge_heads,
                                            packed_attention, sdpa)
 from mirage_tpu_torch.nn.layers import LN_EPS, acc_dtype, layer_norm, linear
 from mirage_tpu_torch.ops import runtime
+from mirage_tpu_torch.ops.tasks import per_task, stacked, task_sums
 
 
 def _needs_grad(*tensors):
@@ -338,7 +349,11 @@ block_attention.bwd_launches = 0
 
 def attn_half_block_ref(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
     """Plain PyTorch version (mirage_tpu/ops/block_attention.py:
-    _attn_half_xla)."""
+    _attn_half_xla); over a task stack, the loop over the tasks."""
+    tasks = stacked(ln_w, 1)
+    if tasks:
+        return per_task(lambda xt, *w: attn_half_block_ref(xt, *w, num_heads),
+                        tasks, (x,), (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
     qkv = linear(layer_norm(x, ln_w, ln_b), wqkv, bqkv)
     return x + linear(packed_attention(qkv, num_heads), wproj, bproj)
 
@@ -397,7 +412,8 @@ def _attn_half_fwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    runtime.count(attn_half_block)
+    runtime.count(attn_half_block,
+                  "task_launches" if stacked(ln_w, 1) else "launches")
     return out.view(b, n, d)
 
 
@@ -437,12 +453,14 @@ def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     if not runtime.use_kernel(x):
         return attn_half_block_bwd_ref(x, dy, ln_w, ln_b, wqkv, bqkv, wproj,
                                        num_heads)
+    tasks = stacked(ln_w, 1)
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
-    runtime.count(attn_half_block, "bwd_launches")
-    return (dx, dgamma, dbeta, runtime.wgrad(dqkv, y),
-            dbqkv.sum(0) if bqkv is not None else None,
-            runtime.wgrad(dy2, attn), dy2.float().sum(0))
+    runtime.count(attn_half_block,
+                  "task_bwd_launches" if tasks else "bwd_launches")
+    return (dx, dgamma, dbeta, runtime.wgrad(dqkv, y, tasks),
+            task_sums(dbqkv, tasks) if bqkv is not None else None,
+            runtime.wgrad(dy2, attn, tasks), task_sums(dy2, tasks))
 
 
 # The accumulating backward (B7) computes what _attn_half_bwd_rows computes
@@ -458,12 +476,14 @@ def _attn_half_bwd_acc(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     if not runtime.use_kernel(x):
         return attn_half_block_bwd_acc_ref(x, dy, ln_w, ln_b, wqkv, bqkv,
                                            wproj, num_heads)
+    tasks = stacked(ln_w, 1)
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
-    runtime.count(attn_half_block, "acc_bwd_launches")
-    return (dx, dgamma, dbeta, runtime.weight_grad(dqkv, y),
-            runtime.colsum(dbqkv) if bqkv is not None else None,
-            runtime.weight_grad(dy2, attn), runtime.colsum(dy2))
+    runtime.count(attn_half_block,
+                  "task_acc_bwd_launches" if tasks else "acc_bwd_launches")
+    return (dx, dgamma, dbeta, runtime.weight_grad(dqkv, y, tasks),
+            runtime.colsum(dbqkv, tasks) if bqkv is not None else None,
+            runtime.weight_grad(dy2, attn, tasks), runtime.colsum(dy2, tasks))
 
 
 class _AttnHalf(torch.autograd.Function):
@@ -486,7 +506,12 @@ def attn_half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
     """x: (B, N, D); wqkv (3D, D), wproj (D, D) torch Linear layout; bqkv
     may be None (a qkv_bias=False model). Differentiable (B4 backward on
     the card, B7 under MIRAGE_ATTN_BWD=accumulate|reg_batch); weights of
-    another dtype than x are cast to it."""
+    another dtype than x are cast to it. A task stack runs the
+    task-strided chain; its plain version is the loop over the tasks."""
+    tasks = stacked(ln_w, 1)
+    if tasks and not runtime.use_kernel(x):
+        return per_task(lambda xt, *w: attn_half_block(xt, *w, num_heads),
+                        tasks, (x,), (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
     if _needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj):
         return _AttnHalf.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                num_heads)
@@ -496,6 +521,9 @@ def attn_half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
 attn_half_block.launches = 0
 attn_half_block.bwd_launches = 0
 attn_half_block.acc_bwd_launches = 0
+attn_half_block.task_launches = 0  # the task-strided chains (a task stack)
+attn_half_block.task_bwd_launches = 0
+attn_half_block.task_acc_bwd_launches = 0
 
 
 # ------------------------------------------------------------------ B3
@@ -503,7 +531,14 @@ attn_half_block.acc_bwd_launches = 0
 def xattn_half_block_ref(x, context, lnq_w, lnq_b, lnc_w, lnc_b, wq, bq,
                          wkv, bkv, wproj, bproj, num_heads, residual=True):
     """Plain PyTorch version (mirage_tpu/ops/block_attention.py:
-    _xattn_half_xla)."""
+    _xattn_half_xla); over a task stack, the loop over the tasks."""
+    tasks = stacked(lnq_w, 1)
+    if tasks:
+        return per_task(
+            lambda xt, ct, *w: xattn_half_block_ref(xt, ct, *w, num_heads,
+                                                    residual),
+            tasks, (x, context), (lnq_w, lnq_b, lnc_w, lnc_b, wq, bq, wkv,
+                                  bkv, wproj, bproj))
     out = cross_attention(
         wq, bq, wkv, bkv, wproj, bproj, layer_norm(x, lnq_w, lnq_b),
         layer_norm(context, lnc_w, lnc_b), num_heads)
@@ -517,7 +552,9 @@ def xattn_half_block(x, context, lnq_w, lnq_b, lnc_w, lnc_b, wq, bq, wkv,
     returns the cross-attention branch without the skip-add, which is what
     the reference decoder computes (SpatialOutputAdapter). Inference only on
     the card: under autograd a CUDA tensor raises (there is no kernel
-    backward; training takes the plain cross-attention)."""
+    backward; training takes the plain cross-attention). A task stack
+    (weights (T, ·), x's and context's batch T·B) launches each kernel once
+    over the stack; its plain version is the loop over the tasks."""
     if not runtime.use_kernel(x):
         return xattn_half_block_ref(x, context, lnq_w, lnq_b, lnc_w, lnc_b,
                                     wq, bq, wkv, bkv, wproj, bproj, num_heads,
@@ -543,11 +580,13 @@ def xattn_half_block(x, context, lnq_w, lnq_b, lnc_w, lnc_b, wq, bq, wkv,
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * nq, d), wproj.to(x.dtype), bproj,
                        residual=x2 if residual else None)
-    runtime.count(xattn_half_block)
+    runtime.count(xattn_half_block,
+                  "task_launches" if stacked(lnq_w, 1) else "launches")
     return out.view(b, nq, d)
 
 
 xattn_half_block.launches = 0
+xattn_half_block.task_launches = 0  # over a task stack
 
 
 # ------------------------------------------------- the bench's A/B halves

@@ -25,6 +25,12 @@ zero when absent, as in the JAX package (:169-171).
 Its gradient is autograd through the plain version, as the JAX custom VJP's
 backward is ``jax.vjp`` of ``_block_xla`` (:155-157); the TPU kernel has no
 backward kernel, and training routes keep the halves.
+
+A task stack (``ops/tasks.py``: the task-batched decoder tails) runs the
+unchanged kernel once per task on that task's rows and weights, on the card
+and in the plain version alike: B10 has no task stride yet (a deliberate
+deviation from the JAX package's one vmapped launch, ``mirage_tpu_torch/
+DEVIATIONS.md``).
 """
 
 import torch
@@ -33,6 +39,7 @@ from mirage_tpu_torch.ops import runtime
 from mirage_tpu_torch.ops.block_attention import (_needs_grad,
                                                   attn_half_block_ref)
 from mirage_tpu_torch.ops.fused_mlp import mlp_block_ref
+from mirage_tpu_torch.ops.tasks import per_task, stacked
 
 MAX_TOKENS = 512
 # the kernel's stages in order, the rows of a GEMM tile by working type and
@@ -224,9 +231,13 @@ def fused_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
     """x: (B, N, D), N ≤ 512, head dim 16..128 in steps of 16; the weights
     in torch Linear layout (wqkv (3D, D), wproj (D, D), w1 (H, D), w2 (D,
     H)), cast to x's dtype; bqkv may be None. Differentiable through the
-    plain version."""
+    plain version. A task stack: one call a task (module docstring)."""
     args = (ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2,
             b2)
+    tasks = stacked(ln1_w, 1)
+    if tasks:
+        return per_task(lambda xt, *w: fused_block(xt, *w, num_heads), tasks,
+                        (x,), args)
     if _needs_grad(x, *args):
         return _FusedBlock.apply(x, *args, num_heads)
     return _fused_block_fwd(x, *args, num_heads)

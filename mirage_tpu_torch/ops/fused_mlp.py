@@ -60,6 +60,14 @@ atomics, so a rerun is bit-identical. The rows need no padding: the TPU
 pads only for its tiling, and a zero-cotangent row adds nothing. Bound:
 operations (the recompute 2·M·D·4D and the backward 8·M·D·4D FLOPs).
 
+``mlp_block`` also takes a task stack (``ops/tasks.py``: ln_w, ln_b, b1
+and b2 (T, ·), w1 (T, 4D, D), w2 (T, D, 4D), x's leading batch T·B): on the
+card B2's and B5's (and B7's) chains run each kernel once over the stack
+(the task-strided LN, GEMM, MLP-backward and wgrad kernels, counted in
+``mlp_block.task_launches`` / ``.task_bwd_launches`` /
+``.task_acc_bwd_launches``), the parameter gradients (T, ·); its plain
+version is the loop over the tasks.
+
 ``mlp_block_lnfold`` (an A/B case of the port's bench, scripts/
 bench_lnfold.py) is B2 with the next block's LN1 folded into fc2's
 epilogue (csrc/gemm_lnfold.cu). ``mlp_block_modes`` (S5, scripts/
@@ -80,13 +88,20 @@ from mirage_tpu_torch.ops.block_attention import (LN_MODES, _forward_only,
                                                   _needs_grad, ln_bwd_ref,
                                                   ln_mode, ln_mode_ref)
 from mirage_tpu_torch.ops.quant import _erf_as
+from mirage_tpu_torch.ops.tasks import per_task, stacked, task_sums
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
 
 def mlp_block_ref(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
-    """Plain PyTorch version (mirage_tpu/ops/fused_mlp.py:_mlp_block_xla)."""
+    """Plain PyTorch version (mirage_tpu/ops/fused_mlp.py:_mlp_block_xla);
+    over a task stack, the loop over the tasks."""
+    tasks = stacked(ln_w, 1)
+    if tasks:
+        return per_task(
+            lambda xt, *w: mlp_block_ref(xt, *w, residual=residual), tasks,
+            (x,), (ln_w, ln_b, w1, b1, w2, b2))
     h = linear(gelu(linear(layer_norm(x, ln_w, ln_b), w1, b1)), w2, b2)
     return x + h if residual else h
 
@@ -143,7 +158,8 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
     h = runtime.gemm(y, w1.to(x.dtype), b1, gelu=True)
     out = runtime.gemm(h, w2.to(x.dtype), b2,
                        residual=x2 if residual else None)
-    runtime.count(mlp_block)
+    runtime.count(mlp_block, "task_launches" if stacked(ln_w, 1) else
+                  "launches")
     return out.view(x.shape)
 
 
@@ -170,11 +186,13 @@ def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     outside, as the JAX package leaves them to XLA."""
     if not runtime.use_kernel(x):
         return mlp_block_bwd_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
+    tasks = stacked(ln_w, 1)
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
-    runtime.count(mlp_block, "bwd_launches")
-    return (dx, dgamma, dbeta, runtime.wgrad(dh, y), db1.sum(0),
-            runtime.wgrad(dy2, act), dy2.sum(0, dtype=torch.float32))
+    runtime.count(mlp_block, "task_bwd_launches" if tasks else "bwd_launches")
+    return (dx, dgamma, dbeta, runtime.wgrad(dh, y, tasks),
+            task_sums(db1, tasks), runtime.wgrad(dy2, act, tasks),
+            task_sums(dy2, tasks))
 
 
 def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
@@ -182,12 +200,14 @@ def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     the wgrad and column-sum kernels."""
     if not runtime.use_kernel(x):
         return mlp_block_bwd_acc_ref(x, dy, ln_w, ln_b, w1, b1, w2, residual)
+    tasks = stacked(ln_w, 1)
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
-    runtime.count(mlp_block, "acc_bwd_launches")
-    return (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
-            runtime.colsum(db1), runtime.weight_grad(dy2, act),
-            runtime.colsum(dy2))
+    runtime.count(mlp_block,
+                  "task_acc_bwd_launches" if tasks else "acc_bwd_launches")
+    return (dx, dgamma, dbeta, runtime.weight_grad(dh, y, tasks),
+            runtime.colsum(db1.reshape(-1, db1.shape[-1]), tasks),
+            runtime.weight_grad(dy2, act, tasks), runtime.colsum(dy2, tasks))
 
 
 class _MlpBlock(torch.autograd.Function):
@@ -200,8 +220,8 @@ class _MlpBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        bwd = (_mlp_bwd_acc if takes_accumulating_bwd(x, params[2].shape[0])
-               else _mlp_bwd)
+        bwd = (_mlp_bwd_acc if takes_accumulating_bwd(
+            x, params[2].shape[-2], stacked(params[0], 1)) else _mlp_bwd)
         return (*bwd(x, dy, *params, ctx.residual), None)
 
 
@@ -249,16 +269,19 @@ def _route_unaligned_bwd(b, n, d, hdim, row_unit=18, fixed_mult=12):
     return "pad" if progs_pad is not None else None
 
 
-def takes_accumulating_bwd(x, hdim) -> bool:
+def takes_accumulating_bwd(x, hdim, tasks=0) -> bool:
     """Does mlp_block's backward at x's shape run the accumulating kernel
     (B7) in the JAX package? Under MIRAGE_MLP_BWD=accumulate always; under
-    defused only on the per-element 3-D route (fused_mlp.py:385-406)."""
+    defused only on the per-element 3-D route (fused_mlp.py:385-406).
+    ``tasks``: x is a task stack's T·B batch, routed at a task's B, as
+    jax.vmap routes its body."""
     if runtime.switches["MIRAGE_MLP_BWD"] == "accumulate":
         return True
     if x.ndim != 3 or x.shape[1] % 16 == 0:
         return False
     b, n, d = x.shape
-    return _route_unaligned_bwd(b, n, d, hdim, _DEFUSED_ROW_UNIT, 4) is None
+    return _route_unaligned_bwd(b // max(tasks, 1), n, d, hdim,
+                                _DEFUSED_ROW_UNIT, 4) is None
 
 
 def _stash_viable(m, d, hdim):
@@ -313,19 +336,20 @@ PingPongPlan = namedtuple("PingPongPlan", [
 
 
 def _pingpong_plan(name, m, n, k, sms, tile, stages, smem_bytes, cluster=1,
-                   bk=64, group=1):
+                   bk=64, group=1, tasks=1):
     """A persistent kernel of two consumer warpgroups in ping-pong over a
     (m, n) output, K = k in slices of ``bk``: ``tile`` tiles in row-major
     order (``group`` > 1: grouped, :func:`tile_order`), each taken by a
     cluster of ``cluster`` CTAs (one CTA per SM), cluster c taking tiles c,
     c + clusters, ... (the most a cluster takes is ``tiles_per_cta``) and
     each CTA handing its rows of them to its two consumers in turn;
-    ``grid`` counts CTAs."""
-    if m <= 0 or n <= 0 or k <= 0 or sms <= 0:
+    ``grid`` counts CTAs. ``tasks``: a task stack's launch, ``tasks``
+    products of this shape, every task's tiles one task after another."""
+    if m <= 0 or n <= 0 or k <= 0 or sms <= 0 or tasks <= 0:
         raise ValueError(f"{name}: empty product ({m}, {n}, {k}) on {sms} "
                          f"SMs")
     tiles_m = -(-m // tile[0])
-    tiles = tiles_m * -(-n // tile[1])
+    tiles = tasks * tiles_m * -(-n // tile[1])
     clusters = min(tiles, sms // cluster)
     return PingPongPlan(tile=tile, tiles=tiles, grid=clusters * cluster,
                         tiles_per_cta=-(-tiles // clusters),
@@ -351,23 +375,24 @@ def _gemm_smem(vecs):
             + 8 * (vecs * GEMM_TILE[1] * 4 + 16 * 72 * 4))
 
 
-def _gemm_plan(name, m, n, k, sms, bk, vecs):
+def _gemm_plan(name, m, n, k, sms, bk, vecs, tasks=1):
     return _pingpong_plan(name, m, n, k, sms,
                           (GEMM_TILE[0] * GEMM_CLUSTER, GEMM_TILE[1]),
                           GEMM_STAGES, _gemm_smem(vecs), cluster=GEMM_CLUSTER,
-                          bk=bk, group=GEMM_GROUP // GEMM_CLUSTER)
+                          bk=bk, group=GEMM_GROUP // GEMM_CLUSTER, tasks=tasks)
 
 
-def gemm_plan(m, n, k, sms):
+def gemm_plan(m, n, k, sms, tasks=1):
     """How csrc/gemm.cu's bf16 kernel runs a (m, k) · (n, k)ᵀ product on
     ``sms`` SMs (:func:`_pingpong_plan` over cluster tiles of 256 × 128,
-    two CTAs of 128 × 128 tiles a cluster, five stages of K-slices of 64).
+    two CTAs of 128 × 128 tiles a cluster, five stages of K-slices of 64);
+    ``tasks``: mtt_gemm_tasks over a stack of that many such products.
     Raises ValueError for a shape the kernel refuses (K or N not a multiple
     of 8: TMA rows of 16 bytes)."""
     if k % 8 or n % 8:
         raise ValueError(f"gemm_plan: bf16 needs K and N multiples of 8, got "
                          f"K={k}, N={n}")
-    return _gemm_plan("gemm_plan", m, n, k, sms, 64, 1)
+    return _gemm_plan("gemm_plan", m, n, k, sms, 64, 1, tasks)
 
 
 def gemm_s8_plan(m, n, k, sms):
@@ -391,21 +416,27 @@ def tile_order(t, tiles_m, tiles_n, group):
     return first + r % rows, r // rows
 
 
-def pingpong_schedule(plan, m, n):
+def pingpong_schedule(plan, m, n, tasks=1):
     """Each CTA's tiles in the order it runs them, as [(tile row, tile
     column, consumer)]: cluster c (CTAs c·cluster, ...) takes cluster tiles
     c, c + clusters, ... in :func:`tile_order`, its CTA of rank r the r-th
     tile row of each (a row past m: zero-filled, nothing stored), and each
-    CTA hands its g-th tile to consumer g % 2."""
+    CTA hands its g-th tile to consumer g % 2. ``tasks`` > 1 (a task
+    stack's plan): [(task, tile row, tile column, consumer)], the tasks'
+    cluster tiles one task after another, each task's in the grouped
+    raster."""
     tiles_mc, tiles_n = -(-m // plan.tile[0]), -(-n // plan.tile[1])
+    per = tiles_mc * tiles_n
     clusters = plan.grid // plan.cluster
     sched = []
     for b in range(plan.grid):
         c, r = divmod(b, plan.cluster)
-        tiles = [tile_order(t, tiles_mc, tiles_n, plan.group)
+        tiles = [(t // per,) + tile_order(t % per, tiles_mc, tiles_n,
+                                          plan.group)
                  for t in range(c, plan.tiles, clusters)]
-        sched.append([(tm * plan.cluster + r, tn, g % 2)
-                      for g, (tm, tn) in enumerate(tiles)])
+        sched.append([((task,) if tasks > 1 else ())
+                      + (tm * plan.cluster + r, tn, g % 2)
+                      for g, (task, tm, tn) in enumerate(tiles)])
     return sched
 
 
@@ -445,19 +476,20 @@ MLP_BWD_DYLN_SMEM = (1024 + MLP_BWD_STAGES * (64 + 256) * 64 * 2
 MlpBwdPlan = namedtuple("MlpBwdPlan", ["hidden", "dyln"])
 
 
-def mlp_bwd_plan(m, d, hdim, sms):
+def mlp_bwd_plan(m, d, hdim, sms, tasks=1):
     """How csrc/mlp_bwd.cu's bf16 kernels run the MLP backward over m rows
     of width d with a hidden of ``hdim`` on ``sms`` SMs: ``hidden``, the
     recompute and dact products (M, hdim) at K = d in clusters of two CTAs,
     and ``dyln``, the (M, d) product at K = hdim, each a
-    :class:`PingPongPlan`. Raises ValueError for an empty product."""
+    :class:`PingPongPlan` (``tasks``: the task-strided launch over a stack
+    of that many, m rows each). Raises ValueError for an empty product."""
     return MlpBwdPlan(
         hidden=_pingpong_plan("mlp_bwd_plan", m, hdim, d, sms,
                               MLP_BWD_HIDDEN_TILE, MLP_BWD_STAGES,
-                              MLP_BWD_HIDDEN_SMEM, cluster=2),
+                              MLP_BWD_HIDDEN_SMEM, cluster=2, tasks=tasks),
         dyln=_pingpong_plan("mlp_bwd_plan", m, d, hdim, sms,
                             MLP_BWD_DYLN_TILE, MLP_BWD_STAGES,
-                            MLP_BWD_DYLN_SMEM))
+                            MLP_BWD_DYLN_SMEM, tasks=tasks))
 
 
 def _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2, residual=True):
@@ -554,7 +586,15 @@ def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True, stash=False):
     Differentiable (B5 backward on the card, B7 where
     takes_accumulating_bwd says so, or with ``stash`` the B9 pair where
     stash_route admits x); weights of another dtype than x are cast
-    to it."""
+    to it. A task stack (every weight with a leading task axis T, x's
+    leading batch T·B) runs the task-strided chain (never the stash pair);
+    its plain version is the loop over the tasks."""
+    tasks = stacked(ln_w, 1)
+    if tasks and not runtime.use_kernel(x):
+        return per_task(lambda xt, *w: mlp_block(xt, *w, residual=residual),
+                        tasks, (x,), (ln_w, ln_b, w1, b1, w2, b2))
+    if tasks:
+        stash = False
     if _needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
         if stash and residual and stash_route(x, w1.shape[0]) == "2d":
             return _MlpBlockStash.apply(x, ln_w, ln_b, w1, b1, w2, b2)
@@ -567,6 +607,9 @@ mlp_block.bwd_launches = 0
 mlp_block.stash_launches = 0
 mlp_block.stash_bwd_launches = 0
 mlp_block.acc_bwd_launches = 0
+mlp_block.task_launches = 0  # the task-strided chains (a task stack)
+mlp_block.task_bwd_launches = 0
+mlp_block.task_acc_bwd_launches = 0
 
 
 # ------------------------------------------ the bench's LN fold (S4)

@@ -37,16 +37,28 @@ cluster epilogue (the bench's S3 and S4). The bench's S2, S5 and S6 add
 another erf formula), ``attention_phased`` (three phases over a group of
 heads) and ``mlp_chunked`` (fc1 → GELU → fc2 with the hidden on chip).
 
-The four switches of the JAX package's non-default kernels keep its names,
-values and defaults and are read once at import, as
-``mirage_tpu/utils/envflags.py`` and ``mirage_tpu/nn/block.py:31`` read
-them: ``MIRAGE_OPT_KERNEL`` (``off|on``: the fused AdamW update, B11),
-``MIRAGE_MLP_BWD`` (``defused|accumulate``: the MLP half's backward, B5 or
-B7), ``MIRAGE_ATTN_BWD`` (``defused|accumulate|reg_batch``: the attention
-half's backward, B4 or B7) and ``MIRAGE_BLOCK_FUSE`` (``off|decoder|all``:
-deterministic blocks of width ≤ 256, or all of them, as one whole-block
-launch, B10). An unknown value raises. :func:`set_switch` and
-:func:`switched` change them at run time (the tests and ``chip_smoke.py``).
+Task stacks. ``layernorm``, ``layernorm_bwd``, ``gemm``, ``mlp_bwd_hidden``
+and ``mlp_bwd_dyln`` also take a stack of T tasks' weights (a leading task
+axis: gamma and beta (T, D), W (T, N, K), the bias (T, N)) with the rows
+of the T tasks one task after another, M/T rows each, and launch the
+task-strided form of their kernel once (``*_tasks`` C entries, counted in
+``.task_launches``): the task-batched decoder tails
+(``adapters/spatial_output.py:batched_spatial_decode``). ``weight_grad``,
+``colsum`` and ``wgrad`` take ``tasks=T`` and return one result a task.
+
+The switches of the JAX package's non-default paths keep its names, values
+and defaults and are read once at import, as ``mirage_tpu/utils/
+envflags.py``, ``mirage_tpu/nn/block.py:31`` and ``mirage_tpu/models/
+mirage.py:37`` read them: ``MIRAGE_OPT_KERNEL`` (``off|on``: the fused
+AdamW update, B11), ``MIRAGE_MLP_BWD`` (``defused|accumulate``: the MLP
+half's backward, B5 or B7), ``MIRAGE_ATTN_BWD``
+(``defused|accumulate|reg_batch``: the attention half's backward, B4 or
+B7), ``MIRAGE_BLOCK_FUSE`` (``off|decoder|all``: deterministic blocks of
+width ≤ 256, or all of them, as one whole-block launch, B10) and
+``MIRAGE_DEC_BATCH`` (``off|on``: identically configured decoders' tails as
+one task-stacked tail, ``models/mirage.py``). An unknown value raises.
+:func:`set_switch` and :func:`switched` change them at run time (the tests
+and ``chip_smoke.py``).
 """
 
 import contextlib
@@ -80,7 +92,8 @@ SWITCHES = {"MIRAGE_OPT_KERNEL": ("off", ("on", "off")),
             "MIRAGE_MLP_BWD": ("defused", ("accumulate", "defused")),
             "MIRAGE_ATTN_BWD": ("defused",
                                 ("accumulate", "reg_batch", "defused")),
-            "MIRAGE_BLOCK_FUSE": ("off", ("off", "decoder", "all"))}
+            "MIRAGE_BLOCK_FUSE": ("off", ("off", "decoder", "all")),
+            "MIRAGE_DEC_BATCH": ("off", ("on", "off"))}
 switches = {name: env_choice(name, default, allowed)
             for name, (default, allowed) in SWITCHES.items()}
 
@@ -196,16 +209,22 @@ def _launch(name: str, like: torch.Tensor, *args):
 LN_THREADS, LN_WIDTHS = 256, (256, 768, 1024)
 LN_FWD_CTAS, LN_BWD_CTAS = {2: 2, 4: 1}, 1
 LN_GENERIC_ROWS, LN_FINISH_CTAS = 32, 12
+# task stacks the LN backward's counters hold
+LN_MAX_TASKS = 16
 LayerNormPlan = namedtuple("LayerNormPlan", [
     "width", "vec", "threads_per_row", "rows_per_cta", "grid",
     "partial_rows", "finish_groups"])
 
 
 @functools.lru_cache(maxsize=256)
-def layernorm_plan(m, d, sms, dtype, backward):
+def layernorm_plan(m, d, sms, dtype, backward, tasks=1):
     """How csrc/layernorm.cu runs an (m, d) LayerNorm (``backward``: its
     backward) of ``dtype`` (torch.bfloat16 or torch.float32) on ``sms`` SMs:
-    a :class:`LayerNormPlan`.
+    a :class:`LayerNormPlan`. ``tasks`` > 1: each of a task stack's tasks
+    has m rows and is taken by a ``grid`` of its own (grid (grid, tasks):
+    one task's rows a CTA), the CTAs a task shared out of the card's
+    resident CTAs; each task's partial rows and finish groups as a one-task
+    launch of that grid.
 
     ``width`` is the instantiation: the least of 256, 768 and 1024 that
     holds d when d is a multiple of ``vec`` (the elements of a 16-byte
@@ -227,7 +246,7 @@ def layernorm_plan(m, d, sms, dtype, backward):
         vec, tpr = 1, 32
         rows_per_cta = LN_GENERIC_ROWS if backward else LN_THREADS // 32
     ctas = LN_BWD_CTAS if backward else LN_FWD_CTAS[itemsize]
-    grid = min(-(-m // rows_per_cta), sms * ctas)
+    grid = min(-(-m // rows_per_cta), -(-sms * ctas // tasks))
     return LayerNormPlan(width, vec, tpr, rows_per_cta, grid,
                          grid if backward else 0,
                          -(-grid // LN_FINISH_CTAS) if backward else 0)
@@ -242,11 +261,21 @@ def layernorm_rows(plan, m, cta):
             for s in range(plan.rows_per_cta)]
 
 
+def _task_rows(name, m, tasks):
+    """The rows a task of a stack of ``tasks`` over m rows."""
+    if tasks <= 0 or m % tasks:
+        raise ValueError(f"{name}: {m} rows do not split into {tasks} tasks")
+    return m // tasks
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6, onepass: bool = False) -> torch.Tensor:
     """(M, D) -> (M, D) LayerNorm, float statistics: the variance in two
-    passes, or with ``onepass`` as E[x²] − mean² clamped at 0."""
+    passes, or with ``onepass`` as E[x²] − mean² clamped at 0. A (T, D)
+    weight and bias: T tasks of M/T rows each, one task-strided launch."""
     m, d = x.shape
+    if weight.ndim == 2:
+        return _layernorm_tasks(x, weight, bias, eps, onepass)
     check("x", x, x)
     check("ln weight", weight, x, (d,), dtype=False)
     check("ln bias", bias, weight, (d,))
@@ -260,7 +289,26 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def _layernorm_tasks(x, weight, bias, eps, onepass):
+    m, d = x.shape
+    tasks = weight.shape[0]
+    if onepass:
+        raise ValueError("layernorm: the one-pass form takes one task")
+    rows = _task_rows("layernorm", m, tasks)
+    check("x", x, x)
+    check("ln weight", weight, x, (tasks, d), dtype=False)
+    check("ln bias", bias, weight, (tasks, d))
+    plan = layernorm_plan(rows, d, _sms(x.device), x.dtype, False, tasks)
+    y = torch.empty_like(x)
+    _launch("layernorm_tasks", x, x.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), rows, tasks, d, _DTYPES[x.dtype],
+            _DTYPES[weight.dtype], plan.width, plan.grid, eps)
+    count(layernorm, "task_launches")
+    return y
+
+
 layernorm.launches = 0
+layernorm.task_launches = 0
 _ln_counters = {}  # device -> the LN backward's finish counters, zero
 
 
@@ -270,10 +318,13 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
     cotangent dyln of its output: (dx, dgamma, dbeta). dx = dy + the LN
     term, in x's dtype (sub_dy: T(T(dy + ·) − dy), the no-residual form);
     dgamma and dbeta are (D,) float sums, finished by the kernel in a fixed
-    order (``layernorm_plan``)."""
+    order (``layernorm_plan``). A (T, D) weight: T tasks of M/T rows, one
+    task-strided launch; dgamma and dbeta (T, D)."""
     m, d = x.shape
+    tasks = weight.shape[0] if weight.ndim == 2 else 0
+    rows = _task_rows("layernorm_bwd", m, tasks) if tasks else m
     check("x", x, x)
-    check("ln weight", weight, x, (d,), dtype=False)
+    check("ln weight", weight, x, (tasks, d) if tasks else (d,), dtype=False)
     if dyln.dtype != torch.float32:
         raise ValueError(f"dyln: dtype {dyln.dtype}, expected torch.float32")
     check("dyln", dyln, dyln, (m, d))
@@ -282,13 +333,28 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
     elif sub_dy:
         raise ValueError("sub_dy needs dy")
     sms = _sms(x.device)
-    plan = layernorm_plan(m, d, sms, x.dtype, True)
+    plan = layernorm_plan(rows, d, sms, x.dtype, True, max(tasks, 1))
     counters = _ln_counters.get(x.device)
     if counters is None:
         counters = _ln_counters[x.device] = torch.zeros(
-            1 + -(-sms * LN_BWD_CTAS // LN_FINISH_CTAS), device=x.device,
-            dtype=torch.int32)
+            LN_MAX_TASKS * (1 + -(-sms * LN_BWD_CTAS // LN_FINISH_CTAS)),
+            device=x.device, dtype=torch.int32)
     dx = torch.empty_like(x)
+    if tasks:
+        if tasks > LN_MAX_TASKS:
+            raise ValueError(f"layernorm_bwd: {tasks} tasks, at most "
+                             f"{LN_MAX_TASKS}")
+        part = torch.empty((tasks, plan.partial_rows + plan.finish_groups, 2,
+                            d), device=x.device, dtype=torch.float32)
+        grads = torch.empty((2, tasks, d), device=x.device,
+                            dtype=torch.float32)
+        _launch("layernorm_bwd_tasks", x, x.data_ptr(), weight.data_ptr(),
+                dyln.data_ptr(), _ptr(dy), dx.data_ptr(), part.data_ptr(),
+                grads[0].data_ptr(), grads[1].data_ptr(), counters.data_ptr(),
+                rows, tasks, d, _DTYPES[x.dtype], _DTYPES[weight.dtype],
+                int(sub_dy), plan.width, plan.grid, eps)
+        count(layernorm_bwd, "task_launches")
+        return dx, grads[0], grads[1]
     # the partial rows, the finish groups' rows, then dgamma and dbeta
     part = torch.empty((plan.partial_rows + plan.finish_groups + 1, 2, d),
                        device=x.device, dtype=torch.float32)
@@ -303,6 +369,7 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
 
 
 layernorm_bwd.launches = 0
+layernorm_bwd.task_launches = 0
 
 
 def _gemm_operands(a, w, w_kn=False):
@@ -332,7 +399,10 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     dtype or, with out_dtype=torch.float32, in float (no residual or GELU
     then).
     ``w_kn``: w is (K, N) and the product a · w, the weight read as it lies
-    (bf16)."""
+    (bf16). A (T, N, K) w and (T, N) bias: T tasks of M/T rows, one
+    task-strided launch (csrc/gemm.cu:mtt_gemm_tasks)."""
+    if w.ndim == 3:
+        return _gemm_tasks(a, w, bias, residual, gelu, out_dtype, w_kn)
     m, n, k = _gemm_operands(a, w, w_kn)
     entry, w = _gemm_weight(a, w, w_kn)
     out_f32 = out_dtype == torch.float32
@@ -357,8 +427,39 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     return c
 
 
+def _gemm_tasks(a, w, bias, residual, gelu, out_dtype, w_kn):
+    tasks, n, k = w.shape
+    m = a.shape[0]
+    rows = _task_rows("gemm", m, tasks)
+    if w_kn:
+        raise ValueError("gemm: a task stack takes (N, K) weights")
+    check("a", a, a, (m, k))
+    check("weight", w, a, (tasks, n, k))
+    if a.dtype == torch.bfloat16 and (k % 8 or n % 8):
+        raise ValueError(f"bf16 gemm needs K and N multiples of 8, got "
+                         f"K={k}, N={n}")
+    out_f32 = out_dtype == torch.float32
+    if out_dtype not in (None, a.dtype, torch.float32):
+        raise ValueError(f"gemm out_dtype {out_dtype} unsupported")
+    if out_f32 and (residual is not None or gelu):
+        raise ValueError("gemm: a float32 output takes no residual or GELU")
+    if bias is not None:
+        check("bias", bias, a, (tasks, n), dtype=False)
+    if residual is not None:
+        check("residual", residual, a, (m, n))
+    c = torch.empty((m, n), device=a.device,
+                    dtype=torch.float32 if out_f32 else a.dtype)
+    _launch("gemm_tasks", a, a.data_ptr(), w.data_ptr(), c.data_ptr(),
+            _ptr(bias), _DTYPES[bias.dtype] if bias is not None else 0,
+            _ptr(residual), rows, n, k, tasks,
+            _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype], int(out_f32))
+    count(gemm, "task_launches")
+    return c
+
+
 gemm.launches = 0  # launches of csrc/gemm.cu by gemm, gemm_gelu_mode and
 # gemm_dgelu_mul
+gemm.task_launches = 0  # its task-strided launches
 
 
 # the GELU formulas of the epilogue besides erff (csrc/gemm.cu GELU_*)
@@ -399,60 +500,83 @@ def mlp_bwd_hidden(y: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
     = y·w1ᵀ + b1 and dact = dy·w2 in float (never stored), returns dh =
     T(dact·GELU′(h)), act = T(GELU(h)) (both (M, H) in y's dtype) and the
     float 16-row column partials (ceil(M/16), H) of the unrounded dh (db1's).
-    bf16 tiles as ``ops/fused_mlp.py:mlp_bwd_plan`` says."""
+    bf16 tiles as ``ops/fused_mlp.py:mlp_bwd_plan`` says. w1 (T, H, D), b1
+    (T, H), w2 (T, D, H): T tasks of M/T rows, one task-strided launch; the
+    partials (T, ceil(M/T/16), H), a task's row groups within it."""
     from mirage_tpu_torch.ops.fused_mlp import mlp_bwd_plan
 
     m, d = y.shape
-    h = w1.shape[0]
+    h = w1.shape[-2]
+    tasks = w1.shape[0] if w1.ndim == 3 else 0
+    rows = _task_rows("mlp_bwd_hidden", m, tasks) if tasks else m
+    lead = (tasks,) if tasks else ()
     check("y", y, y)
     check("dy", dy, y, (m, d))
-    check("w1", w1, y, (h, d))
-    check("w2", w2, y, (d, h))
-    check("b1", b1, y, (h,), dtype=False)
+    check("w1", w1, y, lead + (h, d))
+    check("w2", w2, y, lead + (d, h))
+    check("b1", b1, y, lead + (h,), dtype=False)
     if y.dtype == torch.bfloat16 and (d % 8 or h % 8):
         raise ValueError(f"bf16 mlp_bwd_hidden needs D and H multiples of 8, "
                          f"got D={d}, H={h}")
-    plan = mlp_bwd_plan(m, d, h, _sms(y.device))
+    plan = mlp_bwd_plan(rows, d, h, _sms(y.device), max(tasks, 1))
     dh = torch.empty((m, h), device=y.device, dtype=y.dtype)
     act = torch.empty_like(dh)
-    part = torch.empty((-(-m // 16), h), device=y.device, dtype=torch.float32)
-    _launch("mlp_bwd_hidden", y, y.data_ptr(), dy.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), _DTYPES[b1.dtype], w2.data_ptr(), dh.data_ptr(),
-            act.data_ptr(), part.data_ptr(), m, d, h, _DTYPES[y.dtype],
-            plan.hidden.grid)
-    count(mlp_bwd_hidden)
+    part = torch.empty(lead + (-(-rows // 16), h), device=y.device,
+                       dtype=torch.float32)
+    args = (y.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            _DTYPES[b1.dtype], w2.data_ptr(), dh.data_ptr(), act.data_ptr(),
+            part.data_ptr(), rows, d, h)
+    if tasks:
+        _launch("mlp_bwd_hidden_tasks", y, *args, tasks, _DTYPES[y.dtype],
+                plan.hidden.grid)
+        count(mlp_bwd_hidden, "task_launches")
+    else:
+        _launch("mlp_bwd_hidden", y, *args, _DTYPES[y.dtype],
+                plan.hidden.grid)
+        count(mlp_bwd_hidden)
     return dh, act, part
 
 
 mlp_bwd_hidden.launches = 0
+mlp_bwd_hidden.task_launches = 0
 
 
 def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
                  out_dtype=torch.float32) -> torch.Tensor:
     """dyln = dh (M, H) · w1 (H, D) in float (M, D), w1 read as it lies
     (csrc/mlp_bwd.cu; bf16 tiles as ``mlp_bwd_plan`` says); with
-    ``out_dtype`` dh's dtype, rounded to it once (B4's dattn = T(dy·Wproj))."""
+    ``out_dtype`` dh's dtype, rounded to it once (B4's dattn = T(dy·Wproj)).
+    w1 (T, H, D): T tasks of M/T rows, one task-strided launch."""
     from mirage_tpu_torch.ops.fused_mlp import mlp_bwd_plan
 
     m, h = dh.shape
-    d = w1.shape[1]
+    d = w1.shape[-1]
+    tasks = w1.shape[0] if w1.ndim == 3 else 0
+    rows = _task_rows("mlp_bwd_dyln", m, tasks) if tasks else m
     check("dh", dh, dh)
-    check("w1", w1, dh, (h, d))
+    check("w1", w1, dh, ((tasks,) if tasks else ()) + (h, d))
     if out_dtype not in (torch.float32, dh.dtype):
         raise ValueError(f"mlp_bwd_dyln out_dtype {out_dtype} unsupported")
     if dh.dtype == torch.bfloat16 and (d % 8 or h % 8):
         raise ValueError(f"bf16 mlp_bwd_dyln needs D and H multiples of 8, "
                          f"got D={d}, H={h}")
-    plan = mlp_bwd_plan(m, d, h, _sms(dh.device))
+    plan = mlp_bwd_plan(rows, d, h, _sms(dh.device), max(tasks, 1))
     dyln = torch.empty((m, d), device=dh.device, dtype=out_dtype)
-    _launch("mlp_bwd_dyln", dh, dh.data_ptr(), w1.data_ptr(),
-            dyln.data_ptr(), m, d, h, _DTYPES[dh.dtype], _DTYPES[out_dtype],
-            plan.dyln.grid)
-    count(mlp_bwd_dyln)
+    if tasks:
+        _launch("mlp_bwd_dyln_tasks", dh, dh.data_ptr(), w1.data_ptr(),
+                dyln.data_ptr(), rows, d, h, tasks, _DTYPES[dh.dtype],
+                _DTYPES[out_dtype], plan.dyln.grid)
+        count(mlp_bwd_dyln, "task_launches")
+    else:
+        _launch("mlp_bwd_dyln", dh, dh.data_ptr(), w1.data_ptr(),
+                dyln.data_ptr(), m, d, h, _DTYPES[dh.dtype],
+                _DTYPES[out_dtype], plan.dyln.grid)
+        count(mlp_bwd_dyln)
     return dyln
 
 
 mlp_bwd_dyln.launches = 0
+mlp_bwd_dyln.task_launches = 0
 
 
 def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
@@ -510,18 +634,19 @@ def _row_chunks(m: int, tiles: int, sms: int, min_rows: int):
 WGRAD_TILE, WGRAD_ROWS, WGRAD_MAX_ROWS = (128, 256), 64, 4096
 
 
-def wgrad_chunks(m: int, n1: int, n2: int, sms: int):
+def wgrad_chunks(m: int, n1: int, n2: int, sms: int, tasks: int = 1):
     """(chunks, rows per chunk) of csrc/wgrad.cu's gᵀ·a over m rows into an
     (n1, n2) product on ``sms`` SMs: rows a multiple of 64 and at most 4096,
     and, of the 32 smallest chunk counts that allow it, the one that
     minimises the CTAs' waves × 64-row slices a CTA plus the partials'
     round trip (each chunk's tiles written and read back, ≈ an eighth of a
-    slice a tile). A function of the shapes and the SM count alone, so a
-    rerun sums in the same order."""
-    if m <= 0 or n1 <= 0 or n2 <= 0 or sms <= 0:
+    slice a tile). ``tasks``: a task stack's launch, m rows a task, every
+    task's tiles in the waves. A function of the shapes and the SM count
+    alone, so a rerun sums in the same order."""
+    if m <= 0 or n1 <= 0 or n2 <= 0 or sms <= 0 or tasks <= 0:
         raise ValueError(f"wgrad_chunks: empty product ({m}, {n1}, {n2}) on "
                          f"{sms} SMs")
-    tiles = -(-n1 // WGRAD_TILE[0]) * -(-n2 // WGRAD_TILE[1])
+    tiles = tasks * -(-n1 // WGRAD_TILE[0]) * -(-n2 // WGRAD_TILE[1])
     least = -(-m // WGRAD_MAX_ROWS)
     best = None
     for want in range(least, least + 32):
@@ -535,39 +660,68 @@ def wgrad_chunks(m: int, n1: int, n2: int, sms: int):
     return best[1], best[2]
 
 
-def weight_grad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def weight_grad(g: torch.Tensor, a: torch.Tensor,
+                tasks: int = 0) -> torch.Tensor:
     """gᵀ·a over the rows of g (M, N1) and a (M, N2): a float (N1, N2)
     weight gradient in torch Linear layout, summed by the wgrad kernel in
     fixed row chunks (:func:`wgrad_chunks`) and a fixed chunk order (no
-    atomics)."""
+    atomics). ``tasks`` = T: the rows are T tasks' of M/T rows each, one
+    task-strided launch, a (T, N1, N2) gradient."""
     m, n1 = g.shape
     n2 = a.shape[1]
+    rows_t = _task_rows("weight_grad", m, tasks) if tasks else m
     check("g", g, g)
     check("a", a, g, (m, n2))
     if g.dtype == torch.bfloat16 and (n1 % 8 or n2 % 8):
         raise ValueError(f"bf16 weight_grad needs widths multiples of 8, got "
                          f"{n1}, {n2}")
-    out = torch.empty((n1, n2), device=g.device, dtype=torch.float32)
-    chunks, rows = wgrad_chunks(m, n1, n2, _sms(g.device))
-    part = (torch.empty((chunks, n1, n2), device=g.device,
+    lead = (tasks,) if tasks else ()
+    out = torch.empty(lead + (n1, n2), device=g.device, dtype=torch.float32)
+    chunks, rows = wgrad_chunks(rows_t, n1, n2, _sms(g.device), max(tasks, 1))
+    part = (torch.empty(lead + (chunks, n1, n2), device=g.device,
                         dtype=torch.float32) if chunks > 1 else None)
-    _launch("wgrad", g, g.data_ptr(), a.data_ptr(), out.data_ptr(), _ptr(part),
-            m, n1, n2, chunks, rows, _DTYPES[g.dtype])
+    if tasks:
+        _launch("wgrad_tasks", g, g.data_ptr(), a.data_ptr(), out.data_ptr(),
+                _ptr(part), rows_t, n1, n2, tasks, chunks, rows,
+                _DTYPES[g.dtype])
+        count(weight_grad, "task_launches")
+    else:
+        _launch("wgrad", g, g.data_ptr(), a.data_ptr(), out.data_ptr(),
+                _ptr(part), m, n1, n2, chunks, rows, _DTYPES[g.dtype])
+        count(weight_grad)
     return out
 
 
-def colsum(x: torch.Tensor) -> torch.Tensor:
+weight_grad.launches = 0
+weight_grad.task_launches = 0
+
+
+def colsum(x: torch.Tensor, tasks: int = 0) -> torch.Tensor:
     """Float column sums of x (M, N), in fixed row chunks (at least 64 rows,
-    about two blocks an SM) summed in order."""
+    about two blocks an SM) summed in order. ``tasks`` = T: the column sums
+    of each task's M/T rows, (T, N), in one task-strided launch."""
     m, n = x.shape
+    rows_t = _task_rows("colsum", m, tasks) if tasks else m
     check("x", x, x)
-    out = torch.empty((n,), device=x.device, dtype=torch.float32)
-    chunks, rows = _row_chunks(m, -(-n // 256), _sms(x.device), 64)
-    part = (torch.empty((chunks, n), device=x.device, dtype=torch.float32)
-            if chunks > 1 else None)
-    _launch("colsum", x, x.data_ptr(), out.data_ptr(), _ptr(part), m, n,
-            chunks, rows, _DTYPES[x.dtype])
+    lead = (tasks,) if tasks else ()
+    out = torch.empty(lead + (n,), device=x.device, dtype=torch.float32)
+    chunks, rows = _row_chunks(rows_t, max(tasks, 1) * -(-n // 256),
+                               _sms(x.device), 64)
+    part = (torch.empty(lead + (chunks, n), device=x.device,
+                        dtype=torch.float32) if chunks > 1 else None)
+    if tasks:
+        _launch("colsum_tasks", x, x.data_ptr(), out.data_ptr(), _ptr(part),
+                rows_t, n, tasks, chunks, rows, _DTYPES[x.dtype])
+        count(colsum, "task_launches")
+    else:
+        _launch("colsum", x, x.data_ptr(), out.data_ptr(), _ptr(part), m, n,
+                chunks, rows, _DTYPES[x.dtype])
+        count(colsum)
     return out
+
+
+colsum.launches = 0
+colsum.task_launches = 0
 
 
 def adamw(table: torch.Tensor, n_leaves: int, max_numel: int,
@@ -590,11 +744,20 @@ def adamw(table: torch.Tensor, n_leaves: int, max_numel: int,
             scalars.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps)
 
 
-def wgrad(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def wgrad(g: torch.Tensor, a: torch.Tensor, tasks: int = 0) -> torch.Tensor:
     """gᵀ·a over the rows of two (M, ·) matrices, in float: a weight
     gradient in torch Linear layout (out, in). 16-bit operands multiply
     exactly and sum in float (cuBLAS with a float output), as JAX's
-    preferred_element_type=float32 contractions do; never rounded."""
+    preferred_element_type=float32 contractions do; never rounded.
+    ``tasks`` = T: one gradient for each task's M/T rows, (T, out, in)."""
+    if tasks:
+        rows = _task_rows("wgrad", g.shape[0], tasks)
+        g = g.reshape(tasks, rows, g.shape[-1])
+        a = a.reshape(tasks, rows, a.shape[-1])
+        if g.dtype == torch.bfloat16:
+            return torch.bmm(g.transpose(1, 2), a, out_dtype=torch.float32)
+        acc = torch.float64 if g.dtype == torch.float64 else torch.float32
+        return g.to(acc).transpose(1, 2) @ a.to(acc)
     if g.dtype == torch.bfloat16:
         return torch.mm(g.t(), a, out_dtype=torch.float32)
     acc = torch.float64 if g.dtype == torch.float64 else torch.float32

@@ -1260,3 +1260,128 @@ def test_pingpong_gemm_s8_is_exact_and_dequantises(cuda, m, n, k):
         assert torch.equal(out, runtime.gemm_s8_fc2(a, w, rs, s, b, x))
         want = x.float() + v.to(dtype).float()
         assert _max_err(out, want) <= tol * max(1.0, want.abs().max().item())
+
+
+# ------------------------------------------------- the task-strided kernels
+
+def _split(t, tasks):
+    return [c.contiguous() for c in t.chunk(tasks)]
+
+
+@pytest.mark.parametrize("tasks,m,d", [(3, 16448, 256), (2, 300, 768),
+                                       (3, 65, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_task_layernorm_equals_one_task_launches(cuda, tasks, m, d, dtype):
+    """csrc/layernorm.cu over a task stack (gamma/beta (T, D)): the forward
+    and the backward's dx bit-equal to T one-task launches, dgamma/dbeta
+    (T, D) within float rounding of theirs (another grid: another sum
+    order), reruns bit-identical."""
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    x = torch.randn(tasks * m, d, generator=g, device=cuda).to(dtype)
+    w = 1 + 0.1 * torch.randn(tasks, d, generator=g, device=cuda)
+    b = 0.1 * torch.randn(tasks, d, generator=g, device=cuda)
+    dyln = torch.randn(tasks * m, d, generator=g, device=cuda)
+    dy = torch.randn(tasks * m, d, generator=g, device=cuda).to(dtype)
+    before = runtime.layernorm.task_launches
+    y = runtime.layernorm(x, w, b)
+    assert runtime.layernorm.task_launches == before + 1
+    assert torch.equal(y, torch.cat([runtime.layernorm(xt, w[i], b[i])
+                                     for i, xt in enumerate(_split(x, tasks))]))
+    got = runtime.layernorm_bwd(x, w, dyln, dy)
+    again = runtime.layernorm_bwd(x, w, dyln, dy)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    one = [runtime.layernorm_bwd(xt, w[i], gt, dt) for i, (xt, gt, dt) in
+           enumerate(zip(_split(x, tasks), _split(dyln, tasks),
+                         _split(dy, tasks)))]
+    assert torch.equal(got[0], torch.cat([o[0] for o in one]))
+    for k in (1, 2):
+        want = torch.stack([o[k] for o in one])
+        assert got[k].shape == (tasks, d)
+        assert _max_err(got[k], want) <= 1e-5 * max(1.0,
+                                                     want.abs().max().item())
+
+
+@pytest.mark.parametrize("m,n,k", [(16448, 512, 256), (16384, 1024, 256),
+                                   (16384, 256, 1024), (100, 264, 72)])
+@pytest.mark.parametrize("epi", ["bias", "gelu", "res", "f32"])
+def test_task_gemm_equals_one_task_launches(cuda, m, n, k, epi):
+    """mtt_gemm_tasks (W (T, N, K), bias (T, N)) bit-equal to T launches of
+    mtt_gemm at ragged M, N and K, every epilogue; a rerun bit-identical."""
+    tasks = 3
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    a = torch.randn(tasks * m, k, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(tasks, n, k, generator=g, device=cuda)
+         / k ** 0.5).bfloat16()
+    b = 0.02 * torch.randn(tasks, n, generator=g, device=cuda)
+    r = torch.randn(tasks * m, n, generator=g, device=cuda).bfloat16()
+    kw = {"bias": {}, "gelu": {"gelu": True}, "res": {"residual": r},
+          "f32": {"out_dtype": torch.float32}}[epi]
+
+    def one(i):
+        kwi = dict(kw)
+        if epi == "res":
+            kwi["residual"] = _split(r, tasks)[i]
+        return runtime.gemm(_split(a, tasks)[i], w[i], b[i], **kwi)
+
+    before = runtime.gemm.task_launches
+    got = runtime.gemm(a, w, b, **kw)
+    assert runtime.gemm.task_launches == before + 1
+    assert torch.equal(got, runtime.gemm(a, w, b, **kw))
+    assert torch.equal(got, torch.cat([one(i) for i in range(tasks)]))
+
+
+@pytest.mark.parametrize("m,d,h", [(65536, 256, 1024), (1000, 264, 1056)])
+def test_task_mlp_bwd_equals_one_task_launches(cuda, m, d, h):
+    """csrc/mlp_bwd.cu's two products over a task stack (W1 (T, H, D), W2
+    (T, D, H), b1 (T, H)): dh, act, the 16-row partials of db1 (T,
+    ceil(M/16), H) and dyln (float and bf16) bit-equal to T one-task
+    launches."""
+    tasks = 3
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    y = torch.randn(tasks * m, d, generator=g, device=cuda).bfloat16()
+    dy = torch.randn(tasks * m, d, generator=g, device=cuda).bfloat16()
+    w1 = (torch.randn(tasks, h, d, generator=g, device=cuda)
+          / d ** 0.5).bfloat16()
+    w2 = (torch.randn(tasks, d, h, generator=g, device=cuda)
+          / h ** 0.5).bfloat16()
+    b1 = 0.02 * torch.randn(tasks, h, generator=g, device=cuda)
+    dh, act, part = runtime.mlp_bwd_hidden(y, dy, w1, b1, w2)
+    assert part.shape == (tasks, -(-m // 16), h)
+    one = [runtime.mlp_bwd_hidden(yt, dt, w1[i], b1[i], w2[i]) for i, (yt, dt)
+           in enumerate(zip(_split(y, tasks), _split(dy, tasks)))]
+    assert torch.equal(dh, torch.cat([o[0] for o in one]))
+    assert torch.equal(act, torch.cat([o[1] for o in one]))
+    assert torch.equal(part, torch.stack([o[2] for o in one]))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = runtime.mlp_bwd_dyln(dh, w1, out_dtype=out_dtype)
+        want = torch.cat([runtime.mlp_bwd_dyln(t, w1[i], out_dtype=out_dtype)
+                          for i, t in enumerate(_split(dh, tasks))])
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n1,n2", [(65536, 1024, 256), (4160, 264, 776)])
+def test_task_wgrad_and_colsum_match_one_task_launches(cuda, m, n1, n2):
+    """csrc/wgrad.cu over a task stack: one (N1, N2) gradient and one row of
+    column sums a task, within float rounding of T one-task launches (the
+    chunking may differ: another sum order) and of float32 math; reruns
+    bit-identical."""
+    tasks = 3
+    g = torch.Generator(device="cuda").manual_seed(m + n1)
+    a = torch.randn(tasks * m, n1, generator=g, device=cuda).bfloat16()
+    b = torch.randn(tasks * m, n2, generator=g, device=cuda).bfloat16()
+    got = runtime.weight_grad(a, b, tasks)
+    assert got.shape == (tasks, n1, n2)
+    assert torch.equal(got, runtime.weight_grad(a, b, tasks))
+    want = torch.bmm(a.double().view(tasks, m, n1).transpose(1, 2),
+                     b.double().view(tasks, m, n2))
+    one = torch.stack([runtime.weight_grad(x, y) for x, y in
+                       zip(_split(a, tasks), _split(b, tasks))])
+    for t in range(tasks):
+        assert _rel_l2(got[t].double(), want[t]) < 1e-5
+        assert _rel_l2(got[t].double(), one[t].double()) < 1e-5
+    cs = runtime.colsum(b, tasks)
+    assert cs.shape == (tasks, n2)
+    assert torch.equal(cs, runtime.colsum(b, tasks))
+    torch.testing.assert_close(cs.double(),
+                               b.double().view(tasks, m, n2).sum(1),
+                               atol=1e-3, rtol=1e-5)

@@ -428,7 +428,7 @@ def test_attn_half_backward_follows_the_switch(monkeypatch, switch):
 
 
 def test_switches_validate_and_restore():
-    """The four switches keep the JAX package's names, values and
+    """The five switches keep the JAX package's names, values and
     defaults; an unknown value raises, as mirage_tpu/utils/envflags.py
     does; switched() restores the old values."""
     from mirage_tpu.utils.envflags import env_choice as jax_env_choice
@@ -441,7 +441,8 @@ def test_switches_validate_and_restore():
         "MIRAGE_MLP_BWD": ("defused", ("accumulate", "defused")),
         "MIRAGE_ATTN_BWD": ("defused", ("accumulate", "reg_batch",
                                         "defused")),
-        "MIRAGE_BLOCK_FUSE": ("off", ("off", "decoder", "all"))}
+        "MIRAGE_BLOCK_FUSE": ("off", ("off", "decoder", "all")),
+        "MIRAGE_DEC_BATCH": ("off", ("on", "off"))}
     with pytest.raises(ValueError, match="MIRAGE_MLP_BWD"):
         runtime.set_switch("MIRAGE_MLP_BWD", "acumulate")
     before = dict(runtime.switches)
