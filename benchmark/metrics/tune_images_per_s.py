@@ -1,0 +1,8 @@
+"""tune_images_per_s: samples of every segmentation-tuning step in the
+window, over the window's time ended by a synchronize."""
+
+
+def read(rec, mode):
+    if rec["mode"] != "tune":
+        return None
+    return rec["units"] / rec["window_s"]
