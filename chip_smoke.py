@@ -425,6 +425,31 @@ def device_ms(fn, iters=20, warmup=3, repeats=3):
     return sorted(runs)[len(runs) // 2]
 
 
+def device_kernels(prof):
+    """[(start, end, name)] in µs of the device's work in a finished
+    torch.profiler window, sorted: its CUDA events less the user
+    annotations, the ``record_function`` ranges (the port's ``mirage.*``
+    spans) that the profiler mirrors on the device, which are no work."""
+    from torch.autograd import DeviceType
+
+    def annotation(e):
+        flag = getattr(e, "is_user_annotation", False)
+        return bool(flag() if callable(flag) else flag)
+
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not annotation(e))
+
+
+def forget_spans():
+    """Clears the port's recorded spans (``utils/profiling.py:reset``)
+    before a profiler window, so that the windows of one process do not
+    add up; an older checkout records none."""
+    from mirage_tpu_torch.utils import profiling
+
+    getattr(profiling, "reset", lambda: None)()
+
+
 def profile_forward(fn, top_n=0):
     """Device time of one call of `fn` by kernel group, from torch.profiler:
     {group: ms}, the device span from the first kernel's start to the last
@@ -432,15 +457,14 @@ def profile_forward(fn, top_n=0):
     `top_n` kernels by device time. None if the profiler saw no device
     kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    forget_spans()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = device_kernels(prof)
     if not spans:
         return None
     groups, by_name = {}, {}
@@ -1204,18 +1228,17 @@ def launch_split(fn, calls=5):
     profiler lost) is left out. The host's gaps between launches are not in
     it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    forget_spans()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
             torch.cuda.synchronize()
             time.sleep(0.005)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = device_kernels(prof)
     if not spans:
         raise AssertionError("the profiler saw no device launch")
     runs = [[spans[0]]]

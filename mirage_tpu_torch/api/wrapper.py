@@ -16,6 +16,11 @@ replica from one host thread a position, with that device current and on
 the replica's own stream, and the outputs are joined in batch order on the
 first device with the padding sliced off. Each replica's kernels see the
 whole model at the shard's batch, as on one card.
+
+A call is the span ``mirage.request``, over ``mirage.inputs`` (the inputs
+to tensors, the absent modalities zero-filled) and the model's
+``mirage.forward`` (``utils/profiling.py``); on a mesh, each replica's
+``mirage.forward``, from its own thread.
 """
 
 import copy
@@ -32,6 +37,8 @@ from mirage_tpu_torch.adapters.spatial_output import SpatialOutputAdapter
 from mirage_tpu_torch.api import convert
 from mirage_tpu_torch.models.mirage import MIRAGEModel
 from mirage_tpu_torch.ops.runtime import resolve_device
+from mirage_tpu_torch.utils import profiling
+from mirage_tpu_torch.utils.profiling import annotate
 
 
 def default_domain_conf(task: str) -> Dict:
@@ -199,12 +206,13 @@ class MIRAGEWrapper:
         return [{k: v[i * per:(i + 1) * per] for k, v in x.items()}
                 for i in range(n)]
 
-    def _run_replica(self, i: int, fn, shard: Dict):
+    def _run_replica(self, i: int, fn, shard: Dict, span=None):
         """``fn(replica, inputs)`` on mesh position i's replica, its
-        device current and its stream, from the calling (pool) thread;
-        the stream is synchronised before it returns."""
+        device current and its stream, from the calling (pool) thread,
+        under the caller's span ``span`` (``profiling.adopt``); the stream
+        is synchronised before it returns."""
         dev = self.mesh.devices[i]
-        with torch.inference_mode():
+        with torch.inference_mode(), profiling.adopt(span):
             if dev.type != "cuda":
                 return fn(self._replicas[i], shard)
             stream = self._streams[i]
@@ -225,7 +233,8 @@ class MIRAGEWrapper:
         a task -> tensor dict) joined in batch order on the first device,
         the padding sliced off."""
         batch = next(iter(x.values())).shape[0]
-        futures = [self._pool.submit(self._run_replica, i, fn, shard)
+        span = profiling.current()
+        futures = [self._pool.submit(self._run_replica, i, fn, shard, span)
                    for i, shard in enumerate(self._place_batch(x, batch))]
         outs = [f.result() for f in futures]
 
@@ -267,12 +276,9 @@ class MIRAGEWrapper:
             out[k] = t.to(dev)
         return out
 
-    @torch.inference_mode()
-    def __call__(self, x: Dict):
-        """x: task -> (B, 1, H, W) float in [0, 1], or (B, H, W) integer
-        labels for bscanlayermap (numpy or torch). Missing modalities are
-        zero-filled and masked. Returns task -> (B, C, H, W) on the device,
-        in compute_dtype."""
+    def _filled(self, x):
+        """:meth:`_inputs` with each absent modality zero-filled: (inputs,
+        the absent modalities)."""
         x = self._inputs(x)
         batch = next(iter(x.values())).shape[0]
         absent = []
@@ -283,16 +289,28 @@ class MIRAGEWrapper:
                     else (batch, 1, *self.input_size[k])
                 x[k] = torch.zeros(shape, device=dev)
                 absent.append(k)
-        absent = tuple(absent)
-        if self.mesh is not None:
-            return self._sharded(
-                lambda model, xs: model(xs, absent_tasks=absent), x)
-        return self.model(x, absent_tasks=absent)
+        return x, tuple(absent)
+
+    @torch.inference_mode()
+    def __call__(self, x: Dict):
+        """x: task -> (B, 1, H, W) float in [0, 1], or (B, H, W) integer
+        labels for bscanlayermap (numpy or torch). Missing modalities are
+        zero-filled and masked. Returns task -> (B, C, H, W) on the device,
+        in compute_dtype."""
+        with annotate("mirage.request"):
+            with annotate("mirage.inputs"):
+                x, absent = self._filled(x)
+            if self.mesh is not None:
+                return self._sharded(
+                    lambda model, xs: model(xs, absent_tasks=absent), x)
+            return self.model(x, absent_tasks=absent)
 
     @torch.inference_mode()
     def features(self, x: Dict):
         """Encoder features (B, N + G, D) of the given modalities."""
-        if self.mesh is not None:
-            return self._sharded(lambda model, xs: model.features(xs),
-                                 self._inputs(x))
-        return self.model.features(self._inputs(x))
+        with annotate("mirage.request"):
+            with annotate("mirage.inputs"):
+                x = self._inputs(x)
+            if self.mesh is not None:
+                return self._sharded(lambda model, xs: model.features(xs), x)
+            return self.model.features(x)

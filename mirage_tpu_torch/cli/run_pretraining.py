@@ -148,7 +148,8 @@ def get_parser():
                    help="debug/smoke-run cap")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace of the first epoch "
-                        "into this directory")
+                        "and its spans' summary (spans.json) into this "
+                        "directory")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
@@ -415,10 +416,30 @@ def main(argv=None):
                       hosts, n_micro)
 
 
+def _on_device(batches, steps, device, domains):
+    """The first ``steps`` batches of ``batches`` (items (batch, _, _)) on
+    ``device``, each as (the time its fetch ended, batch); one fetch more
+    ends it, as a capped epoch ends. Each wait on the loader, with the
+    copy to the device, is the span ``mirage.data``."""
+    from mirage_tpu_torch.data.loader import to_device
+    from mirage_tpu_torch.utils.profiling import annotate
+
+    batches = iter(batches)
+    while True:
+        with annotate("mirage.data"):
+            got = next(batches, None)
+            if got is None or steps == 0:
+                return
+            t_got = time.perf_counter()
+            batch = to_device(got[0], device, domains)
+        steps -= 1
+        yield t_got, batch
+
+
 def _train(args, device, mesh, writer, local_batch_size, hosts, n_micro):
     from mirage_tpu_torch.data.augment import PretrainAugment
     from mirage_tpu_torch.data.folder import MultiTaskPretDatasetFolder
-    from mirage_tpu_torch.data.loader import DataLoader, to_device
+    from mirage_tpu_torch.data.loader import DataLoader
     from mirage_tpu_torch.parallel.mesh import batch_count, batch_rank
     from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.logger import MetricLogger, append_log
@@ -426,7 +447,7 @@ def _train(args, device, mesh, writer, local_batch_size, hosts, n_micro):
     from mirage_tpu_torch.train.steps import (init_train_state,
                                               make_train_step, shard_state,
                                               step_generator)
-    from mirage_tpu_torch.utils.profiling import annotate, trace
+    from mirage_tpu_torch.utils.profiling import trace
 
     model, opt, loss_fn = setup(args, device)
     if mesh is not None and args.mesh_tensor > 1:
@@ -495,17 +516,14 @@ def _train(args, device, mesh, writer, local_batch_size, hosts, n_micro):
             logger = MetricLogger()
             it = epoch * steps_per_epoch
             t_end = time.perf_counter()
-            for step, (batch, _, _) in enumerate(logger.log_every(
-                    loader, args.log_freq, f"Epoch [{epoch}]")):
-                if step >= steps_per_epoch:
-                    break
-                t_got = time.perf_counter()
-                batch = to_device(batch, device, args.in_domains)
+            for step, (t_got, batch) in enumerate(_on_device(
+                    logger.log_every(loader, args.log_freq,
+                                     f"Epoch [{epoch}]"),
+                    steps_per_epoch, device, args.in_domains)):
                 lr = float(lr_sched[min(it, len(lr_sched) - 1)])
-                with annotate("train_step"):
-                    state, metrics = step_fn(
-                        state, batch, step_generator(args.seed, it, device),
-                        lr, float(wd_sched[min(it, len(wd_sched) - 1)]))
+                state, metrics = step_fn(
+                    state, batch, step_generator(args.seed, it, device),
+                    lr, float(wd_sched[min(it, len(wd_sched) - 1)]))
                 if step % args.log_freq == 0 or step == steps_per_epoch - 1:
                     host = {k: float(v) for k, v in metrics.items()}
                     if not math.isfinite(host["loss"]):

@@ -31,6 +31,9 @@ configured decoders' tails as one task stack
 ``decoders_batchable`` holds, in the masked forward and the static forward
 alike (mirage_tpu/models/mirage.py:310-320); ``forward_light`` keeps its
 heads one by one.
+
+``forward`` and ``features`` are the span ``mirage.forward``, over
+``mirage.encoder`` and ``mirage.decoders`` (``utils/profiling.py``).
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -47,6 +50,7 @@ from mirage_tpu_torch.masking.masking import (gather_rows,
 from mirage_tpu_torch.models.encoder import Encoder
 from mirage_tpu_torch.nn import init as vinit
 from mirage_tpu_torch.ops import runtime
+from mirage_tpu_torch.utils.profiling import annotate
 
 
 class MIRAGEModel(nn.Module):
@@ -190,8 +194,19 @@ class MIRAGEModel(nn.Module):
         global tokens as a (B, D, gh, gw) map of the first task's grid}.
         ``n_micro``: the masked forward's microbatches under ``pp`` (default:
         ``pp``'s)."""
-        if absent_tasks is not None:
-            return self._forward_static(x, tuple(absent_tasks))
+        with annotate("mirage.forward"):
+            if absent_tasks is not None:
+                return self._forward_static(x, tuple(absent_tasks))
+            return self._forward_masked(
+                x, mask_inputs, task_masks, num_encoded_tokens, num_visible,
+                alphas, sample_tasks_uniformly, generator, deterministic,
+                pixel_outputs, return_all_layers, n_micro)
+
+    def _forward_masked(self, x, mask_inputs, task_masks, num_encoded_tokens,
+                        num_visible, alphas, sample_tasks_uniformly,
+                        generator, deterministic, pixel_outputs,
+                        return_all_layers, n_micro):
+        """The masked pretraining forward of :meth:`forward`."""
         input_info = self.generate_input_info(x)
         task_order = [t for t in x if t in self.input_adapters]
         tokens = [self.input_adapters[t](x[t], compute_dtype=self.compute_dtype)
@@ -217,25 +232,28 @@ class MIRAGEModel(nn.Module):
         enc = torch.cat([enc, self.global_tokens.to(enc.dtype).expand(
             b, self.num_global_tokens, self.dim_tokens)], dim=1)
         if return_all_layers:
-            _, outs = self.encoder(enc, deterministic, self.drop_path_rate,
-                                   generator,
-                                   return_layers=range(self.depth))
+            with annotate("mirage.encoder"):
+                _, outs = self.encoder(enc, deterministic,
+                                       self.drop_path_rate, generator,
+                                       return_layers=range(self.depth))
             gh, gw = input_info["tasks"][task_order[0]]["grid_size"]
             return {f"layer_{i}": t[:, :-self.num_global_tokens].reshape(
                 b, gh, gw, -1).permute(0, 3, 1, 2) for i, t in outs.items()}
-        enc = self.encoder(enc, deterministic, self.drop_path_rate,
-                           generator, n_micro=n_micro)
+        with annotate("mirage.encoder"):
+            enc = self.encoder(enc, deterministic, self.drop_path_rate,
+                               generator, n_micro=n_micro)
         if self.output_adapters is None:
             return enc, task_masks
-        if self._decoders_batched(input_info):
-            return batched_spatial_decode(
-                self.output_adapters, enc, input_info, ids_keep=ids_keep,
-                deterministic=deterministic,
-                pixel_output=pixel_outputs), task_masks
-        preds = {task: adapter(enc, input_info, ids_keep=ids_keep,
-                               deterministic=deterministic,
-                               pixel_output=pixel_outputs)
-                 for task, adapter in self.output_adapters.items()}
+        with annotate("mirage.decoders"):
+            if self._decoders_batched(input_info):
+                return batched_spatial_decode(
+                    self.output_adapters, enc, input_info,
+                    ids_keep=ids_keep, deterministic=deterministic,
+                    pixel_output=pixel_outputs), task_masks
+            preds = {task: adapter(enc, input_info, ids_keep=ids_keep,
+                                   deterministic=deterministic,
+                                   pixel_output=pixel_outputs)
+                     for task, adapter in self.output_adapters.items()}
         return preds, task_masks
 
     def _decoders_batched(self, input_info) -> bool:
@@ -245,14 +263,17 @@ class MIRAGEModel(nn.Module):
 
     def _forward_static(self, x, absent_tasks):
         input_info = self.generate_input_info(x)
-        encoded = self.encoder(self._tokens(x, absent_tasks))
+        tokens = self._tokens(x, absent_tasks)
+        with annotate("mirage.encoder"):
+            encoded = self.encoder(tokens)
         if self.output_adapters is None:
             return encoded
-        if self._decoders_batched(input_info):
-            return batched_spatial_decode(self.output_adapters, encoded,
-                                          input_info, absent_tasks)
-        return {task: adapter(encoded, input_info, absent_tasks)
-                for task, adapter in self.output_adapters.items()}
+        with annotate("mirage.decoders"):
+            if self._decoders_batched(input_info):
+                return batched_spatial_decode(self.output_adapters, encoded,
+                                              input_info, absent_tasks)
+            return {task: adapter(encoded, input_info, absent_tasks)
+                    for task, adapter in self.output_adapters.items()}
 
     def process_input(self, x: Mapping[str, torch.Tensor]):
         """Unmasked tokens of every given modality plus the global tokens,
@@ -261,7 +282,10 @@ class MIRAGEModel(nn.Module):
 
     def features(self, x: Mapping[str, torch.Tensor]):
         """Encoder features of every given modality: (B, N + G, D)."""
-        return self.encoder(self._tokens(x))
+        with annotate("mirage.forward"):
+            tokens = self._tokens(x)
+            with annotate("mirage.encoder"):
+                return self.encoder(tokens)
 
     def forward_light(self, x: Mapping[str, torch.Tensor], *,
                       return_all_layers: bool = False,

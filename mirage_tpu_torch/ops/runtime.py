@@ -71,6 +71,7 @@ from collections import namedtuple
 import torch
 
 from mirage_tpu_torch.ops import _build
+from mirage_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPI = {"none": 0, "gelu": 1, "dgelu_mul": 2}
@@ -190,7 +191,8 @@ def _launch(name: str, like: torch.Tensor, *args):
     ``like``'s device (the caller's stream there: a host thread serving one
     device launches on its own), with that device current: the launchers
     keep their shared-memory limits and SM counts per device, read by
-    ``cudaGetDevice`` (csrc/common.cuh)."""
+    ``cudaGetDevice`` (csrc/common.cuh). While a span is open the launch
+    counts toward it (``utils/profiling.py:launched``)."""
     dev = like.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     if torch.cuda.current_device() == dev.index:
@@ -200,6 +202,7 @@ def _launch(name: str, like: torch.Tensor, *args):
             rc = _build.entry(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    profiling.launched()
 
 
 # csrc/layernorm.cu: threads a CTA; the width classes a row of which a lane

@@ -62,6 +62,7 @@ from mirage_tpu_torch.losses.masked import (masked_ce_loss_tokens,
                                             masked_mse_loss_tokens)
 from mirage_tpu_torch.ops.runtime import env_choice
 from mirage_tpu_torch.train.optim import GroupedOptimizer, local
+from mirage_tpu_torch.utils.profiling import annotate
 
 # mirage_tpu/train/steps.py:42,49: read once at import
 _FSDP_STEP = env_choice("MIRAGE_FSDP_STEP", "shardmap", ("shardmap", "gspmd"))
@@ -91,18 +92,21 @@ def make_pretrain_loss(model, domain_conf: Mapping[str, Mapping[str, Any]],
             alphas=alphas, sample_tasks_uniformly=sample_tasks_uniformly,
             generator=generator, deterministic=False, pixel_outputs=False)
         task_losses = {}
-        for task, pred in preds.items():
-            conf = domain_conf[task]
-            mask = None if loss_on_unmasked else masks[task]
-            if conf["loss"] == "ce":
-                task_losses[task] = masked_ce_loss_tokens(
-                    pred, batch[task], mask, patch_size=conf["patch_size"])
-            else:
-                task_losses[task] = masked_mse_loss_tokens(
-                    pred.float(), batch[task].float(), mask,
-                    patch_size=conf["patch_size"],
-                    norm_pix=conf.get("norm_pix", False))
-        return sum(task_losses.values()), task_losses
+        with annotate("mirage.loss"):
+            for task, pred in preds.items():
+                conf = domain_conf[task]
+                mask = None if loss_on_unmasked else masks[task]
+                if conf["loss"] == "ce":
+                    task_losses[task] = masked_ce_loss_tokens(
+                        pred, batch[task], mask,
+                        patch_size=conf["patch_size"])
+                else:
+                    task_losses[task] = masked_mse_loss_tokens(
+                        pred.float(), batch[task].float(), mask,
+                        patch_size=conf["patch_size"],
+                        norm_pix=conf.get("norm_pix", False))
+            loss = sum(task_losses.values())
+        return loss, task_losses
 
     return loss_fn
 
@@ -188,7 +192,11 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer,
     means over the batch axes. A mesh with a 'pipe' axis above 1 takes the
     pipeline step only with ``pp`` (the caller promises a model built with
     ``pp=("pipe", n_micro)``), as mirage_tpu/train/steps.py:140-146 routes
-    it; there is no other step for it."""
+    it; there is no other step for it.
+
+    Every layout's step is the span ``mirage.step`` over
+    ``mirage.backward`` and ``mirage.optimizer`` (``utils/profiling.py``);
+    the pretraining loss adds ``mirage.forward`` and ``mirage.loss``."""
     if mesh is not None:
         from mirage_tpu_torch.parallel.pp import is_pp
 
@@ -199,25 +207,37 @@ def make_train_step(loss_fn: Callable, optimizer: GroupedOptimizer,
                     "called with pp=True (and a model carrying "
                     "pp=('pipe', n_micro)): there is no other step for "
                     "pipeline parallelism")
-            return _make_pp_step(loss_fn, optimizer, mesh)
-        return _make_sharded_step(loss_fn, optimizer, mesh)
+            return _spanned(_make_pp_step(loss_fn, optimizer, mesh))
+        return _spanned(_make_sharded_step(loss_fn, optimizer, mesh))
 
     def step_fn(state, batch, generator, lr, wd_scale=1.0, **loss_kwargs):
         params = state["params"]
         loss, task_losses = loss_fn(batch, generator=generator,
                                     **loss_kwargs)
         names = [n for n, p in params.items() if p.requires_grad]
-        grads = torch.autograd.grad(loss, [params[n] for n in names],
-                                    allow_unused=True)
-        gnorm = optimizer.update(dict(zip(names, grads)), state["opt"],
-                                 params, lr, wd_scale)
+        with annotate("mirage.backward"):
+            grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                        allow_unused=True)
+        with annotate("mirage.optimizer"):
+            gnorm = optimizer.update(dict(zip(names, grads)), state["opt"],
+                                     params, lr, wd_scale)
         state["step"] += 1
         metrics = {"loss": loss.detach(), "grad_norm": gnorm}
         metrics.update({(f"loss_{k}" if v.ndim == 0 else k): v.detach()
                         for k, v in task_losses.items()})
         return state, metrics
 
-    return step_fn
+    return _spanned(step_fn)
+
+
+def _spanned(stepper):
+    """``stepper`` with each call under the span ``mirage.step``."""
+
+    def step(*args, **kwargs):
+        with annotate("mirage.step"):
+            return stepper(*args, **kwargs)
+
+    return step
 
 
 # ------------------------------------------------------------ multi-GPU
@@ -514,7 +534,8 @@ def _make_sharded_step(loss_fn: Callable, optimizer: GroupedOptimizer,
         loss, task_losses = cache["fn"](
             batch, generator=fold_generator(generator, batch_rank(mesh)),
             **loss_kwargs)
-        loss.backward()
+        with annotate("mirage.backward"):
+            loss.backward()
         grads = {n: params[n].grad for n in names}
         if lay.tp:
             _all_reduce_buckets([local(grads[n]) for n in names
@@ -536,8 +557,9 @@ def _make_sharded_step(loss_fn: Callable, optimizer: GroupedOptimizer,
             if axes:
                 dist.all_reduce(v, group=mesh.group(axes))
         gnorm = torch.sqrt(sum(buckets.values()))
-        optimizer.update(grads, state["opt"], params, lr, wd_scale,
-                         gnorm=gnorm)
+        with annotate("mirage.optimizer"):
+            optimizer.update(grads, state["opt"], params, lr, wd_scale,
+                             gnorm=gnorm)
         state["step"] += 1
         return state, _batch_metrics(loss, task_losses, gnorm, batch_group,
                                      n_batch)
@@ -700,7 +722,8 @@ def _make_pp_step(loss_fn: Callable, optimizer: GroupedOptimizer, mesh):
         loss, task_losses = loss_fn(
             batch, generator=fold_generator(generator, batch_rank(mesh)),
             **loss_kwargs)
-        (loss / n_stages).backward()
+        with annotate("mirage.backward"):
+            (loss / n_stages).backward()
         kinds = pp_grad_kind(names)
         grads = {n: params[n].grad for n in names}
         summed = [n for n in names if kinds[n] == "sum"]
@@ -729,8 +752,9 @@ def _make_pp_step(loss_fn: Callable, optimizer: GroupedOptimizer, mesh):
             if grads[n] is not None:
                 sq[kinds[n]] += grads[n].float().square().sum()
         gnorm = torch.sqrt(sq["sum"] + pipe.sum(sq["local"]))
-        optimizer.update(grads, state["opt"], params, lr, wd_scale,
-                         gnorm=gnorm)
+        with annotate("mirage.optimizer"):
+            optimizer.update(grads, state["opt"], params, lr, wd_scale,
+                             gnorm=gnorm)
         state["step"] += 1
         return state, _batch_metrics(loss, task_losses, gnorm, batch_group,
                                      n_batch)
