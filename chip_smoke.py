@@ -68,8 +68,8 @@ Phases, each of which must pass (any failure exits non-zero):
 7. cls: classification tuning (MIRAGE-Base at 257 tokens, the global
    pool, batch 64) through run_cls_tuning.main on a seeded synthetic class
    folder with seeded MIRAGE-Base weights, then the bare step three ways
-   (the default switches: B6, B2, B5; MIRAGE_OPT_KERNEL=on with
-   MIRAGE_MLP_BWD=accumulate: B7 and B11; linear probing: B1 + B2), each
+   (the default switches: B6, B2, B5 and B11 over every trainable leaf;
+   MIRAGE_MLP_BWD=accumulate too: B7; linear probing: B1 + B2), each
    against the plain step, with exact launch counts, ms/step, peak memory
    and a profile.
 
@@ -157,7 +157,7 @@ Phases, each of which must pass (any failure exits non-zero):
    at batch 64: two full fine-tune steps, a validation and a test pass,
    --eval and --save_predictions, then the same as a linear probe, with
    exact launches. (b) The bare step three ways (default switches: B6,
-   B2, B5; the switches on: B7-MLP and B11 over 98 leaves; the linear
+   B2, B5, B11; the switches on: B7-MLP; the linear
    probe: B1 + B2), each against the plain step with exact launches
    (VIT_PER_STEP), ms a step, peak memory and a profile; the eval forward
    against the plain path under MIRAGE_BLOCK_FUSE=off (B1 + B2) and all
@@ -205,9 +205,9 @@ launches at the pretraining encoder and decoder and the classification
 shapes (torch.profiler, ``mlp_bwd_split``), holds the hidden stage's act
 bit-equal to B2's fc1 and reruns B5, B7 and B9's backward bit for bit.
 Phase 2 also holds the accumulating backwards (B7, both halves, the MLP
-half with residual=False too) and the fused AdamW update (B11) against
+half with residual=False too) and the AdamW update (B11) against
 their plain versions, and phase 5 runs the pretraining step once more with
-the three switches on (B7 for both halves, B11). Phase 2 checks the whole-block
+the three switches on (B7 for both halves). Phase 2 checks the whole-block
 kernel (B10, a persistent cooperative grid) at the decoder and MIRAGE-Large
 encoder shapes beside B1 + B2, with its GEMM tile widths swept and its time
 by stage, the int8 MLP (B12; reruns bit for bit) and the 3-D stash forward
@@ -357,7 +357,8 @@ PORT_KERNELS = {"gemm_bf16_pingpong": "gemm",
                 "flash_bwd_dkv_f32_kernel": "flash_attention_bwd",
                 "wgrad_bf16_kernel": "wgrad", "wgrad_f32_kernel": "wgrad",
                 "colsum_kernel": "wgrad", "chunk_sum_kernel": "wgrad",
-                "adamw_kernel": "adamw", "fused_block_kernel": "fused_block",
+                "adamw_tiles_kernel": "adamw", "adamw_norm_kernel": "adamw",
+                "fused_block_kernel": "fused_block",
                 "ln_quant_kernel": "quant", "quant_rows_kernel": "quant",
                 "gemm_s8_pingpong": "quant",
                 "gemm_lnfold_kernel": "gemm_lnfold",
@@ -1134,10 +1135,16 @@ PER_STEP = {"attn_half_block": 12, "attn_half_block_bwd": 12,
             "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
             "block_attention_bwd": 6, "xattn_half_block": 0,
             "attn_half_block_acc_bwd": 0, "mlp_block_acc_bwd": 0,
-            "fused_adamw": 0, "attention_bwd": 18, "flash_bwd": 0}
+            "fused_adamw": 1, "adamw_norm": 1, "attention_bwd": 18,
+            "flash_bwd": 0}
+# the AdamW step's two launches over the leaf table (the norm and the
+# update, B11) in a training step, and in a forward and backward alone
+OPT_STEP = {"fused_adamw": 1, "adamw_norm": 1}
+NO_OPT = {"fused_adamw": 0, "adamw_norm": 0}
 # the same step with the JAX package's three switches on
 # (MIRAGE_OPT_KERNEL=on, MIRAGE_MLP_BWD=accumulate,
-# MIRAGE_ATTN_BWD=accumulate): both halves' backwards take B7, the update B11
+# MIRAGE_ATTN_BWD=accumulate): both halves' backwards take B7 (the update
+# takes B11 by default)
 SWITCHES_ON = {"MIRAGE_OPT_KERNEL": "on", "MIRAGE_MLP_BWD": "accumulate",
                "MIRAGE_ATTN_BWD": "accumulate"}
 PER_STEP_ON = {**PER_STEP, "attn_half_block_bwd": 0, "mlp_block_bwd": 0,
@@ -2718,7 +2725,7 @@ def phase_seg_kernels(results):
     return results
 
 
-# the accumulating backwards (B7) and the fused AdamW update (B11): name ->
+# the accumulating backwards (B7) and the AdamW update (B11): name ->
 # (TPU kernel file:line, launcher -> kernel, wrapper, sources)
 ACC_KERNELS = {
     "attn_half_block_acc_bwd": (
@@ -2743,18 +2750,14 @@ B11_RTOL, B11_ATOL = 1e-6, 1e-7
 def _cls_leaves(gen):
     """The float32 leaves B11 takes in the classification full fine-tune
     (MIRAGE-Base, one 512² B-scan at patch 32, seeded): every trainable
-    weight of at least 1 << 17 elements, by the port's own rule."""
-    import torch
-
+    leaf, weights of 768 to 2.4 M elements and the biases and LN vectors
+    beside them."""
     from mirage_tpu_torch.api.wrapper import build_model
-    from mirage_tpu_torch.ops import fused_adamw as fa
-    from mirage_tpu_torch.ops import runtime
 
     model = build_model("miragepre_base", {}, ["bscan"], 512, 32,
                         with_outputs=False, generator=gen)
-    with runtime.switched({"MIRAGE_OPT_KERNEL": "on"}):
-        return [p.detach().cuda() for n, p in model.named_parameters()
-                if "pos_emb" not in n and fa.leaf_update_viable(p, 1.0)]
+    return [p.detach().cuda() for n, p in model.named_parameters()
+            if "pos_emb" not in n]
 
 
 def phase_acc_kernels():
@@ -2950,6 +2953,150 @@ def phase_acc_kernels():
     del g, m, n, ps, leaves
     torch.cuda.synchronize()
     return rows["pretrain"], rows["cls"]
+
+
+# the AdamW step over a pretraining step's trainable leaves (the
+# published config through the CLI's parser, built on the meta device):
+# MIRAGE-Base 296 leaves, 98.2 M elements; MIRAGE-Large 440, 317.2 M
+ADAMW_MODELS = ("miragepre_base", "miragepre_large")
+ADAMW_STEPS = 10  # host-timed updates a route, after the two compared ones
+
+
+def _host_ms(fn):
+    """The host's ms to launch ``fn`` (the median of ADAMW_STEPS calls, each
+    after a synchronize)."""
+    import statistics
+
+    import torch
+
+    host = []
+    for _ in range(ADAMW_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(host)
+
+
+def adamw_rows(card):
+    """The optimizer's two routes over each of ADAMW_MODELS' trainable
+    leaves (seeded state on the card, lr 1e-4, the CLI's betas and wd): the
+    leaf table (the default) against MIRAGE_OPT_KERNEL=off over two steps
+    (every leaf on the table; m, n, p within rtol 1e-6 and the norms within
+    1e-6 relative), then each route's host ms an update and its kernels
+    under torch.profiler (their device ms and count), and the two kernels
+    alone (device alone, rerun bit for bit) against their bounds (4 and 28
+    bytes a parameter at 3.35 TB/s)."""
+    import functools
+
+    import torch
+
+    from mirage_tpu_torch.cli import run_pretraining as rp
+    from mirage_tpu_torch.cli.config import parse_with_yaml
+    from mirage_tpu_torch.ops import fused_adamw as fa
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+
+    rows = {}
+    for model in ADAMW_MODELS:
+        args = rp.process_args(parse_with_yaml(rp.get_parser(), [
+            "-c", str(ROOT / PRETRAIN_CONFIG), "--data_path", ".",
+            "--model", model]))
+        with torch.device("meta"):
+            net = rp.build_model(args, torch.Generator().manual_seed(SEED))
+        cfg = OptimizerConfig(opt=args.opt, betas=tuple(args.opt_betas),
+                              eps=args.opt_eps,
+                              weight_decay=args.weight_decay)
+        meta = GroupedOptimizer(cfg).meta(dict(net.named_parameters()))
+        shapes = {n: tuple(p.shape) for n, p in net.named_parameters()
+                  if meta[n][2]}
+        del net
+        numel = sum(math.prod(s) for s in shapes.values())
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+        p0 = {n: torch.randn(s, device="cuda", generator=gen) * 0.02
+              for n, s in shapes.items()}
+        grads = [{n: torch.randn(s, device="cuda", generator=gen) * 1e-4
+                  for n, s in shapes.items()} for _ in range(2)]
+        routes = {}
+        for switch in ("on", "off"):
+            params = {n: t.clone() for n, t in p0.items()}
+            opt = GroupedOptimizer(cfg)
+            state = opt.init(params)
+            with runtime.switched({"MIRAGE_OPT_KERNEL": switch}):
+                norms = [opt.update(g, state, params, 1e-4).item()
+                         for g in grads]
+            routes[switch] = (opt, params, state, norms)
+        (opt, params, state, norms), (_, p_off, s_off, n_off) = \
+            routes["on"], routes["off"]
+        table = opt._table
+        bad = sum(int((~torch.isclose(a, b, rtol=B11_RTOL,
+                                      atol=B11_ATOL)).sum())
+                  for n in shapes for a, b in (
+                      (params[n], p_off[n]), (state["mu"][n], s_off["mu"][n]),
+                      (state["nu"][n], s_off["nu"][n])))
+        bit_equal = all(torch.equal(a, b) for n in shapes for a, b in (
+            (params[n], p_off[n]), (state["mu"][n], s_off["mu"][n]),
+            (state["nu"][n], s_off["nu"][n])))
+        norm_rel = max(abs(a - b) / b for a, b in zip(norms, n_off))
+        if table is None or len(table.names) != len(shapes) or bad \
+                or norm_rel > 1e-6:
+            raise AssertionError(
+                f"adamw {model}: table {table and len(table.names)} of "
+                f"{len(shapes)} leaves, {bad} elements outside rtol "
+                f"{B11_RTOL} atol {B11_ATOL}, norm gap {norm_rel}")
+        timed = {}
+        for switch, (o, pp, st, _) in routes.items():
+            with runtime.switched({"MIRAGE_OPT_KERNEL": switch}):
+                fn = functools.partial(o.update, grads[0], st, pp, 1e-4)
+                prof = profile_forward(fn) or {}
+                timed[switch] = (_host_ms(fn), sum(prof.get(
+                    "kernel_ms_by_group", {}).values()), prof.get("kernels"))
+        del routes, p_off, s_off
+        count, out = state["count"], torch.empty((), device="cuda")
+
+        def norm():
+            runtime.adamw_norm(table.tiles, fa.TILE, table.leaves,
+                               table.step_buf, table.slots, table.arrived,
+                               count, table.scalars, gnorm_out=out,
+                               b1=cfg.betas[0], b2=cfg.betas[1])
+
+        def update():
+            table.update(cfg.betas[0], cfg.betas[1], cfg.eps)
+
+        leaves = (*table.ms, *table.ns, *table.ps)
+        norm()
+        first = out.clone()
+        norm()
+        saved = [t.clone() for t in leaves]
+        update()
+        once = [t.clone() for t in leaves]
+        for t, v in zip(leaves, saved):
+            t.copy_(v)
+        update()
+        rerun = torch.equal(first, out) and all(
+            torch.equal(a, b) for a, b in zip(once, leaves))
+        del saved, once
+        if not rerun:
+            raise AssertionError(f"adamw {model}: a rerun is not "
+                                 f"bit-identical")
+        rows[model] = {
+            "leaves": len(shapes), "params": numel,
+            "table_leaves": len(table.names), "tiles": len(table.tiles),
+            "tile": fa.TILE, "bit_equal_to_foreach": bit_equal,
+            "norm_rel": norm_rel, "rerun_bit_identical": rerun,
+            "norm_ms": device_ms(norm), "norm_bound_ms":
+                4 * numel / PEAK_BYTES * 1e3,
+            "update_ms": device_ms(update), "update_bound_ms":
+                28 * numel / PEAK_BYTES * 1e3,
+            "table_host_ms": timed["on"][0], "table_kernel_ms": timed["on"][1],
+            "table_kernels": timed["on"][2], "foreach_host_ms":
+                timed["off"][0], "foreach_kernel_ms": timed["off"][1],
+            "foreach_kernels": timed["off"][2]}
+        log(f"[adamw] {model}: " + json.dumps(rows[model]))
+        del opt, params, state, table, leaves, p0, grads
+        torch.cuda.empty_cache()
+    return {"rows": rows, "card": card}
 
 
 # the serving slice's kernels: name -> (TPU kernel file:line, launcher ->
@@ -3783,6 +3930,7 @@ def _launch_counters():
                                         "acc_bwd_launches"),
             "mlp_block_acc_bwd": (fm.mlp_block, "acc_bwd_launches"),
             "fused_adamw": (fadam.fused_adamw, "launches"),
+            "adamw_norm": (fadam.fused_adamw, "norm_launches"),
             "mlp_block": (fm.mlp_block, "launches"),
             "mlp_block_bwd": (fm.mlp_block, "bwd_launches"),
             "block_attention": (ba.block_attention, "launches"),
@@ -3890,9 +4038,9 @@ def phase_train(card):
     log(f"[train] one step, kernel path vs plain path (bf16, card): {agree}")
     del grads_k
     _check_agreement("pretraining step", agree)
-    if one_pass != PER_STEP:
+    if one_pass != {**PER_STEP, **NO_OPT}:
         raise AssertionError(f"launches in one forward+backward {one_pass} "
-                             f"!= {PER_STEP}")
+                             f"!= {({**PER_STEP, **NO_OPT})}")
     with runtime.switched(SWITCHES_ON):
         reset()
         loss_a, grads_a = loss_and_grads()
@@ -3903,7 +4051,7 @@ def phase_train(card):
         f"(bf16, card): {agree_on}")
     del grads_a, grads_p
     _check_agreement("pretraining step, switches on", agree_on)
-    want_on = {**PER_STEP_ON, "fused_adamw": 0}
+    want_on = {**PER_STEP_ON, **NO_OPT}
     if one_pass_on != want_on:
         raise AssertionError(f"launches in one forward+backward with the "
                              f"switches on {one_pass_on} != {want_on}")
@@ -3948,9 +4096,9 @@ def phase_train(card):
     log(f"[train] batch {b}: {dt * 1e3:.2f} ms/step, {b / dt:.1f} img/s, "
         f"peak memory {peak:.1f} GiB, on {card}")
 
-    # the step with the switches on: B7 for both backwards, B11
-    routed = sum(1 for p in state["params"].values()
-                 if p.requires_grad and p.numel() >= 1 << 17)
+    # the step with the switches on: B7 for both backwards; B11 over every
+    # trainable leaf, as in the default step
+    routed = sum(1 for p in state["params"].values() if p.requires_grad)
     with runtime.switched(SWITCHES_ON):
         state, _ = step(state, batch, gen, lr)
         torch.cuda.synchronize()
@@ -3999,7 +4147,7 @@ SEG_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
                 "mlp_block": 0, "mlp_block_bwd": 0, "block_attention": 0,
                 "block_attention_bwd": 0, "xattn_half_block": 0,
                 "attn_half_block_acc_bwd": 0, "mlp_block_acc_bwd": 0,
-                "fused_adamw": 0}
+                **OPT_STEP}
 SEG_PER_EVAL = {**{k: 0 for k in SEG_PER_STEP}, "flash_attention": 12,
                 "mlp_block": 16}
 # the test split: volumes of slices named {scan}_{slice}, at a size that is
@@ -4013,7 +4161,7 @@ SEG_CLASSES = 8
 # (0.1) the plain MLP in training and B2 in eval
 _SEG_ZERO = {k: 0 for k in SEG_PER_STEP}
 _ENC_STEP = {**_SEG_ZERO, "flash_attention": 12, "flash_attention_bwd": 12,
-             "flash_bwd": 12}
+             "flash_bwd": 12, **OPT_STEP}
 _ENC_EVAL = {**_SEG_ZERO, "flash_attention": 12, "mlp_block": 12}
 SEG_HEADS = {
     "linear": (_ENC_STEP, _ENC_EVAL),
@@ -4421,7 +4569,8 @@ CLS_CLASSES = ("AMD", "DME", "NORMAL")
 # (the fused halves B1 + B2)
 CLS_ZERO = {k: 0 for k in PER_STEP}
 CLS_PER_STEP = {**CLS_ZERO, "block_attention": 12, "block_attention_bwd": 12,
-                "mlp_block": 12, "mlp_block_bwd": 12, "attention_bwd": 12}
+                "mlp_block": 12, "mlp_block_bwd": 12, "attention_bwd": 12,
+                **OPT_STEP}
 CLS_PER_STEP_ON = {**CLS_PER_STEP, "mlp_block_bwd": 0,
                    "mlp_block_acc_bwd": 12, "fused_adamw": 1}
 CLS_PER_EVAL = {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}
@@ -4514,10 +4663,10 @@ def phase_cls(workdir, card):
 
     # 2. the bare step, built as the entry point builds it
     results = bare_cls_steps("cls", argv, [
-        ("full fine-tune", [], {}, CLS_PER_STEP, 0),
-        ("full fine-tune, switches on", [], SWITCHES_ON, CLS_PER_STEP_ON, 49),
+        ("full fine-tune", [], {}, CLS_PER_STEP),
+        ("full fine-tune, switches on", [], SWITCHES_ON, CLS_PER_STEP_ON),
         ("linear probe", ["--linear_probing"], {},
-         {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}, 0)],
+         {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12, **OPT_STEP})],
         reset, read, card)
     return {"batch": CLS_BATCH, "cli": dict(stats), "cli_seconds": cli_s,
             "cli_counts": cli_counts, "steps": results, "card": card}
@@ -4527,7 +4676,7 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
                    steps=CLS_STEPS):
     """The classification tuning step at ``batch_size``, built as
     run_cls_tuning's ``setup`` builds it from ``argv``, each of ``ways``
-    ((way, extra flags, switches, launches a step, B11 leaves)): one
+    ((way, extra flags, switches, launches a step)): one
     forward and backward against the plain path on the card (phase 5's
     bars) with exact launches, one step changing every trainable tensor (the
     head's alone under linear probing), then ``steps`` timed steps with
@@ -4546,7 +4695,7 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
 
     ds = None
     results = {}
-    for way, extra, switches, per_step, want_leaves in ways:
+    for way, extra, switches, per_step in ways:
         if not switches:  # the switches-on way reuses the previous model
             args = rct.process_args(parse_with_yaml(rct.get_parser(),
                                                     argv + extra))
@@ -4583,7 +4732,7 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
             log(f"[{tag}] {way}: one step, kernel path vs plain path (bf16, "
                 f"card): {agree}")
             _check_agreement(f"{tag} {way}", agree)
-            want_pass = {**per_step, "fused_adamw": 0}
+            want_pass = {**per_step, **NO_OPT}
             if one_pass != want_pass:
                 raise AssertionError(f"{tag} {way}: launches in one forward+"
                                      f"backward {one_pass} != {want_pass}")
@@ -4610,7 +4759,9 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
                                    top_n=20)
         losses = [v.item() for v in metrics]
         expected = {k: v * steps for k, v in per_step.items()}
-        leaves = fused_adamw.last_routed_count if switches else 0
+        # B11 takes every trainable leaf
+        leaves = fused_adamw.last_routed_count
+        want_leaves = len(names)
         log(f"[{tag}] {way}: {steps} steps, launches {counts}, expected "
             f"{expected}; B11 leaves {leaves}, expected {want_leaves}; "
             f"losses {losses}; {dt * 1e3:.2f} ms/step, "
@@ -6679,25 +6830,26 @@ VIT_STEPS_512 = 3  # timed steps at 512², after the compared one
 # the launches of the ViT-L/16 classifier (24 layers, 16 heads, 1024 wide)
 # at 224² (197 tokens; 197 = 3·64 + 5, a key tail of 5 issued 8 wide): a
 # full fine-tune step takes route (b) above 128 tokens (B6, the bf16
-# attention backward in each B6 backward, B2 / B5), the switches-on step B7
-# and B11, the linear probe's grad-free encoder and every eval forward the
+# attention backward in each B6 backward, B2 / B5) and B11 over every
+# trainable leaf (a linear probe's step over the head's two), the
+# switches-on step B7, the linear probe's grad-free encoder and every eval
+# forward the
 # fused halves B1 + B2 (MIRAGE_BLOCK_FUSE=all: B10 alone); at 512² (1025
 # tokens, above 512) B8 forward and backward with B2 / B5
 VIT_ZERO = {k: 0 for k in (*PER_STEP, "flash_attention",
                            "flash_attention_bwd")}
 VIT_PER_STEP = {**VIT_ZERO, "block_attention": 24, "block_attention_bwd": 24,
-                "mlp_block": 24, "mlp_block_bwd": 24, "attention_bwd": 24}
+                "mlp_block": 24, "mlp_block_bwd": 24, "attention_bwd": 24,
+                **OPT_STEP}
 VIT_PER_STEP_ON = {**VIT_PER_STEP, "mlp_block_bwd": 0,
                    "mlp_block_acc_bwd": 24, "fused_adamw": 1}
 VIT_PER_EVAL = {**VIT_ZERO, "attn_half_block": 24, "mlp_block": 24}
 VIT_PER_STEP_512 = {**VIT_ZERO, "flash_attention": 24,
                     "flash_attention_bwd": 24, "flash_bwd": 24,
-                    "mlp_block": 24, "mlp_block_bwd": 24}
+                    "mlp_block": 24, "mlp_block_bwd": 24, **OPT_STEP}
 VIT_PER_EVAL_512 = {**VIT_ZERO, "flash_attention": 24, "mlp_block": 24}
 VIT_B_PER_EVAL = {**VIT_ZERO, "attn_half_block": 12, "mlp_block": 12}
-# B11's leaves of a ViT-L step (at least 2^17 elements): qkv, proj, fc1 and
-# fc2 of 24 layers, pos_embed (197 × 1024) and the patch projection
-VIT_B11_LEAVES = 98
+VIT_PROBE_STEP = {**VIT_PER_EVAL, **OPT_STEP}
 
 
 def _vit_eval(tag, model, x, want_counts, reset, read, card, switches=None):
@@ -6804,7 +6956,8 @@ def phase_vit(workdir, card):
     runs = root / "out" / "v1" / str(SEED) / "OCTID"
     for way, extra, per_step, kind in (
             ("full fine-tune", [], VIT_PER_STEP, "finetune"),
-            ("linear probe", ["--linear_probing"], VIT_PER_EVAL, "linear")):
+            ("linear probe", ["--linear_probing"], VIT_PROBE_STEP,
+             "linear")):
         reset()
         t1 = time.perf_counter()
         stats = rct.main(argv + extra)
@@ -6852,10 +7005,9 @@ def phase_vit(workdir, card):
 
     # (b) the bare step three ways, then the eval forward
     steps = bare_cls_steps("vit", argv, [
-        ("full fine-tune", [], {}, VIT_PER_STEP, 0),
-        ("full fine-tune, switches on", [], SWITCHES_ON, VIT_PER_STEP_ON,
-         VIT_B11_LEAVES),
-        ("linear probe", ["--linear_probing"], {}, VIT_PER_EVAL, 0)],
+        ("full fine-tune", [], {}, VIT_PER_STEP),
+        ("full fine-tune, switches on", [], SWITCHES_ON, VIT_PER_STEP_ON),
+        ("linear probe", ["--linear_probing"], {}, VIT_PROBE_STEP)],
         reset, read, card)
     torch.cuda.empty_cache()
     fm = ViTLargeClsFM(linear_probing=False)
@@ -6914,9 +7066,9 @@ def phase_vit(workdir, card):
     log(f"[vit] full fine-tune at 512², batch {VIT_BATCH_512}: kernel path "
         f"vs plain path (bf16, card): {agree}; launches {one_pass}")
     _check_agreement("vit 512²", agree)
-    if one_pass != VIT_PER_STEP_512:
+    if one_pass != {**VIT_PER_STEP_512, **NO_OPT}:
         raise AssertionError(f"vit 512² launches {one_pass} != "
-                             f"{VIT_PER_STEP_512}")
+                             f"{({**VIT_PER_STEP_512, **NO_OPT})}")
     step(state, batch, None, 1e-5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -8108,6 +8260,10 @@ def main(argv=None):
                     "card of the machine: the pipelines over NCCL (data 2 x "
                     "pipe 2, pipe 4; four cards) and the serving mesh over "
                     "the cards (multi_card); prints no result line")
+    ap.add_argument("--adamw", action="store_true",
+                    help="only the AdamW step over MIRAGE-Base's and -Large's "
+                    "pretraining leaves, the leaf table against the foreach "
+                    "route (adamw_rows); prints no result line")
     ap.add_argument("--ln-ab", action="store_true",
                     help="only the LN kernel's rows, the bench's headline and "
                     "the bare pretraining step (ln_ab; it runs in an older "
@@ -8135,6 +8291,9 @@ def main(argv=None):
     if opts.ln_ab:
         log(json.dumps({"ln_ab": ln_ab(card), "card": card}))
         return 0
+    if opts.adamw:
+        log(json.dumps({"adamw": adamw_rows(card)}))
+        return 0
     if opts.multi_card:
         phase_build()
         log(json.dumps({"multi_card": multi_card(workdir, card),
@@ -8157,7 +8316,7 @@ def main(argv=None):
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
     infer = bench = pretrain = ln_rows = parallel = pipeline = vit = None
-    decbatch = None
+    decbatch = adamw = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -8166,6 +8325,7 @@ def main(argv=None):
         bwd_rows = phase_backward({})
         seg_rows = phase_seg_kernels({})
         acc_pre_rows, acc_cls_rows = phase_acc_kernels()
+        adamw = adamw_rows(card)
         # the attention backward kernel's rows on the paths B7-attention
         # (with B6) and B6 in classification take
         acc_pre_rows["attention_bwd"] = bwd_rows["attention_bwd"]
@@ -8249,6 +8409,7 @@ def main(argv=None):
                     "bench": bench, "layernorm": ln_rows,
                     "pretrain": pretrain, "parallel": parallel,
                     "pipeline": pipeline, "vit": vit, "decbatch": decbatch,
+                    "adamw": adamw,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -59,7 +59,10 @@ ENTRIES = {
                    _I, _P]),
     "wgrad": ("wgrad", "mtt_wgrad", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "colsum": ("wgrad", "mtt_colsum", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "adamw": ("adamw", "mtt_adamw", [_P, _I, _I, _P, _F, _F, _F, _F, _F, _P]),
+    "adamw_tiles": ("adamw", "mtt_adamw_tiles",
+                    [_P, _I, _LL, _P, _P, _I, _P] + [_F] * 5 + [_P]),
+    "adamw_norm": ("adamw", "mtt_adamw_norm",
+                   [_P, _I, _LL] + [_P] * 9 + [_I] + [_F] * 4 + [_P]),
     "fused_block": ("fused_block", "mtt_fused_block",
                     [_P] * 19 + [_I] * 9 + [_F, _F, _I, _P, _P]),
     "fused_block_occupancy": ("fused_block", "mtt_fused_block_occupancy",

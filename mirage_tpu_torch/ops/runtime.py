@@ -23,8 +23,9 @@ weight). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
 the weight gradients the stash backward (B9) and the accumulating
-backwards (B7) sum inside their TPU kernels; ``adamw`` launches the
-multi-tensor AdamW update (B11).
+backwards (B7) sum inside their TPU kernels; ``adamw_norm`` and
+``adamw_tiles`` launch the AdamW step's two kernels (the gradient norm
+and the update, B11) over a leaf table (``ops/fused_adamw.py``).
 
 ``fused_block`` launches the one-launch whole block (B10, a persistent
 cooperative grid over the whole batch); ``ln_quant``, ``gemm_s8_fc1``,
@@ -46,12 +47,15 @@ task-strided form of their kernel once (``*_tasks`` C entries, counted in
 (``adapters/spatial_output.py:batched_spatial_decode``). ``weight_grad``,
 ``colsum`` and ``wgrad`` take ``tasks=T`` and return one result a task.
 
-The switches of the JAX package's non-default paths keep its names, values
-and defaults and are read once at import, as ``mirage_tpu/utils/
-envflags.py``, ``mirage_tpu/nn/block.py:31`` and ``mirage_tpu/models/
-mirage.py:37`` read them: ``MIRAGE_OPT_KERNEL`` (``off|on``: the fused
-AdamW update, B11), ``MIRAGE_MLP_BWD`` (``defused|accumulate``: the MLP
-half's backward, B5 or B7), ``MIRAGE_ATTN_BWD``
+The switches of the JAX package's non-default paths keep its names and
+values and are read once at import, as ``mirage_tpu/utils/envflags.py``,
+``mirage_tpu/nn/block.py:31`` and ``mirage_tpu/models/mirage.py:37`` read
+them, with its defaults but one: ``MIRAGE_OPT_KERNEL`` (``on|off``: the
+AdamW step's norm and update as two launches over a leaf table, B11, or
+the ``torch._foreach_*`` chain) is ``on`` in the port (``off`` in the JAX
+package; the numbers are the same, ``DEVIATIONS.md``), ``MIRAGE_MLP_BWD``
+(``defused|accumulate``: the MLP half's backward, B5 or B7),
+``MIRAGE_ATTN_BWD``
 (``defused|accumulate|reg_batch``: the attention half's backward, B4 or
 B7), ``MIRAGE_BLOCK_FUSE`` (``off|decoder|all``: deterministic blocks of
 width ≤ 256, or all of them, as one whole-block launch, B10) and
@@ -89,7 +93,7 @@ def env_choice(name: str, default: str, allowed: tuple) -> str:
     return val
 
 
-SWITCHES = {"MIRAGE_OPT_KERNEL": ("off", ("on", "off")),
+SWITCHES = {"MIRAGE_OPT_KERNEL": ("on", ("on", "off")),
             "MIRAGE_MLP_BWD": ("defused", ("accumulate", "defused")),
             "MIRAGE_ATTN_BWD": ("defused",
                                 ("accumulate", "reg_batch", "defused")),
@@ -727,24 +731,80 @@ colsum.launches = 0
 colsum.task_launches = 0
 
 
-def adamw(table: torch.Tensor, n_leaves: int, max_numel: int,
-          scalars: torch.Tensor, b1: float, b2: float, eps: float):
-    """One AdamW step in place over ``n_leaves`` float32 leaves: ``table``
-    (n_leaves, 6) int64 on the device holds each leaf's g, m, n, p pointers,
-    its length and its (lr, wd) packed as two float32; ``scalars`` (4,)
-    float32 on the device holds gscale, c1, c2 and keep. 1 − b1 and 1 − b2
-    are taken in double and rounded, as the TPU kernel's static constants."""
-    if table.dtype != torch.int64 or tuple(table.shape) != (n_leaves, 6):
-        raise ValueError(f"adamw table: {table.dtype} {tuple(table.shape)}, "
-                         f"expected int64 ({n_leaves}, 6)")
-    check("scalars", scalars, scalars, (4,))
-    if scalars.dtype != torch.float32 or table.device != scalars.device:
-        raise ValueError("adamw scalars: float32 on the table's device")
-    if not 0 < n_leaves <= 65535:
-        raise ValueError(f"adamw: {n_leaves} leaves (1..65535)")
-    blocks = max(1, min(-(-max_numel // (4 * 256 * 4)), 65535))
-    _launch("adamw", table, table.data_ptr(), n_leaves, blocks,
-            scalars.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps)
+def adamw_tiles(tiles: torch.Tensor, tile: int, leaves: torch.Tensor,
+                step: torch.Tensor, scalars: torch.Tensor, b1: float,
+                b2: float, eps: float):
+    """The AdamW update in place over a leaf table (csrc/adamw.cu, one CTA
+    a tile): ``tiles`` (T, 2) int32 (leaf, tile in the leaf) of ``tile``
+    elements, ``leaves`` (L, 4) int64 (m, n, p pointers, length), ``step``
+    (2L,) int64 (gradient pointers, then (lr, wd) float32 pairs) and
+    ``scalars`` (4,) float32 (gscale, c1, c2, keep), all on one device.
+    1 − b1 and 1 − b2 are taken in double and rounded, as the TPU kernel's
+    static constants."""
+    n_leaves = _adamw_table(tiles, tile, leaves, step, scalars)
+    _launch("adamw_tiles", leaves, tiles.data_ptr(), tiles.shape[0], tile,
+            leaves.data_ptr(), step.data_ptr(), n_leaves, scalars.data_ptr(),
+            b1, 1.0 - b1, b2, 1.0 - b2, eps)
+
+
+def adamw_norm(tiles: torch.Tensor, tile: int, leaves: torch.Tensor,
+               step: torch.Tensor, slots: torch.Tensor, arrived: torch.Tensor,
+               count: torch.Tensor, scalars: torch.Tensor, *, extra=None,
+               gnorm_in=None, gnorm_out=None, clip=None, skip=None,
+               b1: float, b2: float):
+    """The gradient norm over the table's tiles into ``gnorm_out`` (0-d
+    float32; ``slots`` (T,) float32 the tiles' squared sums, ``arrived`` an
+    int32 counter left at zero; ``extra`` a 0-d float32 squared sum added
+    before the root), then the step's scalars into ``scalars`` and
+    ``count`` (0-d int32) += keep. With ``gnorm_in`` only the scalars."""
+    _adamw_table(tiles, tile, leaves, step, scalars)
+    dev = leaves.device
+    for name, t, dtype in (("slots", slots, torch.float32),
+                           ("arrived", arrived, torch.int32),
+                           ("count", count, torch.int32),
+                           ("extra", extra, torch.float32),
+                           ("gnorm_in", gnorm_in, torch.float32),
+                           ("gnorm_out", gnorm_out, torch.float32)):
+        if t is not None and (t.device != dev or t.dtype != dtype
+                              or not t.is_contiguous()):
+            raise ValueError(f"adamw_norm {name}: {t.dtype} on {t.device}, "
+                             f"expected contiguous {dtype} on {dev}")
+    if slots.numel() < tiles.shape[0]:
+        raise ValueError(f"adamw_norm: {slots.numel()} slots for "
+                         f"{tiles.shape[0]} tiles")
+    if (gnorm_in is None) == (gnorm_out is None):
+        raise ValueError("adamw_norm: give gnorm_in or gnorm_out")
+    flags = (1 if clip is not None else 0) | (2 if skip is not None else 0)
+    _launch("adamw_norm", leaves, tiles.data_ptr(), tiles.shape[0], tile,
+            leaves.data_ptr(), step.data_ptr(), slots.data_ptr(),
+            arrived.data_ptr(), _ptr(extra), _ptr(gnorm_in), _ptr(gnorm_out),
+            count.data_ptr(), scalars.data_ptr(), flags,
+            0.0 if clip is None else clip, 0.0 if skip is None else skip,
+            b1, b2)
+
+
+def _adamw_table(tiles, tile, leaves, step, scalars):
+    """Checks a leaf table's tensors; returns its leaves."""
+    n = leaves.shape[0] if leaves.ndim == 2 else -1
+    if (leaves.dtype != torch.int64 or leaves.ndim != 2
+            or leaves.shape[1] != 4 or not 0 < n < 1 << 31):
+        raise ValueError(f"adamw leaves: {leaves.dtype} "
+                         f"{tuple(leaves.shape)}, expected int64 (L, 4)")
+    if tiles.dtype != torch.int32 or tiles.ndim != 2 or tiles.shape[1] != 2:
+        raise ValueError(f"adamw tiles: {tiles.dtype} {tuple(tiles.shape)}, "
+                         f"expected int32 (T, 2)")
+    if step.dtype != torch.int64 or tuple(step.shape) != (2 * n,):
+        raise ValueError(f"adamw step: {step.dtype} {tuple(step.shape)}, "
+                         f"expected int64 ({2 * n},)")
+    if scalars.dtype != torch.float32 or tuple(scalars.shape) != (4,):
+        raise ValueError("adamw scalars: float32 (4,)")
+    if tile <= 0 or tile % 4:
+        raise ValueError(f"adamw tile {tile}: a positive multiple of 4")
+    for t in (tiles, step, scalars):
+        if t.device != leaves.device or not t.is_contiguous():
+            raise ValueError("adamw: the table's tensors, contiguous on one "
+                             "device")
+    return n
 
 
 def wgrad(g: torch.Tensor, a: torch.Tensor, tasks: int = 0) -> torch.Tensor:

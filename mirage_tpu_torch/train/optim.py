@@ -18,11 +18,18 @@ mutils/optim_factory.py and mutils/native_scaler.py), written on a model's
 
 The update works in place on the parameters and the moments (the JAX
 package returns new arrays); ``count`` advances only on kept steps. With
-``MIRAGE_OPT_KERNEL=on`` (default off, as in the JAX package) the AdamW
-leaves that ``ops.fused_adamw.leaf_update_viable`` admits take the fused
-AdamW update (B11: one launch over all of them on the card); the rest take
-the ``torch._foreach_*`` route, unchanged. gnorm, gscale, keep, c1 and c2
-stay device scalars on both routes.
+``MIRAGE_OPT_KERNEL=on`` (the port's default; off in the JAX package) every
+trainable float32 AdamW leaf on the card takes the leaf table
+(``ops/fused_adamw.py:LeafTable``, B11): the gradient norm with gscale,
+keep, c1, c2 and the count in one launch, the update in another, the table
+built at the first update and again only when the leaf set or a leaf's
+storage changed. On the CPU the AdamW leaves that ``leaf_route`` sends
+there take ``fused_adamw_ref``. The rest (``off``, ``adam``, the SGD
+family, other dtypes, small CPU leaves) take the ``torch._foreach_*``
+route, unchanged. gnorm, gscale, keep, c1 and c2 stay device scalars on
+every route. Under a profiler the update tallies each route's leaves and
+elements and the tables built to the ``mirage.optimizer`` span
+(``utils/profiling.py``).
 
 Sharded training (``train/steps.py``): a parameter FSDP2 shards is a
 DTensor, and the update runs on its local shard (``.to_local()``), as do
@@ -37,7 +44,9 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from mirage_tpu_torch.ops.fused_adamw import fused_adamw, leaf_update_viable
+from mirage_tpu_torch.ops import runtime
+from mirage_tpu_torch.ops.fused_adamw import LeafTable, fused_adamw, leaf_route
+from mirage_tpu_torch.utils import profiling
 
 NO_DECAY_PATH_NAMES = {"pos_emb", "class_emb", "global_tokens", "mask_token",
                        "task_embeddings", "cls_emb"}
@@ -100,6 +109,7 @@ class GroupedOptimizer:
 
     def __init__(self, cfg: OptimizerConfig):
         self.cfg = cfg
+        self._table = None
 
     def meta(self, params: Mapping[str, torch.Tensor]):
         return {n: leaf_meta(self.cfg, n, p) for n, p in params.items()}
@@ -134,6 +144,31 @@ class GroupedOptimizer:
             if not leaf_meta(self.cfg, n, p)[2]:
                 p.requires_grad_(False)
 
+    def _leaf_table(self, names, params, state) -> Optional[LeafTable]:
+        """The leaf table of the AdamW leaves among ``names`` that
+        ``leaf_route`` sends to it, or None where none goes. Kept while the
+        leaf set and every leaf's p, m and n storage stay; built anew
+        otherwise (a fresh state, a checkpoint or a reshard that
+        reallocates)."""
+        if (self.cfg.opt != "adamw" or not names
+                or runtime.switches["MIRAGE_OPT_KERNEL"] != "on"
+                or not runtime.use_kernel(params[names[0]])):
+            return None
+        mu, nu = state["mu"], state["nu"]
+        t = self._table
+        if t is not None and t.key == names and t.matches(
+                [mu[n] for n in t.names], [nu[n] for n in t.names],
+                [params[n] for n in t.names]):
+            return t
+        meta = self.meta(params)
+        routed = [n for n in names if leaf_route(
+            params[n], meta[n][1], self.cfg.opt, meta[n][2]) == "table"]
+        self._table = LeafTable(
+            routed, [mu[n] for n in routed], [nu[n] for n in routed],
+            [params[n] for n in routed], [meta[n][1] for n in routed],
+            [meta[n][0] for n in routed], key=list(names)) if routed else None
+        return self._table
+
     @torch.no_grad()
     def update(self, grads: Mapping[str, Optional[torch.Tensor]], state: Dict,
                params: Mapping[str, torch.Tensor], lr: float,
@@ -143,36 +178,70 @@ class GroupedOptimizer:
         the given grads."""
         cfg = self.cfg
         grads = {n: None if g is None else local(g) for n, g in grads.items()}
-        meta = self.meta(params)
         params = {n: local(p) for n, p in params.items()}
-        if gnorm is None:
-            gnorm = global_norm([g for g in grads.values() if g is not None])
-        keep = (torch.isfinite(gnorm) & (gnorm < cfg.skip_grad)
-                if cfg.skip_grad is not None
-                else torch.ones((), dtype=torch.bool, device=gnorm.device))
-        keep_f = keep.float()
-        gscale = (torch.clamp(cfg.clip_grad / (gnorm + 1e-6), max=1.0)
-                  if cfg.clip_grad is not None else None)
-        state["count"] += keep.to(torch.int32)
         names = [n for n in state["mu"] if grads.get(n) is not None]
-        if cfg.opt in ("adamw", "adam"):
-            b1, b2 = cfg.betas
-            count = torch.clamp(state["count"].float(), min=1.0)
-            c1 = 1 - torch.pow(b1, count)
-            c2 = 1 - torch.pow(b2, count)
-            routed = [n for n in names if leaf_update_viable(
-                params[n], meta[n][1], cfg.opt, meta[n][2])]
-            fused_adamw(
-                [grads[n] for n in routed], [state["mu"][n] for n in routed],
-                [state["nu"][n] for n in routed], [params[n] for n in routed],
-                [lr * meta[n][1] for n in routed],
-                [meta[n][0] * wd_scale for n in routed],
-                gscale=gscale if gscale is not None else torch.ones(
-                    (), device=gnorm.device), c1=c1, c2=c2, keep=keep_f,
-                b1=b1, b2=b2, eps=cfg.eps)
-            names = [n for n in names if n not in routed]
+        table = self._leaf_table(names, params, state)
+        routed, meta = [], None
+        if table is not None:
+            # one launch for the norm and the scalars, one for the update
+            others = [] if gnorm is not None or len(grads) == len(
+                table.names) else [g for n, g in grads.items()
+                                   if g is not None and n not in table.index]
+            gnorm = table.step(
+                [grads[n] for n in table.names], state["count"], lr, wd_scale,
+                gnorm=gnorm, extra=sum(g.float().square().sum()
+                                       for g in others) if others else None,
+                clip=cfg.clip_grad, skip=cfg.skip_grad, b1=cfg.betas[0],
+                b2=cfg.betas[1], eps=cfg.eps)
+            names = [n for n in names if n not in table.index]
+            if names:  # the rest read the table's scalars
+                gscale, c1, c2, keep_f = table.scalars
+                gscale = gscale if cfg.clip_grad is not None else None
+                keep = keep_f > 0
+        else:
+            meta = self.meta(params)
+            if gnorm is None:
+                gnorm = global_norm([g for g in grads.values()
+                                     if g is not None])
+            keep = (torch.isfinite(gnorm) & (gnorm < cfg.skip_grad)
+                    if cfg.skip_grad is not None
+                    else torch.ones((), dtype=torch.bool,
+                                    device=gnorm.device))
+            keep_f = keep.float()
+            gscale = (torch.clamp(cfg.clip_grad / (gnorm + 1e-6), max=1.0)
+                      if cfg.clip_grad is not None else None)
+            state["count"] += keep.to(torch.int32)
+            if cfg.opt in ("adamw", "adam"):
+                b1, b2 = cfg.betas
+                count = torch.clamp(state["count"].float(), min=1.0)
+                c1 = 1 - torch.pow(b1, count)
+                c2 = 1 - torch.pow(b2, count)
+                routed = [n for n in names if leaf_route(
+                    params[n], meta[n][1], cfg.opt, meta[n][2]) == "ref"]
+                fused_adamw(
+                    [grads[n] for n in routed],
+                    [state["mu"][n] for n in routed],
+                    [state["nu"][n] for n in routed],
+                    [params[n] for n in routed],
+                    [lr * meta[n][1] for n in routed],
+                    [meta[n][0] * wd_scale for n in routed],
+                    gscale=gscale if gscale is not None else torch.ones(
+                        (), device=gnorm.device), c1=c1, c2=c2, keep=keep_f,
+                    b1=b1, b2=b2, eps=cfg.eps)
+                names = [n for n in names if n not in routed]
+        if profiling.current() is not None:
+            profiling.tally(
+                table_leaves=len(table.names) if table else 0,
+                table_elems=table.numel if table else 0,
+                foreach_leaves=len(names),
+                foreach_elems=sum(params[n].numel() for n in names),
+                **({"ref_leaves": len(routed),
+                    "ref_elems": sum(params[n].numel() for n in routed)}
+                   if routed else {}))
         if not names:
             return gnorm
+        if meta is None:
+            meta = self.meta(params)
         ps = [params[n] for n in names]
         # a skipped step's grads may be inf/NaN: select, never multiply
         gs = [torch.where(keep, grads[n].float(), 0.0) for n in names]
@@ -182,6 +251,7 @@ class GroupedOptimizer:
         steps = [-lr * meta[n][1] for n in names]
         mus = [state["mu"][n] for n in names]
         if cfg.opt in ("adamw", "adam"):
+            b1, b2 = cfg.betas
             if cfg.opt == "adam":  # torch Adam: L2 on the gradient
                 gs = torch._foreach_add(gs, torch._foreach_mul(ps, wds))
             # kept: m = b1·m + (1 − b1)·g; skipped: m unchanged (exactly)

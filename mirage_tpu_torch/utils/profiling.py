@@ -38,8 +38,13 @@ model's forward, ``models/mirage.py``: ``mirage.encoder`` and
 ``mirage.optimizer``; a wrapper call (``api/wrapper.py``) is
 ``mirage.request`` over ``mirage.inputs`` and ``mirage.forward``; the
 pretraining CLI's wait on its loader and the copy to the device is
-``mirage.data``. No span name may start with ``cuda`` or ``cu`` and a
-capital: trace readers take such names for CUDA runtime calls.
+``mirage.data``. The optimizer's update :func:`tally`s to
+``mirage.optimizer`` the leaves and elements of each route
+(``table_leaves``, ``table_elems``, ``foreach_leaves``, ``foreach_elems``;
+``ref_leaves``, ``ref_elems`` on the CPU) and each leaf table it builds
+(``table_builds``, ``ops/fused_adamw.py``). No span name may start with
+``cuda`` or ``cu`` and a capital: trace readers take such names for CUDA
+runtime calls.
 """
 
 import contextlib
@@ -72,16 +77,18 @@ class Span:
     profiler is active, and its record: ``name``, ``start_ns`` and
     ``end_ns`` (None while open), ``parent`` (its parent's index in
     :func:`records`, -1 for a root), ``call`` (shared by every span under
-    one root), ``thread`` and ``launches`` (the port's launches counted to
-    it, none of its children's)."""
+    one root), ``thread``, ``launches`` (the port's launches counted to
+    it, none of its children's) and ``counts`` (what :func:`tally` added
+    to it, or None)."""
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "call", "thread",
-                 "launches", "index", "_range")
+                 "launches", "counts", "index", "_range")
 
     def __init__(self, name):
         self.name = name
         self.start_ns = self.end_ns = None
         self.launches = 0
+        self.counts = None
         self.index = -1
 
     def __enter__(self):
@@ -165,6 +172,18 @@ def launched():
             span.launches += 1
 
 
+def tally(**counts):
+    """Adds ``counts`` (name -> number) to the innermost span open on this
+    thread; nothing when none is open (no profiler active)."""
+    span = current()
+    if span is None:
+        return
+    if span.counts is None:
+        span.counts = {}
+    for k, v in counts.items():
+        span.counts[k] = span.counts.get(k, 0) + v
+
+
 def records() -> List[Span]:
     """The spans recorded since the last :func:`reset`, in opening order."""
     with _lock:
@@ -196,10 +215,11 @@ def _covered(span, children):
 
 
 def summary() -> Dict[str, Dict]:
-    """Span name -> {"calls", "total_ms", "self_ms", "launches"} over the
-    closed spans of :func:`records`: ``self_ms`` is each span's duration
-    less the part of it that its child spans cover, ``launches`` the
-    launches counted to the spans of that name. The self times of a call
+    """Span name -> {"calls", "total_ms", "self_ms", "launches", "counts"}
+    over the closed spans of :func:`records`: ``self_ms`` is each span's
+    duration less the part of it that its child spans cover, ``launches``
+    the launches counted to the spans of that name, ``counts`` the sums of
+    what :func:`tally` added to them. The self times of a call
     whose spans run on one thread add up to its root's duration; where
     children run at once on several threads (the serving mesh's
     replicas), each thread's spans are counted whole, so they add up to
@@ -212,12 +232,15 @@ def summary() -> Dict[str, Dict]:
     out = {}
     for s in closed:
         row = out.setdefault(s.name, {"calls": 0, "total_ms": 0.0,
-                                      "self_ms": 0.0, "launches": 0})
+                                      "self_ms": 0.0, "launches": 0,
+                                      "counts": {}})
         ns = s.end_ns - s.start_ns
         row["calls"] += 1
         row["total_ms"] += ns / 1e6
         row["self_ms"] += (ns - _covered(s, children.get(s.index, ()))) / 1e6
         row["launches"] += s.launches
+        for k, v in (s.counts or {}).items():
+            row["counts"][k] = row["counts"].get(k, 0) + v
     return out
 
 

@@ -403,9 +403,10 @@ def test_cls_step_matches_jax(weights, linear_probing):
 
 def test_cls_step_routes(weights, monkeypatch):
     """The full fine-tune step at 257 tokens runs B6, B2 and B5 under the
-    default switches; with MIRAGE_MLP_BWD=accumulate and
-    MIRAGE_OPT_KERNEL=on its MLP backwards take B7 and its large leaves
-    B11 (the leaf minimum lowered so that the tiny leaves count)."""
+    default switches, its large leaves B11's plain version (the CPU keeps
+    the leaf minimum, lowered here so that the tiny leaves count; on the
+    card every leaf takes the leaf table); with MIRAGE_OPT_KERNEL=off no
+    leaf does; with MIRAGE_MLP_BWD=accumulate its MLP backwards take B7."""
     from mirage_tpu_torch.ops import block_attention as ba
     from mirage_tpu_torch.ops import fused_adamw as fa
     from mirage_tpu_torch.ops import fused_mlp as fm
@@ -439,9 +440,9 @@ def test_cls_step_routes(weights, monkeypatch):
                       if p.requires_grad and p.numel() >= 8192
                       and "pos_emb" not in n)
     for switches, bwd, routed in (
-            ({}, "_mlp_bwd", 0),
-            ({"MIRAGE_MLP_BWD": "accumulate", "MIRAGE_OPT_KERNEL": "on"},
-             "_mlp_bwd_acc", want_routed)):
+            ({}, "_mlp_bwd", want_routed),
+            ({"MIRAGE_OPT_KERNEL": "off"}, "_mlp_bwd", 0),
+            ({"MIRAGE_MLP_BWD": "accumulate"}, "_mlp_bwd_acc", want_routed)):
         calls.clear()
         with runtime.switched(switches):
             step(state, batch, None, 1e-5)

@@ -13,7 +13,9 @@ version computed in float32 from the same bf16 inputs (the kernels round
 intermediates to bf16, 8 significant bits, as the TPU kernels do).
 """
 
+import contextlib
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -688,31 +690,184 @@ def test_fused_adamw_kernel_matches_plain(cuda, keep):
 
 
 def test_optimizer_with_the_fused_update_matches_foreach(cuda):
-    """The optimizer's two routes on the card, from the same grads: the
-    fused update (MIRAGE_OPT_KERNEL=on) and the foreach route."""
+    """The optimizer's default route on the card (the leaf table: the norm
+    and the update, every leaf) against MIRAGE_OPT_KERNEL=off (global_norm
+    and the foreach chain) over two steps with clip_grad and skip_grad set
+    and a changed lr (rtol 1e-6); then a step with an inf gradient leaves
+    m, n, p and count bit for bit on both routes."""
     from mirage_tpu_torch.ops.fused_adamw import fused_adamw
     from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
 
     shapes = {"a.weight": (512, 512), "b.weight": (300, 450), "c.bias": (7,)}
     g, _, _, p = _adamw_state(cuda, list(shapes.values()), 6)
     grads = dict(zip(shapes, g))
+    bad = dict(grads, **{"b.weight": torch.full((300, 450), float("inf"),
+                                                device=cuda)})
     out = []
     for switch in ("off", "on"):
         params = {k: t.clone() for k, t in zip(shapes, p)}
         opt = GroupedOptimizer(OptimizerConfig(clip_grad=1.0, skip_grad=1e3))
         state = opt.init(params)
         with runtime.switched({"MIRAGE_OPT_KERNEL": switch}):
-            for lr in (1e-2, 5e-3):
-                opt.update(grads, state, params, lr)
-        out.append((params, state))
-    assert fused_adamw.last_routed_count == 2
-    for key in ("a.weight", "b.weight", "c.bias"):
-        torch.testing.assert_close(out[0][0][key], out[1][0][key], rtol=1e-6,
-                                   atol=1e-7)
+            before = fused_adamw.launches
+            norms = [opt.update(grads, state, params, lr).item()
+                     for lr in (1e-2, 5e-3)]
+            if switch == "on":
+                assert fused_adamw.launches == before + 2
+                assert fused_adamw.last_routed_count == 3
+            kept = [t.clone() for t in (*params.values(),
+                                        *state["mu"].values(),
+                                        *state["nu"].values())]
+            gn = opt.update(bad, state, params, 1e-2)
+        assert not math.isfinite(gn.item()) and int(state["count"]) == 2
+        assert all(torch.equal(a, b) for a, b in zip(kept, (
+            *params.values(), *state["mu"].values(), *state["nu"].values())))
+        out.append((norms, params, state))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-6)
+    for key in shapes:
+        torch.testing.assert_close(out[0][1][key], out[1][1][key],
+                                   rtol=1e-6, atol=1e-7)
         for mom in ("mu", "nu"):
-            torch.testing.assert_close(out[0][1][mom][key],
-                                       out[1][1][mom][key], rtol=1e-6,
+            torch.testing.assert_close(out[0][2][mom][key],
+                                       out[1][2][mom][key], rtol=1e-6,
                                        atol=1e-7)
+
+
+def _ragged_leaves(cuda, seed):
+    """A ragged set of float32 leaves as a step's table meets them: 1, 3, 7
+    and 131,075 elements, one of 4.19 M (MIRAGE-Large's fc1), 300 small
+    ones, and two whose arrays start off the 16-byte vector (views at an
+    offset of one element)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(1,), (3,), (7,), (131075,), (4096, 1024)] + [
+        (int(k),) for k in rng.integers(1, 3000, size=300)]
+    g, m, n, p = _adamw_state(cuda, shapes, seed)
+    for k in (1000, 8195):  # unaligned: g, m, n and p one element in
+        for ts in (g, m, n, p):
+            base = torch.randn(k + 1, device=cuda) * (1e-2 if ts is g
+                                                      else 1e-3)
+            if ts is n:
+                base = base.abs() * 1e-2
+            ts.append(base[1:])
+    return g, m, n, p
+
+
+def test_adamw_norm_kernel_matches_global_norm(cuda):
+    """The norm kernel over the ragged leaves against global_norm (rtol
+    1e-6), bit-identical on a rerun; its scalars (keep, gscale, c1, c2,
+    count += keep) as the foreach route computes them, and with the norm
+    handed in, only the scalars."""
+    from mirage_tpu_torch.ops import fused_adamw as fa
+    from mirage_tpu_torch.train.optim import global_norm
+
+    g, m, n, p = _ragged_leaves(cuda, 8)
+    table = fa.LeafTable(range(len(p)), m, n, p, [1.0] * len(p),
+                         [0.0] * len(p))
+    gs = table.write(g, 1e-3, 1.0)
+    b1, b2 = 0.9, 0.95
+
+    def norm(count, clip, skip, gnorm_in=None):
+        out = None if gnorm_in is not None else torch.empty(
+            (), device=cuda)
+        runtime.adamw_norm(table.tiles, fa.TILE, table.leaves,
+                           table.step_buf, table.slots, table.arrived, count,
+                           table.scalars, gnorm_in=gnorm_in, gnorm_out=out,
+                           clip=clip, skip=skip, b1=b1, b2=b2)
+        return out, table.scalars.clone()
+
+    count = torch.tensor(4, dtype=torch.int32, device=cuda)
+    want = global_norm(g)
+    got, sc = norm(count, 0.05, 1e3)
+    again, _ = norm(count, 0.05, 1e3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and int(count) == 6
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    cnt = torch.tensor(5.0, device=cuda)  # the count the first call left
+    gscale = torch.clamp(0.05 / (got + 1e-6), max=1.0)
+    want_sc = torch.stack([gscale, 1 - torch.pow(b1, cnt),
+                           1 - torch.pow(b2, cnt), torch.tensor(1.0,
+                                                                device=cuda)])
+    assert torch.equal(sc, want_sc), (sc, want_sc)
+    # skipped (the norm reaches skip): keep 0, the count stays
+    _, sc = norm(count, None, float(want) / 2)
+    assert sc[3].item() == 0.0 and sc[0].item() == 1.0 and int(count) == 6
+    # the sharded steps hand the norm in: the scalars alone
+    _, sc = norm(count, 1.0, None, gnorm_in=torch.tensor(4.0, device=cuda))
+    assert sc[0].item() == torch.clamp(1.0 / (torch.tensor(4.0) + 1e-6),
+                                       max=1.0).item()
+    assert int(count) == 7 and sc[3].item() == 1.0
+    del gs
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.0])
+def test_adamw_tile_update_matches_plain(cuda, keep):
+    """The tile-scheduled update over the ragged leaves (aligned and not)
+    against fused_adamw_ref (rtol 1e-6), per-leaf lr and wd, bit-identical
+    on a rerun; keep = 0 passes m, n and p through bit for bit."""
+    from mirage_tpu_torch.ops.fused_adamw import fused_adamw
+
+    g, m, n, p = _ragged_leaves(cuda, 9)
+    rng = np.random.default_rng(10)
+    lrs = (rng.random(len(p)) * 1e-3).tolist()
+    wds = [0.05 if i % 3 else 0.0 for i in range(len(p))]
+    kw = dict(gscale=torch.tensor(0.75, device=cuda),
+              c1=torch.tensor(1 - 0.9 ** 7, device=cuda),
+              c2=torch.tensor(1 - 0.95 ** 7, device=cuda),
+              keep=torch.tensor(keep, device=cuda), b1=0.9, b2=0.95,
+              eps=1e-8)
+
+    def run(plain=False):
+        mm, nn_, pp = ([t.clone() for t in ts] for ts in (m, n, p))
+        with runtime.plain_on_card() if plain else contextlib.nullcontext():
+            fused_adamw(g, mm, nn_, pp, lrs, wds, **kw)
+        return mm + nn_ + pp
+
+    got = run()
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    for a, b in zip(got, run(plain=True)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    if keep == 0.0:
+        assert all(torch.equal(a, b) for a, b in zip(got, m + n + p))
+
+
+def test_the_leaf_table_is_reused_and_rebuilt(cuda):
+    """The optimizer builds one table for steps over one state; a
+    load_state_dict that reallocates the parameters, and fresh moments,
+    build it again; the steps after a rebuild update the new storage as a
+    fresh optimizer would."""
+    from mirage_tpu_torch.ops.fused_adamw import LeafTable
+    from mirage_tpu_torch.train.optim import GroupedOptimizer, OptimizerConfig
+
+    torch.manual_seed(11)
+    model = torch.nn.Sequential(torch.nn.Linear(96, 80),
+                                torch.nn.LayerNorm(80)).to(cuda)
+    opt = GroupedOptimizer(OptimizerConfig())
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    grads = {k: torch.randn_like(v) * 1e-2 for k, v in params.items()}
+    builds = LeafTable.builds
+    for _ in range(3):
+        opt.update(grads, state, params, 1e-3)
+    assert LeafTable.builds == builds + 1
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(sd, assign=True)
+    params = dict(model.named_parameters())
+    opt.update(grads, state, params, 1e-3)
+    assert LeafTable.builds == builds + 2
+    # the same step from a fresh optimizer over copies of the same state
+    twin = GroupedOptimizer(OptimizerConfig())
+    p2 = {k: v.detach().clone() for k, v in params.items()}
+    s2 = {"count": state["count"].clone(),
+          **{k: {n: t.clone() for n, t in state[k].items()}
+             for k in ("mu", "nu")}}
+    opt.update(grads, state, params, 1e-3)
+    twin.update(grads, s2, p2, 1e-3)
+    assert LeafTable.builds == builds + 3  # the twin's own
+    for k in params:
+        assert torch.equal(params[k], p2[k])
+    state = opt.init(params)
+    opt.update(grads, state, params, 1e-3)
+    assert LeafTable.builds == builds + 4
 
 
 # B10: (batch, tokens, width, heads): head dims 16, 48, 32 and 64, ragged N;
