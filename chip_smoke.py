@@ -188,6 +188,21 @@ Phases, each of which must pass (any failure exits non-zero):
    leaf within phase 5's bars, exact launches (DEC_PER_STEP,
    DEC_PER_STEP_ACC). (e) Both arms of (c) and (d) timed in ABBA rounds
    (mirage_tpu_torch/bench/decbatch.py: CUDA events and the host clock).
+15. sam: SAM ViT-H's relative-position attention (csrc/relpos_attention.cu,
+   ops/relpos_attention.py) alone at its shapes, batch 4 of 1024² images:
+   a windowed layer (25 windows of 14², 9 of them padded) and a global one
+   (64² keys), 16 heads of 80, against its plain version in float32 from
+   the same bf16 inputs (BF16_REL_L2, BF16_MAX_ABS), rerun bit for bit,
+   timed with its host cost and the device's alone, split into its two
+   kernels (torch.profiler), beside the plain version and the bound
+   (``python3 chip_smoke.py --phases build,sam``); then the SAM ViT-H
+   encoder's grad-free forward (the frozen-encoder step's, batch 4 at 1024²,
+   bf16 compute) with the op's count of calls set to 0 before it: its calls
+   and its kernels (those named relpos_attn*, from torch.profiler) counted
+   in that forward, their device time in it, the port's launches counted
+   to its spans and the forward's time. Phase 1 holds its kernels
+   to the attention forward's rules: no spill, no serialized wgmma, HGMMA in
+   librelpos_attention.so.
 
 Phase 1 also prints the ptxas spill lines of the four redesigned kernels
 (fused_block, attention_phased, mlp_chunked, gemm_stash), fails on a spill
@@ -368,7 +383,9 @@ PORT_KERNELS = {"gemm_bf16_pingpong": "gemm",
                 "mlp_bwd_hidden_kernel": "mlp_bwd",
                 "mlp_bwd_hidden_f32_kernel": "mlp_bwd",
                 "mlp_bwd_dyln_kernel": "mlp_bwd",
-                "mlp_bwd_dyln_f32_kernel": "mlp_bwd"}
+                "mlp_bwd_dyln_f32_kernel": "mlp_bwd",
+                "relpos_attn_bias_kernel": "relpos_attention",
+                "relpos_attn_fwd_kernel": "relpos_attention"}
 
 
 def log(*a):
@@ -564,7 +581,9 @@ def phase_build():
     for name, kernels in (("attention", ("attention_fwd_kernel",)),
                           ("attention_bwd", ("dq_kernel", "dkv_kernel")),
                           ("flash_attention", ("attention_fwd_kernel",
-                                               "dq_kernel", "dkv_kernel"))):
+                                               "dq_kernel", "dkv_kernel")),
+                          ("relpos_attention", ("relpos_attn_fwd_kernel",
+                                                "relpos_attn_bias_kernel"))):
         lines = report[name].splitlines()
         for i, ln in enumerate(lines):
             kernel = next((k for k in kernels if "Compiling entry" in ln
@@ -595,7 +614,7 @@ def phase_build():
                 "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     for lib in ("fused_block", "attention", "attention_bwd",
-                "flash_attention", "gemm", "quant"):
+                "flash_attention", "gemm", "quant", "relpos_attention"):
         sass = subprocess.run([str(tool), "-sass",
                                str(_build.BUILD_DIR / f"lib{lib}.so")],
                               capture_output=True, text=True, check=True,
@@ -8213,9 +8232,204 @@ def multi_card(workdir, card):
             "serving": multi_card_serving(workdir, card, n)}
 
 
+# ----------------------------------------------------------------- phase 15
+
+# SAM ViT-H's relative-position attention at batch 4 of 1024² images:
+# (batch, grid rows, grid columns, heads, dh, window; 0: global)
+SAM_SHAPES = ((4, 64, 64, 16, 80, 14), (4, 64, 64, 16, 80, 0))
+# its calls in one step of the SAM encoder: 28 windowed blocks, 4 global
+SAM_PER_STEP = {14: 28, 0: 4}
+
+
+def _relpos_work(shape):
+    """(FLOPs, bytes) of one call: the attention over each window's keys
+    for the real queries, the bias products 2·n·dh·k twice a head, q, k, v
+    and the output of the real tokens once (benchmark/work_sam.py)."""
+    b, h, w, heads, dh, window = shape
+    n, k = h * w, window or h
+    return (4 * b * heads * n * k * k * dh + b * heads * 4 * n * dh * k,
+            b * heads * dh * 4 * n * 2)
+
+
+def phase_sam(card):
+    """SAM ViT-H's relative-position attention (csrc/relpos_attention.cu)
+    alone at its full shapes, a windowed and a global layer: the kernel
+    against its plain version (float32 math from the same bf16 inputs),
+    rerun bit for bit, timed with its host cost (``ms``) and the device's
+    alone (``device_ms``), split into its two kernels by torch.profiler,
+    beside the plain version on the card and the bound."""
+    import torch
+
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.ops.relpos_attention import (relpos_attention,
+                                                       relpos_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for shape in SAM_SHAPES:
+        b, h, w, heads, dh, window = shape
+        k, d3 = window or h, 3 * heads * dh
+
+        def rand(*size, scale=1.0):
+            return (scale * torch.randn(size, device="cuda",
+                                        generator=gen)).bfloat16()
+
+        qkv, bias = rand(b, h, w, d3), rand(d3, scale=0.1)
+        tab_h, tab_w = rand(2 * k - 1, dh, scale=0.1), rand(2 * k - 1, dh,
+                                                             scale=0.1)
+        args = (qkv, bias, tab_h, tab_w, heads, window)
+        with torch.no_grad():
+            got, again = relpos_attention(*args), relpos_attention(*args)
+            with runtime.plain_on_card():
+                want = relpos_attention_ref(*(t.float() for t in args[:4]),
+                                            heads, window)
+                plain_ms = cuda_ms(lambda: relpos_attention_ref(*args),
+                                   iters=3, warmup=1)
+            ms = cuda_ms(lambda: relpos_attention(*args))
+            dev_ms = device_ms(lambda: relpos_attention(*args))
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    relpos_attention(*args)
+                torch.cuda.synchronize()
+        split = {}
+        for start, end, name in device_kernels(prof):
+            key = name.removeprefix("void ").split("<")[0].split("(")[0]
+            split[key] = split.get(key, 0.0) + (end - start) / 1e3 / 5
+        diff = got.float() - want
+        rel = float(diff.norm() / want.norm())
+        max_abs = float(diff.abs().max())
+        bound_ms, bound_by = _bound(_relpos_work(shape))
+        row = {"shape": list(shape), "dtype": "bf16", "rel_l2": rel,
+               "max_abs_err": max_abs, "rerun_bit_equal":
+                   bool(torch.equal(got, again)), "ms": ms,
+               "device_ms": dev_ms, "kernels_ms": split, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / dev_ms,
+               "calls_per_step": SAM_PER_STEP[window]}
+        log(f"[sam] {'window ' + str(window) if window else 'global'} "
+            f"{shape}: rel {rel:.2e} max {max_abs:.2e}, {ms:.3f} ms "
+            f"({dev_ms:.3f} device; {split}), plain {plain_ms:.3f}, bound "
+            f"{bound_ms:.4f} ({bound_by}); {card}")
+        if not row["rerun_bit_equal"]:
+            raise AssertionError(f"relpos attention {shape} reruns differ")
+        if rel > BF16_REL_L2 or max_abs > BF16_MAX_ABS:
+            raise AssertionError(f"relpos attention {shape}: rel {rel}, "
+                                 f"max {max_abs}")
+        rows.append(row)
+        del qkv, got, again, want
+        torch.cuda.empty_cache()
+    return {"shapes": rows, "encoder": sam_encoder_forward(card)}
+
+
+def sam_encoder_forward(card, calls=3):
+    """The SAM ViT-H encoder's grad-free forward at batch 4 of 1024²
+    images, bf16 compute (the frozen-encoder step's): the op's calls
+    counted from 0 over one forward, then ``calls`` forwards under
+    torch.profiler with the port's spans: the relative-position kernels
+    (named relpos_attn*) a forward and their device time, the port's
+    launches a forward (counted to its spans: ``mirage.forward``,
+    ``.encoder`` and the blocks'), and the forward's time
+    (CUDA events)."""
+    import torch
+
+    from mirage_tpu_torch.adapters.input_adapters import PatchedInputAdapter
+    from mirage_tpu_torch.models.sam import sam_factory
+    from mirage_tpu_torch.ops import runtime
+    from mirage_tpu_torch.utils import profiling
+
+    b, size = SAM_SHAPES[0][0], 1024
+    with torch.device("cuda"):
+        model = sam_factory["sam_vit_h"](
+            {"bscan": PatchedInputAdapter(3, 1, 16, size)}, None,
+            compute_dtype=torch.bfloat16)
+    model.requires_grad_(False)
+    x = torch.rand((b, 3, size, size), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+    def forward():
+        return model.forward_light({"bscan": x}, frozen_encoder=True)
+
+    forward()
+    torch.cuda.synchronize()
+    runtime.relpos_attention.launches = 0
+    out = forward()
+    torch.cuda.synchronize()
+    op_calls = runtime.relpos_attention.launches
+    ms = cuda_ms(forward, iters=5, warmup=1)
+    forget_spans()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            forward()
+        torch.cuda.synchronize()
+    spans = profiling.summary()
+    forget_spans()
+    relpos = [(end - start) / 1e3 for start, end, name in device_kernels(prof)
+              if name.removeprefix("void ").startswith("relpos_attn")]
+    got = {"batch": b, "image": size,
+           "op_calls_per_forward": op_calls,
+           "relpos_kernels_per_forward": len(relpos) / calls,
+           "relpos_ms_per_forward": sum(relpos) / calls,
+           "port_launches_per_forward":
+               sum(r["launches"] for r in spans.values()) / calls,
+           "forward_ms": ms, "finite": bool(torch.isfinite(out).all())}
+    log(f"[sam] encoder forward, batch {b} at {size}²: {ms:.3f} ms, "
+        f"{op_calls} relpos calls, {got['relpos_kernels_per_forward']} "
+        f"relpos kernels ({got['relpos_ms_per_forward']:.3f} ms), "
+        f"{got['port_launches_per_forward']} port launches; {card}")
+    want = sum(SAM_PER_STEP.values())
+    if op_calls != want or got["relpos_kernels_per_forward"] != 2 * want:
+        raise AssertionError(f"SAM encoder forward: {op_calls} relpos calls "
+                             f"and {got['relpos_kernels_per_forward']} "
+                             f"kernels, expected {want} and {2 * want}")
+    if not got["finite"]:
+        raise AssertionError("SAM encoder forward: non-finite embedding")
+    del model, x, out
+    torch.cuda.empty_cache()
+    return got
+
+
+def _sam_entries(sam):
+    """Phase 15's entry of the `kernels` line: the relative-position
+    attention over one grad-free batch-4 forward of the SAM ViT-H encoder
+    (the frozen-encoder step's), its calls, launches and device time
+    counted in that forward; the plain version and the bound are the
+    per-call rows times the calls counted."""
+    rows, enc = sam["shapes"], sam["encoder"]
+    share = {r["shape"][-1]: SAM_PER_STEP[r["shape"][-1]]
+             / sum(SAM_PER_STEP.values()) for r in rows}
+
+    def total(k):
+        return sum(r[k] * share[r["shape"][-1]] * enc["op_calls_per_forward"]
+                   for r in rows)
+
+    return [{"name": "relpos_attention", "route": "cuda",
+             "source": "mirage_tpu_torch/ops/relpos_attention.py",
+             "csrc": [CSRC + "relpos_attention.cu",
+                      CSRC + "attention_fwd.cuh"],
+             "replaces": "none: the JAX package has no SAM encoder",
+             "tpu_kernel": "none",
+             "calls_per_step": enc["op_calls_per_forward"],
+             "launches_per_step": enc["relpos_kernels_per_forward"],
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": enc["relpos_ms_per_forward"],
+             "kernel_ms": enc["relpos_ms_per_forward"],
+             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+             "encoder_forward_ms": enc["forward_ms"],
+             "port_launches_per_forward": enc["port_launches_per_forward"],
+             "times_are": "device alone, measured over one grad-free "
+                          "batch-4 forward of the SAM ViT-H encoder (the "
+                          "frozen-encoder step's); plain and bound: per call "
+                          "times the calls counted",
+             "shapes": rows}]
+
+
 PHASES = ("build", "kernels", "golden", "serve", "train", "seg", "cls",
           "infer", "bench", "pretrain", "parallel", "pipeline", "vit",
-          "decbatch")
+          "decbatch", "sam")
 
 
 def main(argv=None):
@@ -8316,7 +8530,7 @@ def main(argv=None):
         phase_build()
     fwd_rows = bwd_rows = seg_rows = golden = train = seg = cls = None
     infer = bench = pretrain = ln_rows = parallel = pipeline = vit = None
-    decbatch = adamw = None
+    decbatch = adamw = sam = None
     if "kernels" in phases:
         from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
         from mirage_tpu_torch.ops.quant import mlp_block_q
@@ -8363,6 +8577,8 @@ def main(argv=None):
         vit = phase_vit(workdir, card)
     if "decbatch" in phases:
         decbatch = phase_decbatch(workdir, card, large)
+    if "sam" in phases:
+        sam = phase_sam(card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -8402,14 +8618,15 @@ def main(argv=None):
                + _parallel_entries(parallel, ln_rows)
                + _pipeline_entries(pipeline)
                + _vit_entries(vit)
-               + _decbatch_entries(decbatch))
+               + _decbatch_entries(decbatch)
+               + _sam_entries(sam))
     log(json.dumps({"golden_max_abs": golden, "throughput": tput,
                     "gemm_s8": s8_rows,
                     "train": train, "seg": seg, "cls": cls, "infer": infer,
                     "bench": bench, "layernorm": ln_rows,
                     "pretrain": pretrain, "parallel": parallel,
                     "pipeline": pipeline, "vit": vit, "decbatch": decbatch,
-                    "adamw": adamw,
+                    "adamw": adamw, "sam": sam,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -22,7 +22,8 @@ and :func:`rename_keys` the pretraining warm start's MAE key rename. The
 baseline ViTs (``models/vit.py``) use timm's namespace (``cls_token``,
 ``pos_embed``, ``patch_embed.proj``, ``blocks.{i}``, ``norm``, ``head``);
 :func:`interpolate_vit_pos_embed` resizes their learned position
-embedding (mirage_tpu/api/convert.py:318-338).
+embedding (mirage_tpu/api/convert.py:318-338). :func:`sam_checkpoint_to_port`
+keys SAM's image-encoder checkpoint as ``models/sam.py``'s model.
 """
 
 import json
@@ -365,6 +366,34 @@ def interpolate_vit_pos_embed(arr, new_grid: int,
     grid = np.einsum("pw,bhwd->bhpd", m, grid)
     return np.concatenate([prefix, grid.reshape(1, new_grid * new_grid, d)],
                           axis=1)
+
+
+# SAM's image-encoder keys -> models/sam.py's, applied in turn
+SAM_KEYS = ((r"^image_encoder\.patch_embed\.proj\.",
+             "input_adapters.{task}.proj."),
+            (r"^image_encoder\.pos_embed$", "input_adapters.{task}.pos_emb"),
+            (r"^image_encoder\.blocks\.", "encoder."),
+            (r"\.mlp\.lin1\.", ".mlp.fc1."), (r"\.mlp\.lin2\.", ".mlp.fc2."),
+            (r"^image_encoder\.neck\.", "neck."))
+
+
+def sam_checkpoint_to_port(sd: Mapping[str, Any], task: str = "bscan"
+                           ) -> Dict[str, Any]:
+    """A SAM checkpoint (``image_encoder.{patch_embed.proj, pos_embed,
+    blocks.{i}.{norm1, attn.{qkv, proj, rel_pos_h, rel_pos_w}, norm2,
+    mlp.{lin1, lin2}}, neck.{0, 1, 2, 3}}`` beside ``prompt_encoder.*`` and
+    ``mask_decoder.*``, which are dropped) keyed as ``models/sam.py``'s
+    model with the image domain ``task``. Any other key raises KeyError."""
+    out = {}
+    for key, value in sd.items():
+        if key.startswith(("prompt_encoder.", "mask_decoder.")):
+            continue
+        if not key.startswith("image_encoder."):
+            raise KeyError(f"{key}: not a key of SAM's checkpoint")
+        for old, new in SAM_KEYS:
+            key = re.sub(old, new.format(task=task), key)
+        out[key] = value
+    return out
 
 
 def overlay_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]):

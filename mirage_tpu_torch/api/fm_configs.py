@@ -2,10 +2,12 @@
 
 Counterpart of ``mirage_tpu/api/fm_configs.py`` (reference fm_seg_config.py
 and fm_cls_config.py): the model to build is picked by a substring of the
-weights file's name. A segmentation config gives the per-domain input
-adapter settings (one channel under min-max normalisation, three
-otherwise) and loads a pretraining checkpoint into the tuning model
-(surgery, position-embedding resize, strict=False overlay). A
+weights file's name (``sam_vit_h``: SAM's ViT-H image encoder,
+``models/sam.py``, which the JAX package does not have). A segmentation
+config gives the per-domain input adapter settings (one channel under
+min-max normalisation, three otherwise) and loads a pretraining
+checkpoint into the tuning model (surgery, position-embedding resize,
+strict=False overlay). A
 classification config builds a ``MIRAGECls`` and its transform stack, with
 lr 1e-3 for linear probing and 1e-5 for full fine-tuning; the baseline
 ViTs of the cls registry (``vit_base``, ``vit_large``: ``models/vit.py``,
@@ -36,10 +38,12 @@ def pick_fm(factory: Dict[str, type], weights_path: str, **kwargs):
 
 
 class SegFoundModel:
-    """norm: input normalisation mode; model: the model registry key."""
+    """norm: input normalisation mode; model: the model registry key;
+    minmax_ok: ``--minmax`` may replace the norm."""
 
     norm = "minmax"
     model = "miragelight_base"
+    minmax_ok = True
 
     def domain_conf(self):
         channels = 1 if self.norm == "minmax" else 3
@@ -52,15 +56,18 @@ class SegFoundModel:
                        "dim_class_emb": 64, "emb_padding_idx": 4},
         }
 
+    @staticmethod
+    def read(weights_path: str):
+        """The state dict of a .pth or safetensors checkpoint."""
+        if str(weights_path).endswith(".pth"):
+            return convert.load_torch_checkpoint(weights_path)["model"]
+        return convert.load_safetensors(str(weights_path))
+
     def load(self, model, weights_path: str):
         """Loads a pretraining checkpoint (.pth or safetensors) into the
         freshly initialised ``model`` in place (fm_seg_config.py:54-64);
         returns the model's keys the checkpoint did not fill."""
-        if str(weights_path).endswith(".pth"):
-            sd = convert.load_torch_checkpoint(weights_path)["model"]
-        else:
-            sd = convert.load_safetensors(str(weights_path))
-        sd = convert.seg_checkpoint_surgery(sd)
+        sd = convert.seg_checkpoint_surgery(self.read(weights_path))
         sd = convert.interpolate_pos_embed_sd(sd, model)
         return convert.overlay_state_dict(model, sd)
 
@@ -73,8 +80,28 @@ class MIRAGEBaseSegFM(SegFoundModel):
     model = "miragelight_base"
 
 
+class SAMViTHSegFM(SegFoundModel):
+    """SAM's ViT-H image encoder (``models/sam.py``): RGB in, under SAM's
+    pixel mean and standard deviation, which are ImageNet's (whatever
+    ``--minmax`` says); its checkpoint in SAM's layout (``image_encoder.*``,
+    the prompt encoder's and mask decoder's keys dropped)."""
+
+    norm = "imagenet"
+    model = "sam_vit_h"
+    minmax_ok = False
+
+    def load(self, model, weights_path: str):
+        """Loads SAM's checkpoint (a plain state dict, a {'model': ...}
+        one, or safetensors) into ``model``; returns the model's keys it
+        did not fill (the head's)."""
+        sd = convert.sam_checkpoint_to_port(self.read(weights_path),
+                                            model.task)
+        return convert.overlay_state_dict(model, sd)
+
+
 seg_fm_factory = {"mirage-large": MIRAGELargeSegFM,
-                  "mirage-base": MIRAGEBaseSegFM}
+                  "mirage-base": MIRAGEBaseSegFM,
+                  "sam_vit_h": SAMViTHSegFM}
 
 
 class ClsFoundModel:

@@ -167,13 +167,16 @@ def process_args(args):
 def build_model(args, fm, dtype, generator):
     """The MIRAGE light model with the ``--output_adapter`` head (the head
     factory of mirage_tpu/cli/run_seg_tuning.py:171-191), initialised from
-    ``generator`` (a checkpoint then overlays it)."""
+    ``generator`` (a checkpoint then overlays it); or, for SAM weights
+    (``sam_vit_h``, ``models/sam.py:sam_factory``), the SAM image encoder
+    with the same head over its embedding."""
     from mirage_tpu_torch.adapters.input_adapters import (PatchedInputAdapter,
                                                           SemSegInputAdapter)
     from mirage_tpu_torch.adapters.seg_heads import (
         ConvNeXtAdapter, DPTOutputAdapter, LinearSegAdapter,
         SegmenterMaskTransformerAdapter)
     from mirage_tpu_torch.models.mirage import model_factory
+    from mirage_tpu_torch.models.sam import sam_factory
 
     conf = fm.domain_conf()
     inputs = {}
@@ -210,7 +213,7 @@ def build_model(args, fm, dtype, generator):
         "dpt": lambda: DPTOutputAdapter(stride_level=1, head_type="semseg",
                                         **common),
         "linear": lambda: LinearSegAdapter(interpolate_mode=mode, **common)}
-    return model_factory[model_name](
+    return {**model_factory, **sam_factory}[model_name](
         inputs, {"semseg": heads[args.output_adapter]()},
         num_global_tokens=args.num_global_tokens,
         drop_path_rate=args.drop_path_encoder, compute_dtype=dtype,
@@ -233,11 +236,12 @@ def make_criterion(args):
 
 def pick_seg_fm(args):
     """The foundation-model config the weights' file name picks, with the
-    min-max norm under ``--minmax``."""
+    min-max norm under ``--minmax`` where the model takes it (SAM keeps its
+    RGB ImageNet normalisation)."""
     from mirage_tpu_torch.api.fm_configs import pick_fm, seg_fm_factory
 
     fm = pick_fm(seg_fm_factory, args.weights)
-    if args.minmax:
+    if args.minmax and fm.minmax_ok:
         fm.norm = "minmax"
     return fm
 

@@ -316,6 +316,9 @@ __global__ void __launch_bounds__(THREADS, Geom<DH>::MIN_BLOCKS)
 #undef MTT_TAIL_CASES
 
 // ------------------------------------------------------------------ host
+// (left out where MTT_ATTN_FWD_DEVICE_ONLY is defined: csrc/relpos_attention.cu
+// takes the device parts above, without instantiating this kernel)
+#ifndef MTT_ATTN_FWD_DEVICE_ONLY
 
 // st: q, k, v, o batch and row strides (elements); lse may be null
 template <int DH>
@@ -360,5 +363,6 @@ static int run(const void* q, const void* k, const void* v, void* o, float* lse,
   }
   return (int)cudaErrorInvalidValue;
 }
+#endif  // MTT_ATTN_FWD_DEVICE_ONLY
 
 }  // namespace attn_fwd

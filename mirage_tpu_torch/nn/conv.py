@@ -4,7 +4,8 @@
 Counterpart of ``mirage_tpu/nn/conv.py`` (``conv2d``, ``conv2d_nhwc``,
 ``conv_transpose2d``, ``batch_norm2d`` and their inits): the ConvNeXt
 head's 7×7 depthwise conv and 1×1 head conv, the linear head's 1×1 conv,
-and the DPT head's reassemble, fusion and head convs. The convolutions
+the DPT head's reassemble, fusion and head convs, and the SAM neck's
+3×3 conv and LayerNorm2d (``models/sam.py``). The convolutions
 themselves are ``F.conv2d`` / ``F.conv_transpose2d`` (cuDNN on the card),
 as the JAX package leaves them to XLA; ``conv2d_nhwc`` runs a conv on a
 channels-last (B, H, W, C) tensor as a channels-last view, so no layout
@@ -16,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mirage_tpu_torch.ops.linear import layer_norm
 
 
 def _pair(v):
@@ -99,6 +102,25 @@ class Conv2d(nn.Module):
 
     def init_params(self, generator):
         conv2d_init_(self.weight, self.bias, generator)
+
+
+class LayerNorm2d(nn.Module):
+    """SAM's LayerNorm2d (``weight``, ``bias``): a LayerNorm over the
+    channels at eps 1e-6, here on a channels-last (B, H, W, C) tensor,
+    where it is the row LayerNorm of ``ops/linear.py`` (the LN kernel on
+    the card)."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def init_params(self, generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias)
 
 
 class ConvTranspose2d(nn.Module):

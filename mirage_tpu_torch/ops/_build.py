@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = ("layernorm", "gemm", "gemm_stash", "attention", "attention_bwd",
            "flash_attention", "wgrad", "adamw", "fused_block", "quant",
-           "gemm_lnfold", "attention_phased", "mlp_chunked", "mlp_bwd")
+           "gemm_lnfold", "attention_phased", "mlp_chunked", "mlp_bwd",
+           "relpos_attention")
 # C entry points: name -> (source, symbol, argtypes). Every entry returns
 # a CUDA error code (0: launched).
 ENTRIES = {
@@ -83,6 +84,8 @@ ENTRIES = {
                        [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P]),
     "mlp_bwd_dyln": ("mlp_bwd", "mtt_mlp_bwd_dyln",
                      [_P] * 3 + [_I] * 6 + [_P]),
+    "relpos_attn": ("relpos_attention", "mtt_relpos_attn",
+                    [_P] * 6 + [_I] * 7 + [_F, _P]),
     # the task-strided forms (one launch over a stack of T tasks' weights)
     "layernorm_tasks": ("layernorm", "mtt_layernorm_tasks",
                         [_P, _P, _P, _P] + [_I] * 7 + [_F, _P]),

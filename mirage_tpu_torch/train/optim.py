@@ -10,7 +10,8 @@ mutils/optim_factory.py and mutils/native_scaler.py), written on a model's
 - layer-wise LR decay: input adapters and global tokens at
   decay^(L + 1), encoder block i at decay^(L − i), everything else 1;
 - frozen parameters (fixed sin-cos posembs unless ``learnable_pos_emb``,
-  the encoder under ``freeze_encoder``, ``frozen_paths``) get no moments
+  the encoder (and a SAM encoder's neck) under ``freeze_encoder``,
+  ``frozen_paths``) get no moments
   and no update; ``decoder_decay`` for the output adapters;
 - the global gradient norm, clipping to ``clip_grad`` and skipping the
   whole update (moments and step count too) when the norm is not finite or
@@ -50,6 +51,9 @@ from mirage_tpu_torch.utils import profiling
 
 NO_DECAY_PATH_NAMES = {"pos_emb", "class_emb", "global_tokens", "mask_token",
                        "task_embeddings", "cls_emb"}
+# the top-level names ``freeze_encoder`` freezes: the blocks, and the SAM
+# encoder's neck (models/sam.py)
+ENCODER_PATHS = ("encoder", "neck")
 
 
 @dataclasses.dataclass
@@ -79,7 +83,7 @@ def leaf_meta(cfg: OptimizerConfig, name: str, param: torch.Tensor):
             and names[0] == "output_adapters":
         wd = cfg.decoder_decay
     trainable = not (("pos_emb" in names and not cfg.learnable_pos_emb)
-                     or (cfg.freeze_encoder and names[0] == "encoder")
+                     or (cfg.freeze_encoder and names[0] in ENCODER_PATHS)
                      or any(n in cfg.frozen_paths for n in names))
     lr_scale = 1.0
     if cfg.layer_decay is not None:
