@@ -193,8 +193,9 @@ Phases, each of which must pass (any failure exits non-zero):
    a windowed layer (25 windows of 14², 9 of them padded) and a global one
    (64² keys), 16 heads of 80, against its plain version in float32 from
    the same bf16 inputs (BF16_REL_L2, BF16_MAX_ABS), rerun bit for bit,
-   timed with its host cost and the device's alone, split into its two
-   kernels (torch.profiler), beside the plain version and the bound
+   timed with its host cost and the device's alone, its one kernel a call
+   timed by torch.profiler, beside the plain version and the bound; a
+   windowed call's TMA traffic, modelled from the shape, logged apart
    (``python3 chip_smoke.py --phases build,sam``); then the SAM ViT-H
    encoder's grad-free forward (the frozen-encoder step's, batch 4 at 1024²,
    bf16 compute) with the op's count of calls set to 0 before it: its calls
@@ -384,8 +385,7 @@ PORT_KERNELS = {"gemm_bf16_pingpong": "gemm",
                 "mlp_bwd_hidden_f32_kernel": "mlp_bwd",
                 "mlp_bwd_dyln_kernel": "mlp_bwd",
                 "mlp_bwd_dyln_f32_kernel": "mlp_bwd",
-                "relpos_attn_bias_kernel": "relpos_attention",
-                "relpos_attn_fwd_kernel": "relpos_attention"}
+                "relpos_attn_kernel": "relpos_attention"}
 
 
 def log(*a):
@@ -582,8 +582,7 @@ def phase_build():
                           ("attention_bwd", ("dq_kernel", "dkv_kernel")),
                           ("flash_attention", ("attention_fwd_kernel",
                                                "dq_kernel", "dkv_kernel")),
-                          ("relpos_attention", ("relpos_attn_fwd_kernel",
-                                                "relpos_attn_bias_kernel"))):
+                          ("relpos_attention", ("relpos_attn_kernel",))):
         lines = report[name].splitlines()
         for i, ln in enumerate(lines):
             kernel = next((k for k in kernels if "Compiling entry" in ln
@@ -8251,13 +8250,27 @@ def _relpos_work(shape):
             b * heads * dh * 4 * n * 2)
 
 
+def _relpos_windowed_bytes(shape):
+    """Bytes a windowed call's TMA loads and stores, modelled from the
+    shape (csrc/relpos_attention.cu's windowed mode): Q, K and V of each
+    (window, head)'s 16 × 16 slots and b_k's 8 rows loaded once, the real
+    tokens' output stored. Slots past the grid (zero-filled) and the
+    columns read from the next window (mostly L2 hits) count as moved, so
+    this is L2 plus HBM traffic, above what HBM alone carries."""
+    b, h, w, heads, dh, window = shape
+    items = b * -(-h // window) * -(-w // window) * heads
+    return (items * (3 * 16 * 16 + 8) + b * h * w * heads) * dh * 2
+
+
 def phase_sam(card):
     """SAM ViT-H's relative-position attention (csrc/relpos_attention.cu)
     alone at its full shapes, a windowed and a global layer: the kernel
     against its plain version (float32 math from the same bf16 inputs),
     rerun bit for bit, timed with its host cost (``ms``) and the device's
-    alone (``device_ms``), split into its two kernels by torch.profiler,
-    beside the plain version on the card and the bound."""
+    alone (``device_ms``), its kernel by torch.profiler, beside the plain
+    version on the card and the bound. The windowed call's TMA traffic
+    (:func:`_relpos_windowed_bytes`, a model) is logged apart from the rows,
+    which carry what was measured and the bound."""
     import torch
 
     from mirage_tpu_torch.ops import runtime
@@ -8311,6 +8324,11 @@ def phase_sam(card):
             f"{shape}: rel {rel:.2e} max {max_abs:.2e}, {ms:.3f} ms "
             f"({dev_ms:.3f} device; {split}), plain {plain_ms:.3f}, bound "
             f"{bound_ms:.4f} ({bound_by}); {card}")
+        if window:
+            moved = _relpos_windowed_bytes(shape)
+            log(f"[sam] window {window}: modelled, not measured: the TMA "
+                f"moves {moved / 1e6:.1f} MB a call, {moved / dev_ms / 1e9:.2f}"
+                f" TB/s of L2 plus HBM traffic over its device time")
         if not row["rerun_bit_equal"]:
             raise AssertionError(f"relpos attention {shape} reruns differ")
         if rel > BF16_REL_L2 or max_abs > BF16_MAX_ABS:
@@ -8380,10 +8398,10 @@ def sam_encoder_forward(card, calls=3):
         f"relpos kernels ({got['relpos_ms_per_forward']:.3f} ms), "
         f"{got['port_launches_per_forward']} port launches; {card}")
     want = sum(SAM_PER_STEP.values())
-    if op_calls != want or got["relpos_kernels_per_forward"] != 2 * want:
+    if op_calls != want or got["relpos_kernels_per_forward"] != want:
         raise AssertionError(f"SAM encoder forward: {op_calls} relpos calls "
                              f"and {got['relpos_kernels_per_forward']} "
-                             f"kernels, expected {want} and {2 * want}")
+                             f"kernels, expected {want} of each")
     if not got["finite"]:
         raise AssertionError("SAM encoder forward: non-finite embedding")
     del model, x, out

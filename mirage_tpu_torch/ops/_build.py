@@ -85,7 +85,7 @@ ENTRIES = {
     "mlp_bwd_dyln": ("mlp_bwd", "mtt_mlp_bwd_dyln",
                      [_P] * 3 + [_I] * 6 + [_P]),
     "relpos_attn": ("relpos_attention", "mtt_relpos_attn",
-                    [_P] * 6 + [_I] * 7 + [_F, _P]),
+                    [_P] * 5 + [_I] * 7 + [_F, _P]),
     # the task-strided forms (one launch over a stack of T tasks' weights)
     "layernorm_tasks": ("layernorm", "mtt_layernorm_tasks",
                         [_P, _P, _P, _P] + [_I] * 7 + [_F, _P]),

@@ -21,15 +21,14 @@ real tokens' qkv is computed and handed in; the padded rows are made from
 the bias here, never projected.
 
 On a CUDA bf16 tensor with no gradient asked for, the op is
-csrc/relpos_attention.cu: ``relpos_attn_bias_kernel`` (the products
-q·Rh, q·Rw and q·b_k of every real query, in float) and
-``relpos_attn_fwd_kernel`` (the attention forward of csrc/attention_fwd.cuh
-with the bias added to each logits tile: window addressing by 4-D tensor
-maps, so nothing is partitioned in device memory, the padded keys' scores
-q·b_k and their value b_v put in for the zeros the maps read past the
-grid). The kernel runs the forward whether or not a gradient is asked
-for; where one is (the encoder trained, or its input adapter trained
-through it), the backward recomputes the plain version
+csrc/relpos_attention.cu: one kernel, ``relpos_attn_kernel``, which
+computes the products q·Rh, q·Rw and q·b_k of the queries it holds on the
+tensor cores (in float) and adds them to each logits tile (window
+addressing by 4-D tensor maps, so nothing is partitioned in device memory,
+the padded keys' scores q·b_k and their value b_v put in for the zeros the
+maps read past the grid). The kernel runs the forward whether or not a
+gradient is asked for; where one is (the encoder trained, or its input
+adapter trained through it), the backward recomputes the plain version
 :func:`relpos_attention_ref` from the saved inputs and differentiates it:
 no kernel computes that backward. On the CPU the plain version runs and
 autograd takes its backward. Each call tallies its forward's route to the

@@ -39,8 +39,8 @@ another erf formula), ``attention_phased`` (three phases over a group of
 heads) and ``mlp_chunked`` (fc1 → GELU → fc2 with the hidden on chip).
 
 ``relpos_attention`` launches the SAM encoder's attention with its
-decomposed relative-position bias (csrc/relpos_attention.cu: the bias
-products, then the attention over windows or the whole grid).
+decomposed relative-position bias (csrc/relpos_attention.cu: one kernel,
+the bias products inside it, over windows or the whole grid).
 
 Task stacks. ``layernorm``, ``layernorm_bwd``, ``gemm``, ``mlp_bwd_hidden``
 and ``mlp_bwd_dyln`` also take a stack of T tasks' weights (a leading task
@@ -974,17 +974,9 @@ def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
 flash_attention_bwd.launches = 0
 
 
-# csrc/relpos_attention.cu: the head dims it is built for, the widest
-# window (or grid) row a 64-row tile holds, and the widest row of its bias
-# products
-RELPOS_DH, RELPOS_MAX_ROW, RELPOS_MAX_NT = (80,), 64, 288
-
-
-def relpos_nt(wh: int, ww: int, heads: int) -> int:
-    """Columns of csrc/relpos_attention.cu's bias products for windows of
-    wh × ww: rel_pos_h's 2·wh − 1 rows, rel_pos_w's 2·ww − 1, each head's
-    b_k, rounded up to 16."""
-    return -(-(2 * wh - 1 + 2 * ww - 1 + heads) // 16) * 16
+# csrc/relpos_attention.cu: the head dims it is built for, and the most
+# rows and columns of a window (or of the grid in a global block)
+RELPOS_DH, RELPOS_MAX_ROW = (80,), 64
 
 
 def relpos_attention(qkv: torch.Tensor, bias: torch.Tensor,
@@ -994,30 +986,26 @@ def relpos_attention(qkv: torch.Tensor, bias: torch.Tensor,
     (``ops/relpos_attention.py``) over qkv (B, H, W, 3D) of the real
     tokens, in windows of ``window`` (0: the whole grid): (B, H, W, D).
     ``bias`` is the qkv bias (3D,), ``tab_h`` and ``tab_w`` the tables
-    (2·k − 1, dh), all in qkv's dtype. One C entry, two kernels: the
-    float bias products (B·H·W·heads, :func:`relpos_nt`) into scratch, then
-    the attention."""
+    (2·k − 1, dh), all in qkv's dtype. One C entry, one kernel: the bias
+    products are computed inside it, from each query tile it holds."""
     b, h, w, three_d = qkv.shape
     d = three_d // 3
     dh = d // heads
     wh, ww = (window, window) if window else (h, w)
-    nt = relpos_nt(wh, ww, heads)
     if qkv.dtype != torch.bfloat16 or dh not in RELPOS_DH \
-            or ww > RELPOS_MAX_ROW or nt > RELPOS_MAX_NT:
+            or max(wh, ww) > RELPOS_MAX_ROW:
         raise NotImplementedError(
-            f"relpos attention kernel: bf16 at head dims {RELPOS_DH}, rows "
-            f"up to {RELPOS_MAX_ROW} and {RELPOS_MAX_NT} bias columns; got "
-            f"{qkv.dtype}, dh {dh}, row {ww}, {nt} columns")
+            f"relpos attention kernel: bf16 at head dims {RELPOS_DH}, "
+            f"windows of up to {RELPOS_MAX_ROW} rows and columns; got "
+            f"{qkv.dtype}, dh {dh}, {wh} × {ww}")
     check("qkv", qkv, qkv)
     check("bias", bias, qkv, (three_d,))
     check("tab_h", tab_h, qkv, (2 * wh - 1, dh))
     check("tab_w", tab_w, qkv, (2 * ww - 1, dh))
-    t_bias = torch.empty((b * h * w * heads, nt), device=qkv.device,
-                         dtype=torch.float32)
     out = torch.empty((b, h, w, d), device=qkv.device, dtype=qkv.dtype)
     _launch("relpos_attn", qkv, qkv.data_ptr(), bias.data_ptr(),
-            tab_h.data_ptr(), tab_w.data_ptr(), t_bias.data_ptr(),
-            out.data_ptr(), b, h, w, heads, dh, wh, ww, dh ** -0.5)
+            tab_h.data_ptr(), tab_w.data_ptr(), out.data_ptr(), b, h, w,
+            heads, dh, wh, ww, dh ** -0.5)
     count(relpos_attention)
     return out
 

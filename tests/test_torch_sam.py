@@ -334,12 +334,80 @@ def test_benchmark_copy_of_the_reference_agrees_bit_for_bit():
                                ref.encoder(cfg, sd, x, fault=fault)), fault
 
 
+# (batch, grid rows, grid columns, window; 0: global, heads of 80) of
+# the kernel's card test
+KERNEL_SHAPES = [(4, 64, 64, 14, 16), (4, 64, 64, 0, 16),
+                 (1, 64, 64, 14, 16), (1, 64, 64, 0, 16),
+                 (2, 40, 50, 14, 16), (2, 40, 56, 0, 16),
+                 (1, 64, 64, 16, 16), (1, 64, 64, 20, 16),
+                 (2, 10, 10, 4, 2), (2, 10, 10, 0, 2), (2, 32, 32, 14, 12)]
+
+
+@pytest.mark.parametrize("gh,gw,window", sorted(
+    {s[1:4] for s in KERNEL_SHAPES} | {(3, 60, 0), (33, 17, 5)}))
+def test_plain_version_matches_the_reference_on_the_card_grids(gh, gw,
+                                                               window):
+    """The plain version, which the kernel's card test holds it to, against
+    the reference's attention (zero-padded windows through the qkv
+    projection, SAM's decomposed bias) on each grid that test takes: grids
+    that are a multiple of the window in neither direction, global blocks
+    over grids that are not square."""
+    from mirage_tpu_torch.ops.relpos_attention import relpos_attention_ref
+
+    heads, dh = 2, 16
+    d = heads * dh
+    kh, kw = (window, window) if window else (gh, gw)
+    gen = torch.Generator().manual_seed(gh * 1000 + gw * 10 + window)
+    x = torch.randn(1, gh, gw, d, generator=gen)
+    sd = {"a.qkv.weight": torch.randn(3 * d, d, generator=gen) * d ** -0.5,
+          "a.qkv.bias": 0.1 * torch.randn(3 * d, generator=gen),
+          "a.proj.weight": torch.eye(d), "a.proj.bias": torch.zeros(d),
+          "a.rel_pos_h": 0.1 * torch.randn(2 * kh - 1, dh, generator=gen),
+          "a.rel_pos_w": 0.1 * torch.randn(2 * kw - 1, dh, generator=gen)}
+    with torch.no_grad():
+        if window:
+            xw, pad_hw = ref.window_partition(x, window)
+            want = ref.window_unpartition(
+                ref.attention(xw, sd, "a", heads, torch.matmul), window,
+                pad_hw, (gh, gw))
+        else:
+            want = ref.attention(x, sd, "a", heads, torch.matmul)
+        qkv = x @ sd["a.qkv.weight"].t() + sd["a.qkv.bias"]
+        got = relpos_attention_ref(qkv, sd["a.qkv.bias"], sd["a.rel_pos_h"],
+                                   sd["a.rel_pos_w"], heads, window)
+    assert rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("dh,gh,window,dtype", [
+    (64, 8, 4, torch.bfloat16), (80, 8, 65, torch.bfloat16),
+    (80, 65, 0, torch.bfloat16), (80, 8, 4, torch.float32)])
+def test_launcher_refuses_what_the_kernel_does_not_take(dh, gh, window,
+                                                        dtype):
+    """The kernel takes bf16 at head dim 80 and windows (or grids) of up to
+    64 rows and columns; the launcher refuses anything else before it
+    touches a device, and counts no launch."""
+    from mirage_tpu_torch.ops import runtime
+
+    qkv = torch.zeros(1, gh, 64, 3 * dh, dtype=dtype)
+    before = runtime.relpos_attention.launches
+    with pytest.raises(NotImplementedError):
+        runtime.relpos_attention(qkv, qkv[0, 0, 0], qkv[0, 0], qkv[0, 0],
+                                 heads=1, window=window)
+    assert runtime.relpos_attention.launches == before
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("window", [14, 0])
-def test_kernel_at_vit_h_shapes(window):
+@pytest.mark.parametrize("b,gh,gw,window,heads",
+                         KERNEL_SHAPES)
+def test_kernel_at_vit_h_shapes(b, gh, gw, window, heads):
     """The kernel against the plain version (float32 math from the same
-    bf16 inputs) at SAM ViT-H's shapes, batch 4: a windowed layer (25
-    windows of 14², 9 of them padded) and a global one (64² keys)."""
+    bf16 inputs) at SAM ViT-H's widths: a windowed layer (25 windows of
+    14², 9 of them padded) and a global one (64² keys) at batch 4 and 1;
+    a grid that is a multiple of the window in neither direction; a global
+    block over a grid that is not square; windows of 16 (no padding) and 20
+    (the wide tiles, padded); the CPU tests' 10 × 10 grid at two heads, and
+    12 heads (b_k's last group of 8 half past the heads). A rerun is
+    bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run `python -m pytest -m gpu "
                     "tests/test_torch_sam.py` on a machine with one")
@@ -348,21 +416,25 @@ def test_kernel_at_vit_h_shapes(window):
                                                        relpos_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k = window or 64
-    kw = dict(device="cuda", generator=gen)
-    qkv = torch.randn(4, 64, 64, 3840, **kw).bfloat16()
-    bias = (0.1 * torch.randn(3840, **kw)).bfloat16()
-    tab_h = (0.1 * torch.randn(2 * k - 1, 80, **kw)).bfloat16()
-    tab_w = (0.1 * torch.randn(2 * k - 1, 80, **kw)).bfloat16()
+    kh, kw = (window, window) if window else (gh, gw)
+    kwargs = dict(device="cuda", generator=gen)
+    qkv = torch.randn(b, gh, gw, 240 * heads, **kwargs).bfloat16()
+    bias = (0.1 * torch.randn(240 * heads, **kwargs)).bfloat16()
+    tab_h = (0.1 * torch.randn(2 * kh - 1, 80, **kwargs)).bfloat16()
+    tab_w = (0.1 * torch.randn(2 * kw - 1, 80, **kwargs)).bfloat16()
     with torch.no_grad():
-        got = relpos_attention(qkv, bias, tab_h, tab_w, 16, window)
+        before = runtime.relpos_attention.launches
+        got = relpos_attention(qkv, bias, tab_h, tab_w, heads, window)
+        again = relpos_attention(qkv, bias, tab_h, tab_w, heads, window)
+        assert runtime.relpos_attention.launches == before + 2
         with runtime.plain_on_card():
             want = relpos_attention_ref(qkv.float(), bias.float(),
-                                        tab_h.float(), tab_w.float(), 16,
+                                        tab_h.float(), tab_w.float(), heads,
                                         window)
     assert got.dtype == torch.bfloat16
     assert rel(got.float(), want) < 1e-2
     assert float((got.float() - want).abs().max()) < 5e-2
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
