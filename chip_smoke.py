@@ -26,7 +26,7 @@ Phases, each of which must pass (any failure exits non-zero):
    S5's A&S GELU) beside torch.matmul, and the int8 GEMM's S3 and B12
    products beside torch._int_mm; times the kernel, the plain
    version and a composite of PyTorch library calls with CUDA events. The
-   attention forward alone (``attention_fwd``) at the serving encoder's,
+   attention forward alone (``attention``) at the serving encoder's,
    the decoders' (self and cross) and the pretraining B1's and B6's shapes
    beside SDPA; B8's rows hold its log-sum-exp to float32 math too. The
    attention backward alone (``attention_bwd``: B4's core and B6's at the
@@ -198,10 +198,11 @@ Phases, each of which must pass (any failure exits non-zero):
    windowed call's TMA traffic, modelled from the shape, logged apart
    (``python3 chip_smoke.py --phases build,sam``); then the SAM ViT-H
    encoder's grad-free forward (the frozen-encoder step's, batch 4 at 1024²,
-   bf16 compute) with the op's count of calls set to 0 before it: its calls
-   and its kernels (those named relpos_attn*, from torch.profiler) counted
-   in that forward, their device time in it, the port's launches counted
-   to its spans and the forward's time. Phase 1 holds its kernels
+   bf16 compute): its relpos_attn launches and its kernels (those named
+   relpos_attn*, from torch.profiler) counted in that forward, their device
+   time in it, the port's launches counted to its spans and the forward's
+   time. The phase runs in a spawned process of its own, whose profiler
+   sessions are the only ones it counts from. Phase 1 holds its kernels
    to the attention forward's rules: no spill, no serialized wgmma, HGMMA in
    librelpos_attention.so.
 
@@ -282,6 +283,7 @@ import threading
 import time
 import urllib.request
 import zlib
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -313,8 +315,8 @@ TPU_KERNELS = {
     "xattn_half_block": ("mirage_tpu/ops/block_attention.py:745",
                          "_xattn_half_fwd :795 -> _xattn_half_kernel :745"),
     # the attention core inside B1's and B3's kernels (and B6's, B8's)
-    "attention_fwd": ("mirage_tpu/ops/block_attention.py:251",
-                      "the attention of _attn_half_kernel :251, "
+    "attention": ("mirage_tpu/ops/block_attention.py:251",
+                  "the attention of _attn_half_kernel :251, "
                       "_xattn_half_kernel :745, _block_attn_kernel :58 and "
                       "flash_attention.py:_attn_kernel :42"),
     # the matrix products inside B1's, B2's and B3's kernels
@@ -333,20 +335,84 @@ SOURCES = {
     "xattn_half_block": ("mirage_tpu_torch/ops/block_attention.py",
                          [CSRC + f for f in ("layernorm.cu", "gemm.cu",
                                              "attention.cu")]),
-    "attention_fwd": ("mirage_tpu_torch/csrc/attention_fwd.cuh",
-                      [CSRC + f for f in ("attention_fwd.cuh", "attention.cu",
-                                          "flash_attention.cu")]),
+    "attention": ("mirage_tpu_torch/csrc/attention_fwd.cuh",
+                  [CSRC + f for f in ("attention_fwd.cuh", "attention.cu",
+                                      "flash_attention.cu")]),
     "gemm": ("mirage_tpu_torch/csrc/gemm_pingpong.cuh",
              [CSRC + f for f in ("gemm_pingpong.cuh", "gemm.cu")]),
 }
-# launches of each op per reconstruct / features forward on the main path
-# (attention_fwd: runtime.attention's launches of the forward kernel, one
-# in each B1 and B3; gemm: the bf16 GEMM's, two in each B1 and B2, three in
-# each B3)
+# The C entries one call of each op launches on the card (ops/*.py): B1's
+# LN, qkv GEMM, attention and proj GEMM; B4's recompute, its two dyln
+# products, the attention backward and the LN backward (its weight
+# gradients are cuBLAS products); B5's LN, hidden stage, dyln product and LN
+# backward; B7 adds the wgrad and column-sum kernels (every model here has
+# a qkv bias); B9's backward reads W as it lies (bf16: mtt_gemm_kn). A
+# path's op table (op -> calls a pass) gives its launches by C entry
+# (_entries), which _held holds a pass's measured launches to.
+_B4 = {"layernorm": 1, "gemm": 1, "attention": 1, "mlp_bwd_dyln": 2,
+       "attention_bwd": 1, "layernorm_bwd": 1}
+_B5 = {"layernorm": 1, "mlp_bwd_hidden": 1, "mlp_bwd_dyln": 1,
+       "layernorm_bwd": 1}
+_ACC = {"wgrad": 2, "colsum": 2}
+OP_ENTRIES = {
+    "attn_half_block": {"layernorm": 1, "gemm": 2, "attention": 1},
+    "attn_half_block_bwd": _B4, "attn_half_block_acc_bwd": {**_B4, **_ACC},
+    "xattn_half_block": {"layernorm": 2, "gemm": 3, "attention": 1},
+    "mlp_block": {"layernorm": 1, "gemm": 2}, "mlp_block_bwd": _B5,
+    "mlp_block_acc_bwd": {**_B5, **_ACC},
+    "mlp_block_stash": {"layernorm": 1, "gemm_stash": 1, "gemm": 1},
+    "mlp_block_stash_bwd": {"gemm_kn": 2, "layernorm": 1,
+                            "layernorm_bwd": 1, **_ACC},
+    "block_attention": {"attention": 1},
+    "block_attention_bwd": {"attention_bwd": 1},
+    "flash_attention": {"flash_fwd": 1},
+    "flash_attention_bwd": {"flash_bwd": 1},
+    "fused_block": {"fused_block": 1},
+    "fused_adamw": {"adamw_tiles": 1}, "adamw_norm": {"adamw_norm": 1},
+    "linear": {"gemm": 1}, "linear_bwd": {"mlp_bwd_dyln": 1},
+    "layer_norm": {"layernorm": 1}, "layer_norm_bwd": {"layernorm_bwd": 1}}
+# over a task stack (" [tasks]"): each entry's task-strided form, the
+# attention core (no weights) once over the stack's batch
+OP_ENTRIES.update({
+    f"{op} [tasks]": {e if e.startswith("attention") else e + "_tasks": n
+                      for e, n in OP_ENTRIES[op].items()}
+    for op in ("attn_half_block", "attn_half_block_bwd",
+               "attn_half_block_acc_bwd", "xattn_half_block", "mlp_block",
+               "mlp_block_bwd", "mlp_block_acc_bwd")})
+
+
+def _entries(table):
+    """The launches by C entry of the op table ``table`` (op -> calls)."""
+    out = Counter()
+    for op, calls in table.items():
+        out.update({e: n * calls for e, n in OP_ENTRIES[op].items()})
+    return +out
+
+
+def _held(what, got, table):
+    """Holds ``got``, the C entries a pass launched (a difference of
+    ``runtime.launch_counts()``), to exactly the launches of the op table
+    ``table``; returns them."""
+    got, want = +Counter(got), _entries(table)
+    if got != want:
+        raise AssertionError(f"{what}: launches by C entry {dict(got)} != "
+                             f"{dict(want)} (the ops' calls {dict(table)})")
+    return got
+
+
+def _times(*parts):
+    """The op table of several passes: (table, passes) pairs summed."""
+    out = Counter()
+    for table, n in parts:
+        out.update({k: v * n for k, v in table.items()})
+    return out
+
+
+# each op's calls per reconstruct / features forward on the main path
 PER_RECONSTRUCT = {"attn_half_block": 30, "mlp_block": 33,
-                   "xattn_half_block": 3, "attention_fwd": 33, "gemm": 135}
+                   "xattn_half_block": 3}
 PER_FEATURES = {"attn_half_block": 24, "mlp_block": 24,
-                "xattn_half_block": 0, "attention_fwd": 24, "gemm": 96}
+                "xattn_half_block": 0}
 
 
 # the port's CUDA kernels by function name -> their group in a profile (the
@@ -891,7 +957,7 @@ def phase_kernels():
 
     # the attention forward alone at the serving shapes (launches a
     # reconstruct forward) and the pretraining ones (none a forward)
-    results["attention_fwd"] = attention_core_rows("attention", {
+    results["attention"] = attention_core_rows("attention", {
         "serving encoder (B1)": 24, "serving decoder self (B1)": 6,
         "serving decoder cross (B3)": 3, "pretraining encoder (B1)": 0,
         "pretraining decoder (B6)": 0})
@@ -938,12 +1004,6 @@ LN_FWD_SHAPES = [("serving encoder", (16448, 1024), 48, 0),
 LN_BWD_SHAPES = [("pretraining encoder", (25344, 768), 24, 0),
                  ("pretraining decoders", (65536, 256), 6, 0),
                  ("classification encoder", (BATCH * 257, 768), 0, 12)]
-# launches per pretraining step, from the ops' counts: one LN in each B1,
-# B2, B4 and B5 launch, one LN backward in each B4 and B5
-LN_OPS = {"layernorm": ("attn_half_block", "mlp_block",
-                        "attn_half_block_bwd", "mlp_block_bwd"),
-          "layernorm_bwd": ("attn_half_block_bwd", "mlp_block_bwd")}
-LN_PER_RECONSTRUCT, LN_PER_FEATURES = 69, 48
 
 
 def _ln_instantiation(m, d, backward):
@@ -1146,15 +1206,13 @@ ATTN_BWD_KERNELS = {
         "mirage_tpu_torch/csrc/attention_bwd.cuh",
         ["attention_bwd.cuh", "flash_attention.cu"]),
 }
-# launches of each op per pretraining step (ViT-B: 12 encoder layers at 99
-# tokens; three decoders of two 256-token blocks; attention_bwd: the bf16
-# backward kernel's launches, one in each B4 and B6 backward)
+# each op's calls per pretraining step (ViT-B: 12 encoder layers at 99
+# tokens; three decoders of two 256-token blocks)
 PER_STEP = {"attn_half_block": 12, "attn_half_block_bwd": 12,
             "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
             "block_attention_bwd": 6, "xattn_half_block": 0,
             "attn_half_block_acc_bwd": 0, "mlp_block_acc_bwd": 0,
-            "fused_adamw": 1, "adamw_norm": 1, "attention_bwd": 18,
-            "flash_bwd": 0}
+            "fused_adamw": 1, "adamw_norm": 1}
 # the AdamW step's two launches over the leaf table (the norm and the
 # update, B11) in a training step, and in a forward and backward alone
 OPT_STEP = {"fused_adamw": 1, "adamw_norm": 1}
@@ -2925,10 +2983,10 @@ def phase_acc_kernels():
         mm, nn_, pp = ([t.clone() for t in ts] for ts in (m, n, ps))
         args = dict(kw, keep=keep) if keep is not None else kw
         if plain:
-            with runtime.plain_on_card():
-                fa.fused_adamw(g, mm, nn_, pp, lrs, wds, **args)
-        else:
             fa.fused_adamw(g, mm, nn_, pp, lrs, wds, **args)
+        else:  # the optimizer's route on the card: a leaf table
+            fa.LeafTable(range(len(pp)), mm, nn_, pp, lrs,
+                         wds).update_with(g, **args)
         return mm + nn_ + pp
 
     got, again, want = run(), run(), run(plain=True)
@@ -2946,11 +3004,11 @@ def phase_acc_kernels():
     if bad or not rerun_equal or not passthrough:
         raise AssertionError("fused_adamw disagrees with its plain version")
     del got, again, want, skipped
-    kernel_ms = cuda_ms(lambda: fa.fused_adamw(g, m, n, ps, lrs, wds, **kw),
-                        iters=10)
-    with runtime.plain_on_card():
-        plain_ms = cuda_ms(lambda: fa.fused_adamw(g, m, n, ps, lrs, wds, **kw),
-                           iters=5)
+    leaf_table = fa.LeafTable(range(len(ps)), m, n, ps, lrs, wds)
+    leaf_table.update_with(g, **kw)
+    kernel_ms = cuda_ms(lambda: leaf_table.update(b1, b2, eps), iters=10)
+    plain_ms = cuda_ms(lambda: fa.fused_adamw(g, m, n, ps, lrs, wds, **kw),
+                       iters=5)
     steps = [torch.tensor(3.0, device="cuda") for _ in ps]
     library_ms = cuda_ms(lambda: torch._fused_adamw_(
         ps, g, m, n, [], steps, lr=1e-5, beta1=b1, beta2=b2,
@@ -2968,7 +3026,7 @@ def phase_acc_kernels():
         f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
         f"{row['bound_ms']:.4f} ms (bytes)")
     rows["cls"]["fused_adamw"] = [row]
-    del g, m, n, ps, leaves
+    del g, m, n, ps, leaves, leaf_table
     torch.cuda.synchronize()
     return rows["pretrain"], rows["cls"]
 
@@ -3250,9 +3308,7 @@ def fused_block_rows(cases, gen, results):
         with runtime.plain_on_card():
             plain_ms = cuda_ms(lambda: fused_block_ref(*args), iters=5)
         library_ms = cuda_ms(lambda: library(*args), iters=10)
-        launches = attn_half_block.launches, mlp_block.launches
         halves_ms = cuda_ms(lambda: halves(*args), iters=10)
-        attn_half_block.launches, mlp_block.launches = launches
         sweep = _fused_tile_sweep(args)
         flops, nbytes = _block_work(shape, 2)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -3350,7 +3406,6 @@ def phase_serve_kernels(results):
 
     # B12 at the MIRAGE-Large encoder's MLP (3-D, per batch element in the
     # TPU kernel) and 16384 rows (2-D)
-    q.mlp_block_q.launches = 0
     for label, shape in [("encoder 3-D", (BATCH, 257, 1024)),
                          ("rows 2-D", (16384, 1024))]:
         d = shape[-1]
@@ -3361,10 +3416,8 @@ def phase_serve_kernels(results):
                                        * sc).cuda() for sh, sc in (
             ((4 * d, d), d ** -0.5), ((4 * d,), 0.02),
             ((d, 4 * d), (4 * d) ** -0.5), ((d,), 0.02))])
-        before = q.mlp_block_q.launches
         got = q.mlp_block_q_kernel_parts(x, lw, lb, *prm)
         again = q.mlp_block_q_kernel_parts(x, lw, lb, *prm)
-        q.mlp_block_q.launches = before
         torch.cuda.synchronize()
         rerun_equal = all(torch.equal(a, b) for a, b in zip(got, again))
         with runtime.plain_on_card():
@@ -3384,7 +3437,9 @@ def phase_serve_kernels(results):
             raise AssertionError(f"mlp_block_q {label} disagrees with its "
                                  f"plain version")
         del got, again, want, diff
+        before = runtime.launch_counts()
         kernel_ms = cuda_ms(lambda: q.mlp_block_q(x, lw, lb, *prm), iters=10)
+        launches = runtime.launch_counts() - before
         with runtime.plain_on_card():
             plain_ms = cuda_ms(lambda: q.mlp_block_q(x, lw, lb, *prm),
                                iters=5)
@@ -3403,20 +3458,17 @@ def phase_serve_kernels(results):
                        "F.gelu, dequantise",
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "calls": 1})
+            "calls": 1, "launches": launches})
         log(f"[kernels] mlp_block_q {label}: kernel {kernel_ms:.4f} ms plain "
             f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
             f"{max(t_ops, t_bytes):.4f} ms")
         del x, prm
 
     # B9′ at the pretraining encoder's unaligned (256, 99, 768)
-    fm.mlp_block_fwd_stash3d.launches = 0
     args = _op_inputs("mlp_block", (TRAIN_BATCH, 99, 768), torch.bfloat16, gen)
     split = stash_split(args[0].view(-1, 768), args[1:], "mlp_block_fwd_stash3d")
     for flat in (False, True):
-        before = fm.mlp_block_fwd_stash3d.launches
         out, act, dg = fm.mlp_block_fwd_stash3d(*args, stash_flat=flat)
-        fm.mlp_block_fwd_stash3d.launches = before
         base = fm.mlp_block(*args)
         torch.cuda.synchronize()
         bit_equal = torch.equal(out, base)
@@ -3436,8 +3488,10 @@ def phase_serve_kernels(results):
                 for e in errs.values()):
             raise AssertionError(f"mlp_block_fwd_stash3d stash_flat={flat}")
         del out, act, dg, base, want
+        before = runtime.launch_counts()
         kernel_ms = cuda_ms(lambda: fm.mlp_block_fwd_stash3d(
             *args, stash_flat=flat), iters=10)
+        launches = runtime.launch_counts() - before
         with runtime.plain_on_card():
             plain_ms = cuda_ms(lambda: fm.mlp_block_fwd_stash3d(
                 *args, stash_flat=flat), iters=5)
@@ -3453,7 +3507,7 @@ def phase_serve_kernels(results):
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "calls": 1})
+            "calls": 1, "launches": launches})
         log(f"[kernels] mlp_block_fwd_stash3d stash_flat={flat}: kernel "
             f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms library "
             f"{library_ms:.4f} ms bound {max(t_ops, t_bytes):.4f} ms")
@@ -3482,10 +3536,10 @@ def phase_golden(workdir):
     path = workdir / "tiny_golden.pth"
     torch.save({"model": sd, "args": args}, path)
     wrapper = MIRAGEWrapper(weights=str(path), device="cuda")
-    runtime.layernorm.launches = 0
+    before = runtime.launch_counts()
     preds = wrapper({"bscan": golden["in_bscan"]})
-    log(f"[golden] LN launches (runtime.layernorm) in the tiny forward: "
-        f"{runtime.layernorm.launches}")
+    log(f"[golden] LN launches in the tiny forward: "
+        f"{(runtime.launch_counts() - before)['layernorm']}")
     errs = {}
     for task in ("bscan", "slo", "bscanlayermap"):
         errs[task] = float(np.abs(preds[task].cpu().numpy()
@@ -3508,7 +3562,6 @@ def _base_golden(workdir):
 
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.fused_block import fused_block
 
     golden = np.load(ROOT / "tests" / "golden" / "example_triplet_base.npz")
     sd = golden_state_dict(golden)
@@ -3519,10 +3572,10 @@ def _base_golden(workdir):
     out = {}
     for switch, launches in (("off", 0), ("all", 18)):
         with runtime.switched({"MIRAGE_BLOCK_FUSE": switch}):
-            fused_block.launches = 0
+            before = runtime.launch_counts()
             preds = wrapper({"bscan": golden["in_bscan"]})
             torch.cuda.synchronize()
-            got = fused_block.launches
+            got = (runtime.launch_counts() - before)["fused_block"]
         errs = {task: float(np.abs(preds[task].cpu().numpy()
                                    - golden[f"pred_{task}"]).max())
                 for task in ("bscan", "slo", "bscanlayermap")}
@@ -3636,14 +3689,8 @@ def phase_serve(workdir, card, path):
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
     from mirage_tpu_torch.cli.serve import make_model_fns
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
-                                                      xattn_half_block)
-    from mirage_tpu_torch.ops.fused_mlp import mlp_block
     from mirage_tpu_torch.serve import MIRAGEServer, pow2_padded
 
-    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "xattn_half_block": xattn_half_block,
-           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
     t0 = time.perf_counter()
     wrapper = MIRAGEWrapper(weights=str(path), compute_dtype=torch.bfloat16,
                             device="cuda")
@@ -3662,9 +3709,7 @@ def phase_serve(workdir, card, path):
     n_req = 8
     images = rng.random((n_req, 512, 512), dtype=np.float32)
     try:
-        for fn in ops.values():
-            fn.launches = 0
-        runtime.layernorm.launches = 0
+        before = runtime.launch_counts()
         results = [None] * n_req
         errors = []
 
@@ -3683,8 +3728,7 @@ def phase_serve(workdir, card, path):
             t.join(timeout=600)
         feats = _post(url + "/v1/features", {"bscan": images[0]})
         torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in ops.items()}
-        ln_launches = runtime.layernorm.launches
+        got = runtime.launch_counts() - before
         stats = server.stats()
         n_rec = server.queues["/v1/reconstruct"].n_batches
         n_feat = server.queues["/v1/features"].n_batches
@@ -3705,15 +3749,10 @@ def phase_serve(workdir, card, path):
     if feats["features"].shape != (257, 1024) \
             or not np.isfinite(feats["features"]).all():
         raise AssertionError(f"features shape {feats['features'].shape}")
-    expected = {name: PER_RECONSTRUCT[name] * n_rec + PER_FEATURES[name]
-                * n_feat for name in ops}
-    ln_expected = LN_PER_RECONSTRUCT * n_rec + LN_PER_FEATURES * n_feat
-    log(f"[serve] launches {counts}, expected {expected}; LN "
-        f"(runtime.layernorm) {ln_launches}, expected {ln_expected}")
-    if counts != expected or not all(counts.values()) \
-            or ln_launches != ln_expected:
-        raise AssertionError(f"launch counts {counts} != {expected} or LN "
-                             f"{ln_launches} != {ln_expected}")
+    counts = _held("[serve] requests", got, _times(
+        (PER_RECONSTRUCT, n_rec), (PER_FEATURES, n_feat)))
+    log(f"[serve] launches {dict(got)} ({n_rec} reconstruct and {n_feat} "
+        f"features forwards)")
 
     # one batch against the plain path on the card, and the HTTP answers
     # against a direct call
@@ -3780,12 +3819,11 @@ def phase_serve(workdir, card, path):
 # of a cross-attention half (B3 + B2) and two 256-wide blocks
 PER_RECONSTRUCT_FUSE = {
     "off": {"attn_half_block": 30, "mlp_block": 33, "xattn_half_block": 3,
-            "fused_block": 0, "attention_fwd": 33, "gemm": 135},
+            "fused_block": 0},
     "decoder": {"attn_half_block": 24, "mlp_block": 27,
-                "xattn_half_block": 3, "fused_block": 6, "attention_fwd": 27,
-                "gemm": 111},
+                "xattn_half_block": 3, "fused_block": 6},
     "all": {"attn_half_block": 0, "mlp_block": 3, "xattn_half_block": 3,
-            "fused_block": 30, "attention_fwd": 3, "gemm": 15}}
+            "fused_block": 30}}
 
 
 def _serve_under_switch(wrapper, x, card):
@@ -3796,24 +3834,17 @@ def _serve_under_switch(wrapper, x, card):
     import torch
 
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
-                                                      xattn_half_block)
-    from mirage_tpu_torch.ops.fused_block import fused_block
-    from mirage_tpu_torch.ops.fused_mlp import mlp_block
 
-    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "xattn_half_block": xattn_half_block, "fused_block": fused_block,
-           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
     with runtime.plain_on_card():
         want = {k: v.float() for k, v in wrapper(x).items()}
     out, first = {}, None
     for switch, expected in PER_RECONSTRUCT_FUSE.items():
         with runtime.switched({"MIRAGE_BLOCK_FUSE": switch}):
-            for fn in ops.values():
-                fn.launches = 0
+            before = runtime.launch_counts()
             got = wrapper(x)
             torch.cuda.synchronize()
-            counts = {k: fn.launches for k, fn in ops.items()}
+            counts = _held(f"MIRAGE_BLOCK_FUSE={switch}",
+                           runtime.launch_counts() - before, expected)
             agree = {task: (got[task].float() - want[task]).norm().item()
                      / want[task].norm().item() for task in want}
             finite = all(bool(torch.isfinite(v).all()) for v in got.values())
@@ -3829,15 +3860,14 @@ def _serve_under_switch(wrapper, x, card):
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / 5
             prof = profile_forward(lambda: wrapper(x))
-        log(f"[serve] MIRAGE_BLOCK_FUSE={switch}: launches {counts} "
-            f"(expected {expected}); rel_l2 vs plain {agree}; max_abs vs "
+        log(f"[serve] MIRAGE_BLOCK_FUSE={switch}: launches {dict(counts)}; "
+            f"rel_l2 vs plain {agree}; max_abs vs "
             f"the outputs under off {vs_off:.3e}; "
             f"{dt * 1e3:.2f} ms/batch, {BATCH / dt:.1f} img/s on {card}; "
             f"profile {prof if prof else 'no device kernels seen'}")
-        if counts != expected or not finite or not all(
-                a <= MODEL_REL_L2 for a in agree.values()):
-            raise AssertionError(f"MIRAGE_BLOCK_FUSE={switch}: launches "
-                                 f"{counts} != {expected} or rel_l2 {agree}")
+        if not finite or not all(a <= MODEL_REL_L2 for a in agree.values()):
+            raise AssertionError(f"MIRAGE_BLOCK_FUSE={switch}: rel_l2 "
+                                 f"{agree}")
         out[switch] = {"counts": counts, "rel_l2": agree,
                        "max_abs_vs_off": vs_off,
                        "ms_per_batch": dt * 1e3, "img_per_s": BATCH / dt,
@@ -3854,32 +3884,19 @@ def _three_modality_request(url, wrapper, rng):
     import torch
 
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.block_attention import attn_half_block
-    from mirage_tpu_torch.ops.flash_attention import flash_attention
-    from mirage_tpu_torch.ops.fused_mlp import mlp_block
 
     req = {"bscan": rng.random((512, 512), dtype=np.float32),
            "slo": rng.random((512, 512), dtype=np.float32),
            "bscanlayermap": rng.integers(0, 13, (128, 128)).astype(np.int32)}
-    ops = {"flash_attention": flash_attention,
-           "attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "attention_fwd": runtime.attention,
-           "attention_fwd (flash entry)": runtime.flash_attention}
-    for fn in ops.values():
-        fn.launches = 0
+    before = runtime.launch_counts()
     got = _post(url + "/v1/reconstruct", req)
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in ops.items()}
     # encoder: 24 × (B8 + B2); decoders: 3 × B8 cross-attention over 769
     # context tokens, 3 × 2 blocks × (B1 + B2)
-    want_counts = {"flash_attention": 27, "attn_half_block": 6,
-                   "mlp_block": 30, "attention_fwd": 6,
-                   "attention_fwd (flash entry)": 27}
-    log(f"[serve] three-modality request: launches {counts}, expected "
-        f"{want_counts}")
-    if counts != want_counts:
-        raise AssertionError(f"three-modality launches {counts} != "
-                             f"{want_counts}")
+    counts = _held("three-modality request", runtime.launch_counts() - before,
+                   {"flash_attention": 27, "attn_half_block": 6,
+                    "mlp_block": 30})
+    log(f"[serve] three-modality request: launches {dict(counts)}")
     batch = {k: v[None] for k, v in req.items()}
     batch["bscan"], batch["slo"] = batch["bscan"][:, None], \
         batch["slo"][:, None]
@@ -3935,35 +3952,6 @@ def _train_model():
     return model, opt
 
 
-def _launch_counters():
-    from mirage_tpu_torch.ops import block_attention as ba
-    from mirage_tpu_torch.ops import flash_attention as fa
-    from mirage_tpu_torch.ops import fused_adamw as fadam
-    from mirage_tpu_torch.ops import fused_mlp as fm
-    from mirage_tpu_torch.ops import runtime
-
-    return {"attn_half_block": (ba.attn_half_block, "launches"),
-            "attn_half_block_bwd": (ba.attn_half_block, "bwd_launches"),
-            "attn_half_block_acc_bwd": (ba.attn_half_block,
-                                        "acc_bwd_launches"),
-            "mlp_block_acc_bwd": (fm.mlp_block, "acc_bwd_launches"),
-            "fused_adamw": (fadam.fused_adamw, "launches"),
-            "adamw_norm": (fadam.fused_adamw, "norm_launches"),
-            "mlp_block": (fm.mlp_block, "launches"),
-            "mlp_block_bwd": (fm.mlp_block, "bwd_launches"),
-            "block_attention": (ba.block_attention, "launches"),
-            "block_attention_bwd": (ba.block_attention, "bwd_launches"),
-            "xattn_half_block": (ba.xattn_half_block, "launches"),
-            "flash_attention": (fa.flash_attention, "launches"),
-            "flash_attention_bwd": (fa.flash_attention, "bwd_launches"),
-            # the bf16 backward kernel (csrc/attention_bwd.cuh) by its two
-            # launchers: the packed qkv (B4, B6, B7-attention) and B8's
-            "attention_bwd": (runtime.attention_bwd, "launches"),
-            "flash_bwd": (runtime.flash_attention_bwd, "launches"),
-            "mlp_block_stash": (fm.mlp_block, "stash_launches"),
-            "mlp_block_stash_bwd": (fm.mlp_block, "stash_bwd_launches")}
-
-
 def _agreement(loss_k, grads_k, loss_p, grads_p, names):
     """Loss, global grad norm and the worst leaf's relative L2 error of a
     kernel-path forward and backward against the plain path's."""
@@ -4009,15 +3997,6 @@ def phase_train(card):
                                               make_pretrain_loss,
                                               make_train_step)
 
-    counters = _launch_counters()
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-
     domains = TRAIN_DOMAINS
     t0 = time.perf_counter()
     model, opt = _train_model()
@@ -4046,33 +4025,29 @@ def phase_train(card):
         return loss.detach(), torch.autograd.grad(
             loss, [state["params"][n] for n in names])
 
-    reset()
+    start = runtime.launch_counts()
     loss_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
-    one_pass = {k: v for k, v in read().items() if k in PER_STEP}
+    one_pass = runtime.launch_counts() - start
     with runtime.plain_on_card():
         loss_p, grads_p = loss_and_grads()
     agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
     log(f"[train] one step, kernel path vs plain path (bf16, card): {agree}")
     del grads_k
     _check_agreement("pretraining step", agree)
-    if one_pass != {**PER_STEP, **NO_OPT}:
-        raise AssertionError(f"launches in one forward+backward {one_pass} "
-                             f"!= {({**PER_STEP, **NO_OPT})}")
+    _held("one forward+backward", one_pass, {**PER_STEP, **NO_OPT})
     with runtime.switched(SWITCHES_ON):
-        reset()
+        start = runtime.launch_counts()
         loss_a, grads_a = loss_and_grads()
         torch.cuda.synchronize()
-        one_pass_on = {k: v for k, v in read().items() if k in PER_STEP}
+        one_pass_on = runtime.launch_counts() - start
     agree_on = _agreement(loss_a, grads_a, loss_p, grads_p, names)
     log(f"[train] one step with {SWITCHES_ON}, kernel path vs plain path "
         f"(bf16, card): {agree_on}")
     del grads_a, grads_p
     _check_agreement("pretraining step, switches on", agree_on)
-    want_on = {**PER_STEP_ON, **NO_OPT}
-    if one_pass_on != want_on:
-        raise AssertionError(f"launches in one forward+backward with the "
-                             f"switches on {one_pass_on} != {want_on}")
+    _held("one forward+backward with the switches on", one_pass_on,
+          {**PER_STEP_ON, **NO_OPT})
 
     # the pretraining step itself: random masks, warm-up, timed steps
     watch = ["encoder.0.attn.qkv.weight", "encoder.11.mlp.fc2.weight",
@@ -4082,7 +4057,7 @@ def phase_train(card):
     lr = 1e-4
     state, m = step(state, batch, gen, lr)
     torch.cuda.synchronize()
-    reset()
+    start = runtime.launch_counts()
     metrics = []
     t1 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -4090,13 +4065,11 @@ def phase_train(card):
         metrics.append(m)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t1) / TRAIN_STEPS
-    counts = {k: v for k, v in read().items() if k in PER_STEP}
-    expected = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
+    counts = _held(f"{TRAIN_STEPS} steps", runtime.launch_counts() - start,
+                   _times((PER_STEP, TRAIN_STEPS)))
     losses = [{k: v.item() for k, v in mm.items()} for mm in metrics]
-    log(f"[train] {TRAIN_STEPS} steps: launches {counts}, expected "
-        f"{expected}; metrics {losses}")
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != {expected}")
+    log(f"[train] {TRAIN_STEPS} steps: launches {dict(counts)}; metrics "
+        f"{losses}")
     if not all(np.isfinite(v) for mm in losses for v in mm.values()):
         raise AssertionError(f"non-finite loss or grad norm: {losses}")
     changed = {n: not torch.equal(before[n], state["params"][n])
@@ -4120,24 +4093,25 @@ def phase_train(card):
     with runtime.switched(SWITCHES_ON):
         state, _ = step(state, batch, gen, lr)
         torch.cuda.synchronize()
-        reset()
+        start = runtime.launch_counts()
         t2 = time.perf_counter()
         for _ in range(TRAIN_STEPS_ON):
             state, m = step(state, batch, gen, lr)
         torch.cuda.synchronize()
         dt_on = (time.perf_counter() - t2) / TRAIN_STEPS_ON
-        counts_on = {k: v for k, v in read().items() if k in PER_STEP_ON}
+        counts_on = _held(f"{TRAIN_STEPS_ON} steps with the switches on",
+                          runtime.launch_counts() - start,
+                          _times((PER_STEP_ON, TRAIN_STEPS_ON)))
         prof_on = profile_forward(lambda: step(state, batch, gen, lr),
                                   top_n=25)
     from mirage_tpu_torch.ops.fused_adamw import fused_adamw
 
-    expected_on = {k: v * TRAIN_STEPS_ON for k, v in PER_STEP_ON.items()}
     log(f"[train] {TRAIN_STEPS_ON} steps with the switches on: launches "
-        f"{counts_on}, expected {expected_on}; B11 leaves "
+        f"{dict(counts_on)}; B11 leaves "
         f"{fused_adamw.last_routed_count}, expected {routed}; "
         f"{dt_on * 1e3:.2f} ms/step; loss {m['loss'].item()}; profile "
         f"{prof_on if prof_on else 'no device kernels seen (not measured)'}")
-    if counts_on != expected_on or fused_adamw.last_routed_count != routed \
+    if fused_adamw.last_routed_count != routed \
             or not np.isfinite(m["loss"].item()):
         raise AssertionError(f"switches on: launches {counts_on}, leaves "
                              f"{fused_adamw.last_routed_count}")
@@ -4159,7 +4133,6 @@ SEG_TRAIN, SEG_VAL, SEG_BATCH = 8, 4, 4  # synthetic images; the yaml's batch
 # launches per segmentation train step and per eval forward (ViT-B at 1025
 # tokens, 12 layers; four ConvNeXt blocks over 4·128² rows)
 SEG_PER_STEP = {"flash_attention": 12, "flash_attention_bwd": 12,
-                "flash_bwd": 12, "attention_bwd": 0,
                 "mlp_block_stash": 4, "mlp_block_stash_bwd": 4,
                 "attn_half_block": 0, "attn_half_block_bwd": 0,
                 "mlp_block": 0, "mlp_block_bwd": 0, "block_attention": 0,
@@ -4179,13 +4152,13 @@ SEG_CLASSES = 8
 # (0.1) the plain MLP in training and B2 in eval
 _SEG_ZERO = {k: 0 for k in SEG_PER_STEP}
 _ENC_STEP = {**_SEG_ZERO, "flash_attention": 12, "flash_attention_bwd": 12,
-             "flash_bwd": 12, **OPT_STEP}
+             **OPT_STEP}
 _ENC_EVAL = {**_SEG_ZERO, "flash_attention": 12, "mlp_block": 12}
 SEG_HEADS = {
     "linear": (_ENC_STEP, _ENC_EVAL),
     "segmenter": ({**_ENC_STEP, "flash_attention": 14,
-                   "flash_attention_bwd": 14, "flash_bwd": 14,
-                   "mlp_block": 1, "mlp_block_bwd": 1},
+                   "flash_attention_bwd": 14, "mlp_block": 1,
+                   "mlp_block_bwd": 1},
                   {**_ENC_EVAL, "flash_attention": 14, "mlp_block": 14}),
     "dpt": (_ENC_STEP, _ENC_EVAL)}
 
@@ -4261,15 +4234,6 @@ def phase_seg(workdir, card):
     from mirage_tpu_torch.train import checkpoint as ckpt
     from mirage_tpu_torch.train.steps import init_train_state, make_train_step
 
-    counters = _launch_counters()
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-
     t0 = time.perf_counter()
     root = workdir / "seg"
     shutil.rmtree(root, ignore_errors=True)  # a finished run would skip
@@ -4293,18 +4257,17 @@ def phase_seg(workdir, card):
             "--weights", str(weights), "--device", "cuda", "--epochs", "1",
             "--max_steps_per_epoch", "3", "--log_freq", "1",
             "--output_dir", str(root / "out"), "--num_workers", "4"]
-    reset()
+    start = runtime.launch_counts()
     t1 = time.perf_counter()
     out = rst.main(argv)
     torch.cuda.synchronize()
-    cli_counts = read()
     cli_s = time.perf_counter() - t1
     steps = min(SEG_TRAIN // SEG_BATCH, 3)
     evals = -(-SEG_VAL // SEG_BATCH)
-    want_cli = {k: steps * SEG_PER_STEP[k] + evals * SEG_PER_EVAL[k]
-                for k in SEG_PER_STEP}
+    cli_counts = _held("seg tuning", runtime.launch_counts() - start, _times(
+        (SEG_PER_STEP, steps), (SEG_PER_EVAL, evals)))
     log(f"[seg] run_seg_tuning: {out} in {cli_s:.1f}s; launches "
-        f"{cli_counts}, expected {want_cli}")
+        f"{dict(cli_counts)}")
     best = Path(out["output_dir"]) / "checkpoint-best"
     loss = out["last_epoch"].get("train/loss", float("nan"))
     if not (np.isfinite(loss) and np.isfinite(out["max_miou"])
@@ -4312,29 +4275,24 @@ def phase_seg(workdir, card):
         raise AssertionError(f"seg tuning: loss {loss}, mIoU "
                              f"{out['max_miou']}, checkpoint-best "
                              f"{best.is_dir()}")
-    if cli_counts != want_cli:
-        raise AssertionError(f"seg tuning launches {cli_counts} != "
-                             f"{want_cli}")
 
     # 1b. --test on checkpoint-best: one eval forward a batch of the test
     # split, a PNG a slice; run_seg_eval on them; --infer_only then skips
     run_dir = Path(out["output_dir"])
     n_test = SEG_TEST_VOLUMES * SEG_TEST_SLICES
-    reset()
+    start = runtime.launch_counts()
     t5 = time.perf_counter()
     test_stats = rst.main(argv + ["--test"])
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t5
-    test_counts = read()
-    want_test = {k: -(-n_test // SEG_BATCH) * v
-                 for k, v in SEG_PER_EVAL.items()}
+    test_counts = _held("--test", runtime.launch_counts() - start,
+                        _times((SEG_PER_EVAL, -(-n_test // SEG_BATCH))))
     pngs = sorted(p.name for p in (run_dir / "preds").iterdir())
     log(f"[seg] --test: {test_stats} in {test_s:.1f}s; {len(pngs)} PNGs; "
-        f"launches {test_counts}, expected {want_test}")
-    if test_counts != want_test or pngs != sorted(
-            f"scan{v}_{sl}.png" for v in range(SEG_TEST_VOLUMES)
-            for sl in range(SEG_TEST_SLICES)):
-        raise AssertionError(f"--test: launches {test_counts}, PNGs {pngs}")
+        f"launches {dict(test_counts)}")
+    if pngs != sorted(f"scan{v}_{sl}.png" for v in range(SEG_TEST_VOLUMES)
+                      for sl in range(SEG_TEST_SLICES)):
+        raise AssertionError(f"--test: PNGs {pngs}")
     t6 = time.perf_counter()
     rows = run_seg_eval.main(["-d", str(root), "-m", str(run_dir)])
     eval_s = time.perf_counter() - t6
@@ -4427,17 +4385,18 @@ def phase_seg(workdir, card):
                              f"{TRAIN_LEAF_REL})")
 
     # 3. launches per eval forward and per train step, exactly
-    reset()
+    start = runtime.launch_counts()
     with torch.no_grad():
         model.forward_light({"bscan": batch["bscan"]})
     torch.cuda.synchronize()
-    eval_counts = read()
+    eval_counts = _held("seg eval forward", runtime.launch_counts() - start,
+                        SEG_PER_EVAL)
     lr = 1e-4
     for it in range(2):
         state, _ = step(state, batch, rst.step_generator(SEED, it, "cuda"), lr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset()
+    start = runtime.launch_counts()
     metrics = []
     t2 = time.perf_counter()
     for it in range(SEG_STEPS):
@@ -4446,16 +4405,13 @@ def phase_seg(workdir, card):
         metrics.append(m)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t2) / SEG_STEPS
-    step_counts = read()
+    step_counts = _held(f"seg {SEG_STEPS} steps",
+                        runtime.launch_counts() - start,
+                        _times((SEG_PER_STEP, SEG_STEPS)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want_steps = {k: v * SEG_STEPS for k, v in SEG_PER_STEP.items()}
     losses = [{k: v.item() for k, v in mm.items()} for mm in metrics]
-    log(f"[seg] eval forward launches {eval_counts}, expected {SEG_PER_EVAL}"
-        f"; {SEG_STEPS} steps: launches {step_counts}, expected "
-        f"{want_steps}; metrics {losses}")
-    if eval_counts != SEG_PER_EVAL or step_counts != want_steps:
-        raise AssertionError(f"seg launch counts: eval {eval_counts}, steps "
-                             f"{step_counts}")
+    log(f"[seg] eval forward launches {dict(eval_counts)}; {SEG_STEPS} "
+        f"steps: launches {dict(step_counts)}; metrics {losses}")
     if not all(np.isfinite(v) for mm in losses for v in mm.values()):
         raise AssertionError(f"non-finite seg loss or grad norm: {losses}")
     prof = profile_forward(
@@ -4474,22 +4430,19 @@ def phase_seg(workdir, card):
     heads = {}
     for head, (per_step, per_eval) in SEG_HEADS.items():
         hargv = argv + ["--output_adapter", head]
-        reset()
+        start = runtime.launch_counts()
         t = time.perf_counter()
         res = rst.main(hargv)
         torch.cuda.synchronize()
-        counts = read()
-        want = {k: steps * per_step[k] + evals * per_eval[k]
-                for k in SEG_PER_STEP}
+        counts = _held(f"{head} head", runtime.launch_counts() - start,
+                       _times((per_step, steps), (per_eval, evals)))
         heads[head] = {"seconds": time.perf_counter() - t, "counts": counts,
                        "loss": res["last_epoch"].get("train/loss"),
                        "val": {k: v for k, v in res["last_epoch"].items()
                                if k.startswith("val/")}}
-        log(f"[seg] --output_adapter {head}: {heads[head]}, expected "
-            f"launches {want}")
-        if counts != want or not np.isfinite(heads[head]["loss"]):
-            raise AssertionError(f"{head} head: launches {counts} != {want} "
-                                 f"or loss {heads[head]['loss']}")
+        log(f"[seg] --output_adapter {head}: {heads[head]}")
+        if not np.isfinite(heads[head]["loss"]):
+            raise AssertionError(f"{head} head: loss {heads[head]['loss']}")
 
     # the Segmenter's blocks take the kernels: its step kernel vs plain,
     # and its launches per train step and per eval forward
@@ -4543,21 +4496,21 @@ def phase_seg(workdir, card):
         raise AssertionError(f"Segmenter kernel step disagrees with the "
                              f"plain step: {kp}")
     sstep = make_train_step(sloss, sopt)
-    reset()
+    start = runtime.launch_counts()
     sstate, _ = sstep(sstate, batch, rst.step_generator(SEED, 1, "cuda"), lr)
     torch.cuda.synchronize()
-    seg_step_counts = read()
-    reset()
+    seg_step_counts = _held("Segmenter step", runtime.launch_counts() - start,
+                            SEG_HEADS["segmenter"][0])
+    start = runtime.launch_counts()
     with torch.no_grad():
         smodel.forward_light({"bscan": batch["bscan"]})
     torch.cuda.synchronize()
-    seg_eval_counts = read()
-    log(f"[seg] Segmenter launches a step {seg_step_counts}, an eval "
-        f"forward {seg_eval_counts}; the heads' part of the phase "
+    seg_eval_counts = _held("Segmenter eval forward",
+                            runtime.launch_counts() - start,
+                            SEG_HEADS["segmenter"][1])
+    log(f"[seg] Segmenter launches a step {dict(seg_step_counts)}, an eval "
+        f"forward {dict(seg_eval_counts)}; the heads' part of the phase "
         f"{time.perf_counter() - t9:.1f}s")
-    if (seg_step_counts, seg_eval_counts) != SEG_HEADS["segmenter"]:
-        raise AssertionError(f"Segmenter launches: step {seg_step_counts}, "
-                             f"eval {seg_eval_counts}")
     del sstate, smodel, sopt, sloss, sstep
     return {"batch": b, "ms_per_step": dt * 1e3, "img_per_s": b / dt,
             "peak_gib": peak, "agreement": agree, "cli": out,
@@ -4587,8 +4540,7 @@ CLS_CLASSES = ("AMD", "DME", "NORMAL")
 # (the fused halves B1 + B2)
 CLS_ZERO = {k: 0 for k in PER_STEP}
 CLS_PER_STEP = {**CLS_ZERO, "block_attention": 12, "block_attention_bwd": 12,
-                "mlp_block": 12, "mlp_block_bwd": 12, "attention_bwd": 12,
-                **OPT_STEP}
+                "mlp_block": 12, "mlp_block_bwd": 12, **OPT_STEP}
 CLS_PER_STEP_ON = {**CLS_PER_STEP, "mlp_block_bwd": 0,
                    "mlp_block_acc_bwd": 12, "fused_adamw": 1}
 CLS_PER_EVAL = {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12}
@@ -4624,16 +4576,7 @@ def phase_cls(workdir, card):
 
     from mirage_tpu_torch.api.wrapper import build_model as build_pretrain
     from mirage_tpu_torch.cli import run_cls_tuning as rct
-
-    counters = _launch_counters()
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
-                if k in CLS_ZERO}
+    from mirage_tpu_torch.ops import runtime
 
     t0 = time.perf_counter()
     root = workdir / "cls"
@@ -4656,28 +4599,24 @@ def phase_cls(workdir, card):
             "--batch_size", str(CLS_BATCH), "--max_steps_per_epoch", "2",
             "--output_dir", str(root / "out"), "--num_workers", "8",
             "--seed", str(SEED)]
-    reset()
+    start = runtime.launch_counts()
     t1 = time.perf_counter()
     stats = rct.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t1
-    cli_counts = read()
+    cli_counts = _held("cls tuning", runtime.launch_counts() - start,
+                       _times((CLS_PER_STEP, 2), (CLS_PER_EVAL, 2)))
     run = next((root / "out" / "v1" / str(SEED) / "OCTID").iterdir())
     rows = (run / "train_eval.csv").read_text().splitlines()
-    want_cli = {k: 2 * CLS_PER_STEP[k] + 2 * CLS_PER_EVAL[k]
-                for k in CLS_ZERO}
     missing = [m for m in ("sklearn", "pandas", "jax") if m in sys.modules]
     log(f"[cls] run_cls_tuning in {cli_s:.1f}s: {run.name}; test stats "
-        f"{dict(stats)}; train_eval.csv {rows}; launches {cli_counts}, "
-        f"expected {want_cli}; imported of sklearn/pandas/jax: {missing}")
+        f"{dict(stats)}; train_eval.csv {rows}; launches {dict(cli_counts)};"
+        f" imported of sklearn/pandas/jax: {missing}")
     loss = float(rows[-1].split(",")[1])
     if not (np.isfinite(loss) and (run / "checkpoint-best").is_dir()
             and (run / "valid_eval.csv").is_file()
             and (run / "test_eval.csv").is_file()) or missing:
         raise AssertionError(f"cls tuning: loss {loss}, outputs of {run}")
-    if cli_counts != want_cli:
-        raise AssertionError(f"cls tuning launches {cli_counts} != "
-                             f"{want_cli}")
 
     # 2. the bare step, built as the entry point builds it
     results = bare_cls_steps("cls", argv, [
@@ -4685,12 +4624,12 @@ def phase_cls(workdir, card):
         ("full fine-tune, switches on", [], SWITCHES_ON, CLS_PER_STEP_ON),
         ("linear probe", ["--linear_probing"], {},
          {**CLS_ZERO, "attn_half_block": 12, "mlp_block": 12, **OPT_STEP})],
-        reset, read, card)
+        card)
     return {"batch": CLS_BATCH, "cli": dict(stats), "cli_seconds": cli_s,
             "cli_counts": cli_counts, "steps": results, "card": card}
 
 
-def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
+def bare_cls_steps(tag, argv, ways, card, batch_size=CLS_BATCH,
                    steps=CLS_STEPS):
     """The classification tuning step at ``batch_size``, built as
     run_cls_tuning's ``setup`` builds it from ``argv``, each of ``ways``
@@ -4739,10 +4678,12 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
                 loss, [state["params"][n] for n in names])
 
         with runtime.switched(switches):
-            reset()
+            start = runtime.launch_counts()
             loss_k, grads_k = loss_and_grads()
             torch.cuda.synchronize()
-            one_pass = read()
+            one_pass = _held(f"{tag} {way}: one forward+backward",
+                             runtime.launch_counts() - start,
+                             {**per_step, **NO_OPT})
             with runtime.plain_on_card():
                 loss_p, grads_p = loss_and_grads()
             agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
@@ -4750,10 +4691,6 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
             log(f"[{tag}] {way}: one step, kernel path vs plain path (bf16, "
                 f"card): {agree}")
             _check_agreement(f"{tag} {way}", agree)
-            want_pass = {**per_step, **NO_OPT}
-            if one_pass != want_pass:
-                raise AssertionError(f"{tag} {way}: launches in one forward+"
-                                     f"backward {one_pass} != {want_pass}")
             before = {n: p.detach().clone() for n, p in
                       state["params"].items()}
             lr = 1e-3 if "--linear_probing" in extra else 1e-5
@@ -4763,7 +4700,7 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
                              if not torch.equal(p, before[n]))
             del before
             torch.cuda.reset_peak_memory_stats()
-            reset()
+            start = runtime.launch_counts()
             t2 = time.perf_counter()
             metrics = []
             for _ in range(steps):
@@ -4771,25 +4708,25 @@ def bare_cls_steps(tag, argv, ways, reset, read, card, batch_size=CLS_BATCH,
                 metrics.append(m["loss"])
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t2) / steps
-            counts = read()
+            counts = _held(f"{tag} {way}: {steps} steps",
+                           runtime.launch_counts() - start,
+                           _times((per_step, steps)))
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             prof = profile_forward(lambda: step(state, batch, None, lr),
                                    top_n=20)
         losses = [v.item() for v in metrics]
-        expected = {k: v * steps for k, v in per_step.items()}
         # B11 takes every trainable leaf
         leaves = fused_adamw.last_routed_count
         want_leaves = len(names)
-        log(f"[{tag}] {way}: {steps} steps, launches {counts}, expected "
-            f"{expected}; B11 leaves {leaves}, expected {want_leaves}; "
+        log(f"[{tag}] {way}: {steps} steps, launches {dict(counts)}; B11 "
+            f"leaves {leaves}, expected {want_leaves}; "
             f"losses {losses}; {dt * 1e3:.2f} ms/step, "
             f"{batch_size / dt:.1f} img/s, peak memory {peak:.2f} GiB, on "
             f"{card}; one step under torch.profiler: "
             f"{prof if prof else 'no device kernels seen (not measured)'}")
-        if counts != expected or leaves != want_leaves \
-                or not all(np.isfinite(losses)):
-            raise AssertionError(f"{tag} {way}: launches {counts}, leaves "
-                                 f"{leaves}, losses {losses}")
+        if leaves != want_leaves or not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag} {way}: leaves {leaves}, losses "
+                                 f"{losses}")
         if "--linear_probing" in extra and changed != ["head.bias",
                                                         "head.weight"]:
             raise AssertionError(f"{tag} linear probe changed {changed}")
@@ -5003,23 +4940,10 @@ BENCH_LAUNCHERS = {
 HEADLINE_BEFORE = "2303.7-2322.1 img/s (NVIDIA H100 80GB HBM3, 700.00 W)"
 
 
-def _bench_counters():
-    from mirage_tpu_torch.ops import block_attention as ba
-    from mirage_tpu_torch.ops import fused_mlp as fm
-    from mirage_tpu_torch.ops import quant as q
-    from mirage_tpu_torch.ops import runtime
-
-    return {"attn_half_block": ba.attn_half_block,
-            "attention_fwd": runtime.attention, "gemm": runtime.gemm,
-            "mlp_block": fm.mlp_block,
-            "xattn_half_block": ba.xattn_half_block,
-            "block_attention": ba.block_attention,
-            "gemm_s8": q.gemm_s8, "mlp_block_lnfold": fm.mlp_block_lnfold,
-            "attn_half_block_prenormed": ba.attn_half_block_prenormed,
-            "attn_half_block_masked": ba.attn_half_block_masked,
-            "attn_half_block_phased": ba.attn_half_block_phased,
-            "mlp_block_modes": fm.mlp_block_modes,
-            "mlp_block_chunked": fm.mlp_block_chunked}
+# the C entries the bench's A/B ops launch: each must launch in phase 9
+BENCH_ENTRIES = ("layernorm", "layernorm_onepass", "gemm", "gemm_gelu_mode",
+                 "attention", "attention_phased", "gemm_lnfold", "gemm_s8",
+                 "mlp_chunked")
 
 
 def phase_bench(card):
@@ -5028,29 +4952,26 @@ def phase_bench(card):
     512, seeded weights) with exact launch counts; the A/B
     cases S1, S3, S4, S7, S2, S5 and S6, each checked against its plain
     version and then timed; the five scripts/bench_train.py rows (one warm-up step and
-    BENCH_STEPS timed steps each). Every launch counter is 0 before the
-    bench runs and read after it; each op of the path must have launched."""
+    BENCH_STEPS timed steps each). The headline's launches are exact; each
+    C entry of BENCH_ENTRIES must launch over the whole bench."""
     import torch
 
     from mirage_tpu_torch.bench import __main__ as head
     from mirage_tpu_torch.bench import (attn2, attn_half, int8, lnfold,
                                         overlap, pad264, train, vpu)
+    from mirage_tpu_torch.ops import runtime
 
-    counters = _bench_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    start = runtime.launch_counts()
     t0 = time.perf_counter()
     headline = head.headline()
     torch.cuda.empty_cache()
-    counts = {k: fn.launches for k, fn in counters.items()}
-    want = {k: v * (head.ITERS + 1) for k, v in PER_RECONSTRUCT.items()}
+    counts = _held("bench headline", runtime.launch_counts() - start,
+                   _times((PER_RECONSTRUCT, head.ITERS + 1)))
     log(json.dumps(headline))
     log(f"[bench] headline {headline['value']:.1f} img/s on {card}; before "
         f"the S2/S5/S6 kernels {HEADLINE_BEFORE}")
-    log(f"[bench] headline launches {counts} (expected {want} over "
-        f"{head.ITERS + 1} forwards)")
-    if {k: counts[k] for k in want} != want:
-        raise AssertionError(f"headline launches {counts} != {want}")
+    log(f"[bench] headline launches {dict(counts)} over {head.ITERS + 1} "
+        f"forwards")
     cases = {}
     for name, mod in (("attn2", attn2), ("int8", int8), ("lnfold", lnfold),
                       ("pad264", pad264), ("attn_half", attn_half),
@@ -5076,9 +4997,9 @@ def phase_bench(card):
     for row in rows:
         log(f"[bench] {json.dumps(row)}")
     log(f"[bench] train rows in {time.perf_counter() - t1:.1f}s")
-    counts = {k: fn.launches for k, fn in counters.items()}
-    log(f"[bench] launches over the whole bench {counts}")
-    idle = [k for k, v in counts.items() if not v]
+    counts = runtime.launch_counts() - start
+    log(f"[bench] launches over the whole bench {dict(counts)}")
+    idle = [e for e in BENCH_ENTRIES if not counts[e]]
     if idle:
         raise AssertionError(f"bench: {idle} never launched")
     return {"headline": headline, "cases": cases, "train": rows,
@@ -5102,13 +5023,11 @@ def _bench_entries(res):
             r for r in cases["pad264"] if r["op"] == "mlp_block"
             and r["shape"][1] != r["n_valid"]),
     }
-    # B6 also runs in the train rows: the chain's launches are its own
-    launches = {"block_attention_chain": pick["block_attention_chain"][
-                    "launches"],
-                "mlp_block_padded": sum(
-                    r["launches"] for r in cases["pad264"]
-                    if r["op"] == "mlp_block"
-                    and r["shape"][1] != r["n_valid"])}
+    launches = {name: row["launches"] for name, row in pick.items()}
+    launches["mlp_block_padded"] = sum(
+        (Counter(r["launches"]) for r in cases["pad264"]
+         if r["op"] == "mlp_block" and r["shape"][1] != r["n_valid"]),
+        Counter())
     entries = []
     for name, row in pick.items():
         replaces, tpu_kernel, source, csrc, module = BENCH_KERNELS[name]
@@ -5116,9 +5035,9 @@ def _bench_entries(res):
             "name": name, "route": "cuda", "source": source,
             "csrc": [CSRC + f for f in csrc], "bench": module,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
-            "launches": launches.get(name, res["counts"].get(name)),
-            "launches_are": "the bench's timed calls (phase 9); the checks "
-                            "against the plain versions excluded",
+            "launches": launches[name],
+            "launches_are": "the C entries of the bench's timed calls "
+                            "(phase 9)",
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -5140,8 +5059,8 @@ def _bench_entries(res):
                 "replaces": row["replaces"],
                 "tpu_kernel": BENCH_LAUNCHERS[row["replaces"]],
                 "launches": row["launches"],
-                "launches_are": "the row's timed calls (phase 9); the check "
-                                "against the plain version excluded",
+                "launches_are": "the C entries of the row's timed calls "
+                                "(phase 9)",
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -5307,24 +5226,6 @@ def phase_pretrain(workdir, card, bare=None):
     from mirage_tpu_torch.train.steps import (init_train_state,
                                               make_train_step, step_generator)
 
-    counters = {**_launch_counters(),
-                "layernorm": (runtime.layernorm, "launches"),
-                "layernorm_bwd": (runtime.layernorm_bwd, "launches")}
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
-                if k in PER_STEP or k in LN_OPS}
-
-    def per_steps(n):
-        want = {k: v * n for k, v in PER_STEP.items()}
-        for name, ops in LN_OPS.items():
-            want[name] = sum(want[op] for op in ops)
-        return want
-
     root = workdir / "pretrain"
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -5352,11 +5253,12 @@ def phase_pretrain(workdir, card, bare=None):
                        "--warmup_epochs", "1"]
     runs = {}
     for epochs in (1, 2):
-        reset()
+        start = runtime.launch_counts()
         t1 = time.perf_counter()
         res = rp.main(cli_argv + ["--epochs", str(epochs)])
         torch.cuda.synchronize()
-        runs[epochs] = {"counts": read(), "seconds": time.perf_counter() - t1,
+        runs[epochs] = {"counts": runtime.launch_counts() - start,
+                        "seconds": time.perf_counter() - t1,
                         "log": res["log"], "step_s": res["step_s"],
                         "wait_s": res["wait_s"]}
         log(f"[pretrain] run_pretraining --epochs {epochs}: "
@@ -5454,18 +5356,16 @@ def phase_pretrain(workdir, card, bare=None):
     del batches
 
     # 3. the debug forward's launches (the first run's epoch 0 had one)
-    reset()
+    start = runtime.launch_counts()
     rp.debug_forward(model, batch, args, 0)
     torch.cuda.synchronize()
-    debug = read()
-    want = per_steps(2)
-    got1 = {k: runs[1]["counts"][k] - debug[k] for k in want}
-    log(f"[pretrain] launches: debug forward {debug}; run 1 less it "
-        f"{got1}, run 2 {runs[2]['counts']}, expected {want} each")
-    if got1 != want or runs[2]["counts"] != want:
-        raise AssertionError(f"pretraining launches: run 1 less the debug "
-                             f"forward {got1}, run 2 {runs[2]['counts']}, "
-                             f"expected {want}")
+    debug = runtime.launch_counts() - start
+    want = _times((PER_STEP, 2))
+    runs[1]["counts"] = _held("run 1 less the debug forward",
+                              runs[1]["counts"] - debug, want)
+    runs[2]["counts"] = _held("run 2", runs[2]["counts"], want)
+    log(f"[pretrain] launches: debug forward {dict(debug)}; run 1 less it "
+        f"{dict(runs[1]['counts'])}, run 2 {dict(runs[2]['counts'])}")
 
     # 4. the pixel-space loss against the token-space loss
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -5552,7 +5452,8 @@ def phase_pretrain(workdir, card, bare=None):
         f"{PRETRAIN_SAMPLES // args.batch_size} batches from the 8-worker "
         f"loader {epoch_s:.2f} s; phase 5's bare step "
         f"{timing['bare_step_ms']} ms; on {card}")
-    return {"runs": runs, "debug_counts": debug, "per_step": per_steps(1),
+    return {"runs": runs, "debug_counts": debug,
+            "per_step": {k: v // 2 for k, v in runs[2]["counts"].items()},
             "losses": losses, "loss_space_rel": rel, "memory": memory,
             "timing": timing, "export_max_abs": export_err, "card": card}
 
@@ -5561,12 +5462,22 @@ def phase_pretrain(workdir, card, bare=None):
 
 def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
                     **per_other_path):
-    """One entry of the `kernels` line per op: per-call rows at each shape,
-    and times summed over one pass of the main path (per-call time × calls
-    on the path); ``per_other_path``: name -> {op: launches} of other
-    passes of the same path (e.g. an eval forward)."""
+    """One entry of the `kernels` line per op or C entry: per-call rows at
+    each shape, and times summed over one pass of the main path (per-call
+    time × calls on the path). ``counts``: the launches by C entry measured
+    over the passes; ``per_path`` and ``per_other_path`` (name -> op table
+    of another pass of the path, e.g. an eval forward): op tables of a
+    pass, whose calls and launches by entry each row reads."""
+    from mirage_tpu_torch.ops import _build
+
+    per_path = Counter({**_entries(per_path), **per_path})
+    per_other_path = {k: Counter({**_entries(v), **v})
+                      for k, v in per_other_path.items()}
     entries = []
     for name, rows in kernel_rows.items():
+        if name not in OP_ENTRIES and name not in _build.ENTRIES:
+            raise KeyError(f"{name}: neither an op of OP_ENTRIES nor a C "
+                           f"entry")
         key = "calls_per_forward" if path == "forward" else "calls_per_step"
         main_rows = [r for r in rows if r.get(key)]
         per_path_sum = lambda k: sum(r[k] * r[key] for r in main_rows)  # noqa
@@ -5583,7 +5494,14 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
         entries.append({
             "name": name, "route": "cuda", "source": source, "csrc": csrc,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
-            "launches": counts[name], f"launches_per_{path}": per_path[name],
+            "launches": {e: counts.get(e, 0)
+                         for e in OP_ENTRIES.get(name, [name])},
+            "launches_are": "measured, by C entry, over the passes: the "
+                            "entries the row's op or kernel launches (the "
+                            "path's other ops launch some of them too); "
+                            f"launches_per_{path}: its calls a pass, from "
+                            "the path's op table",
+            f"launches_per_{path}": per_path[name],
             **{f"launches_per_{k}": v[name] for k, v in per_other_path.items()},
             "max_abs_err": max([r["max_abs_err"] for r in rows
                                 if r["dtype"] == "bf16"]
@@ -5607,21 +5525,22 @@ def _kernel_entries(kernel_rows, counts, per_path, path, times_are=None,
     return entries
 
 
-def _op_entries(rows_by_op, launches):
+def _op_entries(rows_by_op):
     """Entries of the `kernels` line for the ops no path calls (B12, B9′):
-    times per call at their first (main) shape, launches from their own
-    timed calls."""
+    times per call at their first (main) shape, launches by C entry from
+    their own timed calls."""
     entries = []
     for name in ("mlp_block_q", "mlp_block_fwd_stash3d"):
         rows = rows_by_op[name]
         main = rows[0]
+        launches = sum((r["launches"] for r in rows), Counter())
         replaces, tpu_kernel, source, csrc = SERVE_KERNELS[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "csrc": [CSRC + f for f in csrc], "replaces": replaces,
-            "tpu_kernel": tpu_kernel, "launches": launches[name],
-            "launches_are": "the op's own timed calls in phase 2: no caller "
-                            "in either package",
+            "tpu_kernel": tpu_kernel, "launches": launches,
+            "launches_are": "the C entries of the op's own timed calls in "
+                            "phase 2: no caller in either package",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "kernel_ms": main["ms"],
@@ -5702,10 +5621,10 @@ PARALLEL_KERNELS = {
              "4D/t rows) and, in place of XLA's, _tp_block_apply's qkv and "
              "proj (nn/block.py:191,207)", CSRC + "gemm_pingpong.cuh",
              ["gemm_pingpong.cuh", "gemm.cu"]),
-    "attention_fwd": ("mirage_tpu/ops/block_attention.py:58",
-                      "_block_attn_fwd :88 -> _block_attn_kernel :58 (B6) "
-                      "on H/t heads", CSRC + "attention_fwd.cuh",
-                      ["attention_fwd.cuh", "attention.cu"]),
+    "attention": ("mirage_tpu/ops/block_attention.py:58",
+                  "_block_attn_fwd :88 -> _block_attn_kernel :58 (B6) "
+                  "on H/t heads", CSRC + "attention_fwd.cuh",
+                  ["attention_fwd.cuh", "attention.cu"]),
     "attention_bwd": ("mirage_tpu/ops/block_attention.py:111",
                       "_block_attn_bwd :169 -> _block_attn_bwd_kernel :111 "
                       "(B6) on H/t heads", CSRC + "attention_bwd.cuh",
@@ -5726,23 +5645,6 @@ PARALLEL_KERNELS = {
                       "of XLA's, _tp_block_apply's norm1 backward",
                       CSRC + "layernorm.cu", ["layernorm.cu"]),
 }
-
-
-def _parallel_counters():
-    from mirage_tpu_torch.ops import linear as dense
-    from mirage_tpu_torch.ops import runtime
-
-    return {**_launch_counters(),
-            "linear": (dense.linear, "launches"),
-            "linear_bwd": (dense.linear, "bwd_launches"),
-            "layer_norm": (dense.layer_norm, "launches"),
-            "layer_norm_bwd": (dense.layer_norm, "bwd_launches"),
-            "gemm": (runtime.gemm, "launches"),
-            "attention": (runtime.attention, "launches"),
-            "mlp_bwd_hidden": (runtime.mlp_bwd_hidden, "launches"),
-            "mlp_bwd_dyln": (runtime.mlp_bwd_dyln, "launches"),
-            "layernorm": (runtime.layernorm, "launches"),
-            "layernorm_bwd": (runtime.layernorm_bwd, "launches")}
 
 
 def _parallel_expected(layout):
@@ -5795,14 +5697,15 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _timed_steps(step, state, batch, gen, counters, n):
-    """``n`` steps after resetting the counters: (state, ms a step by the
-    host clock after a synchronise, the device ms of each step by CUDA
-    events, the counts, the last metrics)."""
+def _timed_steps(step, state, batch, gen, n):
+    """``n`` steps: (state, ms a step by the host clock after a
+    synchronise, the device ms of each step by CUDA events, the C entries
+    they launched, the last metrics)."""
     import torch
 
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    from mirage_tpu_torch.ops import runtime
+
+    start = runtime.launch_counts()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5813,18 +5716,18 @@ def _timed_steps(step, state, batch, gen, counters, n):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     dev = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
-    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-    return state, ms, dev, counts, m
+    return state, ms, dev, dict(runtime.launch_counts() - start), m
 
 
 def _check_counts(what, counts, expected, steps):
-    want = {k: v * steps for k, v in expected.items()}
-    got = {k: counts[k] for k in want}
-    if got != want:
-        raise AssertionError(f"{what}: launches {got} != {want}")
-    silent = [k for k in RAW_COUNTERS if not counts[k]]
+    """``counts``, the C entries of ``steps`` steps, held to the op table
+    ``expected`` of a step (:func:`_held`), each entry of RAW_COUNTERS
+    launched; returns the held counts."""
+    held = _held(what, counts, _times((expected, steps)))
+    silent = [k for k in RAW_COUNTERS if not held[k]]
     if silent:
         raise AssertionError(f"{what}: kernels launched no time: {silent}")
+    return held
 
 
 def _step_grads(state, names):
@@ -5852,11 +5755,11 @@ def phase_parallel_one(workdir, card):
     import torch.distributed as dist
 
     from mirage_tpu_torch.cli import run_pretraining as rp
+    from mirage_tpu_torch.ops import runtime
     from mirage_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from mirage_tpu_torch.train.steps import (init_train_state,
                                               make_train_step, shard_state)
 
-    counters = _parallel_counters()
     init_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}",
                      world_size=1, rank=0)
     mesh = make_mesh({"data": 1}, "cuda")
@@ -5879,13 +5782,13 @@ def phase_parallel_one(workdir, card):
         ref["loss"].append(m["loss"].item())
         ref["grad_norm"].append(m["grad_norm"].item())
     state, ms, dev, counts, _ = _timed_steps(step, state, batch, gen,
-                                             counters, PARALLEL_STEPS)
-    _check_counts("bare step", counts, _parallel_expected("dp"),
-                  PARALLEL_STEPS)
+                                             PARALLEL_STEPS)
+    counts = _check_counts("bare step", counts, _parallel_expected("dp"),
+                           PARALLEL_STEPS)
     out = {"bare": {**ref, "ms_per_step": ms, "device_ms": dev,
                     "counts": counts}}
     log(f"[parallel] bare step: losses {ref['loss']}, grad norms "
-        f"{ref['grad_norm']}, {ms:.2f} ms a step, launches {counts}")
+        f"{ref['grad_norm']}, {ms:.2f} ms a step, launches {dict(counts)}")
     del model, state, step, loss_fn
     torch.cuda.empty_cache()
 
@@ -5909,9 +5812,9 @@ def phase_parallel_one(workdir, card):
         if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
             raise AssertionError(f"{layout}: second step's loss {agree}")
         state, ms, dev, counts, m = _timed_steps(step, state, batch, gen,
-                                                 counters, PARALLEL_STEPS)
-        _check_counts(f"{layout} (world 1)", counts,
-                      _parallel_expected(layout), PARALLEL_STEPS)
+                                                 PARALLEL_STEPS)
+        counts = _check_counts(f"{layout} (world 1)", counts,
+                               _parallel_expected(layout), PARALLEL_STEPS)
         if not np.isfinite(m["loss"].item()):
             raise AssertionError(f"{layout}: loss {m['loss'].item()}")
         out[layout] = {"agreement": agree, "ms_per_step": ms,
@@ -5919,7 +5822,7 @@ def phase_parallel_one(workdir, card):
                        "bare_ms_per_step": out["bare"]["ms_per_step"]}
         log(f"[parallel] {layout} (world 1): {ms:.2f} ms a step (bare "
             f"{out['bare']['ms_per_step']:.2f}), device ms {dev}, launches "
-            f"{counts}, on {card}")
+            f"{dict(counts)}, on {card}")
         del model, state, step, loss_fn
         torch.cuda.empty_cache()
 
@@ -5934,17 +5837,16 @@ def phase_parallel_one(workdir, card):
             "--num_processes", "1", "--process_id", "0", "--epochs", "1",
             "--warmup_epochs", "0", "--max_steps_per_epoch", "1",
             "--debug_images", "false", "--log_freq", "1"]
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    start = runtime.launch_counts()
     t0 = time.perf_counter()
     res = rp.main(argv)
     torch.cuda.synchronize()
-    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    counts = _check_counts("run_pretraining --distributed",
+                           runtime.launch_counts() - start,
+                           _parallel_expected("dp"), 1)
     cli = {"seconds": time.perf_counter() - t0, "counts": counts,
            "log": res["log"], "step_s": res["step_s"]}
     log(f"[parallel] run_pretraining --distributed --num_processes 1: {cli}")
-    _check_counts("run_pretraining --distributed", counts,
-                  _parallel_expected("dp"), 1)
     if res["state"]["layout"].kind != "dp" or not np.isfinite(
             res["log"][-1]["train_loss"]) or not (
             root / "out" / "checkpoint-0").is_dir():
@@ -5984,7 +5886,6 @@ def _parallel_worker(rank, world, store, outdir):
             "gloo", init_method=f"file://{store}", rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT))
-        counters = _parallel_counters()
         ref = torch.load(outdir / "ref.pt") if rank == 0 else None
         whole = {k: torch.from_numpy(v).cuda()
                  for k, v in _parallel_batch().items()}
@@ -6016,7 +5917,7 @@ def _parallel_worker(rank, world, store, outdir):
             res["loss"].append(m2["loss"].item())
             res["grad_norm"].append(m2["grad_norm"].item())
             state, ms, dev, counts, _ = _timed_steps(
-                step, state, batch, gen, counters, PARALLEL_STEPS)
+                step, state, batch, gen, PARALLEL_STEPS)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             res.update({"ms_per_step": ms, "device_ms": dev,
                         "counts": counts, "local_batch": len(batch["bscan"]),
@@ -6088,8 +5989,9 @@ def phase_parallel_two(workdir, card, ref):
         if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
             raise AssertionError(f"{layout} = 2: second step's loss {agree}")
         for r, res in enumerate(ranks):
-            _check_counts(f"{layout} = 2, rank {r}", res[layout]["counts"],
-                          _parallel_expected(layout), PARALLEL_STEPS)
+            res[layout]["counts"] = _check_counts(
+                f"{layout} = 2, rank {r}", res[layout]["counts"],
+                _parallel_expected(layout), PARALLEL_STEPS)
         out[layout] = {"agreement": agree,
                        "ranks": [res[layout] for res in ranks]}
     return out
@@ -6234,7 +6136,7 @@ def phase_parallel_kernels():
             (f"{label} qkv dx", (m, 3 * d // t, d), torch.bfloat16, per),
             (f"{label} proj dx", (m, d, d // t), torch.bfloat16, per)]))
     rows = {"gemm": gemm_rows(gemm, calls, "calls_per_step"),
-            "attention_fwd": attention_core_rows(
+            "attention": attention_core_rows(
                 "attention", {c[0]: c[4] for c in fwd}, fwd,
                 "calls_per_step"),
             "attention_bwd": attention_bwd_core_rows(bwd)}
@@ -6278,7 +6180,7 @@ def _parallel_entries(par, ln_rows):
             return sum(r[k] * r["calls_per_step"] for r in main)
 
         top = max(main, key=lambda r: r["bound_ms"] * r["calls_per_step"])
-        launches = counts["attention" if name == "attention_fwd" else name]
+        launches = counts[name]
         entries.append({
             "name": f"{name} [tensor-parallel]", "route": "cuda",
             "source": source, "csrc": [CSRC + f for f in csrc],
@@ -6307,10 +6209,9 @@ PIPE_STEPS = 3  # timed steps a run, after the two compared ones
 PIPE_TIMEOUT = 600  # seconds for a worker of (a) to join
 # the launches of a two-stage pipeline step on each rank: its 6 encoder
 # blocks run B1/B4 and B2/B5 once a microbatch (6 x 4), the decoders (6 B2/B5
-# blocks, 6 B6) replicated on both stages; one attention backward kernel in
-# each B4 and B6 backward
+# blocks, 6 B6) replicated on both stages
 PER_STEP_PP = {**PER_STEP, "attn_half_block": 24, "attn_half_block_bwd": 24,
-               "mlp_block": 30, "mlp_block_bwd": 30, "attention_bwd": 30}
+               "mlp_block": 30, "mlp_block_bwd": 30}
 # the rows of a microbatch (64 or 32 samples of 99 tokens) at S = 2, M = 4
 # and S = 4, M = 8
 PIPE_ROWS = {"S=2 M=4": 64 * 99, "S=4 M=8": 32 * 99}
@@ -6349,7 +6250,6 @@ def phase_pipeline_one(card):
     from mirage_tpu_torch.train.steps import (init_train_state,
                                               make_train_step, shard_state)
 
-    counters = _parallel_counters()
     bare, ref, (loss0, grads0) = _bare_reference(card)
     out = {"bare": bare}
     names = ref["names"]
@@ -6374,15 +6274,16 @@ def phase_pipeline_one(card):
     if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
         raise AssertionError(f"pipe = 1: second step's loss {agree}")
     state, ms, dev, counts, m = _timed_steps(step, state, batch, gen,
-                                             counters, PIPE_STEPS)
-    _check_counts("pipe = 1", counts, _parallel_expected("dp"), PIPE_STEPS)
+                                             PIPE_STEPS)
+    counts = _check_counts("pipe = 1", counts, _parallel_expected("dp"),
+                           PIPE_STEPS)
     if not np.isfinite(m["loss"].item()):
         raise AssertionError(f"pipe = 1: loss {m['loss'].item()}")
     out["pipe_1"] = {"layout": state["layout"].kind, "agreement": agree,
                      "ms_per_step": ms, "device_ms": dev, "counts": counts}
     log(f"[pipeline] pipe = 1 (world 1, layout {state['layout'].kind}): "
         f"{agree}; {ms:.2f} ms a step (bare {out['bare']['ms_per_step']:.2f})"
-        f", launches {counts}, on {card}")
+        f", launches {dict(counts)}, on {card}")
     del model, state, step, loss_fn, grads0
     dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -6399,7 +6300,6 @@ def _bare_reference(card):
 
     from mirage_tpu_torch.train.steps import init_train_state, make_train_step
 
-    counters = _parallel_counters()
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in _parallel_batch().items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -6417,8 +6317,9 @@ def _bare_reference(card):
         ref["loss"].append(m["loss"].item())
         ref["grad_norm"].append(m["grad_norm"].item())
     state, ms, dev, counts, _ = _timed_steps(step, state, batch, gen,
-                                             counters, PIPE_STEPS)
-    _check_counts("bare step", counts, _parallel_expected("dp"), PIPE_STEPS)
+                                             PIPE_STEPS)
+    counts = _check_counts("bare step", counts, _parallel_expected("dp"),
+                           PIPE_STEPS)
     bare = {**ref, "ms_per_step": ms, "device_ms": dev, "counts": counts}
     log(f"[pipeline] bare step: losses {ref['loss']}, grad norms "
         f"{ref['grad_norm']}, {ms:.2f} ms a step on {card}")
@@ -6453,7 +6354,6 @@ def _pipeline_worker(rank, world, store, outdir):
         dist.init_process_group(
             "gloo", init_method=f"file://{store}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=PIPE_TIMEOUT))
-        counters = _parallel_counters()
         ref = torch.load(outdir / "ref.pt")
         batch = {k: torch.from_numpy(v).cuda()
                  for k, v in _parallel_batch().items()}
@@ -6487,7 +6387,7 @@ def _pipeline_worker(rank, world, store, outdir):
             res["grad_norm"].append(m2["grad_norm"].item())
             torch.cuda.reset_peak_memory_stats()
             state, ms, dev, counts, _ = _timed_steps(
-                step, state, batch, gen, counters, PIPE_STEPS)
+                step, state, batch, gen, PIPE_STEPS)
             res.update({"ms_per_step": ms, "device_ms": dev,
                         "counts": counts,
                         "peak_gib": torch.cuda.max_memory_allocated()
@@ -6565,8 +6465,9 @@ def phase_pipeline_two(workdir, card, ref):
             raise AssertionError(f"pipe = 2 {run}: stages hold "
                                  f"{[r['blocks'] for r in by_rank]}")
         for r, res in enumerate(by_rank):
-            _check_counts(f"pipe = 2 {run}, rank {r}", res["counts"],
-                          {**PER_STEP_PP, **DENSE_PER_STEP}, PIPE_STEPS)
+            res["counts"] = _check_counts(
+                f"pipe = 2 {run}, rank {r}", res["counts"],
+                {**PER_STEP_PP, **DENSE_PER_STEP}, PIPE_STEPS)
         out[run] = {"agreement": agree, "ranks": by_rank}
     return out
 
@@ -6586,22 +6487,8 @@ def phase_serve_mesh(workdir, card, path):
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
     from mirage_tpu_torch.cli.serve import device_names, make_model_fns
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
-                                                      xattn_half_block)
-    from mirage_tpu_torch.ops.fused_mlp import mlp_block
     from mirage_tpu_torch.parallel.mesh import make_serve_mesh
     from mirage_tpu_torch.serve import MIRAGEServer, pow2_padded
-
-    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "xattn_half_block": xattn_half_block,
-           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
-
-    def reset():
-        for fn in ops.values():
-            fn.launches = 0
-
-    def read():
-        return {name: fn.launches for name, fn in ops.items()}
 
     kw = dict(weights=str(path), compute_dtype=torch.bfloat16,
               device="cuda")
@@ -6615,14 +6502,11 @@ def phase_serve_mesh(workdir, card, path):
         for b in SERVE_MESH_BATCHES:
             x = {"bscan": rng.random((b, 1, 512, 512), dtype=np.float32)}
             want = plain(x)
-            reset()
+            start = runtime.launch_counts()
             got = one(x)
             torch.cuda.synchronize()
-            counts = read()
-            exp = {k: PER_RECONSTRUCT[k] for k in ops}
-            if counts != exp:
-                raise AssertionError(f"mesh of one, batch {b}: launches "
-                                     f"{counts} != {exp}")
+            _held(f"mesh of one, batch {b}", runtime.launch_counts() - start,
+                  PER_RECONSTRUCT)
             eq = all(torch.equal(got[t], want[t]) for t in want)
             feq = torch.equal(one.features(x), plain.features(x))
             out["bit_equal"][b] = {"call": eq, "features": feq}
@@ -6636,25 +6520,24 @@ def phase_serve_mesh(workdir, card, path):
 
         x = {"bscan": rng.random((BATCH, 1, 512, 512), dtype=np.float32)}
         want = plain(x)
-        reset()
+        start = runtime.launch_counts()
         got = two(x)
         torch.cuda.synchronize()
-        counts = read()
+        counts = _held("two replicas", runtime.launch_counts() - start,
+                       _times((PER_RECONSTRUCT, 2)))
         agree = {}
         for t in want:
             d = (got[t].float() - want[t].float())
             agree[t] = {"max_abs": d.abs().max().item(),
                         "rel_l2": (d.norm() / want[t].float().norm()).item()}
-        exp = {k: 2 * PER_RECONSTRUCT[k] for k in ops}
         log(f"[pipeline] serving mesh, two replicas on cuda:0 (two threads, "
             f"two streams): against the plain wrapper {agree}; launches "
-            f"{counts} (two replicas' forwards: {exp} expected)")
+            f"{dict(counts)} (two replicas' forwards)")
         bad = {t: a for t, a in agree.items()
                if not a["rel_l2"] <= MODEL_REL_L2}
-        if bad or counts != exp:
+        if bad:
             raise AssertionError(f"two replicas: {bad} above rel_l2 "
-                                 f"{MODEL_REL_L2}, or launches {counts} != "
-                                 f"{exp}")
+                                 f"{MODEL_REL_L2}")
         times = {}
         for name, w in (("plain", plain), ("two replicas", two),
                         ("plain", plain), ("two replicas", two)):
@@ -6805,7 +6688,7 @@ def _pipeline_entries(pipe):
         {k: rows[k] for k in ("attn_half_block", "mlp_block",
                               "attn_half_block_bwd", "mlp_block_bwd",
                               "gemm")},
-        counts, {k: counts[k] // PIPE_STEPS for k in counts}, "step",
+        counts, PER_STEP_PP, "step",
         f"sum over one rank's step of a two-stage pipeline (ViT-B, batch "
         f"256, M = {PIPE_MICRO}) at the microbatch shapes; launches from "
         + steps)
@@ -6832,8 +6715,7 @@ def _pipeline_entries(pipe):
     serve = pipe["kernels"]["serving"]
     launches = pipe["serving_mesh"]["two_replicas"]["launches"]
     serve_entries = _kernel_entries(
-        serve, launches, {k: v // 2 for k, v in launches.items()},
-        "forward", "sum over one replica's batch-32 reconstruct forward "
+        serve, launches, PER_RECONSTRUCT, "forward", "sum over one replica's batch-32 reconstruct forward "
         "(MIRAGE-Large, bf16); launches from the two-replica batch-64 call "
         "of phase 12 (b) (two forwards, checked equal to twice one "
         "forward's)")
@@ -6857,35 +6739,30 @@ VIT_STEPS_512 = 3  # timed steps at 512², after the compared one
 VIT_ZERO = {k: 0 for k in (*PER_STEP, "flash_attention",
                            "flash_attention_bwd")}
 VIT_PER_STEP = {**VIT_ZERO, "block_attention": 24, "block_attention_bwd": 24,
-                "mlp_block": 24, "mlp_block_bwd": 24, "attention_bwd": 24,
-                **OPT_STEP}
+                "mlp_block": 24, "mlp_block_bwd": 24, **OPT_STEP}
 VIT_PER_STEP_ON = {**VIT_PER_STEP, "mlp_block_bwd": 0,
                    "mlp_block_acc_bwd": 24, "fused_adamw": 1}
 VIT_PER_EVAL = {**VIT_ZERO, "attn_half_block": 24, "mlp_block": 24}
 VIT_PER_STEP_512 = {**VIT_ZERO, "flash_attention": 24,
-                    "flash_attention_bwd": 24, "flash_bwd": 24,
-                    "mlp_block": 24, "mlp_block_bwd": 24, **OPT_STEP}
+                    "flash_attention_bwd": 24, "mlp_block": 24, "mlp_block_bwd": 24, **OPT_STEP}
 VIT_PER_EVAL_512 = {**VIT_ZERO, "flash_attention": 24, "mlp_block": 24}
 VIT_B_PER_EVAL = {**VIT_ZERO, "attn_half_block": 12, "mlp_block": 12}
 VIT_PROBE_STEP = {**VIT_PER_EVAL, **OPT_STEP}
 
 
-def _vit_eval(tag, model, x, want_counts, reset, read, card, switches=None):
+def _vit_eval(tag, model, x, want_counts, card, switches=None):
     """One eval forward on the kernel path against the plain path on the
-    card (MODEL_REL_L2) with exact launches (``fused_block``: B10's, read
-    apart), then both timed."""
+    card (MODEL_REL_L2) with exact launches, then both timed."""
     import torch
 
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.fused_block import fused_block
 
     with torch.no_grad(), runtime.switched(switches or {}):
-        reset()
-        fused_before = fused_block.launches
+        start = runtime.launch_counts()
         got = model(x)
         torch.cuda.synchronize()
-        counts = {**read(), "fused_block": fused_block.launches
-                  - fused_before}
+        counts = _held(f"vit {tag}", runtime.launch_counts() - start,
+                       want_counts)
         with runtime.plain_on_card():
             want = model(x)
         rel = ((got - want).norm() / want.norm()).item()
@@ -6896,10 +6773,10 @@ def _vit_eval(tag, model, x, want_counts, reset, read, card, switches=None):
             plain_ms = cuda_ms(lambda: model(x), iters=2, warmup=1,
                                repeats=1)
     log(f"[vit] {tag}: logits rel_l2 {rel:.3e} against the plain path (bar "
-        f"{MODEL_REL_L2}); launches {counts}, expected {want_counts}; "
+        f"{MODEL_REL_L2}); launches {dict(counts)}; "
         f"{ms:.2f} ms a forward (plain {plain_ms:.2f}), on {card}")
-    if not ok or counts != want_counts:
-        raise AssertionError(f"vit {tag}: rel_l2 {rel}, launches {counts}")
+    if not ok:
+        raise AssertionError(f"vit {tag}: rel_l2 {rel}")
     return {"rel_l2": rel, "counts": counts, "ms": ms, "plain_ms": plain_ms,
             "img_per_s": x.shape[0] / ms * 1e3}
 
@@ -6937,19 +6814,6 @@ def phase_vit(workdir, card):
     from mirage_tpu_torch.train.steps import (init_train_state, make_cls_loss,
                                               make_train_step)
 
-    counters = _launch_counters()
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()
-                if k in VIT_ZERO}
-
-    def times(per, n):
-        return {k: v * n for k, v in per.items()}
-
     t0 = time.perf_counter()
     root = workdir / "vit"
     shutil.rmtree(root, ignore_errors=True)
@@ -6976,31 +6840,33 @@ def phase_vit(workdir, card):
             ("full fine-tune", [], VIT_PER_STEP, "finetune"),
             ("linear probe", ["--linear_probing"], VIT_PROBE_STEP,
              "linear")):
-        reset()
+        start = runtime.launch_counts()
         t1 = time.perf_counter()
         stats = rct.main(argv + extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-        counts = read()
-        want = {k: 2 * per_step[k] + 2 * VIT_PER_EVAL[k] for k in VIT_ZERO}
+        counts = _held(f"vit {way}", runtime.launch_counts() - start,
+                       _times((per_step, 2), (VIT_PER_EVAL, 2)))
         run = next(p for p in runs.iterdir()
                    if p.name.startswith(f"ViTLargeClsFM_{kind}_"))
         rows = (run / "train_eval.csv").read_text().splitlines()
-        reset()
+        start = runtime.launch_counts()
         again = rct.main(argv + extra + ["--eval"])
-        eval_counts = read()
-        reset()
+        eval_counts = _held(f"vit {way} --eval",
+                            runtime.launch_counts() - start, VIT_PER_EVAL)
+        start = runtime.launch_counts()
         saved = rct.main(argv + extra + ["--save_predictions"])
-        pred_counts = read()
+        pred_counts = _held(f"vit {way} --save_predictions",
+                            runtime.launch_counts() - start, VIT_PER_EVAL)
         with np.load(run / "predictions.npz") as z:
             probs = z["prediction_list"]
         missing = [m for m in ("sklearn", "pandas", "jax", "mirage_tpu")
                    if m in sys.modules]
         log(f"[vit] run_cls_tuning {way} in {secs:.1f}s: {run.name}; test "
-            f"stats {dict(stats)}; train_eval.csv {rows}; launches {counts}, "
-            f"expected {want}; --eval bacc {again['bacc']}, launches "
-            f"{eval_counts}; --save_predictions {probs.shape}, launches "
-            f"{pred_counts}; imported of sklearn/pandas/jax/mirage_tpu: "
+            f"stats {dict(stats)}; train_eval.csv {rows}; launches "
+            f"{dict(counts)}; --eval bacc {again['bacc']}, launches "
+            f"{dict(eval_counts)}; --save_predictions {probs.shape}, "
+            f"launches {dict(pred_counts)}; imported of sklearn/pandas/jax/mirage_tpu: "
             f"{missing}")
         loss = float(rows[-1].split(",")[1])
         if not (np.isfinite(loss) and len(rows) == 2
@@ -7008,11 +6874,6 @@ def phase_vit(workdir, card):
                 and len((run / "valid_eval.csv").read_text().splitlines())
                 == 2 and (run / "test_eval.csv").is_file()) or missing:
             raise AssertionError(f"vit {way}: loss {loss}, outputs of {run}")
-        if counts != want or eval_counts != VIT_PER_EVAL \
-                or pred_counts != VIT_PER_EVAL:
-            raise AssertionError(f"vit {way} launches: {counts}, --eval "
-                                 f"{eval_counts}, --save_predictions "
-                                 f"{pred_counts}")
         if again["bacc"] != stats["bacc"] or saved is not None \
                 or probs.shape != (2 * len(CLS_CLASSES), 3) \
                 or not np.allclose(probs.sum(1), 1, atol=1e-5):
@@ -7026,7 +6887,7 @@ def phase_vit(workdir, card):
         ("full fine-tune", [], {}, VIT_PER_STEP),
         ("full fine-tune, switches on", [], SWITCHES_ON, VIT_PER_STEP_ON),
         ("linear probe", ["--linear_probing"], {}, VIT_PROBE_STEP)],
-        reset, read, card)
+        card)
     torch.cuda.empty_cache()
     fm = ViTLargeClsFM(linear_probing=False)
     gen = torch.Generator().manual_seed(SEED + 30)
@@ -7036,11 +6897,10 @@ def phase_vit(workdir, card):
     x = torch.randn(CLS_BATCH, 3, 224, 224, generator=gen).cuda()
     evals = {"224 off": _vit_eval(
         "ViT-L eval at 224², batch 64", model, x,
-        {**VIT_PER_EVAL, "fused_block": 0}, reset, read, card)}
+        VIT_PER_EVAL, card)}
     evals["224 all"] = _vit_eval(
         "ViT-L eval at 224², batch 64, MIRAGE_BLOCK_FUSE=all", model, x,
-        {**VIT_ZERO, "fused_block": 24}, reset, read, card,
-        {"MIRAGE_BLOCK_FUSE": "all"})
+        {**VIT_ZERO, "fused_block": 24}, card, {"MIRAGE_BLOCK_FUSE": "all"})
     del model, x
 
     # (c) 512² from the 224-grid checkpoint: 1025 tokens, B8
@@ -7054,7 +6914,7 @@ def phase_vit(workdir, card):
     x = torch.randn(CLS_BATCH, 3, 512, 512, generator=gen).cuda()
     evals["512 off"] = _vit_eval(
         "ViT-L eval at 512² (1025 tokens), batch 64", model, x,
-        {**VIT_PER_EVAL_512, "fused_block": 0}, reset, read, card)
+        VIT_PER_EVAL_512, card)
     del x
     opt = GroupedOptimizer(OptimizerConfig(
         opt="adamw", betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2))
@@ -7072,25 +6932,24 @@ def phase_vit(workdir, card):
         return loss.detach(), torch.autograd.grad(
             loss, [state["params"][n] for n in names])
 
-    reset()
+    start = runtime.launch_counts()
     loss_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
-    one_pass = read()
+    one_pass = _held("vit 512² forward+backward",
+                     runtime.launch_counts() - start,
+                     {**VIT_PER_STEP_512, **NO_OPT})
     with runtime.plain_on_card():
         loss_p, grads_p = loss_and_grads()
     agree = _agreement(loss_k, grads_k, loss_p, grads_p, names)
     del grads_k, grads_p
     torch.cuda.empty_cache()
     log(f"[vit] full fine-tune at 512², batch {VIT_BATCH_512}: kernel path "
-        f"vs plain path (bf16, card): {agree}; launches {one_pass}")
+        f"vs plain path (bf16, card): {agree}; launches {dict(one_pass)}")
     _check_agreement("vit 512²", agree)
-    if one_pass != {**VIT_PER_STEP_512, **NO_OPT}:
-        raise AssertionError(f"vit 512² launches {one_pass} != "
-                             f"{({**VIT_PER_STEP_512, **NO_OPT})}")
     step(state, batch, None, 1e-5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset()
+    start = runtime.launch_counts()
     t2 = time.perf_counter()
     losses = []
     for _ in range(VIT_STEPS_512):
@@ -7098,19 +6957,19 @@ def phase_vit(workdir, card):
         losses.append(m["loss"])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t2) / VIT_STEPS_512
-    counts = read()
+    counts = _held(f"vit 512² {VIT_STEPS_512} steps",
+                   runtime.launch_counts() - start,
+                   _times((VIT_PER_STEP_512, VIT_STEPS_512)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_forward(lambda: step(state, batch, None, 1e-5), top_n=20)
     losses = [v.item() for v in losses]
     log(f"[vit] full fine-tune at 512², batch {VIT_BATCH_512}: "
-        f"{VIT_STEPS_512} steps, launches {counts}; losses {losses}; "
+        f"{VIT_STEPS_512} steps, launches {dict(counts)}; losses {losses}; "
         f"{dt * 1e3:.2f} ms/step, {VIT_BATCH_512 / dt:.1f} img/s, peak "
         f"memory {peak:.2f} GiB, on {card}; one step under torch.profiler: "
         f"{prof if prof else 'no device kernels seen (not measured)'}")
-    if counts != times(VIT_PER_STEP_512, VIT_STEPS_512) \
-            or not all(np.isfinite(losses)):
-        raise AssertionError(f"vit 512² steps: launches {counts}, losses "
-                             f"{losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"vit 512² steps: losses {losses}")
     step_512 = {"agreement": agree, "counts": counts, "one_pass": one_pass,
                 "ms_per_step": dt * 1e3, "img_per_s": VIT_BATCH_512 / dt,
                 "peak_gib": peak, "losses": losses, "profile": prof}
@@ -7140,7 +6999,7 @@ def phase_vit(workdir, card):
     x = torch.randn(CLS_BATCH, 3, 224, 224, generator=gen).cuda()
     evals["ViT-B 224 off"] = _vit_eval(
         "ViT-B/16 eval at 224², batch 64", model, x,
-        {**VIT_B_PER_EVAL, "fused_block": 0}, reset, read, card)
+        VIT_B_PER_EVAL, card)
     del model, x
     torch.cuda.empty_cache()
     return {"batch": CLS_BATCH, "cli": cli, "steps": steps, "evals": evals,
@@ -7197,55 +7056,38 @@ DEC_TASKS, DEC_DIM, DEC_HEADS, DEC_QUERIES, DEC_CONTEXT = 3, 256, 8, 256, 257
 DEC_ABBA_ROUNDS = 8  # ABBA rounds a case (mirage_tpu_torch/bench/decbatch.py)
 DEC_STEP_ITERS, DEC_FORWARD_ITERS = 3, 5  # calls a round
 DEC_BLOCK_CONTEXTS = (257, 600)  # DecoderBlock's keys: B3's; B8's above 512
-# the counters phase 14 reads: an op's or launcher's attribute -> the
-# suffix of its name
-_DEC_SUFFIX = {"launches": "", "task_launches": " [tasks]",
-               "bwd_launches": "_bwd", "task_bwd_launches": "_bwd [tasks]",
-               "acc_bwd_launches": "_acc_bwd",
-               "task_acc_bwd_launches": "_acc_bwd [tasks]"}
-# launches of one batch-64 MIRAGE-Large reconstruct forward (phase 4's):
-# off, the 24 encoder blocks and three decoders of B3 + B2 and two blocks;
-# on, the encoder's as before and each decoder op once over the task stack
-# (the attention core: the encoder's 24 and one a decoder op over T·B rows)
+# each op's calls in one batch-64 MIRAGE-Large reconstruct forward (phase
+# 4's): off, the 24 encoder blocks and three decoders of B3 + B2 and two
+# blocks; on, the encoder's as before and each decoder op once over the
+# task stack (the attention core once over its T·B rows)
 DEC_PER_FORWARD = {
-    "off": {"attn_half_block": 30, "xattn_half_block": 3, "mlp_block": 33,
-            "layernorm": 69, "gemm": 135, "attention_fwd": 33},
+    "off": {"attn_half_block": 30, "xattn_half_block": 3, "mlp_block": 33},
     "on": {"attn_half_block": 24, "attn_half_block [tasks]": 2,
            "xattn_half_block [tasks]": 1, "mlp_block": 24,
-           "mlp_block [tasks]": 3, "layernorm": 48, "layernorm [tasks]": 7,
-           "gemm": 96, "gemm [tasks]": 13, "attention_fwd": 27}}
-# launches of one batch-256 pretraining step's forward and backward (phase
-# 5's, remat on: no block of it is rerun): the decoders' two blocks a task
-# take B6 and B2/B5, their cross-attention and its MLP the plain path
+           "mlp_block [tasks]": 3}}
+# each op's calls in one batch-256 pretraining step's forward and backward
+# (phase 5's, remat on: no block of it is rerun): the decoders' two blocks
+# a task take B6 and B2/B5, their cross-attention and its MLP the plain
+# path
 DEC_PER_STEP = {
     "off": {"attn_half_block": 12, "attn_half_block_bwd": 12,
             "mlp_block": 18, "mlp_block_bwd": 18, "block_attention": 6,
-            "block_attention_bwd": 6, "layernorm": 60, "layernorm_bwd": 30,
-            "gemm": 72, "attention_fwd": 30, "attention_bwd": 18,
-            "mlp_bwd_hidden": 18, "mlp_bwd_dyln": 42},
+            "block_attention_bwd": 6},
     "on": {"attn_half_block": 12, "attn_half_block_bwd": 12,
            "mlp_block": 12, "mlp_block [tasks]": 2, "mlp_block_bwd": 12,
            "mlp_block_bwd [tasks]": 2, "block_attention": 2,
-           "block_attention_bwd": 2, "layernorm": 48, "layernorm [tasks]": 4,
-           "layernorm_bwd": 24, "layernorm_bwd [tasks]": 2, "gemm": 60,
-           "gemm [tasks]": 4, "attention_fwd": 26, "attention_bwd": 14,
-           "mlp_bwd_hidden": 12, "mlp_bwd_hidden [tasks]": 2,
-           "mlp_bwd_dyln": 36, "mlp_bwd_dyln [tasks]": 2}}
+           "block_attention_bwd": 2}}
 # the same step with MIRAGE_MLP_BWD=accumulate too: the MLP backwards as B7,
 # the decoders' over the stack (csrc/wgrad.cu's task-strided kernels)
 DEC_PER_STEP_ACC = {
     **{k: v for k, v in DEC_PER_STEP["on"].items()
        if not k.startswith("mlp_block_bwd")},
-    "mlp_block_acc_bwd": 12, "mlp_block_acc_bwd [tasks]": 2,
-    "weight_grad": 24, "weight_grad [tasks]": 4, "colsum": 24,
-    "colsum [tasks]": 4}
-# launches of one DecoderBlock forward and backward: B6 for its
+    "mlp_block_acc_bwd": 12, "mlp_block_acc_bwd [tasks]": 2}
+# each op's calls in one DecoderBlock forward and backward: B6 for its
 # self-attention, B2/B5 for its MLP, B8 for the cross-attention at 512 keys
 # or more (the plain path below)
 _DEC_BLOCK = {"block_attention": 1, "block_attention_bwd": 1,
-              "mlp_block": 1, "mlp_block_bwd": 1, "layernorm": 2,
-              "layernorm_bwd": 1, "gemm": 2, "attention_fwd": 1,
-              "attention_bwd": 1, "mlp_bwd_hidden": 1, "mlp_bwd_dyln": 1}
+              "mlp_block": 1, "mlp_block_bwd": 1}
 DEC_BLOCK_PER_CALL = {257: _DEC_BLOCK,
                       600: {**_DEC_BLOCK, "flash_attention": 1,
                             "flash_attention_bwd": 1}}
@@ -7267,17 +7109,17 @@ DEC_KERNELS = {
         "_mlp_kernel :58 under jax.vmap (spatial_output.py:314)",
         "mirage_tpu_torch/ops/fused_mlp.py",
         ["layernorm.cu", "gemm.cu", "gemm_pingpong.cuh"]),
-    "gemm [tasks]": (
+    "gemm_tasks": (
         "mirage_tpu/ops/fused_mlp.py:58",
         "the products of _mlp_kernel :58, block_attention.py:"
         "_attn_half_kernel :251 and :_xattn_half_kernel :745 under jax.vmap",
         "mirage_tpu_torch/csrc/gemm.cu", ["gemm.cu", "gemm_pingpong.cuh"]),
-    "layernorm [tasks]": (
+    "layernorm_tasks": (
         "mirage_tpu/ops/block_attention.py:251",
         "the LN prologue of _attn_half_kernel :251, _xattn_half_kernel :745 "
         "and fused_mlp.py:_mlp_kernel :58 under jax.vmap",
         "mirage_tpu_torch/csrc/layernorm.cu", ["layernorm.cu"]),
-    "layernorm_bwd [tasks]": (
+    "layernorm_bwd_tasks": (
         "mirage_tpu/ops/fused_mlp.py:453",
         "the LN tail of fused_mlp.py:_mlp_bwd_dx_kernel :453 under jax.vmap",
         "mirage_tpu_torch/csrc/layernorm.cu", ["layernorm.cu"]),
@@ -7294,56 +7136,16 @@ DEC_KERNELS = {
 }
 
 
-def _dec_counters():
-    """name -> (function, attribute) of every launch count phase 14 reads."""
-    from mirage_tpu_torch.ops import block_attention as ba
-    from mirage_tpu_torch.ops import flash_attention as fa
-    from mirage_tpu_torch.ops import fused_mlp as fm
-    from mirage_tpu_torch.ops import runtime
-
-    out = {}
-    for name, fn, attrs in (
-            ("attn_half_block", ba.attn_half_block,
-             ("launches", "task_launches", "bwd_launches")),
-            ("xattn_half_block", ba.xattn_half_block,
-             ("launches", "task_launches")),
-            ("mlp_block", fm.mlp_block,
-             ("launches", "task_launches", "bwd_launches",
-              "task_bwd_launches", "acc_bwd_launches",
-              "task_acc_bwd_launches")),
-            ("block_attention", ba.block_attention,
-             ("launches", "bwd_launches")),
-            ("flash_attention", fa.flash_attention,
-             ("launches", "bwd_launches")),
-            ("attention_fwd", runtime.attention, ("launches",)),
-            ("attention_bwd", runtime.attention_bwd, ("launches",)),
-            *((n, getattr(runtime, n), ("launches", "task_launches"))
-              for n in ("layernorm", "layernorm_bwd", "gemm",
-                        "mlp_bwd_hidden", "mlp_bwd_dyln", "weight_grad",
-                        "colsum"))):
-        for attr in attrs:
-            out[name + _DEC_SUFFIX[attr]] = (fn, attr)
-    return out
-
-
-def _dec_count(fn):
-    """fn() with every phase-14 launch count at 0 first: (its value, the
-    counts after a synchronise)."""
+def _launched(fn):
+    """fn()'s value and the C entries it launched, after a synchronise."""
     import torch
 
-    counters = _dec_counters()
-    for f, attr in counters.values():
-        setattr(f, attr, 0)
+    from mirage_tpu_torch.ops import runtime
+
+    start = runtime.launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: getattr(f, attr) for k, (f, attr) in counters.items()}
-
-
-def _dec_check_counts(what, got, want):
-    want = {k: want.get(k, 0) for k in got}
-    if got != want:
-        bad = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
-        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+    return out, runtime.launch_counts() - start
 
 
 def _dec_rn(gen, *shape, scale=1.0):
@@ -7628,7 +7430,7 @@ def dec_kernel_rows():
         lib = _dec_library("gemm")
         nbytes = 2 * (t * m * k + t * n * k + t * m * n * (1 + acts - 1)) \
             + 4 * t * n
-        _dec_case(rows, "gemm [tasks]", label, (t * m, n, k),
+        _dec_case(rows, "gemm_tasks", label, (t * m, n, k),
                   lambda: launch(*order),
                   lambda: _dec_tasks(launch, acts, order),
                   lambda: _dec_tasks(plain, acts, f32(order)),
@@ -7651,7 +7453,7 @@ def dec_kernel_rows():
         args = [_dec_rn(gen, t * m, d),
                 (1 + 0.1 * torch.randn(t, d, generator=gen)).cuda(),
                 (0.02 * torch.randn(t, d, generator=gen)).cuda()]
-        _dec_case(rows, "layernorm [tasks]", label, (t * m, d),
+        _dec_case(rows, "layernorm_tasks", label, (t * m, d),
                   lambda: runtime.layernorm(*args),
                   lambda: _dec_tasks(runtime.layernorm, 1, args),
                   lambda: layer_norm(args[0].float(), *args[1:]),
@@ -7707,7 +7509,7 @@ def dec_kernel_rows():
     def ln_one(x, w, g, dy):
         return runtime.layernorm_bwd(x, w, g, dy)
 
-    _dec_case(rows, "layernorm_bwd [tasks]", "pretraining decoder rows",
+    _dec_case(rows, "layernorm_bwd_tasks", "pretraining decoder rows",
               tuple(x2.shape), lambda: runtime.layernorm_bwd(*ln_args),
               lambda: _dec_tasks(ln_one, 1, [x2] + ln_args[1:2]
                                  + [dyln.view(t, -1, d), dy2.view(t, -1, d)]),
@@ -7720,9 +7522,9 @@ def dec_kernel_rows():
               "calls_per_step", 2,
               instantiation=_ln_instantiation(TRAIN_BATCH * q, d, True),
               library="F.layer_norm a task and its torch.autograd.grad")
-    ln_row = rows["layernorm_bwd [tasks]"][-1]
+    ln_row = rows["layernorm_bwd_tasks"][-1]
     if ln_row["vs_one_task_calls"]["dx"]["max_abs"] != 0:
-        raise AssertionError("layernorm_bwd [tasks]: dx not bit-equal to the "
+        raise AssertionError("layernorm_bwd_tasks: dx not bit-equal to the "
                              "one-task launches")
     del full, args, dy, x2, dy2, dyln, ln_args
     return rows
@@ -7785,8 +7587,8 @@ def _dec_step(card):
                                 "MIRAGE_MLP_BWD": "accumulate"},
              DEC_PER_STEP_ACC)):
         with runtime.switched(switches):
-            (loss, grads), counts = _dec_count(loss_and_grads)
-        _dec_check_counts(f"step, {label}", counts, want)
+            (loss, grads), counts = _launched(loss_and_grads)
+        counts = _held(f"step, {label}", counts, want)
         runs[label] = (loss, grads, counts)
     off_loss, off_grads, _ = runs["off"]
     out = {"counts": {k: v[2] for k, v in runs.items()}}
@@ -7823,9 +7625,9 @@ def _dec_forward(wrapper, x):
     outs, counts = {}, {}
     for label in ("off", "on"):
         with runtime.switched({"MIRAGE_DEC_BATCH": label}):
-            outs[label], counts[label] = _dec_count(lambda: wrapper(x))
-        _dec_check_counts(f"forward, {label}", counts[label],
-                          DEC_PER_FORWARD[label])
+            outs[label], got = _launched(lambda: wrapper(x))
+        counts[label] = _held(f"forward, {label}", got,
+                              DEC_PER_FORWARD[label])
     with runtime.plain_on_card():
         want = wrapper(x)
     agree = {}
@@ -7880,9 +7682,9 @@ def _dec_block_rows():
             return (out,) + torch.autograd.grad(out, [xs, cs] + params,
                                                 dy.to(out.dtype))
 
-        got, counts = _dec_count(lambda: run(x, ctx))
-        _dec_check_counts(f"DecoderBlock at {nc} keys", counts,
-                          DEC_BLOCK_PER_CALL[nc])
+        got, counts = _launched(lambda: run(x, ctx))
+        counts = _held(f"DecoderBlock at {nc} keys", counts,
+                       DEC_BLOCK_PER_CALL[nc])
         with runtime.plain_on_card():
             want = run(x.float(), ctx.float())
         errs = _dec_errs(f"DecoderBlock at {nc} keys", ["out"], got[:1],
@@ -8009,7 +7811,6 @@ def _multi_pipeline_worker(rank, world, port, outdir):
                          init_method=f"tcp://localhost:{port}",
                          world_size=world, rank=rank,
                          timeout=datetime.timedelta(seconds=MULTI_TIMEOUT))
-        counters = _parallel_counters()
         ref = torch.load(outdir / "ref.pt")
         whole = {k: torch.from_numpy(v).cuda()
                  for k, v in _parallel_batch().items()}
@@ -8043,7 +7844,7 @@ def _multi_pipeline_worker(rank, world, port, outdir):
             res["grad_norm"].append(m2["grad_norm"].item())
             torch.cuda.reset_peak_memory_stats()
             state, ms, dev, counts, _ = _timed_steps(
-                step, state, batch, gen, counters, PIPE_STEPS)
+                step, state, batch, gen, PIPE_STEPS)
             res.update({"ms_per_step": ms, "device_ms": dev,
                         "counts": counts,
                         "peak_gib": torch.cuda.max_memory_allocated()
@@ -8115,8 +7916,9 @@ def multi_card_pipelines(workdir, card, n):
         if agree["step2_loss_rel"] > TRAIN_LOSS_REL:
             raise AssertionError(f"{label}: second step's loss {agree}")
         for r, res in enumerate(by_rank):
-            _check_counts(f"{label}, rank {r}", res["counts"],
-                          {**PER_STEP_PP, **DENSE_PER_STEP}, PIPE_STEPS)
+            res["counts"] = _check_counts(
+                f"{label}, rank {r}", res["counts"],
+                {**PER_STEP_PP, **DENSE_PER_STEP}, PIPE_STEPS)
         out[label] = {"agreement": agree, "ranks": by_rank}
     return out
 
@@ -8133,28 +7935,16 @@ def multi_card_serving(workdir, card, n):
 
     from mirage_tpu_torch.api.wrapper import MIRAGEWrapper
     from mirage_tpu_torch.ops import runtime
-    from mirage_tpu_torch.ops.block_attention import (attn_half_block,
-                                                      xattn_half_block)
-    from mirage_tpu_torch.ops.fused_mlp import mlp_block
-
-    ops = {"attn_half_block": attn_half_block, "mlp_block": mlp_block,
-           "xattn_half_block": xattn_half_block,
-           "attention_fwd": runtime.attention, "gemm": runtime.gemm}
 
     def counted(call, per, b):
-        """call() with the ops' counts set to 0 first; raises unless each
-        of the n replicas' forwards launched ``per``."""
-        for fn in ops.values():
-            fn.launches = 0
+        """call() and its launches, held to ``per`` for each of the n
+        replicas' forwards."""
+        start = runtime.launch_counts()
         res = call()
         for i in range(n):
             torch.cuda.synchronize(i)
-        counts = {name: fn.launches for name, fn in ops.items()}
-        exp = {k: n * per[k] for k in ops}
-        if counts != exp:
-            raise AssertionError(f"serving mesh, batch {b}: launches "
-                                 f"{counts} != {exp}")
-        return res, counts
+        return res, _held(f"serving mesh, batch {b}",
+                          runtime.launch_counts() - start, _times((per, n)))
 
     path = _large_weights(workdir)
     kw = dict(weights=str(path), compute_dtype=torch.bfloat16,
@@ -8180,7 +7970,7 @@ def multi_card_serving(workdir, card, n):
                             "bit_equal": torch.equal(got, want)}
             out["agreement"][b] = agree
             log(f"[multi-card] serving mesh over {out['devices']}, batch "
-                f"{b}: {agree}; launches {counts} a call, {feat_counts} "
+                f"{b}: {agree}; launches {dict(counts)} a call, {dict(feat_counts)} "
                 f"a features call ({n} replicas' forwards, as expected)")
             bad = {t: a for t, a in agree.items()
                    if not a["rel_l2"] <= MODEL_REL_L2}
@@ -8260,6 +8050,21 @@ def _relpos_windowed_bytes(shape):
     b, h, w, heads, dh, window = shape
     items = b * -(-h // window) * -(-w // window) * heads
     return (items * (3 * 16 * 16 + 8) + b * h * w * heads) * dh * 2
+
+
+def phase_sam_apart(card):
+    """Phase 15 in a process of its own (spawned), whose profiler sessions
+    are its own: late in a whole run, in the process that had run the
+    other phases, its windows kept 94 or 95 of the 96 relpos_attn kernels
+    of three encoder forwards, and none of five kernel calls; in a fresh
+    process, all of them."""
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(phase_sam, (card,))
 
 
 def phase_sam(card):
@@ -8342,9 +8147,10 @@ def phase_sam(card):
 
 def sam_encoder_forward(card, calls=3):
     """The SAM ViT-H encoder's grad-free forward at batch 4 of 1024²
-    images, bf16 compute (the frozen-encoder step's): the op's calls
-    counted from 0 over one forward, then ``calls`` forwards under
-    torch.profiler with the port's spans: the relative-position kernels
+    images, bf16 compute (the frozen-encoder step's): the relpos_attn
+    entry's launches over one forward (one an op call on the kernel
+    route), then ``calls`` forwards in a profiler window with the port's
+    spans: the relative-position kernels
     (named relpos_attn*) a forward and their device time, the port's
     launches a forward (counted to its spans: ``mirage.forward``,
     ``.encoder`` and the blocks'), and the forward's time
@@ -8370,10 +8176,10 @@ def sam_encoder_forward(card, calls=3):
 
     forward()
     torch.cuda.synchronize()
-    runtime.relpos_attention.launches = 0
+    start = runtime.launch_counts()
     out = forward()
     torch.cuda.synchronize()
-    op_calls = runtime.relpos_attention.launches
+    op_calls = (runtime.launch_counts() - start)["relpos_attn"]
     ms = cuda_ms(forward, iters=5, warmup=1)
     forget_spans()
     with torch.profiler.profile(activities=[
@@ -8550,9 +8356,6 @@ def main(argv=None):
     infer = bench = pretrain = ln_rows = parallel = pipeline = vit = None
     decbatch = adamw = sam = None
     if "kernels" in phases:
-        from mirage_tpu_torch.ops.fused_mlp import mlp_block_fwd_stash3d
-        from mirage_tpu_torch.ops.quant import mlp_block_q
-
         fwd_rows = phase_kernels()
         bwd_rows = phase_backward({})
         seg_rows = phase_seg_kernels({})
@@ -8567,8 +8370,6 @@ def main(argv=None):
         serve_rows = phase_serve_kernels({})
         s8_rows = gemm_s8_rows()
         ln_rows = layernorm_rows()
-        op_launches = {"mlp_block_q": mlp_block_q.launches,
-                       "mlp_block_fwd_stash3d": mlp_block_fwd_stash3d.launches}
     if "golden" in phases:
         golden = phase_golden(workdir)
     if {"serve", "infer", "decbatch"} & set(phases):
@@ -8596,7 +8397,7 @@ def main(argv=None):
     if "decbatch" in phases:
         decbatch = phase_decbatch(workdir, card, large)
     if "sam" in phases:
-        sam = phase_sam(card)
+        sam = phase_sam_apart(card)
     if set(phases) != set(PHASES):
         log(f"[partial] phases {phases} passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -8630,7 +8431,7 @@ def main(argv=None):
                    f"MIRAGE_BLOCK_FUSE=all; launches from that forward "
                    f"(6 under decoder: "
                    f"{tput['block_fuse']['decoder']['counts']['fused_block']})")
-               + _op_entries(serve_rows, op_launches)
+               + _op_entries(serve_rows)
                + _bench_entries(bench)
                + _ln_entries(ln_rows, pretrain)
                + _parallel_entries(parallel, ln_rows)

@@ -77,16 +77,16 @@ def chain_ms(fn, x, iters):
     return start.elapsed_time(end) / iters
 
 
-def time_op(op, fn, library, iters):
+def time_op(fn, library, iters):
     """The timed fields of an A/B row: ``fn``'s ms per call, its plain
     version's (the same call under ``runtime.plain_on_card``), the library
-    yardstick's, the launches of ``op`` (a wrapper with a ``launches``
-    counter) in the timed calls, and the card."""
+    yardstick's, the C entries the timed calls launched (entry ->
+    launches), and the card."""
     from mirage_tpu_torch.ops import runtime
 
-    start = op.launches
+    start = runtime.launch_counts()
     ms = cuda_ms(fn, iters=iters)
-    launches = op.launches - start
+    launches = dict(runtime.launch_counts() - start)
     with runtime.plain_on_card():
         plain_ms = cuda_ms(fn, iters=2, warmup=1)
     return {"ms": ms, "plain_ms": plain_ms,

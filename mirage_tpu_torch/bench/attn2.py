@@ -70,18 +70,16 @@ def work(shape):
 def run(size="large", device="cuda", measure=True):
     """[row]: B6's chain against the plain chain and the SDPA chain, ms per
     chain layer, the bound, the agreement of one call with its plain
-    version, and B6's launches in the timed chains."""
+    version, and the C entries the timed B6 chain launched."""
     shape = bench.sizes(size, SHAPE, TINY)
     b, n, d, h = shape
     scale = (d // h) ** -0.5
     qkv, w = inputs(shape, device)
-    before = block_attention.launches  # the check's launches do not count
     got = block_attention(qkv, h, scale)
     with runtime.plain_on_card():
         want = block_attention_ref(qkv.float(), h, scale)
     err = bench.check("S1 block_attention", got, want)
     out = chain(block_attention, qkv, w, h, scale)
-    block_attention.launches = before
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("S1 chain: non-finite output")
     (fa, ba), (fp, bp) = work(shape)
@@ -93,8 +91,10 @@ def run(size="large", device="cuda", measure=True):
            "grid_semantics_ab": "none on CUDA"}
     if not measure:
         return [{**row, "measured": False}]
+    before = runtime.launch_counts()
     ms = bench.cuda_ms(lambda: chain(block_attention, qkv, w, h, scale),
                        iters=3) / REPS
+    launches = dict(runtime.launch_counts() - before)
     lib_ms = bench.cuda_ms(lambda: chain(sdpa_attention, qkv, w, h, scale),
                            iters=3) / REPS
     with runtime.plain_on_card():
@@ -104,6 +104,6 @@ def run(size="large", device="cuda", measure=True):
     attn_ms = bench.cuda_ms(lambda: block_attention(qkv, h, scale), iters=20)
     return [{**row, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
              "attention_ms": attn_ms,
-             "launches": block_attention.launches - before,
+             "launches": launches,
              "times_are": "per chain layer (attention + re-projection)",
              **bench.card()}]

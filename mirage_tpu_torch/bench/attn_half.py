@@ -49,12 +49,11 @@ def heads_per_block(n, dh, heads):
 @torch.no_grad()
 def run(size="large", device="cuda", measure=True):
     """[row]: the three-phase half against its plain version and B1, its ms
-    per call beside B1's, the bound and its launches."""
+    per call beside B1's, the bound and the C entries it launched."""
     shape = bench.sizes(size, SHAPE, TINY)
     b, n, d, h = shape
     x, p, _ = bench.half_inputs(shape, device, 0.1)  # bench_attn_half.py:96
     group = heads_per_block(n, d // h, h)
-    before = attn_half_block_phased.launches, attn_half_block.launches
     got = attn_half_block_phased(x, *p, h, group)
     with runtime.plain_on_card():
         want = attn_half_block_phased_ref(x.float(), *[t.float() for t in p],
@@ -62,7 +61,6 @@ def run(size="large", device="cuda", measure=True):
     err = bench.check("S2 attn_half_block_phased", got, want)
     base = attn_half_block(x, *p, h)
     err["vs_b1"] = bench.check("S2 three-phase vs B1", got, base)
-    attn_half_block_phased.launches, attn_half_block.launches = before
     bound_ms, bound_by = bench.bound(*bench.half_work(b, n, d, "attn"))
     row = {"case": "S2 attn_half 3-phase", "op": "attn_half_block_phased",
            "replaces": REPLACES, "shape": list(shape),
@@ -70,11 +68,8 @@ def run(size="large", device="cuda", measure=True):
            "bound_by": bound_by, **err}
     if not measure:
         return [{**row, "measured": False}]
-    timed = bench.time_op(attn_half_block_phased,
-                          lambda: attn_half_block_phased(x, *p, h, group),
+    timed = bench.time_op(lambda: attn_half_block_phased(x, *p, h, group),
                           lambda: bench.library_attn_half(x, *p, h), REPS)
-    start = attn_half_block.launches
     b1_ms = bench.cuda_ms(lambda: attn_half_block(x, *p, h), iters=REPS)
-    attn_half_block.launches = start
     return [{**row, **timed, "b1_ms": b1_ms,
              "vs_b1_speedup": b1_ms / timed["ms"]}]

@@ -19,8 +19,8 @@ of the card and the host falls on both arms alike:
 
 A round is ``iters`` calls between two CUDA events and, on the host clock,
 ended in ``torch.cuda.synchronize()``; a row gives each arm's rounds, their
-median and best, the launches of the decoders' ops in one call of each arm
-and the card's name and power limit. Both arms must agree first: the
+median and best, the C entries one call of each arm launches
+(``runtime.launch_counts``) and the card's name and power limit. Both arms must agree first: the
 step's loss (relative 1e-2, phase 5's bar) and the forward's outputs
 (bf16 bars). ``--dry-run --device cpu --size tiny`` runs the same code at
 ``miragepre_tiny`` widths, batch 2, one round of one call, without time.
@@ -44,32 +44,13 @@ SWITCH = {"batched": "on", "per-task": "off"}
 STEP_LOSS_REL = 1e-2  # chip_smoke.py's TRAIN_LOSS_REL
 
 
-def _counters():
-    """The decoders' ops' launch counters: name -> (function, attribute)."""
-    from mirage_tpu_torch.ops import block_attention as ba
-    from mirage_tpu_torch.ops import fused_mlp as fm
-
-    return {f"{fn.__name__}{'.' + attr if attr != 'launches' else ''}":
-            (fn, attr)
-            for fn, attr in ((ba.attn_half_block, "launches"),
-                             (ba.attn_half_block, "task_launches"),
-                             (ba.xattn_half_block, "launches"),
-                             (ba.xattn_half_block, "task_launches"),
-                             (ba.block_attention, "launches"),
-                             (ba.block_attention, "bwd_launches"),
-                             (fm.mlp_block, "launches"),
-                             (fm.mlp_block, "task_launches"),
-                             (fm.mlp_block, "bwd_launches"),
-                             (fm.mlp_block, "task_bwd_launches"))}
-
-
 def launches(fn):
-    """The launch counts of one call of ``fn`` (counters reset first)."""
-    counters = _counters()
-    for f, attr in counters.values():
-        setattr(f, attr, 0)
+    """The C entries one call of ``fn`` launches: entry -> launches."""
+    from mirage_tpu_torch.ops import runtime
+
+    before = runtime.launch_counts()
     fn()
-    return {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+    return dict(runtime.launch_counts() - before)
 
 
 def abba(calls, rounds, iters, measure):

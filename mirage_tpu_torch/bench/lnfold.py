@@ -87,9 +87,6 @@ def run(size="large", device="cuda", measure=True):
     b, n, d, h = shape
     x, mlp, ln_next, attn = inputs(shape, device)
     f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
-    ops = (mlp_block, attn_half_block, mlp_block_lnfold,
-           attn_half_block_prenormed)
-    before = [op.launches for op in ops]  # the checks' launches do not count
     out, y = mlp_block_lnfold(x, *mlp, *ln_next)
     xo = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)) \
         .to(device, x.dtype)
@@ -108,8 +105,6 @@ def run(size="large", device="cuda", measure=True):
     pair_err = bench.check("S4 pair B vs pair A", bb, a)
     pair_err["max_rel_diff"] = ((a.float() - bb.float()).abs().max()
                                 / a.float().abs().max()).item()
-    for op, v in zip(ops, before):
-        op.launches = v
     del out, y, xa, want_out, want_y, want_a, a, bb
     (fm, bm), (fa, ba), (ff, bf) = work(shape)
     bounds = {"fold": bench.bound(fm, bm), "prenormed": bench.bound(fa, ba),
@@ -139,19 +134,13 @@ def run(size="large", device="cuda", measure=True):
     out, y = mlp_block_lnfold(x, *mlp, *ln_next)
     fold, pre = mlp_block_lnfold, attn_half_block_prenormed
     timed = {}
-    for name, op, fn, library in (
-            ("fold", fold, lambda: fold(x, *mlp, *ln_next),
+    for name, fn, library in (
+            ("fold", lambda: fold(x, *mlp, *ln_next),
              lambda: _library_fold(x, mlp, ln_next)),
-            ("prenormed", pre, lambda: pre(out, y, *attn, h),
+            ("prenormed", lambda: pre(out, y, *attn, h),
              lambda: bench.library_attn_half(out, None, None, *attn, h,
                                              y=y))):
-        start = op.launches
-        ms = bench.cuda_ms(fn, iters=10)
-        launches = op.launches - start
-        with runtime.plain_on_card():
-            plain_ms = bench.cuda_ms(fn, iters=2, warmup=1)
-        timed[name] = {"ms": ms, "plain_ms": plain_ms, "launches": launches,
-                       "library_ms": bench.cuda_ms(library, iters=10)}
+        timed[name] = bench.time_op(fn, library, 10)
     # the fold kernel alone against what it replaces
     x2, bias = x.view(-1, d), mlp[5]
     hid = runtime.gemm(runtime.layernorm(x2, *mlp[:2]), mlp[2], mlp[3],
@@ -162,21 +151,18 @@ def run(size="large", device="cuda", measure=True):
         hid, mlp[4], bias, residual=x2), *ln_next), iters=10)
     del hid
     # the pairs, chained as bench_lnfold.py:201-209
-    start = [op.launches for op in ops]
-    ta = bench.chain_ms(pair_a, x, ITERS)
-    tb = bench.chain_ms(pair_b, x, ITERS)
-    pair_launches = [op.launches - s for op, s in zip(ops, start)]
+    pair_ms, launches = {}, {}
+    for name, pair in (("pair_a", pair_a), ("pair_b", pair_b)):
+        start = runtime.launch_counts()
+        pair_ms[name] = bench.chain_ms(pair, x, ITERS)
+        launches[name] = dict(runtime.launch_counts() - start)
+    ta, tb = pair_ms["pair_a"], pair_ms["pair_b"]
     card = bench.card()
     rows[0].update(timed["fold"], kernel_ms=kernel_ms,
-                   unfolded_fc2_ln_ms=unfolded_ms, **card)
-    rows[1].update(timed["prenormed"], **card)
+                   unfolded_fc2_ln_ms=unfolded_ms)
+    rows[1].update(timed["prenormed"])
     rows[2].update(pair_a_ms=ta, pair_b_ms=tb, delta=(ta - tb) / ta,
-                   launches=dict(zip(("mlp_block", "attn_half_block",
-                                      "mlp_block_lnfold",
-                                      "attn_half_block_prenormed"),
-                                     pair_launches)), **card)
-    for op_row, i in ((rows[0], 2), (rows[1], 3)):
-        op_row["launches"] += pair_launches[i]
+                   launches=launches, **card)
     return rows
 
 

@@ -95,7 +95,6 @@ def run(size="large", device="cuda", measure=True):
     rows, v0 = [], {}
     for tag, which, op, fn, want_fn, extra in cases(x, attn_p, mlp_p, h,
                                                     plan=measure):
-        before = op.launches  # the checks' launches do not count
         got = fn()
         with runtime.plain_on_card():
             want = want_fn()
@@ -104,7 +103,6 @@ def run(size="large", device="cuda", measure=True):
             v0[which] = got
         else:
             err["vs_v0"] = bench.check(f"S6 {tag} vs v0", got, v0[which])
-        op.launches = before
         bound_ms, bound_by = bench.bound(*bench.half_work(b, n, d, which))
         row = {"case": f"S6 overlap {tag}", "op": op.__name__,
                "replaces": REPLACES[which], "shape": list(shape),
@@ -117,7 +115,7 @@ def run(size="large", device="cuda", measure=True):
             continue
         library = ((lambda: bench.library_mlp(x, *mlp_p)) if which == "mlp"
                    else (lambda: bench.library_attn_half(x, *attn_p, h)))
-        rows.append({**row, **bench.time_op(op, fn, library, REPS)})
+        rows.append({**row, **bench.time_op(fn, library, REPS)})
     return rows
 
 
@@ -125,10 +123,9 @@ def run(size="large", device="cuda", measure=True):
 def rows_sweep(chunks=CHUNKS[0], device="cuda"):
     """S6a at the bench's shape with R = 1 and 2 row tiles a cluster: ms per
     call and the plan's L2 bytes, each output bit-equal to the op's (the
-    op takes ``MLP_CHUNK_ROWS``); the sweep's launches do not count."""
+    op takes ``MLP_CHUNK_ROWS``)."""
     b, n, d, h = SHAPE
     x, _, mlp_p = bench.half_inputs(SHAPE, device, 0.02)
-    before = mlp_block_chunked.launches
     want = mlp_block_chunked(x, *mlp_p, chunks)
     rows = []
     for r in (1, 2):
@@ -140,5 +137,4 @@ def rows_sweep(chunks=CHUNKS[0], device="cuda"):
                      "rows_per_cluster": r, "shape": list(SHAPE),
                      **_plan_fields(b * n, d, r),
                      "ms": bench.cuda_ms(fn, iters=REPS), **bench.card()})
-    mlp_block_chunked.launches = before
     return rows

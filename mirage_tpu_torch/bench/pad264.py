@@ -65,7 +65,7 @@ def work(b, n, d, n_valid, which):
 @torch.no_grad()
 def run(size="large", device="cuda", measure=True):
     """Rows: B1 and B2 at 257 and at each pad (B1 masked), each with its
-    ms per call, bound, agreement and launches."""
+    ms per call, bound, agreement and the C entries it launched."""
     b, nv, d, h, pads = bench.sizes(size, SHAPE, TINY)
     attn_p, mlp_p = params(d, device)
     g = torch.Generator().manual_seed(1)
@@ -84,9 +84,6 @@ def run(size="large", device="cuda", measure=True):
         def mlp(x=x):
             return mlp_block(x, *mlp_p)
 
-        # the checks' launches do not count
-        before = (attn_half_block_masked.launches, attn_half_block.launches,
-                  mlp_block.launches)
         fp = [p.float() for p in attn_p]
         with runtime.plain_on_card():
             want = attn_half_block_masked_ref(x.float(), *fp, h, nv)
@@ -100,8 +97,6 @@ def run(size="large", device="cuda", measure=True):
                         got[:, :nv], base)
             errs["attn"]["first_rows_vs_unmasked"] = bench.agreement(
                 got[:, :nv], base)["max_abs_err"]
-        (attn_half_block_masked.launches, attn_half_block.launches,
-         mlp_block.launches) = before
         cases = [("attn", attn, "attn_half_block_masked" if masked
                   else "attn_half_block",
                   lambda x=x: bench.library_attn_half(x, *attn_p, h, nv)),
@@ -116,12 +111,9 @@ def run(size="large", device="cuda", measure=True):
             if not measure:
                 rows.append({**row, "measured": False})
                 continue
-            counter = {"attn_half_block_masked": attn_half_block_masked,
-                       "attn_half_block": attn_half_block,
-                       "mlp_block": mlp_block}[op]
-            start = counter.launches
+            start = runtime.launch_counts()
             ms = bench.cuda_ms(fn, iters=REPS)
-            launches = counter.launches - start
+            launches = dict(runtime.launch_counts() - start)
             with runtime.plain_on_card():
                 plain_ms = bench.cuda_ms(fn, iters=3, warmup=1)
             rows.append({**row, "ms": ms, "plain_ms": plain_ms,

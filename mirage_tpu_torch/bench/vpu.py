@@ -121,7 +121,6 @@ def run(size="large", device="cuda", measure=True):
 
                 def library():
                     return bench.library_mlp(x, *mlp_p)
-            before = op.launches  # the checks' launches do not count
             name = f"S5 {which}/{tag}"
             if modes.get("smax") == "skip":
                 err = _check_skip_core(x, attn_p, h)
@@ -131,7 +130,6 @@ def run(size="large", device="cuda", measure=True):
                 with runtime.plain_on_card():
                     want = want_fn()
                 err = bench.check(name, got, want)
-            op.launches = before
             key = which + ("-pipe2" if tag == "pipe2" else "")
             bound_ms, bound_by = bench.bound(*bench.half_work(b, n, d, which))
             row = {"case": f"S5 vpu {which}/{tag}", "op": op.__name__,
@@ -149,7 +147,7 @@ def run(size="large", device="cuda", measure=True):
             if not measure:
                 rows.append({**row, "measured": False})
                 continue
-            timed = bench.time_op(op, fn, library, REPS)
+            timed = bench.time_op(fn, library, REPS)
             if tag == "v0":
                 v0_ms = timed["ms"]
             rows.append({**row, **timed, "minus_v0_ms": timed["ms"] - v0_ms})

@@ -62,9 +62,7 @@ modes.
 context's leading batch T·B): on the card each LN, projection and (B4, B7)
 backward product runs once over the stack on the task-strided kernels and
 the attention core once over the T·B batch (it carries no weights),
-counted in ``.task_launches`` (``.task_bwd_launches``,
-``.task_acc_bwd_launches``), the parameter gradients (T, ·); the plain
-versions loop over the tasks. ``block_attention`` (no weights) takes the
+the parameter gradients (T, ·); the plain versions loop over the tasks. ``block_attention`` (no weights) takes the
 T·B batch as it is.
 
 Every op saves only its inputs for the backward and recomputes the rest,
@@ -305,7 +303,6 @@ def _block_attn_fwd(qkv, num_heads, scale):
     out = qkv.new_empty(b, n, d)
     runtime.attention(qkv, qkv[:, :, d:], qkv[:, :, 2 * d:], out,
                       heads=num_heads, dh=d // num_heads, scale=scale)
-    runtime.count(block_attention)
     return out
 
 
@@ -315,7 +312,6 @@ def _block_attn_bwd(qkv, dout, num_heads, scale):
     d = qkv.shape[-1] // 3
     dqkv, _ = runtime.attention_bwd(qkv, dout.contiguous(), heads=num_heads,
                                     dh=d // num_heads, scale=scale)
-    runtime.count(block_attention, "bwd_launches")
     return dqkv
 
 
@@ -339,10 +335,6 @@ def block_attention(qkv, num_heads, scale):
     if _needs_grad(qkv):
         return _BlockAttention.apply(qkv, num_heads, scale)
     return _block_attn_fwd(qkv, num_heads, scale)
-
-
-block_attention.launches = 0
-block_attention.bwd_launches = 0
 
 
 # ------------------------------------------------------------- B1 / B4
@@ -412,8 +404,6 @@ def _attn_half_fwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    runtime.count(attn_half_block,
-                  "task_launches" if stacked(ln_w, 1) else "launches")
     return out.view(b, n, d)
 
 
@@ -456,8 +446,6 @@ def _attn_half_bwd(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     tasks = stacked(ln_w, 1)
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
-    runtime.count(attn_half_block,
-                  "task_bwd_launches" if tasks else "bwd_launches")
     return (dx, dgamma, dbeta, runtime.wgrad(dqkv, y, tasks),
             task_sums(dbqkv, tasks) if bqkv is not None else None,
             runtime.wgrad(dy2, attn, tasks), task_sums(dy2, tasks))
@@ -479,8 +467,6 @@ def _attn_half_bwd_acc(x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads):
     tasks = stacked(ln_w, 1)
     dx, y, dqkv, attn, dy2, dgamma, dbeta, dbqkv = _attn_half_bwd_chain(
         x, dy, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
-    runtime.count(attn_half_block,
-                  "task_acc_bwd_launches" if tasks else "acc_bwd_launches")
     return (dx, dgamma, dbeta, runtime.weight_grad(dqkv, y, tasks),
             runtime.colsum(dbqkv, tasks) if bqkv is not None else None,
             runtime.weight_grad(dy2, attn, tasks), runtime.colsum(dy2, tasks))
@@ -516,14 +502,6 @@ def attn_half_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads):
         return _AttnHalf.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                num_heads)
     return _attn_half_fwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads)
-
-
-attn_half_block.launches = 0
-attn_half_block.bwd_launches = 0
-attn_half_block.acc_bwd_launches = 0
-attn_half_block.task_launches = 0  # the task-strided chains (a task stack)
-attn_half_block.task_bwd_launches = 0
-attn_half_block.task_acc_bwd_launches = 0
 
 
 # ------------------------------------------------------------------ B3
@@ -580,13 +558,7 @@ def xattn_half_block(x, context, lnq_w, lnq_b, lnc_w, lnc_b, wq, bq, wkv,
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * nq, d), wproj.to(x.dtype), bproj,
                        residual=x2 if residual else None)
-    runtime.count(xattn_half_block,
-                  "task_launches" if stacked(lnq_w, 1) else "launches")
     return out.view(b, nq, d)
-
-
-xattn_half_block.launches = 0
-xattn_half_block.task_launches = 0  # over a task stack
 
 
 # ------------------------------------------------- the bench's A/B halves
@@ -639,11 +611,7 @@ def attn_half_block_masked(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                       attn, heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    runtime.count(attn_half_block_masked)
     return out.view(b, n, d)
-
-
-attn_half_block_masked.launches = 0
 
 
 def attn_half_block_prenormed_ref(x, y, wqkv, bqkv, wproj, bproj, num_heads):
@@ -678,11 +646,7 @@ def attn_half_block_prenormed(x, y, wqkv, bqkv, wproj, bproj, num_heads):
                       heads=num_heads, dh=dh, scale=dh ** -0.5)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    runtime.count(attn_half_block_prenormed)
     return out.view(b, n, d)
-
-
-attn_half_block_prenormed.launches = 0
 
 
 # ------------------------------------- S2, S5, S6: the phased attention half
@@ -863,8 +827,4 @@ def attn_half_block_phased(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                              scale=dh ** -0.5, smax=smax)
     out = runtime.gemm(attn.view(b * n, d), wproj.to(x.dtype), bproj,
                        residual=x2)
-    runtime.count(attn_half_block_phased)
     return out.view(b, n, d)
-
-
-attn_half_block_phased.launches = 0

@@ -88,7 +88,6 @@ def _flash_fwd(q_src, kv_src, num_heads, scale):
     out = q_src.new_empty(q.shape[0], q.shape[1], d)
     lse = runtime.flash_attention(q, k, v, out, heads=num_heads,
                                   dh=d // num_heads, scale=scale)
-    runtime.count(flash_attention)
     return out, lse
 
 
@@ -108,7 +107,6 @@ def _flash_bwd(q_src, kv_src, lse, dout, num_heads, scale):
     runtime.flash_attention_bwd(q, k, v, dout.contiguous(), lse, dq, dk, dv,
                                 heads=num_heads, dh=d // num_heads,
                                 scale=scale)
-    runtime.count(flash_attention, "bwd_launches")
     return d_q, d_kv
 
 
@@ -135,7 +133,3 @@ def flash_attention(q, kv=None, *, num_heads, scale):
     if _needs_grad(q, kv):
         return _Flash.apply(q, kv, num_heads, scale)
     return _flash_fwd(q, kv, num_heads, scale)[0]
-
-
-flash_attention.launches = 0
-flash_attention.bwd_launches = 0

@@ -137,7 +137,7 @@ class LeafTable:
         self.lr_scales = torch.tensor(lr_scales, dtype=torch.float64)
         self.wds = torch.tensor(wds, dtype=torch.float64)
         self._rates_at, self._rates = None, None
-        runtime.count(LeafTable, "builds")
+        LeafTable.builds += 1
         profiling.tally(table_builds=1)
 
     @staticmethod
@@ -197,7 +197,6 @@ class LeafTable:
                            self.slots, self.arrived, count, self.scalars,
                            extra=extra, gnorm_in=gnorm, gnorm_out=out,
                            clip=clip, skip=skip, b1=b1, b2=b2)
-        runtime.count(fused_adamw, "norm_launches")
         self.update(b1, b2, eps)
         return out if gnorm is None else gnorm
 
@@ -232,34 +231,28 @@ class LeafTable:
         if len(self.tiles):
             runtime.adamw_tiles(self.tiles, TILE, self.leaves, self.step_buf,
                                 self.scalars, b1, b2, eps)
-            runtime.count(fused_adamw)
+
+    def update_with(self, gs, *, gscale, c1, c2, keep, b1, b2, eps):
+        """:meth:`update` from the gradients ``gs`` (float32, contiguous:
+        the step buffer keeps their pointers for reruns of :meth:`update`)
+        and the device scalars given, at the table's lr scales and weight
+        decays: the kernel route of :func:`fused_adamw`'s update."""
+        self.scalars.copy_(torch.stack([gscale, c1, c2, keep]))
+        gs = self.write(gs, 1.0, 1.0)  # noqa: F841 (alive until the launch)
+        self.update(b1, b2, eps)
 
 
 def fused_adamw(gs, ms, ns, ps, lrs, wds, *, gscale, c1, c2, keep, b1, b2,
                 eps):
     """One AdamW update in place on every leaf (g, m, n, p) of the lists,
-    with per-leaf lr (its lr scale folded in) and wd, and the device scalars
-    gscale, c1, c2 and keep. On the card one launch of the update kernel
-    over a leaf table built for the call; on a CPU tensor each leaf takes
-    fused_adamw_ref. ``launches`` counts the update kernel's launches (the
-    optimizer's too), ``norm_launches`` the norm kernel's."""
+    with per-leaf lr (its lr scale folded in) and wd, and the scalars
+    gscale, c1, c2 and keep: :func:`fused_adamw_ref` on each leaf, the
+    optimizer's route for the large leaves on the CPU (:func:`leaf_route`'s
+    "ref"). On the card the optimizer's leaves take a :class:`LeafTable`."""
     fused_adamw.last_routed_count = len(ps)
-    if not ps:
-        return
-    if not runtime.use_kernel(ps[0]):
-        for g, m, n, p, lr, wd in zip(gs, ms, ns, ps, lrs, wds):
-            fused_adamw_ref(g, m, n, p, gscale=gscale, lr=lr, wd=wd, c1=c1,
-                            c2=c2, keep=keep, b1=b1, b2=b2, eps=eps)
-        return
-    table = LeafTable(range(len(ps)), ms, ns, ps, lrs, wds)
-    dev = ps[0].device
-    table.scalars.copy_(torch.stack([
-        torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
-        for v in (gscale, c1, c2, keep)]))
-    gs = table.write(gs, 1.0, 1.0)  # noqa: F841 (alive until the launch)
-    table.update(b1, b2, eps)
+    for g, m, n, p, lr, wd in zip(gs, ms, ns, ps, lrs, wds):
+        fused_adamw_ref(g, m, n, p, gscale=gscale, lr=lr, wd=wd, c1=c1,
+                        c2=c2, keep=keep, b1=b1, b2=b2, eps=eps)
 
 
-fused_adamw.launches = 0
-fused_adamw.norm_launches = 0
 fused_adamw.last_routed_count = 0

@@ -63,10 +63,9 @@ operations (the recompute 2·M·D·4D and the backward 8·M·D·4D FLOPs).
 ``mlp_block`` also takes a task stack (``ops/tasks.py``: ln_w, ln_b, b1
 and b2 (T, ·), w1 (T, 4D, D), w2 (T, D, 4D), x's leading batch T·B): on the
 card B2's and B5's (and B7's) chains run each kernel once over the stack
-(the task-strided LN, GEMM, MLP-backward and wgrad kernels, counted in
-``mlp_block.task_launches`` / ``.task_bwd_launches`` /
-``.task_acc_bwd_launches``), the parameter gradients (T, ·); its plain
-version is the loop over the tasks.
+(the task-strided LN, GEMM, MLP-backward and wgrad kernels: the
+``*_tasks`` C entries), the parameter gradients (T, ·); its plain version
+is the loop over the tasks.
 
 ``mlp_block_lnfold`` (an A/B case of the port's bench, scripts/
 bench_lnfold.py) is B2 with the next block's LN1 folded into fc2's
@@ -158,8 +157,6 @@ def _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual):
     h = runtime.gemm(y, w1.to(x.dtype), b1, gelu=True)
     out = runtime.gemm(h, w2.to(x.dtype), b2,
                        residual=x2 if residual else None)
-    runtime.count(mlp_block, "task_launches" if stacked(ln_w, 1) else
-                  "launches")
     return out.view(x.shape)
 
 
@@ -189,7 +186,6 @@ def _mlp_bwd(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     tasks = stacked(ln_w, 1)
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
-    runtime.count(mlp_block, "task_bwd_launches" if tasks else "bwd_launches")
     return (dx, dgamma, dbeta, runtime.wgrad(dh, y, tasks),
             task_sums(db1, tasks), runtime.wgrad(dy2, act, tasks),
             task_sums(dy2, tasks))
@@ -203,8 +199,6 @@ def _mlp_bwd_acc(x, dy, ln_w, ln_b, w1, b1, w2, residual=True):
     tasks = stacked(ln_w, 1)
     dx, y, dh, act, dy2, dgamma, dbeta, db1 = _mlp_bwd_chain(
         x, dy, ln_w, ln_b, w1, b1, w2, residual)
-    runtime.count(mlp_block,
-                  "task_acc_bwd_launches" if tasks else "acc_bwd_launches")
     return (dx, dgamma, dbeta, runtime.weight_grad(dh, y, tasks),
             runtime.colsum(db1.reshape(-1, db1.shape[-1]), tasks),
             runtime.weight_grad(dy2, act, tasks), runtime.colsum(dy2, tasks))
@@ -507,9 +501,7 @@ def _mlp_fwd_stash(x, ln_w, ln_b, w1, b1, w2, b2):
     """B9 forward on the card: the stash chain with the residual."""
     if not runtime.use_kernel(x):
         return mlp_block_fwd_stash_ref(x, ln_w, ln_b, w1, b1, w2, b2)
-    out = _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2)
-    runtime.count(mlp_block, "stash_launches")
-    return out
+    return _stash_chain(x, ln_w, ln_b, w1, b1, w2, b2)
 
 
 def _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2):
@@ -523,11 +515,9 @@ def _mlp_bwd_stash(x, dy, act, dg, ln_w, ln_b, w1, w2):
                         w_kn=True)
     y = runtime.layernorm(x, ln_w, ln_b)
     dx, dgamma, dbeta = runtime.layernorm_bwd(x, ln_w, dyln, dy)
-    grads = (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
-             runtime.colsum(db1), runtime.weight_grad(dy, act),
-             runtime.colsum(dy))
-    runtime.count(mlp_block, "stash_bwd_launches")
-    return grads
+    return (dx, dgamma, dbeta, runtime.weight_grad(dh, y),
+            runtime.colsum(db1), runtime.weight_grad(dy, act),
+            runtime.colsum(dy))
 
 
 class _MlpBlockStash(torch.autograd.Function):
@@ -573,12 +563,8 @@ def mlp_block_fwd_stash3d(x, ln_w, ln_b, w1, b1, w2, b2, residual=True,
     b, n, d = x.shape
     out, act, dg = _stash_chain(x.view(b * n, d), ln_w, ln_b, w1, b1, w2, b2,
                                 residual)
-    runtime.count(mlp_block_fwd_stash3d)
     shape = (b * n, -1) if stash_flat else (b, n, -1)
     return out.view(b, n, d), act.view(shape), dg.view(shape)
-
-
-mlp_block_fwd_stash3d.launches = 0
 
 
 def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True, stash=False):
@@ -600,16 +586,6 @@ def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, residual=True, stash=False):
             return _MlpBlockStash.apply(x, ln_w, ln_b, w1, b1, w2, b2)
         return _MlpBlock.apply(x, ln_w, ln_b, w1, b1, w2, b2, residual)
     return _mlp_fwd(x, ln_w, ln_b, w1, b1, w2, b2, residual)
-
-
-mlp_block.launches = 0
-mlp_block.bwd_launches = 0
-mlp_block.stash_launches = 0
-mlp_block.stash_bwd_launches = 0
-mlp_block.acc_bwd_launches = 0
-mlp_block.task_launches = 0  # the task-strided chains (a task stack)
-mlp_block.task_bwd_launches = 0
-mlp_block.task_acc_bwd_launches = 0
 
 
 # ------------------------------------------ the bench's LN fold (S4)
@@ -647,11 +623,7 @@ def mlp_block_lnfold(x, ln_w, ln_b, w1, b1, w2, b2, ln_next_w, ln_next_b):
                      gelu=True)
     out, y = runtime.gemm_lnfold(h, w2.to(x.dtype), b2, x2, ln_next_w,
                                  ln_next_b)
-    runtime.count(mlp_block_lnfold)
     return out.view(x.shape), y.view(x.shape)
-
-
-mlp_block_lnfold.launches = 0
 
 
 # ---------------------------------------------- S5: the MLP half's modes
@@ -742,11 +714,7 @@ def mlp_block_modes(x, ln_w, ln_b, w1, b1, w2, b2, ln="two_pass",
     else:
         h = runtime.gemm_gelu_mode(y, w1.to(x.dtype), b1, mode=act)
     out = runtime.gemm(h, w2.to(x.dtype), b2, residual=x2)
-    runtime.count(mlp_block_modes)
     return out.view(x.shape)
-
-
-mlp_block_modes.launches = 0
 
 
 # --------------------------------------- S6: the MLP with the hidden on chip
@@ -858,8 +826,4 @@ def mlp_block_chunked(x, ln_w, ln_b, w1, b1, w2, b2, chunks,
     out = runtime.mlp_chunked(runtime.layernorm(x2, ln_w, ln_b),
                               w1.to(x.dtype), b1, w2.to(x.dtype), b2, x2,
                               rows_per_cluster)
-    runtime.count(mlp_block_chunked)
     return out.view(x.shape)
-
-
-mlp_block_chunked.launches = 0

@@ -11,15 +11,12 @@ products), ``attention``, ``attention_bwd``, ``flash_attention``,
 ``flash_attention_bwd``, ``weight_grad``, ``colsum``) check their operands,
 allocate outputs with ``torch.empty`` and launch the kernels of one
 ``csrc/`` entry on PyTorch's current stream, raising if the launch is
-refused (``layernorm`` and ``layernorm_bwd`` count their launches in
-``.launches`` and launch as :func:`layernorm_plan` says; ``attention`` and
-``flash_attention``, the two entries of the bf16 attention forward, and
-``attention_bwd`` and ``flash_attention_bwd``, the two of its backward,
-count their launches in ``.launches``, as ``gemm`` counts those of
-csrc/gemm.cu by its three launchers and ``mlp_bwd_hidden`` and
-``mlp_bwd_dyln`` those of csrc/mlp_bwd.cu; ``gemm`` and ``gemm_dgelu_mul`` read
-a (K, N) weight as it lies with ``w_kn``, so the stash backward copies no
-weight). :func:`wgrad` is the weight-gradient
+refused (``layernorm`` and ``layernorm_bwd`` launch as
+:func:`layernorm_plan` says; ``attention`` and ``flash_attention`` are the
+two entries of the bf16 attention forward, ``attention_bwd`` and
+``flash_attention_bwd`` the two of its backward; ``gemm`` and
+``gemm_dgelu_mul`` read a (K, N) weight as it lies with ``w_kn``, so the
+stash backward copies no weight). :func:`wgrad` is the weight-gradient
 contraction the B4/B5 backward ops leave outside their kernels, as the JAX
 package leaves it to XLA; :func:`weight_grad` is the kernel that computes
 the weight gradients the stash backward (B9) and the accumulating
@@ -46,10 +43,14 @@ Task stacks. ``layernorm``, ``layernorm_bwd``, ``gemm``, ``mlp_bwd_hidden``
 and ``mlp_bwd_dyln`` also take a stack of T tasks' weights (a leading task
 axis: gamma and beta (T, D), W (T, N, K), the bias (T, N)) with the rows
 of the T tasks one task after another, M/T rows each, and launch the
-task-strided form of their kernel once (``*_tasks`` C entries, counted in
-``.task_launches``): the task-batched decoder tails
+task-strided form of their kernel once (the ``*_tasks`` C entries): the
+task-batched decoder tails
 (``adapters/spatial_output.py:batched_spatial_decode``). ``weight_grad``,
 ``colsum`` and ``wgrad`` take ``tasks=T`` and return one result a task.
+
+Every launch of a ``csrc/`` entry goes through :func:`_launch`, which
+counts it by entry: :func:`launch_counts` reads the counts, and what a
+forward or a step launched is the difference of two readings.
 
 The switches of the JAX package's non-default paths keep its names and
 values and are read once at import, as ``mirage_tpu/utils/envflags.py``,
@@ -74,7 +75,7 @@ import ctypes
 import functools
 import os
 import threading
-from collections import namedtuple
+from collections import Counter, namedtuple
 
 import torch
 
@@ -183,15 +184,32 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_count_lock = threading.Lock()
+# the launch counts: one fixed slot per C entry for each thread that has
+# launched (a thread's slots outlive it), registered under the lock
+_ENTRY_SLOT = {name: i for i, name in enumerate(_build.ENTRIES)}
+_slots_lock = threading.Lock()
+_all_slots = []
+_local = threading.local()
 
 
-def count(fn, attr: str = "launches"):
-    """Adds one to ``fn``'s launch count ``attr``, under one lock: the
-    serving mesh's replicas launch from several host threads at once, and a
-    bare ``+= 1`` on a function attribute can lose an update between them."""
-    with _count_lock:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+def _thread_slots():
+    slots = getattr(_local, "slots", None)
+    if slots is None:
+        slots = _local.slots = [0] * len(_ENTRY_SLOT)
+        with _slots_lock:
+            _all_slots.append(slots)
+    return slots
+
+
+def launch_counts() -> Counter:
+    """The launches of each ``csrc/`` entry since import, summed over every
+    thread (the serving mesh's replica threads and the autograd engine's
+    device threads launch at once). What a block launched is the
+    difference of two readings: ``launch_counts() - before``."""
+    with _slots_lock:
+        every = list(_all_slots)
+    return Counter({name: n for name, i in _ENTRY_SLOT.items()
+                    if (n := sum(slots[i] for slots in every))})
 
 
 def _launch(name: str, like: torch.Tensor, *args):
@@ -199,8 +217,10 @@ def _launch(name: str, like: torch.Tensor, *args):
     ``like``'s device (the caller's stream there: a host thread serving one
     device launches on its own), with that device current: the launchers
     keep their shared-memory limits and SM counts per device, read by
-    ``cudaGetDevice`` (csrc/common.cuh). While a span is open the launch
-    counts toward it (``utils/profiling.py:launched``)."""
+    ``cudaGetDevice`` (csrc/common.cuh). The launch counts toward ``name``
+    in :func:`launch_counts` (only this thread writes its slots, so the
+    count needs no lock) and, while a span is open, toward that span
+    (``utils/profiling.py:launched``)."""
     dev = like.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     if torch.cuda.current_device() == dev.index:
@@ -210,6 +230,7 @@ def _launch(name: str, like: torch.Tensor, *args):
             rc = _build.entry(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _thread_slots()[_ENTRY_SLOT[name]] += 1
     profiling.launched()
 
 
@@ -296,7 +317,6 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], plan.width, plan.grid,
             eps)
-    count(layernorm)
     return y
 
 
@@ -314,12 +334,9 @@ def _layernorm_tasks(x, weight, bias, eps, onepass):
     _launch("layernorm_tasks", x, x.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), y.data_ptr(), rows, tasks, d, _DTYPES[x.dtype],
             _DTYPES[weight.dtype], plan.width, plan.grid, eps)
-    count(layernorm, "task_launches")
     return y
 
 
-layernorm.launches = 0
-layernorm.task_launches = 0
 _ln_counters = {}  # device -> the LN backward's finish counters, zero
 
 
@@ -364,7 +381,6 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
                 grads[0].data_ptr(), grads[1].data_ptr(), counters.data_ptr(),
                 rows, tasks, d, _DTYPES[x.dtype], _DTYPES[weight.dtype],
                 int(sub_dy), plan.width, plan.grid, eps)
-        count(layernorm_bwd, "task_launches")
         return dx, grads[0], grads[1]
     # the partial rows, the finish groups' rows, then dgamma and dbeta
     part = torch.empty((plan.partial_rows + plan.finish_groups + 1, 2, d),
@@ -375,12 +391,7 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, dyln: torch.Tensor,
             counters.data_ptr(), m, d,
             _DTYPES[x.dtype], _DTYPES[weight.dtype], int(sub_dy), plan.width,
             plan.grid, eps)
-    count(layernorm_bwd)
     return dx, part[-1, 0], part[-1, 1]
-
-
-layernorm_bwd.launches = 0
-layernorm_bwd.task_launches = 0
 
 
 def _gemm_operands(a, w, w_kn=False):
@@ -434,7 +445,6 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
             _DTYPES[bias.dtype] if bias is not None else 0, _ptr(residual),
             m, n, k, _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype],
             int(out_f32), None, None)
-    count(gemm)
     return c
 
 
@@ -464,13 +474,7 @@ def _gemm_tasks(a, w, bias, residual, gelu, out_dtype, w_kn):
             _ptr(bias), _DTYPES[bias.dtype] if bias is not None else 0,
             _ptr(residual), rows, n, k, tasks,
             _EPI["gelu" if gelu else "none"], _DTYPES[a.dtype], int(out_f32))
-    count(gemm, "task_launches")
     return c
-
-
-gemm.launches = 0  # launches of csrc/gemm.cu by gemm, gemm_gelu_mode and
-# gemm_dgelu_mul
-gemm.task_launches = 0  # its task-strided launches
 
 
 # the GELU formulas of the epilogue besides erff (csrc/gemm.cu GELU_*)
@@ -495,7 +499,6 @@ def gemm_gelu_mode(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
     _launch("gemm_gelu_mode", a, a.data_ptr(), w.data_ptr(), c.data_ptr(),
             _ptr(bias), _DTYPES[bias.dtype] if bias is not None else 0,
             _ptr(residual), m, n, k, GELU_MODES[mode])
-    count(gemm)
     return c
 
 
@@ -540,16 +543,10 @@ def mlp_bwd_hidden(y: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
     if tasks:
         _launch("mlp_bwd_hidden_tasks", y, *args, tasks, _DTYPES[y.dtype],
                 plan.hidden.grid)
-        count(mlp_bwd_hidden, "task_launches")
     else:
         _launch("mlp_bwd_hidden", y, *args, _DTYPES[y.dtype],
                 plan.hidden.grid)
-        count(mlp_bwd_hidden)
     return dh, act, part
-
-
-mlp_bwd_hidden.launches = 0
-mlp_bwd_hidden.task_launches = 0
 
 
 def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
@@ -577,17 +574,11 @@ def mlp_bwd_dyln(dh: torch.Tensor, w1: torch.Tensor,
         _launch("mlp_bwd_dyln_tasks", dh, dh.data_ptr(), w1.data_ptr(),
                 dyln.data_ptr(), rows, d, h, tasks, _DTYPES[dh.dtype],
                 _DTYPES[out_dtype], plan.dyln.grid)
-        count(mlp_bwd_dyln, "task_launches")
     else:
         _launch("mlp_bwd_dyln", dh, dh.data_ptr(), w1.data_ptr(),
                 dyln.data_ptr(), m, d, h, _DTYPES[dh.dtype],
                 _DTYPES[out_dtype], plan.dyln.grid)
-        count(mlp_bwd_dyln)
     return dyln
-
-
-mlp_bwd_dyln.launches = 0
-mlp_bwd_dyln.task_launches = 0
 
 
 def gemm_gelu_stash(a: torch.Tensor, w: torch.Tensor, bias=None):
@@ -624,7 +615,6 @@ def gemm_dgelu_mul(a: torch.Tensor, w: torch.Tensor, dg: torch.Tensor,
     _launch(entry, a, a.data_ptr(), w.data_ptr(), dh.data_ptr(), None, 0, None,
             m, n, k, _EPI["dgelu_mul"], _DTYPES[a.dtype], 0, dg.data_ptr(),
             colsum.data_ptr())
-    count(gemm)
     return dh, colsum
 
 
@@ -695,16 +685,10 @@ def weight_grad(g: torch.Tensor, a: torch.Tensor,
         _launch("wgrad_tasks", g, g.data_ptr(), a.data_ptr(), out.data_ptr(),
                 _ptr(part), rows_t, n1, n2, tasks, chunks, rows,
                 _DTYPES[g.dtype])
-        count(weight_grad, "task_launches")
     else:
         _launch("wgrad", g, g.data_ptr(), a.data_ptr(), out.data_ptr(),
                 _ptr(part), m, n1, n2, chunks, rows, _DTYPES[g.dtype])
-        count(weight_grad)
     return out
-
-
-weight_grad.launches = 0
-weight_grad.task_launches = 0
 
 
 def colsum(x: torch.Tensor, tasks: int = 0) -> torch.Tensor:
@@ -723,16 +707,10 @@ def colsum(x: torch.Tensor, tasks: int = 0) -> torch.Tensor:
     if tasks:
         _launch("colsum_tasks", x, x.data_ptr(), out.data_ptr(), _ptr(part),
                 rows_t, n, tasks, chunks, rows, _DTYPES[x.dtype])
-        count(colsum, "task_launches")
     else:
         _launch("colsum", x, x.data_ptr(), out.data_ptr(), _ptr(part), m, n,
                 chunks, rows, _DTYPES[x.dtype])
-        count(colsum)
     return out
-
-
-colsum.launches = 0
-colsum.task_launches = 0
 
 
 def adamw_tiles(tiles: torch.Tensor, tile: int, leaves: torch.Tensor,
@@ -854,10 +832,6 @@ def attention(q, k, v, out, *, heads: int, dh: int, scale: float):
     _launch("attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, nq, nk, heads, dh, *strides, scale,
             _DTYPES[q.dtype])
-    count(attention)
-
-
-attention.launches = 0
 
 
 def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
@@ -889,11 +863,7 @@ def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, *, heads: int,
     _launch("attention_bwd", qkv, qkv.data_ptr(), dout.data_ptr(),
             dqkv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             part.data_ptr(), b, n, heads, dh, scale, _DTYPES[qkv.dtype])
-    count(attention_bwd)
     return dqkv, part if partials else part.sum(0)
-
-
-attention_bwd.launches = 0
 
 
 def _attn_views(heads, dh, named):
@@ -940,11 +910,7 @@ def flash_attention(q, k, v, out, *, heads: int, dh: int, scale: float):
     _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
-    count(flash_attention)
     return lse
-
-
-flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
@@ -968,10 +934,6 @@ def flash_attention_bwd(q, k, v, dout, lse, dq, dk, dv, *, heads: int,
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr, b, nq, nk, heads, dh, scale,
             _DTYPES[q.dtype])
-    count(flash_attention_bwd)
-
-
-flash_attention_bwd.launches = 0
 
 
 # csrc/relpos_attention.cu: the head dims it is built for, and the most
@@ -1006,11 +968,7 @@ def relpos_attention(qkv: torch.Tensor, bias: torch.Tensor,
     _launch("relpos_attn", qkv, qkv.data_ptr(), bias.data_ptr(),
             tab_h.data_ptr(), tab_w.data_ptr(), out.data_ptr(), b, h, w,
             heads, dh, wh, ww, dh ** -0.5)
-    count(relpos_attention)
     return out
-
-
-relpos_attention.launches = 0
 
 
 _occupancy = {}

@@ -87,8 +87,7 @@ class Span:
     def __init__(self, name):
         self.name = name
         self.start_ns = self.end_ns = None
-        self.launches = 0
-        self.counts = None
+        self.launches, self.counts = 0, None
         self.index = -1
 
     def __enter__(self):

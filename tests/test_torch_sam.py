@@ -389,11 +389,11 @@ def test_launcher_refuses_what_the_kernel_does_not_take(dh, gh, window,
     from mirage_tpu_torch.ops import runtime
 
     qkv = torch.zeros(1, gh, 64, 3 * dh, dtype=dtype)
-    before = runtime.relpos_attention.launches
+    before = runtime.launch_counts()
     with pytest.raises(NotImplementedError):
         runtime.relpos_attention(qkv, qkv[0, 0, 0], qkv[0, 0], qkv[0, 0],
                                  heads=1, window=window)
-    assert runtime.relpos_attention.launches == before
+    assert runtime.launch_counts() == before
 
 
 @pytest.mark.gpu
@@ -423,10 +423,10 @@ def test_kernel_at_vit_h_shapes(b, gh, gw, window, heads):
     tab_h = (0.1 * torch.randn(2 * kh - 1, 80, **kwargs)).bfloat16()
     tab_w = (0.1 * torch.randn(2 * kw - 1, 80, **kwargs)).bfloat16()
     with torch.no_grad():
-        before = runtime.relpos_attention.launches
+        before = runtime.launch_counts()
         got = relpos_attention(qkv, bias, tab_h, tab_w, heads, window)
         again = relpos_attention(qkv, bias, tab_h, tab_w, heads, window)
-        assert runtime.relpos_attention.launches == before + 2
+        assert runtime.launch_counts() - before == {"relpos_attn": 2}
         with runtime.plain_on_card():
             want = relpos_attention_ref(qkv.float(), bias.float(),
                                         tab_h.float(), tab_w.float(), heads,
@@ -452,10 +452,10 @@ def test_kernel_gradients_match_the_plain_route(window):
     inputs = _relpos_inputs("cuda", torch.bfloat16, window, grid=32,
                             heads=16)
     trained = (0, 1, 2, 3)
-    before = runtime.relpos_attention.launches
+    before = runtime.launch_counts()
     got_out, got = _relpos_grads(relpos_attention, inputs, trained, 16,
                                  window)
-    assert runtime.relpos_attention.launches == before + 1
+    assert runtime.launch_counts() - before == {"relpos_attn": 1}
     with runtime.plain_on_card():
         want_out, want = _relpos_grads(relpos_attention, inputs, trained, 16,
                                        window)

@@ -262,24 +262,32 @@ def test_csrc_keeps_no_process_wide_launch_state():
     assert "static std::atomic<int> counts[MAX_DEVICES]" in common
 
 
-def test_launch_counts_are_exact_from_many_threads():
-    """runtime.count adds every launch of several threads at once, to the
-    count it names (the interpreter switching threads every microsecond,
-    where a bump without the lock loses updates)."""
-    from mirage_tpu_torch.ops import runtime
+def test_launch_counts_are_exact_from_many_threads(monkeypatch):
+    """runtime.launch_counts adds every launch of several threads at once
+    to the entry it names (each thread's own slots; the interpreter
+    switches threads every microsecond, where a shared count updated
+    through a call without a lock loses updates), through _launch with the
+    C entries and ``torch.cuda`` stubbed."""
+    from mirage_tpu_torch.ops import _build, runtime
 
-    def kernel():
-        pass
+    class Stream:
+        cuda_stream = 1000
 
-    kernel.launches = kernel.bwd_launches = 0
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: Stream())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(_build, "entry", lambda name: lambda *args: 0)
+    like = SimpleNamespace(device=torch.device("cuda", 0))
     start = threading.Barrier(8)
 
-    def bump(i):
+    def launch(i):
+        name = "attention_bwd" if i % 2 else "gemm"
         start.wait()
         for _ in range(20000):
-            runtime.count(kernel, "bwd_launches" if i % 2 else "launches")
+            runtime._launch(name, like)
 
-    threads = [threading.Thread(target=bump, args=(i,)) for i in range(8)]
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(8)]
+    before = runtime.launch_counts()
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -289,20 +297,32 @@ def test_launch_counts_are_exact_from_many_threads():
             t.join(60)
     finally:
         sys.setswitchinterval(interval)
-    assert (kernel.launches, kernel.bwd_launches) == (80000, 80000)
+    assert not any(t.is_alive() for t in threads)
+    assert runtime.launch_counts() - before == {"gemm": 80000,
+                                                "attention_bwd": 80000}
 
 
-def test_ops_count_launches_only_through_the_lock():
-    """No op bumps a launch count by hand (``fn.launches += 1`` can lose
-    an update between the replicas' threads): every bump is
-    runtime.count."""
-    ops = CSRC.parent / "ops"
-    sources = sorted(ops.glob("*.py"))
-    assert len(sources) > 5
-    counted = 0
-    for path in sources:
-        text = path.read_text()
-        assert not re.search(r"launches\s*(\+=|=\s*\w+\.\w*launches\s*\+)",
-                             text), path.name
-        counted += len(re.findall(r"\bcount\(", text))
-    assert counted >= 39
+def test_only_launch_calls_the_c_entries():
+    """Every launch of a csrc/ entry goes through runtime._launch, so
+    launch_counts sees it: no module of the port calls ``_build.entry``
+    anywhere else, save runtime.py's occupancy query (a query, not a
+    launch)."""
+    import ast
+
+    sites = []
+    for path in sorted(CSRC.parent.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        fns = [f for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)]
+        for node in ast.walk(tree):
+            func = getattr(node, "func", None)
+            if isinstance(node, ast.Call) and "entry" in (
+                    getattr(func, "attr", None), getattr(func, "id", None)):
+                inner = max((f for f in fns if f.lineno <= node.lineno
+                             <= f.end_lineno), key=lambda f: f.lineno,
+                            default=None)
+                sites.append((path.name, inner and inner.name,
+                              ast.unparse(node.args[0])))
+    assert sorted(sites) == [
+        ("runtime.py", "_launch", "name"), ("runtime.py", "_launch", "name"),
+        ("runtime.py", "fused_block_blocks_per_sm",
+         "'fused_block_occupancy'")]
